@@ -4,22 +4,43 @@
     python3 chip_smoke.py        (from the repository root; needs one card)
 
 Phases, each of which exits non-zero on failure:
-  1. check the card; build the kernels (csrc/*.cu, nvcc, sm_90a);
+  1. check the card; build the kernels (csrc/*.cu, one nvcc per source,
+     all started together, sm_90a);
   2. make the inputs without JAX or Pillow: random int16 coefficient planes
      of a 3840x2160 4:2:0 frame, packed by the native runtime with the
-     Annex K tables and a restart marker per MCU row (135 segments), four
-     seeds, plus a small gray stream whose width is not a multiple of 8;
-  3. each kernel against its plain PyTorch version on the card, bitwise,
-     at the 4K shapes the main path gives it: K2 (entropy; also on a
-     reduced 640x352 stream, and at 4K against the native host decoder),
-     K0 (IDCT) and K3 (colour);
-  4. the main path: JpegDecoder(DecodeConfig(entropy_backend=PALLAS),
-     device="cuda") answers the four 4K requests and the gray one, with
-     every launch counter > 0 afterwards, and every RGB and pixel plane
-     bitwise equal to the JAX-free EXACT reference (core.oracle over the
-     native planes); then the default NATIVE config, the same way;
-  5. per-image stage times with CUDA events (H2D, K2, K0, K3, D2H) and the
-     end-to-end time of each request.
+     Annex K tables and a restart marker per MCU row (135 segments), eight
+     seeds; the same frame without restart markers; four 640x352 streams
+     with restart interval 40; and a small gray stream whose width is not
+     a multiple of 8;
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes the main paths give it: K2 (entropy) bitwise, on a 640x352
+     stream and at 4K, where it is also held against the native host
+     decoder; batched K2 bitwise, the eight 4K requests (1080 segments) in
+     one launch against eight single-image launches and the native host
+     planes, and four 640x352 streams against the batched plain version;
+     K0 (EXACT IDCT) bitwise; K1 (FLOAT32 IDCT) within 1 on at most 1e-3
+     of the pixels, at the 4K luma shape, 8- and 12-bit, with the error
+     on extreme inputs reported; K3 (colour) bitwise, per image and
+     batched;
+  4. the main paths, each with every launch count set to 0 just before it
+     and read just after:
+     - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
+       requests and the gray one, every RGB and pixel plane bitwise equal
+       to the JAX-free EXACT reference (core.oracle over the native
+       planes);
+     - JpegDecoder(FLOAT32) for PALLAS and NATIVE on the four 4K
+       requests: pixel planes within 1 of the reference's, RGB bitwise
+       equal to the colour stage of the returned planes;
+     - BatchDecoder for PALLAS and NATIVE, each with EXACT and FLOAT32:
+       decode_batch of the eight 4K requests (one K2 launch, one IDCT
+       launch per component, one K3 launch), decode_stream with batches
+       of 4, and decode_many over two 4K DRI requests, the restart-free
+       one (which the PALLAS route hands to the native host decode) and
+       the gray one; every RGB bitwise equal to the single-image decode
+       with the same config, and to the reference under EXACT;
+  5. stage times with CUDA events: per image (H2D, K2, K0, K3, D2H), and
+     per batch of eight (H2D, K2, K0 or K1, K3, D2H) with the host clock
+     of the batch's parse and unstuffing.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. The script imports the JAX
 package's shared host layers only through jpeg_decoder_tpu_torch.shared,
@@ -40,9 +61,15 @@ import numpy as np
 W, H = 3840, 2160
 RI = W // 16                     # one restart marker per MCU row
 SEEDS = (20261016, 1, 2, 3)      # the four 4K requests
-SMALL = (640, 352, 40)           # w, h, ri of the K2-vs-plain stream
+BATCH_SEEDS = SEEDS + (4, 5, 6, 7)  # the eight 4K requests of a batch
+SMALL = (640, 352, 40)           # w, h, ri of the K2-vs-plain streams
+SMALL_SEEDS = (12, 13, 14, 15)   # the batched K2-vs-plain streams
 GRAY = (100, 37)                 # gray request, width not a multiple of 8
 F420 = ((2, 2), (1, 1), (1, 1))
+#: K1 against its plain version: |diff| <= 1 on at most this share of the
+#: pixels (the two sum the 64 products of a pixel in other orders, so a
+#: floor can flip; the JAX FLOAT32 contract is +-1 LSB).
+K1_SHARE = 1e-3
 
 
 def fail(msg: str):
@@ -150,16 +177,36 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _ints(t) -> np.ndarray:
+    return (t.to("cpu").numpy() if hasattr(t, "to") else np.asarray(t)).astype(np.int64)
+
+
 def max_abs_err(a, b) -> int:
-    a = a.to("cpu").numpy().astype(np.int64)
-    b = b.to("cpu").numpy().astype(np.int64)
+    a, b = _ints(a), _ints(b)
     if a.shape != b.shape:
         fail(f"shape mismatch {a.shape} vs {b.shape}")
     return int(np.abs(a - b).max()) if a.size else 0
 
 
+def share_differing(a, b) -> float:
+    a, b = _ints(a), _ints(b)
+    return float((a != b).mean()) if a.size else 0.0
+
+
+def run_path(name: str, fn):
+    """Run one main path with every launch count set to 0 just before it;
+    returns (fn's result, the counts read just after)."""
+    from jpeg_decoder_tpu_torch import _build
+
+    _build.LAUNCHES.clear()
+    out = fn()
+    launches = dict(_build.LAUNCHES)
+    log(f"{name}: launches {launches}")
+    return out, launches
+
+
 # ---------------------------------------------------------------------------
-# Phases
+# Phases: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 
@@ -167,7 +214,6 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
     """K2 against its plain version on the same inputs, bitwise: at the 4K
     shape the main path gives it and on a reduced stream. At 4K the
     kernel's planes are also held against the native host decoder's."""
-    import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
@@ -176,37 +222,85 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
     err = 0
     for data in (small, big):
         s = parse(data)
-        scan = s.scans[0]
-        tabs = convert.tables_to_device(s.frame, scan, dev)
-        ri, stream, seg_off = entropy_cuda.pack_scan(
-            s, scan, tabs.total_mcus, tabs.units.shape[0])
-        args = (torch.from_numpy(stream).to(dev),
-                torch.from_numpy(seg_off).to(dev),
-                ri, tabs.total_mcus, tabs.units, tabs.huffman)
+        args, seg_off = entropy_cuda.launch_args(
+            [entropy_cuda.prepare_scan(s, s.scans[0])], dev)
         got = convert.zero_planes(s.frame, dev)
         want = convert.zero_planes(s.frame, dev)
         box = {}
         plain_ms = cuda_ms(lambda: box.update(
-            st=entropy_cuda._decode_segments_plain(*args, want)), 1)
-        st_k = entropy_cuda.decode_segments(*args, got)
+            st=entropy_cuda._decode_segments_plain(*args, [want])), 1)
+        st_k = entropy_cuda.decode_segments(*args, [got])
         e = max(max_abs_err(st_k, box["st"]),
                 *[max_abs_err(a, b) for a, b in zip(got, want)])
         err = max(err, e)
         entropy_cuda.check_status(st_k, seg_off)
-        ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, got), 5)
+        ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got]), 5)
         shape = (f"{s.frame.width}x{s.frame.height} 4:2:0,"
                  f" {len(seg_off) - 1} segments")
         log(f"K2 entropy: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
             f" ({shape}); max_abs_err {e}")
     # the last pass was the 4K one: its numbers go in the record
     _, native_planes, _ = host.host_decode(big, DecodeConfig())
-    native_err = max(max_abs_err(a, torch.from_numpy(b))
-                     for a, b in zip(got, native_planes.planes))
+    native_err = max(max_abs_err(a, b) for a, b in zip(got, native_planes.planes))
     if native_err != 0:
         fail(f"K2 planes differ from the native host decoder's at 4K"
              f" (max_abs_err {native_err})")
     log("K2 entropy: 4K planes bitwise equal to the native host decoder's")
     record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape)
+
+
+def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
+    """Batched K2, bitwise: the eight 4K requests in one launch against
+    eight single-image launches and the native host planes; four 640x352
+    streams in one launch against the batched plain version."""
+    from jpeg_decoder_tpu_torch import DecodeConfig, convert
+    from jpeg_decoder_tpu_torch.models import host
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+    from jpeg_decoder_tpu_torch.shared import parse
+
+    structures = [parse(d) for d in batch]
+    args, seg_off = entropy_cuda.launch_args(
+        [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures], dev)
+    got = [convert.zero_planes(s.frame, dev) for s in structures]
+    entropy_cuda.check_status(entropy_cuda.decode_segments(*args, got), seg_off)
+    ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, got), 5)
+    err, single_ms = 0, []
+    for data, s, planes in zip(batch, structures, got):
+        a1, so1 = entropy_cuda.launch_args([entropy_cuda.prepare_scan(s, s.scans[0])], dev)
+        one = convert.zero_planes(s.frame, dev)
+        single_ms.append(cuda_ms(lambda: entropy_cuda.check_status(
+            entropy_cuda.decode_segments(*a1, [one]), so1), 1))
+        _, native, _ = host.host_decode(data, DecodeConfig())
+        err = max(err, *[max_abs_err(a, b) for a, b in zip(planes, one)],
+                  *[max_abs_err(a, b) for a, b in zip(planes, native.planes)])
+    n_segs = len(seg_off) - 1
+    log(f"K2 batched: kernel {ms:.3f} ms for {len(batch)} x {W}x{H} 4:2:0 in one"
+        f" launch ({n_segs} segments), {ms / len(batch):.3f} ms per image;"
+        f" single-image launches {[round(t, 3) for t in single_ms]} ms;"
+        f" max_abs_err {err} (against the single launches and the native planes)")
+
+    structures = [parse(d) for d in smalls]
+    sargs, sseg = entropy_cuda.launch_args(
+        [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures], dev)
+    gk = [convert.zero_planes(s.frame, dev) for s in structures]
+    gp = [convert.zero_planes(s.frame, dev) for s in structures]
+    st_k = entropy_cuda.decode_segments(*sargs, gk)
+    box = {}
+    plain_ms = cuda_ms(lambda: box.update(
+        st=entropy_cuda._decode_segments_plain(*sargs, gp)), 1)
+    entropy_cuda.check_status(st_k, sseg)
+    small_ms = cuda_ms(lambda: entropy_cuda.decode_segments(*sargs, gk), 5)
+    e2 = max(max_abs_err(st_k, box["st"]),
+             *[max_abs_err(a, b) for x, y in zip(gk, gp) for a, b in zip(x, y)])
+    log(f"K2 batched: kernel {small_ms:.3f} ms, plain {plain_ms:.1f} ms"
+        f" ({len(smalls)} x {SMALL[0]}x{SMALL[1]} 4:2:0, {len(sseg) - 1}"
+        f" segments); max_abs_err {e2}")
+    err = max(err, e2)
+    if err != 0:
+        fail(f"batched K2 disagrees (max_abs_err {err}; tolerance 0)")
+    record["max_abs_err"] = max(record["max_abs_err"], err)
+    record.update(batch_ms=ms, batch_shape=f"{len(batch)} x {W}x{H} 4:2:0, {n_segs} segments",
+                  batch_small_ms=small_ms, batch_small_plain_ms=plain_ms)
 
 
 def check_k0(dev, big: bytes, record: dict) -> None:
@@ -240,6 +334,81 @@ def check_k0(dev, big: bytes, record: dict) -> None:
         f" ({record['shape']}); max_abs_err {err} (8-bit, 12-bit, extremes)")
 
 
+def _random_blocks(rng, shape, lo=-1024, hi=1024):
+    """The JAX tests' _random_blocks: uniform coefficients with a random
+    zero suffix per block."""
+    blocks = rng.integers(lo, hi, (*shape, 64))
+    cut = rng.integers(1, 64, shape)
+    return np.where(np.arange(64) < cut[..., None], blocks, 0).astype(np.int16)
+
+
+def check_k1(dev, big: bytes, record: dict) -> None:
+    """K1 against its plain version at the 4K luma shape (270x480 blocks),
+    8- and 12-bit: within 1 on at most K1_SHARE of the pixels. Also the
+    request's own luma plane against EXACT (K0), and the error on extreme
+    inputs, which is reported and not gated."""
+    import torch
+    from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, convert
+    from jpeg_decoder_tpu_torch.models import host
+    from jpeg_decoder_tpu_torch.ops import idct
+    from jpeg_decoder_tpu_torch.shared import types
+
+    f32 = IdctPrecision.FLOAT32
+    _, planes, _ = host.host_decode(big, DecodeConfig())
+    by, bx, _ = planes.planes[0].shape
+    qt = convert.quant_table_to_device(types.standard_luminance_qtable(), dev)
+    rng = np.random.default_rng(85)
+    blocks = torch.from_numpy(_random_blocks(rng, (by, bx))).to(dev)
+
+    def plain(c, q, bits12):
+        return idct.blocks_to_plane(idct.idct_float(c.reshape(-1, 64), q, bits12), by, bx)
+
+    err, share = 0, 0.0
+    for bits12 in (False, True):
+        got = idct.idct_plane(blocks, qt, bits12, f32)
+        want = plain(blocks, qt, bits12)
+        e, sh = max_abs_err(got, want), share_differing(got, want)
+        exact = idct.idct_plane(blocks, qt, bits12)
+        log(f"K1 idct_float: {'12' if bits12 else '8'}-bit random blocks: against"
+            f" plain max_abs_err {e}, share differing {sh:.3e}; against EXACT (K0)"
+            f" max_abs_err {max_abs_err(got, exact)}, share {share_differing(got, exact):.3e}")
+        err, share = max(err, e), max(share, sh)
+    luma = torch.from_numpy(planes.planes[0]).to(dev)
+    got = idct.idct_plane(luma, qt, False, f32)
+    e_exact = max_abs_err(got, idct.idct_plane(luma, qt))
+    log(f"K1 idct_float: 4K request luma plane against EXACT (K0): max_abs_err"
+        f" {e_exact}, share {share_differing(got, idct.idct_plane(luma, qt)):.3e};"
+        f" against plain max_abs_err {max_abs_err(got, plain(luma, qt, False))}")
+    if e_exact > 1:
+        fail(f"K1 is more than 1 from EXACT on a 4K request ({e_exact})")
+    # extremes, reported: +-2048 x qt 255; 12-bit pixels near the int16 wrap
+    q255 = convert.quant_table_to_device(np.full(64, 255), dev)
+    wild = torch.from_numpy(rng.integers(-2048, 2049, (by, bx, 64)).astype(np.int16)).to(dev)
+    near = rng.integers(-20, 21, (by, bx, 64))
+    # a DC-only block's pixels are dc * qt / 8, so dc * 255 / 8 + 2048
+    # straddles the wrap at 32768 for dc in [930, 1000)
+    near[..., 0] = rng.integers(930, 1000, (by, bx))
+    near = torch.from_numpy(near.astype(np.int16)).to(dev)
+    for label, c, bits12 in (("+-2048 x qt 255, 8-bit", wild, False),
+                             ("near the int16 wrap, 12-bit", near, True)):
+        got = idct.idct_plane(c, q255, bits12, f32)
+        log(f"K1 idct_float extremes ({label}): against plain max_abs_err"
+            f" {max_abs_err(got, plain(c, q255, bits12))}, share"
+            f" {share_differing(got, plain(c, q255, bits12)):.3e}; against EXACT"
+            f" max_abs_err {max_abs_err(got, idct.idct_plane(c, q255, bits12))} (not gated)")
+    ms = cuda_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 10)
+    plain_ms = cuda_ms(lambda: plain(blocks, qt, False), 3)
+    exact_ms = cuda_ms(lambda: idct.idct_plane(blocks, qt), 10)
+    record.update(max_abs_err=err, share_differing=share, ms=ms, plain_ms=plain_ms,
+                  shape=f"luma plane {by}x{bx} blocks")
+    log(f"K1 idct_float: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K0 on the"
+        f" same blocks {exact_ms:.3f} ms ({record['shape']}); max_abs_err {err},"
+        f" share differing {share:.3e} (8-bit, 12-bit)")
+    if err > 1 or share > K1_SHARE:
+        fail(f"K1 disagrees with its plain version (max_abs_err {err}, share"
+             f" {share:.3e}; tolerance 1 on at most {K1_SHARE})")
+
+
 def check_k3(dev, big: bytes, gray: bytes, record: dict) -> None:
     import torch
     from jpeg_decoder_tpu_torch import Quirks
@@ -249,10 +418,14 @@ def check_k3(dev, big: bytes, gray: bytes, record: dict) -> None:
     for data, w, h, factors in ((big, W, H, F420), (gray, GRAY[0], GRAY[1], ((1, 1),))):
         _, pix, _ = reference(data, Quirks.REFERENCE)
         planes = [torch.from_numpy(p).to(dev) for p in pix]
+        # a batch of four: the image and three rolled copies
+        stacked = [torch.stack([p, *(torch.roll(p, 17 * k, 1) for k in (1, 2, 3))])
+                   for p in planes]
         for q in (Quirks.REFERENCE, Quirks.CORRECT):
-            err = max(err, max_abs_err(
-                color.planes_to_rgb(planes, h, w, factors, q),
-                color._planes_to_rgb_plain(planes, h, w, factors, q)))
+            for ps in (planes, stacked):
+                err = max(err, max_abs_err(
+                    color.planes_to_rgb(ps, h, w, factors, q),
+                    color._planes_to_rgb_plain(ps, h, w, factors, q)))
         if data is big:
             args = (planes, h, w, factors, Quirks.REFERENCE)
             ms = cuda_ms(lambda: color.planes_to_rgb(*args), 10)
@@ -260,50 +433,189 @@ def check_k3(dev, big: bytes, gray: bytes, record: dict) -> None:
     record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                   shape=f"{W}x{H} 4:2:0 planes")
     log(f"K3 color: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-        f" ({record['shape']}); max_abs_err {err} (both quirks, gray shear)")
+        f" ({record['shape']}); max_abs_err {err} (both quirks, gray shear,"
+        f" single and batched)")
+
+
+# ---------------------------------------------------------------------------
+# Phases: the main paths
+# ---------------------------------------------------------------------------
 
 
 def main_path(dev, requests, card: str) -> dict:
-    """Both configs through the public entry points, against the reference.
-    Returns backend -> launch counts of its run (the counts are cleared just
-    before the run and read just after it)."""
+    """Both EXACT configs through the public entry points, against the
+    reference. Returns path -> launch counts of its run."""
     from jpeg_decoder_tpu_torch import (
         DecodeConfig,
         EntropyBackend,
         JpegDecoder,
         Quirks,
-        _build,
     )
 
     runs = {}
     for cfg in (DecodeConfig(entropy_backend=EntropyBackend.PALLAS),
                 DecodeConfig()):
+        name = cfg.entropy_backend.value
         dec = JpegDecoder(cfg, device=dev)
-        _build.LAUNCHES.clear()
-        outs, e2e = [], []
-        for data in requests:
-            t0 = time.perf_counter()
-            outs.append(dec.decode(data))
-            e2e.append((time.perf_counter() - t0) * 1e3)
-        launches = dict(_build.LAUNCHES)
+        e2e = []
+
+        def serve():
+            outs = []
+            for data in requests:
+                t0 = time.perf_counter()
+                outs.append(dec.decode(data))
+                e2e.append((time.perf_counter() - t0) * 1e3)
+            return outs
+
+        outs, runs[f"JpegDecoder {name} exact"] = run_path(
+            f"main path JpegDecoder {name} exact", serve)
         for data, img in zip(requests, outs):
             _, pix, rgb = reference(data, Quirks.REFERENCE)
             if not np.array_equal(img.rgb, rgb):
-                fail(f"{cfg.entropy_backend.value}: RGB differs from the reference")
+                fail(f"{name}: RGB differs from the reference")
             if not all(np.array_equal(a, b) for a, b in zip(img.planes, pix)):
-                fail(f"{cfg.entropy_backend.value}: pixel planes differ from the reference")
-        name = cfg.entropy_backend.value
+                fail(f"{name}: pixel planes differ from the reference")
         log(f"main path {name}: {len(requests)} requests bitwise equal to the"
-            f" reference; launches {launches}")
+            f" reference")
         log(f"main path {name}: end-to-end ms per request (host clock)"
             f" {[round(t, 3) for t in e2e]} [{card}]")
-        runs[name] = launches
     return runs
+
+
+def float32_path(dev, requests, card: str) -> dict:
+    """JpegDecoder(FLOAT32) for PALLAS and NATIVE: pixel planes within 1 of
+    the EXACT reference's, RGB bitwise equal to the colour stage of the
+    returned planes."""
+    import torch
+    from jpeg_decoder_tpu_torch import (
+        DecodeConfig,
+        EntropyBackend,
+        IdctPrecision,
+        JpegDecoder,
+        Quirks,
+    )
+    from jpeg_decoder_tpu_torch.ops import color
+
+    runs = {}
+    for backend in (EntropyBackend.PALLAS, EntropyBackend.NATIVE):
+        cfg = DecodeConfig(entropy_backend=backend, idct_precision=IdctPrecision.FLOAT32)
+        dec = JpegDecoder(cfg, device=dev)
+        e2e = []
+
+        def serve():
+            outs = []
+            for data in requests:
+                t0 = time.perf_counter()
+                outs.append(dec.decode(data))
+                e2e.append((time.perf_counter() - t0) * 1e3)
+            return outs
+
+        name = f"JpegDecoder {backend.value} float32"
+        outs, runs[name] = run_path(f"main path {name}", serve)
+        errs, shares = [], []
+        for data, img in zip(requests, outs):
+            _, pix, _ = reference(data, Quirks.REFERENCE)
+            errs.append(max(max_abs_err(a, b) for a, b in zip(img.planes, pix)))
+            shares.append(max(share_differing(a, b) for a, b in zip(img.planes, pix)))
+            f = img.frame
+            colour = color._planes_to_rgb_plain(
+                [torch.from_numpy(p).to(dev) for p in img.planes], f.height, f.width,
+                F420, Quirks.REFERENCE).cpu().numpy()
+            if not np.array_equal(img.rgb, colour):
+                fail(f"{name}: RGB is not the colour stage of its planes")
+        log(f"main path {name}: pixel planes against the EXACT reference:"
+            f" max_abs_err {errs}, share differing {[f'{x:.3e}' for x in shares]};"
+            f" RGB bitwise the colour stage of the planes")
+        log(f"main path {name}: end-to-end ms per request (host clock)"
+            f" {[round(t, 3) for t in e2e]} [{card}]")
+        if max(errs) > 1:
+            fail(f"{name}: pixel planes more than 1 from EXACT")
+    return runs
+
+
+def batch_path(dev, batch, many, card: str) -> dict:
+    """BatchDecoder for PALLAS and NATIVE, EXACT and FLOAT32: decode_batch,
+    decode_stream(batch_size=4) and decode_many, every RGB bitwise equal to
+    the single-image decode with the same config (NATIVE for a member the
+    PALLAS route hands to the native host decode), and to the reference
+    under EXACT."""
+    from jpeg_decoder_tpu_torch import (
+        BatchDecoder,
+        DecodeConfig,
+        EntropyBackend,
+        IdctPrecision,
+        JpegDecoder,
+        Quirks,
+    )
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+    from jpeg_decoder_tpu_torch.shared import parse
+
+    runs = {}
+    for backend in (EntropyBackend.PALLAS, EntropyBackend.NATIVE):
+        for precision in IdctPrecision:
+            cfg = DecodeConfig(entropy_backend=backend, idct_precision=precision)
+            name = f"BatchDecoder {backend.value} {precision.value}"
+            dec = BatchDecoder(cfg, device=dev)
+            t = {}
+
+            def timed(key, fn):
+                t0 = time.perf_counter()
+                out = fn()
+                t[key] = (time.perf_counter() - t0) * 1e3
+                return out
+
+            rgb, launches = run_path(
+                f"main path {name} decode_batch",
+                lambda: timed("batch", lambda: dec.decode_batch(batch)))
+            runs[f"{name} decode_batch"] = launches
+            idct = ("jdtc_idct_exact" if precision == IdctPrecision.EXACT
+                    else "jdtc_idct_float")
+            want = {idct: 3, "jdtc_color": 1}
+            if backend == EntropyBackend.PALLAS:
+                want["jdtc_entropy_decode"] = 1
+            if launches != want:
+                fail(f"{name}: decode_batch launched {launches}, expected {want}")
+            stream, runs[f"{name} decode_stream"] = run_path(
+                f"main path {name} decode_stream",
+                lambda: timed("stream", lambda: list(dec.decode_stream(batch, batch_size=4))))
+            out_many, runs[f"{name} decode_many"] = run_path(
+                f"main path {name} decode_many",
+                lambda: timed("many", lambda: dec.decode_many(many)))
+            # the single-image decode with the same config; a member the
+            # PALLAS route hands to the native host decode, with NATIVE
+            single = JpegDecoder(cfg, device=dev)
+            host_single = JpegDecoder(
+                DecodeConfig(idct_precision=precision), device=dev)
+            got = list(rgb) + list(np.concatenate(stream)) + out_many
+            datas = list(batch) + list(batch) + list(many)
+            for g, d in zip(got, datas):
+                one = single if entropy_cuda.batchable(parse(d)) else host_single
+                if not np.array_equal(g, one.decode_rgb(d)):
+                    fail(f"{name}: a batched RGB differs from its single-image decode")
+                if precision == IdctPrecision.EXACT:
+                    # the restart-free request holds request 0's coefficients
+                    ref = REFERENCE_OF.get(d, d)
+                    if not np.array_equal(g, reference(ref, Quirks.REFERENCE)[2]):
+                        fail(f"{name}: a batched RGB differs from the reference")
+            log(f"main path {name}: {len(got)} RGB outputs bitwise equal to the"
+                f" single-image decode{' and the reference' if precision == IdctPrecision.EXACT else ''};"
+                f" host clock: decode_batch of {len(batch)} {t['batch']:.3f} ms,"
+                f" decode_stream {t['stream']:.3f} ms, decode_many of {len(many)}"
+                f" {t['many']:.3f} ms [{card}]")
+    return runs
+
+
+#: request -> the request whose reference it shares (same coefficients)
+REFERENCE_OF: dict = {}
+
+
+# ---------------------------------------------------------------------------
+# Stage times
+# ---------------------------------------------------------------------------
 
 
 def stage_times(dev, requests, card: str) -> None:
     """Per-image CUDA-event times of the PALLAS path's device stages."""
-    import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, convert
     from jpeg_decoder_tpu_torch.models import decoder
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
@@ -313,21 +625,17 @@ def stage_times(dev, requests, card: str) -> None:
     for i, data in enumerate(requests):
         t0 = time.perf_counter()
         s = parse(data)
-        scan = s.scans[0]
-        tabs = convert.tables_to_device(s.frame, scan, dev)
-        ri, stream, seg_off = entropy_cuda.pack_scan(
-            s, scan, tabs.total_mcus, tabs.units.shape[0])
+        host = entropy_cuda.host_args([entropy_cuda.prepare_scan(s, s.scans[0])])
         host_ms = (time.perf_counter() - t0) * 1e3
         planes = convert.zero_planes(s.frame, dev)
         box = {}
-        h2d = cuda_ms(lambda: box.update(
-            st=torch.from_numpy(stream).to(dev), so=torch.from_numpy(seg_off).to(dev)), 1)
+        h2d = cuda_ms(lambda: box.update(args=entropy_cuda.to_device(host, dev)), 1)
+        args, seg_off = box["args"], host[1]
         k2 = cuda_ms(lambda: box.update(status=entropy_cuda.decode_segments(
-            box["st"], box["so"], ri, tabs.total_mcus, tabs.units, tabs.huffman,
-            planes)), 1)
+            *args, [planes])), 1)
         entropy_cuda.check_status(box["status"], seg_off)
         stage = decoder.device_stage_for(
-            s.frame, {t: q.values for t, q in scan.quant_tables.items()}, cfg, dev)
+            s.frame, {t: q.values for t, q in s.scans[0].quant_tables.items()}, cfg, dev)
         k0 = cuda_ms(lambda: box.update(pix=[
             decoder.idct_ops.idct_plane(p, getattr(stage, f"qt{ci}"), stage.bits12)
             for ci, p in enumerate(planes)]), 1)
@@ -336,8 +644,51 @@ def stage_times(dev, requests, card: str) -> None:
             stage.quirks)), 1)
         d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
         log(f"stage times image {i}: host parse+unstuff {host_ms:.3f} ms,"
-            f" H2D {h2d:.3f} ms ({stream.nbytes} B), K2 {k2:.3f} ms,"
+            f" H2D {h2d:.3f} ms ({host[0].nbytes} B), K2 {k2:.3f} ms,"
             f" K0 {k0:.3f} ms, K3 {k3:.3f} ms, D2H rgb {d2h:.3f} ms [{card}]")
+
+
+def batch_stage_times(dev, batch, card: str) -> None:
+    """CUDA-event times of one PALLAS batch's device stages, EXACT and
+    FLOAT32, with the host clock of its parse and unstuffing."""
+    import torch
+    from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, IdctPrecision
+    from jpeg_decoder_tpu_torch.models import decoder
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+    from jpeg_decoder_tpu_torch.shared import parse
+
+    for precision in IdctPrecision:
+        cfg = DecodeConfig(entropy_backend=EntropyBackend.PALLAS, idct_precision=precision)
+        t0 = time.perf_counter()
+        structures = [parse(d) for d in batch]
+        host = entropy_cuda.host_args(
+            [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        frame = structures[0].frame
+        stacks = [torch.zeros((len(batch), c.blocks_y, c.blocks_x, 64),
+                              dtype=torch.int16, device=dev) for c in frame.components]
+        box = {}
+        h2d = cuda_ms(lambda: box.update(args=entropy_cuda.to_device(host, dev)), 1)
+        args, seg_off = box["args"], host[1]
+        k2 = cuda_ms(lambda: box.update(status=entropy_cuda.decode_segments(
+            *args, [[st[i] for st in stacks] for i in range(len(batch))])), 1)
+        entropy_cuda.check_status(box["status"], seg_off)
+        stage = decoder.device_stage_for(
+            frame, {t: q.values for t, q in structures[0].scans[0].quant_tables.items()},
+            cfg, dev)
+        kidct = cuda_ms(lambda: box.update(pix=[
+            decoder.idct_ops.idct_plane(p, getattr(stage, f"qt{ci}"), stage.bits12,
+                                        precision)
+            for ci, p in enumerate(stacks)]), 1)
+        k3 = cuda_ms(lambda: box.update(rgb=decoder.color_ops.planes_to_rgb(
+            box["pix"], frame.height, frame.width, stage.factors, stage.quirks)), 1)
+        d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
+        nbytes = host[0].nbytes
+        log(f"batch stage times ({len(batch)} x {W}x{H}, {precision.value}):"
+            f" host parse+unstuff {host_ms:.3f} ms, H2D {h2d:.3f} ms ({nbytes} B),"
+            f" K2 {k2:.3f} ms, {'K0' if precision == IdctPrecision.EXACT else 'K1'}"
+            f" {kidct:.3f} ms, K3 {k3:.3f} ms, D2H rgb {d2h:.3f} ms"
+            f" ({box['rgb'].numel()} B) [{card}]")
 
 
 def main() -> None:
@@ -361,12 +712,16 @@ def main() -> None:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s [{card}]")
 
     t0 = time.perf_counter()
-    requests = [make_jpeg(W, H, F420, RI, seed) for seed in SEEDS]
+    batch = [make_jpeg(W, H, F420, RI, seed) for seed in BATCH_SEEDS]
+    requests = batch[: len(SEEDS)]
+    no_dri = make_jpeg(W, H, F420, 0, SEEDS[0])
+    REFERENCE_OF[no_dri] = requests[0]
     gray = make_jpeg(GRAY[0], GRAY[1], ((1, 1),), 0, 11)
-    small = make_jpeg(SMALL[0], SMALL[1], F420, SMALL[2], 12)
-    log(f"inputs: {len(requests)} x {W}x{H} 4:2:0, ri {RI},"
-        f" {[len(r) for r in requests]} bytes; made in"
-        f" {time.perf_counter() - t0:.1f} s")
+    smalls = [make_jpeg(SMALL[0], SMALL[1], F420, SMALL[2], seed) for seed in SMALL_SEEDS]
+    many = [requests[0], requests[1], no_dri, gray]
+    log(f"inputs: {len(batch)} x {W}x{H} 4:2:0, ri {RI},"
+        f" {[len(r) for r in batch]} bytes; the same frame restart-free"
+        f" ({len(no_dri)} bytes); made in {time.perf_counter() - t0:.1f} s")
 
     kernels = {
         "jdtc_entropy_decode": dict(
@@ -377,25 +732,40 @@ def main() -> None:
             name="K0 idct_exact", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/idct_exact.cu",
             replaces="jpeg_decoder_tpu/ops/idct.py:189"),
+        "jdtc_idct_float": dict(
+            name="K1 idct_float", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/idct_float.cu",
+            replaces="jpeg_decoder_tpu/ops/pallas_kernels.py:103"),
         "jdtc_color": dict(
             name="K3 color", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/color.cu",
             replaces="jpeg_decoder_tpu/ops/color.py:138"),
     }
-    check_k2(dev, small, requests[0], kernels["jdtc_entropy_decode"])
+    check_k2(dev, smalls[0], requests[0], kernels["jdtc_entropy_decode"])
+    check_k2_batch(dev, batch, smalls, kernels["jdtc_entropy_decode"])
     check_k0(dev, requests[0], kernels["jdtc_idct_exact"])
+    check_k1(dev, requests[0], kernels["jdtc_idct_float"])
     check_k3(dev, requests[0], gray, kernels["jdtc_color"])
-    for rec in kernels.values():
-        if rec["max_abs_err"] != 0:
+    for key, rec in kernels.items():
+        if key != "jdtc_idct_float" and rec["max_abs_err"] != 0:
             fail(f"{rec['name']} disagrees with its plain version"
                  f" (max_abs_err {rec['max_abs_err']}; tolerance 0)")
 
-    pallas_launches = main_path(dev, requests + [gray], card)["pallas"]
+    runs = main_path(dev, requests + [gray], card)
+    runs.update(float32_path(dev, requests, card))
+    runs.update(batch_path(dev, batch, many, card))
     for key, rec in kernels.items():
-        rec["launches"] = pallas_launches.get(key, 0)
+        rec["launches"] = sum(r.get(key, 0) for r in runs.values())
+        rec["launches_by_path"] = {p: r[key] for p, r in runs.items() if key in r}
         if rec["launches"] == 0:
-            fail(f"{rec['name']} was not launched by the main path")
+            fail(f"{rec['name']} was not launched by a main path")
+    for path, key in (("JpegDecoder pallas exact", "jdtc_entropy_decode"),
+                      ("JpegDecoder pallas float32", "jdtc_idct_float"),
+                      ("JpegDecoder native exact", "jdtc_idct_exact")):
+        if runs[path].get(key, 0) == 0:
+            fail(f"{path} did not launch {key}")
     stage_times(dev, requests, card)
+    batch_stage_times(dev, batch, card)
     if not shared.jax_free():
         fail("JAX or a JAX-importing layer of jpeg_decoder_tpu was loaded")
 

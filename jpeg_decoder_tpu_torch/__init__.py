@@ -4,8 +4,9 @@ A port of jpeg_decoder_tpu (JAX on a TPU) to one NVIDIA Hopper card. It
 shares that package's host layers (io/, core/, native/, utils/: NumPy,
 ctypes and the C++ runtime, none of which loads JAX) and replaces its
 device half: the pixel stage is a torch.nn.Module whose hot ops are CUDA
-kernels written for sm_90a (csrc/, built with nvcc at first use), and the
-PALLAS entropy backend decodes restart segments on the card.
+kernels written for sm_90a (csrc/, built with nvcc at first use) -- the
+EXACT and FLOAT32 IDCT contracts each have one -- and the PALLAS entropy
+backend decodes restart segments on the card, a batch's in one launch.
 
 Every entry point takes `device=` (default "cuda"). Without CUDA a "cuda"
 device raises; pass device="cpu" to run the plain PyTorch versions of the
@@ -16,6 +17,9 @@ Public API:
     decode_rgb(data, cfg, device)  -> [H, W, 3] uint8
     decode_file(path, cfg, device) -> DecodedImage
     JpegDecoder(cfg, device)       -> reusable handle
+    BatchDecoder(cfg, device)      -> same-geometry batches: decode_batch,
+                                      decode_stream, decode_many
+    decode_batch(datas, cfg, device) -> [B, H, W, 3] uint8
 """
 
 from jpeg_decoder_tpu.utils.config import (  # noqa: F401
@@ -34,3 +38,4 @@ from jpeg_decoder_tpu.utils.errors import (  # noqa: F401
 from jpeg_decoder_tpu.core.types import DecodedImage  # noqa: F401
 
 from .models.decoder import JpegDecoder, decode, decode_file, decode_rgb  # noqa: F401
+from .parallel.batch import BatchDecoder, decode_batch  # noqa: F401

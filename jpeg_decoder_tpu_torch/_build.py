@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels (nvcc -> libjdtc.so) at first use, cached.
 
 The counterpart of jpeg_decoder_tpu/native/build.py for the card: every
-`csrc/*.cu` file is compiled in one nvcc call for Hopper (sm_90a) into a
-shared library with a plain C interface, cached under `build/` by a hash of
-the sources and flags, and loaded with ctypes. No PyTorch header is
-included, so a build takes seconds, not minutes.
+`csrc/*.cu` file is compiled for Hopper (sm_90a) by its own nvcc process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, cached under `build/` by a hash of the sources and
+flags, and loaded with ctypes. No PyTorch header is included, so a build
+takes seconds, not minutes.
 
 Each C entry point launches one kernel on the stream it is given and
 returns `cudaGetLastError()`; `launch` raises on a nonzero status and counts
@@ -27,10 +28,10 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("entropy_decode.cu", "idct_exact.cu", "color.cu")
+SOURCES = ("entropy_decode.cu", "idct_exact.cu", "idct_float.cu", "color.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -40,19 +41,20 @@ _F32 = ctypes.c_float
 #: C entry point -> argtypes. Pointers (and the CUDA stream) are c_void_p:
 #: a bare Python int would be passed as a 32-bit int and cut the address.
 SIGNATURES = {
-    # stream, seg_off, n_segs, ri, total_mcus, units, n_units, tables,
-    # n_specs, plane0..3, status, cuda_stream
+    # stream, seg_off, seg_img, seg_idx, n_segs, ri, total_mcus, units,
+    # n_units, tables, n_specs, plane_ptrs, status, cuda_stream
     "jdtc_entropy_decode": [
-        _P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32,
-        _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _I64, _I64, _P, _P, _I32, _P, _I32, _P, _P, _P,
     ],
     # coeffs, qt, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_exact": [_P, _P, _I64, _I32, _I32, _P, _P],
-    # plane0..2, n_comps, h, w, stride0..2, hratio0..2, vratio0..2,
-    # correct, out, cuda_stream
+    # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream
+    "jdtc_idct_float": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
+    # plane0..2, n_images, img_stride0..2, n_comps, h, w, stride0..2,
+    # hratio0..2, vratio0..2, correct, out, cuda_stream
     "jdtc_color": [
-        _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
-        _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P, _P,
+        _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _I32,
+        _I32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P, _P,
     ],
 }
 
@@ -101,18 +103,40 @@ def build(force: bool = False) -> Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a process-unique name and rename atomically, so that a
-    # concurrent process never loads a half-written library.
-    tmp = out.with_suffix(f".tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, *[str(SRC_DIR / s) for s in SOURCES],
-           "-o", str(tmp)]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{r.stdout[-4000:]}{r.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # Objects and library get process-unique names and the library is
+    # renamed atomically, so a concurrent process never loads a
+    # half-written one.
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    procs: list[subprocess.Popen] = []
+    try:
+        for s, o in zip(SOURCES, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(SRC_DIR / s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for s, proc in zip(SOURCES, procs):
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"{s} ({proc.returncode}):\n{log[-4000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        r = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
+            capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({r.returncode}):\n{r.stdout[-4000:]}{r.stderr[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

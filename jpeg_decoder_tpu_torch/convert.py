@@ -11,7 +11,6 @@ arrays to a JAX function and to its counterpart here.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -128,24 +127,35 @@ def scan_tables(frame: FrameHeader, scan: Scan):
     return total_mcus, units, tabs
 
 
-@dataclasses.dataclass(frozen=True)
-class DeviceTables:
-    """A scan's decode state on the device."""
-
-    total_mcus: int
-    units: torch.Tensor    # int32 [P, 11]
-    huffman: torch.Tensor  # int32 [n_specs, TABLE_INTS]
-
-
-def tables_to_device(frame: FrameHeader, scan: Scan, device) -> DeviceTables:
-    """The numpy outputs of the shared host layer as the port's tensors:
-    the unit layout and Huffman tables of `scan`."""
+def group_key(frame: FrameHeader, scan: Scan):
+    """(key, total_mcus, units, tables) of one scan. Scans with equal keys
+    decode in one K2 launch: the key is the JAX batch path's group key
+    (entropy_pallas.entropy_decode_batch), (ri, P, the units' (dc, ac,
+    scan component) schedule, the Huffman tables' content)."""
     total_mcus, units, tabs = scan_tables(frame, scan)
-    return DeviceTables(
-        total_mcus=total_mcus,
-        units=torch.from_numpy(units).to(device),
-        huffman=torch.from_numpy(tabs).to(device),
-    )
+    ri = scan.restart_interval or total_mcus
+    key = (ri, units.shape[0], units[:, [2, 3, 1]].tobytes(), tabs.tobytes())
+    return key, total_mcus, units, tabs
+
+
+def group_tables(members):
+    """A group's decode state as K2 reads it, from [(total_mcus, units,
+    tables)] of its scans, one per image (group_key): total_mcus int64
+    [n_img]; units int32 [n_img, P, 11], whose wrap, bw and bh follow each
+    image's geometry; and the shared int32 [n_specs, TABLE_INTS] tables
+    (the first member's: all are equal by the key). With plane_addresses,
+    that is all the group's device state."""
+    return (np.array([m[0] for m in members], dtype=np.int64),
+            np.stack([m[1] for m in members]), members[0][2])
+
+
+def plane_addresses(planes, device) -> torch.Tensor:
+    """int64 [n_img, 4] device addresses of each image's component planes
+    (0 past the last component): K2's per-image plane table."""
+    addr = np.zeros((len(planes), 4), dtype=np.int64)
+    for i, img in enumerate(planes):
+        addr[i, : len(img)] = [p.data_ptr() for p in img]
+    return torch.from_numpy(addr).to(device)
 
 
 def quant_table_to_device(values_natural, device) -> torch.Tensor:

@@ -1,5 +1,8 @@
 // K3: nearest-neighbour chroma upsample + colour conversion + RGB store, one
-// thread per output pixel, reading the uint8 pixel planes K0 wrote.
+// thread per output pixel, reading the uint8 pixel planes K0 or K1 wrote.
+// One launch covers a batch of same-geometry images (blockIdx.y is the
+// image): the counterpart of jax.vmap over the stage in
+// jpeg_decoder_tpu/parallel/batch.py _batched_stage.
 //
 // Replaces the XLA half of jpeg_decoder_tpu/models/decoder.py build_stage_raw
 // after the IDCT: ops/color.py nn_upsample, ycbcr_to_rgb, _store_rgb and
@@ -31,6 +34,7 @@ constexpr int kThreads = 256;
 
 struct Geometry {
   const uint8_t* plane[3];
+  int64_t img_stride[3];  // elements between one image's plane and the next
   int stride[3];
   float hratio[3];
   float vratio[3];
@@ -42,32 +46,36 @@ __device__ __forceinline__ uint8_t store(float v, int correct) {
   return static_cast<uint8_t>(static_cast<int>(q));
 }
 
-__device__ __forceinline__ uint8_t sample(const Geometry& g, int c, int i, int j) {
+__device__ __forceinline__ uint8_t sample(const Geometry& g, int64_t img, int c,
+                                          int i, int j) {
   const uint32_t r = static_cast<uint32_t>(__fmul_rn(static_cast<float>(i), g.vratio[c]));
   const uint32_t col = static_cast<uint32_t>(__fmul_rn(static_cast<float>(j), g.hratio[c]));
-  return g.plane[c][static_cast<int64_t>(r) * g.stride[c] + col];
+  return g.plane[c][img * g.img_stride[c] + static_cast<int64_t>(r) * g.stride[c] + col];
 }
 
 __global__ void __launch_bounds__(kThreads)
 color_kernel(Geometry g, int n_comps, int h, int w, int correct,
              uint8_t* __restrict__ out) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= static_cast<int64_t>(h) * w) return;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  if (p >= hw) return;
+  const int64_t img = blockIdx.y;
   const int i = static_cast<int>(p / w);
   const int j = static_cast<int>(p % w);
-  uint8_t* o = out + p * 3;
+  uint8_t* o = out + (img * hw + p) * 3;
   if (n_comps == 1) {
     // stride[0] is the image width under REFERENCE (the y_rgb shear,
     // colour_conversion.c:20) and the padded plane stride under CORRECT.
-    const uint8_t y = g.plane[0][static_cast<int64_t>(i) * g.stride[0] + j];
+    const uint8_t y =
+        g.plane[0][img * g.img_stride[0] + static_cast<int64_t>(i) * g.stride[0] + j];
     o[0] = y;
     o[1] = y;
     o[2] = y;
     return;
   }
-  const float y = static_cast<float>(sample(g, 0, i, j));
-  const float cb = __fsub_rn(static_cast<float>(sample(g, 1, i, j)), 128.0f);
-  const float cr = __fsub_rn(static_cast<float>(sample(g, 2, i, j)), 128.0f);
+  const float y = static_cast<float>(sample(g, img, 0, i, j));
+  const float cb = __fsub_rn(static_cast<float>(sample(g, img, 1, i, j)), 128.0f);
+  const float cr = __fsub_rn(static_cast<float>(sample(g, img, 2, i, j)), 128.0f);
   // float32(double literal), as np.float32(1.402) rounds it
   const float k_rv = static_cast<float>(1.402);
   const float k_gu = static_cast<float>(0.34414);
@@ -84,18 +92,22 @@ color_kernel(Geometry g, int n_comps, int h, int w, int correct,
 }  // namespace
 
 extern "C" int jdtc_color(const void* plane0, const void* plane1,
-                          const void* plane2, int n_comps, int h, int w,
+                          const void* plane2, int n_images,
+                          int64_t img_stride0, int64_t img_stride1,
+                          int64_t img_stride2, int n_comps, int h, int w,
                           int stride0, int stride1, int stride2, float hratio0,
                           float hratio1, float hratio2, float vratio0,
                           float vratio1, float vratio2, int correct, void* out,
                           void* cuda_stream) {
   Geometry g{{static_cast<const uint8_t*>(plane0), static_cast<const uint8_t*>(plane1),
               static_cast<const uint8_t*>(plane2)},
+             {img_stride0, img_stride1, img_stride2},
              {stride0, stride1, stride2},
              {hratio0, hratio1, hratio2},
              {vratio0, vratio1, vratio2}};
   const int64_t n = static_cast<int64_t>(h) * w;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const dim3 blocks(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(n_images));
   color_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
       g, n_comps, h, w, correct, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());

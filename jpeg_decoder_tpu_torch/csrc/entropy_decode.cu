@@ -15,14 +15,24 @@
 // length says where the next one starts), so the time is one thread's latency
 // per symbol -- byte loads into the bit buffer, the 16-compare ladder in
 // shared memory, the symbol load -- times the symbols of the longest segment.
-// The parallelism is the number of restart segments: 135 threads at the 4K
-// workload, one warp on each of five SMs, so the card is mostly idle and
+// The parallelism is the number of restart segments: 135 threads for one 4K
+// image, one warp on each of five SMs, so the card is mostly idle and
 // threads of a warp diverge with their data. The design keeps the chain
-// short and local: tables and unit layout are copied to shared memory once
-// per block, the bit buffer is a 64-bit register topped up a byte at a time
-// (one top-up covers a code and its extra bits), and stores go straight to
-// the plane. Filling the card (more segments per image, images batched
-// into one launch, a warp cooperating on a segment) is later work.
+// short and local: the tables are copied to shared memory once per block,
+// the bit buffer is a 64-bit register topped up a byte at a time (one top-up
+// covers a code and its extra bits), and stores go straight to the plane.
+//
+// Batching (entropy_pallas.entropy_decode_batch's counterpart): a launch
+// takes every segment of a group of images that share (ri, P, unit
+// schedule, Huffman tables), with no cap on their number; eight 4K images
+// are 1080 threads. Each thread's segment carries its image and its index
+// within that image, and the thread reads that image's unit layout
+// (wrap, bw and bh depend on the geometry), total MCU count and plane
+// addresses. The per-image unit tables grow with the batch, so they stay in
+// global memory and are read through __ldg (L1-cached); only the shared
+// Huffman tables (<= 8 x 4 KB) go to shared memory. A single scan is the
+// one-image case. Filling the card further (a warp cooperating on a
+// segment, split points inside segments) is later work.
 //
 // Tables: the per-spec canonical "ladder" (thr[16], base[16], symbols[1024])
 // that the TPU kernel reads (entropy_pallas._ladder_tables): 4 KB per table,
@@ -38,10 +48,6 @@ constexpr int kUnitCols = 11;   // plane, scomp, dc, ac, h, v, j, k, wrap, bw, b
 constexpr int kTabInts = 16 + 16 + 1024;
 constexpr int kInvalid = 0x1FF;
 constexpr int kThreads = 32;
-
-struct Planes {
-  int16_t* p[4];
-};
 
 struct BitReader {
   const uint8_t* data;
@@ -134,38 +140,45 @@ __device__ int decode_du(BitReader& br, const int32_t* dc, const int32_t* ac,
 
 __global__ void __launch_bounds__(kThreads)
 entropy_decode_kernel(const uint8_t* __restrict__ stream,
-                      const int64_t* __restrict__ seg_off, int64_t n_segs,
-                      int64_t ri, int64_t total_mcus,
+                      const int64_t* __restrict__ seg_off,
+                      const int32_t* __restrict__ seg_img,
+                      const int32_t* __restrict__ seg_idx, int64_t n_segs,
+                      int64_t ri, const int64_t* __restrict__ total_mcus,
                       const int32_t* __restrict__ units, int n_units,
                       const int32_t* __restrict__ tables, int n_specs,
-                      Planes planes, int64_t* __restrict__ status) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_tab = smem;
-  int32_t* s_units = smem + n_specs * kTabInts;
+                      const unsigned long long* __restrict__ plane_ptrs,
+                      int64_t* __restrict__ status) {
+  extern __shared__ int32_t s_tab[];
   for (int i = threadIdx.x; i < n_specs * kTabInts; i += blockDim.x)
     s_tab[i] = tables[i];
-  for (int i = threadIdx.x; i < n_units * kUnitCols; i += blockDim.x)
-    s_units[i] = units[i];
   __syncthreads();
 
   const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= n_segs) return;
+  const int64_t img = seg_img[s];
+  const int32_t* img_units = units + img * n_units * kUnitCols;
+  const unsigned long long* img_planes = plane_ptrs + img * 4;
   BitReader br{stream + seg_off[s], seg_off[s + 1] - seg_off[s], 0, 0, 0};
   int32_t preds[4] = {0, 0, 0, 0};
-  const int64_t m_lo = s * ri;
-  const int64_t m_hi = m_lo + ri < total_mcus ? m_lo + ri : total_mcus;
+  const int64_t total = total_mcus[img];
+  const int64_t m_lo = static_cast<int64_t>(seg_idx[s]) * ri;
+  const int64_t m_hi = m_lo + ri < total ? m_lo + ri : total;
   int bad = 0;
   for (int64_t m = m_lo; m < m_hi && !bad; ++m) {
     for (int u = 0; u < n_units && !bad; ++u) {
-      const int32_t* ul = s_units + u * kUnitCols;
-      const int64_t base = m * ul[4] + ul[7];
-      const int64_t bx = base % ul[8];
-      const int64_t by = (base / ul[8]) * ul[5] + ul[6];
-      int16_t* du = (by < ul[10] && bx < ul[9])
-                        ? planes.p[ul[0]] + (by * ul[9] + bx) * 64
-                        : nullptr;
-      bad = decode_du(br, s_tab + ul[2] * kTabInts, s_tab + ul[3] * kTabInts,
-                      &preds[ul[1]], du);
+      // plane, scomp, dc, ac, h, v, j, k, wrap, bw, bh
+      const int32_t* ul = img_units + u * kUnitCols;
+      const int64_t wrap = __ldg(ul + 8);
+      const int64_t bw = __ldg(ul + 9);
+      const int64_t base = m * __ldg(ul + 4) + __ldg(ul + 7);
+      const int64_t bx = base % wrap;
+      const int64_t by = (base / wrap) * __ldg(ul + 5) + __ldg(ul + 6);
+      int16_t* du =
+          (by < __ldg(ul + 10) && bx < bw)
+              ? reinterpret_cast<int16_t*>(__ldg(img_planes + __ldg(ul))) + (by * bw + bx) * 64
+              : nullptr;
+      bad = decode_du(br, s_tab + __ldg(ul + 2) * kTabInts,
+                      s_tab + __ldg(ul + 3) * kTabInts, &preds[__ldg(ul + 1)], du);
     }
   }
   status[2 * s] = bad;
@@ -175,23 +188,22 @@ entropy_decode_kernel(const uint8_t* __restrict__ stream,
 }  // namespace
 
 extern "C" int jdtc_entropy_decode(const void* stream, const void* seg_off,
+                                   const void* seg_img, const void* seg_idx,
                                    int64_t n_segs, int64_t ri,
-                                   int64_t total_mcus, const void* units,
+                                   const void* total_mcus, const void* units,
                                    int n_units, const void* tables,
-                                   int n_specs, void* plane0, void* plane1,
-                                   void* plane2, void* plane3, void* status,
-                                   void* cuda_stream) {
-  Planes planes{{static_cast<int16_t*>(plane0), static_cast<int16_t*>(plane1),
-                 static_cast<int16_t*>(plane2), static_cast<int16_t*>(plane3)}};
-  const size_t smem = sizeof(int32_t) *
-                      (static_cast<size_t>(n_specs) * kTabInts +
-                       static_cast<size_t>(n_units) * kUnitCols);
+                                   int n_specs, const void* plane_ptrs,
+                                   void* status, void* cuda_stream) {
+  const size_t smem = sizeof(int32_t) * static_cast<size_t>(n_specs) * kTabInts;
   const unsigned blocks = static_cast<unsigned>((n_segs + kThreads - 1) / kThreads);
   entropy_decode_kernel<<<blocks, kThreads, smem,
                           static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const uint8_t*>(stream), static_cast<const int64_t*>(seg_off),
-      n_segs, ri, total_mcus, static_cast<const int32_t*>(units), n_units,
-      static_cast<const int32_t*>(tables), n_specs, planes,
+      static_cast<const int32_t*>(seg_img), static_cast<const int32_t*>(seg_idx),
+      n_segs, ri, static_cast<const int64_t*>(total_mcus),
+      static_cast<const int32_t*>(units), n_units,
+      static_cast<const int32_t*>(tables), n_specs,
+      static_cast<const unsigned long long*>(plane_ptrs),
       static_cast<int64_t*>(status));
   return static_cast<int>(cudaGetLastError());
 }

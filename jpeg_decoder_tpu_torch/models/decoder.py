@@ -5,15 +5,18 @@ stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
   entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS on the device
            (models/host.py; ops/entropy_cuda.py, kernel K2)
   device:  one PixelStage per (geometry, tables, config): dequant + IDCT +
-           block scatter (ops/idct.py, K0), then chroma upsample + colour
-           conversion (ops/color.py, K3)
+           block scatter (ops/idct.py; K0 for EXACT, K1 for FLOAT32), then
+           chroma upsample + colour conversion (ops/color.py, K3)
 
 Host-decoded planes go to the device in one copy per image; PALLAS planes
-are born there. RGB and the pixel planes come back in one copy each.
+are born there. RGB and the pixel planes come back in one copy each. The
+batch serving path (parallel/batch.py) runs the same PixelStage over
+stacked [B, by, bx, 64] planes.
 
-The slice covers 1 and 3 components, 8- and 12-bit samples, both Quirks,
-nearest-neighbour upsampling, the EXACT IDCT and full-size output; the rest
-raises JpegUnsupportedError naming the ROADMAP item that ports it.
+The port covers 1 and 3 components, 8- and 12-bit samples, both Quirks,
+nearest-neighbour upsampling, the EXACT and FLOAT32 IDCT contracts and
+full-size output; the rest raises JpegUnsupportedError naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch import nn
 
 from jpeg_decoder_tpu.core.types import DecodedImage, FrameHeader, JpegStructure
 from jpeg_decoder_tpu.io.parser import parse
-from jpeg_decoder_tpu.utils.config import DecodeConfig, IdctPrecision
+from jpeg_decoder_tpu.utils.config import DecodeConfig
 from jpeg_decoder_tpu.utils.errors import JpegFormatError, JpegUnsupportedError
 from jpeg_decoder_tpu.utils.metrics import GLOBAL_METRICS as metrics
 
@@ -55,46 +58,42 @@ def _stage_key(frame: FrameHeader, qt_by_comp: tuple[bytes, ...], cfg: DecodeCon
     )
 
 
+#: The ROADMAP item that ports what _check_config and _check_frame reject.
+_NEXT_ITEM = ("ROADMAP queue 1 item 2: fancy upsampling, YCCK and CMYK,"
+              " scale < 8 and the use_device=False host pixel path")
+
+
 def _check_config(cfg: DecodeConfig) -> None:
-    """Reject what the port does not run yet, before any decode work."""
-    if cfg.idct_precision != IdctPrecision.EXACT:
-        raise JpegUnsupportedError(
-            "FLOAT32 IDCT is not ported yet (ROADMAP: K1 with FLOAT32)"
-        )
+    """Reject what the port does not run yet, before any decode work. Both
+    IDCT contracts (EXACT and FLOAT32) run."""
     if cfg.upsample != "nn":
-        raise JpegUnsupportedError(
-            "fancy upsampling is not ported yet (ROADMAP: fancy upsampling,"
-            " YCCK and CMYK, and scale < 8)"
-        )
+        raise JpegUnsupportedError(f"fancy upsampling is not ported yet ({_NEXT_ITEM})")
     if cfg.scale != 8:
-        raise JpegUnsupportedError(
-            "scaled decode is not ported yet (ROADMAP: fancy upsampling,"
-            " YCCK and CMYK, and scale < 8)"
-        )
+        raise JpegUnsupportedError(f"scaled decode is not ported yet ({_NEXT_ITEM})")
     if not cfg.use_device:
         raise JpegUnsupportedError(
-            "use_device=False (the all-host pixel path) is the JAX package's;"
-            " the port runs the pixel stage on its torch device"
-        )
+            f"use_device=False (the all-host pixel path) is not ported yet ({_NEXT_ITEM})")
 
 
 def _check_frame(frame: FrameHeader) -> None:
     if frame.ncs not in (1, 3):
         raise JpegUnsupportedError(
-            f"{frame.ncs}-component frames are not ported yet (ROADMAP:"
-            " fancy upsampling, YCCK and CMYK, and scale < 8)"
-        )
+            f"{frame.ncs}-component frames are not ported yet ({_NEXT_ITEM})")
 
 
 class PixelStage(nn.Module):
     """Coefficient planes -> (RGB uint8 [H, W, 3], pixel planes) for one
-    (geometry, tables, config) key: the counterpart of build_stage_raw."""
+    (geometry, tables, config) key: the counterpart of build_stage_raw.
+    Stacked planes [B, by, bx, 64] give [B, H, W, 3] and [B, rows, stride]
+    planes, one kernel launch per component and one for the colour stage
+    (the counterpart of parallel/batch._batched_stage's vmap)."""
 
     def __init__(self, key, device):
         super().__init__()
         frame, qt_by_comp, precision, quirks, upsample, scale = key
         _check_frame(frame)
         self.frame = frame
+        self.precision = precision
         self.quirks = quirks
         self.bits12 = frame.precision == 12
         self.factors = tuple((c.hsf, c.vsf) for c in frame.components)
@@ -106,7 +105,8 @@ class PixelStage(nn.Module):
 
     def forward(self, *coeff_planes: torch.Tensor):
         pixel = [
-            idct_ops.idct_plane(p, getattr(self, f"qt{ci}"), self.bits12)
+            idct_ops.idct_plane(p, getattr(self, f"qt{ci}"), self.bits12,
+                                self.precision)
             for ci, p in enumerate(coeff_planes)
         ]
         rgb = color_ops.planes_to_rgb(

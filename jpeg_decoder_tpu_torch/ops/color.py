@@ -11,6 +11,8 @@ rounding (CORRECT) saturated store.
 
 `planes_to_rgb` is the wrapper the decoder calls: for CPU tensors it runs
 the plain versions, for CUDA tensors it launches kernel K3 (csrc/color.cu).
+Planes may carry a leading batch dimension ([B, rows, stride], the batch
+path's stacked images); one launch then makes [B, h, w, 3].
 """
 
 from __future__ import annotations
@@ -35,13 +37,14 @@ _K_BU = float(np.float32(1.772))
 
 def nn_upsample(plane: torch.Tensor, out_h: int, out_w: int, hsf: int,
                 vsf: int, max_hsf: int, max_vsf: int) -> torch.Tensor:
-    """Nearest-neighbour upsample of one component plane to [out_h, out_w]
-    with the reference's (uint32)(i * float32(sf/max_sf)) index rule."""
+    """Nearest-neighbour upsample of one component plane [..., rows, stride]
+    to [..., out_h, out_w] with the reference's (uint32)(i *
+    float32(sf/max_sf)) index rule."""
     rows = _nn_index_f32(out_h, np.float32(vsf) / np.float32(max_vsf))
     cols = _nn_index_f32(out_w, np.float32(hsf) / np.float32(max_hsf))
     rows_t = torch.from_numpy(rows).to(plane.device)
     cols_t = torch.from_numpy(cols).to(plane.device)
-    return plane[rows_t[:, None], cols_t[None, :]]
+    return plane[..., rows_t[:, None], cols_t[None, :]]
 
 
 def _store_rgb(r, g, b, quirks: Quirks) -> torch.Tensor:
@@ -79,12 +82,13 @@ def gray_to_rgb(y8: torch.Tensor) -> torch.Tensor:
 
 
 def _gray_source(plane: torch.Tensor, h: int, w: int, quirks: Quirks):
-    """The [h, w] gray samples. REFERENCE indexes the padded plane at the
-    IMAGE width stride (colour_conversion.c:20), which shears widths that
-    are not a multiple of 8; CORRECT crops."""
+    """The [..., h, w] gray samples. REFERENCE indexes the padded plane at
+    the IMAGE width stride (colour_conversion.c:20), which shears widths
+    that are not a multiple of 8; CORRECT crops."""
+    lead = plane.shape[:-2]
     if quirks == Quirks.REFERENCE:
-        return plane.reshape(-1)[: h * w].reshape(h, w)
-    return plane[:h, :w]
+        return plane.reshape(*lead, -1)[..., : h * w].reshape(*lead, h, w)
+    return plane[..., :h, :w]
 
 
 def _planes_to_rgb_plain(planes, h, w, factors, quirks):
@@ -99,11 +103,16 @@ def _planes_to_rgb_plain(planes, h, w, factors, quirks):
 
 
 def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks) -> torch.Tensor:
-    """uint8 pixel planes [rows, stride] (1 or 3 components, sampling
-    `factors` = ((hsf, vsf), ...)) -> [h, w, 3] uint8 RGB: the device
-    stage after the IDCT. CPU tensors: the plain versions. CUDA: K3."""
+    """uint8 pixel planes [rows, stride], or [B, rows, stride] for a batch
+    (1 or 3 components, sampling `factors` = ((hsf, vsf), ...)) -> [h, w, 3]
+    or [B, h, w, 3] uint8 RGB: the device stage after the IDCT. CPU
+    tensors: the plain versions. CUDA: K3, one launch for the batch."""
     if len(planes) not in (1, 3):
         raise ValueError(f"planes_to_rgb: {len(planes)} components")
+    lead = planes[0].shape[:-2]
+    if len(lead) > 1 or any(p.dim() != planes[0].dim() or p.shape[:-2] != lead
+                            for p in planes):
+        raise ValueError("planes_to_rgb: planes must be [rows, stride] or [B, rows, stride], one B")
     dev = planes[0].device
     if dev.type == "cpu":
         return _planes_to_rgb_plain(planes, h, w, factors, quirks)
@@ -112,30 +121,37 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks) -> torch.Tens
     for p in planes:
         if p.dtype != torch.uint8 or not p.is_contiguous() or p.device != dev:
             raise ValueError("planes_to_rgb: planes must be contiguous uint8 on one device")
+    n_images = lead[0] if lead else 1
+    if n_images > 65535:
+        raise ValueError("planes_to_rgb: at most 65535 images per launch")
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
-    strides, hr, vr = [0, 0, 0], [0.0] * 3, [0.0] * 3
+    strides, img_strides, hr, vr = [0, 0, 0], [0, 0, 0], [0.0] * 3, [0.0] * 3
     for c, (p, (fh, fv)) in enumerate(zip(planes, factors)):
+        rows, cols = p.shape[-2:]
         hr[c] = float(np.float32(fh) / np.float32(mh))
         vr[c] = float(np.float32(fv) / np.float32(mv))
-        strides[c] = p.shape[1]
+        strides[c] = cols
+        img_strides[c] = rows * cols
         # Memory safety: the kernel gathers without bounds checks, so the
-        # last row and column it will index must lie inside the plane.
+        # last row and column it will index must lie inside every image's
+        # plane.
         if len(planes) == 3 and h and w and (
-            int(_nn_index_f32(h, np.float32(vr[c]))[-1]) >= p.shape[0]
-            or int(_nn_index_f32(w, np.float32(hr[c]))[-1]) >= p.shape[1]
+            int(_nn_index_f32(h, np.float32(vr[c]))[-1]) >= rows
+            or int(_nn_index_f32(w, np.float32(hr[c]))[-1]) >= cols
         ):
             raise ValueError("planes_to_rgb: plane smaller than its upsampled extent")
     if len(planes) == 1:
-        if planes[0].shape[0] < h or planes[0].shape[1] < w:
+        rows, cols = planes[0].shape[-2:]
+        if rows < h or cols < w:
             raise ValueError("planes_to_rgb: gray plane smaller than the image")
-        strides[0] = w if quirks == Quirks.REFERENCE else planes[0].shape[1]
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
-    if h * w:
+        strides[0] = w if quirks == Quirks.REFERENCE else cols
+    out = torch.empty((*lead, h, w, 3), dtype=torch.uint8, device=dev)
+    if n_images * h * w:
         ptrs = [_build.ptr(p) for p in planes] + [_build.ptr(None)] * (3 - len(planes))
         _build.launch(
-            "jdtc_color", *ptrs, len(planes), h, w, *strides, *hr, *vr,
-            int(quirks != Quirks.REFERENCE), _build.ptr(out),
-            _build.stream_of(out),
+            "jdtc_color", *ptrs, n_images, *img_strides, len(planes), h, w,
+            *strides, *hr, *vr, int(quirks != Quirks.REFERENCE),
+            _build.ptr(out), _build.stream_of(out),
         )
     return out

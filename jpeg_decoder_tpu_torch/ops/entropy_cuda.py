@@ -9,7 +9,10 @@ CUDA tensor that is kernel K2 (csrc/entropy_decode.cu), one thread per
 segment; for a CPU tensor it is the plain version below, a torch loop over
 segments in lockstep -- one tensor lane per segment, one symbol per step,
 table lookups by indexing -- which is what the TPU kernel computes, without
-its layout tricks.
+its layout tricks. A launch takes the segments of a group of images that
+share (ri, P, unit schedule, Huffman tables): `entropy_decode_batch`
+decodes a batch in one launch per group, and a single scan is a group of
+one.
 
 Guards and errors are the JAX backend's, so both packages accept the same
 streams: progressive scans, restart-free scans over 256 MCUs and segments
@@ -20,6 +23,8 @@ raises JpegTruncatedError.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -124,28 +129,40 @@ def _windows(stream, seg_off):
     return w40, base
 
 
-def _decode_segments_plain(stream, seg_off, ri, total_mcus, units, tables,
-                           planes):
-    """Lockstep torch version of K2: one lane per segment, one symbol per
-    step, table lookups by indexing. Returns int64 [n_segs, 2] (bad,
-    consumed bits)."""
+def _decode_segments_plain(stream, seg_off, seg_img, seg_idx, ri, total_mcus,
+                           units, tables, planes):
+    """Lockstep torch version of K2: one lane per segment of any image of
+    the group, one symbol per step, table lookups by indexing -- what the
+    TPU kernel's lanes are. Returns int64 [n_segs, 2] (bad, consumed
+    bits)."""
     dev = stream.device
     i64 = torch.int64
     n = seg_off.numel() - 1
     nbytes = seg_off[1:] - seg_off[:-1]
     w40, wbase = _windows(stream, seg_off)
-    luts = _symbol_lut(tables)
+    luts = _symbol_lut(tables).reshape(-1)            # [n_specs * 65536]
+    img = seg_img.to(i64)
+    sidx = seg_idx.to(i64)
     lane = torch.arange(n, device=dev)
-    mcu_count = torch.clamp(total_mcus - lane * ri, max=ri)
+    units_h = units.tolist()                          # [n_img][P][11]
+    # per unit, each lane's columns of its image's layout; the tables as
+    # offsets into `luts`, the predictor as an index into `preds`
+    cols = []
+    for lane_unit in units.to(i64)[img].unbind(1):
+        _pl, sci, dci, aci, h, v, j, k, wrap, bw, bh = lane_unit.unbind(1)
+        cols.append((lane * 4 + sci, dci << 16, aci << 16, h, v, j, k, wrap, bw, bh))
+    in_img = [img == i for i in range(len(planes))]
+    mcu_count = torch.clamp(total_mcus.to(i64)[img] - sidx * ri, max=ri)
     pos = torch.zeros(n, dtype=i64, device=dev)       # consumed bits
-    preds = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    preds = torch.zeros(n * 4, dtype=torch.int32, device=dev)
     bad = torch.zeros(n, dtype=torch.bool, device=dev)
 
-    def next_symbol(lut):
+    def next_symbol(lut_base):
         """(sym, code length, EXTENDed value of its size bits) per lane,
-        read at `pos` (bits past a segment's end read as zero)."""
+        read at `pos` through each lane's table (bits past a segment's
+        end read as zero)."""
         pk = (w40[wbase + torch.minimum(pos >> 3, nbytes)] >> (8 - (pos & 7))) & 0xFFFFFFFF
-        e = lut[pk >> 16]
+        e = luts[lut_base + (pk >> 16)]
         sym = e & 0x1FF
         ln = e >> 9
         size = sym & 15
@@ -153,15 +170,14 @@ def _decode_segments_plain(stream, seg_off, ri, total_mcus, units, tables,
         half = (1 << size) >> 1
         return sym, ln, torch.where(v < half, v - 2 * half + 1, v)
 
-    flat = [p.view(-1, 64) for p in planes]
+    flat = [[p.view(-1, 64) for p in img_planes] for img_planes in planes]
     du = torch.zeros((n, 65), dtype=i64, device=dev)  # column 64: write sink
     for m in range(ri):
         live = (m < mcu_count) & ~bad
         if not bool(live.any()):
             break
-        mg = lane * ri + m
-        for pl, sci, dci, aci, h, v, j, k, wrap, bw, bh in units.tolist():
-            dc_lut, ac_lut = luts[dci], luts[aci]
+        mg = sidx * ri + m
+        for u, (pred_i, dc_base, ac_base, h, v, j, k, wrap, bw, bh) in enumerate(cols):
             act = live & ~bad
             base = mg * h + k
             bx = base % wrap
@@ -169,18 +185,18 @@ def _decode_segments_plain(stream, seg_off, ri, total_mcus, units, tables,
             store = act & (by < bh) & (bx < bw)
             du.zero_()
             # DC: the size is the symbol itself; above 15 is a bad code
-            sym, ln, diff = next_symbol(dc_lut)
+            sym, ln, diff = next_symbol(dc_base)
             dc_bad = act & (sym > 15)
             bad |= dc_bad
             act &= ~dc_bad
             pos += torch.where(act, ln + sym, 0)
-            preds[:, sci] += torch.where(act, diff, 0).to(torch.int32)
-            du[:, 0] = preds[:, sci]
+            preds.index_add_(0, pred_i, torch.where(act, diff, 0).to(torch.int32))
+            du[:, 0] = preds[pred_i]
             # AC
             ci = torch.ones(n, dtype=i64, device=dev)
             run = act.clone()
             while bool(run.any()):
-                sym, ln, val = next_symbol(ac_lut)
+                sym, ln, val = next_symbol(ac_base)
                 size = sym & 15
                 kt = ci + (sym >> 4)
                 eob = sym == 0
@@ -194,63 +210,130 @@ def _decode_segments_plain(stream, seg_off, ri, total_mcus, units, tables,
                 du.scatter_(1, dst[:, None], val[:, None])
                 ci = torch.where(zrl, ci + 16, kt + 1)
                 run &= ~eob & (ci <= 63)
-            flat[pl][by[store] * bw + bx[store]] = du[store, :64].to(torch.int16)
+            for i, mask in enumerate(in_img):
+                sel = store & mask
+                if bool(sel.any()):
+                    plane = flat[i][units_h[i][u][0]]
+                    plane[by[sel] * bw[sel] + bx[sel]] = du[sel, :64].to(torch.int16)
     return torch.stack([bad.to(i64), pos], dim=1)
 
 
-def decode_segments(stream, seg_off, ri: int, total_mcus: int, units,
-                    tables, planes) -> torch.Tensor:
-    """Decode every restart segment of one scan into `planes` (int16
-    [by, bx, 64] per frame component, zeroed). Returns the int64
-    [n_segs, 2] status (bad flag, consumed bits). CPU tensors: the plain
-    version. CUDA tensors: K2."""
+def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
+                    units, tables, planes) -> torch.Tensor:
+    """Decode every restart segment of a group of scans (one per image, see
+    convert.group_tables) into `planes` (per image, its int16 [by, bx, 64]
+    planes per frame component, zeroed): segment s is
+    stream[seg_off[s]:seg_off[s + 1]], segment seg_idx[s] of image
+    seg_img[s]. Returns the int64 [n_segs, 2] status (bad flag, consumed
+    bits). CPU tensors: the plain version. CUDA tensors: K2, one launch for
+    the whole group."""
     units_h = units.cpu().numpy()
-    n_units, n_specs = units_h.shape[0], tables.shape[0]
-    for pl, sci, dci, aci, _h, _v, _j, _k, wrap, bw, bh in units_h.tolist():
-        if not (0 <= pl < len(planes) and 0 <= sci < 4 and wrap > 0
-                and 0 <= dci < n_specs and 0 <= aci < n_specs
-                and tuple(planes[pl].shape) == (bh, bw, 64)):
-            raise ValueError("decode_segments: unit layout does not match the planes")
+    if (units_h.ndim != 3 or len(planes) != units_h.shape[0]
+            or tuple(total_mcus.shape) != units_h.shape[:1]):
+        raise ValueError("decode_segments: units, total_mcus and planes disagree on the images")
+    n_img, n_units, n_specs = units_h.shape[0], units_h.shape[1], tables.shape[0]
+    for img_units, img_planes in zip(units_h.tolist(), planes):
+        for pl, sci, dci, aci, _h, _v, _j, _k, wrap, bw, bh in img_units:
+            if not (0 <= pl < len(img_planes) and 0 <= sci < 4 and wrap > 0
+                    and 0 <= dci < n_specs and 0 <= aci < n_specs
+                    and tuple(img_planes[pl].shape) == (bh, bw, 64)):
+                raise ValueError("decode_segments: unit layout does not match the planes")
+    seg_img_h = seg_img.cpu().numpy()
+    if seg_img_h.size and not (0 <= seg_img_h.min() and seg_img_h.max() < n_img):
+        raise ValueError("decode_segments: segment of no image")
     dev = stream.device
     if dev.type == "cpu":
-        return _decode_segments_plain(stream, seg_off, ri, total_mcus, units,
-                                      tables, planes)
+        return _decode_segments_plain(stream, seg_off, seg_img, seg_idx, ri,
+                                      total_mcus, units, tables, planes)
     if not stream.is_cuda:
         raise ValueError(f"decode_segments: no kernel for {dev}")
-    if len(planes) > 4 or n_units > 10 or n_specs > 8:
+    if n_units > 10 or n_specs > 8 or any(len(p) > 4 for p in planes):
         raise ValueError("decode_segments: more planes, units or tables than JPEG allows")
     for t, dtype in ((stream, torch.uint8), (seg_off, torch.int64),
-                     (units, torch.int32), (tables, torch.int32)):
+                     (seg_img, torch.int32), (seg_idx, torch.int32),
+                     (total_mcus, torch.int64), (units, torch.int32),
+                     (tables, torch.int32)):
         if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"decode_segments: expected contiguous {dtype} on {dev}")
     if tables.shape[1] != convert.TABLE_INTS:
         raise ValueError("decode_segments: bad Huffman table layout")
-    for p in planes:
-        if p.dtype != torch.int16 or not p.is_contiguous() or p.device != dev:
-            raise ValueError("decode_segments: planes must be contiguous int16 on the device")
+    for img_planes in planes:
+        for p in img_planes:
+            if p.dtype != torch.int16 or not p.is_contiguous() or p.device != dev:
+                raise ValueError("decode_segments: planes must be contiguous int16 on the device")
     n = seg_off.numel() - 1
     status = torch.empty((n, 2), dtype=torch.int64, device=dev)
-    pptrs = [_build.ptr(p) for p in planes] + [_build.ptr(None)] * (4 - len(planes))
-    _build.launch(
-        "jdtc_entropy_decode", _build.ptr(stream), _build.ptr(seg_off), n, ri,
-        total_mcus, _build.ptr(units), n_units, _build.ptr(tables), n_specs,
-        *pptrs, _build.ptr(status), _build.stream_of(status),
-    )
+    addresses = convert.plane_addresses(planes, dev)
+    if n:
+        _build.launch(
+            "jdtc_entropy_decode", _build.ptr(stream), _build.ptr(seg_off),
+            _build.ptr(seg_img), _build.ptr(seg_idx), n, ri,
+            _build.ptr(total_mcus), _build.ptr(units), n_units,
+            _build.ptr(tables), n_specs, _build.ptr(addresses),
+            _build.ptr(status), _build.stream_of(status),
+        )
     return status
+
+
+class ScanPack(NamedTuple):
+    """One image's scan, checked and unstuffed: its part of a K2 launch."""
+
+    key: tuple            # group key (convert.group_key)
+    ri: int
+    total_mcus: int
+    units: np.ndarray     # int32 [P, 11]
+    tables: np.ndarray    # int32 [n_specs, TABLE_INTS]
+    stream: np.ndarray    # uint8: the unstuffed segments + 8 zero bytes
+    seg_off: np.ndarray   # int64 [n_segs + 1]
+
+
+def prepare_scan(structure, scan) -> ScanPack:
+    """Unit layout, tables and group key of a sequential scan, then
+    pack_scan's guards and unstuffing."""
+    key, total_mcus, units, tabs = convert.group_key(structure.frame, scan)
+    ri, stream, seg_off = pack_scan(structure, scan, total_mcus, units.shape[0])
+    return ScanPack(key, ri, total_mcus, units, tabs, stream, seg_off)
+
+
+def host_args(packs):
+    """ScanPacks of one group (equal keys), one per image, as the host
+    arrays of decode_segments' arguments before `planes`: (stream, seg_off,
+    seg_img, seg_idx, ri, total_mcus, units, tables)."""
+    if any(p.key != packs[0].key for p in packs):
+        raise ValueError("host_args: scans of different groups")
+    counts = [p.seg_off.shape[0] - 1 for p in packs]
+    seg_off = np.zeros(sum(counts) + 1, dtype=np.int64)
+    at, byte0 = 0, 0
+    for p, c in zip(packs, counts):
+        seg_off[at + 1 : at + c + 1] = p.seg_off[1:] + byte0
+        at, byte0 = at + c, byte0 + int(p.seg_off[-1])
+    stream = np.concatenate([p.stream[: p.seg_off[-1]] for p in packs]
+                            + [np.zeros(8, dtype=np.uint8)])
+    seg_img = np.repeat(np.arange(len(packs), dtype=np.int32), counts)
+    seg_idx = np.concatenate([np.arange(c, dtype=np.int32) for c in counts])
+    total_mcus, units, tables = convert.group_tables(
+        [(p.total_mcus, p.units, p.tables) for p in packs])
+    return stream, seg_off, seg_img, seg_idx, packs[0].ri, total_mcus, units, tables
+
+
+def to_device(args, device):
+    """host_args' arrays as tensors on `device` (ri stays an int)."""
+    return tuple(torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) else a
+                 for a in args)
+
+
+def launch_args(packs, device):
+    """(decode_segments' arguments before `planes` on `device`, the host
+    seg_off that check_status reads) for ScanPacks of one group."""
+    args = host_args(packs)
+    return to_device(args, device), args[1]
 
 
 def decode_scan(structure, scan, planes) -> None:
     """One sequential scan -> `planes` (device tensors), raising on a bad
-    or truncated stream."""
-    dev = planes[0].device
-    tabs = convert.tables_to_device(structure.frame, scan, dev)
-    ri, stream, seg_off = pack_scan(structure, scan, tabs.total_mcus,
-                                    tabs.units.shape[0])
-    status = decode_segments(
-        torch.from_numpy(stream).to(dev), torch.from_numpy(seg_off).to(dev),
-        ri, tabs.total_mcus, tabs.units, tabs.huffman, planes,
-    )
-    check_status(status, seg_off)
+    or truncated stream: a group of one image."""
+    args, seg_off = launch_args([prepare_scan(structure, scan)], planes[0].device)
+    check_status(decode_segments(*args, [planes]), seg_off)
 
 
 def batchable(structure) -> bool:
@@ -269,6 +352,41 @@ def batchable(structure) -> bool:
         return False
     ri = scan.restart_interval or total_mcus
     return not _segments_too_long(ri, params.shape[0])
+
+
+def entropy_decode_batch(structures, cfg: DecodeConfig, planes):
+    """Batched serving path (counterpart of entropy_pallas.
+    entropy_decode_batch): the restart segments of many images decode in
+    one K2 launch per group of images that share (ri, P, unit schedule,
+    Huffman table content), with no cap on the segments per launch.
+    `planes` holds each structure's zeroed planes (a list of tensors per
+    structure, e.g. views into a stacked batch tensor); returns
+    [(planes, qts)] aligned with `structures`. Every stream must be a
+    single-scan sequential one that the backend takes (batchable); each
+    group's status is checked in group order, a bad code before
+    truncation."""
+    del cfg  # the device decode has no tunable; kept for the JAX signature
+    results = [None] * len(structures)
+    groups: dict = {}
+    for i, structure in enumerate(structures):
+        if (structure.frame.process == Encoding.PROGRESSIVE_DCT
+                or len(structure.scans) != 1):
+            raise JpegUnsupportedError(
+                "device batched decode handles single-scan sequential streams"
+            )
+        scan = structure.scans[0]
+        pack = prepare_scan(structure, scan)
+        results[i] = (planes[i], {tid: qt.values for tid, qt in scan.quant_tables.items()})
+        group = groups.setdefault(pack.key, ([], []))
+        group[0].append(pack)
+        group[1].append(planes[i])
+    launched = []
+    for packs, group_planes in groups.values():
+        args, seg_off = launch_args(packs, group_planes[0][0].device)
+        launched.append((decode_segments(*args, group_planes), seg_off))
+    for status, seg_off in launched:
+        check_status(status, seg_off)
+    return results
 
 
 def entropy_decode(structure, cfg: DecodeConfig, planes):

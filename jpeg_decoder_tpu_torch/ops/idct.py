@@ -1,7 +1,7 @@
-"""Dequant + dezigzag + EXACT 8x8 IDCT over blocks (counterpart of
-jpeg_decoder_tpu/ops/idct.py, EXACT contract only).
+"""Dequant + dezigzag + 8x8 IDCT over blocks (counterpart of
+jpeg_decoder_tpu/ops/idct.py), in both numeric contracts.
 
-The plain PyTorch functions here are device-agnostic and follow
+EXACT: the plain PyTorch functions here are device-agnostic and follow
 core/numerics._idct8_rows_exact / idct_2d_exact statement by statement:
 each C statement of the reference's fast_idct_new (dct.c:296-341) is a
 float64 expression of float32 values stored to float32, written here as
@@ -10,18 +10,28 @@ emulates the float64 with double-float pairs, ops/df32.py, only because
 TPUs lack float64; torch has it on every device.) PyTorch's eager
 elementwise kernels do one operation each, so nothing is contracted.
 
+FLOAT32: the whole transform as one [N, 64] @ [64, 64] float32 product with
+the matrix K of idct_matrix_zz (re-derived here in NumPy: the JAX module
+that holds it imports JAX), in idct_pallas's formula
+(ops/pallas_kernels.py _kernel): dequantize in float32, multiply by K,
+floor, then the output store. Within +-1 LSB of EXACT.
+
 `idct_plane` is the wrapper the decoder calls: for a CPU tensor it runs the
-plain version, for a CUDA tensor it launches kernel K0
-(csrc/idct_exact.cu), which fuses dequant, IDCT, output store and the
-block-to-plane scatter.
+plain version of the chosen contract, for a CUDA tensor it launches kernel
+K0 (csrc/idct_exact.cu, EXACT) or K1 (csrc/idct_float.cu, FLOAT32), each of
+which fuses dequant, IDCT, output store and the block-to-plane scatter.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
-from jpeg_decoder_tpu.core.types import INV_ZIGZAG
+from jpeg_decoder_tpu.core.types import INV_ZIGZAG, ZIGZAG
+from jpeg_decoder_tpu.utils.config import IdctPrecision
 
 from .. import _build
 
@@ -135,6 +145,126 @@ def idct_exact(coeffs_zz: torch.Tensor, qtable_natural,
     return _quantize_output(0.25 * cdu, bits12).reshape(-1, 64)
 
 
+# ---------------------------------------------------------------------------
+# FLOAT32 contract
+# ---------------------------------------------------------------------------
+
+
+def _idct8_f64(v: np.ndarray) -> np.ndarray:
+    """The butterfly with no intermediate rounding (NumPy float64), used only
+    to derive K (jpeg_decoder_tpu/ops/idct.py _idct8_f64, expression by
+    expression)."""
+    t0 = _C_SQRT2 * v[..., 0]
+    t1, t2, t3 = v[..., 4], v[..., 2], v[..., 6]
+    t4 = 0.5 * (v[..., 1] - v[..., 7])
+    t5 = _C_ISQRT2 * v[..., 3]
+    t6 = _C_ISQRT2 * v[..., 5]
+    t7 = 0.5 * (v[..., 1] + v[..., 7])
+    u0, u1 = 0.5 * (t0 + t1), 0.5 * (t0 - t1)
+    u2 = _C_ISQRT2 * (_C_COS6 * t2 - _C_SIN6 * t3)
+    u3 = _C_ISQRT2 * (_C_SIN6 * t2 + _C_COS6 * t3)
+    u4, u5 = 0.5 * (t4 + t6), 0.5 * (-t5 + t7)
+    u6, u7 = 0.5 * (t4 - t6), 0.5 * (t5 + t7)
+    w0, w1 = 0.5 * (u0 + u3), 0.5 * (u1 + u2)
+    w2, w3 = 0.5 * (u1 - u2), 0.5 * (u0 - u3)
+    w4 = _C_A * u4 - _C_B * u7
+    w5 = _C_C * u5 - _C_D * u6
+    w6 = _C_D * u5 + _C_C * u6
+    w7 = _C_B * u4 + _C_A * u7
+    return np.stack(
+        [
+            _C_OUT * (w0 + w7), _C_OUT * (w1 + w6),
+            _C_OUT * (w2 + w5), _C_OUT * (w3 + w4),
+            _C_OUT * (w3 - w4), _C_OUT * (w2 - w5),
+            _C_OUT * (w1 - w6), _C_OUT * (w0 - w7),
+        ],
+        axis=-1,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def idct_matrix_zz() -> np.ndarray:
+    """[64, 64] float32 K with pixels = dequantized zigzag coefficients @ K.
+
+    Row z is the 2-D IDCT response (with the row/column 1/sqrt(2) pre-scale
+    of dct.c:164-167 and the final 0.25 of dct.c:189) of the z-th zigzag
+    coefficient; columns are raster-order pixels. Derived by pushing the 64
+    unit blocks through the float64 butterfly, as the JAX package does."""
+    eye = np.zeros((64, 8, 8), dtype=np.float64)
+    for z in range(64):
+        nat = int(ZIGZAG[z])
+        eye[z, nat // 8, nat % 8] = 1.0
+    eye[:, 0, :] *= _C_ISQRT2
+    eye[:, :, 0] *= _C_ISQRT2
+    out = _idct8_f64(eye)  # row pass
+    out = np.swapaxes(out, 1, 2)
+    out = _idct8_f64(out)  # column pass
+    out = np.swapaxes(out, 1, 2)
+    out = (0.25 * out.reshape(64, 64)).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def idct_matrix_on(device: torch.device) -> torch.Tensor:
+    """K as a float32 [64, 64] tensor on `device` (one copy per device)."""
+    return torch.from_numpy(idct_matrix_zz().copy()).to(device)
+
+
+@contextlib.contextmanager
+def _true_float32_matmul():
+    """Pin float32 products to full float32 for the block: no TF32 (which
+    keeps 10 mantissa bits; the same loss on the TPU's bf16 passes gave
+    errors of up to 229 LSB, pallas_kernels.py:81-83). Restored after."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    prec = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _quantize_output_float(y: torch.Tensor, bits12: bool) -> torch.Tensor:
+    """The FLOAT32 contract's store of float32 `y` (jpeg_decoder_tpu/ops/
+    idct.py _quantize_output): floor, +128 and a clamp to [0, 255] for
+    8-bit; for 12-bit +2048, CLAMP_16, the int16 wrap through an int32
+    mask and trunc(v16 * float32(255/4096)). Every float op is float32, and
+    every float -> integer cast follows a clamp."""
+    base = torch.floor(y)
+    if not bits12:
+        return torch.clamp(base + 128.0, 0.0, 255.0).to(torch.uint8)
+    v = torch.clamp(base + 2048.0, 0.0, 65535.0).to(torch.int32)
+    v16 = (((v & 0xFFFF) ^ 0x8000) - 0x8000).to(F32)
+    resc = torch.trunc(v16 * (255.0 / 4096.0)).to(torch.int32)
+    return (resc & 0xFF).to(torch.uint8)
+
+
+def idct_float(coeffs_zz: torch.Tensor, qtable_natural,
+               bits12: bool = False) -> torch.Tensor:
+    """FLOAT32 path, plain PyTorch (the plain version of K1): [N, 64]
+    zigzag coefficients -> [N, 64] uint8 raster pixels.
+
+    x = float32(coeff) * float32(qt_zz) is exact for |coeff| <= 2^15 and
+    qt <= 255; y = x @ K in true float32; then the store."""
+    dev = coeffs_zz.device
+    if not isinstance(qtable_natural, torch.Tensor):
+        qtable_natural = torch.from_numpy(np.asarray(qtable_natural, dtype=np.int32))
+    zz = torch.as_tensor(ZIGZAG, dtype=torch.long, device=dev)
+    qt_zz = qtable_natural.to(device=dev)[zz].to(F32)
+    x = coeffs_zz.to(F32) * qt_zz
+    with _true_float32_matmul():
+        y = x @ idct_matrix_on(dev)
+    return _quantize_output_float(y, bits12)
+
+
+# ---------------------------------------------------------------------------
+# Block scatter and the dispatch
+# ---------------------------------------------------------------------------
+
+
 def blocks_to_plane(pixels: torch.Tensor, blocks_y: int, blocks_x: int,
                     tile: int = 8) -> torch.Tensor:
     """[by*bx, tile*tile] raster-order block pixels -> [by*tile, bx*tile]
@@ -146,16 +276,25 @@ def blocks_to_plane(pixels: torch.Tensor, blocks_y: int, blocks_x: int,
     )
 
 
+_PLAIN = {IdctPrecision.EXACT: idct_exact, IdctPrecision.FLOAT32: idct_float}
+_ENTRY = {IdctPrecision.EXACT: "jdtc_idct_exact",
+          IdctPrecision.FLOAT32: "jdtc_idct_float"}
+
+
 def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
-               bits12: bool = False) -> torch.Tensor:
-    """int16 [by, bx, 64] zigzag coefficient plane -> uint8 [by*8, bx*8]
-    pixel plane, EXACT. CPU tensor: the plain version. CUDA tensor: K0."""
-    by, bx, _ = coeff_plane.shape
+               bits12: bool = False,
+               precision: IdctPrecision = IdctPrecision.EXACT) -> torch.Tensor:
+    """int16 [..., by, bx, 64] zigzag coefficient planes -> uint8
+    [..., by*8, bx*8] pixel planes. Leading (batch) dimensions stack as
+    block rows: [B, by, bx, 64] is [B*by, bx, 64] to the kernel.
+
+    CPU tensor: the plain version of `precision`. CUDA tensor: K0 (EXACT)
+    or K1 (FLOAT32)."""
+    *lead, by, bx, _ = coeff_plane.shape
+    rows = int(np.prod(lead, dtype=np.int64)) * by
     if coeff_plane.device.type == "cpu":
-        return blocks_to_plane(
-            idct_exact(coeff_plane.reshape(-1, 64), qtable_natural, bits12),
-            by, bx,
-        )
+        pix = _PLAIN[precision](coeff_plane.reshape(-1, 64), qtable_natural, bits12)
+        return blocks_to_plane(pix, rows, bx).reshape(*lead, by * 8, bx * 8)
     if not coeff_plane.is_cuda:
         raise ValueError(f"idct_plane: no kernel for {coeff_plane.device}")
     if coeff_plane.dtype != torch.int16 or not coeff_plane.is_contiguous():
@@ -164,12 +303,15 @@ def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
             or not qtable_natural.is_contiguous()
             or qtable_natural.device != coeff_plane.device):
         raise ValueError("idct_plane: qtable must be contiguous int32 [64] on the same device")
-    out = torch.empty((by * 8, bx * 8), dtype=torch.uint8,
+    out = torch.empty((*lead, by * 8, bx * 8), dtype=torch.uint8,
                       device=coeff_plane.device)
-    if by * bx:
+    if rows * bx:
+        extra = ()
+        if precision == IdctPrecision.FLOAT32:
+            extra = (_build.ptr(idct_matrix_on(coeff_plane.device)),)
         _build.launch(
-            "jdtc_idct_exact", _build.ptr(coeff_plane),
-            _build.ptr(qtable_natural), by * bx, bx, int(bits12),
+            _ENTRY[precision], _build.ptr(coeff_plane),
+            _build.ptr(qtable_natural), *extra, rows * bx, bx, int(bits12),
             _build.ptr(out), _build.stream_of(out),
         )
     return out

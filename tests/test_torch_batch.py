@@ -1,0 +1,178 @@
+"""The port's batch serving path (jpeg_decoder_tpu_torch.BatchDecoder on
+device="cpu", i.e. the plain versions of every kernel) against
+jpeg_decoder_tpu.parallel.batch.BatchDecoder(cfg, mesh=None).
+
+The JAX side runs its NATIVE config: its PALLAS batch runs the lockstep
+kernel in interpret mode, which its own tests slow-mark, and its entropy
+backends are bitwise equal to each other. The port runs both its PALLAS
+(batched K2's plain version) and NATIVE configs.
+
+Tolerances: EXACT RGB bitwise. FLOAT32 RGB within 3 of the JAX package's:
+each pixel plane may differ by 1 (the +-1 LSB contract; the two products sum
+in other orders), and a chroma step of 1 moves R or B by up to 1.772, so a
+channel can move by 1 from luma and 2 from chroma. Within the port every
+batched RGB is bitwise equal to its single-image decode.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+import jpeg_decoder_tpu_torch as jtt
+from jpeg_decoder_tpu.io.parser import parse
+from jpeg_decoder_tpu.parallel import batch as jbatch
+from jpeg_decoder_tpu.utils.config import (
+    DecodeConfig,
+    EntropyBackend,
+    IdctPrecision,
+)
+from jpeg_decoder_tpu.utils.errors import JpegFormatError, JpegUnsupportedError
+from jpeg_decoder_tpu_torch.ops import entropy_cuda
+
+from . import corpus
+
+BACKENDS = [EntropyBackend.PALLAS, EntropyBackend.NATIVE]
+PRECISIONS = list(IdctPrecision)
+#: FLOAT32 RGB tolerance against the JAX package (module docstring)
+FLOAT32_RGB_TOL = 3
+
+
+def _rgb_stream(seed, h, w, subsampling=2, ri_blocks=4):
+    arr = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return corpus.make_jpeg(arr, "RGB", quality=85, subsampling=subsampling,
+                            restart_marker_blocks=ri_blocks)
+
+
+#: Six same-geometry 48x64 4:2:0 requests, eight restart segments each.
+DATAS = [_rgb_stream(s, 48, 64) for s in range(6)]
+
+
+def _port(backend, precision):
+    return jtt.BatchDecoder(
+        DecodeConfig(entropy_backend=backend, idct_precision=precision),
+        device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax(precision):
+    return jbatch.BatchDecoder(DecodeConfig(idct_precision=precision), mesh=None)
+
+
+def _assert_rgb(got, want, precision):
+    got = np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    if precision == IdctPrecision.EXACT:
+        np.testing.assert_array_equal(got, want)
+    else:
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert d.max() <= FLOAT32_RGB_TOL
+
+
+def _assert_matches_single(rgbs, datas, cfg):
+    for rgb, d in zip(rgbs, datas):
+        np.testing.assert_array_equal(rgb, jtt.decode(d, cfg, device="cpu").rgb)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_batch(precision):
+    return _jax(precision).decode_batch(DATAS)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+def test_decode_batch_matches_jax(backend, precision):
+    dec = _port(backend, precision)
+    got = dec.decode_batch(DATAS)
+    assert got.shape == (6, 48, 64, 3)
+    _assert_rgb(got, _jax_batch(precision), precision)
+    _assert_matches_single(got, DATAS, dec.cfg)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+def test_decode_stream_matches_jax(backend, precision):
+    """Batches of 4 and 2, the host stage of the second overlapping the
+    device stage of the first; the JAX stream of the same batches."""
+    got = list(_port(backend, precision).decode_stream(iter(DATAS), batch_size=4))
+    assert [g.shape[0] for g in got] == [4, 2]
+    want = np.concatenate(list(_jax(precision).decode_stream(DATAS, batch_size=4)))
+    _assert_rgb(np.concatenate(got), want, precision)
+    np.testing.assert_array_equal(np.concatenate(got),
+                                  _port(backend, precision).decode_batch(DATAS))
+
+
+#: A mixed request list: two geometries, a second restart interval, a
+#: restart-free gray request whose width is not a multiple of 8.
+MANY = [DATAS[0], _rgb_stream(10, 32, 32), DATAS[1],
+        _rgb_stream(11, 32, 32, ri_blocks=2),
+        corpus.make_jpeg(np.random.default_rng(12).integers(0, 256, (21, 27), dtype=np.uint8),
+                         "L", quality=85),
+        DATAS[2]]
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+def test_decode_many_matches_jax(backend, precision):
+    dec = _port(backend, precision)
+    got = dec.decode_many(MANY)
+    want = _jax(precision).decode_many(MANY)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        _assert_rgb(g, w, precision)
+    _assert_matches_single(got, MANY, dec.cfg)
+
+
+def _mixed_fallback_datas():
+    """tests/test_entropy_pallas.py test_batchdecoder_pallas_mixed_fallback:
+    128x1024 4:2:0 (512 MCUs); the middle member is restart-free, over the
+    backend's 256-MCU single-segment bound."""
+    return [_rgb_stream(20, 128, 1024, ri_blocks=2),
+            _rgb_stream(21, 128, 1024, ri_blocks=0),
+            _rgb_stream(22, 128, 1024, ri_blocks=2)]
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+def test_pallas_mixed_fallback_matches_jax(precision, monkeypatch):
+    """The batchable members decode in one K2 launch; the restart-free one
+    takes the native host decode into its slice of the same batch."""
+    datas = _mixed_fallback_datas()
+    assert [entropy_cuda.batchable(parse(d)) for d in datas] == [True, False, True]
+    launches = []
+    orig = entropy_cuda.decode_segments
+
+    def spy(*args):
+        launches.append(len(args[-1]))  # images in the launch
+        return orig(*args)
+
+    monkeypatch.setattr(entropy_cuda, "decode_segments", spy)
+    got = _port(EntropyBackend.PALLAS, precision).decode_batch(datas)
+    assert launches == [2]
+    _assert_rgb(got, _jax(precision).decode_batch(datas), precision)
+    np.testing.assert_array_equal(
+        got, _port(EntropyBackend.NATIVE, precision).decode_batch(datas))
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+def test_mixed_geometry_raises_format_error(backend, precision):
+    datas = [DATAS[0], MANY[1]]
+    with pytest.raises(JpegFormatError):
+        _jax(precision).decode_batch(datas)
+    with pytest.raises(JpegFormatError):
+        _port(backend, precision).decode_batch(datas)
+
+
+def test_empty_requests():
+    dec = _port(EntropyBackend.PALLAS, IdctPrecision.EXACT)
+    assert dec.decode_batch([]).shape == (0, 0, 0, 3)
+    assert list(dec.decode_stream([])) == []
+    assert dec.decode_many([]) == []
+
+
+def test_module_decode_batch_and_config_checks():
+    got = jtt.decode_batch(DATAS[:2], DecodeConfig(), device="cpu")
+    np.testing.assert_array_equal(got, _jax_batch(IdctPrecision.EXACT)[:2])
+    with pytest.raises(JpegUnsupportedError):
+        jtt.BatchDecoder(DecodeConfig(scale=4), device="cpu")

@@ -88,3 +88,29 @@ def test_planes_to_rgb_matches_jax_stage(h, w, factors, quirks):
                                factors, quirks)
     np.testing.assert_array_equal(got.numpy(), _jax_stage_rgb(planes, h, w, factors, quirks))
 
+
+@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
+@pytest.mark.parametrize(
+    "h,w,factors",
+    [(37, 45, ((1, 1),)), (37, 45, ((2, 2), (1, 1), (1, 1))),
+     (24, 40, ((1, 1), (1, 1), (1, 1)))],
+    ids=["gray_shear", "420", "444"],
+)
+def test_planes_to_rgb_batch_matches_jax_per_image(h, w, factors, quirks):
+    """A leading batch dimension: [B, rows, stride] planes -> [B, h, w, 3],
+    each image as the JAX stage makes it alone (jax.vmap's counterpart)."""
+    batch = [_pixel_planes(h, w, factors, 100 + i) for i in range(3)]
+    stacked = [torch.from_numpy(np.stack([b[c] for b in batch]))
+               for c in range(len(factors))]
+    got = tcolor.planes_to_rgb(stacked, h, w, factors, quirks)
+    assert got.shape == (3, h, w, 3)
+    for i, planes in enumerate(batch):
+        np.testing.assert_array_equal(got[i].numpy(),
+                                      _jax_stage_rgb(planes, h, w, factors, quirks))
+
+
+def test_planes_to_rgb_rejects_mismatched_batches():
+    planes = [torch.from_numpy(p) for p in _pixel_planes(16, 16, ((1, 1),) * 3, 1)]
+    with pytest.raises(ValueError):
+        tcolor.planes_to_rgb([planes[0][None], planes[1], planes[2]], 16, 16,
+                             ((1, 1),) * 3, Quirks.REFERENCE)

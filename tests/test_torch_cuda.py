@@ -1,5 +1,8 @@
-"""The port's CUDA kernels (K0, K2, K3) against their plain PyTorch versions,
-and the decode path on the card against the same path on the CPU: bitwise.
+"""The port's CUDA kernels (K0, K1, K2, K3) against their plain PyTorch
+versions, and the decode and batch paths on the card against the same paths
+on the CPU. Bitwise, except FLOAT32 (K1): within 1 of its plain version on
+at most 1e-3 of the pixels (the two sum the 64 products in other orders),
+and so within 3 in RGB (a chroma step of 1 moves R or B by up to 1.772).
 
 This file imports neither JAX nor Pillow, so that it runs on a machine with
 a card and without them:
@@ -20,6 +23,7 @@ from chip_smoke import make_jpeg
 from jpeg_decoder_tpu_torch import (
     DecodeConfig,
     EntropyBackend,
+    IdctPrecision,
     JpegError,
     Quirks,
     _build,
@@ -37,6 +41,8 @@ F444 = ((1, 1), (1, 1), (1, 1))
 GRAY = ((1, 1),)
 QUIRKS = [Quirks.REFERENCE, Quirks.CORRECT]
 PALLAS = DecodeConfig(entropy_backend=EntropyBackend.PALLAS)
+BACKENDS = [EntropyBackend.PALLAS, EntropyBackend.NATIVE]
+PRECISIONS = list(IdctPrecision)
 
 #: (w, h, sampling, restart interval, seed): a DRI 4:2:0 stream, one
 #: segment per MCU, and a restart-free gray stream whose width is not a
@@ -63,22 +69,70 @@ def _stream(name):
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_k2_matches_plain(cuda_device, name):
     s = parse(_stream(name))
-    scan = s.scans[0]
-    tabs = convert.tables_to_device(s.frame, scan, cuda_device)
-    ri, stream, seg_off = entropy_cuda.pack_scan(
-        s, scan, tabs.total_mcus, tabs.units.shape[0])
-    args = (torch.from_numpy(stream).to(cuda_device),
-            torch.from_numpy(seg_off).to(cuda_device),
-            ri, tabs.total_mcus, tabs.units, tabs.huffman)
+    args, seg_off = entropy_cuda.launch_args(
+        [entropy_cuda.prepare_scan(s, s.scans[0])], cuda_device)
     got = convert.zero_planes(s.frame, cuda_device)
     want = convert.zero_planes(s.frame, cuda_device)
-    st_k = entropy_cuda.decode_segments(*args, got)
-    st_p = entropy_cuda._decode_segments_plain(*args, want)
+    st_k = entropy_cuda.decode_segments(*args, [got])
+    st_p = entropy_cuda._decode_segments_plain(*args, [want])
     torch.cuda.synchronize()
     assert torch.equal(st_k.cpu(), st_p.cpu())
     entropy_cuda.check_status(st_k, seg_off)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_k2_batch_matches_plain_and_single_launches(cuda_device):
+    """Forty images (more than one 32-thread block of segments) of two
+    geometries in one launch: against the plain version on the same
+    inputs, and against forty single-image launches."""
+    datas = [make_jpeg(32, 32, F420, 1, 100 + i) for i in range(20)]
+    datas += [make_jpeg(48, 16, F420, 1, 200 + i) for i in range(20)]
+    structures = [parse(d) for d in datas]
+    packs = [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures]
+    args, seg_off = entropy_cuda.launch_args(packs, cuda_device)
+    got = [convert.zero_planes(s.frame, cuda_device) for s in structures]
+    want = [convert.zero_planes(s.frame, cuda_device) for s in structures]
+    _build.LAUNCHES.clear()
+    st_k = entropy_cuda.decode_segments(*args, got)
+    assert _build.LAUNCHES["jdtc_entropy_decode"] == 1
+    st_p = entropy_cuda._decode_segments_plain(*args, want)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k.cpu(), st_p.cpu())
+    entropy_cuda.check_status(st_k, seg_off)
+    for s, g, w in zip(structures, got, want):
+        single = convert.zero_planes(s.frame, cuda_device)
+        entropy_cuda.decode_scan(s, s.scans[0], single)
+        for a, b, c in zip(g, w, single):
+            assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), c.cpu())
+
+
+def _batch_outcome(structures, device):
+    try:
+        results = entropy_cuda.entropy_decode_batch(
+            structures, PALLAS, [convert.zero_planes(s.frame, device) for s in structures])
+    except JpegError as e:
+        return type(e)
+    return [[p.cpu() for p in planes] for planes, _ in results]
+
+
+@pytest.mark.parametrize("damage", ["truncate", "corrupt8", "corrupt40"])
+def test_k2_batch_with_damaged_member_matches_plain(cuda_device, damage):
+    """A damaged member among good ones raises the same error class on the
+    card as on the CPU, or the batch decodes to the same planes."""
+    structures = [parse(_stream("420_ri4")), parse(_damaged(damage)),
+                  parse(_stream("gray_no_ri"))]
+    got = _batch_outcome(structures, cuda_device)
+    want = _batch_outcome(structures, "cpu")
+    if isinstance(want, list):
+        assert isinstance(got, list)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert torch.equal(a, b)
+    else:
+        assert got is want
+    if damage == "truncate":
+        assert want is jtt.JpegTruncatedError
 
 
 def _decode_planes_or_error(s, device):
@@ -138,19 +192,52 @@ def test_k0_matches_plain(cuda_device, bits12):
     assert torch.equal(got.cpu(), want.cpu())
 
 
-@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
-@pytest.mark.parametrize("factors", [GRAY, F420, F444], ids=["gray", "420", "444"])
-def test_k3_matches_plain(cuda_device, factors, quirks):
-    h, w = 67, 45
-    rng = np.random.default_rng(3)
+def _random_blocks(seed, shape, lo=-1024, hi=1024):
+    """Uniform coefficients with a random zero suffix per block (the JAX
+    tests' _random_blocks)."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(lo, hi, (*shape, 64))
+    cut = rng.integers(1, 64, shape)
+    return torch.from_numpy(
+        np.where(np.arange(64) < cut[..., None], blocks, 0).astype(np.int16))
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("shape", [(40, 30), (3, 17, 11)], ids=["plane", "batch"])
+def test_k1_matches_plain(cuda_device, shape, bits12):
+    plane = _random_blocks(7, shape).to(cuda_device)
+    qt = convert.quant_table_to_device(
+        np.random.default_rng(8).integers(1, 256, 64), cuda_device)
+    _build.LAUNCHES.clear()
+    got = tidct.idct_plane(plane, qt, bits12, IdctPrecision.FLOAT32)
+    assert _build.LAUNCHES == {"jdtc_idct_float": 1}
+    want = tidct.blocks_to_plane(
+        tidct.idct_float(plane.reshape(-1, 64), qt, bits12),
+        int(np.prod(shape[:-1])), shape[-1]).reshape(got.shape)
+    torch.cuda.synchronize()
+    d = (got.cpu().to(torch.int32) - want.cpu().to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+    assert float((d != 0).float().mean()) <= 1e-3
+
+
+def _pixel_planes(factors, h, w, seed, lead=()):
+    rng = np.random.default_rng(seed)
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
     mcus_x, mcus_y = -(-w // (8 * mh)), -(-h // (8 * mv))
-    planes = [
-        torch.from_numpy(rng.integers(0, 256, (mcus_y * fv * 8, mcus_x * fh * 8),
-                                      dtype=np.uint8)).to(cuda_device)
+    return [
+        torch.from_numpy(rng.integers(0, 256, (*lead, mcus_y * fv * 8, mcus_x * fh * 8),
+                                      dtype=np.uint8))
         for fh, fv in factors
     ]
+
+
+@pytest.mark.parametrize("lead", [(), (5,)], ids=["image", "batch"])
+@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
+@pytest.mark.parametrize("factors", [GRAY, F420, F444], ids=["gray", "420", "444"])
+def test_k3_matches_plain(cuda_device, factors, quirks, lead):
+    h, w = 67, 45
+    planes = [p.to(cuda_device) for p in _pixel_planes(factors, h, w, 3, lead)]
     got = tcolor.planes_to_rgb(planes, h, w, factors, quirks)
     want = tcolor._planes_to_rgb_plain(planes, h, w, factors, quirks)
     torch.cuda.synchronize()
@@ -175,3 +262,61 @@ def test_decode_on_cuda_matches_cpu(cuda_device, name, backend, quirks):
     if backend == EntropyBackend.PALLAS:
         expected.add("jdtc_entropy_decode")
     assert set(launches) == expected
+
+
+def _assert_float32_rgb(got, want):
+    d = np.abs(np.asarray(got).astype(np.int32) - np.asarray(want).astype(np.int32))
+    assert d.max() <= 3
+
+
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+def test_float32_decode_on_cuda_matches_cpu(cuda_device, backend):
+    data = _stream("420_ri4")
+    cfg = DecodeConfig(entropy_backend=backend, idct_precision=IdctPrecision.FLOAT32)
+    _build.LAUNCHES.clear()
+    got = jtt.JpegDecoder(cfg, device=cuda_device).decode(data)
+    launches = dict(_build.LAUNCHES)
+    want = jtt.decode(data, cfg, device="cpu")
+    for a, b in zip(got.planes, want.planes):
+        assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+    _assert_float32_rgb(got.rgb, want.rgb)
+    # the colour stage of the card's own planes, on the CPU
+    f = got.frame
+    np.testing.assert_array_equal(got.rgb, tcolor.planes_to_rgb(
+        [torch.from_numpy(p) for p in got.planes], f.height, f.width, F420,
+        Quirks.REFERENCE).numpy())
+    assert launches["jdtc_idct_float"] == 3 and "jdtc_idct_exact" not in launches
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+def test_batch_decoder_on_cuda_matches_cpu(cuda_device, backend, precision):
+    """decode_batch, decode_stream and decode_many on the card against the
+    same calls on the CPU; one K2 launch for the batch, one IDCT launch per
+    component and one K3 launch."""
+    cfg = DecodeConfig(entropy_backend=backend, idct_precision=precision)
+    datas = [make_jpeg(64, 48, F420, 4, 300 + i) for i in range(6)]
+    many = [datas[0], _stream("gray_no_ri"), datas[1], _stream("444_ri1")]
+    card = jtt.BatchDecoder(cfg, device=cuda_device)
+    cpu = jtt.BatchDecoder(cfg, device="cpu")
+    _build.LAUNCHES.clear()
+    got = card.decode_batch(datas)
+    launches = dict(_build.LAUNCHES)
+    idct = "jdtc_idct_exact" if precision == IdctPrecision.EXACT else "jdtc_idct_float"
+    expected = {idct: 3, "jdtc_color": 1}
+    if backend == EntropyBackend.PALLAS:
+        expected["jdtc_entropy_decode"] = 1
+    assert launches == expected
+    pairs = [(got, cpu.decode_batch(datas)),
+             (np.concatenate(list(card.decode_stream(datas, batch_size=4))),
+              np.concatenate(list(cpu.decode_stream(datas, batch_size=4))))]
+    pairs += list(zip(card.decode_many(many), cpu.decode_many(many)))
+    for g, w in pairs:
+        assert g.shape == w.shape
+        if precision == IdctPrecision.EXACT:
+            np.testing.assert_array_equal(g, w)
+        else:
+            _assert_float32_rgb(g, w)
+    # within the card, a batch gives each image its single-image decode
+    for rgb, d in zip(got, datas):
+        np.testing.assert_array_equal(rgb, jtt.decode(d, cfg, device=cuda_device).rgb)

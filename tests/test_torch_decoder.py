@@ -1,9 +1,12 @@
 """The port's decode path end to end on the CPU (jpeg_decoder_tpu_torch.decode
 with device="cpu", i.e. the plain versions of every kernel) against
-jpeg_decoder_tpu.decode: RGB and pixel planes bitwise equal. The JAX side
-runs its NATIVE config (its PALLAS config would run the lockstep kernel in
-interpret mode, which its own tests slow-mark; its entropy backends are
-bitwise equal to each other)."""
+jpeg_decoder_tpu.decode. EXACT: RGB and pixel planes bitwise equal. FLOAT32:
+pixel planes within +-1 of the JAX package's FLOAT32 planes and of EXACT
+(the JAX contract; the products sum in other orders), and RGB bitwise equal
+to the colour stage applied to the returned planes. The JAX side runs its
+NATIVE config (its PALLAS config would run the lockstep kernel in interpret
+mode, which its own tests slow-mark; its entropy backends are bitwise equal
+to each other)."""
 
 import subprocess
 import sys
@@ -128,14 +131,42 @@ def test_host_decode_pallas_planes_on_device():
         np.testing.assert_array_equal(a.numpy(), b)
 
 
+def _assert_within_1(got_planes, want_planes):
+    assert len(got_planes) == len(want_planes)
+    for a, b in zip(got_planes, want_planes):
+        assert a.shape == b.shape
+        assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+def _colour_of(img, quirks=Quirks.REFERENCE):
+    from jpeg_decoder_tpu_torch.ops import color as tcolor
+
+    f = img.frame
+    return tcolor.planes_to_rgb(
+        [torch.from_numpy(p) for p in img.planes], f.height, f.width,
+        tuple((c.hsf, c.vsf) for c in f.components), quirks).numpy()
+
+
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_float32_decode_matches_jax(name, backend):
+    data = CASES[name]
+    cfg = DecodeConfig(entropy_backend=backend, idct_precision=IdctPrecision.FLOAT32)
+    got = jtt.decode(data, cfg, device="cpu")
+    want = jt.decode(data, DecodeConfig(idct_precision=IdctPrecision.FLOAT32))
+    _assert_within_1(got.planes, want.planes)
+    exact = jtt.decode(data, DecodeConfig(entropy_backend=backend), device="cpu")
+    _assert_within_1(got.planes, exact.planes)
+    np.testing.assert_array_equal(got.rgb, _colour_of(got))
+
+
 @pytest.mark.parametrize(
     "cfg",
-    [DecodeConfig(idct_precision=IdctPrecision.FLOAT32),
-     DecodeConfig(upsample="fancy"),
+    [DecodeConfig(upsample="fancy"),
      DecodeConfig(scale=4),
      DecodeConfig(use_device=False),
      DecodeConfig(entropy_backend=EntropyBackend.DEVICE)],
-    ids=["float32", "fancy", "scale4", "host_pixels", "device_entropy"],
+    ids=["fancy", "scale4", "host_pixels", "device_entropy"],
 )
 def test_outside_the_slice_raises(cfg):
     with pytest.raises(JpegUnsupportedError):
@@ -159,9 +190,10 @@ def test_cuda_without_a_card_raises():
 
 
 def test_port_never_imports_jax():
-    """Importing the port (its shared host layers included) and one PALLAS
-    decode leave JAX unloaded (in a subprocess: this test process imported
-    JAX in conftest)."""
+    """Importing the port (its shared host layers included), one PALLAS
+    decode, one FLOAT32 decode and one BatchDecoder PALLAS batch leave JAX
+    unloaded (in a subprocess: this test process imported JAX in
+    conftest)."""
     code = (
         "import sys\n"
         "import jpeg_decoder_tpu_torch as jtt\n"
@@ -171,6 +203,10 @@ def test_port_never_imports_jax():
         "cfg = jtt.DecodeConfig(entropy_backend=jtt.EntropyBackend.PALLAS)\n"
         "img = jtt.decode(data, cfg, device='cpu')\n"
         "assert img.rgb.shape == (64, 64, 3)\n"
+        "f32 = jtt.DecodeConfig(idct_precision=jtt.IdctPrecision.FLOAT32)\n"
+        "assert jtt.decode(data, f32, device='cpu').rgb.shape == (64, 64, 3)\n"
+        "rgb = jtt.BatchDecoder(cfg, device='cpu').decode_batch([data, data])\n"
+        "assert rgb.shape == (2, 64, 64, 3)\n"
         "print('jax' in sys.modules, any(m.startswith('jax.') for m in sys.modules),\n"
         "      shared.jax_free())\n"
     )

@@ -221,3 +221,113 @@ def test_damaged_outcomes_match_pallas_interpret(damage):
     assert isinstance(want, list) and isinstance(got, list)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The batched launch (entropy_decode_batch): one K2 launch per group
+# ---------------------------------------------------------------------------
+
+
+def _rgb_stream(seed, h, w, subsampling, ri_blocks):
+    arr = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return corpus.make_jpeg(arr, "RGB", quality=85, subsampling=subsampling,
+                            restart_marker_blocks=ri_blocks)
+
+
+def _batch_planes(structures, device="cpu"):
+    return [convert.zero_planes(s.frame, device) for s in structures]
+
+
+def _count_launches(monkeypatch):
+    calls = []
+    orig = entropy_cuda.decode_segments
+
+    def spy(*args):
+        calls.append(args[2].numel())  # segments of the launch
+        return orig(*args)
+
+    monkeypatch.setattr(entropy_cuda, "decode_segments", spy)
+    return calls
+
+
+def test_batch_matches_oracle_two_groups(monkeypatch):
+    """Segments of several images share one launch per group: (ri, P, unit
+    schedule, tables) -- other geometries in one group, another restart
+    interval or sampling in another (tests/test_entropy_pallas.py
+    test_pallas_batched_multi_image)."""
+    datas = [_rgb_stream(s, 48, 64, 2, 4) for s in range(3)]
+    datas.append(_rgb_stream(3, 32, 96, 2, 4))   # same group, other geometry
+    datas.append(_rgb_stream(4, 24, 40, 0, 3))   # second group (4:4:4)
+    datas.append(_rgb_stream(5, 40, 24, 0, 3))
+    structures = [parse(d) for d in datas]
+    calls = _count_launches(monkeypatch)
+    results = entropy_cuda.entropy_decode_batch(structures, CFG, _batch_planes(structures))
+    assert len(calls) == 2
+    assert sum(calls) == sum(s.scans[0].span.num_segments for s in structures)
+    for d, s, (planes, qts) in zip(datas, structures, results):
+        _, want = _oracle_planes(d)
+        assert sorted(qts) == sorted(s.scans[0].quant_tables)
+        for ci in range(s.frame.ncs):
+            np.testing.assert_array_equal(planes[ci].numpy(), want.plane(ci))
+
+
+def test_batch_of_more_than_32_images_matches_single_decodes(monkeypatch):
+    """Forty gray 16x16 streams (four one-MCU segments each): 160 segments
+    of 40 images in one launch, each image's planes those of its own
+    single-image decode."""
+    rng = np.random.default_rng(40)
+    datas = [corpus.make_jpeg(rng.integers(0, 256, (16, 16), dtype=np.uint8), "L",
+                              quality=85, restart_marker_blocks=1) for _ in range(40)]
+    structures = [parse(d) for d in datas]
+    calls = _count_launches(monkeypatch)
+    results = entropy_cuda.entropy_decode_batch(structures, CFG, _batch_planes(structures))
+    assert calls == [160]
+    for s, (planes, _qts) in zip(structures, results):
+        np.testing.assert_array_equal(planes[0].numpy(), _port_planes(s)[0])
+
+
+@pytest.mark.parametrize(
+    "members,error",
+    [(["good", "ff"], JpegEntropyError),
+     (["ff_cut", "good"], JpegEntropyError),
+     (["truncate", "good"], JpegTruncatedError),
+     (["truncate", "ff"], JpegTruncatedError),
+     (["ff", "truncate"], JpegEntropyError)],
+    ids=["bad_code", "bad_code_and_cut", "truncated", "first_group_first",
+         "bad_code_group_first"],
+)
+def test_batch_damaged_members_raise_the_jax_class(members, error):
+    """A damaged member raises its class from the batch, each group's
+    status read in group order, a bad code before truncation within a
+    group (entropy_pallas._run_lane_jobs)."""
+    datas = [corpus.dri_corpus()[0][1] if m == "good" else _damaged(m) for m in members]
+    structures = [parse(d) for d in datas]
+    assert all(entropy_cuda.batchable(s) for s in structures)
+    with pytest.raises(JpegError) as ei:
+        entropy_cuda.entropy_decode_batch(structures, CFG, _batch_planes(structures))
+    assert ei.type is error
+
+
+@pytest.mark.parametrize("which", ["progressive", "large_restart_free"])
+def test_batch_rejects_what_the_backend_does_not_take(which):
+    data = (corpus.progressive_corpus()[0][1] if which == "progressive"
+            else _large_restart_free())
+    structures = [parse(corpus.dri_corpus()[0][1]), parse(data)]
+    with pytest.raises(JpegUnsupportedError):
+        entropy_cuda.entropy_decode_batch(structures, CFG, _batch_planes(structures))
+
+
+def test_decode_segments_rejects_a_segment_of_no_image():
+    s = parse(corpus.dri_corpus()[0][1])
+    args, _ = entropy_cuda.launch_args([entropy_cuda.prepare_scan(s, s.scans[0])], "cpu")
+    args[2][-1] = 1  # seg_img: an image the launch does not have
+    with pytest.raises(ValueError):
+        entropy_cuda.decode_segments(*args, [convert.zero_planes(s.frame, "cpu")])
+
+
+def test_launch_args_reject_scans_of_two_groups():
+    packs = [entropy_cuda.prepare_scan(s, s.scans[0])
+             for s in (parse(corpus.dri_corpus()[0][1]), parse(corpus.dri_corpus()[1][1]))]
+    assert packs[0].key != packs[1].key
+    with pytest.raises(ValueError):
+        entropy_cuda.launch_args(packs, "cpu")

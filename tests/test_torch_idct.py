@@ -1,7 +1,16 @@
-"""The port's EXACT IDCT (jpeg_decoder_tpu_torch/ops/idct.py) against the
-JAX package: bitwise (tolerance 0, EXACT is a bit-exact contract), on the
-same numpy inputs, 8- and 12-bit, including extreme coefficients and
-quantization tables up to 255."""
+"""The port's IDCT (jpeg_decoder_tpu_torch/ops/idct.py) against the JAX
+package, on the same numpy inputs.
+
+EXACT: bitwise (tolerance 0, EXACT is a bit-exact contract), 8- and 12-bit,
+including extreme coefficients and quantization tables up to 255.
+FLOAT32: the JAX contract, +-1 LSB (utils/config.py IdctPrecision). The
+port's plain K1 (x @ K after a float32 dequant, as idct_pallas) and the
+JAX package's idct_matmul (x @ diag(qt)K) and idct_pallas sum in other
+orders, so a floor can flip: at most 1e-3 of the pixels may differ, by 1.
+"""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -9,8 +18,15 @@ import torch
 import jax.numpy as jnp
 
 from jpeg_decoder_tpu.core import numerics
+from jpeg_decoder_tpu.core.types import INV_ZIGZAG, ZIGZAG, standard_luminance_qtable
 from jpeg_decoder_tpu.ops import idct as jidct
+from jpeg_decoder_tpu.ops import pallas_kernels
+from jpeg_decoder_tpu.utils.config import IdctPrecision
 from jpeg_decoder_tpu_torch.ops import idct as tidct
+
+CSRC = Path(tidct.__file__).resolve().parent.parent / "csrc"
+#: FLOAT32 tolerance: |diff| <= 1 on at most this share of the pixels
+FLOAT32_SHARE = 1e-3
 
 
 
@@ -72,3 +88,101 @@ def test_idct_plane_on_cpu_is_the_plain_version():
     assert got.shape == (48, 32) and got.dtype == torch.uint8
     assert torch.equal(got, want)
 
+
+def _random_blocks(seed, n, lo=-1024, hi=1024):
+    """tests/test_device_ops.py _random_blocks: uniform coefficients with a
+    random zero suffix per block."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(lo, hi, (n, 64)).astype(np.int32)
+    cut = rng.integers(1, 64, n)
+    return np.where(np.arange(64)[None, :] < cut[:, None], blocks, 0).astype(np.int16)
+
+
+def _assert_float32_close(got, want):
+    d = np.abs(got.astype(np.int32) - np.asarray(want).astype(np.int32))
+    assert d.max() <= 1
+    assert (d != 0).mean() <= FLOAT32_SHARE
+
+
+def test_idct_matrix_zz_matches_jax():
+    np.testing.assert_array_equal(tidct.idct_matrix_zz(), jidct.idct_matrix_zz())
+
+
+def test_idct_float_matches_idct_pallas_interpret():
+    """The plain K1 against the TPU kernel itself, in interpret mode, on an
+    odd block count (test_device_ops.py TestPallasIdct)."""
+    qt = standard_luminance_qtable()
+    blocks = _random_blocks(1, 1111)
+    want = pallas_kernels.idct_pallas(jnp.asarray(blocks.astype(np.int32)), qt,
+                                      interpret=True)
+    got = tidct.idct_float(torch.from_numpy(blocks), qt).numpy()
+    _assert_float32_close(got, want)
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_idct_float_matches_idct_matmul(seed, bits12):
+    coeffs, qt = _inputs(seed)
+    if not bits12:  # 8-bit streams carry coefficients of at most 11 bits
+        coeffs = np.clip(coeffs, -2048, 2047)
+    got = tidct.idct_float(torch.from_numpy(coeffs), qt, bits12).numpy()
+    want = jidct.idct_matmul(jnp.asarray(coeffs.astype(np.int32)), qt, bits12)
+    _assert_float32_close(got, want)
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+def test_idct_float_within_1_of_exact(bits12):
+    qt = standard_luminance_qtable()
+    blocks = torch.from_numpy(_random_blocks(2, 2048))
+    got = tidct.idct_float(blocks, qt, bits12).numpy()
+    _assert_float32_close(got, tidct.idct_exact(blocks, qt, bits12).numpy())
+
+
+def test_idct_float_pins_true_float32_and_restores():
+    """The product runs with TF32 off and float32 precision "highest"; the
+    caller's settings come back afterwards."""
+    seen = []
+    orig = tidct.idct_matrix_on
+
+    def spy(device):  # called inside the pinned block, for the product
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.get_float32_matmul_precision()))
+        return orig(device)
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    tidct.idct_matrix_on = spy
+    try:
+        tidct.idct_float(torch.from_numpy(_random_blocks(3, 4)),
+                         standard_luminance_qtable())
+        after = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.get_float32_matmul_precision())
+    finally:
+        tidct.idct_matrix_on = orig
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    assert seen == [(False, "highest")]
+    assert after == (True, "high")
+
+
+@pytest.mark.parametrize("precision", list(IdctPrecision), ids=lambda p: p.value)
+def test_idct_plane_batch_rows_match_single_planes(precision):
+    """Stacked [B, by, bx, 64] planes give each image's plane unchanged."""
+    coeffs, qt = _inputs(5, n=3 * 4 * 5)
+    stack = torch.from_numpy(np.clip(coeffs, -2048, 2047).reshape(3, 4, 5, 64))
+    qt_t = torch.from_numpy(qt.astype(np.int32))
+    got = tidct.idct_plane(stack, qt_t, False, precision)
+    assert got.shape == (3, 32, 40) and got.dtype == torch.uint8
+    for i in range(3):
+        assert torch.equal(got[i], tidct.idct_plane(stack[i], qt_t, False, precision))
+
+
+def _cuda_table(name: str, var: str) -> list[int]:
+    body = re.search(var + r"\[64\] = \{([^}]*)\}", (CSRC / name).read_text()).group(1)
+    return [int(x) for x in body.replace("\n", " ").split(",")]
+
+
+def test_kernel_zigzag_tables_match_core():
+    """The zigzag tables the CUDA kernels carry are core/types' own."""
+    assert _cuda_table("idct_float.cu", "kZigzag") == [int(x) for x in ZIGZAG]
+    assert _cuda_table("idct_exact.cu", "kInvZigzag") == [int(x) for x in INV_ZIGZAG]
