@@ -21,7 +21,10 @@ Phases, each of which exits non-zero on failure:
      K0 (EXACT IDCT) bitwise; K1 (FLOAT32 IDCT) within 1 on at most 1e-3
      of the pixels, at the 4K luma shape, 8- and 12-bit, with the error
      on extreme inputs reported; K3 (colour) bitwise, per image and
-     batched;
+     batched; the probes PK1-PK7 bitwise (all integer) on every one of
+     their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at the short chain
+     length, in both table placements where the table fits shared memory,
+     PK6 also from a random state;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
@@ -38,13 +41,18 @@ Phases, each of which exits non-zero on failure:
        one (which the PALLAS route hands to the native host decode) and
        the gray one; every RGB bitwise equal to the single-image decode
        with the same config, and to the reference under EXACT;
+     - the probe path through its entry point, benchmarks.gather_probe.main
+       with all four rounds at the rounds' own chain lengths: 21 ns/step
+       lines;
   5. stage times with CUDA events: per image (H2D, K2, K0, K3, D2H), and
      per batch of eight (H2D, K2, K0 or K1, K3, D2H) with the host clock
      of the batch's parse and unstuffing.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}. The script imports the JAX
-package's shared host layers only through jpeg_decoder_tpu_torch.shared,
-and fails if anything loaded JAX.
+The last lines are the kernels' JSON record (eleven kernels: K0-K3 and
+PK1-PK7, each with its launches on the main paths, its time, its plain
+version's time and its bound), the card's name and power limit, and
+{"ok": true, "device": {...}}. The script imports the port alone, builds
+the CUDA kernels and the native host runtime from the port's own sources,
+and fails if anything loaded JAX or the JAX package jpeg_decoder_tpu.
 """
 
 from __future__ import annotations
@@ -70,6 +78,33 @@ F420 = ((2, 2), (1, 1), (1, 1))
 #: pixels (the two sum the 64 products of a pixel in other orders, so a
 #: floor can flip; the JAX FLOAT32 contract is +-1 LSB).
 K1_SHARE = 1e-3
+#: Chain length at which a probe kernel is held against its plain version:
+#: the short length of rounds 1 to 3; 512 for round 4, whose short length
+#: of 4096 would cost the plain symbol step a quarter of a million launches.
+PROBE_CHECK_STEPS = {1: 256, 2: 256, 3: 256, 4: 512}
+
+# The card's published peaks, for each kernel's bound: the least time the
+# card could take for the same work, the larger of its bytes over the memory
+# rate and its operations over the peak rate of their type. NVIDIA's H100
+# SXM data sheet: 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores
+# (an FMA is two); float64 at half that; int32 instructions issue on half
+# of an SM's float32 lanes, so a quarter of 67e12 a second.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 33.5e12, "int32": 16.75e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """bound_ms and bound_by of a call that must move `nbytes` (each input
+    read once, each output written once) and do `ops` operations of `kind`."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(ops), bound_ops_kind=kind)
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def fail(msg: str):
@@ -101,7 +136,9 @@ def make_jpeg(w: int, h: int, factors, ri: int, seed: int) -> bytes:
     """A baseline JPEG of random coefficients: DC in [-60, 60], AC
     Laplace(4) rounded and clipped to +-1023, so every DC difference and AC
     value lies in the Annex K categories. Packed by the native runtime."""
-    from jpeg_decoder_tpu_torch.shared import huffman, runtime, types, writer
+    from jpeg_decoder_tpu_torch.core import huffman, types
+    from jpeg_decoder_tpu_torch.io import writer
+    from jpeg_decoder_tpu_torch.native import runtime
 
     if not runtime.available():
         fail("the native runtime did not build")
@@ -148,8 +185,8 @@ def reference(data: bytes, quirks):
     """The JAX-free EXACT reference: native host planes, then core.oracle
     (the JAX package's use_device=False pixel path)."""
     from jpeg_decoder_tpu_torch import DecodeConfig
+    from jpeg_decoder_tpu_torch.core import oracle
     from jpeg_decoder_tpu_torch.models import host
-    from jpeg_decoder_tpu_torch.shared import oracle
 
     frame, planes, qts = host.host_decode(data, DecodeConfig())
     pix = oracle.pixels_from_coeffs(frame, planes, qts)
@@ -214,10 +251,11 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
     """K2 against its plain version on the same inputs, bitwise: at the 4K
     shape the main path gives it and on a reduced stream. At 4K the
     kernel's planes are also held against the native host decoder's."""
+    import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
-    from jpeg_decoder_tpu_torch.shared import parse
+    from jpeg_decoder_tpu_torch.io.parser import parse
 
     err = 0
     for data in (small, big):
@@ -246,7 +284,17 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
         fail(f"K2 planes differ from the native host decoder's at 4K"
              f" (max_abs_err {native_err})")
     log("K2 entropy: 4K planes bitwise equal to the native host decoder's")
-    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape)
+    # Bound, from this request's data: the stream, offsets and tables read
+    # once, the int16 planes written once; one Huffman symbol per nonzero AC
+    # coefficient, one DC and at most one end-of-block per block, each about
+    # 40 int32 operations (16 ladder compares and sums, the lookup, EXTEND,
+    # shifts, refill). What holds K2 in practice is neither: the longest
+    # segment's chain of dependent steps, which the probes price.
+    n_blocks = sum(p.shape[0] * p.shape[1] for p in got)
+    symbols = 2 * n_blocks + sum(int(torch.count_nonzero(p[..., 1:])) for p in got)
+    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape, library_ms=None,
+                  symbols=symbols,
+                  **bound(nbytes_of(*args[:4], args[6], args[7], *got), 40 * symbols, "int32"))
 
 
 def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
@@ -256,7 +304,7 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
-    from jpeg_decoder_tpu_torch.shared import parse
+    from jpeg_decoder_tpu_torch.io.parser import parse
 
     structures = [parse(d) for d in batch]
     args, seg_off = entropy_cuda.launch_args(
@@ -308,7 +356,7 @@ def check_k0(dev, big: bytes, record: dict) -> None:
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import idct
-    from jpeg_decoder_tpu_torch.shared import types
+    from jpeg_decoder_tpu_torch.core import types
 
     _, planes, _ = host.host_decode(big, DecodeConfig())
     coeffs = torch.from_numpy(planes.planes[0]).to(dev)
@@ -328,8 +376,11 @@ def check_k0(dev, big: bytes, record: dict) -> None:
                                    plain(wild, q255, bits12)))
     ms = cuda_ms(lambda: idct.idct_plane(coeffs, qt), 10)
     plain_ms = cuda_ms(lambda: plain(coeffs, qt, False), 3)
-    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                  shape=f"luma plane {by}x{bx} blocks")
+    # Bound: int16 coefficients and the table in, uint8 pixels out; about
+    # 700 float64 operations a block (csrc/idct_exact.cu).
+    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                  shape=f"luma plane {by}x{bx} blocks",
+                  **bound(nbytes_of(coeffs, qt) + by * bx * 64, 700 * by * bx, "float64"))
     log(f"K0 idct_exact: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         f" ({record['shape']}); max_abs_err {err} (8-bit, 12-bit, extremes)")
 
@@ -351,7 +402,7 @@ def check_k1(dev, big: bytes, record: dict) -> None:
     from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, convert
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import idct
-    from jpeg_decoder_tpu_torch.shared import types
+    from jpeg_decoder_tpu_torch.core import types
 
     f32 = IdctPrecision.FLOAT32
     _, planes, _ = host.host_decode(big, DecodeConfig())
@@ -399,8 +450,12 @@ def check_k1(dev, big: bytes, record: dict) -> None:
     ms = cuda_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 10)
     plain_ms = cuda_ms(lambda: plain(blocks, qt, False), 3)
     exact_ms = cuda_ms(lambda: idct.idct_plane(blocks, qt), 10)
+    # Bound: the same bytes as K0; the [64] x [64, 64] product is 4096 FMAs
+    # a block, two float32 operations each. No one PyTorch call computes
+    # dequant, product, floor, level shift, clamp and block scatter.
     record.update(max_abs_err=err, share_differing=share, ms=ms, plain_ms=plain_ms,
-                  shape=f"luma plane {by}x{bx} blocks")
+                  library_ms=None, shape=f"luma plane {by}x{bx} blocks",
+                  **bound(nbytes_of(blocks, qt) + by * bx * 64, 2 * 4096 * by * bx, "float32"))
     log(f"K1 idct_float: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K0 on the"
         f" same blocks {exact_ms:.3f} ms ({record['shape']}); max_abs_err {err},"
         f" share differing {share:.3e} (8-bit, 12-bit)")
@@ -430,11 +485,125 @@ def check_k3(dev, big: bytes, gray: bytes, record: dict) -> None:
             args = (planes, h, w, factors, Quirks.REFERENCE)
             ms = cuda_ms(lambda: color.planes_to_rgb(*args), 10)
             plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(*args), 3)
-    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                  shape=f"{W}x{H} 4:2:0 planes")
+            # Bound: the three planes in, 3 bytes a pixel out; two index
+            # products and ten float32 operations a pixel.
+            bnd = bound(nbytes_of(*planes) + 3 * h * w, 14 * h * w, "float32")
+    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                  shape=f"{W}x{H} 4:2:0 planes", **bnd)
     log(f"K3 color: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         f" ({record['shape']}); max_abs_err {err} (both quirks, gray shear,"
         f" single and batched)")
+
+
+#: Per probe kernel: its record's name, the Pallas call sites it replaces,
+#: the variant whose times stand for it in the record, and the int32
+#: operations of one step of one lane (read off the chain in
+#: csrc/probes.cu: loads, adds, shifts, compares, selects).
+PROBE_KERNELS = {
+    "jdtc_probe_gather_chain": (
+        "PK1 gather_chain", "P1", 4,
+        "benchmarks/pallas_gather_probe.py:66,99; pallas_gather_probe2.py:68,98,126;"
+        " pallas_gather_probe3.py:69; pallas_gather_probe4.py:67"),
+    "jdtc_probe_onehot_lookup_chain": (
+        "PK2 onehot_lookup_chain", "E3", 8, "benchmarks/pallas_gather_probe.py:139,179"),
+    "jdtc_probe_row_scatter_chain": (
+        "PK3 row_scatter_chain", "E5", 6, "benchmarks/pallas_gather_probe.py:212"),
+    "jdtc_probe_vshift_chain": (
+        "PK4 vshift_chain", "G4a", 5,
+        "benchmarks/pallas_gather_probe.py:235; pallas_gather_probe2.py:150;"
+        " pallas_gather_probe3.py:106"),
+    "jdtc_probe_combined_step_chain": (
+        "PK5 combined_step_chain", "P5", 16, "benchmarks/pallas_gather_probe2.py:203"),
+    "jdtc_probe_symbol_step_chain": (
+        "PK6 symbol_step_chain", "H4", 60, "benchmarks/pallas_gather_probe4.py:140"),
+    "jdtc_probe_dma_wave_chain": (
+        "PK7 dma_wave_chain", "H5", 4, "benchmarks/pallas_gather_probe4.py:197"),
+}
+
+
+def check_probes(dev, kernels: dict, card: str) -> None:
+    """PK1-PK7 against their plain versions on the card, bitwise, on every
+    variant of the four scripts at the short chain length; the table in
+    global memory too where both placements exist; PK6 also from a random
+    state. Fills each kernel's record from its standing variant: times of
+    kernel and plain version at that length, and the bound of that call."""
+    import torch
+    from jpeg_decoder_tpu_torch.ops import probes
+
+    for variant in probes.VARIANTS:
+        name, standing, step_ops, _ = PROBE_KERNELS[variant.kernel]
+        rec = kernels[variant.kernel]
+        steps = PROBE_CHECK_STEPS[variant.round]
+        t = probes.tensors_for(variant, dev)
+        cpu = probes.tensors_for(variant, "cpu")
+        got = variant.run(t, steps)
+        box = {}
+        plain_ms = cuda_ms(lambda: box.update(want=variant.run(t, steps, plain=True)), 1)
+        err = max_abs_err(got, box["want"])
+        # the plain version on the CPU, the one the CPU tests hold to the
+        # JAX kernels: the card's plain version and kernel agree with it
+        err = max(err, max_abs_err(got, variant.run(cpu, steps)))
+        checked = ["default placement"]
+        if probes.placement_of(variant, t) == "table in shared memory":
+            err = max(err, max_abs_err(variant.run(t, steps, placement="global"), got))
+            checked.append("table in global memory")
+        if variant.key == "H4":
+            rng = np.random.default_rng(4)
+            state = tuple(
+                torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+                for a in (rng.integers(0, 2**32, (8, 128), dtype=np.uint32),
+                          rng.integers(16, 33, (8, 128), dtype=np.int32),
+                          rng.integers(-2**31, 2**31, (8, 128), dtype=np.int64).astype(np.int32)))
+            rnd = variant.run(t, steps, state=state)
+            err = max(err, max_abs_err(rnd, variant.run(t, steps, state=state, plain=True)))
+            if len(torch.unique(rnd)) < 512:
+                fail("PK6: lanes from a random state did not go their own ways")
+            checked.append("random state")
+        ms = cuda_ms(lambda: variant.run(t, steps), 7)
+        log(f"{name} [{variant.label}]: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms"
+            f" ({steps} steps); max_abs_err {err} ({', '.join(checked)}) [{card}]")
+        if err != 0:
+            fail(f"{name} [{variant.label}] disagrees with its plain version"
+                 f" (max_abs_err {err}; tolerance 0)")
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0), err)
+        rec.setdefault("variants", {})[variant.key] = dict(
+            label=variant.label, check_steps=steps, ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        if variant.key == standing:
+            # Bound of this call: every input read once, the result written
+            # once (PK7: the rows its copies fetch, 2 KB each); step_ops
+            # int32 operations a step and lane. What holds a chain in
+            # practice is the latency of its dependent step, which
+            # gather_probe's ns/step below measures.
+            lanes = got.numel() if variant.key != "E5" else 128
+            moved = (2048 * probes.dma_waves(steps) * 128 if variant.key == "H5"
+                     else nbytes_of(*t.values()))
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       shape=f"{variant.label}, {steps} steps",
+                       **bound(moved + nbytes_of(got), step_ops * lanes * steps, "int32"))
+
+
+def probe_path(kernels: dict) -> dict:
+    """The probe path through its entry point: all four rounds at the
+    rounds' own chain lengths. Returns path -> launch counts."""
+    from jpeg_decoder_tpu_torch.benchmarks import gather_probe
+
+    records, launches = run_path(
+        "main path gather_probe", lambda: gather_probe.main(["--round", "all"]))
+    if len(records) != 21:
+        fail(f"gather_probe printed {len(records)} variants, expected 21")
+    for r in records:
+        slopes = [r["ns_per_step"]] + ([r["global"]["ns_per_step"]] if "global" in r else [])
+        # finite, and not negative beyond what timing noise explains: a
+        # chain of register shifts costs a few ns a step, and a slope is a
+        # difference of two medians
+        if not all(np.isfinite(x) and x > -5.0 for x in slopes):
+            fail(f"gather_probe: [{r['label']}] gave the slope {slopes} ns/step")
+        v = kernels[r["kernel"]]["variants"][r["key"]]
+        v.update(ns_per_step=r["ns_per_step"], steps=list(r["steps"]), chain_ms=list(r["ms"]),
+                 placement=r["placement"])
+        if "global" in r:
+            v["ns_per_step_global"] = r["global"]["ns_per_step"]
+    return {"gather_probe": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +717,7 @@ def batch_path(dev, batch, many, card: str) -> dict:
         Quirks,
     )
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
-    from jpeg_decoder_tpu_torch.shared import parse
+    from jpeg_decoder_tpu_torch.io.parser import parse
 
     runs = {}
     for backend in (EntropyBackend.PALLAS, EntropyBackend.NATIVE):
@@ -619,7 +788,7 @@ def stage_times(dev, requests, card: str) -> None:
     from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, convert
     from jpeg_decoder_tpu_torch.models import decoder
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
-    from jpeg_decoder_tpu_torch.shared import parse
+    from jpeg_decoder_tpu_torch.io.parser import parse
 
     cfg = DecodeConfig(entropy_backend=EntropyBackend.PALLAS)
     for i, data in enumerate(requests):
@@ -655,7 +824,7 @@ def batch_stage_times(dev, batch, card: str) -> None:
     from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, IdctPrecision
     from jpeg_decoder_tpu_torch.models import decoder
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
-    from jpeg_decoder_tpu_torch.shared import parse
+    from jpeg_decoder_tpu_torch.io.parser import parse
 
     for precision in IdctPrecision:
         cfg = DecodeConfig(entropy_backend=EntropyBackend.PALLAS, idct_precision=precision)
@@ -699,7 +868,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     try:
-        from jpeg_decoder_tpu_torch import _build, shared
+        from jpeg_decoder_tpu_torch import _build
+        from jpeg_decoder_tpu_torch.native import build as native_build
+        from jpeg_decoder_tpu_torch.utils import jax_free
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
     card = card_line()
@@ -710,6 +881,11 @@ def main() -> None:
     _build.build()
     _build.library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    native = native_build.build()
+    if native is None or native.parent != _build.BUILD_DIR:
+        fail(f"the native host runtime did not build into {_build.BUILD_DIR}")
+    log(f"native host runtime built in {time.perf_counter() - t0:.1f} s: {native.name}")
 
     t0 = time.perf_counter()
     batch = [make_jpeg(W, H, F420, RI, seed) for seed in BATCH_SEEDS]
@@ -741,11 +917,16 @@ def main() -> None:
             source="jpeg_decoder_tpu_torch/csrc/color.cu",
             replaces="jpeg_decoder_tpu/ops/color.py:138"),
     }
+    for key, (name, _standing, _ops, replaces) in PROBE_KERNELS.items():
+        kernels[key] = dict(name=name, route="cuda",
+                            source="jpeg_decoder_tpu_torch/csrc/probes.cu",
+                            replaces=replaces)
     check_k2(dev, smalls[0], requests[0], kernels["jdtc_entropy_decode"])
     check_k2_batch(dev, batch, smalls, kernels["jdtc_entropy_decode"])
     check_k0(dev, requests[0], kernels["jdtc_idct_exact"])
     check_k1(dev, requests[0], kernels["jdtc_idct_float"])
     check_k3(dev, requests[0], gray, kernels["jdtc_color"])
+    check_probes(dev, kernels, card)
     for key, rec in kernels.items():
         if key != "jdtc_idct_float" and rec["max_abs_err"] != 0:
             fail(f"{rec['name']} disagrees with its plain version"
@@ -754,6 +935,7 @@ def main() -> None:
     runs = main_path(dev, requests + [gray], card)
     runs.update(float32_path(dev, requests, card))
     runs.update(batch_path(dev, batch, many, card))
+    runs.update(probe_path(kernels))
     for key, rec in kernels.items():
         rec["launches"] = sum(r.get(key, 0) for r in runs.values())
         rec["launches_by_path"] = {p: r[key] for p, r in runs.items() if key in r}
@@ -766,8 +948,13 @@ def main() -> None:
             fail(f"{path} did not launch {key}")
     stage_times(dev, requests, card)
     batch_stage_times(dev, batch, card)
-    if not shared.jax_free():
-        fail("JAX or a JAX-importing layer of jpeg_decoder_tpu was loaded")
+    if not jax_free():
+        fail("JAX or the JAX package jpeg_decoder_tpu was loaded")
+    required = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for rec in kernels.values():
+        if required - rec.keys():
+            fail(f"{rec['name']}: the record lacks {sorted(required - rec.keys())}")
 
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)

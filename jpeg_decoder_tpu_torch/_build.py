@@ -28,7 +28,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("entropy_decode.cu", "idct_exact.cu", "idct_float.cu", "color.cu")
+SOURCES = ("entropy_decode.cu", "idct_exact.cu", "idct_float.cu", "color.cu",
+           "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -56,6 +57,23 @@ SIGNATURES = {
         _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _I32,
         _I32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P, _P,
     ],
+    # The probes (csrc/probes.cu), each: its tensors, its sizes, steps, ...,
+    # cuda_stream.
+    # tab, idx0, out, n_lanes, lane_cols, row_stride, col_stride, idx_stride,
+    # tab_elems, add_idx, mod, steps, in_shared
+    "jdtc_probe_gather_chain": [_P, _P, _P, *[_I32] * 10, _P],
+    # tab, idx0, out, n_lanes, n, bits, mask, steps, in_shared
+    "jdtc_probe_onehot_lookup_chain": [_P, _P, _P, *[_I32] * 6, _P],
+    # idx0, out, n_rows, width, steps
+    "jdtc_probe_row_scatter_chain": [_P, _P, _I32, _I32, _I32, _P],
+    # x0, sh, out, n_lanes, n_ops, steps
+    "jdtc_probe_vshift_chain": [_P, _P, _P, _I32, _I32, _I32, _P],
+    # tab, words, out, n_lanes, tab_cols, n_words, steps
+    "jdtc_probe_combined_step_chain": [_P, _P, _P, _I32, _I32, _I32, _I32, _P],
+    # thr, sym, bitbuf0, bitcnt0, acc0, out, steps
+    "jdtc_probe_symbol_step_chain": [_P, _P, _P, _P, _P, _P, _I32, _P],
+    # stream, off0, out, n_rows, waves
+    "jdtc_probe_dma_wave_chain": [_P, _P, _P, _I32, _I32, _P],
 }
 
 #: Kernel launches per C entry point since the process started (or since a

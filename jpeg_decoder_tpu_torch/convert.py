@@ -1,12 +1,19 @@
-"""Carry decode state from the shared host layer onto a torch device.
+"""Carry decode state from the host layers onto a torch device, and from
+another package's objects into the port's.
 
 A JPEG decoder has no learned weights: its "parameters" are the tables a
 stream defines (Huffman and quantization) and its intermediate state is the
 coefficient-plane IR (core/types.CoefficientPlanes, int16 [by, bx, 64]
-zigzag). The host layers the port shares with jpeg_decoder_tpu (io/, core/,
-native/, utils/) produce both as numpy arrays; this module turns them into
-the tensors the port's kernels take, so the tests can feed one set of numpy
-arrays to a JAX function and to its counterpart here.
+zigzag). The port's host layers (io/, core/, native/, utils/) produce both
+as numpy arrays; this module turns them into the tensors the port's kernels
+take.
+
+The port's config, enums, error classes and parsed structures are its own
+objects: those of the JAX package jpeg_decoder_tpu are equal in content and
+distinct in identity. The `*_from` functions below carry such an object
+across by its field names and numpy arrays alone (this module imports
+nothing of that package); a byte stream crosses by being parsed again with
+the port's parser.
 """
 
 from __future__ import annotations
@@ -16,14 +23,19 @@ import functools
 import numpy as np
 import torch
 
-from jpeg_decoder_tpu.core.huffman import build_canonical
-from jpeg_decoder_tpu.core.types import (
+import dataclasses
+import enum
+
+from .core.huffman import build_canonical
+from .core.types import (
     CoefficientPlanes,
     FrameHeader,
     HuffTableSpec,
+    QuantTable,
     Scan,
 )
-from jpeg_decoder_tpu.native.runtime import scan_layout
+from .native.runtime import scan_layout
+from .utils.config import DecodeConfig
 
 from .models.host import _StructureShim
 
@@ -41,6 +53,52 @@ def resolve_device(device) -> torch.device:
             " device='cpu' to run the plain PyTorch versions of the kernels"
         )
     return dev
+
+
+# ---------------------------------------------------------------------------
+# Crossings from objects of another package (duck-typed)
+# ---------------------------------------------------------------------------
+
+
+def config_from(obj) -> DecodeConfig:
+    """The port's DecodeConfig from any object with the same field names;
+    an enum member crosses by its `.name`."""
+    kw = {}
+    for f in dataclasses.fields(DecodeConfig):
+        v = getattr(obj, f.name)
+        default = f.default
+        if isinstance(default, enum.Enum):
+            v = type(default)[v.name]
+        kw[f.name] = v
+    return DecodeConfig(**kw)
+
+
+def huff_spec_from(obj) -> HuffTableSpec:
+    """The port's HuffTableSpec from any object with table_class, table_id
+    and the BITS / HUFFVAL arrays `counts` and `symbols`."""
+    return HuffTableSpec(
+        table_class=int(obj.table_class), table_id=int(obj.table_id),
+        counts=np.array(obj.counts, dtype=np.uint8),
+        symbols=np.array(obj.symbols, dtype=np.uint8),
+    )
+
+
+def quant_table_from(obj) -> QuantTable:
+    """The port's QuantTable from any object with `precision` and the
+    natural-order uint16 [64] `values`."""
+    return QuantTable(
+        precision=int(obj.precision),
+        values=np.array(obj.values, dtype=np.uint16),
+    )
+
+
+def planes_from(frame: FrameHeader, arrays) -> CoefficientPlanes:
+    """The port's CoefficientPlanes for `frame` (the port's own, from its
+    parser) holding copies of int16 [by, bx, 64] arrays, one per component."""
+    planes = CoefficientPlanes(frame)
+    for dst, src in zip(planes.planes, arrays, strict=True):
+        dst[...] = np.asarray(src, dtype=np.int16).reshape(dst.shape)
+    return planes
 
 
 # ---------------------------------------------------------------------------

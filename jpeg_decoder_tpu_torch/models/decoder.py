@@ -1,7 +1,7 @@
 """The decode pipeline on a torch device: parse -> entropy decode -> pixel
 stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
 
-  host:    marker walk + table parse              (shared io/parser.py)
+  host:    marker walk + table parse              (io/parser.py)
   entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS on the device
            (models/host.py; ops/entropy_cuda.py, kernel K2)
   device:  one PixelStage per (geometry, tables, config): dequant + IDCT +
@@ -27,11 +27,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from jpeg_decoder_tpu.core.types import DecodedImage, FrameHeader, JpegStructure
-from jpeg_decoder_tpu.io.parser import parse
-from jpeg_decoder_tpu.utils.config import DecodeConfig
-from jpeg_decoder_tpu.utils.errors import JpegFormatError, JpegUnsupportedError
-from jpeg_decoder_tpu.utils.metrics import GLOBAL_METRICS as metrics
+from ..core.types import DecodedImage, FrameHeader, JpegStructure
+from ..io.parser import parse
+from ..utils.config import DecodeConfig
+from ..utils.errors import JpegFormatError, JpegUnsupportedError
+from ..utils.metrics import GLOBAL_METRICS as metrics
 
 from .. import convert
 from ..ops import color as color_ops
@@ -164,7 +164,7 @@ def decode(data: bytes | np.ndarray, cfg: DecodeConfig | None = None,
     cfg = cfg or DecodeConfig()
     _check_config(cfg)
     device = convert.resolve_device(device)
-    from jpeg_decoder_tpu.io import bitstream as bs
+    from ..io import bitstream as bs
 
     data_arr = bs.as_byte_array(data)
     fast = host._fast_host_decode(data_arr, cfg)

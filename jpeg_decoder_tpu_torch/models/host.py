@@ -11,18 +11,18 @@ from __future__ import annotations
 
 import numpy as np
 
-from jpeg_decoder_tpu.core import oracle
-from jpeg_decoder_tpu.core.types import (
+from ..core import oracle
+from ..core.types import (
     CoefficientPlanes,
     FrameHeader,
     JpegStructure,
 )
-from jpeg_decoder_tpu.io.markers import Encoding
-from jpeg_decoder_tpu.io.parser import parse
-from jpeg_decoder_tpu.utils.config import DecodeConfig, EntropyBackend
-from jpeg_decoder_tpu.utils.errors import JpegUnsupportedError
-from jpeg_decoder_tpu.utils.logging import get_logger
-from jpeg_decoder_tpu.utils.metrics import GLOBAL_METRICS as metrics
+from ..io.markers import Encoding
+from ..io.parser import parse
+from ..utils.config import DecodeConfig, EntropyBackend
+from ..utils.errors import JpegUnsupportedError
+from ..utils.logging import get_logger
+from ..utils.metrics import GLOBAL_METRICS as metrics
 
 log = get_logger("torch.host")
 
@@ -104,7 +104,7 @@ def _entropy_decode(
     backend = cfg.entropy_backend
 
     if backend == EntropyBackend.NATIVE:
-        from jpeg_decoder_tpu.native import runtime as native_runtime
+        from ..native import runtime as native_runtime
 
         if native_runtime.available():
             with metrics.timer("entropy_native"):
@@ -113,7 +113,7 @@ def _entropy_decode(
         backend = EntropyBackend.NUMPY
 
     if backend == EntropyBackend.NUMPY:
-        from jpeg_decoder_tpu.core import entropy_np
+        from ..core import entropy_np
 
         with metrics.timer("entropy_numpy"):
             return entropy_np.entropy_decode(structure, cfg, planes)
@@ -136,7 +136,7 @@ def _entropy_decode(
                 structure, cfg, convert.zero_planes(frame, dev)
             )
 
-    from jpeg_decoder_tpu.core.driver import run_scans
+    from ..core.driver import run_scans
 
     if planes is None:
         planes = CoefficientPlanes(frame)
@@ -166,7 +166,7 @@ def _tail_clean(data: np.ndarray, p: int) -> bool:
     DecodedImage does not carry). Anything structural — a second SOS, DHT,
     DQT, DRI, DNL, SOFn — means the stream is multi-scan or redefines
     state, and the caller falls back to the classic full parse."""
-    from jpeg_decoder_tpu.io.markers import Marker, is_app, is_rst
+    from ..io.markers import Marker, is_app, is_rst
 
     n = data.shape[0]
     while p < n:
@@ -210,11 +210,11 @@ def _fast_prepare(
     image k's GIL-released native decode."""
     if cfg.entropy_backend != EntropyBackend.NATIVE:
         return None
-    from jpeg_decoder_tpu.native import runtime as native_runtime
+    from ..native import runtime as native_runtime
 
     if not native_runtime.available():
         return None
-    from jpeg_decoder_tpu.io import parser as parser_mod
+    from ..io import parser as parser_mod
 
     with metrics.timer("parse"):
         hp = parser_mod.parse_headers_cached(data, cfg)
@@ -224,7 +224,7 @@ def _fast_prepare(
     if hp.layout is None:
         # Lazily computed per cached header: unit params + decode LUTs
         # (flat_lut_for_spec content-caches the tables themselves).
-        from jpeg_decoder_tpu.core.types import Scan
+        from ..core.types import Scan
 
         scan = Scan(
             header=hp.scan_header,
@@ -257,7 +257,7 @@ def _fast_execute(prep):
     back to the classic path)."""
     (data, cfg, pool, hp, frame, total_mcus, params, luts, planes,
      allow_spec) = prep
-    from jpeg_decoder_tpu.native import runtime as native_runtime
+    from ..native import runtime as native_runtime
 
     with metrics.timer("entropy_native"):
         end, _n_segs = native_runtime.scan_decode_fused(
@@ -312,7 +312,7 @@ def host_decode(
     classic parse + per-scan decode. `pool` enables plane reuse. Under the
     PALLAS backend the planes are tensors on `device` (default "cuda")."""
     cfg = cfg or DecodeConfig()
-    from jpeg_decoder_tpu.io import bitstream as bs
+    from ..io import bitstream as bs
 
     data = bs.as_byte_array(data)
     fast = _fast_host_decode(data, cfg, pool)
@@ -353,7 +353,7 @@ def host_decode_stream(
     prepare."""
     import concurrent.futures as cf
 
-    from jpeg_decoder_tpu.io import bitstream as bs
+    from ..io import bitstream as bs
 
     cfg = cfg or DecodeConfig()
 
@@ -411,7 +411,7 @@ def host_decode_batch(
     import concurrent.futures as cf
     import os
 
-    from jpeg_decoder_tpu.io import bitstream as bs
+    from ..io import bitstream as bs
 
     cfg = cfg or DecodeConfig()
     if max_workers <= 0:

@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jpeg_decoder_tpu.core.numerics import _nn_index_f32
-from jpeg_decoder_tpu.utils.config import Quirks
+from ..core.numerics import _nn_index_f32
+from ..utils.config import Quirks
 
 from .. import _build
 

@@ -29,12 +29,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jpeg_decoder_tpu.core.driver import run_scans
-from jpeg_decoder_tpu.io import bitstream as bsio
-from jpeg_decoder_tpu.io.markers import Encoding
-from jpeg_decoder_tpu.native.runtime import _check_segments, scan_layout
-from jpeg_decoder_tpu.utils.config import DecodeConfig
-from jpeg_decoder_tpu.utils.errors import (
+from ..core.driver import run_scans
+from ..io import bitstream as bsio
+from ..io.markers import Encoding
+from ..native.runtime import _check_segments, scan_layout
+from ..utils.config import DecodeConfig
+from ..utils.errors import (
     JpegEntropyError,
     JpegError,
     JpegTruncatedError,

@@ -30,8 +30,8 @@ import functools
 import numpy as np
 import torch
 
-from jpeg_decoder_tpu.core.types import INV_ZIGZAG, ZIGZAG
-from jpeg_decoder_tpu.utils.config import IdctPrecision
+from ..core.types import INV_ZIGZAG, ZIGZAG
+from ..utils.config import IdctPrecision
 
 from .. import _build
 

@@ -2,7 +2,7 @@
 jpeg_decoder_tpu/parallel/batch.py, without a mesh).
 
 The serving shape: many JPEGs per step.
-  NATIVE (and the other host backends): host threads run the shared native
+  NATIVE (and the other host backends): host threads run the native
     entropy decode concurrently (the ctypes call releases the GIL) into
     pooled planes, which stack into [B, by, bx, 64] and go to the device in
     one copy per component.
@@ -29,10 +29,10 @@ import os
 import numpy as np
 import torch
 
-from jpeg_decoder_tpu.io.parser import parse
-from jpeg_decoder_tpu.utils.config import DecodeConfig, EntropyBackend
-from jpeg_decoder_tpu.utils.errors import JpegFormatError
-from jpeg_decoder_tpu.utils.metrics import GLOBAL_METRICS as metrics
+from ..io.parser import parse
+from ..utils.config import DecodeConfig, EntropyBackend
+from ..utils.errors import JpegFormatError
+from ..utils.metrics import GLOBAL_METRICS as metrics
 
 from .. import convert
 from ..models import decoder as decoder_mod

@@ -12,6 +12,9 @@ each pixel plane may differ by 1 (the +-1 LSB contract; the two products sum
 in other orders), and a chroma step of 1 moves R or B by up to 1.772, so a
 channel can move by 1 from luma and 2 from chroma. Within the port every
 batched RGB is bitwise equal to its single-image decode.
+
+The unqualified config, enums and error classes are the port's; the JAX
+side is given its own package's, members crossing by name.
 """
 
 import functools
@@ -19,18 +22,22 @@ import functools
 import numpy as np
 import pytest
 
+import jpeg_decoder_tpu as jt
 import jpeg_decoder_tpu_torch as jtt
-from jpeg_decoder_tpu.io.parser import parse
 from jpeg_decoder_tpu.parallel import batch as jbatch
-from jpeg_decoder_tpu.utils.config import (
+from jpeg_decoder_tpu.utils.errors import JpegFormatError as JaxJpegFormatError
+from jpeg_decoder_tpu_torch import (
     DecodeConfig,
     EntropyBackend,
     IdctPrecision,
+    JpegFormatError,
+    JpegUnsupportedError,
 )
-from jpeg_decoder_tpu.utils.errors import JpegFormatError, JpegUnsupportedError
+from jpeg_decoder_tpu_torch.io.parser import parse
 from jpeg_decoder_tpu_torch.ops import entropy_cuda
 
 from . import corpus
+from .torch_crossing import assert_same_error_class
 
 BACKENDS = [EntropyBackend.PALLAS, EntropyBackend.NATIVE]
 PRECISIONS = list(IdctPrecision)
@@ -56,7 +63,8 @@ def _port(backend, precision):
 
 @functools.lru_cache(maxsize=None)
 def _jax(precision):
-    return jbatch.BatchDecoder(DecodeConfig(idct_precision=precision), mesh=None)
+    cfg = jt.DecodeConfig(idct_precision=jt.IdctPrecision[precision.name])
+    return jbatch.BatchDecoder(cfg, mesh=None)
 
 
 def _assert_rgb(got, want, precision):
@@ -158,10 +166,11 @@ def test_pallas_mixed_fallback_matches_jax(precision, monkeypatch):
 @pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
 def test_mixed_geometry_raises_format_error(backend, precision):
     datas = [DATAS[0], MANY[1]]
-    with pytest.raises(JpegFormatError):
+    with pytest.raises(JaxJpegFormatError):
         _jax(precision).decode_batch(datas)
     with pytest.raises(JpegFormatError):
         _port(backend, precision).decode_batch(datas)
+    assert_same_error_class(JpegFormatError, JaxJpegFormatError)
 
 
 def test_empty_requests():

@@ -7,8 +7,9 @@ import torch
 import jax.numpy as jnp
 
 from jpeg_decoder_tpu.ops import color as jcolor
-from jpeg_decoder_tpu.utils.config import Quirks
+from jpeg_decoder_tpu.utils.config import Quirks as JaxQuirks
 from jpeg_decoder_tpu_torch.ops import color as tcolor
+from jpeg_decoder_tpu_torch.utils.config import Quirks
 
 
 QUIRKS = [Quirks.REFERENCE, Quirks.CORRECT]
@@ -38,7 +39,8 @@ def test_ycbcr_to_rgb_matches_jax(quirks):
                                    [0, 1, 128, 255])).reshape(3, -1)
     y[0, : corners.shape[1]], cb[0, : corners.shape[1]], cr[0, : corners.shape[1]] = corners
     got = tcolor.ycbcr_to_rgb(*(torch.from_numpy(c) for c in (y, cb, cr)), quirks)
-    want = jcolor.ycbcr_to_rgb(*(jnp.asarray(c) for c in (y, cb, cr)), True, quirks)
+    want = jcolor.ycbcr_to_rgb(*(jnp.asarray(c) for c in (y, cb, cr)), True,
+                               JaxQuirks[quirks.name])
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -72,7 +74,7 @@ def _jax_stage_rgb(planes, h, w, factors, quirks):
     mv = max(f[1] for f in factors)
     chans = [jcolor.nn_upsample(jnp.asarray(p), h, w, fh, fv, mh, mv)
              for p, (fh, fv) in zip(planes, factors)]
-    return np.asarray(jcolor.ycbcr_to_rgb(*chans, True, quirks))
+    return np.asarray(jcolor.ycbcr_to_rgb(*chans, True, JaxQuirks[quirks.name]))
 
 
 @pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)

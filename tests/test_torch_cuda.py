@@ -1,11 +1,11 @@
-"""The port's CUDA kernels (K0, K1, K2, K3) against their plain PyTorch
-versions, and the decode and batch paths on the card against the same paths
-on the CPU. Bitwise, except FLOAT32 (K1): within 1 of its plain version on
+"""The port's CUDA kernels (K0, K1, K2, K3 and the probes PK1-PK7) against
+their plain PyTorch versions, and the decode and batch paths on the card
+against the same paths on the CPU. Bitwise, except FLOAT32 (K1): within 1 of its plain version on
 at most 1e-3 of the pixels (the two sum the 64 products in other orders),
 and so within 3 in RGB (a chroma step of 1 moves R or B by up to 1.772).
 
-This file imports neither JAX nor Pillow, so that it runs on a machine with
-a card and without them:
+This file imports neither JAX, nor the JAX package jpeg_decoder_tpu, nor
+Pillow, so that it runs on a machine with a card and without them:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -31,8 +31,10 @@ from jpeg_decoder_tpu_torch import (
 )
 from jpeg_decoder_tpu_torch.ops import color as tcolor
 from jpeg_decoder_tpu_torch.ops import entropy_cuda
+from jpeg_decoder_tpu_torch.io.parser import parse
 from jpeg_decoder_tpu_torch.ops import idct as tidct
-from jpeg_decoder_tpu_torch.shared import parse
+from jpeg_decoder_tpu_torch.ops import probes
+from jpeg_decoder_tpu_torch.utils import jax_free
 
 pytestmark = pytest.mark.cuda
 
@@ -320,3 +322,64 @@ def test_batch_decoder_on_cuda_matches_cpu(cuda_device, backend, precision):
     # within the card, a batch gives each image its single-image decode
     for rgb, d in zip(got, datas):
         np.testing.assert_array_equal(rgb, jtt.decode(d, cfg, device=cuda_device).rgb)
+
+
+# ---------------------------------------------------------------------------
+# The probes PK1-PK7: every variant, bitwise (all integer)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key", [v.key for v in probes.VARIANTS])
+def test_probe_matches_plain(cuda_device, key):
+    """The kernel against the plain version on the card and on the CPU, in
+    both table placements where the table fits shared memory; the launch is
+    counted."""
+    variant = probes.BY_KEY[key]
+    steps = 256 if key == "H5" else 96
+    t = probes.tensors_for(variant, cuda_device)
+    before = _build.LAUNCHES[variant.kernel]
+    got = variant.run(t, steps)
+    assert _build.LAUNCHES[variant.kernel] == before + 1
+    assert torch.equal(got, variant.run(t, steps, plain=True))
+    assert _build.LAUNCHES[variant.kernel] == before + 1  # the plain version launches none
+    assert torch.equal(got.cpu(), variant.run(probes.tensors_for(variant, "cpu"), steps))
+    if probes.placement_of(variant, t) == "table in shared memory":
+        assert torch.equal(got, variant.run(t, steps, placement="global"))
+        assert torch.equal(got, variant.run(t, steps, placement="shared"))
+
+
+def test_symbol_step_probe_from_a_random_state_matches_plain(cuda_device):
+    """From the script's constant state all lanes stay equal and a wrong
+    exchange between a column's lanes would not show."""
+    variant = probes.BY_KEY["H4"]
+    rng = np.random.default_rng(4)
+    state = tuple(torch.from_numpy(a).to(cuda_device) for a in (
+        rng.integers(0, 2**32, (8, 128), dtype=np.uint32).view(np.int32),
+        rng.integers(16, 33, (8, 128), dtype=np.int32),
+        rng.integers(-2**31, 2**31, (8, 128), dtype=np.int64).astype(np.int32)))
+    t = probes.tensors_for(variant, cuda_device)
+    got = variant.run(t, 300, state=state)
+    assert torch.equal(got, variant.run(t, 300, state=state, plain=True))
+    assert len(torch.unique(got)) > 512
+
+
+def test_vshift_probe_any_op_count(cuda_device):
+    """1 and 10 operations a step are unrolled in the kernel; another count
+    takes its loop."""
+    t = probes.tensors_for(probes.BY_KEY["G4a"], cuda_device)
+    for n_ops in (1, 3, 10):
+        assert torch.equal(probes.vshift_chain(t["x"], t["sh"], 64, n_ops),
+                           probes.vshift_chain(t["x"], t["sh"], 64, n_ops, plain=True))
+
+
+def test_gather_probe_entry_point_on_the_card(cuda_device, capsys):
+    from jpeg_decoder_tpu_torch.benchmarks import gather_probe
+
+    records = gather_probe.main(["--round", "all", "--steps", "64", "512", "--reps", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(records) == 21 and len(lines) == 21
+    assert all(" ns/step" in ln and "W]" in ln for ln in lines)
+
+
+def test_this_file_leaves_jax_and_the_jax_package_unloaded(cuda_device):
+    assert jax_free()

@@ -6,7 +6,9 @@ pixel planes within +-1 of the JAX package's FLOAT32 planes and of EXACT
 to the colour stage applied to the returned planes. The JAX side runs its
 NATIVE config (its PALLAS config would run the lockstep kernel in interpret
 mode, which its own tests slow-mark; its entropy backends are bitwise equal
-to each other)."""
+to each other). Each side gets its own package's config objects: the
+unqualified DecodeConfig and enums here are the port's, `jt.` the JAX
+package's."""
 
 import subprocess
 import sys
@@ -18,15 +20,16 @@ import torch
 
 import jpeg_decoder_tpu as jt
 import jpeg_decoder_tpu_torch as jtt
-from jpeg_decoder_tpu.utils.config import (
+from jpeg_decoder_tpu_torch import (
     DecodeConfig,
     EntropyBackend,
     IdctPrecision,
+    JpegUnsupportedError,
     Quirks,
 )
-from jpeg_decoder_tpu.utils.errors import JpegUnsupportedError
 
 from . import corpus
+from .torch_crossing import assert_same_error_class, assert_same_fields
 from .test_12bit import _make_12bit_gray
 
 REPO = Path(__file__).resolve().parent.parent
@@ -68,7 +71,7 @@ def _assert_same(got, want):
 def test_decode_matches_jax(name, backend):
     data = CASES[name]
     got = jtt.decode(data, DecodeConfig(entropy_backend=backend), device="cpu")
-    _assert_same(got, jt.decode(data, DecodeConfig()))
+    _assert_same(got, jt.decode(data, jt.DecodeConfig()))
 
 
 @pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
@@ -77,7 +80,7 @@ def test_decode_matches_jax_correct_quirks(name, backend):
     data = CASES[name]
     cfg = DecodeConfig(quirks=Quirks.CORRECT, entropy_backend=backend)
     got = jtt.decode(data, cfg, device="cpu")
-    _assert_same(got, jt.decode(data, DecodeConfig(quirks=Quirks.CORRECT)))
+    _assert_same(got, jt.decode(data, jt.DecodeConfig(quirks=jt.Quirks.CORRECT)))
 
 
 def test_decoder_handle_serves_several_requests(tmp_path):
@@ -112,7 +115,8 @@ def test_host_stages_match_jax(stage):
     for _ in range(2):  # the second pass takes its planes from the pool
         for (frame, planes, qts), d in zip(run(), datas):
             want_frame, want_planes, want_qts = jdec.host_decode(d)
-            assert frame == want_frame and sorted(qts) == sorted(want_qts)
+            assert_same_fields(frame, want_frame)
+            assert sorted(qts) == sorted(want_qts)
             for a, b in zip(planes.planes, want_planes.planes):
                 np.testing.assert_array_equal(a, b)
             pool.release(planes)
@@ -153,7 +157,7 @@ def test_float32_decode_matches_jax(name, backend):
     data = CASES[name]
     cfg = DecodeConfig(entropy_backend=backend, idct_precision=IdctPrecision.FLOAT32)
     got = jtt.decode(data, cfg, device="cpu")
-    want = jt.decode(data, DecodeConfig(idct_precision=IdctPrecision.FLOAT32))
+    want = jt.decode(data, jt.DecodeConfig(idct_precision=jt.IdctPrecision.FLOAT32))
     _assert_within_1(got.planes, want.planes)
     exact = jtt.decode(data, DecodeConfig(entropy_backend=backend), device="cpu")
     _assert_within_1(got.planes, exact.planes)
@@ -171,6 +175,7 @@ def test_float32_decode_matches_jax(name, backend):
 def test_outside_the_slice_raises(cfg):
     with pytest.raises(JpegUnsupportedError):
         jtt.decode(CASES["dri_420"], cfg, device="cpu")
+    assert_same_error_class(JpegUnsupportedError, jt.JpegUnsupportedError)
 
 
 @pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
@@ -190,14 +195,14 @@ def test_cuda_without_a_card_raises():
 
 
 def test_port_never_imports_jax():
-    """Importing the port (its shared host layers included), one PALLAS
+    """Importing the port (its own host layers included), one PALLAS
     decode, one FLOAT32 decode and one BatchDecoder PALLAS batch leave JAX
     unloaded (in a subprocess: this test process imported JAX in
     conftest)."""
     code = (
         "import sys\n"
         "import jpeg_decoder_tpu_torch as jtt\n"
-        "from jpeg_decoder_tpu_torch import shared\n"
+        "from jpeg_decoder_tpu_torch.utils import jax_free\n"
         "from tests import corpus\n"
         "data = corpus.dri_corpus()[2][1]\n"
         "cfg = jtt.DecodeConfig(entropy_backend=jtt.EntropyBackend.PALLAS)\n"
@@ -208,7 +213,7 @@ def test_port_never_imports_jax():
         "rgb = jtt.BatchDecoder(cfg, device='cpu').decode_batch([data, data])\n"
         "assert rgb.shape == (2, 64, 64, 3)\n"
         "print('jax' in sys.modules, any(m.startswith('jax.') for m in sys.modules),\n"
-        "      shared.jax_free())\n"
+        "      jax_free())\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)

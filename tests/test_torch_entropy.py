@@ -2,7 +2,10 @@
 entropy_cuda.py) on the CPU, i.e. its plain lockstep version, against the
 oracle planes -- the JAX package's own reference for its Pallas kernel
 (tests/test_entropy_pallas.py) -- bitwise, with the same guards and error
-classes."""
+classes. The stream is parsed once by each package: the oracle reads the
+JAX package's structure (`jparse`), the port its own (`parse`); the error
+classes named here are the port's, held against the JAX package's by name
+and base-class chain."""
 
 import io
 
@@ -10,31 +13,39 @@ import numpy as np
 import pytest
 import torch
 
+import jpeg_decoder_tpu as jt
 from jpeg_decoder_tpu.core import oracle
 from jpeg_decoder_tpu.core.types import CoefficientPlanes
-from jpeg_decoder_tpu.io.parser import parse
+from jpeg_decoder_tpu.io.parser import parse as jparse
 from jpeg_decoder_tpu.ops import entropy_pallas
-from jpeg_decoder_tpu.utils.config import DecodeConfig, EncodeConfig, EntropyBackend
-from jpeg_decoder_tpu.utils.errors import (
+from jpeg_decoder_tpu.utils import errors as jerrors
+from jpeg_decoder_tpu.utils.config import EncodeConfig
+from jpeg_decoder_tpu_torch import (
+    DecodeConfig,
+    EntropyBackend,
     JpegEntropyError,
     JpegError,
     JpegTruncatedError,
     JpegUnsupportedError,
+    convert,
 )
-from jpeg_decoder_tpu_torch import convert
+from jpeg_decoder_tpu_torch.io.parser import parse
 from jpeg_decoder_tpu_torch.ops import entropy_cuda
 
 from . import corpus
+from .torch_crossing import assert_same_error_class
 
 CFG = DecodeConfig(entropy_backend=EntropyBackend.PALLAS)
+JCFG = jt.DecodeConfig(entropy_backend=jt.EntropyBackend.PALLAS)
 
 
 def _oracle_planes(data):
-    s = parse(data)
+    """(the port's structure, the JAX package's oracle planes) of a stream."""
+    s = jparse(data)
     planes = CoefficientPlanes(s.frame)
     for scan in s.scans:
         oracle.decode_sequential_scan(s, scan, planes)
-    return s, planes
+    return parse(data), planes
 
 
 def _port_planes(s, device="cpu"):
@@ -124,12 +135,12 @@ DAMAGED = {
 }
 
 
-def _outcome(decode, data):
+def _outcome(decode, data, parse=parse, base=JpegError):
     """decode(structure)'s planes, or the exact class of the JpegError it
-    raised."""
+    raised (`parse` and `base` are the package's whose `decode` it is)."""
     try:
         return decode(parse(data))
-    except JpegError as e:
+    except base as e:
         return type(e)
 
 
@@ -145,6 +156,7 @@ def test_corrupt_raises_or_matches_oracle(damage):
     got = _outcome(_port_planes, data)
     if DAMAGED[damage] is not None:
         assert got is DAMAGED[damage]
+        assert_same_error_class(got, getattr(jerrors, got.__name__))
         return
     assert isinstance(got, list)
     s, want = _oracle_planes(data)
@@ -189,14 +201,15 @@ def test_batchable_agrees_with_jax():
     datas += [d for _, d, _ in corpus.dri_corpus()[:2]]
     datas += [corpus.progressive_corpus()[0][1], _large_restart_free()]
     flags = [entropy_cuda.batchable(parse(d)) for d in datas]
-    assert flags == [entropy_pallas.batchable(parse(d)) for d in datas]
+    assert flags == [entropy_pallas.batchable(jparse(d)) for d in datas]
     assert True in flags and False in flags
 
 
 @pytest.mark.slow
 def test_plain_matches_pallas_interpret():
-    s = parse(corpus.dri_corpus()[0][1])
-    want, _ = entropy_pallas.entropy_decode(s, CFG, interpret=True)
+    data = corpus.dri_corpus()[0][1]
+    s = parse(data)
+    want, _ = entropy_pallas.entropy_decode(jparse(data), JCFG, interpret=True)
     got = _port_planes(s)
     for ci in range(s.frame.ncs):
         np.testing.assert_array_equal(got[ci], want.plane(ci))
@@ -204,7 +217,7 @@ def test_plain_matches_pallas_interpret():
 
 
 def _pallas_planes(s):
-    want, _ = entropy_pallas.entropy_decode(s, CFG, interpret=True)
+    want, _ = entropy_pallas.entropy_decode(s, JCFG, interpret=True)
     return [want.plane(ci) for ci in range(s.frame.ncs)]
 
 
@@ -213,10 +226,11 @@ def _pallas_planes(s):
 def test_damaged_outcomes_match_pallas_interpret(damage):
     """The DAMAGED table is the JAX backend's own outcome, and the port's."""
     data = _damaged(damage)
-    want = _outcome(_pallas_planes, data)
+    want = _outcome(_pallas_planes, data, jparse, jerrors.JpegError)
     got = _outcome(_port_planes, data)
     if DAMAGED[damage] is not None:
-        assert want is DAMAGED[damage] and got is want
+        assert got is DAMAGED[damage]
+        assert_same_error_class(got, want)
         return
     assert isinstance(want, list) and isinstance(got, list)
     for a, b in zip(got, want):

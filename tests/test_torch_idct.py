@@ -18,11 +18,13 @@ import torch
 import jax.numpy as jnp
 
 from jpeg_decoder_tpu.core import numerics
-from jpeg_decoder_tpu.core.types import INV_ZIGZAG, ZIGZAG, standard_luminance_qtable
+from jpeg_decoder_tpu.core import types as jtypes
+from jpeg_decoder_tpu.core.types import standard_luminance_qtable
 from jpeg_decoder_tpu.ops import idct as jidct
 from jpeg_decoder_tpu.ops import pallas_kernels
-from jpeg_decoder_tpu.utils.config import IdctPrecision
+from jpeg_decoder_tpu_torch.core.types import INV_ZIGZAG, ZIGZAG
 from jpeg_decoder_tpu_torch.ops import idct as tidct
+from jpeg_decoder_tpu_torch.utils.config import IdctPrecision
 
 CSRC = Path(tidct.__file__).resolve().parent.parent / "csrc"
 #: FLOAT32 tolerance: |diff| <= 1 on at most this share of the pixels
@@ -183,6 +185,9 @@ def _cuda_table(name: str, var: str) -> list[int]:
 
 
 def test_kernel_zigzag_tables_match_core():
-    """The zigzag tables the CUDA kernels carry are core/types' own."""
+    """The zigzag tables the CUDA kernels carry are the port's core/types'
+    own, which are the JAX package's."""
+    np.testing.assert_array_equal(ZIGZAG, jtypes.ZIGZAG)
+    np.testing.assert_array_equal(INV_ZIGZAG, jtypes.INV_ZIGZAG)
     assert _cuda_table("idct_float.cu", "kZigzag") == [int(x) for x in ZIGZAG]
     assert _cuda_table("idct_exact.cu", "kInvZigzag") == [int(x) for x in INV_ZIGZAG]
