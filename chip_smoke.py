@@ -22,9 +22,9 @@ Phases, each of which exits non-zero on failure:
      of the pixels, at the 4K luma shape, 8- and 12-bit, with the error
      on extreme inputs reported; K3 (colour) bitwise, per image and
      batched; the probes PK1-PK7 bitwise (all integer) on every one of
-     their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at the short chain
-     length, in both table placements where the table fits shared memory,
-     PK6 also from a random state;
+     their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at both chain
+     lengths the probe path launches them at, in both table placements
+     where the table fits shared memory, PK6 also from a random state;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
@@ -78,10 +78,14 @@ F420 = ((2, 2), (1, 1), (1, 1))
 #: pixels (the two sum the 64 products of a pixel in other orders, so a
 #: floor can flip; the JAX FLOAT32 contract is +-1 LSB).
 K1_SHARE = 1e-3
-#: Chain length at which a probe kernel is held against its plain version:
-#: the short length of rounds 1 to 3; 512 for round 4, whose short length
-#: of 4096 would cost the plain symbol step a quarter of a million launches.
-PROBE_CHECK_STEPS = {1: 256, 2: 256, 3: 256, 4: 512}
+#: Huffman-decoding one symbol, whatever the decoder's design, in int32
+#: operations, for K2's bound: peek the code bits (a shift), look the code
+#: up (a load), split the entry into length and size (a shift and a mask),
+#: take the value bits (a shift and a mask), EXTEND (a compare, a select and
+#: an add), drop the bits consumed (a shift and a subtract), step the
+#: coefficient position by the run (an add), store the coefficient, and a
+#: refill's compare, its load and merge being shared by several symbols.
+K2_OPS_PER_SYMBOL = 14
 
 # The card's published peaks, for each kernel's bound: the least time the
 # card could take for the same work, the larger of its bytes over the memory
@@ -286,15 +290,17 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
     log("K2 entropy: 4K planes bitwise equal to the native host decoder's")
     # Bound, from this request's data: the stream, offsets and tables read
     # once, the int16 planes written once; one Huffman symbol per nonzero AC
-    # coefficient, one DC and at most one end-of-block per block, each about
-    # 40 int32 operations (16 ladder compares and sums, the lookup, EXTEND,
-    # shifts, refill). What holds K2 in practice is neither: the longest
-    # segment's chain of dependent steps, which the probes price.
+    # coefficient, one DC and at most one end-of-block per block, each
+    # K2_OPS_PER_SYMBOL operations: what any decoder must do, not what this
+    # kernel's 16-compare ladder spends. What holds K2 in practice is
+    # neither: the longest segment's chain of dependent steps, which the
+    # probes price.
     n_blocks = sum(p.shape[0] * p.shape[1] for p in got)
     symbols = 2 * n_blocks + sum(int(torch.count_nonzero(p[..., 1:])) for p in got)
     record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape, library_ms=None,
                   symbols=symbols,
-                  **bound(nbytes_of(*args[:4], args[6], args[7], *got), 40 * symbols, "int32"))
+                  **bound(nbytes_of(*args[:4], args[6], args[7], *got),
+                          K2_OPS_PER_SYMBOL * symbols, "int32"))
 
 
 def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
@@ -521,25 +527,54 @@ PROBE_KERNELS = {
 }
 
 
+def combined_step_bytes(tab: np.ndarray, words: np.ndarray, steps: int) -> int:
+    """Bytes of its inputs that a combined-step chain (PK5) of `steps` steps
+    needs: the distinct table entries its lanes peek at and the words they
+    refill from, found by replaying the chain's bit buffer."""
+    row0 = tab[0].astype(np.int64)
+    w = words.view(np.uint32).astype(np.int64)
+    cols = np.arange(w.shape[1])
+    bitbuf = np.full(w.shape[1], 0x9E3779B9, np.int64)
+    bitcnt = np.full(w.shape[1], 32, np.int64)
+    wordpos = np.zeros(w.shape[1], np.int64)
+    peeked = np.zeros(row0.shape[0], bool)
+    for _ in range(steps):
+        peek = (bitbuf >> 20) & 0xFFF
+        peeked[peek] = True
+        ln = row0[peek] & 31
+        bitbuf = (bitbuf << ln) & 0xFFFFFFFF
+        bitcnt -= ln
+        need = bitcnt < 16
+        bitbuf |= np.where(need, w[wordpos % w.shape[0], cols] >> 16, 0)
+        bitcnt += 16 * need
+        wordpos += need
+    return 4 * int(peeked.sum()) + 4 * int(wordpos.sum())
+
+
 def check_probes(dev, kernels: dict, card: str) -> None:
     """PK1-PK7 against their plain versions on the card, bitwise, on every
-    variant of the four scripts at the short chain length; the table in
-    global memory too where both placements exist; PK6 also from a random
-    state. Fills each kernel's record from its standing variant: times of
-    kernel and plain version at that length, and the bound of that call."""
+    variant of the four scripts at both chain lengths that the probe path
+    launches it at; at the short one also against the plain version on the
+    CPU, with the table in global memory where both placements exist, and
+    PK6 from a random state. Fills each kernel's record from its standing
+    variant: times of kernel and plain version at the short length, and the
+    bound of that call."""
     import torch
+    from jpeg_decoder_tpu_torch.benchmarks import gather_probe
     from jpeg_decoder_tpu_torch.ops import probes
 
     for variant in probes.VARIANTS:
         name, standing, step_ops, _ = PROBE_KERNELS[variant.kernel]
         rec = kernels[variant.kernel]
-        steps = PROBE_CHECK_STEPS[variant.round]
+        steps, long_steps = gather_probe.ROUND_STEPS[variant.round]
         t = probes.tensors_for(variant, dev)
         cpu = probes.tensors_for(variant, "cpu")
         got = variant.run(t, steps)
         box = {}
         plain_ms = cuda_ms(lambda: box.update(want=variant.run(t, steps, plain=True)), 1)
         err = max_abs_err(got, box["want"])
+        err = max(err, max_abs_err(variant.run(t, long_steps),
+                                   variant.run(t, long_steps, plain=True)))
         # the plain version on the CPU, the one the CPU tests hold to the
         # JAX kernels: the card's plain version and kernel agree with it
         err = max(err, max_abs_err(got, variant.run(cpu, steps)))
@@ -559,24 +594,32 @@ def check_probes(dev, kernels: dict, card: str) -> None:
             if len(torch.unique(rnd)) < 512:
                 fail("PK6: lanes from a random state did not go their own ways")
             checked.append("random state")
-        ms = cuda_ms(lambda: variant.run(t, steps), 7)
+        # the card alone: launches queued behind a spin kernel (time_ms)
+        ms = gather_probe.time_ms(lambda: variant.run(t, steps), 7, dev)
         log(f"{name} [{variant.label}]: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms"
-            f" ({steps} steps); max_abs_err {err} ({', '.join(checked)}) [{card}]")
+            f" ({steps} steps); max_abs_err {err} at {steps} and {long_steps} steps"
+            f" ({', '.join(checked)}) [{card}]")
         if err != 0:
             fail(f"{name} [{variant.label}] disagrees with its plain version"
                  f" (max_abs_err {err}; tolerance 0)")
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0), err)
         rec.setdefault("variants", {})[variant.key] = dict(
-            label=variant.label, check_steps=steps, ms=ms, plain_ms=plain_ms, max_abs_err=err)
+            label=variant.label, check_steps=[steps, long_steps], ms=ms, plain_ms=plain_ms, max_abs_err=err)
         if variant.key == standing:
             # Bound of this call: every input read once, the result written
-            # once (PK7: the rows its copies fetch, 2 KB each); step_ops
-            # int32 operations a step and lane. What holds a chain in
-            # practice is the latency of its dependent step, which
+            # once; where a chain of this length cannot reach all of an
+            # input, what it does read (PK7: the rows its copies fetch, 2 KB
+            # each; PK5: the table entries and words its lanes come to);
+            # step_ops int32 operations a step and lane. What holds a chain
+            # in practice is the latency of its dependent step, which
             # gather_probe's ns/step below measures.
             lanes = got.numel() if variant.key != "E5" else 128
-            moved = (2048 * probes.dma_waves(steps) * 128 if variant.key == "H5"
-                     else nbytes_of(*t.values()))
+            if variant.key == "H5":
+                moved = 2048 * probes.dma_waves(steps) * 128 + nbytes_of(t["idx0"])
+            elif variant.key == "P5":
+                moved = combined_step_bytes(cpu["tab"].numpy(), cpu["words"].numpy(), steps)
+            else:
+                moved = nbytes_of(*t.values())
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                        shape=f"{variant.label}, {steps} steps",
                        **bound(moved + nbytes_of(got), step_ops * lanes * steps, "int32"))
@@ -593,10 +636,9 @@ def probe_path(kernels: dict) -> dict:
         fail(f"gather_probe printed {len(records)} variants, expected 21")
     for r in records:
         slopes = [r["ns_per_step"]] + ([r["global"]["ns_per_step"]] if "global" in r else [])
-        # finite, and not negative beyond what timing noise explains: a
-        # chain of register shifts costs a few ns a step, and a slope is a
-        # difference of two medians
-        if not all(np.isfinite(x) and x > -5.0 for x in slopes):
+        # a dependent step costs time: a slope of zero or less is a broken
+        # measurement
+        if not all(np.isfinite(x) and x > 0 for x in slopes):
             fail(f"gather_probe: [{r['label']}] gave the slope {slopes} ns/step")
         v = kernels[r["kernel"]]["variants"][r["key"]]
         v.update(ns_per_step=r["ns_per_step"], steps=list(r["steps"]), chain_ms=list(r["ms"]),

@@ -60,8 +60,8 @@ SIGNATURES = {
     # The probes (csrc/probes.cu), each: its tensors, its sizes, steps, ...,
     # cuda_stream.
     # tab, idx0, out, n_lanes, lane_cols, row_stride, col_stride, idx_stride,
-    # tab_elems, add_idx, mod, steps, in_shared
-    "jdtc_probe_gather_chain": [_P, _P, _P, *[_I32] * 10, _P],
+    # tab_elems, size, add_idx, mod, steps, in_shared
+    "jdtc_probe_gather_chain": [_P, _P, _P, *[_I32] * 11, _P],
     # tab, idx0, out, n_lanes, n, bits, mask, steps, in_shared
     "jdtc_probe_onehot_lookup_chain": [_P, _P, _P, *[_I32] * 6, _P],
     # idx0, out, n_rows, width, steps

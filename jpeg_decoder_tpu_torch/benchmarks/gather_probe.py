@@ -8,9 +8,13 @@ chain lengths (256 and 4096 steps in rounds 1 to 3, 4096 and 32768 in round
 4) and the cost of one dependent step is the slope between the two times,
 which cancels the launch and the set-up. Each time is the median of 7
 samples (5 in round 4) after a warm-up, taken with CUDA events; a sample is
-eight launches back to back between one pair of events, over eight, so that
-a launch's start-up jitter (microseconds, as much as a short chain of
-shifts takes) does not decide a slope.
+eight launches between one pair of events, over eight. The host needs
+longer to issue a launch than the card needs for a short chain of shifts,
+so a sample first parks the card behind a spin kernel of about a
+millisecond, and issues the first event and the eight launches meanwhile:
+when the spin ends they run back to back, and the events time the card
+alone. The wrappers read no value of a device tensor, so nothing
+synchronises in between.
 
 One line per variant, under the script's own label, with ns/step, the two
 times, where the table lay, and the card's name and power limit. A variant
@@ -41,6 +45,9 @@ ROUND_STEPS = {1: (256, 4096), 2: (256, 4096), 3: (256, 4096), 4: (4096, 32768)}
 ROUND_REPS = {1: 7, 2: 7, 3: 7, 4: 5}
 #: Launches between one pair of CUDA events (one sample).
 LAUNCHES_PER_SAMPLE = 8
+#: Clock cycles the card spins before a sample's first event, while the host
+#: queues the sample's launches behind it (about a millisecond).
+PARK_CYCLES = 2_000_000
 
 
 def card_line() -> str:
@@ -54,13 +61,15 @@ def card_line() -> str:
 def time_ms(fn, reps: int, device: torch.device) -> float:
     """Median milliseconds of one fn() over `reps` samples after a warm-up:
     on a card a sample is LAUNCHES_PER_SAMPLE calls between two CUDA events,
-    on the CPU one call on the host clock."""
+    queued behind a spin kernel so that they run back to back; on the CPU
+    one call on the host clock."""
     fn()
     times = []
     for _ in range(reps):
         if device.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(PARK_CYCLES)
             a.record()
             for _ in range(LAUNCHES_PER_SAMPLE):
                 fn()

@@ -22,6 +22,12 @@
 //
 // All arithmetic wraps modulo 2^32 as the JAX kernels' int32/uint32 does, so
 // the state is held in uint32_t wherever a sum may overflow.
+//
+// The loads are not bounds-checked. Every index after the first is in range by
+// the chain's modulus; the first is clamped into range once, before the chain,
+// so that a caller's bad start cannot read outside the table (the host does
+// not look at a device tensor's values: that would be a synchronisation in
+// front of every launch).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,7 +49,7 @@ __device__ __forceinline__ int wrap(int v, int mod) {
 // lane's position in the [n_lanes / lane_cols, lane_cols] index array, which
 // expresses take (shared 1-D table: both strides 0), take_along_axis(axis=1)
 // (row_stride = table width) and take_along_axis(axis=0) (col_stride = 1,
-// idx_stride = table width).
+// idx_stride = table width). `size` is the table's extent along the axis.
 // ---------------------------------------------------------------------------
 
 template <bool kShared, bool kPow2>
@@ -51,7 +57,7 @@ __global__ void __launch_bounds__(kThreads)
 gather_chain_kernel(const int* __restrict__ tab, const int* __restrict__ idx0,
                     int* __restrict__ out, int n_lanes, int lane_cols,
                     int row_stride, int col_stride, int idx_stride,
-                    int tab_elems, int add_idx, int mod, int steps) {
+                    int tab_elems, int size, int add_idx, int mod, int steps) {
   extern __shared__ int s_tab[];
   if (kShared) {
     for (int k = threadIdx.x; k < tab_elems; k += blockDim.x) s_tab[k] = tab[k];
@@ -60,7 +66,7 @@ gather_chain_kernel(const int* __restrict__ tab, const int* __restrict__ idx0,
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
   const int base = (lane / lane_cols) * row_stride + (lane % lane_cols) * col_stride;
-  int idx = idx0[lane];
+  int idx = min(max(idx0[lane], 0), size - 1);
   for (int i = 0; i < steps; ++i) {
     const int at = base + idx * idx_stride;
     const int v = kShared ? s_tab[at] : __ldg(tab + at);
@@ -89,7 +95,7 @@ onehot_lookup_chain_kernel(const float* __restrict__ tab,
   }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
-  int idx = idx0[lane];
+  int idx = min(max(idx0[lane], 0), mask);
   for (int i = 0; i < steps; ++i) {
     const int at = (idx >> bits) * n + (idx & (n - 1));
     const int v = static_cast<int>(kShared ? s_ftab[at] : __ldg(tab + at));
@@ -101,16 +107,21 @@ onehot_lookup_chain_kernel(const float* __restrict__ tab,
 // ---------------------------------------------------------------------------
 // PK3 row_scatter_chain: each step out[row][idx] += idx + i, idx = (idx + 7)
 // mod width. Rows are independent, so a thread per row needs no atomics. The
-// output starts from the zeros the wrapper gives it.
+// output starts from zero: a block first clears its rows.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 row_scatter_chain_kernel(const int* __restrict__ idx0, int* out, int n_rows,
                          int width, int steps) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row0 = blockIdx.x * blockDim.x;
+  const int n_mine = min(static_cast<int>(blockDim.x), n_rows - row0) * width;
+  int* mine = out + static_cast<int64_t>(row0) * width;
+  for (int k = threadIdx.x; k < n_mine; k += blockDim.x) mine[k] = 0;
+  __syncthreads();
+  const int row = row0 + threadIdx.x;
   if (row >= n_rows) return;
   uint32_t* o = reinterpret_cast<uint32_t*>(out) + static_cast<int64_t>(row) * width;
-  int idx = idx0[row];
+  int idx = min(max(idx0[row], 0), width - 1);
   for (int i = 0; i < steps; ++i) {
     o[idx] += static_cast<uint32_t>(idx + i);
     idx = (idx + 7) % width;
@@ -119,24 +130,22 @@ row_scatter_chain_kernel(const int* __restrict__ idx0, int* out, int n_rows,
 
 // ---------------------------------------------------------------------------
 // PK4 vshift_chain: x = ((x >> ((sh + i + k) & 31)) ^ x) + 1 for k < n_ops,
-// uint32, wrapping. The scripts unroll the n_ops operations of a step (1 and
-// 10 there), which is what sets a step's fixed loop cost against the cost of
-// one operation; so those two counts are unrolled here too (kOps), and any
-// other count runs the inner loop (kOps = 0).
+// uint32, wrapping. The scripts unroll the n_ops operations of a step, which
+// is what sets a step's fixed loop cost against the cost of one operation; so
+// the count is a template constant (kOps), for the scripts' two: 1 and 10.
 // ---------------------------------------------------------------------------
 
 template <int kOps>
 __global__ void __launch_bounds__(kThreads)
 vshift_chain_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ sh0,
-                    uint32_t* __restrict__ out, int n_lanes, int n_ops, int steps) {
+                    uint32_t* __restrict__ out, int n_lanes, int steps) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
   uint32_t x = x0[lane];
   const uint32_t sh = sh0[lane];
-  const int ops = kOps ? kOps : n_ops;
   for (int i = 0; i < steps; ++i) {
 #pragma unroll
-    for (int k = 0; k < ops; ++k) {
+    for (int k = 0; k < kOps; ++k) {
       x = ((x >> ((sh + static_cast<uint32_t>(i + k)) & 31u)) ^ x) + 1u;
     }
   }
@@ -292,7 +301,7 @@ dma_wave_chain_kernel(const int* __restrict__ stream, const int* __restrict__ of
   __shared__ int off[kWaveCopies];
   const int slot = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (threadIdx.x < kWaveCopies) off[threadIdx.x] = off0[threadIdx.x];
+  if (threadIdx.x < kWaveCopies) off[threadIdx.x] = max(off0[threadIdx.x], 0);
   __syncthreads();
   int* mine = window + slot * kSlotRows * kRowInts;
   for (int w = 0; w < waves; ++w) {
@@ -341,14 +350,14 @@ inline bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 extern "C" int jdtc_probe_gather_chain(const void* tab, const void* idx0, void* out,
                                        int n_lanes, int lane_cols, int row_stride,
                                        int col_stride, int idx_stride, int tab_elems,
-                                       int add_idx, int mod, int steps, int in_shared,
+                                       int size, int add_idx, int mod, int steps, int in_shared,
                                        void* cuda_stream) {
   const size_t shared = in_shared ? static_cast<size_t>(tab_elems) * 4 : 0;
   auto go = [&](auto kernel) {
     return launch(kernel, blocks_for(n_lanes), kThreads, shared, cuda_stream,
                   static_cast<const int*>(tab), static_cast<const int*>(idx0),
                   static_cast<int*>(out), n_lanes, lane_cols, row_stride, col_stride,
-                  idx_stride, tab_elems, add_idx, mod, steps);
+                  idx_stride, tab_elems, size, add_idx, mod, steps);
   };
   if (in_shared) {
     return pow2(mod) ? go(gather_chain_kernel<true, true>)
@@ -384,11 +393,11 @@ extern "C" int jdtc_probe_vshift_chain(const void* x0, const void* sh0, void* ou
   auto go = [&](auto kernel) {
     return launch(kernel, blocks_for(n_lanes), kThreads, 0, cuda_stream,
                   static_cast<const uint32_t*>(x0), static_cast<const uint32_t*>(sh0),
-                  static_cast<uint32_t*>(out), n_lanes, n_ops, steps);
+                  static_cast<uint32_t*>(out), n_lanes, steps);
   };
   if (n_ops == 1) return go(vshift_chain_kernel<1>);
   if (n_ops == 10) return go(vshift_chain_kernel<10>);
-  return go(vshift_chain_kernel<0>);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int jdtc_probe_combined_step_chain(const void* tab, const void* words, void* out,

@@ -68,9 +68,13 @@ def _check(name: str, *tensors: torch.Tensor, f32: torch.Tensor | None = None) -
 
 
 def _in_range(name: str, idx: torch.Tensor, size: int) -> None:
-    """The kernels index without bounds checks: the start must be in range
-    (every later index is, by the chain's modulus)."""
-    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= size):
+    """A chain's start indices must lie in [0, size): every later index
+    does, by the chain's modulus. Checked for a CPU tensor. A CUDA tensor's
+    values are not read here, which would put a synchronisation and two
+    reductions in front of every launch: the kernel clamps a start into
+    range instead, so a bad one reads no memory outside the table."""
+    if idx.device.type == "cpu" and idx.numel() \
+            and (int(idx.min()) < 0 or int(idx.max()) >= size):
         raise ValueError(f"{name}: start indices must lie in [0, {size})")
 
 
@@ -133,7 +137,7 @@ def gather_chain(tab: torch.Tensor, idx0: torch.Tensor, steps: int, axis: int = 
     lane_cols = idx0.shape[-1] if idx0.dim() == 2 else 1
     _build.launch(
         "jdtc_probe_gather_chain", _build.ptr(tab), _build.ptr(idx0), _build.ptr(out),
-        idx0.numel(), lane_cols, *strides, tab.numel(), int(add_idx), mod, steps,
+        idx0.numel(), lane_cols, *strides, tab.numel(), size, int(add_idx), mod, steps,
         int(in_shared), _build.stream_of(out))
     return out
 
@@ -202,7 +206,7 @@ def row_scatter_chain(idx0: torch.Tensor, width: int, steps: int,
     _in_range("row_scatter_chain", idx0, width)
     if dev.type == "cpu" or plain:
         return _row_scatter_chain_plain(idx0, width, steps)
-    out = torch.zeros((idx0.shape[0], width), dtype=I32, device=dev)
+    out = torch.empty((idx0.shape[0], width), dtype=I32, device=dev)  # the kernel clears it
     _build.launch("jdtc_probe_row_scatter_chain", _build.ptr(idx0), _build.ptr(out),
                   idx0.shape[0], width, steps, _build.stream_of(out))
     return out
@@ -224,10 +228,13 @@ def _vshift_chain_plain(x, sh, steps, n_ops):
 def vshift_chain(x0: torch.Tensor, sh: torch.Tensor, steps: int, n_ops: int = 1,
                  plain: bool = False) -> torch.Tensor:
     """x = ((x >> ((sh + i + k) & 31)) ^ x) + 1 for k < n_ops, each step, on
-    uint32 bits held in int32 tensors of one shape. Returns the final x."""
+    uint32 bits held in int32 tensors of one shape. `n_ops` is 1 or 10, the
+    scripts' two unrolled step bodies. Returns the final x."""
     dev = _check("vshift_chain", x0, sh)
     if x0.shape != sh.shape:
         raise ValueError("vshift_chain: x0 and sh must have one shape")
+    if n_ops not in (1, 10):
+        raise ValueError("vshift_chain: n_ops must be 1 or 10")
     if dev.type == "cpu" or plain:
         return _vshift_chain_plain(x0, sh, steps, n_ops)
     out = torch.empty_like(x0)
@@ -390,7 +397,7 @@ def dma_wave_chain(stream: torch.Tensor, off0: torch.Tensor, steps: int,
     if stream.dim() != 2 or stream.shape[1] != 64 or stream.shape[0] <= 2 * _SLOT_ROWS \
             or off0.numel() != _WAVE:
         raise ValueError("dma_wave_chain: stream [rows > 16, 64], off0 [1, 128]")
-    if off0.numel() and int(off0.min()) < 0:
+    if dev.type == "cpu" and int(off0.min()) < 0:  # on a card the kernel clamps, see _in_range
         raise ValueError("dma_wave_chain: offsets must not be negative")
     if dev.type == "cpu" or plain:
         return _dma_wave_chain_plain(stream, off0, steps)

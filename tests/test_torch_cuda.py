@@ -364,12 +364,28 @@ def test_symbol_step_probe_from_a_random_state_matches_plain(cuda_device):
 
 
 def test_vshift_probe_any_op_count(cuda_device):
-    """1 and 10 operations a step are unrolled in the kernel; another count
-    takes its loop."""
+    """1 and 10 operations a step are the kernel's two unrolled bodies; any
+    other count is refused."""
     t = probes.tensors_for(probes.BY_KEY["G4a"], cuda_device)
-    for n_ops in (1, 3, 10):
+    for n_ops in (1, 10):
         assert torch.equal(probes.vshift_chain(t["x"], t["sh"], 64, n_ops),
                            probes.vshift_chain(t["x"], t["sh"], 64, n_ops, plain=True))
+    with pytest.raises(ValueError, match="n_ops"):
+        probes.vshift_chain(t["x"], t["sh"], 64, 3)
+
+
+def test_probe_start_out_of_range_is_clamped_on_the_card(cuda_device):
+    """A CPU tensor's bad start raises; a card's is clamped by the kernel
+    (no read outside the table), without a host look at the values."""
+    variant = probes.BY_KEY["G2"]
+    t = probes.tensors_for(variant, cuda_device)
+    bad = t["idx0"].clone()
+    bad[0, 0], bad[1, 1] = -5, 10**6
+    fixed = bad.clamp(0, t["tab"].shape[0] - 1)
+    assert torch.equal(probes.gather_chain(t["tab"], bad, 64),
+                       probes.gather_chain(t["tab"], fixed, 64))
+    with pytest.raises(ValueError, match="start indices"):
+        probes.gather_chain(t["tab"].cpu(), bad.cpu(), 64)
 
 
 def test_gather_probe_entry_point_on_the_card(cuda_device, capsys):

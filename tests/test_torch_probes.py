@@ -170,6 +170,12 @@ def test_gather_chain_rejects_what_the_kernel_cannot_take(call):
         call(t)
 
 
+def test_vshift_chain_takes_the_scripts_two_op_counts_only():
+    t = probes.tensors_for(probes.BY_KEY["G4a"], "cpu")
+    with pytest.raises(ValueError, match="n_ops"):
+        probes.vshift_chain(t["x"], t["sh"], 4, 3)
+
+
 def test_placement_of_every_variant():
     both = [v.key for v in probes.VARIANTS
             if probes.placement_of(v, probes.tensors_for(v, "cpu")) == "table in shared memory"]
