@@ -9,15 +9,28 @@ Phases, each of which exits non-zero on failure:
   2. make the inputs without JAX or Pillow: random int16 coefficient planes
      of a 3840x2160 4:2:0 frame, packed by the native runtime with the
      Annex K tables and a restart marker per MCU row (135 segments), eight
-     seeds; the same frame without restart markers; four 640x352 streams
-     with restart interval 40; and a small gray stream whose width is not
-     a multiple of 8;
+     seeds (dense blocks, an end-of-block code in one of eight); the same
+     frame without restart markers; four 640x352 streams with restart
+     interval 40; a small gray stream whose width is not a multiple of 8;
+     and real blocks: two files of the test corpus that a foreign encoder
+     wrote with restart markers (tests/wild_files/transcoded: a photograph,
+     640x427 4:2:0, and a drawing, 161x161 4:2:2), and the coefficients of
+     two photographs of that corpus tiled to 3840x2160 4:2:0 with a marker
+     per MCU row (benchmarks/inputs.photo_jpeg);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it: K2 (entropy) bitwise, on a 640x352
-     stream and at 4K, where it is also held against the native host
-     decoder; batched K2 bitwise, the eight 4K requests (1080 segments) in
-     one launch against eight single-image launches and the native host
-     planes, and four 640x352 streams against the batched plain version;
+     stream (where its per-subsequence records are also held against the
+     schedule's model on the CPU, and damaged streams must raise the plain
+     version's error classes) and at 4K, where it is also held against the
+     native host decoder; batched K2 bitwise, the eight 4K requests (1080
+     segments) in one launch against eight single-image launches and the
+     native host planes, and four 640x352 streams against the batched plain
+     version; on the two foreign files against the plain version and the
+     native host decoder, and on the two 4K frames of photographs' blocks
+     against the native host decoder; each K2 line gives the subsequences, the launches of pass 2
+     and the time of each pass; K2u (unstuffing) bitwise against its plain
+     version and the host's per-segment unstuffing, on a 640x352 stream, at
+     4K and for the eight 4K requests in one call;
      K0 (EXACT IDCT) bitwise; K1 (FLOAT32 IDCT) within 1 on at most 1e-3
      of the pixels, at the 4K luma shape, 8- and 12-bit, with the error
      on extreme inputs reported; K3 (colour) bitwise, per image and
@@ -30,12 +43,13 @@ Phases, each of which exits non-zero on failure:
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
        requests and the gray one, every RGB and pixel plane bitwise equal
        to the JAX-free EXACT reference (core.oracle over the native
-       planes);
+       planes); then the two foreign files and the two 4K requests of
+       photographs' blocks, held the same way;
      - JpegDecoder(FLOAT32) for PALLAS and NATIVE on the four 4K
        requests: pixel planes within 1 of the reference's, RGB bitwise
        equal to the colour stage of the returned planes;
      - BatchDecoder for PALLAS and NATIVE, each with EXACT and FLOAT32:
-       decode_batch of the eight 4K requests (one K2 launch, one IDCT
+       decode_batch of the eight 4K requests (one K2u and one K2 call, one IDCT
        launch per component, one K3 launch), decode_stream with batches
        of 4, and decode_many over two 4K DRI requests, the restart-free
        one (which the PALLAS route hands to the native host decode) and
@@ -44,10 +58,10 @@ Phases, each of which exits non-zero on failure:
      - the probe path through its entry point, benchmarks.gather_probe.main
        with all four rounds at the rounds' own chain lengths: 21 ns/step
        lines;
-  5. stage times with CUDA events: per image (H2D, K2, K0, K3, D2H), and
-     per batch of eight (H2D, K2, K0 or K1, K3, D2H) with the host clock
-     of the batch's parse and unstuffing.
-The last lines are the kernels' JSON record (eleven kernels: K0-K3 and
+  5. stage times with CUDA events: per image (H2D, K2u, K2, K0, K3, D2H),
+     and per batch of eight (H2D, K2u, K2, K0 or K1, K3, D2H), each with
+     the host clock of the parse that remains on the host.
+The last lines are the kernels' JSON record (twelve kernels: K0-K3, K2u and
 PK1-PK7, each with its launches on the main paths, its time, its plain
 version's time and its bound), the card's name and power limit, and
 {"ok": true, "device": {...}}. The script imports the port alone, builds
@@ -132,56 +146,8 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# Inputs
+# The reference
 # ---------------------------------------------------------------------------
-
-
-def make_jpeg(w: int, h: int, factors, ri: int, seed: int) -> bytes:
-    """A baseline JPEG of random coefficients: DC in [-60, 60], AC
-    Laplace(4) rounded and clipped to +-1023, so every DC difference and AC
-    value lies in the Annex K categories. Packed by the native runtime."""
-    from jpeg_decoder_tpu_torch.core import huffman, types
-    from jpeg_decoder_tpu_torch.io import writer
-    from jpeg_decoder_tpu_torch.native import runtime
-
-    if not runtime.available():
-        fail("the native runtime did not build")
-    rng = np.random.default_rng(seed)
-    hmax = max(f[0] for f in factors)
-    vmax = max(f[1] for f in factors)
-    mcus_x, mcus_y = -(-w // (8 * hmax)), -(-h // (8 * vmax))
-    planes, rows = [], []
-    for ci, (fh, fv) in enumerate(factors):
-        shape = (mcus_y * fv, mcus_x * fh, 64)
-        p = np.clip(np.rint(rng.laplace(0.0, 4.0, shape)), -1023, 1023)
-        p[..., 0] = rng.integers(-60, 61, shape[:2])
-        planes.append(p.astype(np.int16))
-        t = 0 if ci == 0 else 1
-        # models/encoder._unit_layout: (comp, fh, fv, j, k, sci, dc, ac)
-        rows += [(ci, fh, fv, j, k, ci, t, t)
-                 for j in range(fv) for k in range(fh)]
-    n_tab = 1 if len(factors) == 1 else 2
-    dc_specs = [huffman.annex_k_dc_luminance(), huffman.annex_k_dc_chrominance()][:n_tab]
-    ac_specs = [huffman.annex_k_ac_luminance(), huffman.annex_k_ac_chrominance()][:n_tab]
-    entropy = runtime.encode_scan_planes(
-        planes, mcus_x, mcus_x * mcus_y, np.asarray(rows, dtype=np.int32),
-        [huffman.build_encode_table(s) for s in dc_specs],
-        [huffman.build_encode_table(s) for s in ac_specs], ri,
-    )
-    qts = [types.standard_luminance_qtable(),
-           types.standard_chrominance_qtable()][:n_tab]
-    parts = [writer.soi()]
-    parts += [writer.dqt(i, q) for i, q in enumerate(qts)]
-    parts.append(writer.sof(
-        w, h, [(ci + 1, fh, fv, 0 if ci == 0 else 1)
-               for ci, (fh, fv) in enumerate(factors)]))
-    parts += [writer.dht(s) for s in dc_specs + ac_specs]
-    if ri:
-        parts.append(writer.dri(ri))
-    parts.append(writer.sos([(ci + 1, 0 if ci == 0 else 1, 0 if ci == 0 else 1)
-                             for ci in range(len(factors))]))
-    parts += [entropy, writer.eoi()]
-    return b"".join(parts)
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,12 +168,15 @@ def reference(data: bytes, quirks):
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() over `reps` runs, CUDA events."""
+def cuda_ms(fn, reps: int, before=None) -> float:
+    """Median milliseconds of fn() over `reps` runs, CUDA events; `before`
+    runs ahead of each, outside the events."""
     import torch
 
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -234,6 +203,14 @@ def share_differing(a, b) -> float:
     return float((a != b).mean()) if a.size else 0.0
 
 
+def timed_phase(name: str, fn, *args):
+    """fn(*args), with the seconds it took on a line of the log."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run_path(name: str, fn):
     """Run one main path with every launch count set to 0 just before it;
     returns (fn's result, the counts read just after)."""
@@ -251,12 +228,48 @@ def run_path(name: str, fn):
 # ---------------------------------------------------------------------------
 
 
+def zero_all(groups) -> None:
+    for planes in groups:
+        for p in planes:
+            p.zero_()
+
+
+def k2_passes(rec: dict) -> str:
+    """A K2 call's subsequences, launches of pass 2 and pass times."""
+    from jpeg_decoder_tpu_torch.ops.entropy_cuda import SUB_BYTES
+
+    names = ("tables+pass1", "pass2", "scan", "write", "dc")
+    return (f"{int(rec['sub_base'][-1])} subsequences of {SUB_BYTES} bytes,"
+            f" {rec['rounds']} launches of pass 2 ({rec['steps']} steps in their blocks), passes "
+            + ", ".join(f"{n} {t:.3f}" for n, t in zip(names, rec["pass_ms"])) + " ms")
+
+
+def damaged_streams(data: bytes) -> dict:
+    """name -> (a DRI stream damaged, the error it must raise): 64 one-bits
+    that no code matches at byte 8 of the entropy data, the last restart
+    segment cut in half, and both (the bad code is reported first)."""
+    from jpeg_decoder_tpu_torch import JpegEntropyError, JpegTruncatedError
+    from jpeg_decoder_tpu_torch.io.parser import parse
+
+    span = parse(data).scans[0].span
+    lo, hi = list(span.segment_bounds())[-1]
+    bad = bytearray(data)
+    bad[span.start + 8 : span.start + 24] = b"\xff\x00" * 8
+    cut = lambda d: bytes(d[: lo + (hi - lo) // 2] + d[span.end:])
+    return {"bad code": (bytes(bad), JpegEntropyError),
+            "truncated segment": (cut(bytearray(data)), JpegTruncatedError),
+            "bad code and truncated segment": (cut(bad), JpegEntropyError)}
+
+
 def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
     """K2 against its plain version on the same inputs, bitwise: at the 4K
-    shape the main path gives it and on a reduced stream. At 4K the
-    kernel's planes are also held against the native host decoder's."""
+    shape the main path gives it and on a reduced stream. On the reduced
+    stream the kernel's per-subsequence records are held against the
+    schedule's model on the CPU, and damaged streams must raise the plain
+    version's error classes. At 4K the kernel's planes are also held
+    against the native host decoder's."""
     import torch
-    from jpeg_decoder_tpu_torch import DecodeConfig, convert
+    from jpeg_decoder_tpu_torch import DecodeConfig, JpegError, convert
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
     from jpeg_decoder_tpu_torch.io.parser import parse
@@ -264,23 +277,56 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
     err = 0
     for data in (small, big):
         s = parse(data)
-        args, seg_off = entropy_cuda.launch_args(
-            [entropy_cuda.prepare_scan(s, s.scans[0])], dev)
+        packs = [entropy_cuda.prepare_scan(s, s.scans[0])]
+        args, host_arrays = entropy_cuda.launch_args(packs, dev)
+        seg_off = host_arrays.seg_off
         got = convert.zero_planes(s.frame, dev)
         want = convert.zero_planes(s.frame, dev)
-        box = {}
+        box, rec = {}, {}
         plain_ms = cuda_ms(lambda: box.update(
             st=entropy_cuda._decode_segments_plain(*args, [want])), 1)
-        st_k = entropy_cuda.decode_segments(*args, [got])
+        st_k = entropy_cuda.decode_segments(*args, [got], records=rec, host=host_arrays)
         e = max(max_abs_err(st_k, box["st"]),
                 *[max_abs_err(a, b) for a, b in zip(got, want)])
         err = max(err, e)
         entropy_cuda.check_status(st_k, seg_off)
-        ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got]), 5)
+        ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got], host=host_arrays), 5,
+                     before=lambda: zero_all([got]))
+        e = max(e, *[max_abs_err(a, b) for a, b in zip(got, want)])
+        err = max(err, e)
         shape = (f"{s.frame.width}x{s.frame.height} 4:2:0,"
                  f" {len(seg_off) - 1} segments")
         log(f"K2 entropy: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
-            f" ({shape}); max_abs_err {e}")
+            f" ({shape}); max_abs_err {e}; {k2_passes(rec)}")
+        if data is small:
+            # the records of the fixed point, against the model on the CPU
+            cpu_args, _ = entropy_cuda.launch_args(packs, "cpu")
+            st_m, model = entropy_cuda._decode_segments_subseq_plain(
+                *cpu_args, [convert.zero_planes(s.frame, "cpu")])
+            rec_err = max(max_abs_err(st_k, st_m),
+                          *[max_abs_err(rec[k], model[k]) for k in ("rec", "used", "first_du")])
+            log(f"K2 entropy: records of {len(model['rec'])} subsequences (end states and"
+                f" counts, start states, first data units) against the model on the CPU:"
+                f" max_abs_err {rec_err}; the model needs {model['rounds']} rounds of pass 2"
+                f" (records replaced per round {model['changed']}), the kernel"
+                f" {rec['rounds']} launches with {rec['steps']} steps in their blocks")
+            if rec_err != 0 or not 1 <= rec["rounds"] <= model["rounds"] + 1:
+                fail("K2's records differ from the model's")
+            for name, (bad, want_error) in damaged_streams(small).items():
+                outcomes = []
+                for device in (dev, "cpu"):
+                    sb = parse(bad)
+                    try:
+                        entropy_cuda.decode_scan(sb, sb.scans[0],
+                                                 convert.zero_planes(sb.frame, device))
+                        outcomes.append(None)
+                    except JpegError as ex:
+                        outcomes.append(type(ex))
+                if outcomes != [want_error, want_error]:
+                    fail(f"K2 on a damaged stream ({name}): card and plain version gave"
+                         f" {outcomes}, expected {want_error}")
+            log("K2 entropy: damaged streams (bad code, truncated segment, both) raise"
+                " the plain version's error classes on the card")
     # the last pass was the 4K one: its numbers go in the record
     _, native_planes, _ = host.host_decode(big, DecodeConfig())
     native_err = max(max_abs_err(a, b) for a, b in zip(got, native_planes.planes))
@@ -291,14 +337,14 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
     # Bound, from this request's data: the stream, offsets and tables read
     # once, the int16 planes written once; one Huffman symbol per nonzero AC
     # coefficient, one DC and at most one end-of-block per block, each
-    # K2_OPS_PER_SYMBOL operations: what any decoder must do, not what this
-    # kernel's 16-compare ladder spends. What holds K2 in practice is
-    # neither: the longest segment's chain of dependent steps, which the
-    # probes price.
+    # K2_OPS_PER_SYMBOL operations: what any decoder must do once, not what
+    # this design's three to four decodes of every subsequence spend.
     n_blocks = sum(p.shape[0] * p.shape[1] for p in got)
     symbols = 2 * n_blocks + sum(int(torch.count_nonzero(p[..., 1:])) for p in got)
     record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape, library_ms=None,
-                  symbols=symbols,
+                  symbols=symbols, sub_bytes=entropy_cuda.SUB_BYTES,
+                  subsequences=int(rec["sub_base"][-1]), pass2_launches=rec["rounds"],
+                  pass2_steps=rec["steps"], pass_ms=rec["pass_ms"],
                   **bound(nbytes_of(*args[:4], args[6], args[7], *got),
                           K2_OPS_PER_SYMBOL * symbols, "int32"))
 
@@ -313,17 +359,21 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
     from jpeg_decoder_tpu_torch.io.parser import parse
 
     structures = [parse(d) for d in batch]
-    args, seg_off = entropy_cuda.launch_args(
+    args, host_arrays = entropy_cuda.launch_args(
         [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures], dev)
+    seg_off = host_arrays.seg_off
     got = [convert.zero_planes(s.frame, dev) for s in structures]
-    entropy_cuda.check_status(entropy_cuda.decode_segments(*args, got), seg_off)
-    ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, got), 5)
+    rec = {}
+    entropy_cuda.check_status(
+        entropy_cuda.decode_segments(*args, got, records=rec, host=host_arrays), seg_off)
+    ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, got, host=host_arrays), 5,
+                 before=lambda: zero_all(got))
     err, single_ms = 0, []
     for data, s, planes in zip(batch, structures, got):
-        a1, so1 = entropy_cuda.launch_args([entropy_cuda.prepare_scan(s, s.scans[0])], dev)
+        a1, h1 = entropy_cuda.launch_args([entropy_cuda.prepare_scan(s, s.scans[0])], dev)
         one = convert.zero_planes(s.frame, dev)
         single_ms.append(cuda_ms(lambda: entropy_cuda.check_status(
-            entropy_cuda.decode_segments(*a1, [one]), so1), 1))
+            entropy_cuda.decode_segments(*a1, [one], host=h1), h1.seg_off), 1))
         _, native, _ = host.host_decode(data, DecodeConfig())
         err = max(err, *[max_abs_err(a, b) for a, b in zip(planes, one)],
                   *[max_abs_err(a, b) for a, b in zip(planes, native.planes)])
@@ -331,19 +381,23 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
     log(f"K2 batched: kernel {ms:.3f} ms for {len(batch)} x {W}x{H} 4:2:0 in one"
         f" launch ({n_segs} segments), {ms / len(batch):.3f} ms per image;"
         f" single-image launches {[round(t, 3) for t in single_ms]} ms;"
-        f" max_abs_err {err} (against the single launches and the native planes)")
+        f" max_abs_err {err} (against the single launches and the native planes);"
+        f" {k2_passes(rec)}")
 
     structures = [parse(d) for d in smalls]
-    sargs, sseg = entropy_cuda.launch_args(
+    sargs, shost = entropy_cuda.launch_args(
         [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures], dev)
+    sseg = shost.seg_off
     gk = [convert.zero_planes(s.frame, dev) for s in structures]
     gp = [convert.zero_planes(s.frame, dev) for s in structures]
+    # without the host's copies: the wrapper reads its arguments back
     st_k = entropy_cuda.decode_segments(*sargs, gk)
     box = {}
     plain_ms = cuda_ms(lambda: box.update(
         st=entropy_cuda._decode_segments_plain(*sargs, gp)), 1)
     entropy_cuda.check_status(st_k, sseg)
-    small_ms = cuda_ms(lambda: entropy_cuda.decode_segments(*sargs, gk), 5)
+    small_ms = cuda_ms(lambda: entropy_cuda.decode_segments(*sargs, gk, host=shost), 5,
+                       before=lambda: zero_all(gk))
     e2 = max(max_abs_err(st_k, box["st"]),
              *[max_abs_err(a, b) for x, y in zip(gk, gp) for a, b in zip(x, y)])
     log(f"K2 batched: kernel {small_ms:.3f} ms, plain {plain_ms:.1f} ms"
@@ -354,7 +408,107 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
         fail(f"batched K2 disagrees (max_abs_err {err}; tolerance 0)")
     record["max_abs_err"] = max(record["max_abs_err"], err)
     record.update(batch_ms=ms, batch_shape=f"{len(batch)} x {W}x{H} 4:2:0, {n_segs} segments",
-                  batch_small_ms=small_ms, batch_small_plain_ms=plain_ms)
+                  batch_small_ms=small_ms, batch_small_plain_ms=plain_ms,
+                  batch_subsequences=int(rec["sub_base"][-1]),
+                  batch_pass2_launches=rec["rounds"], batch_pass2_steps=rec["steps"],
+                  batch_pass_ms=rec["pass_ms"])
+
+
+def check_k2_photographs(dev, files: dict, tiled: dict, record: dict) -> None:
+    """K2 on real blocks (an end-of-block code in nine of ten, where chains
+    from wrong starts fall into step within a few blocks), planes bitwise
+    against the native host decoder's, with the passes. `files`: streams as
+    a foreign encoder wrote them; the one of short segments also against the
+    plain version, status and planes (on the others its lockstep lanes would
+    take ten seconds to a minute). `tiled`: photographs' coefficients at
+    4K."""
+    from jpeg_decoder_tpu_torch import DecodeConfig, convert
+    from jpeg_decoder_tpu_torch.benchmarks import inputs
+    from jpeg_decoder_tpu_torch.models import host
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+    from jpeg_decoder_tpu_torch.io.parser import parse
+
+    record["photographs"] = {}
+    for name, data in {**files, **tiled}.items():
+        s = parse(data)
+        args, host_arrays = entropy_cuda.launch_args(
+            [entropy_cuda.prepare_scan(s, s.scans[0])], dev)
+        got = convert.zero_planes(s.frame, dev)
+        rec = {}
+        st_k = entropy_cuda.decode_segments(*args, [got], records=rec, host=host_arrays)
+        entropy_cuda.check_status(st_k, host_arrays.seg_off)
+        ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got], host=host_arrays), 5,
+                     before=lambda: zero_all([got]))
+        _, native_planes, _ = host.host_decode(data, DecodeConfig())
+        err = max(max_abs_err(a, b) for a, b in zip(got, native_planes.planes))
+        against = "the native host decoder's planes"
+        if name in files and s.scans[0].restart_interval < 8:
+            want = convert.zero_planes(s.frame, dev)
+            st_p = entropy_cuda._decode_segments_plain(*args, [want])
+            err = max(err, max_abs_err(st_k, st_p),
+                      *[max_abs_err(a, b) for a, b in zip(got, want)])
+            against = "the plain version's status and planes and " + against
+        stats = inputs.block_stats(data)
+        log(f"K2 entropy, {name}: kernel {ms:.3f} ms ({s.frame.width}x{s.frame.height},"
+            f" {len(host_arrays.seg_off) - 1} segments, {stats['scan_bytes']} bytes,"
+            f" {stats['nonzero_ac_per_block']} nonzero AC and {stats['bits_per_block']} bits"
+            f" a block, an EOB in {stats['share_blocks_with_eob']:.4f} of the blocks);"
+            f" max_abs_err {err} (against {against}); {k2_passes(rec)}")
+        if err != 0:
+            fail(f"K2 disagrees on {name} (max_abs_err {err}; tolerance 0)")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        record["photographs"][name] = dict(
+            ms=ms, subsequences=int(rec["sub_base"][-1]), pass2_launches=rec["rounds"],
+            pass2_steps=rec["steps"], pass_ms=rec["pass_ms"], **stats)
+
+
+def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict) -> None:
+    """K2u against its plain version on the card and against the host's
+    per-segment unstuffing (pack_scan), bitwise: a 640x352 stream, the 4K
+    request and the eight 4K requests of a batch in one call."""
+    import torch
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+    from jpeg_decoder_tpu_torch.io.parser import parse
+
+    err = 0
+    for datas in ([small], [big], batch):
+        structures = [parse(d) for d in datas]
+        packs = [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures]
+        raw, lo, hi, *_ = entropy_cuda.to_device(entropy_cuda.host_args(packs), dev)
+        got = entropy_cuda.unstuff_segments(raw, lo, hi)
+        box = {}
+        plain_ms = cuda_ms(lambda: box.update(p=entropy_cuda._unstuff_plain(raw, lo, hi)), 3)
+        # the host's: every image's segments unstuffed one by one
+        t0 = time.perf_counter()
+        host = [entropy_cuda.pack_scan(s, s.scans[0], p.total_mcus, p.units.shape[0])
+                for s, p in zip(structures, packs)]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stream = np.concatenate([st[: so[-1]] for _ri, st, so in host]
+                                + [np.zeros(8, dtype=np.uint8)])
+        ends = np.cumsum([0] + [int(so[-1]) for _ri, _st, so in host])
+        seg_off = np.concatenate([[0]] + [so[1:] + e for (_ri, _st, so), e in zip(host, ends)])
+        e = max(max_abs_err(got.stream, box["p"][0]), max_abs_err(got.seg_off, box["p"][1]),
+                max_abs_err(got.stream, stream), max_abs_err(got.seg_off_host, seg_off))
+        err = max(err, e)
+        # the wrapper ends by reading seg_off back: the time includes that
+        ms = cuda_ms(lambda: entropy_cuda.unstuff_segments(raw, lo, hi), 5)
+        shape = f"{len(datas)} x {structures[0].frame.width}x{structures[0].frame.height}"
+        log(f"K2u unstuff: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, the host's"
+            f" per-segment unstuffing {host_ms:.1f} ms ({shape}: {raw.numel()} raw bytes,"
+            f" {lo.numel()} segments, {raw.numel() - int(got.seg_off_host[-1])} bytes"
+            f" dropped); max_abs_err {e}")
+        if datas[0] is big and len(datas) == 1:
+            # Bound: the raw bytes and bounds read once, the stream and its
+            # offsets written once; per raw byte a compare with 0x00, one
+            # with 0xFF and the add of the prefix sum.
+            record.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          shape=f"{raw.numel()} raw bytes, {lo.numel()} segments",
+                          **bound(nbytes_of(raw, lo, hi, got.stream, got.seg_off),
+                                  3 * raw.numel(), "int32"))
+        elif len(datas) > 1:
+            record.update(batch_ms=ms, batch_plain_ms=plain_ms,
+                          batch_shape=f"{raw.numel()} raw bytes, {lo.numel()} segments")
+    record["max_abs_err"] = err
 
 
 def check_k0(dev, big: bytes, record: dict) -> None:
@@ -653,9 +807,10 @@ def probe_path(kernels: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def main_path(dev, requests, card: str) -> dict:
+def main_path(dev, requests, card: str, label: str = "") -> dict:
     """Both EXACT configs through the public entry points, against the
-    reference. Returns path -> launch counts of its run."""
+    reference. Returns path -> launch counts of its run; `label` tells a
+    second set of requests from the first."""
     from jpeg_decoder_tpu_torch import (
         DecodeConfig,
         EntropyBackend,
@@ -666,7 +821,7 @@ def main_path(dev, requests, card: str) -> dict:
     runs = {}
     for cfg in (DecodeConfig(entropy_backend=EntropyBackend.PALLAS),
                 DecodeConfig()):
-        name = cfg.entropy_backend.value
+        name = cfg.entropy_backend.value + label
         dec = JpegDecoder(cfg, device=dev)
         e2e = []
 
@@ -783,7 +938,7 @@ def batch_path(dev, batch, many, card: str) -> dict:
                     else "jdtc_idct_float")
             want = {idct: 3, "jdtc_color": 1}
             if backend == EntropyBackend.PALLAS:
-                want["jdtc_entropy_decode"] = 1
+                want["jdtc_entropy_decode"] = want["jdtc_unstuff"] = 1
             if launches != want:
                 fail(f"{name}: decode_batch launched {launches}, expected {want}")
             stream, runs[f"{name} decode_stream"] = run_path(
@@ -825,7 +980,7 @@ REFERENCE_OF: dict = {}
 # ---------------------------------------------------------------------------
 
 
-def stage_times(dev, requests, card: str) -> None:
+def stage_times(dev, requests, card: str, label: str = "image") -> None:
     """Per-image CUDA-event times of the PALLAS path's device stages."""
     from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, convert
     from jpeg_decoder_tpu_torch.models import decoder
@@ -840,10 +995,13 @@ def stage_times(dev, requests, card: str) -> None:
         host_ms = (time.perf_counter() - t0) * 1e3
         planes = convert.zero_planes(s.frame, dev)
         box = {}
-        h2d = cuda_ms(lambda: box.update(args=entropy_cuda.to_device(host, dev)), 1)
-        args, seg_off = box["args"], host[1]
+        h2d = cuda_ms(lambda: box.update(dev=entropy_cuda.to_device(host, dev)), 1)
+        raw, lo, hi, *rest = box["dev"]
+        k2u = cuda_ms(lambda: box.update(un=entropy_cuda.unstuff_segments(raw, lo, hi)), 1)
+        stream, seg_off_dev, seg_off = box["un"]
+        on_host = entropy_cuda.HostArrays(seg_off, host[3], host[6], host[7])
         k2 = cuda_ms(lambda: box.update(status=entropy_cuda.decode_segments(
-            *args, [planes])), 1)
+            stream, seg_off_dev, *rest, [planes], host=on_host)), 1)
         entropy_cuda.check_status(box["status"], seg_off)
         stage = decoder.device_stage_for(
             s.frame, {t: q.values for t, q in s.scans[0].quant_tables.items()}, cfg, dev)
@@ -854,14 +1012,15 @@ def stage_times(dev, requests, card: str) -> None:
             box["pix"], s.frame.height, s.frame.width, stage.factors,
             stage.quirks)), 1)
         d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
-        log(f"stage times image {i}: host parse+unstuff {host_ms:.3f} ms,"
-            f" H2D {h2d:.3f} ms ({host[0].nbytes} B), K2 {k2:.3f} ms,"
+        log(f"stage times {label} {i}: host parse {host_ms:.3f} ms,"
+            f" H2D {h2d:.3f} ms ({sum(r.nbytes for r in host[0])} B), K2u {k2u:.3f} ms, K2 {k2:.3f} ms,"
             f" K0 {k0:.3f} ms, K3 {k3:.3f} ms, D2H rgb {d2h:.3f} ms [{card}]")
 
 
 def batch_stage_times(dev, batch, card: str) -> None:
     """CUDA-event times of one PALLAS batch's device stages, EXACT and
-    FLOAT32, with the host clock of its parse and unstuffing."""
+    FLOAT32, with the host clock of its parse (the segments' raw bounds;
+    unstuffing is K2u's)."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, IdctPrecision
     from jpeg_decoder_tpu_torch.models import decoder
@@ -879,10 +1038,14 @@ def batch_stage_times(dev, batch, card: str) -> None:
         stacks = [torch.zeros((len(batch), c.blocks_y, c.blocks_x, 64),
                               dtype=torch.int16, device=dev) for c in frame.components]
         box = {}
-        h2d = cuda_ms(lambda: box.update(args=entropy_cuda.to_device(host, dev)), 1)
-        args, seg_off = box["args"], host[1]
+        h2d = cuda_ms(lambda: box.update(dev=entropy_cuda.to_device(host, dev)), 1)
+        raw, lo, hi, *rest = box["dev"]
+        k2u = cuda_ms(lambda: box.update(un=entropy_cuda.unstuff_segments(raw, lo, hi)), 1)
+        stream, seg_off_dev, seg_off = box["un"]
+        on_host = entropy_cuda.HostArrays(seg_off, host[3], host[6], host[7])
         k2 = cuda_ms(lambda: box.update(status=entropy_cuda.decode_segments(
-            *args, [[st[i] for st in stacks] for i in range(len(batch))])), 1)
+            stream, seg_off_dev, *rest,
+            [[st[i] for st in stacks] for i in range(len(batch))], host=on_host)), 1)
         entropy_cuda.check_status(box["status"], seg_off)
         stage = decoder.device_stage_for(
             frame, {t: q.values for t, q in structures[0].scans[0].quant_tables.items()},
@@ -894,10 +1057,10 @@ def batch_stage_times(dev, batch, card: str) -> None:
         k3 = cuda_ms(lambda: box.update(rgb=decoder.color_ops.planes_to_rgb(
             box["pix"], frame.height, frame.width, stage.factors, stage.quirks)), 1)
         d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
-        nbytes = host[0].nbytes
+        nbytes = sum(r.nbytes for r in host[0])
         log(f"batch stage times ({len(batch)} x {W}x{H}, {precision.value}):"
-            f" host parse+unstuff {host_ms:.3f} ms, H2D {h2d:.3f} ms ({nbytes} B),"
-            f" K2 {k2:.3f} ms, {'K0' if precision == IdctPrecision.EXACT else 'K1'}"
+            f" host parse {host_ms:.3f} ms, H2D {h2d:.3f} ms ({nbytes} B),"
+            f" K2u {k2u:.3f} ms, K2 {k2:.3f} ms, {'K0' if precision == IdctPrecision.EXACT else 'K1'}"
             f" {kidct:.3f} ms, K3 {k3:.3f} ms, D2H rgb {d2h:.3f} ms"
             f" ({box['rgb'].numel()} B) [{card}]")
 
@@ -911,6 +1074,12 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     try:
         from jpeg_decoder_tpu_torch import _build
+        from jpeg_decoder_tpu_torch.benchmarks.inputs import (
+            DRI_FILES,
+            PHOTOS_420,
+            make_jpeg,
+            photo_jpeg,
+        )
         from jpeg_decoder_tpu_torch.native import build as native_build
         from jpeg_decoder_tpu_torch.utils import jax_free
     except ImportError as e:
@@ -937,15 +1106,25 @@ def main() -> None:
     gray = make_jpeg(GRAY[0], GRAY[1], ((1, 1),), 0, 11)
     smalls = [make_jpeg(SMALL[0], SMALL[1], F420, SMALL[2], seed) for seed in SMALL_SEEDS]
     many = [requests[0], requests[1], no_dri, gray]
+    files = {f"file {p.name}": p.read_bytes() for p in DRI_FILES}
+    tiled = {f"photograph {p.name} tiled to {W}x{H}": photo_jpeg(p, W, H, RI)
+             for p in PHOTOS_420}
     log(f"inputs: {len(batch)} x {W}x{H} 4:2:0, ri {RI},"
         f" {[len(r) for r in batch]} bytes; the same frame restart-free"
-        f" ({len(no_dri)} bytes); made in {time.perf_counter() - t0:.1f} s")
+        f" ({len(no_dri)} bytes); {len(files)} foreign files with restart markers"
+        f" ({[len(r) for r in files.values()]} bytes); {len(tiled)} photographs tiled to"
+        f" {W}x{H} ({[len(r) for r in tiled.values()]} bytes); made in"
+        f" {time.perf_counter() - t0:.1f} s")
 
     kernels = {
         "jdtc_entropy_decode": dict(
             name="K2 entropy_decode", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/entropy_decode.cu",
             replaces="jpeg_decoder_tpu/ops/entropy_pallas.py:607"),
+        "jdtc_unstuff": dict(
+            name="K2u unstuff", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/unstuff.cu",
+            replaces="jpeg_decoder_tpu/ops/entropy_pallas.py:636"),
         "jdtc_idct_exact": dict(
             name="K0 idct_exact", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/idct_exact.cu",
@@ -963,32 +1142,41 @@ def main() -> None:
         kernels[key] = dict(name=name, route="cuda",
                             source="jpeg_decoder_tpu_torch/csrc/probes.cu",
                             replaces=replaces)
-    check_k2(dev, smalls[0], requests[0], kernels["jdtc_entropy_decode"])
-    check_k2_batch(dev, batch, smalls, kernels["jdtc_entropy_decode"])
-    check_k0(dev, requests[0], kernels["jdtc_idct_exact"])
-    check_k1(dev, requests[0], kernels["jdtc_idct_float"])
-    check_k3(dev, requests[0], gray, kernels["jdtc_color"])
-    check_probes(dev, kernels, card)
+    timed_phase("K2 against plain", check_k2, dev, smalls[0], requests[0],
+                kernels["jdtc_entropy_decode"])
+    timed_phase("K2 batched", check_k2_batch, dev, batch, smalls,
+                kernels["jdtc_entropy_decode"])
+    timed_phase("K2 on photographs", check_k2_photographs, dev, files, tiled,
+                kernels["jdtc_entropy_decode"])
+    timed_phase("K2u", check_k2u, dev, smalls[0], requests[0], batch, kernels["jdtc_unstuff"])
+    timed_phase("K0", check_k0, dev, requests[0], kernels["jdtc_idct_exact"])
+    timed_phase("K1", check_k1, dev, requests[0], kernels["jdtc_idct_float"])
+    timed_phase("K3", check_k3, dev, requests[0], gray, kernels["jdtc_color"])
+    timed_phase("probes against plain", check_probes, dev, kernels, card)
     for key, rec in kernels.items():
         if key != "jdtc_idct_float" and rec["max_abs_err"] != 0:
             fail(f"{rec['name']} disagrees with its plain version"
                  f" (max_abs_err {rec['max_abs_err']}; tolerance 0)")
 
-    runs = main_path(dev, requests + [gray], card)
+    runs = timed_phase("main paths, single requests", main_path, dev, requests + [gray], card)
+    runs.update(main_path(dev, list(files.values()) + list(tiled.values()), card,
+                          " (foreign files, photographs at 4K)"))
     runs.update(float32_path(dev, requests, card))
-    runs.update(batch_path(dev, batch, many, card))
-    runs.update(probe_path(kernels))
+    runs.update(timed_phase("main paths, batches", batch_path, dev, batch, many, card))
+    runs.update(timed_phase("main path, probes", probe_path, kernels))
     for key, rec in kernels.items():
         rec["launches"] = sum(r.get(key, 0) for r in runs.values())
         rec["launches_by_path"] = {p: r[key] for p, r in runs.items() if key in r}
         if rec["launches"] == 0:
             fail(f"{rec['name']} was not launched by a main path")
     for path, key in (("JpegDecoder pallas exact", "jdtc_entropy_decode"),
+                      ("JpegDecoder pallas exact", "jdtc_unstuff"),
                       ("JpegDecoder pallas float32", "jdtc_idct_float"),
                       ("JpegDecoder native exact", "jdtc_idct_exact")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")
     stage_times(dev, requests, card)
+    stage_times(dev, list(tiled.values()), card, "photograph at 4K")
     batch_stage_times(dev, batch, card)
     if not jax_free():
         fail("JAX or the JAX package jpeg_decoder_tpu was loaded")

@@ -7,9 +7,10 @@ with a plain C interface, cached under `build/` by a hash of the sources and
 flags, and loaded with ctypes. No PyTorch header is included, so a build
 takes seconds, not minutes.
 
-Each C entry point launches one kernel on the stream it is given and
-returns `cudaGetLastError()`; `launch` raises on a nonzero status and counts
-the launch. The counts let a caller show which kernels a run went through.
+Each C entry point launches its kernel (K2 and K2u: the kernels of their
+passes) on the stream it is given and returns `cudaGetLastError()`; `launch`
+raises on a nonzero status and counts the launch, one per call. The counts
+let a caller show which kernels a run went through.
 
 CLI: python -m jpeg_decoder_tpu_torch._build [--force]
 """
@@ -28,8 +29,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("entropy_decode.cu", "idct_exact.cu", "idct_float.cu", "color.cu",
-           "probes.cu")
+SOURCES = ("entropy_decode.cu", "unstuff.cu", "idct_exact.cu", "idct_float.cu",
+           "color.cu", "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -43,10 +44,17 @@ _F32 = ctypes.c_float
 #: a bare Python int would be passed as a 32-bit int and cut the address.
 SIGNATURES = {
     # stream, seg_off, seg_img, seg_idx, n_segs, ri, total_mcus, units,
-    # n_units, tables, n_specs, plane_ptrs, status, cuda_stream
+    # n_units, tables, n_specs, plane_ptrs, status, sub_base, du_base_img,
+    # max_subs, rec, used, first_du, dcdiff, lut, flag, rounds (host int*),
+    # pass_ms (host float[5]* or null), cuda_stream
     "jdtc_entropy_decode": [
-        _P, _P, _P, _P, _I64, _I64, _P, _P, _I32, _P, _I32, _P, _P, _P,
+        _P, _P, _P, _P, _I64, _I64, _P, _P, _I32, _P, _I32, _P, _P,
+        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
+    # the subsequence size K2 was built with (no launch)
+    "jdtc_entropy_sub_bytes": [],
+    # raw, n_raw, lo, hi, n_segs, block_sum, out, seg_off, cuda_stream
+    "jdtc_unstuff": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
     # coeffs, qt, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_exact": [_P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream

@@ -1,18 +1,26 @@
 """Entropy (Huffman) decode of sequential scans on the device (counterpart of
-jpeg_decoder_tpu/ops/entropy_pallas.py): one restart segment per lane.
+jpeg_decoder_tpu/ops/entropy_pallas.py).
 
-The host unstuffs every segment of a scan (io/bitstream.unstuff, as the JAX
-backend's _pack_group does) into one flat byte buffer with per-segment
-offsets, copies it to the device once, and `decode_segments` turns it into
-int16 zigzag data units written straight into the coefficient planes. For a
-CUDA tensor that is kernel K2 (csrc/entropy_decode.cu), one thread per
-segment; for a CPU tensor it is the plain version below, a torch loop over
-segments in lockstep -- one tensor lane per segment, one symbol per step,
-table lookups by indexing -- which is what the TPU kernel computes, without
-its layout tricks. A launch takes the segments of a group of images that
-share (ri, P, unit schedule, Huffman tables): `entropy_decode_batch`
-decodes a batch in one launch per group, and a single scan is a group of
-one.
+The host parses a stream and finds the raw bounds of its restart segments;
+the raw entropy-coded bytes of a group of scans go to the device as they
+lie in their files, one copy per image. `unstuff_segments` (kernel K2u, csrc/unstuff.cu) drops the stuffed
+zeros and the restart markers there and leaves one flat byte buffer with
+per-segment offsets -- what the JAX backend's _pack_group builds on the
+host -- and `decode_segments` (kernel K2, csrc/entropy_decode.cu) turns it
+into int16 zigzag data units written straight into the zeroed coefficient
+planes. K2 cuts every segment into subsequences of SUB_BYTES bytes, one
+thread each: the threads decode from guessed states, hand each other their
+end states until nothing changes (Huffman streams resynchronise), a prefix
+sum places every subsequence's data units, a last decode stores them, and
+the DC predictions are summed afterwards. For a CPU tensor both functions
+run their plain versions below: for K2 a torch loop over segments in
+lockstep -- one tensor lane per segment, one symbol per step, table
+lookups by indexing -- which is what the TPU kernel computes, without its
+layout tricks. `_decode_segments_subseq_plain` is a model of K2's schedule
+for the tests, never a decode path. A launch takes the segments of a group
+of images that share (ri, P, unit schedule, Huffman tables):
+`entropy_decode_batch` decodes a batch in one launch per group, and a
+single scan is a group of one.
 
 Guards and errors are the JAX backend's, so both packages accept the same
 streams: progressive scans, restart-free scans over 256 MCUs and segments
@@ -24,6 +32,8 @@ raises JpegTruncatedError.
 
 from __future__ import annotations
 
+import ctypes
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -49,22 +59,30 @@ from .. import _build, convert
 _LANES = 128
 _MAX_GROUP_OUT_BYTES = 512 << 20
 _INVALID = 0x1FF
+#: Bytes of a subsequence, K2's unit of parallel work (kSubBytes in
+#: csrc/entropy_decode.cu; the wrapper refuses a library built with another).
+SUB_BYTES = 128
+#: Bits that index K2's first-level tables (kLutBits).
+_LUT_BITS = 10
+#: A K2 record as one 64-bit word: bits 63..32 the bit position p, 31..16
+#: the data units completed, 15..12 the unit u, 11..6 the zigzag position k,
+#: bit 0 invalid. A state is a record with the count cleared.
+_COUNT_MASK = 0xFFFF << 16
 
 
 def _segments_too_long(ri: int, n_units: int) -> bool:
     return ri * n_units * 64 * _LANES * 2 * 8 > _MAX_GROUP_OUT_BYTES
 
 
-def pack_scan(structure, scan, total_mcus: int, n_units: int):
-    """Check a scan against the backend's guards and unstuff its restart
-    segments: returns (ri, stream uint8 [nbytes + 8], seg_off int64
-    [n_segs + 1]); segment s is stream[seg_off[s]:seg_off[s + 1]]."""
+def check_scan(scan, total_mcus: int, n_units: int) -> int:
+    """Check a scan against the backend's guards; returns its restart
+    interval in MCUs (the whole scan for a restart-free one)."""
     _check_segments(scan, total_mcus)
     if scan.restart_interval == 0 and total_mcus > 256:
         raise JpegUnsupportedError(
-            "device entropy backend needs restart intervals (one thread per"
-            " restart segment); use the native backend for restart-free"
-            " streams"
+            "device entropy backend needs restart intervals (it keeps the"
+            " JAX backend's guard: a restart-free scan of at most 256"
+            " MCUs); use the native backend for restart-free streams"
         )
     ri = scan.restart_interval or total_mcus
     if _segments_too_long(ri, n_units):
@@ -72,6 +90,14 @@ def pack_scan(structure, scan, total_mcus: int, n_units: int):
             f"restart segments too long for the device entropy backend"
             f" ({ri} MCUs/segment); use the native backend"
         )
+    return ri
+
+
+def pack_scan(structure, scan, total_mcus: int, n_units: int):
+    """The host's unstuffing, which `unstuff_segments` is held against:
+    check_scan's guards, then (ri, stream uint8 [nbytes + 8], seg_off int64
+    [n_segs + 1]); segment s is stream[seg_off[s]:seg_off[s + 1]]."""
+    ri = check_scan(scan, total_mcus, n_units)
     segs = [bsio.unstuff(structure.data, s, e)[0]
             for s, e in scan.span.segment_bounds()]
     seg_off = np.zeros(len(segs) + 1, dtype=np.int64)
@@ -218,16 +244,227 @@ def _decode_segments_plain(stream, seg_off, seg_img, seg_idx, ri, total_mcus,
     return torch.stack([bad.to(i64), pos], dim=1)
 
 
+def sub_layout(seg_off: np.ndarray, sub_bytes: int = SUB_BYTES) -> np.ndarray:
+    """int64 [n_segs + 1]: the index of each segment's first subsequence
+    among all subsequences of a launch. A segment has one subsequence per
+    `sub_bytes` bytes, and at least one."""
+    nsub = np.maximum(1, -(-np.diff(seg_off) // sub_bytes))
+    return np.concatenate([[0], np.cumsum(nsub)]).astype(np.int64)
+
+
+def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_mcus,
+                                  units, tables, planes, sub_bytes: int = SUB_BYTES):
+    """A model of K2's schedule (csrc/entropy_decode.cu) in Python integers,
+    for the tests and the card check at small sizes; never a decode path.
+    The same passes over the same records: pass 1 from guessed states, the
+    rounds of pass 2 (here every subsequence takes its predecessor's record
+    of the round before; the kernel's blocks also iterate among themselves,
+    so it needs no more launches than this needs rounds), the prefix sum,
+    the write pass and the DC sums. Returns (status int64 [n_segs, 2],
+    records) with records = dict(rec, used, first_du: int64 / int64 / int64
+    arrays over all subsequences; sub_base; rounds; changed: the records
+    each round replaced); `planes` are written in place."""
+    st = stream.cpu().numpy()
+    so = seg_off.cpu().numpy().astype(np.int64)
+    img_h = seg_img.cpu().numpy()
+    idx_h = seg_idx.cpu().numpy()
+    tm_h = total_mcus.cpu().numpy()
+    units_h = units.cpu().numpy().astype(np.int64)
+    luts = _symbol_lut(tables.cpu()).numpy()
+    n = so.shape[0] - 1
+    n_units = units_h.shape[1]
+    sub_base = sub_layout(so, sub_bytes)
+    n_subs = int(sub_base[-1])
+    rec = [0] * n_subs
+    used = [0] * n_subs
+    first_du = [0] * n_subs
+    status = np.zeros((n, 2), dtype=np.int64)
+    flat = [[p.view(-1, 64) for p in img_planes] for img_planes in planes]
+    changed: list[int] = []   # per round of pass 2, the records it replaced
+
+    def address(ul, m):
+        """Row of data unit (m, unit ul) in its plane, or None outside."""
+        pl, _sci, _dc, _ac, h, v, j, k, wrap, bw, bh = ul
+        base = m * h + k
+        bx, by = base % wrap, (base // wrap) * v + j
+        return (pl, by * bw + bx) if by < bh and bx < bw else None
+
+    for s in range(n):
+        img = int(img_h[s])
+        ul_of = [tuple(int(x) for x in row) for row in units_h[img]]
+        nbytes = int(so[s + 1] - so[s])
+        big = int.from_bytes(st[so[s]:so[s + 1]].tobytes(), "big")
+        nbits = 8 * nbytes
+        m_lo = int(idx_h[s]) * ri
+        total_du = max(0, min(ri, int(tm_h[img]) - m_lo)) * n_units
+        b0 = int(sub_base[s])
+        nsub = int(sub_base[s + 1]) - b0
+        dcdiff = [0] * total_du
+
+        def window(p):
+            """The 32 bits at position p; zero past the segment's end."""
+            sh = nbits - p - 32
+            return (big >> sh if sh >= 0 else big << -sh) & 0xFFFFFFFF
+
+        def end_bit(local, write=False):
+            """The last subsequence ends with the segment's bytes while the
+            chains are sought, and at the MCU count in the write pass."""
+            if local + 1 < nsub:
+                return (local + 1) * sub_bytes * 8
+            return 1 << 62 if write else nbits
+
+        def decode(state, end, max_du, first=None):
+            """decode_sub of the kernel: the record reached from `state`;
+            with `first` (the write pass) it stores and sets the status."""
+            if state & 1:
+                return 1
+            p, u, k, count = state >> 32, (state >> 12) & 15, (state >> 6) & 63, 0
+            write = first is not None
+            if write:
+                m = m_lo + first // n_units
+                at = address(ul_of[u], m)
+            while count < max_du and p < end:
+                ul = ul_of[u]
+                w = window(p)
+                if k == 0:
+                    e = int(luts[ul[2], w >> 16])
+                    sym, ln = e & 0x1FF, e >> 9
+                    if sym > 15:
+                        if write:
+                            status[s, 0] = 1
+                        return 1 | count << 16
+                    v = ((w << ln) & 0xFFFFFFFF) >> (32 - sym) if sym else 0
+                    p += ln + sym
+                    if write:
+                        dcdiff[first + count] = bsio.receive_extend(v, sym)
+                    k = 1
+                    continue
+                e = int(luts[ul[3], w >> 16])
+                sym, ln = e & 0x1FF, e >> 9
+                bad = sym == _INVALID
+                if sym == 0x00:
+                    k, p = 64, p + ln
+                elif sym == 0xF0:
+                    k, p = k + 16, p + ln
+                elif not bad:
+                    k += sym >> 4
+                    size = sym & 15
+                    # A run past 63 is a bad code only in the write pass: from
+                    # a wrong start it is expected, and the data unit ends
+                    # there so that the chain lives on and can fall into step.
+                    bad = write and k > 63
+                    if not bad:
+                        p += ln + size
+                        if size and write and at is not None:
+                            v = ((w << ln) & 0xFFFFFFFF) >> (32 - size)
+                            flat[img][at[0]][at[1], k] = bsio.receive_extend(v, size)
+                    k += 1
+                if bad:
+                    if write:
+                        status[s, 0] = 1
+                    return 1 | count << 16
+                if k > 63:
+                    k, count, u = 0, count + 1, u + 1
+                    if u == n_units:
+                        u = 0
+                        if write:
+                            m += 1
+                    if write and count < max_du:
+                        at = address(ul_of[u], m)
+            if write and count == max_du:
+                status[s, 1] = p
+            return p << 32 | count << 16 | u << 12 | k << 6
+
+        # pass 1
+        for local in range(nsub):
+            used[b0 + local] = (local * sub_bytes * 8) << 32
+            rec[b0 + local] = decode(used[b0 + local], end_bit(local), total_du)
+        # pass 2, to the fixed point
+        seg_rounds = 0
+        while True:
+            seg_rounds += 1
+            before = rec[b0:b0 + nsub]
+            for local in range(1, nsub):
+                state = before[local - 1] & ~_COUNT_MASK
+                # an invalid predecessor says nothing: keep the own chain
+                if not state & 1 and state != used[b0 + local]:
+                    used[b0 + local] = state
+                    rec[b0 + local] = decode(state, end_bit(local), total_du)
+            n_changed = sum(a != b for a, b in zip(rec[b0:b0 + nsub], before))
+            if len(changed) < seg_rounds:
+                changed.append(0)
+            changed[seg_rounds - 1] += n_changed
+            if not n_changed:
+                break
+        # scan
+        for local in range(1, nsub):
+            first_du[b0 + local] = (first_du[b0 + local - 1]
+                                    + ((rec[b0 + local - 1] >> 16) & 0xFFFF))
+        # write
+        for local in range(nsub):
+            state = 0 if local == 0 else rec[b0 + local - 1] & ~_COUNT_MASK
+            first = first_du[b0 + local]
+            if not state & 1 and first < total_du:
+                decode(state, end_bit(local, True), total_du - first, first)
+        # dc: running sums per scan component, modulo 2^16
+        if not status[s, 0]:
+            preds = [0, 0, 0, 0]
+            for d in range(total_du):
+                ul = ul_of[d % n_units]
+                preds[ul[1]] = (preds[ul[1]] + dcdiff[d]) & 0xFFFF
+                at = address(ul, m_lo + d // n_units)
+                if at is not None:
+                    v = preds[ul[1]]
+                    flat[img][at[0]][at[1], 0] = v - 0x10000 if v >= 0x8000 else v
+    records = dict(rec=np.array(rec, dtype=np.int64), used=np.array(used, dtype=np.int64),
+                   first_du=np.array(first_du, dtype=np.int64), sub_base=sub_base,
+                   rounds=max(1, len(changed)), changed=changed)
+    return torch.from_numpy(status), records
+
+
+class HostArrays(NamedTuple):
+    """The arguments of decode_segments that its wrapper reads on the host
+    (it validates them and lays the records out by the segments' lengths):
+    launch_args hands them over as it built them, so that the wrapper reads
+    nothing back from the device."""
+
+    seg_off: np.ndarray     # int64 [n_segs + 1]; check_status reads it too
+    seg_img: np.ndarray     # int32 [n_segs]
+    total_mcus: np.ndarray  # int64 [n_img]
+    units: np.ndarray       # int32 [n_img, P, 11]
+
+
 def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
-                    units, tables, planes) -> torch.Tensor:
+                    units, tables, planes, records: dict | None = None,
+                    host: HostArrays | None = None) -> torch.Tensor:
     """Decode every restart segment of a group of scans (one per image, see
     convert.group_tables) into `planes` (per image, its int16 [by, bx, 64]
-    planes per frame component, zeroed): segment s is
-    stream[seg_off[s]:seg_off[s + 1]], segment seg_idx[s] of image
-    seg_img[s]. Returns the int64 [n_segs, 2] status (bad flag, consumed
-    bits). CPU tensors: the plain version. CUDA tensors: K2, one launch for
-    the whole group."""
-    units_h = units.cpu().numpy()
+    planes per frame component, zeroed: the kernel stores nonzero
+    coefficients only): segment s is stream[seg_off[s]:seg_off[s + 1]],
+    segment seg_idx[s] of image seg_img[s]. Returns the int64 [n_segs, 2]
+    status (bad flag, consumed bits). CPU tensors: the plain version. CUDA
+    tensors: K2, one call for the whole group (several kernels: tables,
+    pass 1, pass 2 until no record changes, scan, write, dc).
+
+    The status's bad flags equal the plain version's on every stream; the
+    consumed bits and the planes equal them bitwise whenever no segment of
+    the call is bad (check_status raises on a bad one before it looks at
+    anything else).
+
+    `records`, for checks and timing on the card: a dict that receives the
+    launch's scratch (rec, used, first_du, sub_base), the launches of pass 2
+    (rounds), the steps inside them that replaced records (steps: the most
+    of any block, summed over the launches; the model's rounds bound them)
+    and the milliseconds of each pass (pass_ms: tables + pass 1,
+    pass 2, scan, write, dc)."""
+    if host is None:
+        host = HostArrays(seg_off.cpu().numpy(), seg_img.cpu().numpy(),
+                          total_mcus.cpu().numpy(), units.cpu().numpy())
+    seg_off_h, seg_img_h, total_h, units_h = host
+    if (seg_off_h.shape != tuple(seg_off.shape) or seg_img_h.shape != tuple(seg_img.shape)
+            or total_h.shape != tuple(total_mcus.shape)
+            or units_h.shape != tuple(units.shape)):
+        raise ValueError("decode_segments: the host's copies disagree with the arguments")
     if (units_h.ndim != 3 or len(planes) != units_h.shape[0]
             or tuple(total_mcus.shape) != units_h.shape[:1]):
         raise ValueError("decode_segments: units, total_mcus and planes disagree on the images")
@@ -238,7 +475,6 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
                     and 0 <= dci < n_specs and 0 <= aci < n_specs
                     and tuple(img_planes[pl].shape) == (bh, bw, 64)):
                 raise ValueError("decode_segments: unit layout does not match the planes")
-    seg_img_h = seg_img.cpu().numpy()
     if seg_img_h.size and not (0 <= seg_img_h.min() and seg_img_h.max() < n_img):
         raise ValueError("decode_segments: segment of no image")
     dev = stream.device
@@ -263,77 +499,197 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
                 raise ValueError("decode_segments: planes must be contiguous int16 on the device")
     n = seg_off.numel() - 1
     status = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    if not n:
+        return status
+    # The record layout is the host's: it needs the segments' lengths.
+    seg_len = np.diff(seg_off_h)
+    if ((seg_len < 0).any() or seg_off_h[0] < 0
+            or seg_off_h[-1] + 3 > stream.numel() or stream.data_ptr() % 4):
+        raise ValueError("decode_segments: segment offsets outside the stream, or the"
+                         " stream lacks its tail or its alignment")
+    if (seg_len >= 1 << 28).any():  # a record holds a bit position in 32 bits
+        raise ValueError("decode_segments: a segment of 256 MB or more")
+    if (not 0 < ri * n_units <= 0xFFFF or (total_h < 0).any()
+            or (total_h >= 1 << 28).any()):
+        raise ValueError("decode_segments: restart interval or MCU count out of range")
+    if _build.library().jdtc_entropy_sub_bytes() != SUB_BYTES:
+        raise RuntimeError("decode_segments: the kernel library was built with another"
+                           " subsequence size")
+    sub_base = sub_layout(seg_off_h)
+    n_subs = int(sub_base[-1])
+    du_base_img = np.concatenate([[0], np.cumsum(total_h * n_units)]).astype(np.int64)
+    aux = torch.from_numpy(np.concatenate([sub_base, du_base_img])).to(dev)
+    rec = torch.empty(n_subs, dtype=torch.int64, device=dev)
+    used = torch.empty(n_subs, dtype=torch.int64, device=dev)
+    first_du = torch.empty(n_subs, dtype=torch.int32, device=dev)
+    dcdiff = torch.empty(max(1, int(du_base_img[-1])), dtype=torch.int16, device=dev)
+    lut = torch.empty((n_specs, 1 << _LUT_BITS), dtype=torch.int16, device=dev)
+    flag = torch.empty(1, dtype=torch.int32, device=dev)
     addresses = convert.plane_addresses(planes, dev)
-    if n:
-        _build.launch(
-            "jdtc_entropy_decode", _build.ptr(stream), _build.ptr(seg_off),
-            _build.ptr(seg_img), _build.ptr(seg_idx), n, ri,
-            _build.ptr(total_mcus), _build.ptr(units), n_units,
-            _build.ptr(tables), n_specs, _build.ptr(addresses),
-            _build.ptr(status), _build.stream_of(status),
-        )
+    rounds = (ctypes.c_int * 2)()
+    pass_ms = (ctypes.c_float * 5)() if records is not None else None
+    _build.launch(
+        "jdtc_entropy_decode", _build.ptr(stream), _build.ptr(seg_off),
+        _build.ptr(seg_img), _build.ptr(seg_idx), n, ri,
+        _build.ptr(total_mcus), _build.ptr(units), n_units,
+        _build.ptr(tables), n_specs, _build.ptr(addresses), _build.ptr(status),
+        _build.ptr(aux), _build.ptr(aux[n + 1:]), int(np.diff(sub_base).max()),
+        _build.ptr(rec), _build.ptr(used), _build.ptr(first_du), _build.ptr(dcdiff),
+        _build.ptr(lut), _build.ptr(flag), ctypes.c_void_p(ctypes.addressof(rounds)),
+        None if pass_ms is None else ctypes.c_void_p(ctypes.addressof(pass_ms)),
+        _build.stream_of(status),
+    )
+    if records is not None:
+        records.update(rec=rec, used=used, first_du=first_du, sub_base=sub_base,
+                       rounds=rounds[0], steps=rounds[1], pass_ms=list(pass_ms))
     return status
 
 
+# ---------------------------------------------------------------------------
+# Unstuffing (K2u)
+# ---------------------------------------------------------------------------
+
+
+class Unstuffed(NamedTuple):
+    """unstuff_segments' result."""
+
+    stream: torch.Tensor      # uint8: the unstuffed segments + 8 zero bytes
+    seg_off: torch.Tensor     # int64 [n_segs + 1], on the stream's device
+    seg_off_host: np.ndarray  # the same on the host, for check_status
+
+
+def _unstuff_plain(raw, lo, hi):
+    """K2u in torch ops (mask, cumsum, index): a byte is kept iff it lies in
+    a segment [lo[s], hi[s]) and is not the 0x00 after a 0xFF of the same
+    segment; returns (stream with 8 zero bytes of tail, seg_off)."""
+    n_raw = raw.numel()
+    j = torch.arange(n_raw, device=raw.device)
+    s = torch.searchsorted(lo, j, right=True) - 1      # last segment starting at or before j
+    sc = torch.clamp(s, min=0)
+    inside = (s >= 0) & (j < hi[sc])
+    prev_ff = torch.cat([raw.new_zeros(1, dtype=torch.bool), raw[:-1] == 0xFF])
+    keep = inside & ~((raw == 0) & prev_ff & (j - 1 >= lo[sc]))
+    before = torch.cat([keep.new_zeros(1, dtype=torch.int64), torch.cumsum(keep, 0)])
+    seg_off = torch.cat([before[lo], before[-1:]])
+    return torch.cat([raw[keep], raw.new_zeros(8)]), seg_off
+
+
+def unstuff_segments(raw, lo, hi) -> Unstuffed:
+    """The raw entropy-coded bytes of a group's scans (uint8) and the raw
+    bounds of its restart segments (int64 [n_segs] each, ascending; the
+    markers lie between them) -> the unstuffed stream and its offsets, as
+    pack_scan builds them on the host. CPU tensors: the plain version. CUDA
+    tensors: K2u. Either way the offsets are read back once: the stream's
+    length is theirs, and check_status and K2's wrapper need them."""
+    dev = raw.device
+    if dev.type == "cpu":
+        stream, seg_off = _unstuff_plain(raw, lo, hi)
+        return Unstuffed(stream, seg_off, seg_off.numpy())
+    if not raw.is_cuda:
+        raise ValueError(f"unstuff_segments: no kernel for {dev}")
+    for t, dtype in ((raw, torch.uint8), (lo, torch.int64), (hi, torch.int64)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != dev or t.dim() != 1:
+            raise ValueError(f"unstuff_segments: expected contiguous 1-d {dtype} on {dev}")
+    if lo.shape != hi.shape or raw.data_ptr() % 16:
+        raise ValueError("unstuff_segments: bounds disagree, or the bytes are not 16-byte aligned")
+    n_raw, n = raw.numel(), lo.numel()
+    out = torch.empty(n_raw + 8, dtype=torch.uint8, device=dev)
+    seg_off = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    block_sum = torch.empty((n_raw + 1 + 4095) // 4096, dtype=torch.int64, device=dev)
+    _build.launch("jdtc_unstuff", _build.ptr(raw), n_raw, _build.ptr(lo), _build.ptr(hi),
+                  n, _build.ptr(block_sum), _build.ptr(out), _build.ptr(seg_off),
+                  _build.stream_of(out))
+    seg_off_h = seg_off.cpu().numpy()
+    return Unstuffed(out[: int(seg_off_h[-1]) + 8], seg_off, seg_off_h)
+
+
 class ScanPack(NamedTuple):
-    """One image's scan, checked and unstuffed: its part of a K2 launch."""
+    """One image's scan, checked: its part of a K2u and a K2 launch."""
 
     key: tuple            # group key (convert.group_key)
     ri: int
     total_mcus: int
     units: np.ndarray     # int32 [P, 11]
     tables: np.ndarray    # int32 [n_specs, TABLE_INTS]
-    stream: np.ndarray    # uint8: the unstuffed segments + 8 zero bytes
-    seg_off: np.ndarray   # int64 [n_segs + 1]
+    raw: np.ndarray       # uint8: the scan's entropy-coded bytes, as in the file
+    bounds: np.ndarray    # int64 [n_segs, 2]: each segment's [lo, hi) in `raw`
 
 
 def prepare_scan(structure, scan) -> ScanPack:
-    """Unit layout, tables and group key of a sequential scan, then
-    pack_scan's guards and unstuffing."""
+    """Unit layout, tables and group key of a sequential scan, check_scan's
+    guards, and the scan's raw bytes with its segments' bounds."""
     key, total_mcus, units, tabs = convert.group_key(structure.frame, scan)
-    ri, stream, seg_off = pack_scan(structure, scan, total_mcus, units.shape[0])
-    return ScanPack(key, ri, total_mcus, units, tabs, stream, seg_off)
+    ri = check_scan(scan, total_mcus, units.shape[0])
+    span = scan.span
+    bounds = span.segment_bounds_flat().reshape(-1, 2) - span.start
+    return ScanPack(key, ri, total_mcus, units, tabs,
+                    structure.data[span.start : span.end], bounds)
 
 
 def host_args(packs):
-    """ScanPacks of one group (equal keys), one per image, as the host
-    arrays of decode_segments' arguments before `planes`: (stream, seg_off,
-    seg_img, seg_idx, ri, total_mcus, units, tables)."""
+    """ScanPacks of one group (equal keys), one per image, as host arrays:
+    (raws, lo, hi, seg_img, seg_idx, ri, total_mcus, units, tables). `raws`
+    lists each image's raw bytes as they lie in its file (views, no copy);
+    `lo` and `hi` bound the segments in those bytes laid back to back. The
+    first three, on the device, are unstuff_segments' arguments, the rest
+    decode_segments' after `stream` and `seg_off`."""
     if any(p.key != packs[0].key for p in packs):
         raise ValueError("host_args: scans of different groups")
-    counts = [p.seg_off.shape[0] - 1 for p in packs]
-    seg_off = np.zeros(sum(counts) + 1, dtype=np.int64)
-    at, byte0 = 0, 0
-    for p, c in zip(packs, counts):
-        seg_off[at + 1 : at + c + 1] = p.seg_off[1:] + byte0
-        at, byte0 = at + c, byte0 + int(p.seg_off[-1])
-    stream = np.concatenate([p.stream[: p.seg_off[-1]] for p in packs]
-                            + [np.zeros(8, dtype=np.uint8)])
+    counts = [p.bounds.shape[0] for p in packs]
+    byte0 = np.cumsum([0] + [p.raw.shape[0] for p in packs[:-1]])
+    bounds = np.concatenate([p.bounds + b for p, b in zip(packs, byte0)])
     seg_img = np.repeat(np.arange(len(packs), dtype=np.int32), counts)
     seg_idx = np.concatenate([np.arange(c, dtype=np.int32) for c in counts])
     total_mcus, units, tables = convert.group_tables(
         [(p.total_mcus, p.units, p.tables) for p in packs])
-    return stream, seg_off, seg_img, seg_idx, packs[0].ri, total_mcus, units, tables
+    return ([p.raw for p in packs], np.ascontiguousarray(bounds[:, 0]),
+            np.ascontiguousarray(bounds[:, 1]), seg_img, seg_idx, packs[0].ri,
+            total_mcus, units, tables)
+
+
+def _bytes_to_device(raws, device):
+    """The byte arrays back to back in one uint8 tensor on `device`: one
+    copy per array, straight from where it lies (the host concatenates
+    nothing: eight 4K scans are 65 MB)."""
+    with warnings.catch_warnings():
+        # views of a file's bytes may be read-only; they are only read
+        warnings.simplefilter("ignore", UserWarning)
+        parts = [torch.from_numpy(r) for r in raws]
+    if len(parts) == 1:
+        return parts[0].to(device)
+    out = torch.empty(sum(p.numel() for p in parts), dtype=torch.uint8, device=device)
+    at = 0
+    for p in parts:
+        out[at : at + p.numel()].copy_(p)
+        at += p.numel()
+    return out
 
 
 def to_device(args, device):
-    """host_args' arrays as tensors on `device` (ri stays an int)."""
-    return tuple(torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) else a
+    """host_args' arrays as tensors on `device` (ri stays an int; the list
+    of raw byte arrays becomes one tensor, see _bytes_to_device)."""
+    return tuple(_bytes_to_device(a, device) if isinstance(a, list)
+                 else torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) else a
                  for a in args)
 
 
 def launch_args(packs, device):
-    """(decode_segments' arguments before `planes` on `device`, the host
-    seg_off that check_status reads) for ScanPacks of one group."""
-    args = host_args(packs)
-    return to_device(args, device), args[1]
+    """(decode_segments' arguments before `planes` on `device`, their
+    HostArrays) for ScanPacks of one group: each image's raw bytes copied
+    to the device, then unstuff_segments there. The HostArrays go to
+    decode_segments as `host`, their seg_off to check_status."""
+    on_host = host_args(packs)
+    raw, lo, hi, *rest = to_device(on_host, device)
+    stream, seg_off, seg_off_host = unstuff_segments(raw, lo, hi)
+    _raws, _lo, _hi, seg_img, _seg_idx, _ri, total_mcus, units, _tables = on_host
+    return (stream, seg_off, *rest), HostArrays(seg_off_host, seg_img, total_mcus, units)
 
 
 def decode_scan(structure, scan, planes) -> None:
     """One sequential scan -> `planes` (device tensors), raising on a bad
     or truncated stream: a group of one image."""
-    args, seg_off = launch_args([prepare_scan(structure, scan)], planes[0].device)
-    check_status(decode_segments(*args, [planes]), seg_off)
+    args, host = launch_args([prepare_scan(structure, scan)], planes[0].device)
+    check_status(decode_segments(*args, [planes], host=host), host.seg_off)
 
 
 def batchable(structure) -> bool:
@@ -382,8 +738,8 @@ def entropy_decode_batch(structures, cfg: DecodeConfig, planes):
         group[1].append(planes[i])
     launched = []
     for packs, group_planes in groups.values():
-        args, seg_off = launch_args(packs, group_planes[0][0].device)
-        launched.append((decode_segments(*args, group_planes), seg_off))
+        args, host = launch_args(packs, group_planes[0][0].device)
+        launched.append((decode_segments(*args, group_planes, host=host), host.seg_off))
     for status, seg_off in launched:
         check_status(status, seg_off)
     return results

@@ -150,9 +150,9 @@ def test_pallas_mixed_fallback_matches_jax(precision, monkeypatch):
     launches = []
     orig = entropy_cuda.decode_segments
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         launches.append(len(args[-1]))  # images in the launch
-        return orig(*args)
+        return orig(*args, **kwargs)
 
     monkeypatch.setattr(entropy_cuda, "decode_segments", spy)
     got = _port(EntropyBackend.PALLAS, precision).decode_batch(datas)

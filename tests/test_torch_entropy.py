@@ -256,9 +256,9 @@ def _count_launches(monkeypatch):
     calls = []
     orig = entropy_cuda.decode_segments
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         calls.append(args[2].numel())  # segments of the launch
-        return orig(*args)
+        return orig(*args, **kwargs)
 
     monkeypatch.setattr(entropy_cuda, "decode_segments", spy)
     return calls

@@ -1,12 +1,17 @@
 """Helpers for the tests that hold the port (jpeg_decoder_tpu_torch) against
 the JAX package (jpeg_decoder_tpu): the two packages' configs, enums, error
 classes and parsed structures are equal in content and distinct in identity,
-so they are compared by field names, enum member names and class names."""
+so they are compared by field names, enum member names and class names.
+Also the hand-packed inputs that the CPU tests and the card tests of the
+entropy path share. This module imports neither package's JAX side."""
 
 import dataclasses
 import enum
 
 import numpy as np
+
+from jpeg_decoder_tpu_torch.core.types import HuffTableSpec
+from jpeg_decoder_tpu_torch.io import bitstream, writer
 
 
 def assert_same_fields(got, want, path="value"):
@@ -47,3 +52,68 @@ def assert_same_error_class(got, want):
     """Two error classes of the two packages are counterparts: the same
     name and the same chain of base-class names."""
     assert class_chain(got) == class_chain(want)
+
+
+# ---------------------------------------------------------------------------
+# Hand-packed entropy inputs (the port's writer; no JAX)
+# ---------------------------------------------------------------------------
+
+#: DC table with all 16 categories (15 codes of 4 bits, category 15 in 5)
+#: and an AC table whose only code is EOB ('0').
+_DC16 = HuffTableSpec(table_class=0, table_id=0,
+                      counts=np.array([0, 0, 0, 15, 1] + [0] * 11, dtype=np.uint8),
+                      symbols=np.arange(16, dtype=np.uint8))
+_EOB_ONLY = HuffTableSpec(table_class=1, table_id=0,
+                          counts=np.array([1] + [0] * 15, dtype=np.uint8),
+                          symbols=np.array([0], dtype=np.uint8))
+
+
+def dc_only_stream(diffs, nb_x, restart_interval=0):
+    """A gray stream of DC-only blocks whose DC differences are `diffs`
+    (|d| <= 32767), hand-packed: DC code, value bits, EOB. Segments are cut
+    every `restart_interval` blocks (0: none)."""
+    def seg_bytes(ds):
+        bits = ""
+        for d in ds:
+            size = int(abs(d)).bit_length()
+            bits += "11110" if size == 15 else format(size, "04b")
+            if size:
+                bits += format(d if d > 0 else d + (1 << size) - 1, f"0{size}b")
+            bits += "0"
+        bits += "1" * (-len(bits) % 8)
+        raw = int(bits, 2).to_bytes(len(bits) // 8, "big")
+        return raw.replace(b"\xff", b"\xff\x00")
+
+    ri = restart_interval or len(diffs)
+    segs = [seg_bytes(diffs[i : i + ri]) for i in range(0, len(diffs), ri)]
+    entropy = b"".join(s + (bytes((0xFF, 0xD0 + i % 8)) if i + 1 < len(segs) else b"")
+                       for i, s in enumerate(segs))
+    nb_y = -(-len(diffs) // nb_x)
+    parts = [writer.soi(), writer.dqt(0, np.ones(64, dtype=np.uint16)),
+             writer.sof(nb_x * 8, nb_y * 8, [(1, 1, 1, 0)]),
+             writer.dht(_DC16), writer.dht(_EOB_ONLY)]
+    if restart_interval:
+        parts.append(writer.dri(restart_interval))
+    parts += [writer.sos([(1, 0, 0)]), entropy, writer.eoi()]
+    return b"".join(parts)
+
+
+def block_boundary_case():
+    """(raw, lo, hi, stream, seg_off): 3 segments over 3 blocks of 4096
+    bytes, FF 00 pairs across bytes 15|16, 4095|4096 and 8191|8192, a
+    segment that starts with 00 right after a marker and one that begins
+    and ends with a pair; the expectation comes from io.bitstream.unstuff."""
+    rng = np.random.default_rng(4096)
+    raw = rng.integers(1, 255, 9000, dtype=np.uint8)   # no 00, no FF
+    for at in (15, 4095, 8191, 100, 102, 8995):
+        raw[at : at + 2] = (0xFF, 0x00)
+    raw[5000:5002] = (0xFF, 0xD0)
+    raw[5002] = 0x00                                    # kept: starts its segment
+    raw[8190] = 0xFF
+    raw[8189:8191] = (0xFF, 0xD1)
+    lo = np.array([0, 5002, 8191], dtype=np.int64)
+    hi = np.array([5000, 8189, 8997], dtype=np.int64)
+    segs = [bitstream.unstuff(raw, int(a), int(b))[0] for a, b in zip(lo, hi)]
+    stream = np.concatenate(segs + [np.zeros(8, np.uint8)])
+    seg_off = np.concatenate([[0], np.cumsum([len(x) for x in segs])]).astype(np.int64)
+    return raw, lo, hi, stream, seg_off
