@@ -34,23 +34,31 @@ Phases, each of which exits non-zero on failure:
      K0 (EXACT IDCT) bitwise; K1 (FLOAT32 IDCT) within 1 on at most 1e-3
      of the pixels, at the 4K luma shape, 8- and 12-bit, with the error
      on extreme inputs reported; K3 (colour) bitwise, per image and
-     batched; the probes PK1-PK7 bitwise (all integer) on every one of
+     batched; K03 (the EXACT pixel stage of a 3-component frame in one
+     kernel) bitwise against its plain version and against K0 x 3 + K3, on
+     the dense 4K request, the two photographs tiled to 4K, a 4:2:2 and a
+     4:4:4 file of the corpus, random 12-bit planes at 4K and a batch of
+     four, both quirks, with and without planes; its time beside K0 x 3 +
+     K3 at 4K and for eight 4K images, and the sweep of its strip size G
+     (benchmarks/pixel_sweep.py); the probes PK1-PK7 bitwise (all integer) on every one of
      their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at both chain
      lengths the probe path launches them at, in both table placements
      where the table fits shared memory, PK6 also from a random state;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
-       requests and the gray one, every RGB and pixel plane bitwise equal
-       to the JAX-free EXACT reference (core.oracle over the native
-       planes); then the two foreign files and the two 4K requests of
-       photographs' blocks, held the same way;
+       requests, every RGB and pixel plane bitwise equal to the JAX-free
+       EXACT reference (core.oracle over the native planes), one K03
+       launch a request and no K0 or K3; then the gray one (K0 and K3),
+       the two foreign files and the two 4K requests of photographs'
+       blocks (K03), held the same way;
      - JpegDecoder(FLOAT32) for PALLAS and NATIVE on the four 4K
        requests: pixel planes within 1 of the reference's, RGB bitwise
        equal to the colour stage of the returned planes;
      - BatchDecoder for PALLAS and NATIVE, each with EXACT and FLOAT32:
-       decode_batch of the eight 4K requests (one K2u and one K2 call, one IDCT
-       launch per component, one K3 launch), decode_stream with batches
+       decode_batch of the eight 4K requests (one K2u and one K2 call, then
+       one K03 launch under EXACT, or one K1 launch per component and one K3
+       launch under FLOAT32), decode_stream with batches
        of 4, and decode_many over two 4K DRI requests, the restart-free
        one (which the PALLAS route hands to the native host decode) and
        the gray one; every RGB bitwise equal to the single-image decode
@@ -58,11 +66,12 @@ Phases, each of which exits non-zero on failure:
      - the probe path through its entry point, benchmarks.gather_probe.main
        with all four rounds at the rounds' own chain lengths: 21 ns/step
        lines;
-  5. stage times with CUDA events: per image (H2D, K2u, K2, K0, K3, D2H),
-     and per batch of eight (H2D, K2u, K2, K0 or K1, K3, D2H), each with
-     the host clock of the parse that remains on the host.
-The last lines are the kernels' JSON record (twelve kernels: K0-K3, K2u and
-PK1-PK7, each with its launches on the main paths, its time, its plain
+  5. stage times with CUDA events: per image (H2D, K2u, K2, K03, D2H),
+     and per batch of eight (H2D, K2u, K2, K03 under EXACT or K1 and K3
+     under FLOAT32, D2H), each with the host clock of the parse that
+     remains on the host.
+The last lines are the kernels' JSON record (thirteen kernels: K0-K3, K03,
+K2u and PK1-PK7, each with its launches on the main paths, its time, its plain
 version's time and its bound), the card's name and power limit, and
 {"ok": true, "device": {...}}. The script imports the port alone, builds
 the CUDA kernels and the native host runtime from the port's own sources,
@@ -512,35 +521,39 @@ def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict) -> None:
 
 
 def check_k0(dev, big: bytes, record: dict) -> None:
+    """K0 against its plain version, bitwise: the 4K request's three planes,
+    and random coefficients at the luma shape, 8- and 12-bit. Its time is
+    the request's: the three launches of its three planes."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import idct
-    from jpeg_decoder_tpu_torch.core import types
 
-    _, planes, _ = host.host_decode(big, DecodeConfig())
-    coeffs = torch.from_numpy(planes.planes[0]).to(dev)
-    by, bx, _ = coeffs.shape
-    qt = convert.quant_table_to_device(types.standard_luminance_qtable(), dev)
+    frame, planes, qts = host.host_decode(big, DecodeConfig())
+    coeffs = [torch.from_numpy(p).to(dev) for p in planes.planes]
+    tables = [convert.quant_table_to_device(qts[c.qtid], dev) for c in frame.components]
 
     def plain(c, q, bits12):
+        by, bx, _ = c.shape
         return idct.blocks_to_plane(idct.idct_exact(c.reshape(-1, 64), q, bits12), by, bx)
 
-    err = max_abs_err(idct.idct_plane(coeffs, qt), plain(coeffs, qt, False))
+    err = max(max_abs_err(idct.idct_plane(c, q), plain(c, q, False))
+              for c, q in zip(coeffs, tables))
     # extremes and the 12-bit store, on random coefficients at the 4K shape
     rng = np.random.default_rng(7)
-    wild = torch.from_numpy(rng.integers(-2048, 2048, coeffs.shape, dtype=np.int16)).to(dev)
+    wild = torch.from_numpy(rng.integers(-2048, 2048, coeffs[0].shape, dtype=np.int16)).to(dev)
     q255 = convert.quant_table_to_device(rng.integers(1, 256, 64), dev)
     for bits12 in (False, True):
         err = max(err, max_abs_err(idct.idct_plane(wild, q255, bits12),
                                    plain(wild, q255, bits12)))
-    ms = cuda_ms(lambda: idct.idct_plane(coeffs, qt), 10)
-    plain_ms = cuda_ms(lambda: plain(coeffs, qt, False), 3)
-    # Bound: int16 coefficients and the table in, uint8 pixels out; about
+    ms = cuda_ms(lambda: [idct.idct_plane(c, q) for c, q in zip(coeffs, tables)], 10)
+    plain_ms = cuda_ms(lambda: [plain(c, q, False) for c, q in zip(coeffs, tables)], 3)
+    blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
+    # Bound: int16 coefficients and the tables in, uint8 pixels out; about
     # 700 float64 operations a block (csrc/idct_exact.cu).
     record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                  shape=f"luma plane {by}x{bx} blocks",
-                  **bound(nbytes_of(coeffs, qt) + by * bx * 64, 700 * by * bx, "float64"))
+                  shape=f"3 planes of the {W}x{H} 4:2:0 request, {blocks} blocks",
+                  **bound(nbytes_of(*coeffs, *tables) + blocks * 64, 700 * blocks, "float64"))
     log(f"K0 idct_exact: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         f" ({record['shape']}); max_abs_err {err} (8-bit, 12-bit, extremes)")
 
@@ -653,6 +666,116 @@ def check_k3(dev, big: bytes, gray: bytes, record: dict) -> None:
     log(f"K3 color: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         f" ({record['shape']}); max_abs_err {err} (both quirks, gray shear,"
         f" single and batched)")
+
+
+def k03_cases(dev, requests, tiled: dict, photos: dict) -> dict:
+    """K03's inputs: name -> (frame, coefficient planes, tables) on the card,
+    as the native host decoder reads each stream, and random 12-bit planes
+    at the 4K shape; "batch of four" stacks four requests' planes."""
+    import dataclasses
+
+    import torch
+    from jpeg_decoder_tpu_torch import convert
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
+    cases = {f"dense {W}x{H} 4:2:0 request": pixel_sweep.decoded(requests[:1], dev)}
+    for name, data in {**tiled, **photos}.items():
+        cases[name] = pixel_sweep.decoded([data], dev)
+    frame, planes, _ = cases[f"dense {W}x{H} 4:2:0 request"]
+    rng = np.random.default_rng(12)
+    wide = []
+    for p in planes:
+        blocks = rng.integers(-8192, 8192, p.shape)
+        cut = rng.integers(1, 65, p.shape[:-1])
+        wide.append(torch.from_numpy(
+            np.where(np.arange(64) < cut[..., None], blocks, 0).astype(np.int16)).to(dev))
+    cases[f"random 12-bit planes at {W}x{H} 4:2:0"] = (
+        dataclasses.replace(frame, precision=12), wide,
+        [convert.quant_table_to_device(rng.integers(1, 256, 64), dev) for _ in range(3)])
+    cases[f"batch of four {W}x{H} 4:2:0 requests"] = pixel_sweep.decoded(requests[:4], dev)
+    return cases
+
+
+def check_k03(dev, cases: dict, batch: list, record: dict, card: str) -> None:
+    """K03 bitwise against its plain version and against K0 x 3 + K3 on
+    every case, both quirks, with and without planes; then its time beside
+    theirs (in turns: K0 x 3 + K3, K03, K03, K0 x 3 + K3) on the dense 4K
+    request with planes (JpegDecoder's call) and on eight 4K requests
+    without (BatchDecoder's), one call between CUDA events and, the card
+    alone, eight calls queued behind a spin kernel (pixel_sweep.card_ms);
+    then the sweep of G."""
+    from jpeg_decoder_tpu_torch import Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.ops import pixel
+
+    err = 0
+    for name, (frame, planes, qts) in cases.items():
+        e = 0
+        for quirks in (Quirks.REFERENCE, Quirks.CORRECT):
+            plain = pixel._pixel_exact_plain(planes, qts, frame, quirks)
+            old = pixel_sweep.k0_k3(planes, qts, frame, quirks)
+            for want in (True, False):
+                rgb, pix = pixel.pixel_exact(planes, qts, frame, quirks, want)
+                e = max(e, max_abs_err(rgb, plain[0]), max_abs_err(rgb, old[0]))
+                if want:
+                    e = max(e, *[max_abs_err(a, b) for a, b in zip(pix, plain[1])],
+                            *[max_abs_err(a, b) for a, b in zip(pix, old[1])])
+                elif pix is not None:
+                    fail("K03 returned planes it was not asked for")
+        factors = tuple((c.hsf, c.vsf) for c in frame.components)
+        log(f"K03 pixel_exact, {name} ({frame.width}x{frame.height}, sampling {factors},"
+            f" {frame.precision}-bit, planes {tuple(planes[0].shape[:-1])}): max_abs_err {e}"
+            f" against its plain version and against K0 x 3 + K3 (both quirks, with and"
+            f" without planes)")
+        err = max(err, e)
+    record["max_abs_err"] = err
+    if err != 0:
+        fail(f"K03 disagrees (max_abs_err {err}; tolerance 0)")
+
+    q = Quirks.REFERENCE
+    eight = (*pixel_sweep.decoded(batch, dev), False)
+    timed = {"request": (*cases[f"dense {W}x{H} 4:2:0 request"], True), "eight": eight}
+    for key, (frame, planes, qts, want) in timed.items():
+        k03 = lambda: pixel.pixel_exact(planes, qts, frame, q, want)  # noqa: E731
+        old = lambda: pixel_sweep.k0_k3(planes, qts, frame, q, want)  # noqa: E731
+        old_ms = [cuda_ms(old, 10)]
+        ms = [cuda_ms(k03, 10), cuda_ms(k03, 10)]
+        old_ms.append(cuda_ms(old, 10))
+        card_old = [pixel_sweep.card_ms(old, 7)]
+        card_ms = [pixel_sweep.card_ms(k03, 7), pixel_sweep.card_ms(k03, 7)]
+        card_old.append(pixel_sweep.card_ms(old, 7))
+        plain_ms = cuda_ms(lambda: pixel._pixel_exact_plain(planes, qts, frame, q, want), 1)
+        rgb, pix = k03()
+        blocks = sum(p[..., 0].numel() for p in planes)
+        # Bound: the int16 coefficients and the tables read once, RGB (and
+        # the planes when asked) written once; about 700 float64 operations
+        # a block, the IDCT's (csrc/idct_exact.cu), the colour stage's few
+        # float32 ones a pixel being far below.
+        bnd = bound(nbytes_of(*planes, *qts, rgb, *(pix or [])), 700 * blocks, "float64")
+        shape = (f"{planes[0].shape[0] if planes[0].dim() == 4 else 1} x {W}x{H} 4:2:0,"
+                 f" {blocks} blocks, {'with' if want else 'without'} planes")
+        log(f"K03 pixel_exact ({shape}): kernel {ms[0]:.3f} and {ms[1]:.3f} ms, K0 x 3 + K3"
+            f" {old_ms[0]:.3f} and {old_ms[1]:.3f} ms (one call between events); the card"
+            f" alone {card_ms[0]:.4f} and {card_ms[1]:.4f} ms, K0 x 3 + K3 {card_old[0]:.4f}"
+            f" and {card_old[1]:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f}"
+            f" ms by {bnd['bound_by']} [{card}]")
+        if key == "request":
+            record.update(ms=statistics.median(ms), plain_ms=plain_ms, library_ms=None,
+                          shape=shape, ms_runs=ms, k0_k3_ms=old_ms, card_ms=card_ms,
+                          k0_k3_card_ms=card_old, **bnd)
+        else:
+            record.update(batch_shape=shape, batch_ms=ms, batch_plain_ms=plain_ms,
+                          batch_k0_k3_ms=old_ms, batch_card_ms=card_ms,
+                          batch_k0_k3_card_ms=card_old, batch_bound_ms=bnd["bound_ms"])
+    sweep_cases = {"dense 4K request, planes": timed["request"],
+                   "8 x dense 4K, RGB only": eight}
+    record["strip_sweep"] = pixel_sweep.sweep(sweep_cases, (2, 4, 8, 16, 32), 5)
+    record["sass"] = pixel_sweep.sass_mix()
+    log(f"K03 and K0 instruction mix (SASS of their code): {record['sass']}")
+    for r in record["strip_sweep"]:
+        log(f"K03 strip sweep, {r['case']}: G {r['strip']}{' (default)' if r['default'] else ''},"
+            f" {r['blocks']} coefficient blocks a block of threads: the card alone"
+            f" {r['ms']:.4f} ms (K0 x 3 + K3 {r['k0_k3_ms']:.4f} ms) [{card}]")
 
 
 #: Per probe kernel: its record's name, the Pallas call sites it replaces,
@@ -807,10 +930,22 @@ def probe_path(kernels: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def main_path(dev, requests, card: str, label: str = "") -> dict:
+def pixel_launches_ok(launches: dict, n: int, fused: bool) -> bool:
+    """The pixel stage of n EXACT requests (or batches) launched K03 once
+    each and neither K0 nor K3 (`fused`), or K0 for each component and K3
+    once each and no K03 (gray)."""
+    if fused:
+        return (launches.get("jdtc_pixel_exact") == n and "jdtc_idct_exact" not in launches
+                and "jdtc_color" not in launches)
+    return ("jdtc_pixel_exact" not in launches and launches.get("jdtc_color") == n
+            and launches.get("jdtc_idct_exact") == n)
+
+
+def main_path(dev, requests, card: str, label: str = "", fused: bool = True) -> dict:
     """Both EXACT configs through the public entry points, against the
     reference. Returns path -> launch counts of its run; `label` tells a
-    second set of requests from the first."""
+    second set of requests from the first. `fused`: three-component
+    requests, one K03 launch each; else gray ones, K0 and K3."""
     from jpeg_decoder_tpu_torch import (
         DecodeConfig,
         EntropyBackend,
@@ -835,6 +970,8 @@ def main_path(dev, requests, card: str, label: str = "") -> dict:
 
         outs, runs[f"JpegDecoder {name} exact"] = run_path(
             f"main path JpegDecoder {name} exact", serve)
+        if not pixel_launches_ok(runs[f"JpegDecoder {name} exact"], len(requests), fused):
+            fail(f"{name}: the pixel stage launched {runs[f'JpegDecoder {name} exact']}")
         for data, img in zip(requests, outs):
             _, pix, rgb = reference(data, Quirks.REFERENCE)
             if not np.array_equal(img.rgb, rgb):
@@ -878,6 +1015,10 @@ def float32_path(dev, requests, card: str) -> dict:
 
         name = f"JpegDecoder {backend.value} float32"
         outs, runs[name] = run_path(f"main path {name}", serve)
+        if (runs[name].get("jdtc_idct_float") != 3 * len(requests)
+                or runs[name].get("jdtc_color") != len(requests)
+                or "jdtc_pixel_exact" in runs[name] or "jdtc_idct_exact" in runs[name]):
+            fail(f"{name}: the pixel stage launched {runs[name]}")
         errs, shares = [], []
         for data, img in zip(requests, outs):
             _, pix, _ = reference(data, Quirks.REFERENCE)
@@ -934,9 +1075,8 @@ def batch_path(dev, batch, many, card: str) -> dict:
                 f"main path {name} decode_batch",
                 lambda: timed("batch", lambda: dec.decode_batch(batch)))
             runs[f"{name} decode_batch"] = launches
-            idct = ("jdtc_idct_exact" if precision == IdctPrecision.EXACT
-                    else "jdtc_idct_float")
-            want = {idct: 3, "jdtc_color": 1}
+            exact = precision == IdctPrecision.EXACT
+            want = {"jdtc_pixel_exact": 1} if exact else {"jdtc_idct_float": 3, "jdtc_color": 1}
             if backend == EntropyBackend.PALLAS:
                 want["jdtc_entropy_decode"] = want["jdtc_unstuff"] = 1
             if launches != want:
@@ -947,6 +1087,16 @@ def batch_path(dev, batch, many, card: str) -> dict:
             out_many, runs[f"{name} decode_many"] = run_path(
                 f"main path {name} decode_many",
                 lambda: timed("many", lambda: dec.decode_many(many)))
+            # EXACT: a K03 launch a batch of 3-component images (two batches
+            # of four; decode_many's two 4K groups), K0 and K3 only for the
+            # gray member of decode_many
+            if exact and not (
+                    pixel_launches_ok(runs[f"{name} decode_stream"], 2, True)
+                    and runs[f"{name} decode_many"].get("jdtc_pixel_exact") == 2
+                    and runs[f"{name} decode_many"].get("jdtc_idct_exact") == 1
+                    and runs[f"{name} decode_many"].get("jdtc_color") == 1):
+                fail(f"{name}: decode_stream launched {runs[f'{name} decode_stream']},"
+                     f" decode_many {runs[f'{name} decode_many']}")
             # the single-image decode with the same config; a member the
             # PALLAS route hands to the native host decode, with NATIVE
             single = JpegDecoder(cfg, device=dev)
@@ -958,13 +1108,13 @@ def batch_path(dev, batch, many, card: str) -> dict:
                 one = single if entropy_cuda.batchable(parse(d)) else host_single
                 if not np.array_equal(g, one.decode_rgb(d)):
                     fail(f"{name}: a batched RGB differs from its single-image decode")
-                if precision == IdctPrecision.EXACT:
+                if exact:
                     # the restart-free request holds request 0's coefficients
                     ref = REFERENCE_OF.get(d, d)
                     if not np.array_equal(g, reference(ref, Quirks.REFERENCE)[2]):
                         fail(f"{name}: a batched RGB differs from the reference")
             log(f"main path {name}: {len(got)} RGB outputs bitwise equal to the"
-                f" single-image decode{' and the reference' if precision == IdctPrecision.EXACT else ''};"
+                f" single-image decode{' and the reference' if exact else ''};"
                 f" host clock: decode_batch of {len(batch)} {t['batch']:.3f} ms,"
                 f" decode_stream {t['stream']:.3f} ms, decode_many of {len(many)}"
                 f" {t['many']:.3f} ms [{card}]")
@@ -1005,16 +1155,14 @@ def stage_times(dev, requests, card: str, label: str = "image") -> None:
         entropy_cuda.check_status(box["status"], seg_off)
         stage = decoder.device_stage_for(
             s.frame, {t: q.values for t, q in s.scans[0].quant_tables.items()}, cfg, dev)
-        k0 = cuda_ms(lambda: box.update(pix=[
-            decoder.idct_ops.idct_plane(p, getattr(stage, f"qt{ci}"), stage.bits12)
-            for ci, p in enumerate(planes)]), 1)
-        k3 = cuda_ms(lambda: box.update(rgb=decoder.color_ops.planes_to_rgb(
-            box["pix"], s.frame.height, s.frame.width, stage.factors,
-            stage.quirks)), 1)
+        if not stage.fused:
+            fail(f"stage times: the {label} request does not take K03")
+        # JpegDecoder's call: RGB and the pixel planes
+        k03 = cuda_ms(lambda: box.update(rgb=stage(*planes, want_planes=True)[0]), 1)
         d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
         log(f"stage times {label} {i}: host parse {host_ms:.3f} ms,"
             f" H2D {h2d:.3f} ms ({sum(r.nbytes for r in host[0])} B), K2u {k2u:.3f} ms, K2 {k2:.3f} ms,"
-            f" K0 {k0:.3f} ms, K3 {k3:.3f} ms, D2H rgb {d2h:.3f} ms [{card}]")
+            f" K03 {k03:.3f} ms, D2H rgb {d2h:.3f} ms [{card}]")
 
 
 def batch_stage_times(dev, batch, card: str) -> None:
@@ -1050,18 +1198,25 @@ def batch_stage_times(dev, batch, card: str) -> None:
         stage = decoder.device_stage_for(
             frame, {t: q.values for t, q in structures[0].scans[0].quant_tables.items()},
             cfg, dev)
-        kidct = cuda_ms(lambda: box.update(pix=[
-            decoder.idct_ops.idct_plane(p, getattr(stage, f"qt{ci}"), stage.bits12,
-                                        precision)
-            for ci, p in enumerate(stacks)]), 1)
-        k3 = cuda_ms(lambda: box.update(rgb=decoder.color_ops.planes_to_rgb(
-            box["pix"], frame.height, frame.width, stage.factors, stage.quirks)), 1)
+        if precision == IdctPrecision.EXACT:
+            if not stage.fused:
+                fail("batch stage times: the batch does not take K03")
+            # BatchDecoder's call: RGB alone
+            k03 = cuda_ms(lambda: box.update(rgb=stage(*stacks, want_planes=False)[0]), 1)
+            pixel = f"K03 {k03:.3f} ms"
+        else:
+            kidct = cuda_ms(lambda: box.update(pix=[
+                decoder.idct_ops.idct_plane(p, getattr(stage, f"qt{ci}"), stage.bits12,
+                                            precision)
+                for ci, p in enumerate(stacks)]), 1)
+            k3 = cuda_ms(lambda: box.update(rgb=decoder.color_ops.planes_to_rgb(
+                box["pix"], frame.height, frame.width, stage.factors, stage.quirks)), 1)
+            pixel = f"K1 {kidct:.3f} ms, K3 {k3:.3f} ms"
         d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
         nbytes = sum(r.nbytes for r in host[0])
         log(f"batch stage times ({len(batch)} x {W}x{H}, {precision.value}):"
             f" host parse {host_ms:.3f} ms, H2D {h2d:.3f} ms ({nbytes} B),"
-            f" K2u {k2u:.3f} ms, K2 {k2:.3f} ms, {'K0' if precision == IdctPrecision.EXACT else 'K1'}"
-            f" {kidct:.3f} ms, K3 {k3:.3f} ms, D2H rgb {d2h:.3f} ms"
+            f" K2u {k2u:.3f} ms, K2 {k2:.3f} ms, {pixel}, D2H rgb {d2h:.3f} ms"
             f" ({box['rgb'].numel()} B) [{card}]")
 
 
@@ -1076,6 +1231,7 @@ def main() -> None:
         from jpeg_decoder_tpu_torch import _build
         from jpeg_decoder_tpu_torch.benchmarks.inputs import (
             DRI_FILES,
+            PHOTOS,
             PHOTOS_420,
             make_jpeg,
             photo_jpeg,
@@ -1137,6 +1293,10 @@ def main() -> None:
             name="K3 color", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/color.cu",
             replaces="jpeg_decoder_tpu/ops/color.py:138"),
+        "jdtc_pixel_exact": dict(
+            name="K03 pixel_exact", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/pixel_exact.cu",
+            replaces="jpeg_decoder_tpu/models/decoder.py:72"),
     }
     for key, (name, _standing, _ops, replaces) in PROBE_KERNELS.items():
         kernels[key] = dict(name=name, route="cuda",
@@ -1152,13 +1312,18 @@ def main() -> None:
     timed_phase("K0", check_k0, dev, requests[0], kernels["jdtc_idct_exact"])
     timed_phase("K1", check_k1, dev, requests[0], kernels["jdtc_idct_float"])
     timed_phase("K3", check_k3, dev, requests[0], gray, kernels["jdtc_color"])
+    photos = {f"file {DRI_FILES[1].name} (4:2:2)": DRI_FILES[1].read_bytes(),
+              f"file {PHOTOS[0].name} (4:4:4)": PHOTOS[0].read_bytes()}
+    timed_phase("K03", check_k03, dev, k03_cases(dev, requests, tiled, photos), batch,
+                kernels["jdtc_pixel_exact"], card)
     timed_phase("probes against plain", check_probes, dev, kernels, card)
     for key, rec in kernels.items():
         if key != "jdtc_idct_float" and rec["max_abs_err"] != 0:
             fail(f"{rec['name']} disagrees with its plain version"
                  f" (max_abs_err {rec['max_abs_err']}; tolerance 0)")
 
-    runs = timed_phase("main paths, single requests", main_path, dev, requests + [gray], card)
+    runs = timed_phase("main paths, single requests", main_path, dev, requests, card)
+    runs.update(main_path(dev, [gray], card, " (gray)", fused=False))
     runs.update(main_path(dev, list(files.values()) + list(tiled.values()), card,
                           " (foreign files, photographs at 4K)"))
     runs.update(float32_path(dev, requests, card))
@@ -1171,8 +1336,10 @@ def main() -> None:
             fail(f"{rec['name']} was not launched by a main path")
     for path, key in (("JpegDecoder pallas exact", "jdtc_entropy_decode"),
                       ("JpegDecoder pallas exact", "jdtc_unstuff"),
+                      ("JpegDecoder pallas exact", "jdtc_pixel_exact"),
+                      ("JpegDecoder native exact", "jdtc_pixel_exact"),
                       ("JpegDecoder pallas float32", "jdtc_idct_float"),
-                      ("JpegDecoder native exact", "jdtc_idct_exact")):
+                      ("JpegDecoder native (gray) exact", "jdtc_idct_exact")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")
     stage_times(dev, requests, card)

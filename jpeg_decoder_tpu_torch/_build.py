@@ -3,8 +3,9 @@
 The counterpart of jpeg_decoder_tpu/native/build.py for the card: every
 `csrc/*.cu` file is compiled for Hopper (sm_90a) by its own nvcc process,
 all started together, and the objects are linked into one shared library
-with a plain C interface, cached under `build/` by a hash of the sources and
-flags, and loaded with ctypes. No PyTorch header is included, so a build
+with a plain C interface, cached under `build/` by a hash of the sources
+(the `csrc/*.cuh` headers they share included) and flags, and loaded with
+ctypes. No PyTorch header is included, so a build
 takes seconds, not minutes.
 
 Each C entry point launches its kernel (K2 and K2u: the kernels of their
@@ -30,7 +31,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("entropy_decode.cu", "unstuff.cu", "idct_exact.cu", "idct_float.cu",
-           "color.cu", "probes.cu")
+           "color.cu", "pixel_exact.cu", "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -59,6 +60,10 @@ SIGNATURES = {
     "jdtc_idct_exact": [_P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_float": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
+    # coeff0..2, qt0..2, n_images, h, w, hsf0..2, vsf0..2, hratio0..2,
+    # vratio0..2, mcus_x, mcus_y, strip, bits12, correct, rgb, plane0..2
+    # (null: not stored), cuda_stream
+    "jdtc_pixel_exact": [*[_P] * 6, *[_I32] * 9, *[_F32] * 6, *[_I32] * 5, *[_P] * 5],
     # plane0..2, n_images, img_stride0..2, n_comps, h, w, stride0..2,
     # hratio0..2, vratio0..2, correct, out, cuda_stream
     "jdtc_color": [
@@ -110,10 +115,12 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
+    """Every csrc/*.cu and *.cuh file, so that an edit to a shared header
+    builds anew."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((SRC_DIR / name).read_bytes())
+    for path in sorted([*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -10,14 +10,10 @@
 // into one program; in plain PyTorch they are a dozen launches with float32
 // temporaries in device memory.
 //
-// Numerics: the chroma index is (uint32)(i * ratio) with a float32 multiply
-// and ratio = float32(sf) / float32(max_sf) (core/numerics._nn_index_f32).
-// YCbCr -> RGB is plain float32 in the JAX package's order of operations
-// (ops/color._ycbcr_channels_f32), spelled with __fmul_rn / __fadd_rn /
-// __fsub_rn so no FMA is contracted -- not needed for the bytes (that path
-// is proven byte-exact under every FMA choice, ops/color.py ycbcr_to_rgb)
-// but it keeps the kernel bitwise equal to its plain PyTorch version. The
-// store truncates (REFERENCE) or rounds half up (CORRECT), then saturates.
+// Numerics (the index rule, YCbCr -> RGB in float32 without FMAs, the
+// REFERENCE / CORRECT store): color.cuh, shared with K03 (pixel_exact.cu),
+// which runs the 3-component EXACT path in one kernel with the IDCT; K3
+// serves gray frames, FLOAT32 and any geometry K03 does not take.
 //
 // What bounds it on the H100: memory. Per pixel it reads three bytes (the
 // chroma ones shared by up to four neighbours, so mostly from cache) and
@@ -27,6 +23,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "color.cuh"
 
 namespace {
 
@@ -40,16 +38,10 @@ struct Geometry {
   float vratio[3];
 };
 
-__device__ __forceinline__ uint8_t store(float v, int correct) {
-  float q = correct ? floorf(__fadd_rn(v, 0.5f)) : truncf(v);
-  q = q > 255.0f ? 255.0f : (q < 0.0f ? 0.0f : q);
-  return static_cast<uint8_t>(static_cast<int>(q));
-}
-
 __device__ __forceinline__ uint8_t sample(const Geometry& g, int64_t img, int c,
                                           int i, int j) {
-  const uint32_t r = static_cast<uint32_t>(__fmul_rn(static_cast<float>(i), g.vratio[c]));
-  const uint32_t col = static_cast<uint32_t>(__fmul_rn(static_cast<float>(j), g.hratio[c]));
+  const uint32_t r = colour::nn_index(i, g.vratio[c]);
+  const uint32_t col = colour::nn_index(j, g.hratio[c]);
   return g.plane[c][img * g.img_stride[c] + static_cast<int64_t>(r) * g.stride[c] + col];
 }
 
@@ -73,20 +65,8 @@ color_kernel(Geometry g, int n_comps, int h, int w, int correct,
     o[2] = y;
     return;
   }
-  const float y = static_cast<float>(sample(g, img, 0, i, j));
-  const float cb = __fsub_rn(static_cast<float>(sample(g, img, 1, i, j)), 128.0f);
-  const float cr = __fsub_rn(static_cast<float>(sample(g, img, 2, i, j)), 128.0f);
-  // float32(double literal), as np.float32(1.402) rounds it
-  const float k_rv = static_cast<float>(1.402);
-  const float k_gu = static_cast<float>(0.34414);
-  const float k_gv = static_cast<float>(0.71414);
-  const float k_bu = static_cast<float>(1.772);
-  const float r = __fadd_rn(y, __fmul_rn(k_rv, cr));
-  const float gg = __fsub_rn(__fsub_rn(y, __fmul_rn(k_gu, cb)), __fmul_rn(k_gv, cr));
-  const float b = __fadd_rn(y, __fmul_rn(k_bu, cb));
-  o[0] = store(r, correct);
-  o[1] = store(gg, correct);
-  o[2] = store(b, correct);
+  colour::ycbcr_to_rgb(sample(g, img, 0, i, j), sample(g, img, 1, i, j),
+                           sample(g, img, 2, i, j), correct, o);
 }
 
 }  // namespace

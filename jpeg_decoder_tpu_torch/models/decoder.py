@@ -4,14 +4,16 @@ stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
   host:    marker walk + table parse              (io/parser.py)
   entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS on the device
            (models/host.py; ops/entropy_cuda.py, kernel K2)
-  device:  one PixelStage per (geometry, tables, config): dequant + IDCT +
-           block scatter (ops/idct.py; K0 for EXACT, K1 for FLOAT32), then
-           chroma upsample + colour conversion (ops/color.py, K3)
+  device:  one PixelStage per (geometry, tables, config). A 3-component
+           EXACT frame whose samples stay in their MCUs runs as one step
+           (ops/pixel.py, K03); otherwise dequant + IDCT + block scatter
+           (ops/idct.py; K0 for EXACT, K1 for FLOAT32), then chroma upsample
+           + colour conversion (ops/color.py, K3)
 
 Host-decoded planes go to the device in one copy per image; PALLAS planes
 are born there. RGB and the pixel planes come back in one copy each. The
 batch serving path (parallel/batch.py) runs the same PixelStage over
-stacked [B, by, bx, 64] planes.
+stacked [B, by, bx, 64] planes and asks for RGB alone.
 
 The port covers 1 and 3 components, 8- and 12-bit samples, both Quirks,
 nearest-neighbour upsampling, the EXACT and FLOAT32 IDCT contracts and
@@ -29,13 +31,14 @@ from torch import nn
 
 from ..core.types import DecodedImage, FrameHeader, JpegStructure
 from ..io.parser import parse
-from ..utils.config import DecodeConfig
+from ..utils.config import DecodeConfig, IdctPrecision
 from ..utils.errors import JpegFormatError, JpegUnsupportedError
 from ..utils.metrics import GLOBAL_METRICS as metrics
 
 from .. import convert
 from ..ops import color as color_ops
 from ..ops import idct as idct_ops
+from ..ops import pixel as pixel_ops
 from . import host
 
 
@@ -85,8 +88,14 @@ class PixelStage(nn.Module):
     """Coefficient planes -> (RGB uint8 [H, W, 3], pixel planes) for one
     (geometry, tables, config) key: the counterpart of build_stage_raw.
     Stacked planes [B, by, bx, 64] give [B, H, W, 3] and [B, rows, stride]
-    planes, one kernel launch per component and one for the colour stage
-    (the counterpart of parallel/batch._batched_stage's vmap)."""
+    planes (the counterpart of parallel/batch._batched_stage's vmap).
+
+    The route is fixed by the key: a 3-component EXACT frame that
+    ops/pixel.fits (its planes on the MCU grid, every sample inside its
+    pixel's MCU) runs ops/pixel.pixel_exact, one K03 launch on the card;
+    any other runs one IDCT launch per component (K0 or K1) and one K3
+    launch. `want_planes=False` gives None for the planes (K03 then stores
+    none)."""
 
     def __init__(self, key, device):
         super().__init__()
@@ -97,23 +106,27 @@ class PixelStage(nn.Module):
         self.quirks = quirks
         self.bits12 = frame.precision == 12
         self.factors = tuple((c.hsf, c.vsf) for c in frame.components)
+        self.fused = precision == IdctPrecision.EXACT and pixel_ops.fits(frame)
         for ci, q in enumerate(qt_by_comp):
             self.register_buffer(
                 f"qt{ci}",
                 convert.quant_table_to_device(np.frombuffer(q, np.uint16), device),
             )
 
-    def forward(self, *coeff_planes: torch.Tensor):
+    def forward(self, *coeff_planes: torch.Tensor, want_planes: bool = True):
+        qts = [getattr(self, f"qt{ci}") for ci in range(len(coeff_planes))]
+        if self.fused:
+            return pixel_ops.pixel_exact(coeff_planes, qts, self.frame, self.quirks,
+                                         want_planes)
         pixel = [
-            idct_ops.idct_plane(p, getattr(self, f"qt{ci}"), self.bits12,
-                                self.precision)
-            for ci, p in enumerate(coeff_planes)
+            idct_ops.idct_plane(p, qt, self.bits12, self.precision)
+            for p, qt in zip(coeff_planes, qts)
         ]
         rgb = color_ops.planes_to_rgb(
             pixel, self.frame.height, self.frame.width, self.factors,
             self.quirks,
         )
-        return rgb, pixel
+        return rgb, (pixel if want_planes else None)
 
 
 @functools.lru_cache(maxsize=256)
@@ -141,7 +154,7 @@ def _pixel_stage(frame: FrameHeader, planes, qts, cfg: DecodeConfig,
     with metrics.timer("device_stage", items=frame.width * frame.height):
         if not isinstance(planes, list):
             planes = convert.planes_to_device(planes, device)
-        rgb_dev, planes_dev = stage(*planes)
+        rgb_dev, planes_dev = stage(*planes, want_planes=True)
         rgb = rgb_dev.cpu().numpy()
     host_planes = [p.cpu().numpy() for p in planes_dev]
     return DecodedImage(frame=frame, planes=host_planes, rgb=rgb)

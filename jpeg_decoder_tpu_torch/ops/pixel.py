@@ -1,0 +1,228 @@
+"""The EXACT pixel stage of a 3-component frame as one step: dequant + IDCT +
+block scatter of every component, nearest-neighbour upsample, YCbCr -> RGB
+and the RGB store (counterpart of jpeg_decoder_tpu/models/decoder.py
+build_stage_raw under EXACT, :72-165).
+
+`pixel_exact` is the wrapper the decoder calls. For CPU tensors it runs the
+plain composition, `_pixel_exact_plain`: ops/idct.idct_exact and
+blocks_to_plane per component, then ops/color._planes_to_rgb_plain, which
+is what the pixel stage ran before. For CUDA tensors it launches kernel K03
+(csrc/pixel_exact.cu), one launch for a batch, in place of K0 per component
+and K3.
+
+K03 gives each block of threads one strip of G MCUs of one MCU row and
+builds the strip's RGB from the strip's coefficient blocks alone. That rests
+on a property of nearest-neighbour upsampling: every output pixel's sample
+of every component lies in the pixel's own MCU. The reference's float32
+index rule could break it where a ratio sf / max_sf rounds down, so
+`tile_local` checks it for the geometry, and `fits` is the route's guard:
+a frame that fails it keeps the K0 + K3 launches.
+`_pixel_exact_tiled_plain` runs the kernel's schedule on the CPU, strip by
+strip, and raises if a pixel would read outside its strip.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core.numerics import _nn_index_f32
+from ..core.types import FrameHeader
+from ..utils.config import Quirks
+
+from .. import _build
+from . import color as color_ops
+from . import idct as idct_ops
+
+#: Coefficient blocks a strip of K03 aims at: G = STRIP_BLOCKS // (blocks a
+#: MCU), so G = 4 at 4:2:0 (a 64x16-pixel tile, 192 threads), 8 at 4:4:4.
+#: The sweep of G (benchmarks/pixel_sweep.py, PERF.md) put G = 2 and 4 at
+#: 4:2:0 within 2% of each other and 4-6% ahead of 8.
+STRIP_BLOCKS = 24
+
+
+def _factors(frame: FrameHeader):
+    return tuple((c.hsf, c.vsf) for c in frame.components)
+
+
+def default_strip(factors) -> int:
+    """G, the MCUs of one strip of K03, for sampling `factors`."""
+    return max(1, STRIP_BLOCKS // sum(fh * fv for fh, fv in factors))
+
+
+def _ratio(sf: int, max_sf: int) -> np.float32:
+    return np.float32(sf) / np.float32(max_sf)
+
+
+@functools.lru_cache(maxsize=256)
+def tile_local(factors, h: int, w: int) -> bool:
+    """True when every output pixel (i < h, j < w) finds its sample of every
+    component inside its own MCU under the reference's index rule
+    (uint32)(i * float32(sf / max_sf)): for each component, row and column,
+    source index // (8 * sf) == output index // (8 * max_sf)."""
+    mh = max(f[0] for f in factors)
+    mv = max(f[1] for f in factors)
+    for fh, fv in factors:
+        for n, sf, msf in ((h, fv, mv), (w, fh, mh)):
+            src = _nn_index_f32(n, _ratio(sf, msf))
+            if not np.array_equal(src // (8 * sf), np.arange(n) // (8 * msf)):
+                return False
+    return True
+
+
+def fits(frame: FrameHeader) -> bool:
+    """K03's guard for a frame: three components whose planes lie on the MCU
+    grid (blocks_x = mcus_x * hsf, blocks_y = mcus_y * vsf) and a tile-local
+    geometry."""
+    if frame.ncs != 3:
+        return False
+    if any(c.blocks_x != frame.mcus_x * c.hsf or c.blocks_y != frame.mcus_y * c.vsf
+           for c in frame.components):
+        return False
+    return tile_local(_factors(frame), frame.height, frame.width)
+
+
+def _pixel_exact_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                       want_planes: bool = True):
+    """The plain composition, on any device: per component idct_exact and
+    blocks_to_plane, then the colour stage. Planes [..., by, bx, 64] ->
+    (RGB [..., h, w, 3], pixel planes [..., by*8, bx*8] or None)."""
+    bits12 = frame.precision == 12
+    pixel = []
+    for p, qt in zip(coeff_planes, qts):
+        *lead, by, bx, _ = p.shape
+        rows = int(np.prod(lead, dtype=np.int64)) * by
+        pix = idct_ops.idct_exact(p.reshape(-1, 64), qt, bits12)
+        pixel.append(idct_ops.blocks_to_plane(pix, rows, bx).reshape(*lead, by * 8, bx * 8))
+    rgb = color_ops._planes_to_rgb_plain(pixel, frame.height, frame.width, _factors(frame),
+                                         quirks)
+    return rgb, (pixel if want_planes else None)
+
+
+def _pixel_exact_tiled_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                             want_planes: bool = True, strip: int | None = None):
+    """K03's schedule on the CPU: for each image, MCU row and strip of
+    `strip` MCUs (the last one ragged), the IDCT of that strip's blocks
+    alone into one tile per component, then the RGB of the strip's pixels
+    inside the image from those tiles alone, by the index rule on the global
+    row and column. Raises RuntimeError if a pixel's sample lies outside its
+    strip's tile. Same result as _pixel_exact_plain."""
+    factors = _factors(frame)
+    strip = strip or default_strip(factors)
+    h, w = frame.height, frame.width
+    mh = max(f[0] for f in factors)
+    mv = max(f[1] for f in factors)
+    mcus_x, mcus_y = frame.mcus_x, frame.mcus_y
+    bits12 = frame.precision == 12
+    lead = coeff_planes[0].shape[:-3]
+    flat = [p.reshape(-1, *p.shape[-3:]) for p in coeff_planes]
+    n_img = flat[0].shape[0]
+    dev = flat[0].device
+    rgb = torch.zeros((n_img, h, w, 3), dtype=torch.uint8, device=dev)
+    planes = [torch.zeros((n_img, p.shape[1] * 8, p.shape[2] * 8), dtype=torch.uint8,
+                          device=dev) for p in flat]
+    src_rows = [_nn_index_f32(h, _ratio(fv, mv)) for _fh, fv in factors]
+    src_cols = [_nn_index_f32(w, _ratio(fh, mh)) for fh, _fv in factors]
+    for b in range(n_img):
+        for mr in range(mcus_y):
+            for m0 in range(0, mcus_x, strip):
+                gm = min(strip, mcus_x - m0)
+                tiles = []
+                for c, (fh, fv) in enumerate(factors):
+                    blocks = flat[c][b, mr * fv:(mr + 1) * fv, m0 * fh:(m0 + gm) * fh]
+                    pix = idct_ops.idct_exact(blocks.reshape(-1, 64), qts[c], bits12)
+                    tile = idct_ops.blocks_to_plane(pix, fv, gm * fh)
+                    tiles.append(tile)
+                    planes[c][b, mr * fv * 8:(mr + 1) * fv * 8,
+                              m0 * fh * 8:(m0 + gm) * fh * 8] = tile
+                i0, j0 = mr * 8 * mv, m0 * 8 * mh
+                i1, j1 = min(i0 + 8 * mv, h), min(j0 + gm * 8 * mh, w)
+                if i0 >= i1 or j0 >= j1:
+                    continue
+                chans = []
+                for c, (fh, fv) in enumerate(factors):
+                    sr = src_rows[c][i0:i1] - mr * 8 * fv
+                    sc = src_cols[c][j0:j1] - m0 * 8 * fh
+                    if (sr.min() < 0 or sr.max() >= tiles[c].shape[0]
+                            or sc.min() < 0 or sc.max() >= tiles[c].shape[1]):
+                        raise RuntimeError(
+                            f"component {c}: a sample of MCU row {mr}, strip at MCU {m0}"
+                            " lies outside the strip")
+                    sr_t = torch.from_numpy(sr).to(dev)
+                    sc_t = torch.from_numpy(sc).to(dev)
+                    chans.append(tiles[c][sr_t[:, None], sc_t[None, :]])
+                rgb[b, i0:i1, j0:j1] = color_ops.ycbcr_to_rgb(*chans, quirks)
+    rgb = rgb.reshape(*lead, h, w, 3)
+    if not want_planes:
+        return rgb, None
+    return rgb, [p.reshape(*lead, *p.shape[1:]) for p in planes]
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(frame: FrameHeader):
+    """(the planes' [by, bx, 64] shapes, the uint8 planes' shapes, the
+    kernel's geometry arguments from h to mcus_y) of a frame that fits, or
+    None: computed once a frame, the wrapper's host time being a share of
+    the kernel's."""
+    if not fits(frame):
+        return None
+    factors = _factors(frame)
+    mh = max(f[0] for f in factors)
+    mv = max(f[1] for f in factors)
+    mx, my = frame.mcus_x, frame.mcus_y
+    args = (frame.height, frame.width, *(fh for fh, _ in factors), *(fv for _, fv in factors),
+            *(float(_ratio(fh, mh)) for fh, _ in factors),
+            *(float(_ratio(fv, mv)) for _, fv in factors), mx, my)
+    return (tuple((my * fv, mx * fh, 64) for fh, fv in factors),
+            tuple((my * fv * 8, mx * fh * 8) for fh, fv in factors), args)
+
+
+def pixel_exact(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                want_planes: bool = True, strip: int | None = None):
+    """int16 zigzag coefficient planes [by, bx, 64] or [B, by, bx, 64], one
+    per component of a 3-component frame, and their int32 natural-order
+    quantisation tables [64] -> (uint8 RGB [..., h, w, 3], uint8 pixel
+    planes [..., by*8, bx*8] per component, or None unless `want_planes`).
+
+    CPU tensors: the plain composition. CUDA tensors: K03, one launch for
+    the batch, `strip` MCUs a block of threads (default_strip)."""
+    if len(coeff_planes) != 3 or len(qts) != 3:
+        raise ValueError("pixel_exact: three components")
+    dev = coeff_planes[0].device
+    if dev.type == "cpu":
+        return _pixel_exact_plain(coeff_planes, qts, frame, quirks, want_planes)
+    if not coeff_planes[0].is_cuda:
+        raise ValueError(f"pixel_exact: no kernel for {dev}")
+    geometry = _geometry(frame)
+    if geometry is None:
+        raise ValueError("pixel_exact: the frame's geometry is not tile-local")
+    shapes, plane_shapes, args = geometry
+    lead = coeff_planes[0].shape[:-3]
+    if len(lead) > 1:
+        raise ValueError("pixel_exact: planes must be [by, bx, 64] or [B, by, bx, 64]")
+    for p, q, shape in zip(coeff_planes, qts, shapes):
+        if (p.shape[-3:] != shape or p.shape[:-3] != lead or p.dtype != torch.int16
+                or not p.is_contiguous() or p.device != dev or p.data_ptr() % 16):
+            raise ValueError("pixel_exact: coefficients must be contiguous int16"
+                             " [..., mcus_y * vsf, mcus_x * hsf, 64], 16-byte aligned,"
+                             " on one device")
+        if (q.dtype != torch.int32 or q.numel() != 64 or not q.is_contiguous()
+                or q.device != dev or q.data_ptr() % 16):
+            raise ValueError("pixel_exact: tables must be contiguous int32 [64],"
+                             " 16-byte aligned, on the planes' device")
+    n_images = lead[0] if lead else 1
+    if n_images > 65535:
+        raise ValueError("pixel_exact: at most 65535 images per launch")
+    rgb = torch.empty((*lead, frame.height, frame.width, 3), dtype=torch.uint8, device=dev)
+    planes = [torch.empty((*lead, *s), dtype=torch.uint8, device=dev)
+              for s in plane_shapes] if want_planes else None
+    if rgb.numel():
+        _build.launch(
+            "jdtc_pixel_exact", *map(_build.ptr, coeff_planes), *map(_build.ptr, qts),
+            n_images, *args, strip or default_strip(_factors(frame)),
+            int(frame.precision == 12), int(quirks != Quirks.REFERENCE), _build.ptr(rgb),
+            *map(_build.ptr, planes or [None] * 3), _build.stream_of(rgb),
+        )
+    return rgb, planes

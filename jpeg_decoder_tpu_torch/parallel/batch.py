@@ -12,9 +12,10 @@ The serving shape: many JPEGs per step.
     batch tensor of each component. A member K2 does not take
     (progressive, restart-free over 256 MCUs, oversized segments) takes the
     native host decode, and its planes are copied into its slice.
-Then one PixelStage call over the stacked planes: one K0 (EXACT) or K1
-(FLOAT32) launch per component and one K3 launch for the batch, and one
-device-to-host copy of [B, H, W, 3].
+Then one PixelStage call over the stacked planes, RGB alone: one K03
+launch for a 3-component EXACT batch (ops/pixel.py), else one K0 (EXACT) or
+K1 (FLOAT32) launch per component and one K3 launch; and one device-to-host
+copy of [B, H, W, 3].
 
 The JAX class's `mesh` is not taken: meshes are ROADMAP queue 1 item 10.
 """
@@ -204,7 +205,7 @@ class BatchDecoder:
                 # serve the next batch.
                 for _frame, planes, _qts in results:
                     self._pool.release(planes)
-            rgb, _pixel = stage(*coeffs)
+            rgb, _ = stage(*coeffs, want_planes=False)
             return rgb.cpu().numpy()
 
     def decode_many(self, datas: list[bytes]) -> list[np.ndarray]:

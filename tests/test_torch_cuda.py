@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K0, K1, K2, K2u, K3 and the probes PK1-PK7) against
+"""The port's CUDA kernels (K0, K03, K1, K2, K2u, K3 and the probes PK1-PK7) against
 their plain PyTorch versions, and the decode and batch paths on the card
 against the same paths on the CPU. Bitwise, except FLOAT32 (K1): within 1 of its plain version on
 at most 1e-3 of the pixels (the two sum the 64 products in other orders),
@@ -35,7 +35,11 @@ from jpeg_decoder_tpu_torch.ops import color as tcolor
 from jpeg_decoder_tpu_torch.ops import entropy_cuda
 from jpeg_decoder_tpu_torch.io.parser import parse
 from jpeg_decoder_tpu_torch.ops import idct as tidct
+from jpeg_decoder_tpu_torch.ops import pixel as tpixel
 from jpeg_decoder_tpu_torch.ops import probes
+from jpeg_decoder_tpu_torch.core import types as ttypes
+from jpeg_decoder_tpu_torch.io.markers import Encoding
+from jpeg_decoder_tpu_torch.models import decoder as tdecoder
 from jpeg_decoder_tpu_torch.utils import jax_free
 
 from .torch_crossing import block_boundary_case, dc_only_stream
@@ -435,10 +439,12 @@ def test_decode_on_cuda_matches_cpu(cuda_device, name, backend, quirks):
     np.testing.assert_array_equal(got.rgb, want.rgb)
     for a, b in zip(got.planes, want.planes):
         np.testing.assert_array_equal(a, b)
-    expected = {"jdtc_idct_exact", "jdtc_color"}
+    # three components under EXACT: K03 alone; gray: K0 and K3
+    expected = ({"jdtc_pixel_exact": 1} if name == "420_ri4"
+                else {"jdtc_idct_exact": 1, "jdtc_color": 1})
     if backend == EntropyBackend.PALLAS:
-        expected |= {"jdtc_entropy_decode", "jdtc_unstuff"}
-    assert set(launches) == expected
+        expected |= {"jdtc_entropy_decode": 1, "jdtc_unstuff": 1}
+    assert launches == expected
 
 
 def _assert_float32_rgb(got, want):
@@ -469,8 +475,9 @@ def test_float32_decode_on_cuda_matches_cpu(cuda_device, backend):
 @pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
 def test_batch_decoder_on_cuda_matches_cpu(cuda_device, backend, precision):
     """decode_batch, decode_stream and decode_many on the card against the
-    same calls on the CPU; one K2u and one K2 call for the batch, one IDCT launch per
-    component and one K3 launch."""
+    same calls on the CPU; one K2u and one K2 call for the batch, then one
+    K03 launch (EXACT) or one K1 launch per component and one K3 launch
+    (FLOAT32)."""
     cfg = DecodeConfig(entropy_backend=backend, idct_precision=precision)
     datas = [make_jpeg(64, 48, F420, 4, 300 + i) for i in range(6)]
     many = [datas[0], _stream("gray_no_ri"), datas[1], _stream("444_ri1")]
@@ -479,8 +486,8 @@ def test_batch_decoder_on_cuda_matches_cpu(cuda_device, backend, precision):
     _build.LAUNCHES.clear()
     got = card.decode_batch(datas)
     launches = dict(_build.LAUNCHES)
-    idct = "jdtc_idct_exact" if precision == IdctPrecision.EXACT else "jdtc_idct_float"
-    expected = {idct: 3, "jdtc_color": 1}
+    expected = ({"jdtc_pixel_exact": 1} if precision == IdctPrecision.EXACT
+                else {"jdtc_idct_float": 3, "jdtc_color": 1})
     if backend == EntropyBackend.PALLAS:
         expected["jdtc_entropy_decode"] = expected["jdtc_unstuff"] = 1
     assert launches == expected
@@ -497,6 +504,101 @@ def test_batch_decoder_on_cuda_matches_cpu(cuda_device, backend, precision):
     # within the card, a batch gives each image its single-image decode
     for rgb, d in zip(got, datas):
         np.testing.assert_array_equal(rgb, jtt.decode(d, cfg, device=cuda_device).rgb)
+
+
+# ---------------------------------------------------------------------------
+# K03: the EXACT pixel stage of a 3-component frame in one kernel
+# ---------------------------------------------------------------------------
+
+
+K03_SAMPLINGS = {
+    "420": F420,
+    "422": ((2, 1), (1, 1), (1, 1)),
+    "444": F444,
+    "440": ((1, 2), (1, 1), (1, 1)),
+    "411": ((4, 1), (1, 1), (1, 1)),
+}
+#: (sampling, h, w): ragged edges at two sizes, and the 4K frame
+K03_GEOMETRIES = [(s, h, w) for s in sorted(K03_SAMPLINGS) for h, w in ((37, 45), (67, 101))]
+K03_GEOMETRIES.append(("420", 2160, 3840))
+#: (bits, quirks) pairs
+K03_NUMERICS = [(8, Quirks.REFERENCE), (12, Quirks.CORRECT)]
+
+
+def _k03_frame(h, w, factors, bits=8):
+    mh = max(f[0] for f in factors)
+    mv = max(f[1] for f in factors)
+    return ttypes.FrameHeader(
+        Encoding.BASELINE_DCT, bits, w, h,
+        tuple(ttypes.Component(i + 1, fh, fv, min(i, 1), -(-w * fh // mh), -(-h * fv // mv))
+              for i, (fh, fv) in enumerate(factors)))
+
+
+def _k03_inputs(frame, seed, lead, device):
+    """Random zigzag planes with a random zero suffix a block (wider under
+    12-bit) and random tables, on `device`."""
+    rng = np.random.default_rng(seed)
+    span = 8192 if frame.precision == 12 else 1024
+    planes, qts = [], []
+    for c in frame.components:
+        shape = (*lead, c.blocks_y, c.blocks_x)
+        blocks = rng.integers(-span, span, (*shape, 64))
+        cut = rng.integers(1, 65, shape)
+        planes.append(torch.from_numpy(
+            np.where(np.arange(64) < cut[..., None], blocks, 0).astype(np.int16)).to(device))
+        qts.append(convert.quant_table_to_device(rng.integers(1, 256, 64), device))
+    return planes, qts
+
+
+def _assert_k03(got, want, want_planes):
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    if not want_planes:
+        assert got[1] is None
+        return
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("want_planes", [True, False], ids=["planes", "rgb_only"])
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["image", "batch"])
+@pytest.mark.parametrize("bits,quirks", K03_NUMERICS, ids=["8bit_reference", "12bit_correct"])
+@pytest.mark.parametrize("geometry", K03_GEOMETRIES, ids=lambda g: f"{g[0]}_{g[1]}x{g[2]}")
+def test_k03_matches_plain(cuda_device, geometry, bits, quirks, lead, want_planes):
+    sampling, h, w = geometry
+    frame = _k03_frame(h, w, K03_SAMPLINGS[sampling], bits)
+    planes, qts = _k03_inputs(frame, h + w + bits, lead, cuda_device)
+    _build.LAUNCHES.clear()
+    got = tpixel.pixel_exact(planes, qts, frame, quirks, want_planes)
+    assert _build.LAUNCHES == {"jdtc_pixel_exact": 1}
+    _assert_k03(got, tpixel._pixel_exact_plain(planes, qts, frame, quirks), want_planes)
+
+
+@pytest.mark.parametrize("strip", [1, 2, 3, 5, 16])
+def test_k03_any_strip_size(cuda_device, strip):
+    """Strips of other sizes (several a row, the last ragged) give the same
+    bytes."""
+    frame = _k03_frame(67, 101, F420)
+    planes, qts = _k03_inputs(frame, 77, (3,), cuda_device)
+    got = tpixel.pixel_exact(planes, qts, frame, Quirks.REFERENCE, True, strip=strip)
+    _assert_k03(got, tpixel._pixel_exact_plain(planes, qts, frame, Quirks.REFERENCE), True)
+
+
+def test_k03_refuses_a_geometry_that_is_not_tile_local(cuda_device):
+    """7/12 rounds down in float32: column 864 reads the MCU before. The
+    stage keeps K0 + K3 for it, and the wrapper refuses it."""
+    frame = _k03_frame(8, 1000, ((12, 1), (7, 1), (7, 1)))
+    planes, qts = _k03_inputs(frame, 5, (), cuda_device)
+    with pytest.raises(ValueError, match="tile-local"):
+        tpixel.pixel_exact(planes, qts, frame, Quirks.REFERENCE)
+    key = tdecoder._stage_key(frame, tuple(np.asarray(q.cpu(), np.uint16).tobytes() for q in qts),
+                              DecodeConfig())
+    stage = tdecoder._build_pixel_stage(key, cuda_device)
+    assert not stage.fused
+    _build.LAUNCHES.clear()
+    got = stage(*planes)
+    assert _build.LAUNCHES == {"jdtc_idct_exact": 3, "jdtc_color": 1}
+    _assert_k03(got, tpixel._pixel_exact_plain(planes, qts, frame, Quirks.REFERENCE), True)
 
 
 # ---------------------------------------------------------------------------
