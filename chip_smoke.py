@@ -40,7 +40,13 @@ Phases, each of which exits non-zero on failure:
      4:4:4 file of the corpus, random 12-bit planes at 4K and a batch of
      four, both quirks, with and without planes; its time beside K0 x 3 +
      K3 at 4K and for eight 4K images, and the sweep of its strip size G
-     (benchmarks/pixel_sweep.py); the probes PK1-PK7 bitwise (all integer) on every one of
+     (benchmarks/pixel_sweep.py); K13 (the FLOAT32 pixel stage of a
+     3-component frame in one kernel) on the same cases, bitwise against K1
+     x 3 + K3, its planes within 1 of K03's and, against its plain version,
+     within 1 on at most 1e-3 of the pixels with RGB the plain colour stage
+     of its own planes; its time beside K1 x 3 + K3 and beside the product
+     alone as one cuBLAS call, its sweep of G and the SASS mix of K13 and
+     K1; the probes PK1-PK7 bitwise (all integer) on every one of
      their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at both chain
      lengths the probe path launches them at, in both table placements
      where the table fits shared memory, PK6 also from a random state;
@@ -53,12 +59,13 @@ Phases, each of which exits non-zero on failure:
        the two foreign files and the two 4K requests of photographs'
        blocks (K03), held the same way;
      - JpegDecoder(FLOAT32) for PALLAS and NATIVE on the four 4K
-       requests: pixel planes within 1 of the reference's, RGB bitwise
-       equal to the colour stage of the returned planes;
+       requests: one K13 launch a request and no K1 or K3, pixel planes
+       within 1 of the reference's, RGB bitwise equal to the colour stage
+       of the returned planes; then the gray one (K1 and K3);
      - BatchDecoder for PALLAS and NATIVE, each with EXACT and FLOAT32:
        decode_batch of the eight 4K requests (one K2u and one K2 call, then
-       one K03 launch under EXACT, or one K1 launch per component and one K3
-       launch under FLOAT32), decode_stream with batches
+       one K03 launch under EXACT, or one K13 launch under FLOAT32),
+       decode_stream with batches
        of 4, and decode_many over two 4K DRI requests, the restart-free
        one (which the PALLAS route hands to the native host decode) and
        the gray one; every RGB bitwise equal to the single-image decode
@@ -66,13 +73,13 @@ Phases, each of which exits non-zero on failure:
      - the probe path through its entry point, benchmarks.gather_probe.main
        with all four rounds at the rounds' own chain lengths: 21 ns/step
        lines;
-  5. stage times with CUDA events: per image (H2D, K2u, K2, K03, D2H),
-     and per batch of eight (H2D, K2u, K2, K03 under EXACT or K1 and K3
+  5. stage times with CUDA events: per image (H2D, K2u, K2, K03 and K13,
+     D2H), and per batch of eight (H2D, K2u, K2, K03 under EXACT or K13
      under FLOAT32, D2H), each with the host clock of the parse that
      remains on the host.
-The last lines are the kernels' JSON record (thirteen kernels: K0-K3, K03,
-K2u and PK1-PK7, each with its launches on the main paths, its time, its plain
-version's time and its bound), the card's name and power limit, and
+The last lines are the kernels' JSON record (fourteen kernels: K0-K3, K03,
+K13, K2u and PK1-PK7, each with its launches on the main paths, its time,
+its plain version's time and its bound), the card's name and power limit, and
 {"ok": true, "device": {...}}. The script imports the port alone, builds
 the CUDA kernels and the native host runtime from the port's own sources,
 and fails if anything loaded JAX or the JAX package jpeg_decoder_tpu.
@@ -205,6 +212,15 @@ def max_abs_err(a, b) -> int:
     if a.shape != b.shape:
         fail(f"shape mismatch {a.shape} vs {b.shape}")
     return int(np.abs(a - b).max()) if a.size else 0
+
+
+def wrapped_err(a, b) -> int:
+    """max_abs_err of uint8 samples counted modulo 256: the 12-bit store's
+    rescale takes the low byte of trunc(v16 * 255 / 4096), so a step of 1
+    in v16 where that is -1 or 0 shows as 255 against 0 (ops/idct.py
+    _quantize_output_float); for 8-bit samples it is max_abs_err."""
+    d = np.abs(_ints(a) - _ints(b))
+    return int(np.minimum(d, 256 - d).max()) if d.size else 0
 
 
 def share_differing(a, b) -> float:
@@ -770,12 +786,121 @@ def check_k03(dev, cases: dict, batch: list, record: dict, card: str) -> None:
     sweep_cases = {"dense 4K request, planes": timed["request"],
                    "8 x dense 4K, RGB only": eight}
     record["strip_sweep"] = pixel_sweep.sweep(sweep_cases, (2, 4, 8, 16, 32), 5)
-    record["sass"] = pixel_sweep.sass_mix()
+    record["sass"] = {k: v for k, v in pixel_sweep.sass_mix().items()
+                      if k in ("pixel_exact_kernel", "idct_exact_kernel")}
     log(f"K03 and K0 instruction mix (SASS of their code): {record['sass']}")
     for r in record["strip_sweep"]:
         log(f"K03 strip sweep, {r['case']}: G {r['strip']}{' (default)' if r['default'] else ''},"
             f" {r['blocks']} coefficient blocks a block of threads: the card alone"
-            f" {r['ms']:.4f} ms (K0 x 3 + K3 {r['k0_k3_ms']:.4f} ms) [{card}]")
+            f" {r['ms']:.4f} ms (K0 x 3 + K3 {r['old_ms']:.4f} ms) [{card}]")
+
+
+def check_k13(dev, cases: dict, batch: list, record: dict, card: str) -> None:
+    """K13 on every K03 case, both quirks, with and without planes: bitwise
+    equal to K1 x 3 + K3 on the same planes; its planes within 1 of K03's
+    (EXACT; for 12-bit samples counted modulo 256, wrapped_err); against
+    its plain version K1's rule (planes within 1 on at most K1_SHARE of the
+    pixels) and RGB bitwise equal to the plain colour stage of its own
+    planes. Then its time beside K1 x 3 + K3 and beside the product alone
+    as one cuBLAS call (torch.matmul of the dequantized [N, 64] blocks by K,
+    TF32 off), on the dense 4K request with planes and on eight 4K requests
+    without, the card alone (in turns, as K03's); then the sweep of G."""
+    from jpeg_decoder_tpu_torch import IdctPrecision, Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.ops import color, pixel
+
+    err, exact_err, share = 0, 0, 0.0
+    for name, (frame, planes, qts) in cases.items():
+        e, ex, raw, sh = 0, 0, 0, 0.0
+        factors = tuple((c.hsf, c.vsf) for c in frame.components)
+        for quirks in (Quirks.REFERENCE, Quirks.CORRECT):
+            old = pixel_sweep.k1_k3(planes, qts, frame, quirks)
+            plain = pixel._pixel_float_plain(planes, qts, frame, quirks)
+            exact = pixel.pixel_exact(planes, qts, frame, quirks)
+            for want in (True, False):
+                rgb, pix = pixel.pixel_float(planes, qts, frame, quirks, want)
+                e = max(e, max_abs_err(rgb, old[0]))
+                if not want:
+                    if pix is not None:
+                        fail("K13 returned planes it was not asked for")
+                    continue
+                e = max(e, *[max_abs_err(a, b) for a, b in zip(pix, old[1])])
+                ex = max(ex, *[wrapped_err(a, b) for a, b in zip(pix, exact[1])])
+                raw = max(raw, *[max_abs_err(a, b) for a, b in zip(pix, exact[1])])
+                sh = max(sh, *[share_differing(a, b) for a, b in zip(pix, plain[1])])
+                pe = max(max_abs_err(a, b) for a, b in zip(pix, plain[1]))
+                own = color._planes_to_rgb_plain(pix, frame.height, frame.width, factors, quirks)
+                if pe > 1 or max_abs_err(rgb, own) != 0:
+                    fail(f"K13 on {name}: planes {pe} from the plain version's, or RGB not"
+                         f" the plain colour stage of its own planes")
+        log(f"K13 pixel_float, {name} ({frame.width}x{frame.height}, sampling {factors},"
+            f" {frame.precision}-bit, planes {tuple(planes[0].shape[:-1])}): max_abs_err {e}"
+            f" against K1 x 3 + K3 (both quirks, with and without planes); planes against"
+            f" K03 (EXACT) max_abs_err {raw}, modulo 256 {ex}; against the plain version"
+            f" share differing {sh:.3e}, RGB the plain colour stage of its planes")
+        err, exact_err, share = max(err, e), max(exact_err, ex), max(share, sh)
+    record.update(max_abs_err=err, max_abs_err_vs_exact=exact_err, share_differing=share)
+    if err != 0:
+        fail(f"K13 differs from K1 x 3 + K3 (max_abs_err {err}; tolerance 0)")
+    if exact_err > 1 or share > K1_SHARE:
+        fail(f"K13's planes: {exact_err} from EXACT (tolerance 1), share {share:.3e} differing"
+             f" from the plain version (tolerance {K1_SHARE})")
+
+    q = Quirks.REFERENCE
+    eight = (*pixel_sweep.decoded(batch, dev), False)
+    timed = {"request": (*cases[f"dense {W}x{H} 4:2:0 request"], True), "eight": eight}
+    for key, (frame, planes, qts, want) in timed.items():
+        k13 = lambda: pixel.pixel_float(planes, qts, frame, q, want)  # noqa: E731
+        old = lambda: pixel_sweep.k1_k3(planes, qts, frame, q, want)  # noqa: E731
+        old_ms = [cuda_ms(old, 10)]
+        ms = [cuda_ms(k13, 10), cuda_ms(k13, 10)]
+        old_ms.append(cuda_ms(old, 10))
+        card_old = [pixel_sweep.card_ms(old, 7)]
+        card_ms = [pixel_sweep.card_ms(k13, 7), pixel_sweep.card_ms(k13, 7)]
+        card_old.append(pixel_sweep.card_ms(old, 7))
+        matmul_ms = pixel_sweep.product_ms(planes, qts, 7)
+        plain_ms = cuda_ms(lambda: pixel._pixel_float_plain(planes, qts, frame, q, want), 1)
+        rgb, pix = k13()
+        blocks = sum(p[..., 0].numel() for p in planes)
+        # Bound: the int16 coefficients, the tables and K read once, RGB
+        # (and the planes when asked) written once; the [64] x [64, 64]
+        # product is 4096 FMAs a block, two float32 operations each (the
+        # dequant, store and colour stage's few a pixel being far below).
+        bnd = bound(nbytes_of(*planes, *qts, rgb, *(pix or [])) + 64 * 64 * 4,
+                    2 * 4096 * blocks, "float32")
+        shape = (f"{planes[0].shape[0] if planes[0].dim() == 4 else 1} x {W}x{H} 4:2:0,"
+                 f" {blocks} blocks, {'with' if want else 'without'} planes")
+        log(f"K13 pixel_float ({shape}): kernel {ms[0]:.3f} and {ms[1]:.3f} ms, K1 x 3 + K3"
+            f" {old_ms[0]:.3f} and {old_ms[1]:.3f} ms (one call between events); the card"
+            f" alone {card_ms[0]:.4f} and {card_ms[1]:.4f} ms, K1 x 3 + K3 {card_old[0]:.4f}"
+            f" and {card_old[1]:.4f} ms, the product alone (torch.matmul [N, 64] x K, TF32"
+            f" off) {matmul_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f}"
+            f" ms by {bnd['bound_by']} [{card}]")
+        if key == "request":
+            # library_ms stays null: no single call does the store, the
+            # scatter and the colour step; the product alone is matmul_ms
+            record.update(ms=statistics.median(card_ms), plain_ms=plain_ms, library_ms=None,
+                          shape=shape, ms_runs=ms, card_ms=card_ms, k1_k3_ms=old_ms,
+                          k1_k3_card_ms=card_old, matmul_ms=matmul_ms, **bnd)
+        else:
+            record.update(batch_shape=shape, batch_ms=ms, batch_plain_ms=plain_ms,
+                          batch_card_ms=card_ms, batch_k1_k3_ms=old_ms,
+                          batch_k1_k3_card_ms=card_old, batch_matmul_ms=matmul_ms,
+                          batch_bound_ms=bnd["bound_ms"])
+    sweep_cases = {"dense 4K request, planes": timed["request"],
+                   "8 x dense 4K, RGB only": eight}
+    record["strip_sweep"] = pixel_sweep.sweep(sweep_cases, (2, 4, 8, 16, 32), 5,
+                                              IdctPrecision.FLOAT32)
+    mix = pixel_sweep.sass_mix()
+    record["sass"] = {k: v for k, v in mix.items() if k in ("pixel_float_kernel",
+                                                           "idct_float_kernel")}
+    record["resources"] = mix.get("resources", {})
+    log(f"K13 and K1 instruction mix (SASS of their code): {record['sass']};"
+        f" resources {record['resources']}")
+    for r in record["strip_sweep"]:
+        log(f"K13 strip sweep, {r['case']}: G {r['strip']}{' (default)' if r['default'] else ''},"
+            f" {r['blocks']} coefficient blocks a strip: the card alone {r['ms']:.4f} ms"
+            f" (K1 x 3 + K3 {r['old_ms']:.4f} ms) [{card}]")
 
 
 #: Per probe kernel: its record's name, the Pallas call sites it replaces,
@@ -985,10 +1110,11 @@ def main_path(dev, requests, card: str, label: str = "", fused: bool = True) -> 
     return runs
 
 
-def float32_path(dev, requests, card: str) -> dict:
-    """JpegDecoder(FLOAT32) for PALLAS and NATIVE: pixel planes within 1 of
-    the EXACT reference's, RGB bitwise equal to the colour stage of the
-    returned planes."""
+def float32_path(dev, requests, gray: bytes, card: str) -> dict:
+    """JpegDecoder(FLOAT32) for PALLAS and NATIVE: one K13 launch a 4K
+    request and no K1 or K3, pixel planes within 1 of the EXACT reference's,
+    RGB bitwise equal to the colour stage of the returned planes; then the
+    gray request, K1 and K3."""
     import torch
     from jpeg_decoder_tpu_torch import (
         DecodeConfig,
@@ -1015,9 +1141,9 @@ def float32_path(dev, requests, card: str) -> dict:
 
         name = f"JpegDecoder {backend.value} float32"
         outs, runs[name] = run_path(f"main path {name}", serve)
-        if (runs[name].get("jdtc_idct_float") != 3 * len(requests)
-                or runs[name].get("jdtc_color") != len(requests)
-                or "jdtc_pixel_exact" in runs[name] or "jdtc_idct_exact" in runs[name]):
+        pixel_launches = {k: v for k, v in runs[name].items()
+                          if k not in ("jdtc_entropy_decode", "jdtc_unstuff")}
+        if pixel_launches != {"jdtc_pixel_float": len(requests)}:
             fail(f"{name}: the pixel stage launched {runs[name]}")
         errs, shares = [], []
         for data, img in zip(requests, outs):
@@ -1037,6 +1163,18 @@ def float32_path(dev, requests, card: str) -> dict:
             f" {[round(t, 3) for t in e2e]} [{card}]")
         if max(errs) > 1:
             fail(f"{name}: pixel planes more than 1 from EXACT")
+        # a gray frame keeps K1 and K3
+        gname = f"JpegDecoder {backend.value} (gray) float32"
+        img, runs[gname] = run_path(f"main path {gname}", lambda: dec.decode(gray))
+        glaunch = {k: v for k, v in runs[gname].items()
+                   if k not in ("jdtc_entropy_decode", "jdtc_unstuff")}
+        if glaunch != {"jdtc_idct_float": 1, "jdtc_color": 1}:
+            fail(f"{gname}: the pixel stage launched {runs[gname]}")
+        _, pix, _ = reference(gray, Quirks.REFERENCE)
+        gerr = max_abs_err(img.planes[0], pix[0])
+        log(f"main path {gname}: pixel plane against the EXACT reference max_abs_err {gerr}")
+        if gerr > 1:
+            fail(f"{gname}: pixel plane more than 1 from EXACT")
     return runs
 
 
@@ -1076,7 +1214,9 @@ def batch_path(dev, batch, many, card: str) -> dict:
                 lambda: timed("batch", lambda: dec.decode_batch(batch)))
             runs[f"{name} decode_batch"] = launches
             exact = precision == IdctPrecision.EXACT
-            want = {"jdtc_pixel_exact": 1} if exact else {"jdtc_idct_float": 3, "jdtc_color": 1}
+            fused = "jdtc_pixel_exact" if exact else "jdtc_pixel_float"
+            idct = "jdtc_idct_exact" if exact else "jdtc_idct_float"
+            want = {fused: 1}
             if backend == EntropyBackend.PALLAS:
                 want["jdtc_entropy_decode"] = want["jdtc_unstuff"] = 1
             if launches != want:
@@ -1087,14 +1227,15 @@ def batch_path(dev, batch, many, card: str) -> dict:
             out_many, runs[f"{name} decode_many"] = run_path(
                 f"main path {name} decode_many",
                 lambda: timed("many", lambda: dec.decode_many(many)))
-            # EXACT: a K03 launch a batch of 3-component images (two batches
-            # of four; decode_many's two 4K groups), K0 and K3 only for the
-            # gray member of decode_many
-            if exact and not (
-                    pixel_launches_ok(runs[f"{name} decode_stream"], 2, True)
-                    and runs[f"{name} decode_many"].get("jdtc_pixel_exact") == 2
-                    and runs[f"{name} decode_many"].get("jdtc_idct_exact") == 1
-                    and runs[f"{name} decode_many"].get("jdtc_color") == 1):
+            # a K03 (EXACT) or K13 (FLOAT32) launch a batch of 3-component
+            # images (two batches of four; decode_many's two 4K groups), K0
+            # or K1 and K3 only for the gray member of decode_many
+            stream_launches = runs[f"{name} decode_stream"]
+            many_launches = runs[f"{name} decode_many"]
+            if not (stream_launches.get(fused) == 2 and idct not in stream_launches
+                    and "jdtc_color" not in stream_launches
+                    and many_launches.get(fused) == 2 and many_launches.get(idct) == 1
+                    and many_launches.get("jdtc_color") == 1):
                 fail(f"{name}: decode_stream launched {runs[f'{name} decode_stream']},"
                      f" decode_many {runs[f'{name} decode_many']}")
             # the single-image decode with the same config; a member the
@@ -1131,8 +1272,9 @@ REFERENCE_OF: dict = {}
 
 
 def stage_times(dev, requests, card: str, label: str = "image") -> None:
-    """Per-image CUDA-event times of the PALLAS path's device stages."""
-    from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, convert
+    """Per-image CUDA-event times of the PALLAS path's device stages (the
+    pixel stage under EXACT, K03, and FLOAT32, K13)."""
+    from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, IdctPrecision, convert
     from jpeg_decoder_tpu_torch.models import decoder
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
     from jpeg_decoder_tpu_torch.io.parser import parse
@@ -1155,14 +1297,18 @@ def stage_times(dev, requests, card: str, label: str = "image") -> None:
         entropy_cuda.check_status(box["status"], seg_off)
         stage = decoder.device_stage_for(
             s.frame, {t: q.values for t, q in s.scans[0].quant_tables.items()}, cfg, dev)
-        if not stage.fused:
-            fail(f"stage times: the {label} request does not take K03")
+        stage32 = decoder.device_stage_for(
+            s.frame, {t: q.values for t, q in s.scans[0].quant_tables.items()},
+            cfg.replace(idct_precision=IdctPrecision.FLOAT32), dev)
+        if not stage.fused or not stage32.fused:
+            fail(f"stage times: the {label} request does not take K03 and K13")
         # JpegDecoder's call: RGB and the pixel planes
+        k13 = cuda_ms(lambda: stage32(*planes, want_planes=True), 1)
         k03 = cuda_ms(lambda: box.update(rgb=stage(*planes, want_planes=True)[0]), 1)
         d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
         log(f"stage times {label} {i}: host parse {host_ms:.3f} ms,"
             f" H2D {h2d:.3f} ms ({sum(r.nbytes for r in host[0])} B), K2u {k2u:.3f} ms, K2 {k2:.3f} ms,"
-            f" K03 {k03:.3f} ms, D2H rgb {d2h:.3f} ms [{card}]")
+            f" K03 {k03:.3f} ms (FLOAT32: K13 {k13:.3f} ms), D2H rgb {d2h:.3f} ms [{card}]")
 
 
 def batch_stage_times(dev, batch, card: str) -> None:
@@ -1205,13 +1351,10 @@ def batch_stage_times(dev, batch, card: str) -> None:
             k03 = cuda_ms(lambda: box.update(rgb=stage(*stacks, want_planes=False)[0]), 1)
             pixel = f"K03 {k03:.3f} ms"
         else:
-            kidct = cuda_ms(lambda: box.update(pix=[
-                decoder.idct_ops.idct_plane(p, getattr(stage, f"qt{ci}"), stage.bits12,
-                                            precision)
-                for ci, p in enumerate(stacks)]), 1)
-            k3 = cuda_ms(lambda: box.update(rgb=decoder.color_ops.planes_to_rgb(
-                box["pix"], frame.height, frame.width, stage.factors, stage.quirks)), 1)
-            pixel = f"K1 {kidct:.3f} ms, K3 {k3:.3f} ms"
+            if not stage.fused:
+                fail("batch stage times: the FLOAT32 batch does not take K13")
+            k13 = cuda_ms(lambda: box.update(rgb=stage(*stacks, want_planes=False)[0]), 1)
+            pixel = f"K13 {k13:.3f} ms"
         d2h = cuda_ms(lambda: box["rgb"].cpu(), 1)
         nbytes = sum(r.nbytes for r in host[0])
         log(f"batch stage times ({len(batch)} x {W}x{H}, {precision.value}):"
@@ -1297,6 +1440,10 @@ def main() -> None:
             name="K03 pixel_exact", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/pixel_exact.cu",
             replaces="jpeg_decoder_tpu/models/decoder.py:72"),
+        "jdtc_pixel_float": dict(
+            name="K13 pixel_float", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/pixel_float.cu",
+            replaces="jpeg_decoder_tpu/ops/pallas_kernels.py:103"),
     }
     for key, (name, _standing, _ops, replaces) in PROBE_KERNELS.items():
         kernels[key] = dict(name=name, route="cuda",
@@ -1314,11 +1461,13 @@ def main() -> None:
     timed_phase("K3", check_k3, dev, requests[0], gray, kernels["jdtc_color"])
     photos = {f"file {DRI_FILES[1].name} (4:2:2)": DRI_FILES[1].read_bytes(),
               f"file {PHOTOS[0].name} (4:4:4)": PHOTOS[0].read_bytes()}
-    timed_phase("K03", check_k03, dev, k03_cases(dev, requests, tiled, photos), batch,
-                kernels["jdtc_pixel_exact"], card)
+    cases = k03_cases(dev, requests, tiled, photos)
+    timed_phase("K03", check_k03, dev, cases, batch, kernels["jdtc_pixel_exact"], card)
+    timed_phase("K13", check_k13, dev, cases, batch, kernels["jdtc_pixel_float"], card)
+    del cases
     timed_phase("probes against plain", check_probes, dev, kernels, card)
     for key, rec in kernels.items():
-        if key != "jdtc_idct_float" and rec["max_abs_err"] != 0:
+        if key not in ("jdtc_idct_float", "jdtc_pixel_float") and rec["max_abs_err"] != 0:
             fail(f"{rec['name']} disagrees with its plain version"
                  f" (max_abs_err {rec['max_abs_err']}; tolerance 0)")
 
@@ -1326,7 +1475,7 @@ def main() -> None:
     runs.update(main_path(dev, [gray], card, " (gray)", fused=False))
     runs.update(main_path(dev, list(files.values()) + list(tiled.values()), card,
                           " (foreign files, photographs at 4K)"))
-    runs.update(float32_path(dev, requests, card))
+    runs.update(float32_path(dev, requests, gray, card))
     runs.update(timed_phase("main paths, batches", batch_path, dev, batch, many, card))
     runs.update(timed_phase("main path, probes", probe_path, kernels))
     for key, rec in kernels.items():
@@ -1338,7 +1487,10 @@ def main() -> None:
                       ("JpegDecoder pallas exact", "jdtc_unstuff"),
                       ("JpegDecoder pallas exact", "jdtc_pixel_exact"),
                       ("JpegDecoder native exact", "jdtc_pixel_exact"),
-                      ("JpegDecoder pallas float32", "jdtc_idct_float"),
+                      ("JpegDecoder pallas float32", "jdtc_pixel_float"),
+                      ("JpegDecoder native float32", "jdtc_pixel_float"),
+                      ("BatchDecoder pallas float32 decode_batch", "jdtc_pixel_float"),
+                      ("JpegDecoder pallas (gray) float32", "jdtc_idct_float"),
                       ("JpegDecoder native (gray) exact", "jdtc_idct_exact")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")

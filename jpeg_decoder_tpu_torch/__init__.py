@@ -21,12 +21,17 @@ Public API:
     BatchDecoder(cfg, device)      -> same-geometry batches: decode_batch,
                                       decode_stream, decode_many
     decode_batch(datas, cfg, device) -> [B, H, W, 3] uint8
+    decode_oracle(data)            -> DecodedImage (bit-serial conformance oracle)
+    parse(data)                    -> JpegStructure (marker walk only)
+    host_decode_batch(datas, cfg, pool, max_workers) -> (frame, planes, qts) per image
+    encode(rgb, cfg)               -> not ported yet (raises JpegUnsupportedError)
     python -m jpeg_decoder_tpu_torch.benchmarks.gather_probe: the cost of
         one dependent step (lookup, shift, ladder, refill) on the card
 """
 
 from .utils.config import (  # noqa: F401
     DecodeConfig,
+    EncodeConfig,
     EntropyBackend,
     IdctPrecision,
     Quirks,
@@ -38,7 +43,26 @@ from .utils.errors import (  # noqa: F401
     JpegTruncatedError,
     JpegUnsupportedError,
 )
-from .core.types import DecodedImage  # noqa: F401
+from .core.types import CoefficientPlanes, DecodedImage, FrameHeader, JpegStructure  # noqa: F401
+from .io.parser import parse  # noqa: F401
+from .core.oracle import decode as decode_oracle  # noqa: F401
 
 from .models.decoder import JpegDecoder, decode, decode_file, decode_rgb  # noqa: F401
 from .parallel.batch import BatchDecoder, decode_batch  # noqa: F401
+
+__version__ = "0.6.0"
+
+
+def host_decode_batch(datas, cfg=None, pool=None, max_workers=0):
+    """Concurrent host stage (parse + entropy -> coefficient planes) across
+    images; yields (frame, planes, qts) in input order. See
+    models/host.host_decode_batch."""
+    from .models.host import host_decode_batch as _b
+
+    return _b(datas, cfg, pool, max_workers)
+
+
+def encode(rgb, cfg=None):
+    """The encoder is not ported yet: raises JpegUnsupportedError (ROADMAP
+    queue 1 item 4 ports it with EncodeConfig's device stage)."""
+    raise JpegUnsupportedError("the encoder is not ported yet (ROADMAP queue 1 item 4)")

@@ -31,7 +31,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("entropy_decode.cu", "unstuff.cu", "idct_exact.cu", "idct_float.cu",
-           "color.cu", "pixel_exact.cu", "probes.cu")
+           "color.cu", "pixel_exact.cu", "pixel_float.cu", "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -64,6 +64,8 @@ SIGNATURES = {
     # vratio0..2, mcus_x, mcus_y, strip, bits12, correct, rgb, plane0..2
     # (null: not stored), cuda_stream
     "jdtc_pixel_exact": [*[_P] * 6, *[_I32] * 9, *[_F32] * 6, *[_I32] * 5, *[_P] * 5],
+    # jdtc_pixel_exact's arguments with k_matrix after qt2
+    "jdtc_pixel_float": [*[_P] * 7, *[_I32] * 9, *[_F32] * 6, *[_I32] * 5, *[_P] * 5],
     # plane0..2, n_images, img_stride0..2, n_comps, h, w, stride0..2,
     # hratio0..2, vratio0..2, correct, out, cuda_stream
     "jdtc_color": [
@@ -88,6 +90,11 @@ SIGNATURES = {
     # stream, off0, out, n_rows, waves
     "jdtc_probe_dma_wave_chain": [_P, _P, _P, _I32, _I32, _P],
 }
+
+#: The most images one launch takes: K03 and K3 put the image on a grid
+#: dimension, whose limit this is; the wrappers split a larger batch
+#: (image_chunks).
+MAX_IMAGES = 65535
 
 #: Kernel launches per C entry point since the process started (or since a
 #: caller last cleared it). Only `launch` adds to it.
@@ -203,6 +210,21 @@ def launch(name: str, *args) -> None:
 def ptr(t) -> ctypes.c_void_p:
     """Device address of a tensor (None -> null)."""
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def image_chunks(n_images: int, *tensors):
+    """Split a launch over `n_images` images into launches of at most
+    MAX_IMAGES: a list of (first image, count, [the device address of each
+    tensor at the chunk's first image]). Each tensor holds the n_images
+    images back to back, one equal share each (a leading batch dimension,
+    or none for a single image); None stays a null pointer."""
+    chunks = []
+    for first in range(0, n_images, MAX_IMAGES):
+        ptrs = [ptr(None) if t is None else ctypes.c_void_p(
+            t.data_ptr() + first * (t.numel() // n_images) * t.element_size())
+            for t in tensors]
+        chunks.append((first, min(MAX_IMAGES, n_images - first), ptrs))
+    return chunks
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -1,10 +1,13 @@
-"""K03 (csrc/pixel_exact.cu) at other strip sizes, on one CUDA card.
+"""K03 (csrc/pixel_exact.cu, EXACT) and K13 (csrc/pixel_float.cu, FLOAT32)
+at other strip sizes, on one CUDA card.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.pixel_sweep \\
-        [--strip 2 4 8 16 32] [--reps 15] [--halve-in-float]
+        [--strip 2 4 8 16 32] [--reps 15] [--precision exact float32]
+        [--halve-in-float] [--k13-variants] [--no-sweep]
 
-G, the MCUs of one strip (one block of threads), is an argument of the
-kernel, so one build serves every size. The inputs are the coefficient
+G, the MCUs of one strip (one block of threads for K03; one step of a
+block of threads' walk for K13), is an argument of the kernels, so one
+build serves every size. The inputs are the coefficient
 planes of a 3840x2160 4:2:0 request of random dense blocks
 (inputs.make_jpeg) and of a photograph tiled to that size
 (inputs.photo_jpeg), as the native host decoder reads them: one request
@@ -12,18 +15,22 @@ with its pixel planes (JpegDecoder's case) and eight stacked without them
 (BatchDecoder's). Every variant is first held bitwise against the default
 G. Each line is one JSON object: G, the coefficient blocks of a block of
 threads (8 threads a block, at most 1024), and the card's time for one call
-(`card_ms`), beside K0 x 3 + K3 on the same inputs in the same way, with
-the card's name and power limit. Compare within one run only.
+(`card_ms`), beside the launches each replaced (K0 x 3 + K3, or K1 x 3 +
+K3) on the same inputs in the same way, with the card's name and power
+limit. Compare within one run only.
 
-Also one line of the instruction mix of K03 and K0 as built (cuobjdump
--sass: the counts of the opcodes that take the time, per kernel), and with
+Also one line of the instruction mix of K03, K0, K13 and K1 as built
+(cuobjdump -sass: the counts of the opcodes that take the time, per kernel,
+and cuobjdump -res-usage: registers, spills, static shared memory), and with
 --halve-in-float the same timing for a copy of the package whose EXACT
 IDCT (csrc/idct_exact.cuh) computes each `st(mul(0.5, x))` as the float32
 product `__fmul_rn(0.5f, x)`: bitwise the same result (halving is exact
 in both types, so the float64 product rounded to float32 is the float32
-product), two 64-bit conversions fewer each; that copy is built by nvcc in a
-temporary directory, run in a process of its own and held bitwise against
-the plain version.
+product), two 64-bit conversions fewer each; and with --k13-variants
+K13's variants (VARIANTS: two that drop work, to attribute its time, and
+the design choices it did not take). Each copy is built by nvcc in a
+temporary directory, run in a process of its own and, unless it drops
+work, held bitwise against the plain version (K03) or K1 x 3 + K3 (K13).
 """
 
 from __future__ import annotations
@@ -47,7 +54,11 @@ W, H, RI = 3840, 2160, 240
 #: The opcodes of the instruction mix: conversions (F2F between float and
 #: double, F2I, I2F, I2FP, FRND), float64 and float32 arithmetic, shared
 #: memory loads and stores.
-SASS_OPS = ("F2F", "F2I", "I2F", "I2FP", "FRND", "DMUL", "DADD", "FADD", "FMUL", "LDS", "STS")
+SASS_OPS = ("F2F", "F2I", "I2F", "I2FP", "FRND", "DMUL", "DADD", "FADD", "FMUL", "FFMA", "LDS",
+            "STS")
+#: The kernels of the instruction mix, by their symbols' names.
+SASS_KERNELS = ("pixel_exact_kernel", "idct_exact_kernel", "pixel_float_kernel",
+                "idct_float_kernel")
 #: A spin of about 10 ms at the H100's 1.98 GHz: long enough for the host to
 #: queue a sample's calls behind it, K0 x 3 + K3 being 32 launches.
 PARK_CYCLES = 20_000_000
@@ -74,15 +85,50 @@ def card_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def k0_k3(planes, qts, frame, quirks, want_planes: bool = True):
-    """The route K03 replaced: K0 per component, then K3."""
+def k0_k3(planes, qts, frame, quirks, want_planes: bool = True, precision=None):
+    """The route K03 replaced: K0 per component, then K3; under
+    `precision` FLOAT32 the route K13 replaced, K1 per component, then K3."""
+    from .. import IdctPrecision
     from ..ops import color, idct
 
     bits12 = frame.precision == 12
-    pixel = [idct.idct_plane(p, q, bits12) for p, q in zip(planes, qts)]
+    precision = precision or IdctPrecision.EXACT
+    pixel = [idct.idct_plane(p, q, bits12, precision) for p, q in zip(planes, qts)]
     rgb = color.planes_to_rgb(pixel, frame.height, frame.width,
                               tuple((c.hsf, c.vsf) for c in frame.components), quirks)
     return rgb, (pixel if want_planes else None)
+
+
+def k1_k3(planes, qts, frame, quirks, want_planes: bool = True):
+    """The route K13 replaced: K1 per component, then K3."""
+    from .. import IdctPrecision
+
+    return k0_k3(planes, qts, frame, quirks, want_planes, IdctPrecision.FLOAT32)
+
+
+def dequantized(planes, qts):
+    """The [N, 64] float32 dequantized zigzag blocks of every component,
+    stacked: the left operand of the FLOAT32 product (ops/idct.idct_float)."""
+    from ..core.types import ZIGZAG
+
+    rows = []
+    for p, q in zip(planes, qts):
+        zz = torch.as_tensor(ZIGZAG, dtype=torch.long, device=p.device)
+        rows.append(p.reshape(-1, 64).to(torch.float32) * q[zz].to(torch.float32))
+    return torch.cat(rows)
+
+
+def product_ms(planes, qts, reps: int) -> float:
+    """The card's time of the FLOAT32 product alone as one library call:
+    torch.matmul of the dequantized [N, 64] blocks by K, TF32 off (cuBLAS):
+    the yardstick for the product K1 and K13 form in their own bodies."""
+    from ..ops import idct
+
+    x = dequantized(planes, qts)
+    k = idct.idct_matrix_on(x.device)
+    out = torch.empty_like(x)
+    with idct._true_float32_matmul():
+        return card_ms(lambda: torch.matmul(x, k, out=out), reps)
 
 
 def decoded(datas, device):
@@ -105,133 +151,218 @@ def decoded(datas, device):
                    for c in range(frame.ncs)], qt
 
 
-def sweep(cases: dict, strips, reps: int) -> list[dict]:
-    """For each case name -> (frame, planes, tables, want_planes), K03 at
-    each G in `strips` (bitwise against the default G first), and K0 x 3 +
-    K3; one record per case and G."""
-    from .. import Quirks
+def sweep(cases: dict, strips, reps: int, precision=None) -> list[dict]:
+    """For each case name -> (frame, planes, tables, want_planes), K03 (or
+    K13 under `precision` FLOAT32) at each G in `strips` (bitwise against
+    the default G first), and the launches it replaced (`old_ms`: K0 x 3 +
+    K3, or K1 x 3 + K3); one record per case and G."""
+    from .. import IdctPrecision, Quirks
     from ..ops import pixel
     from .gather_probe import card_line
 
+    precision = precision or IdctPrecision.EXACT
+    fused = pixel.pixel_exact if precision == IdctPrecision.EXACT else pixel.pixel_float
     card = card_line()
     out = []
     for name, (frame, planes, qts, want) in cases.items():
         q = Quirks.REFERENCE
         factors = tuple((c.hsf, c.vsf) for c in frame.components)
         per_mcu = sum(fh * fv for fh, fv in factors)
-        base = pixel.pixel_exact(planes, qts, frame, q, want)
-        old_ms = card_ms(lambda: k0_k3(planes, qts, frame, q, want), reps)
+        default = pixel.default_strip(factors, precision)
+        base = fused(planes, qts, frame, q, want)
+        old_ms = card_ms(lambda: k0_k3(planes, qts, frame, q, want, precision), reps)
         for g in strips:
-            got = pixel.pixel_exact(planes, qts, frame, q, want, strip=g)
+            got = fused(planes, qts, frame, q, want, strip=g)
             same = torch.equal(got[0], base[0]) and (
                 not want or all(torch.equal(a, b) for a, b in zip(got[1], base[1])))
             if not same:
-                raise RuntimeError(f"{name}: G = {g} differs from G = {pixel.default_strip(factors)}")
-            ms = card_ms(lambda: pixel.pixel_exact(planes, qts, frame, q, want, strip=g), reps)
-            out.append(dict(case=name, strip=g, default=g == pixel.default_strip(factors),
-                            blocks=g * per_mcu, ms=ms, k0_k3_ms=old_ms, card=card))
+                raise RuntimeError(f"{name}: G = {g} differs from G = {default}")
+            ms = card_ms(lambda: fused(planes, qts, frame, q, want, strip=g), reps)
+            out.append(dict(case=name, precision=precision.value, strip=g,
+                            default=g == default, blocks=g * per_mcu, ms=ms,
+                            old_ms=old_ms, card=card))
     return out
 
 
+def _kernel_of(symbol: str):
+    return next((k for k in SASS_KERNELS if k in symbol), None)
+
+
 def sass_mix() -> dict:
-    """kernel -> {opcode: count} in the built library's SASS, for K03's and
-    K0's kernels ({} where the toolkit has no cuobjdump): the instructions
-    of their code as written, not counts a block (K0's code runs once a
-    block, K03's row and column passes once a row and once a column)."""
+    """kernel -> {opcode: count} in the built library's SASS, for the
+    kernels of SASS_KERNELS ({} where the toolkit has no cuobjdump): the
+    instructions of their code as written, not counts a block (K0's code
+    runs once a block, K03's row and column passes once a row and once a
+    column, K13's product once a pixel row of four blocks); and under
+    "resources" each one's registers, spill bytes and static shared memory
+    (cuobjdump -res-usage)."""
     from .. import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
-    out = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True,
+    lib = str(_build.build())
+    out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
                          text=True, check=True, timeout=300).stdout
     mix: dict = {}
     name = None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((k for k in ("pixel_exact_kernel", "idct_exact_kernel")
-                         if k in m.group(1)), None)
+            name = _kernel_of(m.group(1))
             continue
         op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9]+)", line)
         if name and op and op.group(1) in SASS_OPS:
             mix.setdefault(name, collections.Counter())[op.group(1)] += 1
-    return {k: dict(v) for k, v in mix.items()}
+    res = subprocess.run([str(tool), "-res-usage", lib], capture_output=True,
+                         text=True, timeout=300).stdout
+    resources = {}
+    name = None
+    for line in res.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = _kernel_of(m.group(1))
+            continue
+        if name and "REG:" in line:
+            resources[name] = {k.lower(): int(v) for k, v in
+                               re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line)}
+    out = {k: dict(v) for k, v in mix.items()}
+    out["resources"] = resources
+    return out
 
 
-def halved_variant(reps: int) -> list[dict]:
-    """K03 built from a copy of the package whose idct_exact.cuh halves in
-    float32 (module docstring), timed in a process of its own on the dense
-    4K request with planes and on eight without."""
+#: Variants built from a copy of the package: name -> (the kernel, its
+#: source edits as (file in csrc/, regular expression, replacement, the
+#: count of matches expected), whether the copy must stay bitwise). The
+#: first is K03 halving in float32 (module docstring); the K13 ones test
+#: its design: two attribute its time (without the product; without the
+#: colour step and the stores of RGB and the planes), the others are the
+#: choices it did not take (blocks a thread, a floor of threads for the
+#: strip's other steps, K read from device memory through L1 instead of
+#: shared memory).
+VARIANTS = {
+    "halve in float32": ("K03", [("idct_exact.cuh", r"st\(mul\(0\.5, (.*)\)\);$",
+                                  r"__fmul_rn(0.5f, \1);", 12)], True),
+    "K13 without the product": ("K13", [("pixel_float.cu", r"z < 64; z \+= 4", "z < 0; z += 4",
+                                         1)], False),
+    "K13 without the colour step and the stores": (
+        "K13", [("pixel_float.cu",
+                 r"    jdtc_strip::(store_planes|colour_tiles|store_rgb)\(p, s, smem, tid, nt\);\n",
+                 "", 3)], False),
+    "K13, two blocks a thread": ("K13", [("pixel_float.cu", r"kBlocksPerThread = 4;",
+                                          "kBlocksPerThread = 2;", 1)], True),
+    "K13, eight blocks a thread": ("K13", [("pixel_float.cu", r"kBlocksPerThread = 4;",
+                                            "kBlocksPerThread = 8;", 1)], True),
+    "K13, 256 threads at least": ("K13", [("pixel_float.cu", r"kMinThreads = 64;",
+                                           "kMinThreads = 256;", 1)], True),
+    "K13, K through L1": ("K13", [
+        ("pixel_float.cu", r"kq = ks \+ 4 \* q;", "kq = p.kmat + 4 * q;", 1),
+        ("pixel_float.cu", r"  for \(int k = tid; k < 64 \* 16; k \+= nt\) jdtc_strip::cp_async16"
+                           r"\(ks \+ 4 \* k, p.kmat \+ 4 \* k\);\n", "", 1),
+        ("pixel_float.cu", r"p.sm_k \+ 64 \* 64 \* 4,", "p.sm_k,", 1)], True),
+}
+
+
+def variant_inputs(path: Path, dense) -> None:
+    """The variants' inputs into `path`: the dense 4K request with planes
+    and eight such requests without, as the native host decoder reads
+    them."""
+    torch.save({"dense 4K request, planes": (*decoded(dense[:1], "cpu"), True),
+                "8 x dense 4K, RGB only": (*decoded(dense, "cpu"), False)}, path)
+
+
+def build_variant(name: str, inputs: Path, reps: int) -> list[dict]:
+    """VARIANTS[name] built in a temporary copy of the package and timed
+    there by a process of its own (_worker) on the inputs in file `inputs`
+    (variant_inputs)."""
+    _kernel, edits, _bitwise = VARIANTS[name]
     with tempfile.TemporaryDirectory() as tmp:
         pkg = Path(tmp) / PACKAGE.name
         shutil.copytree(PACKAGE, pkg, ignore=shutil.ignore_patterns("__pycache__", "build"))
-        header = pkg / "csrc" / "idct_exact.cuh"
-        text, n = re.subn(r"st\(mul\(0\.5, (.*)\)\);$", r"__fmul_rn(0.5f, \1);",
-                          header.read_text(), flags=re.M)
-        if n != 12:
-            raise RuntimeError(f"idct_exact.cuh: {n} halvings rewritten, expected 12")
-        header.write_text(text)
+        for file, pattern, replacement, count in edits:
+            path = pkg / "csrc" / file
+            text, n = re.subn(pattern, replacement, path.read_text(), flags=re.M)
+            if n != count:
+                raise RuntimeError(f"{name}: {file}: {n} edits, expected {count}")
+            path.write_text(text)
         r = subprocess.run([sys.executable, "-m", f"{PACKAGE.name}.benchmarks.pixel_sweep",
-                            "--worker", "--reps", str(reps)],
+                            "--worker", name, str(inputs), "--reps", str(reps)],
                            cwd=tmp, capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
-            raise RuntimeError(f"the halved variant failed: {r.stderr[-3000:]}")
+            raise RuntimeError(f"the variant {name!r} failed: {r.stderr[-3000:]}")
         return [json.loads(line) for line in r.stdout.strip().splitlines()]
 
 
-def _worker(reps: int) -> None:
-    """In a variant's copy: K03 held bitwise against the plain version, then
-    timed, on the dense 4K request (planes) and eight (RGB only)."""
+def _worker(name: str, inputs: str, reps: int) -> None:
+    """In a variant's copy: its kernel held bitwise against K03's plain
+    version or K1 x 3 + K3 (unless the variant drops work), then timed."""
     from .. import Quirks
     from ..ops import pixel
     from .gather_probe import card_line
-    from .inputs import F420, make_jpeg
 
-    dev = torch.device("cuda")
-    dense = [make_jpeg(W, H, F420, RI, seed) for seed in range(8)]
-    for name, datas, want in (("dense 4K request, planes", dense[:1], True),
-                              ("8 x dense 4K, RGB only", dense, False)):
-        frame, planes, qts = decoded(datas, dev)
-        q = Quirks.REFERENCE
-        got = pixel.pixel_exact(planes, qts, frame, q, want)
-        plain = pixel._pixel_exact_plain(planes, qts, frame, q, want)
-        if not torch.equal(got[0], plain[0]) or (
-                want and not all(torch.equal(a, b) for a, b in zip(got[1], plain[1]))):
-            raise RuntimeError(f"{name}: the variant differs from the plain version")
-        ms = card_ms(lambda: pixel.pixel_exact(planes, qts, frame, q, want), reps)
-        print(json.dumps(dict(case=name, variant="halve in float32", ms=ms,
-                              card=card_line())), flush=True)
+    kernel, _edits, bitwise = VARIANTS[name]
+    fn, want_fn = ((pixel.pixel_exact, pixel._pixel_exact_plain) if kernel == "K03"
+                   else (pixel.pixel_float, k1_k3))
+    q = Quirks.REFERENCE
+    for case, (frame, planes, qts, want) in torch.load(inputs, weights_only=False).items():
+        planes = [t.cuda() for t in planes]
+        qts = [t.cuda() for t in qts]
+        if bitwise:
+            got = fn(planes, qts, frame, q, want)
+            ref = want_fn(planes, qts, frame, q, want)
+            if not torch.equal(got[0], ref[0]) or (
+                    want and not all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))):
+                raise RuntimeError(f"{case}: the variant {name!r} changed the bytes")
+        ms = card_ms(lambda: fn(planes, qts, frame, q, want), reps)
+        print(json.dumps(dict(case=case, variant=name, kernel=kernel, bitwise_checked=bitwise,
+                              ms=ms, card=card_line())), flush=True)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--strip", type=int, nargs="+", default=[2, 4, 8, 16, 32])
     ap.add_argument("--reps", type=int, default=15)
-    ap.add_argument("--halve-in-float", action="store_true")
-    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--precision", nargs="+", choices=["exact", "float32"],
+                    default=["exact", "float32"])
+    ap.add_argument("--halve-in-float", action="store_true",
+                    help="also time K03 halving in float32 (a copy of the package)")
+    ap.add_argument("--k13-variants", action="store_true",
+                    help="also time K13's variants (copies of the package)")
+    ap.add_argument("--no-sweep", action="store_true", help="only the variants")
+    ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("pixel_sweep needs a CUDA card")
     if ns.worker:
-        _worker(ns.reps)
+        _worker(*ns.worker, ns.reps)
         return
     from .inputs import F420, PHOTOS_420, make_jpeg, photo_jpeg
 
-    dev = torch.device("cuda")
     dense = [make_jpeg(W, H, F420, RI, seed) for seed in range(8)]
+    names = (["halve in float32"] if ns.halve_in_float else []) + (
+        [n for n, v in VARIANTS.items() if v[0] == "K13"] if ns.k13_variants else [])
+    if names:
+        with tempfile.TemporaryDirectory() as tmp:
+            inputs = Path(tmp) / "inputs.pt"
+            variant_inputs(inputs, dense)
+            for name in names:
+                for rec in build_variant(name, inputs, ns.reps):
+                    print(json.dumps(rec), flush=True)
+    if ns.no_sweep:
+        return
+    dev = torch.device("cuda")
     photo = photo_jpeg(PHOTOS_420[0], W, H, RI)
     cases = {
         "dense 4K request, planes": (*decoded(dense[:1], dev), True),
         "photograph tiled to 4K, planes": (*decoded([photo], dev), True),
         "8 x dense 4K, RGB only": (*decoded(dense, dev), False),
     }
-    for rec in sweep(cases, ns.strip, ns.reps):
-        print(json.dumps(rec), flush=True)
-    print(json.dumps({"sass": sass_mix()}), flush=True)
-    if ns.halve_in_float:
-        for rec in halved_variant(ns.reps):
+    from .. import IdctPrecision
+
+    for precision in ns.precision:
+        for rec in sweep(cases, ns.strip, ns.reps, IdctPrecision(precision)):
             print(json.dumps(rec), flush=True)
+    print(json.dumps({"sass": sass_mix()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,10 @@
 // temporaries in device memory.
 //
 // Numerics (the index rule, YCbCr -> RGB in float32 without FMAs, the
-// REFERENCE / CORRECT store): color.cuh, shared with K03 (pixel_exact.cu),
-// which runs the 3-component EXACT path in one kernel with the IDCT; K3
-// serves gray frames, FLOAT32 and any geometry K03 does not take.
+// REFERENCE / CORRECT store): color.cuh, shared with K03 (pixel_exact.cu)
+// and K13 (pixel_float.cu), which run the 3-component EXACT and FLOAT32
+// paths in one kernel each with the IDCT; K3 serves gray frames and any
+// geometry they do not take.
 //
 // What bounds it on the H100: memory. Per pixel it reads three bytes (the
 // chroma ones shared by up to four neighbours, so mostly from cache) and

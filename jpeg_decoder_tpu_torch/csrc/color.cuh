@@ -1,5 +1,6 @@
-// The colour stage's arithmetic, shared by K3 (color.cu) and K03
-// (pixel_exact.cu) so that the two cannot drift.
+// The colour stage's arithmetic, shared by K3 (color.cu) and, through the
+// strip skeleton (strip.cuh), K03 (pixel_exact.cu) and K13 (pixel_float.cu)
+// so that they cannot drift.
 //
 // The chroma index is (uint32)(i * ratio) with a float32 multiply and
 // ratio = float32(sf) / float32(max_sf) (core/numerics._nn_index_f32).

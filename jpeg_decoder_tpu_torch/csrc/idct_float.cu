@@ -16,7 +16,11 @@
 // 256 threads owns one pixel position p of 8 of the tile's blocks and forms
 // each as a 64-term float32 dot product, z = 0..63 in order with fmaf. The
 // dot product of a block does not depend on where the block sits in a tile,
-// so a plane gives the same pixels alone or stacked in a batch.
+// so a plane gives the same pixels alone or stacked in a batch. The
+// arithmetic (dequant, the fmaf chain, the store) lives in idct_float.cuh,
+// shared with K13 (pixel_float.cu), which runs the FLOAT32 stage of a
+// 3-component frame in one kernel; K1 serves gray frames and the geometries
+// K13's guard refuses.
 //
 // What bounds it on the H100: the 64x64 product is 4096 FMAs per block
 // against 192 bytes moved (128 of int16 coefficients in, 64 of pixels out),
@@ -30,38 +34,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "idct_float.cuh"
+
 namespace {
 
-// Natural-order index of each zigzag position (T.81 Figure A.6;
-// core/types.ZIGZAG): qt_zz[z] = qt_natural[kZigzag[z]].
-__constant__ int kZigzag[64] = {
-     0,  1,  8, 16,  9,  2,  3, 10, 17, 24, 32, 25, 18, 11,  4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13,  6,  7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+using jdtc_float::dequant;
+using jdtc_float::dot4;
+using jdtc_float::kZigzag;
+using jdtc_float::store;
 
 constexpr int kThreads = 256;
 constexpr int kTile = 32;                  // coefficient blocks per tile
 constexpr int kGroups = kThreads / 64;     // thread groups, one block each
 constexpr int kPer = kTile / kGroups;      // blocks per thread
-
-// The FLOAT32 contract's store (ops/idct._quantize_output_float): float32
-// ops only, and a clamp before every float -> integer conversion.
-__device__ __forceinline__ uint8_t store(float y, int bits12) {
-  const float base = floorf(y);
-  if (!bits12) {
-    float q = __fadd_rn(base, 128.0f);
-    q = q > 255.0f ? 255.0f : (q < 0.0f ? 0.0f : q);
-    return static_cast<uint8_t>(static_cast<int>(q));
-  }
-  float r = __fadd_rn(base, 2048.0f);
-  r = r > 65535.0f ? 65535.0f : (r < 0.0f ? 0.0f : r);
-  int v = static_cast<int>(r) & 0xFFFF;  // CLAMP_16, then the int16 wrap
-  v = (v ^ 0x8000) - 0x8000;
-  // 255/4096 is exact in float32, and so is the product (15 x 8 bits).
-  const float q = truncf(__fmul_rn(static_cast<float>(v), 255.0f / 4096.0f));
-  return static_cast<uint8_t>(static_cast<int>(q) & 0xFF);
-}
 
 __global__ void __launch_bounds__(kThreads)
 idct_float_kernel(const int16_t* __restrict__ coeffs,
@@ -84,11 +69,7 @@ idct_float_kernel(const int16_t* __restrict__ coeffs,
     __syncthreads();  // s_k and s_q written; the last tile's s_x read
     for (int i = threadIdx.x; i < kTile * 64; i += kThreads) {
       const int64_t b = b0 + i / 64;
-      // exact for |coeff| <= 2^15 and qt <= 255; __fmul_rn keeps it a
-      // separate rounding, as the plain version's multiply
-      s_x[i] = b < n_blocks
-                   ? __fmul_rn(static_cast<float>(coeffs[b0 * 64 + i]), s_q[i & 63])
-                   : 0.0f;
+      s_x[i] = b < n_blocks ? dequant(coeffs[b0 * 64 + i], s_q[i & 63]) : 0.0f;
     }
     __syncthreads();
 
@@ -105,10 +86,7 @@ idct_float_kernel(const int16_t* __restrict__ coeffs,
       for (int j = 0; j < kPer; ++j) {
         const float4 x =
             *reinterpret_cast<const float4*>(&s_x[(g + j * kGroups) * 64 + z]);
-        acc[j] = fmaf(x.x, k0, acc[j]);
-        acc[j] = fmaf(x.y, k1, acc[j]);
-        acc[j] = fmaf(x.z, k2, acc[j]);
-        acc[j] = fmaf(x.w, k3, acc[j]);
+        acc[j] = dot4(acc[j], x, k0, k1, k2, k3);
       }
     }
 

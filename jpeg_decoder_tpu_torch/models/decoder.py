@@ -5,10 +5,11 @@ stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
   entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS on the device
            (models/host.py; ops/entropy_cuda.py, kernel K2)
   device:  one PixelStage per (geometry, tables, config). A 3-component
-           EXACT frame whose samples stay in their MCUs runs as one step
-           (ops/pixel.py, K03); otherwise dequant + IDCT + block scatter
-           (ops/idct.py; K0 for EXACT, K1 for FLOAT32), then chroma upsample
-           + colour conversion (ops/color.py, K3)
+           frame whose samples stay in their MCUs runs as one step
+           (ops/pixel.py; K03 for EXACT, K13 for FLOAT32); otherwise dequant
+           + IDCT + block scatter (ops/idct.py; K0 for EXACT, K1 for
+           FLOAT32), then chroma upsample + colour conversion (ops/color.py,
+           K3)
 
 Host-decoded planes go to the device in one copy per image; PALLAS planes
 are born there. RGB and the pixel planes come back in one copy each. The
@@ -34,6 +35,7 @@ from ..io.parser import parse
 from ..utils.config import DecodeConfig, IdctPrecision
 from ..utils.errors import JpegFormatError, JpegUnsupportedError
 from ..utils.metrics import GLOBAL_METRICS as metrics
+from ..utils.metrics import device_trace
 
 from .. import convert
 from ..ops import color as color_ops
@@ -90,12 +92,12 @@ class PixelStage(nn.Module):
     Stacked planes [B, by, bx, 64] give [B, H, W, 3] and [B, rows, stride]
     planes (the counterpart of parallel/batch._batched_stage's vmap).
 
-    The route is fixed by the key: a 3-component EXACT frame that
-    ops/pixel.fits (its planes on the MCU grid, every sample inside its
-    pixel's MCU) runs ops/pixel.pixel_exact, one K03 launch on the card;
-    any other runs one IDCT launch per component (K0 or K1) and one K3
-    launch. `want_planes=False` gives None for the planes (K03 then stores
-    none)."""
+    The route is fixed by the key: a 3-component frame that ops/pixel.fits
+    (its planes on the MCU grid, every sample inside its pixel's MCU) runs
+    ops/pixel.pixel_exact (EXACT) or pixel_float (FLOAT32), one K03 or K13
+    launch on the card; any other runs one IDCT launch per component (K0 or
+    K1) and one K3 launch. `want_planes=False` gives None for the planes
+    (K03 and K13 then store none)."""
 
     def __init__(self, key, device):
         super().__init__()
@@ -106,7 +108,7 @@ class PixelStage(nn.Module):
         self.quirks = quirks
         self.bits12 = frame.precision == 12
         self.factors = tuple((c.hsf, c.vsf) for c in frame.components)
-        self.fused = precision == IdctPrecision.EXACT and pixel_ops.fits(frame)
+        self.fused = pixel_ops.fits(frame)
         for ci, q in enumerate(qt_by_comp):
             self.register_buffer(
                 f"qt{ci}",
@@ -116,8 +118,9 @@ class PixelStage(nn.Module):
     def forward(self, *coeff_planes: torch.Tensor, want_planes: bool = True):
         qts = [getattr(self, f"qt{ci}") for ci in range(len(coeff_planes))]
         if self.fused:
-            return pixel_ops.pixel_exact(coeff_planes, qts, self.frame, self.quirks,
-                                         want_planes)
+            fused = (pixel_ops.pixel_exact if self.precision == IdctPrecision.EXACT
+                     else pixel_ops.pixel_float)
+            return fused(coeff_planes, qts, self.frame, self.quirks, want_planes)
         pixel = [
             idct_ops.idct_plane(p, qt, self.bits12, self.precision)
             for p, qt in zip(coeff_planes, qts)
@@ -152,9 +155,10 @@ def _pixel_stage(frame: FrameHeader, planes, qts, cfg: DecodeConfig,
     DecodedImage with host RGB and pixel planes."""
     stage = device_stage_for(frame, qts, cfg, device)
     with metrics.timer("device_stage", items=frame.width * frame.height):
-        if not isinstance(planes, list):
-            planes = convert.planes_to_device(planes, device)
-        rgb_dev, planes_dev = stage(*planes, want_planes=True)
+        with device_trace("jpegtpu.device_stage", cfg.collect_metrics):
+            if not isinstance(planes, list):
+                planes = convert.planes_to_device(planes, device)
+            rgb_dev, planes_dev = stage(*planes, want_planes=True)
         rgb = rgb_dev.cpu().numpy()
     host_planes = [p.cpu().numpy() for p in planes_dev]
     return DecodedImage(frame=frame, planes=host_planes, rgb=rgb)

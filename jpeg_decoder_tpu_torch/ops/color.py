@@ -106,7 +106,8 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks) -> torch.Tens
     """uint8 pixel planes [rows, stride], or [B, rows, stride] for a batch
     (1 or 3 components, sampling `factors` = ((hsf, vsf), ...)) -> [h, w, 3]
     or [B, h, w, 3] uint8 RGB: the device stage after the IDCT. CPU
-    tensors: the plain versions. CUDA: K3, one launch for the batch."""
+    tensors: the plain versions. CUDA: K3, one launch for the batch (one
+    per 65,535 images, _build.image_chunks)."""
     if len(planes) not in (1, 3):
         raise ValueError(f"planes_to_rgb: {len(planes)} components")
     lead = planes[0].shape[:-2]
@@ -122,8 +123,6 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks) -> torch.Tens
         if p.dtype != torch.uint8 or not p.is_contiguous() or p.device != dev:
             raise ValueError("planes_to_rgb: planes must be contiguous uint8 on one device")
     n_images = lead[0] if lead else 1
-    if n_images > 65535:
-        raise ValueError("planes_to_rgb: at most 65535 images per launch")
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
     strides, img_strides, hr, vr = [0, 0, 0], [0, 0, 0], [0.0] * 3, [0.0] * 3
@@ -147,11 +146,12 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks) -> torch.Tens
             raise ValueError("planes_to_rgb: gray plane smaller than the image")
         strides[0] = w if quirks == Quirks.REFERENCE else cols
     out = torch.empty((*lead, h, w, 3), dtype=torch.uint8, device=dev)
-    if n_images * h * w:
-        ptrs = [_build.ptr(p) for p in planes] + [_build.ptr(None)] * (3 - len(planes))
-        _build.launch(
-            "jdtc_color", *ptrs, n_images, *img_strides, len(planes), h, w,
-            *strides, *hr, *vr, int(quirks != Quirks.REFERENCE),
-            _build.ptr(out), _build.stream_of(out),
-        )
+    if h * w:
+        padded = [*planes, *[None] * (3 - len(planes))]
+        for _first, count, ptrs in _build.image_chunks(n_images, *padded, out):
+            _build.launch(
+                "jdtc_color", *ptrs[:3], count, *img_strides, len(planes), h, w,
+                *strides, *hr, *vr, int(quirks != Quirks.REFERENCE),
+                ptrs[3], _build.stream_of(out),
+            )
     return out

@@ -1,24 +1,26 @@
-"""The EXACT pixel stage of a 3-component frame as one step: dequant + IDCT +
+"""The pixel stage of a 3-component frame as one step: dequant + IDCT +
 block scatter of every component, nearest-neighbour upsample, YCbCr -> RGB
 and the RGB store (counterpart of jpeg_decoder_tpu/models/decoder.py
-build_stage_raw under EXACT, :72-165).
+build_stage_raw, :72-165), under either IDCT contract.
 
-`pixel_exact` is the wrapper the decoder calls. For CPU tensors it runs the
-plain composition, `_pixel_exact_plain`: ops/idct.idct_exact and
-blocks_to_plane per component, then ops/color._planes_to_rgb_plain, which
-is what the pixel stage ran before. For CUDA tensors it launches kernel K03
-(csrc/pixel_exact.cu), one launch for a batch, in place of K0 per component
-and K3.
+`pixel_exact` (EXACT) and `pixel_float` (FLOAT32) are the wrappers the
+decoder calls. For CPU tensors they run the plain composition,
+`_pixel_exact_plain` / `_pixel_float_plain`: ops/idct.idct_exact or
+idct_float and blocks_to_plane per component, then
+ops/color._planes_to_rgb_plain, which is what the pixel stage ran before.
+For CUDA tensors they launch kernel K03 (csrc/pixel_exact.cu) or K13
+(csrc/pixel_float.cu), one launch for a batch, in place of K0 or K1 per
+component and K3.
 
-K03 gives each block of threads one strip of G MCUs of one MCU row and
-builds the strip's RGB from the strip's coefficient blocks alone. That rests
-on a property of nearest-neighbour upsampling: every output pixel's sample
-of every component lies in the pixel's own MCU. The reference's float32
-index rule could break it where a ratio sf / max_sf rounds down, so
+Both kernels give each block of threads one strip of G MCUs of one MCU row
+and build the strip's RGB from the strip's coefficient blocks alone. That
+rests on a property of nearest-neighbour upsampling: every output pixel's
+sample of every component lies in the pixel's own MCU. The reference's
+float32 index rule could break it where a ratio sf / max_sf rounds down, so
 `tile_local` checks it for the geometry, and `fits` is the route's guard:
-a frame that fails it keeps the K0 + K3 launches.
-`_pixel_exact_tiled_plain` runs the kernel's schedule on the CPU, strip by
-strip, and raises if a pixel would read outside its strip.
+a frame that fails it keeps the K0 + K3 (or K1 + K3) launches.
+`_pixel_tiled_plain` runs the kernels' schedule on the CPU, strip by strip,
+and raises if a pixel would read outside its strip.
 """
 
 from __future__ import annotations
@@ -30,26 +32,31 @@ import torch
 
 from ..core.numerics import _nn_index_f32
 from ..core.types import FrameHeader
-from ..utils.config import Quirks
+from ..utils.config import IdctPrecision, Quirks
 
 from .. import _build
 from . import color as color_ops
 from . import idct as idct_ops
 
-#: Coefficient blocks a strip of K03 aims at: G = STRIP_BLOCKS // (blocks a
-#: MCU), so G = 4 at 4:2:0 (a 64x16-pixel tile, 192 threads), 8 at 4:4:4.
-#: The sweep of G (benchmarks/pixel_sweep.py, PERF.md) put G = 2 and 4 at
-#: 4:2:0 within 2% of each other and 4-6% ahead of 8.
-STRIP_BLOCKS = 24
+EXACT = IdctPrecision.EXACT
+FLOAT32 = IdctPrecision.FLOAT32
+
+#: Coefficient blocks a strip aims at: G = STRIP_BLOCKS // (blocks a MCU).
+#: K03: G = 4 at 4:2:0 (a 64x16-pixel tile, 192 threads), 8 at 4:4:4; the
+#: sweep of G (benchmarks/pixel_sweep.py, PERF.md) put G = 2 and 4 at 4:2:0
+#: within 2% of each other and 4-6% ahead of 8. K13: G = 8 at 4:2:0 (192
+#: threads), 3% ahead of 16 and 10% ahead of 4 in its sweep.
+STRIP_BLOCKS = {EXACT: 24, FLOAT32: 48}
 
 
 def _factors(frame: FrameHeader):
     return tuple((c.hsf, c.vsf) for c in frame.components)
 
 
-def default_strip(factors) -> int:
-    """G, the MCUs of one strip of K03, for sampling `factors`."""
-    return max(1, STRIP_BLOCKS // sum(fh * fv for fh, fv in factors))
+def default_strip(factors, precision: IdctPrecision = EXACT) -> int:
+    """G, the MCUs of one strip of K03 (EXACT) or K13 (FLOAT32), for
+    sampling `factors`."""
+    return max(1, STRIP_BLOCKS[precision] // sum(fh * fv for fh, fv in factors))
 
 
 def _ratio(sf: int, max_sf: int) -> np.float32:
@@ -73,9 +80,9 @@ def tile_local(factors, h: int, w: int) -> bool:
 
 
 def fits(frame: FrameHeader) -> bool:
-    """K03's guard for a frame: three components whose planes lie on the MCU
-    grid (blocks_x = mcus_x * hsf, blocks_y = mcus_y * vsf) and a tile-local
-    geometry."""
+    """K03's and K13's guard for a frame: three components whose planes lie
+    on the MCU grid (blocks_x = mcus_x * hsf, blocks_y = mcus_y * vsf) and a
+    tile-local geometry."""
     if frame.ncs != 3:
         return False
     if any(c.blocks_x != frame.mcus_x * c.hsf or c.blocks_y != frame.mcus_y * c.vsf
@@ -84,33 +91,49 @@ def fits(frame: FrameHeader) -> bool:
     return tile_local(_factors(frame), frame.height, frame.width)
 
 
-def _pixel_exact_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-                       want_planes: bool = True):
-    """The plain composition, on any device: per component idct_exact and
-    blocks_to_plane, then the colour stage. Planes [..., by, bx, 64] ->
-    (RGB [..., h, w, 3], pixel planes [..., by*8, bx*8] or None)."""
+def _pixel_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                 want_planes: bool = True, precision: IdctPrecision = EXACT):
+    """The plain composition, on any device: per component the IDCT of
+    `precision` and blocks_to_plane, then the colour stage. Planes [..., by,
+    bx, 64] -> (RGB [..., h, w, 3], pixel planes [..., by*8, bx*8] or
+    None)."""
     bits12 = frame.precision == 12
     pixel = []
     for p, qt in zip(coeff_planes, qts):
         *lead, by, bx, _ = p.shape
         rows = int(np.prod(lead, dtype=np.int64)) * by
-        pix = idct_ops.idct_exact(p.reshape(-1, 64), qt, bits12)
+        pix = idct_ops._PLAIN[precision](p.reshape(-1, 64), qt, bits12)
         pixel.append(idct_ops.blocks_to_plane(pix, rows, bx).reshape(*lead, by * 8, bx * 8))
     rgb = color_ops._planes_to_rgb_plain(pixel, frame.height, frame.width, _factors(frame),
                                          quirks)
     return rgb, (pixel if want_planes else None)
 
 
-def _pixel_exact_tiled_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-                             want_planes: bool = True, strip: int | None = None):
-    """K03's schedule on the CPU: for each image, MCU row and strip of
-    `strip` MCUs (the last one ragged), the IDCT of that strip's blocks
-    alone into one tile per component, then the RGB of the strip's pixels
-    inside the image from those tiles alone, by the index rule on the global
-    row and column. Raises RuntimeError if a pixel's sample lies outside its
-    strip's tile. Same result as _pixel_exact_plain."""
+def _pixel_exact_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                       want_planes: bool = True):
+    """K03's plain version: _pixel_plain under EXACT."""
+    return _pixel_plain(coeff_planes, qts, frame, quirks, want_planes, EXACT)
+
+
+def _pixel_float_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                       want_planes: bool = True):
+    """K13's plain version: _pixel_plain under FLOAT32."""
+    return _pixel_plain(coeff_planes, qts, frame, quirks, want_planes, FLOAT32)
+
+
+def _pixel_tiled_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                       want_planes: bool = True, strip: int | None = None,
+                       precision: IdctPrecision = EXACT):
+    """K03's and K13's schedule on the CPU: for each image, MCU row and
+    strip of `strip` MCUs (the last one ragged), the IDCT of `precision` of
+    that strip's blocks alone into one tile per component, then the RGB of
+    the strip's pixels inside the image from those tiles alone, by the index
+    rule on the global row and column. Raises RuntimeError if a pixel's
+    sample lies outside its strip's tile. The result of _pixel_plain (under
+    FLOAT32 up to the order in which one product over other row counts may
+    sum: within 1)."""
     factors = _factors(frame)
-    strip = strip or default_strip(factors)
+    strip = strip or default_strip(factors, precision)
     h, w = frame.height, frame.width
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
@@ -132,7 +155,7 @@ def _pixel_exact_tiled_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quir
                 tiles = []
                 for c, (fh, fv) in enumerate(factors):
                     blocks = flat[c][b, mr * fv:(mr + 1) * fv, m0 * fh:(m0 + gm) * fh]
-                    pix = idct_ops.idct_exact(blocks.reshape(-1, 64), qts[c], bits12)
+                    pix = idct_ops._PLAIN[precision](blocks.reshape(-1, 64), qts[c], bits12)
                     tile = idct_ops.blocks_to_plane(pix, fv, gm * fh)
                     tiles.append(tile)
                     planes[c][b, mr * fv * 8:(mr + 1) * fv * 8,
@@ -179,50 +202,74 @@ def _geometry(frame: FrameHeader):
             tuple((my * fv * 8, mx * fh * 8) for fh, fv in factors), args)
 
 
+def _launch(entry: str, coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+            want_planes: bool, strip: int | None, precision: IdctPrecision):
+    """Check the arguments and launch K03 or K13 (`entry`), one launch per
+    65,535 images (_build.image_chunks)."""
+    name = entry[len("jdtc_"):]
+    if len(coeff_planes) != 3 or len(qts) != 3:
+        raise ValueError(f"{name}: three components")
+    dev = coeff_planes[0].device
+    if not coeff_planes[0].is_cuda:
+        raise ValueError(f"{name}: no kernel for {dev}")
+    geometry = _geometry(frame)
+    if geometry is None:
+        raise ValueError(f"{name}: the frame's geometry is not tile-local")
+    shapes, plane_shapes, args = geometry
+    lead = coeff_planes[0].shape[:-3]
+    if len(lead) > 1:
+        raise ValueError(f"{name}: planes must be [by, bx, 64] or [B, by, bx, 64]")
+    for p, q, shape in zip(coeff_planes, qts, shapes):
+        if (p.shape[-3:] != shape or p.shape[:-3] != lead or p.dtype != torch.int16
+                or not p.is_contiguous() or p.device != dev or p.data_ptr() % 16):
+            raise ValueError(f"{name}: coefficients must be contiguous int16"
+                             " [..., mcus_y * vsf, mcus_x * hsf, 64], 16-byte aligned,"
+                             " on one device")
+        if (q.dtype != torch.int32 or q.numel() != 64 or not q.is_contiguous()
+                or q.device != dev or q.data_ptr() % 16):
+            raise ValueError(f"{name}: tables must be contiguous int32 [64],"
+                             " 16-byte aligned, on the planes' device")
+    n_images = lead[0] if lead else 1
+    rgb = torch.empty((*lead, frame.height, frame.width, 3), dtype=torch.uint8, device=dev)
+    planes = [torch.empty((*lead, *s), dtype=torch.uint8, device=dev)
+              for s in plane_shapes] if want_planes else None
+    if rgb.numel():
+        kmat = (_build.ptr(idct_ops.idct_matrix_on(dev)),) if precision == FLOAT32 else ()
+        strip = strip or default_strip(_factors(frame), precision)
+        for _first, count, ptrs in _build.image_chunks(
+                n_images, *coeff_planes, rgb, *(planes or [None] * 3)):
+            _build.launch(
+                entry, *ptrs[:3], *map(_build.ptr, qts), *kmat, count, *args, strip,
+                int(frame.precision == 12), int(quirks != Quirks.REFERENCE), *ptrs[3:],
+                _build.stream_of(rgb),
+            )
+    return rgb, planes
+
+
 def pixel_exact(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
                 want_planes: bool = True, strip: int | None = None):
     """int16 zigzag coefficient planes [by, bx, 64] or [B, by, bx, 64], one
     per component of a 3-component frame, and their int32 natural-order
     quantisation tables [64] -> (uint8 RGB [..., h, w, 3], uint8 pixel
-    planes [..., by*8, bx*8] per component, or None unless `want_planes`).
+    planes [..., by*8, bx*8] per component, or None unless `want_planes`),
+    under the EXACT contract.
 
     CPU tensors: the plain composition. CUDA tensors: K03, one launch for
     the batch, `strip` MCUs a block of threads (default_strip)."""
-    if len(coeff_planes) != 3 or len(qts) != 3:
-        raise ValueError("pixel_exact: three components")
-    dev = coeff_planes[0].device
-    if dev.type == "cpu":
+    if len(coeff_planes) == 3 and coeff_planes[0].device.type == "cpu":
         return _pixel_exact_plain(coeff_planes, qts, frame, quirks, want_planes)
-    if not coeff_planes[0].is_cuda:
-        raise ValueError(f"pixel_exact: no kernel for {dev}")
-    geometry = _geometry(frame)
-    if geometry is None:
-        raise ValueError("pixel_exact: the frame's geometry is not tile-local")
-    shapes, plane_shapes, args = geometry
-    lead = coeff_planes[0].shape[:-3]
-    if len(lead) > 1:
-        raise ValueError("pixel_exact: planes must be [by, bx, 64] or [B, by, bx, 64]")
-    for p, q, shape in zip(coeff_planes, qts, shapes):
-        if (p.shape[-3:] != shape or p.shape[:-3] != lead or p.dtype != torch.int16
-                or not p.is_contiguous() or p.device != dev or p.data_ptr() % 16):
-            raise ValueError("pixel_exact: coefficients must be contiguous int16"
-                             " [..., mcus_y * vsf, mcus_x * hsf, 64], 16-byte aligned,"
-                             " on one device")
-        if (q.dtype != torch.int32 or q.numel() != 64 or not q.is_contiguous()
-                or q.device != dev or q.data_ptr() % 16):
-            raise ValueError("pixel_exact: tables must be contiguous int32 [64],"
-                             " 16-byte aligned, on the planes' device")
-    n_images = lead[0] if lead else 1
-    if n_images > 65535:
-        raise ValueError("pixel_exact: at most 65535 images per launch")
-    rgb = torch.empty((*lead, frame.height, frame.width, 3), dtype=torch.uint8, device=dev)
-    planes = [torch.empty((*lead, *s), dtype=torch.uint8, device=dev)
-              for s in plane_shapes] if want_planes else None
-    if rgb.numel():
-        _build.launch(
-            "jdtc_pixel_exact", *map(_build.ptr, coeff_planes), *map(_build.ptr, qts),
-            n_images, *args, strip or default_strip(_factors(frame)),
-            int(frame.precision == 12), int(quirks != Quirks.REFERENCE), _build.ptr(rgb),
-            *map(_build.ptr, planes or [None] * 3), _build.stream_of(rgb),
-        )
-    return rgb, planes
+    return _launch("jdtc_pixel_exact", coeff_planes, qts, frame, quirks, want_planes, strip,
+                   EXACT)
+
+
+def pixel_float(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
+                want_planes: bool = True, strip: int | None = None):
+    """pixel_exact under the FLOAT32 contract: the IDCT is ops/idct.idct_float
+    (a 64-term float32 dot product a pixel).
+
+    CPU tensors: the plain composition. CUDA tensors: K13, one launch for
+    the batch, `strip` MCUs a strip (default_strip)."""
+    if len(coeff_planes) == 3 and coeff_planes[0].device.type == "cpu":
+        return _pixel_float_plain(coeff_planes, qts, frame, quirks, want_planes)
+    return _launch("jdtc_pixel_float", coeff_planes, qts, frame, quirks, want_planes, strip,
+                   FLOAT32)

@@ -13,9 +13,9 @@ The serving shape: many JPEGs per step.
     (progressive, restart-free over 256 MCUs, oversized segments) takes the
     native host decode, and its planes are copied into its slice.
 Then one PixelStage call over the stacked planes, RGB alone: one K03
-launch for a 3-component EXACT batch (ops/pixel.py), else one K0 (EXACT) or
-K1 (FLOAT32) launch per component and one K3 launch; and one device-to-host
-copy of [B, H, W, 3].
+(EXACT) or K13 (FLOAT32) launch for a 3-component batch (ops/pixel.py),
+else one K0 (EXACT) or K1 (FLOAT32) launch per component and one K3 launch;
+and one device-to-host copy of [B, H, W, 3].
 
 The JAX class's `mesh` is not taken: meshes are ROADMAP queue 1 item 10.
 """

@@ -1,8 +1,9 @@
-"""The port's CUDA kernels (K0, K03, K1, K2, K2u, K3 and the probes PK1-PK7) against
+"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3 and the probes PK1-PK7) against
 their plain PyTorch versions, and the decode and batch paths on the card
-against the same paths on the CPU. Bitwise, except FLOAT32 (K1): within 1 of its plain version on
-at most 1e-3 of the pixels (the two sum the 64 products in other orders),
-and so within 3 in RGB (a chroma step of 1 moves R or B by up to 1.772).
+against the same paths on the CPU. Bitwise, except FLOAT32 (K1, K13): within 1 of the plain
+version on at most 1e-3 of the pixels (the two sum the 64 products in other orders),
+and so within 3 in RGB (a chroma step of 1 moves R or B by up to 1.772); K13 is
+bitwise equal to K1 x 3 + K3, which sum in the same order.
 
 This file imports neither JAX, nor the JAX package jpeg_decoder_tpu, nor
 Pillow, so that it runs on a machine with a card and without them:
@@ -468,7 +469,9 @@ def test_float32_decode_on_cuda_matches_cpu(cuda_device, backend):
     np.testing.assert_array_equal(got.rgb, tcolor.planes_to_rgb(
         [torch.from_numpy(p) for p in got.planes], f.height, f.width, F420,
         Quirks.REFERENCE).numpy())
-    assert launches["jdtc_idct_float"] == 3 and "jdtc_idct_exact" not in launches
+    # three components: K13 alone
+    assert launches["jdtc_pixel_float"] == 1
+    assert not {"jdtc_idct_float", "jdtc_color", "jdtc_idct_exact"} & launches.keys()
 
 
 @pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
@@ -476,8 +479,7 @@ def test_float32_decode_on_cuda_matches_cpu(cuda_device, backend):
 def test_batch_decoder_on_cuda_matches_cpu(cuda_device, backend, precision):
     """decode_batch, decode_stream and decode_many on the card against the
     same calls on the CPU; one K2u and one K2 call for the batch, then one
-    K03 launch (EXACT) or one K1 launch per component and one K3 launch
-    (FLOAT32)."""
+    K03 launch (EXACT) or one K13 launch (FLOAT32)."""
     cfg = DecodeConfig(entropy_backend=backend, idct_precision=precision)
     datas = [make_jpeg(64, 48, F420, 4, 300 + i) for i in range(6)]
     many = [datas[0], _stream("gray_no_ri"), datas[1], _stream("444_ri1")]
@@ -487,7 +489,7 @@ def test_batch_decoder_on_cuda_matches_cpu(cuda_device, backend, precision):
     got = card.decode_batch(datas)
     launches = dict(_build.LAUNCHES)
     expected = ({"jdtc_pixel_exact": 1} if precision == IdctPrecision.EXACT
-                else {"jdtc_idct_float": 3, "jdtc_color": 1})
+                else {"jdtc_pixel_float": 1})
     if backend == EntropyBackend.PALLAS:
         expected["jdtc_entropy_decode"] = expected["jdtc_unstuff"] = 1
     assert launches == expected
@@ -599,6 +601,97 @@ def test_k03_refuses_a_geometry_that_is_not_tile_local(cuda_device):
     got = stage(*planes)
     assert _build.LAUNCHES == {"jdtc_idct_exact": 3, "jdtc_color": 1}
     _assert_k03(got, tpixel._pixel_exact_plain(planes, qts, frame, Quirks.REFERENCE), True)
+
+
+# ---------------------------------------------------------------------------
+# K13: the FLOAT32 pixel stage of a 3-component frame in one kernel
+# ---------------------------------------------------------------------------
+
+
+def _k1_k3(planes, qts, frame, quirks):
+    """The launches K13 replaces: K1 per component, then K3."""
+    pix = [tidct.idct_plane(p, q, frame.precision == 12, IdctPrecision.FLOAT32)
+           for p, q in zip(planes, qts)]
+    return tcolor.planes_to_rgb(pix, frame.height, frame.width,
+                                tuple((c.hsf, c.vsf) for c in frame.components), quirks), pix
+
+
+@pytest.mark.parametrize("want_planes", [True, False], ids=["planes", "rgb_only"])
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["image", "batch"])
+@pytest.mark.parametrize("bits,quirks", K03_NUMERICS, ids=["8bit_reference", "12bit_correct"])
+@pytest.mark.parametrize("geometry", K03_GEOMETRIES, ids=lambda g: f"{g[0]}_{g[1]}x{g[2]}")
+def test_k13_matches_k1_k3(cuda_device, geometry, bits, quirks, lead, want_planes):
+    """Bitwise K1 x 3 + K3 (one arithmetic, idct_float.cuh and color.cuh);
+    against the plain version K1's rule, and RGB the plain colour stage of
+    K13's own planes."""
+    sampling, h, w = geometry
+    frame = _k03_frame(h, w, K03_SAMPLINGS[sampling], bits)
+    planes, qts = _k03_inputs(frame, h + w + bits, lead, cuda_device)
+    _build.LAUNCHES.clear()
+    got = tpixel.pixel_float(planes, qts, frame, quirks, want_planes)
+    assert _build.LAUNCHES == {"jdtc_pixel_float": 1}
+    _assert_k03(got, _k1_k3(planes, qts, frame, quirks), want_planes)
+    if want_planes:
+        plain = tpixel._pixel_float_plain(planes, qts, frame, quirks)
+        for a, b in zip(got[1], plain[1]):
+            d = (a.cpu().to(torch.int32) - b.cpu().to(torch.int32)).abs()
+            assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
+        own = tcolor._planes_to_rgb_plain(got[1], h, w, K03_SAMPLINGS[sampling], quirks)
+        assert torch.equal(got[0].cpu(), own.cpu())
+
+
+@pytest.mark.parametrize("strip", [1, 2, 3, 5, 16])
+def test_k13_any_strip_size(cuda_device, strip):
+    """Strips of other sizes (several a row, the last ragged) give the same
+    bytes."""
+    frame = _k03_frame(67, 101, F420)
+    planes, qts = _k03_inputs(frame, 78, (3,), cuda_device)
+    got = tpixel.pixel_float(planes, qts, frame, Quirks.REFERENCE, True, strip=strip)
+    _assert_k03(got, _k1_k3(planes, qts, frame, Quirks.REFERENCE), True)
+
+
+def test_k13_refuses_a_geometry_that_is_not_tile_local(cuda_device):
+    """The stage keeps K1 + K3 for it, and the wrapper refuses it."""
+    frame = _k03_frame(8, 1000, ((12, 1), (7, 1), (7, 1)))
+    planes, qts = _k03_inputs(frame, 6, (), cuda_device)
+    with pytest.raises(ValueError, match="tile-local"):
+        tpixel.pixel_float(planes, qts, frame, Quirks.REFERENCE)
+    key = tdecoder._stage_key(
+        frame, tuple(np.asarray(q.cpu(), np.uint16).tobytes() for q in qts),
+        DecodeConfig(idct_precision=IdctPrecision.FLOAT32))
+    stage = tdecoder._build_pixel_stage(key, cuda_device)
+    assert not stage.fused
+    _build.LAUNCHES.clear()
+    got = stage(*planes)
+    assert _build.LAUNCHES == {"jdtc_idct_float": 3, "jdtc_color": 1}
+    _assert_k03(got, _k1_k3(planes, qts, frame, Quirks.REFERENCE), True)
+
+
+# ---------------------------------------------------------------------------
+# Batches above one launch's 65,535 images
+# ---------------------------------------------------------------------------
+
+
+def test_65536_images_launch_in_chunks_bitwise_per_chunk(cuda_device):
+    """65,536 16x16 4:2:0 images (about 50 MB of coefficients): K03, K13 and
+    K3 take two launches each, bitwise equal to a decode of each chunk
+    alone."""
+    n = _build.MAX_IMAGES + 1
+    frame = _k03_frame(16, 16, F420)
+    planes, qts = _k03_inputs(frame, 65536, (n,), cuda_device)
+    cut = [(0, _build.MAX_IMAGES), (_build.MAX_IMAGES, n)]
+    for fn in (tpixel.pixel_exact, tpixel.pixel_float):
+        _build.LAUNCHES.clear()
+        rgb, pix = fn(planes, qts, frame, Quirks.REFERENCE)
+        assert sum(_build.LAUNCHES.values()) == 2
+        for lo, hi in cut:
+            part = fn([p[lo:hi] for p in planes], qts, frame, Quirks.REFERENCE)
+            assert torch.equal(rgb[lo:hi], part[0])
+            assert all(torch.equal(a[lo:hi], b) for a, b in zip(pix, part[1]))
+        _build.LAUNCHES.clear()
+        got = tcolor.planes_to_rgb(pix, 16, 16, F420, Quirks.REFERENCE)
+        assert _build.LAUNCHES == {"jdtc_color": 2}
+        assert torch.equal(got, rgb)
 
 
 # ---------------------------------------------------------------------------

@@ -219,3 +219,39 @@ def test_port_never_imports_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["False", "False", "True"]
+
+
+@pytest.mark.parametrize("collect_metrics", [True, False], ids=["on", "off"])
+def test_collect_metrics_traces_the_device_stage(collect_metrics):
+    """DecodeConfig.collect_metrics names the pixel stage in a torch.profiler
+    record, as the reference names it in its trace; off, it adds no range."""
+    import torch.profiler
+
+    cfg = DecodeConfig(collect_metrics=collect_metrics)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        jtt.decode(CASES["dri_420"], cfg, device="cpu")
+    names = {e.key for e in prof.key_averages()}
+    assert ("jpegtpu.device_stage" in names) is collect_metrics
+
+
+def test_public_exports_decode_like_the_reference():
+    """parse, decode_oracle and host_decode_batch from the port's top level
+    give the JAX package's results on the same bytes."""
+    data = CASES["dri_420"]
+    assert_same_fields(jtt.parse(data).frame, jt.parse(data).frame)
+    assert jtt.__version__ == jt.__version__
+    _assert_same(jtt.decode_oracle(data), jt.decode_oracle(data))
+    got = list(jtt.host_decode_batch([data, CASES["dri_444"]], jtt.DecodeConfig(),
+                                     None, 2))
+    want = list(jt.host_decode_batch([data, CASES["dri_444"]], jt.DecodeConfig(), None, 2))
+    assert len(got) == len(want) == 2
+    for (gf, gp, _), (wf, wp, _) in zip(got, want):
+        assert_same_fields(gf, wf)
+        for a, b in zip(gp.planes, wp.planes):
+            np.testing.assert_array_equal(a, b)
+    assert isinstance(jtt.parse(data), jtt.JpegStructure)
+    assert isinstance(got[0][1], jtt.CoefficientPlanes)
+    assert isinstance(got[0][0], jtt.FrameHeader)
+    with pytest.raises(JpegUnsupportedError, match="item 4"):
+        jtt.encode(np.zeros((8, 8, 3), np.uint8))
+    assert jtt.EncodeConfig().quality == jt.EncodeConfig().quality

@@ -81,6 +81,28 @@ def test_the_port_has_its_own_host_modules_and_no_shared_module():
         assert (PORT / rel).is_file(), rel
 
 
+def _public_names(path: Path) -> set[str]:
+    """The names a package's __init__ binds at its top level: imports,
+    functions, classes and assignments (an ast walk; nothing is imported)."""
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return names
+
+
+def test_the_port_exports_every_name_the_reference_exports():
+    ours = _public_names(PORT / "__init__.py")
+    theirs = _public_names(REPO / "jpeg_decoder_tpu" / "__init__.py")
+    assert {"parse", "decode_oracle", "host_decode_batch", "CoefficientPlanes",
+            "FrameHeader", "JpegStructure", "__version__"} <= theirs
+    assert theirs <= ours, sorted(theirs - ours)
+
+
 def test_jax_free_sees_the_jax_package_too():
     """This process imported both, so jax_free() is False here; a clean
     process is (b)'s."""

@@ -1,12 +1,17 @@
-"""The port's one-step EXACT pixel stage (jpeg_decoder_tpu_torch/ops/pixel.py,
-the plain versions of kernel K03) against the JAX package's
-build_stage_raw under EXACT, bitwise (tolerance 0: EXACT is a bit-exact
-contract), on random int16 coefficient planes made from a numpy seed: five
+"""The port's one-step pixel stage (jpeg_decoder_tpu_torch/ops/pixel.py, the
+plain versions of kernels K03 and K13) against the JAX package's
+build_stage_raw, on random int16 coefficient planes made from a numpy seed.
+EXACT (K03): bitwise (tolerance 0: EXACT is a bit-exact contract), five
 samplings, ragged edges, 8- and 12-bit, both quirks, single images and a
-batch of three. Also the route's guard (`tile_local`, `fits`) against a
-brute-force check over every 3-component sampling with factors 1..4, the
-PixelStage routes and `want_planes`, and the C entry points' argument
-lists against `_build.SIGNATURES` (no compiler runs here)."""
+batch of three. FLOAT32 (K13): pixel planes within 1 of JAX's (the JAX
+contract is +-1 LSB; the two sum the 64 products in other orders), RGB
+bitwise the plain colour stage of the port's own planes and within
+FLOAT32_RGB_TOL of JAX's; 4:2:0, 4:2:2 and 4:4:4, 8- and 12-bit, both
+quirks, single and batched. Also the route's guard (`tile_local`, `fits`)
+against a brute-force check over every 3-component sampling with factors
+1..4, the PixelStage routes and `want_planes`, the launch chunking of
+batches above 65,535 images, and the C entry points' argument lists
+against `_build.SIGNATURES` (no compiler runs here)."""
 
 import ctypes
 import itertools
@@ -26,7 +31,7 @@ from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, Quirks, _build
 from jpeg_decoder_tpu_torch.core import types as ttypes
 from jpeg_decoder_tpu_torch.io.markers import Encoding
 from jpeg_decoder_tpu_torch.models import decoder as tdecoder
-from jpeg_decoder_tpu_torch.ops import pixel
+from jpeg_decoder_tpu_torch.ops import color, pixel
 
 SAMPLINGS = {
     "420": ((2, 2), (1, 1), (1, 1)),
@@ -42,6 +47,10 @@ QUIRKS = [Quirks.REFERENCE, Quirks.CORRECT]
 #: the MCU before (the only such pair of factors up to 15); and a frame of it
 NOT_LOCAL = ((12, 1), (7, 1), (7, 1))
 NOT_LOCAL_HW = (8, 1000)
+FLOAT32 = IdctPrecision.FLOAT32
+#: FLOAT32 RGB tolerance against the JAX package: a chroma step of 1 moves
+#: R or B by up to 1.772 (tests/test_torch_batch.py)
+FLOAT32_RGB_TOL = 3
 
 
 def _frames(h, w, factors, bits):
@@ -76,8 +85,8 @@ def _inputs(frame, seed, lead=()):
     return planes, qts
 
 
-def _jax_stage(jframe, planes, qts, quirks):
-    key = (jframe, tuple(q.tobytes() for q in qts), JaxIdctPrecision.EXACT,
+def _jax_stage(jframe, planes, qts, quirks, precision=IdctPrecision.EXACT):
+    key = (jframe, tuple(q.tobytes() for q in qts), JaxIdctPrecision[precision.name],
            JaxQuirks[quirks.name], "nn", 8)
     rgb, pix = jdecoder.build_stage_raw(key)(*(jnp.asarray(p.astype(np.int32)) for p in planes))
     return np.asarray(rgb), [np.asarray(p) for p in pix]
@@ -188,10 +197,10 @@ def test_tiled_plain_matches_plain_and_jax(sampling, h, w, bits, quirks):
     want = _jax_stage(jframe, planes, qts, quirks)
     tp, tq = _torch(planes, qts)
     _assert_same(pixel._pixel_exact_plain(tp, tq, port, quirks), want)
-    _assert_same(pixel._pixel_exact_tiled_plain(tp, tq, port, quirks), want)
+    _assert_same(pixel._pixel_tiled_plain(tp, tq, port, quirks), want)
     # strips of one and two MCUs: several strips a row, the last ragged
     for strip in (1, 2):
-        _assert_same(pixel._pixel_exact_tiled_plain(tp, tq, port, quirks, strip=strip), want)
+        _assert_same(pixel._pixel_tiled_plain(tp, tq, port, quirks, strip=strip), want)
     # the wrapper on CPU tensors is the plain composition
     _assert_same(pixel.pixel_exact(tp, tq, port, quirks), want)
 
@@ -204,7 +213,7 @@ def test_tiled_plain_batch_matches_jax_per_image(sampling, quirks):
     port, jframe = _frames(67, 101, SAMPLINGS[sampling], 8)
     planes, qts = _inputs(port, 41, lead=(3,))
     tp, tq = _torch(planes, qts)
-    tiled = pixel._pixel_exact_tiled_plain(tp, tq, port, quirks, strip=2)
+    tiled = pixel._pixel_tiled_plain(tp, tq, port, quirks, strip=2)
     plain = pixel._pixel_exact_plain(tp, tq, port, quirks)
     assert tiled[0].shape == (3, 67, 101, 3)
     for i in range(3):
@@ -217,16 +226,126 @@ def test_tiled_plain_refuses_a_geometry_that_is_not_tile_local():
     port, _ = _frames(*NOT_LOCAL_HW, NOT_LOCAL, 8)
     planes, qts = _inputs(port, 5)
     with pytest.raises(RuntimeError, match="outside the strip"):
-        pixel._pixel_exact_tiled_plain(*_torch(planes, qts), port, Quirks.REFERENCE)
+        pixel._pixel_tiled_plain(*_torch(planes, qts), port, Quirks.REFERENCE)
+
+
+def test_float_tiled_plain_refuses_a_geometry_that_is_not_tile_local():
+    port, _ = _frames(*NOT_LOCAL_HW, NOT_LOCAL, 8)
+    planes, qts = _inputs(port, 5)
+    with pytest.raises(RuntimeError, match="outside the strip"):
+        pixel._pixel_tiled_plain(*_torch(planes, qts), port, Quirks.REFERENCE,
+                                 precision=FLOAT32)
 
 
 def test_tiled_plain_without_planes():
     port, _ = _frames(37, 45, SAMPLINGS["420"], 8)
     tp, tq = _torch(*_inputs(port, 9))
-    rgb, planes = pixel._pixel_exact_tiled_plain(tp, tq, port, Quirks.REFERENCE,
-                                                 want_planes=False)
+    rgb, planes = pixel._pixel_tiled_plain(tp, tq, port, Quirks.REFERENCE,
+                                           want_planes=False)
     assert planes is None
     assert torch.equal(rgb, pixel._pixel_exact_plain(tp, tq, port, Quirks.REFERENCE)[0])
+
+
+# ---------------------------------------------------------------------------
+# FLOAT32: K13's plain version against the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _assert_float_planes(got, want, share_tol=None):
+    """Pixel planes within 1 of `want` (and, when given, differing on at most
+    `share_tol` of the pixels)."""
+    for a, b in zip(got, want):
+        d = np.abs(np.asarray(a).astype(np.int32) - np.asarray(b).astype(np.int32))
+        assert d.max() <= 1
+        if share_tol is not None:
+            assert (d != 0).mean() <= share_tol
+
+
+def _assert_own_colour(got, frame, quirks):
+    """RGB bitwise the plain colour stage of the planes it came with."""
+    rgb, planes = got
+    factors = tuple((c.hsf, c.vsf) for c in frame.components)
+    own = color._planes_to_rgb_plain(planes, frame.height, frame.width, factors, quirks)
+    assert torch.equal(rgb, own)
+
+
+@pytest.mark.parametrize("batch", [(), (2,)], ids=["image", "batch"])
+@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
+@pytest.mark.parametrize("bits", [8, 12], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("sampling", ["420", "422", "444"])
+def test_float_plain_matches_jax(sampling, bits, quirks, batch):
+    port, jframe = _frames(37, 45, SAMPLINGS[sampling], bits)
+    planes, qts = _inputs(port, 100 * bits + len(batch) + len(sampling), lead=batch)
+    tp, tq = _torch(planes, qts)
+    got = pixel._pixel_float_plain(tp, tq, port, quirks)
+    _assert_own_colour(got, port, quirks)
+    # the wrapper on CPU tensors is the plain composition
+    wrapped = pixel.pixel_float(tp, tq, port, quirks)
+    assert torch.equal(wrapped[0], got[0])
+    assert all(torch.equal(a, b) for a, b in zip(wrapped[1], got[1]))
+    n = batch[0] if batch else 1
+    for i in range(n):
+        one = (lambda t: t[i]) if batch else (lambda t: t)
+        want = _jax_stage(jframe, [one(p) for p in planes], qts, quirks, FLOAT32)
+        _assert_float_planes([one(p) for p in got[1]], want[1])
+        d = np.abs(one(got[0]).numpy().astype(np.int32) - want[0].astype(np.int32))
+        assert d.max() <= FLOAT32_RGB_TOL
+
+
+@pytest.mark.parametrize("strip", [None, 1, 2])
+@pytest.mark.parametrize("sampling", ["420", "422", "411"])
+def test_float_tiled_plain_matches_plain(sampling, strip):
+    """K13's schedule, strip by strip, on a batch of two: every sample read
+    from its own strip; the strips' FLOAT32 planes within 1 of the whole
+    planes' (one BLAS product over other row counts may sum in another
+    order), RGB their own colour stage."""
+    port, _ = _frames(67, 101, SAMPLINGS[sampling], 12)
+    planes, qts = _inputs(port, 43, lead=(2,))
+    tp, tq = _torch(planes, qts)
+    tiled = pixel._pixel_tiled_plain(tp, tq, port, Quirks.CORRECT, strip=strip,
+                                     precision=FLOAT32)
+    plain = pixel._pixel_float_plain(tp, tq, port, Quirks.CORRECT)
+    assert tiled[0].shape == (2, 67, 101, 3)
+    _assert_float_planes(tiled[1], plain[1], 1e-3)
+    _assert_own_colour(tiled, port, Quirks.CORRECT)
+
+
+def test_default_strip_per_contract():
+    for factors in SAMPLINGS.values():
+        blocks = sum(fh * fv for fh, fv in factors)
+        for precision in IdctPrecision:
+            g = pixel.default_strip(factors, precision)
+            assert g >= 1 and g * blocks <= max(pixel.STRIP_BLOCKS[precision], blocks)
+    assert pixel.default_strip(SAMPLINGS["420"]) == pixel.default_strip(
+        SAMPLINGS["420"], IdctPrecision.EXACT)
+
+
+# ---------------------------------------------------------------------------
+# Batches above one launch's 65,535 images
+# ---------------------------------------------------------------------------
+
+
+def test_image_chunks_ranges_and_offsets(monkeypatch):
+    # the grid's limit: 65,536 images are two launches
+    big = torch.zeros((_build.MAX_IMAGES + 1, 3), dtype=torch.uint8)
+    chunks = _build.image_chunks(big.shape[0], big)
+    assert [(f, n) for f, n, _ in chunks] == [(0, 65535), (65535, 1)]
+    assert chunks[1][2][0].value == big[65535].data_ptr()
+    assert _build.image_chunks(0, big) == []
+    # several launches, the last ragged, at a small limit
+    monkeypatch.setattr(_build, "MAX_IMAGES", 3)
+    coeff = torch.zeros((7, 2, 3, 64), dtype=torch.int16)
+    rgb = torch.zeros((7, 5, 4, 3), dtype=torch.uint8)
+    chunks = _build.image_chunks(7, coeff, rgb, None)
+    assert [(first, count) for first, count, _ in chunks] == [(0, 3), (3, 3), (6, 1)]
+    for first, _count, (c, r, none) in chunks:
+        assert c.value == coeff[first].data_ptr()
+        assert r.value == rgb[first].data_ptr()
+        assert not none.value
+    # one image without a batch dimension: one launch from the start
+    plane = torch.zeros((2, 3, 64), dtype=torch.int16)
+    ((first, count, (p,)),) = _build.image_chunks(1, plane)
+    assert (first, count, p.value) == (0, 1, plane.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +362,7 @@ def _stage(frame, qts, precision=IdctPrecision.EXACT, quirks=Quirks.REFERENCE):
 ROUTES = {
     "420_exact": (SAMPLINGS["420"], IdctPrecision.EXACT, True),
     "411_exact": (SAMPLINGS["411"], IdctPrecision.EXACT, True),
-    "420_float32": (SAMPLINGS["420"], IdctPrecision.FLOAT32, False),
+    "420_float32": (SAMPLINGS["420"], IdctPrecision.FLOAT32, True),
     "not_tile_local_exact": (NOT_LOCAL, IdctPrecision.EXACT, False),
 }
 
@@ -263,11 +382,10 @@ def test_pixel_stage_without_planes_gives_the_same_rgb(name, batch):
     assert none is None and len(pix) == 3
     assert rgb.shape == (*batch, h, w, 3)
     assert torch.equal(rgb, rgb_only)
-    if precision == IdctPrecision.EXACT:
-        # either route is the plain composition
-        want = pixel._pixel_exact_plain(tp, [torch.from_numpy(q.astype(np.int32)) for q in qts],
-                                        port, Quirks.REFERENCE)
-        _assert_same((rgb, pix), (want[0].numpy(), [p.numpy() for p in want[1]]))
+    # either route is the plain composition
+    plain = pixel._pixel_plain(tp, [torch.from_numpy(q.astype(np.int32)) for q in qts],
+                               port, Quirks.REFERENCE, precision=precision)
+    _assert_same((rgb, pix), (plain[0].numpy(), [p.numpy() for p in plain[1]]))
 
 
 def test_gray_stage_is_not_fused():
@@ -313,7 +431,28 @@ def test_every_source_is_built_and_headers_are_hashed(tmp_path, monkeypatch):
     for path in _build.SRC_DIR.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
-    before = _build._source_hash()
-    header = tmp_path / "idct_exact.cuh"
-    header.write_text(header.read_text() + "\n")
-    assert _build._source_hash() != before
+    # every shared header, K13's two included
+    headers = sorted(p.name for p in tmp_path.glob("*.cuh"))
+    assert {"idct_exact.cuh", "idct_float.cuh", "strip.cuh", "color.cuh"} <= set(headers)
+    for name in headers:
+        before = _build._source_hash()
+        header = tmp_path / name
+        header.write_text(header.read_text() + "\n")
+        assert _build._source_hash() != before, name
+
+
+@pytest.mark.parametrize("name,headers", [
+    ("pixel_exact.cu", ("idct_exact.cuh", "strip.cuh")),
+    ("pixel_float.cu", ("idct_float.cuh", "strip.cuh")),
+    ("idct_float.cu", ("idct_float.cuh",)),
+    ("idct_exact.cu", ("idct_exact.cuh",)),
+    ("color.cu", ("color.cuh",)),
+])
+def test_kernels_share_their_arithmetic_through_headers(name, headers):
+    """K03 and K13 take the strip skeleton from one header, K1 and K13 the
+    FLOAT32 arithmetic from another (and the colour step through
+    strip.cuh's color.cuh), so that the bytes cannot drift apart."""
+    text = (_build.SRC_DIR / name).read_text()
+    for header in headers:
+        assert f'#include "{header}"' in text
+    assert '#include "color.cuh"' in (_build.SRC_DIR / "strip.cuh").read_text()
