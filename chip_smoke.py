@@ -28,9 +28,13 @@ Phases, each of which exits non-zero on failure:
      version; on the two foreign files against the plain version and the
      native host decoder, and on the two 4K frames of photographs' blocks
      against the native host decoder; each K2 line gives the subsequences, the launches of pass 2
-     and the time of each pass; K2u (unstuffing) bitwise against its plain
-     version and the host's per-segment unstuffing, on a 640x352 stream, at
-     4K and for the eight 4K requests in one call;
+     and the time of each pass; K2u (unstuffing, one pass, then K2's
+     layout) bitwise against its plain version and the host's per-segment
+     unstuffing, stream, offsets and layout, on a 640x352 stream, at 4K and
+     for the eight 4K requests in one call, each timed the card alone
+     beside the three-kernel version in turns, a device-to-device copy of the
+     raw bytes and raw[keep] (benchmarks/k2u_sweep.measure), with its
+     registers and shared memory (nvcc -Xptxas -v);
      K0 (EXACT IDCT) bitwise; K1 (FLOAT32 IDCT) within 1 on at most 1e-3
      of the pixels, at the 4K luma shape, 8- and 12-bit, with the error
      on extreme inputs reported; K3 (colour) bitwise, per image and
@@ -304,7 +308,7 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
         s = parse(data)
         packs = [entropy_cuda.prepare_scan(s, s.scans[0])]
         args, host_arrays = entropy_cuda.launch_args(packs, dev)
-        seg_off = host_arrays.seg_off
+        n_segs = len(host_arrays.seg_bound) - 1
         got = convert.zero_planes(s.frame, dev)
         want = convert.zero_planes(s.frame, dev)
         box, rec = {}, {}
@@ -314,13 +318,13 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
         e = max(max_abs_err(st_k, box["st"]),
                 *[max_abs_err(a, b) for a, b in zip(got, want)])
         err = max(err, e)
-        entropy_cuda.check_status(st_k, seg_off)
+        entropy_cuda.check_status(st_k, args[1])
         ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got], host=host_arrays), 5,
                      before=lambda: zero_all([got]))
         e = max(e, *[max_abs_err(a, b) for a, b in zip(got, want)])
         err = max(err, e)
         shape = (f"{s.frame.width}x{s.frame.height} 4:2:0,"
-                 f" {len(seg_off) - 1} segments")
+                 f" {n_segs} segments")
         log(f"K2 entropy: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
             f" ({shape}); max_abs_err {e}; {k2_passes(rec)}")
         if data is small:
@@ -386,11 +390,10 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
     structures = [parse(d) for d in batch]
     args, host_arrays = entropy_cuda.launch_args(
         [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures], dev)
-    seg_off = host_arrays.seg_off
     got = [convert.zero_planes(s.frame, dev) for s in structures]
     rec = {}
     entropy_cuda.check_status(
-        entropy_cuda.decode_segments(*args, got, records=rec, host=host_arrays), seg_off)
+        entropy_cuda.decode_segments(*args, got, records=rec, host=host_arrays), args[1])
     ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, got, host=host_arrays), 5,
                  before=lambda: zero_all(got))
     err, single_ms = 0, []
@@ -398,11 +401,11 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
         a1, h1 = entropy_cuda.launch_args([entropy_cuda.prepare_scan(s, s.scans[0])], dev)
         one = convert.zero_planes(s.frame, dev)
         single_ms.append(cuda_ms(lambda: entropy_cuda.check_status(
-            entropy_cuda.decode_segments(*a1, [one], host=h1), h1.seg_off), 1))
+            entropy_cuda.decode_segments(*a1, [one], host=h1), a1[1]), 1))
         _, native, _ = host.host_decode(data, DecodeConfig())
         err = max(err, *[max_abs_err(a, b) for a, b in zip(planes, one)],
                   *[max_abs_err(a, b) for a, b in zip(planes, native.planes)])
-    n_segs = len(seg_off) - 1
+    n_segs = len(host_arrays.seg_bound) - 1
     log(f"K2 batched: kernel {ms:.3f} ms for {len(batch)} x {W}x{H} 4:2:0 in one"
         f" launch ({n_segs} segments), {ms / len(batch):.3f} ms per image;"
         f" single-image launches {[round(t, 3) for t in single_ms]} ms;"
@@ -412,7 +415,7 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
     structures = [parse(d) for d in smalls]
     sargs, shost = entropy_cuda.launch_args(
         [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures], dev)
-    sseg = shost.seg_off
+    sseg = sargs[1]
     gk = [convert.zero_planes(s.frame, dev) for s in structures]
     gp = [convert.zero_planes(s.frame, dev) for s in structures]
     # without the host's copies: the wrapper reads its arguments back
@@ -426,7 +429,7 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
     e2 = max(max_abs_err(st_k, box["st"]),
              *[max_abs_err(a, b) for x, y in zip(gk, gp) for a, b in zip(x, y)])
     log(f"K2 batched: kernel {small_ms:.3f} ms, plain {plain_ms:.1f} ms"
-        f" ({len(smalls)} x {SMALL[0]}x{SMALL[1]} 4:2:0, {len(sseg) - 1}"
+        f" ({len(smalls)} x {SMALL[0]}x{SMALL[1]} 4:2:0, {sseg.numel() - 1}"
         f" segments); max_abs_err {e2}")
     err = max(err, e2)
     if err != 0:
@@ -461,7 +464,7 @@ def check_k2_photographs(dev, files: dict, tiled: dict, record: dict) -> None:
         got = convert.zero_planes(s.frame, dev)
         rec = {}
         st_k = entropy_cuda.decode_segments(*args, [got], records=rec, host=host_arrays)
-        entropy_cuda.check_status(st_k, host_arrays.seg_off)
+        entropy_cuda.check_status(st_k, args[1])
         ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got], host=host_arrays), 5,
                      before=lambda: zero_all([got]))
         _, native_planes, _ = host.host_decode(data, DecodeConfig())
@@ -475,7 +478,7 @@ def check_k2_photographs(dev, files: dict, tiled: dict, record: dict) -> None:
             against = "the plain version's status and planes and " + against
         stats = inputs.block_stats(data)
         log(f"K2 entropy, {name}: kernel {ms:.3f} ms ({s.frame.width}x{s.frame.height},"
-            f" {len(host_arrays.seg_off) - 1} segments, {stats['scan_bytes']} bytes,"
+            f" {len(host_arrays.seg_bound) - 1} segments, {stats['scan_bytes']} bytes,"
             f" {stats['nonzero_ac_per_block']} nonzero AC and {stats['bits_per_block']} bits"
             f" a block, an EOB in {stats['share_blocks_with_eob']:.4f} of the blocks);"
             f" max_abs_err {err} (against {against}); {k2_passes(rec)}")
@@ -487,11 +490,18 @@ def check_k2_photographs(dev, files: dict, tiled: dict, record: dict) -> None:
             pass2_steps=rec["steps"], pass_ms=rec["pass_ms"], **stats)
 
 
-def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict) -> None:
-    """K2u against its plain version on the card and against the host's
-    per-segment unstuffing (pack_scan), bitwise: a 640x352 stream, the 4K
-    request and the eight 4K requests of a batch in one call."""
-    import torch
+def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict, card: str) -> None:
+    """K2u (the single pass and its sub_base kernel) against its plain
+    version on the card and against the host's per-segment unstuffing
+    (pack_scan), bitwise, stream, offsets and K2's layout: a 640x352
+    stream, the 4K request and the eight 4K requests of a batch in one
+    call. Each also timed by benchmarks/k2u_sweep.measure: the card alone,
+    the single pass beside the three-kernel version in turns (three, single,
+    single, three), a device-to-device copy of the raw bytes, raw[keep] as
+    one PyTorch call, one call of the wrapper between events and the three-kernel
+    wrapper with its read-back; then the kernels' registers and shared
+    memory (nvcc -Xptxas -v)."""
+    from jpeg_decoder_tpu_torch.benchmarks import k2u_sweep
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
     from jpeg_decoder_tpu_torch.io.parser import parse
 
@@ -512,28 +522,45 @@ def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict) -> None:
                                 + [np.zeros(8, dtype=np.uint8)])
         ends = np.cumsum([0] + [int(so[-1]) for _ri, _st, so in host])
         seg_off = np.concatenate([[0]] + [so[1:] + e for (_ri, _st, so), e in zip(host, ends)])
-        e = max(max_abs_err(got.stream, box["p"][0]), max_abs_err(got.seg_off, box["p"][1]),
-                max_abs_err(got.stream, stream), max_abs_err(got.seg_off_host, seg_off))
+        end = len(stream)   # the bytes defined: the segments and the tail
+        want = box["p"]
+        e = max(max_abs_err(got.stream[:end], want.stream[:end]),
+                max_abs_err(got.seg_off, want.seg_off), max_abs_err(got.sub_base, want.sub_base),
+                max_abs_err(got.stream[:end], stream), max_abs_err(got.seg_off, seg_off),
+                max_abs_err(got.sub_base, entropy_cuda.sub_layout(seg_off)))
         err = max(err, e)
-        # the wrapper ends by reading seg_off back: the time includes that
-        ms = cuda_ms(lambda: entropy_cuda.unstuff_segments(raw, lo, hi), 5)
         shape = f"{len(datas)} x {structures[0].frame.width}x{structures[0].frame.height}"
-        log(f"K2u unstuff: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, the host's"
-            f" per-segment unstuffing {host_ms:.1f} ms ({shape}: {raw.numel()} raw bytes,"
-            f" {lo.numel()} segments, {raw.numel() - int(got.seg_off_host[-1])} bytes"
-            f" dropped); max_abs_err {e}")
+        m = k2u_sweep.measure(shape, raw, lo, hi, 7, card)
+        bnd = bound(m["bound_bytes"], 3 * raw.numel(), "int32")
+        log(f"K2u unstuff ({shape}: {raw.numel()} raw bytes, {lo.numel()} segments,"
+            f" {raw.numel() - end + 8} bytes dropped): the card alone {m['card_ms']:.4f} ms"
+            f" (runs {[round(t, 4) for t in m['card_ms_runs']]}), the three-kernel version"
+            f" {m['card_ms_3pass']:.4f} ms (runs {[round(t, 4) for t in m['card_ms_3pass_runs']]});"
+            f" a D2D copy of the raw bytes {m['copy_card_ms']:.4f} ms, raw[keep]"
+            f" {m['compaction_ms']:.4f} ms (one call, it synchronises); one call between"
+            f" events {m['wrapper_ms']:.4f} ms, the three-kernel wrapper with its read-back"
+            f" {m['wrapper_readback_ms']:.4f} ms; plain {plain_ms:.3f} ms, the host's"
+            f" per-segment unstuffing {host_ms:.1f} ms; bound {bnd['bound_ms']:.4f} ms;"
+            f" max_abs_err {e} [{card}]")
         if datas[0] is big and len(datas) == 1:
             # Bound: the raw bytes and bounds read once, the stream and its
             # offsets written once; per raw byte a compare with 0x00, one
             # with 0xFF and the add of the prefix sum.
-            record.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          shape=f"{raw.numel()} raw bytes, {lo.numel()} segments",
-                          **bound(nbytes_of(raw, lo, hi, got.stream, got.seg_off),
-                                  3 * raw.numel(), "int32"))
+            record.update(ms=m["card_ms"], card_ms=m["card_ms_runs"],
+                          card_ms_3pass=m["card_ms_3pass_runs"], copy_ms=m["copy_card_ms"],
+                          compaction_ms=m["compaction_ms"], call_ms=m["wrapper_ms"],
+                          readback_call_ms=m["wrapper_readback_ms"], plain_ms=plain_ms,
+                          library_ms=None,
+                          shape=f"{raw.numel()} raw bytes, {lo.numel()} segments", **bnd)
         elif len(datas) > 1:
-            record.update(batch_ms=ms, batch_plain_ms=plain_ms,
+            record.update(batch_ms=m["card_ms"], batch_card_ms_3pass=m["card_ms_3pass_runs"],
+                          batch_copy_ms=m["copy_card_ms"],
+                          batch_compaction_ms=m["compaction_ms"], batch_plain_ms=plain_ms,
+                          batch_bound_ms=bnd["bound_ms"],
                           batch_shape=f"{raw.numel()} raw bytes, {lo.numel()} segments")
     record["max_abs_err"] = err
+    record["ptxas"] = k2u_sweep.ptxas_report()
+    log(f"K2u registers and shared memory (nvcc -Xptxas -v): {record['ptxas']}")
 
 
 def check_k0(dev, big: bytes, record: dict) -> None:
@@ -1290,10 +1317,11 @@ def stage_times(dev, requests, card: str, label: str = "image") -> None:
         h2d = cuda_ms(lambda: box.update(dev=entropy_cuda.to_device(host, dev)), 1)
         raw, lo, hi, *rest = box["dev"]
         k2u = cuda_ms(lambda: box.update(un=entropy_cuda.unstuff_segments(raw, lo, hi)), 1)
-        stream, seg_off_dev, seg_off = box["un"]
-        on_host = entropy_cuda.HostArrays(seg_off, host[3], host[6], host[7])
+        stream, seg_off, sub_base = box["un"]
+        on_host = entropy_cuda.HostArrays(entropy_cuda.raw_bound(host[1], host[2]), host[3],
+                                          host[6], host[7], sub_base)
         k2 = cuda_ms(lambda: box.update(status=entropy_cuda.decode_segments(
-            stream, seg_off_dev, *rest, [planes], host=on_host)), 1)
+            stream, seg_off, *rest, [planes], host=on_host)), 1)
         entropy_cuda.check_status(box["status"], seg_off)
         stage = decoder.device_stage_for(
             s.frame, {t: q.values for t, q in s.scans[0].quant_tables.items()}, cfg, dev)
@@ -1335,10 +1363,11 @@ def batch_stage_times(dev, batch, card: str) -> None:
         h2d = cuda_ms(lambda: box.update(dev=entropy_cuda.to_device(host, dev)), 1)
         raw, lo, hi, *rest = box["dev"]
         k2u = cuda_ms(lambda: box.update(un=entropy_cuda.unstuff_segments(raw, lo, hi)), 1)
-        stream, seg_off_dev, seg_off = box["un"]
-        on_host = entropy_cuda.HostArrays(seg_off, host[3], host[6], host[7])
+        stream, seg_off, sub_base = box["un"]
+        on_host = entropy_cuda.HostArrays(entropy_cuda.raw_bound(host[1], host[2]), host[3],
+                                          host[6], host[7], sub_base)
         k2 = cuda_ms(lambda: box.update(status=entropy_cuda.decode_segments(
-            stream, seg_off_dev, *rest,
+            stream, seg_off, *rest,
             [[st[i] for st in stacks] for i in range(len(batch))], host=on_host)), 1)
         entropy_cuda.check_status(box["status"], seg_off)
         stage = decoder.device_stage_for(
@@ -1455,7 +1484,8 @@ def main() -> None:
                 kernels["jdtc_entropy_decode"])
     timed_phase("K2 on photographs", check_k2_photographs, dev, files, tiled,
                 kernels["jdtc_entropy_decode"])
-    timed_phase("K2u", check_k2u, dev, smalls[0], requests[0], batch, kernels["jdtc_unstuff"])
+    timed_phase("K2u", check_k2u, dev, smalls[0], requests[0], batch, kernels["jdtc_unstuff"],
+                card)
     timed_phase("K0", check_k0, dev, requests[0], kernels["jdtc_idct_exact"])
     timed_phase("K1", check_k1, dev, requests[0], kernels["jdtc_idct_float"])
     timed_phase("K3", check_k3, dev, requests[0], gray, kernels["jdtc_color"])

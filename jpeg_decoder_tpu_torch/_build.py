@@ -54,8 +54,14 @@ SIGNATURES = {
     ],
     # the subsequence size K2 was built with (no launch)
     "jdtc_entropy_sub_bytes": [],
-    # raw, n_raw, lo, hi, n_segs, block_sum, out, seg_off, cuda_stream
-    "jdtc_unstuff": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
+    # raw, n_raw, lo, hi, n_segs, scratch, out, seg_off, sub_base,
+    # sub_bytes, cuda_stream
+    "jdtc_unstuff": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _P],
+    # the bytes of a K2u tile (no launch)
+    "jdtc_unstuff_tile_bytes": [],
+    # the three-kernel K2u, for measurement: raw, n_raw, lo, hi, n_segs, block_sum,
+    # out, seg_off, cuda_stream
+    "jdtc_unstuff_3pass": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
     # coeffs, qt, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_exact": [_P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream

@@ -7,12 +7,14 @@ one CUDA card.
 random dense blocks and one of a photograph's blocks tiled to that size it times,
 on the host clock with the card idle before and after each call, every step
 between the bytes of the file and the checked status: parse, prepare_scan,
-host_args, to_device, unstuff_segments (K2u with its read-back),
-decode_segments (K2, beside the sum of its passes from CUDA events) and
-check_status; and, apart, what K2's wrapper does before its first kernel
-(the layout in numpy, the two uploads and the allocations) and what the
-four read-backs cost a caller that does not hand it the host's copies of
-its arguments (decode_segments_without_host). One JSON line per input: median microseconds of `reps` calls,
+host_args, to_device, unstuff_segments (K2u: it enqueues the single pass
+and the layout kernel and reads nothing back), decode_segments (K2, beside
+the sum of its passes from CUDA events) and check_status (the status and
+the unstuffed offsets in one read-back); and, apart, what K2's wrapper does
+before its first kernel (the records' capacity from the raw lengths in
+numpy, the two uploads and the allocations) and what the four read-backs
+cost a caller that does not hand it the host's copies of its arguments
+(decode_segments_without_host). One JSON line per input: median microseconds of `reps` calls,
 with the card's name and power limit.
 """
 
@@ -59,18 +61,19 @@ def main(argv=None) -> None:
         pack = entropy_cuda.prepare_scan(s, s.scans[0])
         host = entropy_cuda.host_args([pack])
         raw, lo, hi, *rest = entropy_cuda.to_device(host, dev)
-        stream, seg_off, seg_off_host = entropy_cuda.unstuff_segments(raw, lo, hi)
+        stream, seg_off, sub_base = entropy_cuda.unstuff_segments(raw, lo, hi)
         seg_img, _seg_idx, _ri, total_mcus, units, tables = rest
-        on_host = entropy_cuda.HostArrays(seg_off_host, host[3], host[6], host[7])
+        bound = entropy_cuda.raw_bound(host[1], host[2])
+        on_host = entropy_cuda.HostArrays(bound, host[3], host[6], host[7], sub_base)
         planes = [convert.zero_planes(s.frame, dev)]
         rec: dict = {}
         for records in (None, rec):  # the first call loads the kernels
             status = entropy_cuda.decode_segments(stream, seg_off, *rest, planes,
                                                   records=records, host=on_host)
-        entropy_cuda.check_status(status, seg_off_host)
-        n_subs = int(rec["sub_base"][-1])
+        entropy_cuda.check_status(status, seg_off)
+        n_subs = int(entropy_cuda.sub_layout(bound)[-1])   # the records' capacity
         n_du = pack.total_mcus * pack.units.shape[0]
-        layout = np.concatenate([rec["sub_base"], np.zeros(2, dtype=np.int64)])
+        du_base = np.array([0, n_du], dtype=np.int64)
 
         def allocations():
             return [torch.empty(n, dtype=dtype, device=dev) for n, dtype in (
@@ -79,7 +82,8 @@ def main(argv=None) -> None:
                 (tables.shape[0] << 10, torch.int16), (1, torch.int32))]
 
         line = dict(
-            blocks=blocks, bytes=len(data), subsequences=n_subs,
+            blocks=blocks, bytes=len(data), subsequences=int(rec["sub_base"][-1]),
+            record_capacity=n_subs,
             parse=us(lambda: parse(data)),
             prepare_scan=us(lambda: entropy_cuda.prepare_scan(s, s.scans[0])),
             host_args=us(lambda: entropy_cuda.host_args([pack])),
@@ -90,14 +94,14 @@ def main(argv=None) -> None:
             decode_segments_without_host=us(lambda: entropy_cuda.decode_segments(
                 stream, seg_off, *rest, planes)),
             passes_sum=round(1e3 * sum(rec["pass_ms"]), 1),
-            check_status=us(lambda: entropy_cuda.check_status(status, seg_off_host)),
+            check_status=us(lambda: entropy_cuda.check_status(status, seg_off)),
             before_k2s_first_kernel=dict(
                 read_back_units=us(lambda: units.cpu().numpy()),
                 read_back_seg_img=us(lambda: seg_img.cpu().numpy()),
                 read_back_seg_off=us(lambda: seg_off.cpu().numpy()),
                 read_back_total_mcus=us(lambda: total_mcus.cpu().numpy()),
-                sub_layout=us(lambda: entropy_cuda.sub_layout(seg_off_host)),
-                upload_layout=us(lambda: torch.from_numpy(layout).to(dev)),
+                sub_layout=us(lambda: entropy_cuda.sub_layout(bound)),
+                upload_du_base=us(lambda: torch.from_numpy(du_base).to(dev, non_blocking=True)),
                 upload_plane_addresses=us(lambda: convert.plane_addresses(planes, dev)),
                 allocations=us(allocations)),
             unit="us", card=card_line())

@@ -82,7 +82,7 @@ def worker(files: list[str], reps: int) -> None:
             passes.append(rec["pass_ms"])
             rounds.append(rec["rounds"])
             steps.append(rec["steps"])
-        entropy_cuda.check_status(status, on_host.seg_off)
+        entropy_cuda.check_status(status, args[1])
         if not all(torch.equal(p.cpu(), torch.from_numpy(n))
                    for p, n in zip(planes[0], native.planes)):
             raise RuntimeError("planes differ from the native host decoder's")

@@ -209,11 +209,13 @@ def group_tables(members):
 
 def plane_addresses(planes, device) -> torch.Tensor:
     """int64 [n_img, 4] device addresses of each image's component planes
-    (0 past the last component): K2's per-image plane table."""
+    (0 past the last component): K2's per-image plane table. The copy
+    does not wait for the device (the pageable source is staged before it
+    returns)."""
     addr = np.zeros((len(planes), 4), dtype=np.int64)
     for i, img in enumerate(planes):
         addr[i, : len(img)] = [p.data_ptr() for p in img]
-    return torch.from_numpy(addr).to(device)
+    return torch.from_numpy(addr).to(device, non_blocking=True)
 
 
 def quant_table_to_device(values_natural, device) -> torch.Tensor:

@@ -3,16 +3,19 @@ jpeg_decoder_tpu/ops/entropy_pallas.py).
 
 The host parses a stream and finds the raw bounds of its restart segments;
 the raw entropy-coded bytes of a group of scans go to the device as they
-lie in their files, one copy per image. `unstuff_segments` (kernel K2u, csrc/unstuff.cu) drops the stuffed
-zeros and the restart markers there and leaves one flat byte buffer with
-per-segment offsets -- what the JAX backend's _pack_group builds on the
-host -- and `decode_segments` (kernel K2, csrc/entropy_decode.cu) turns it
-into int16 zigzag data units written straight into the zeroed coefficient
-planes. K2 cuts every segment into subsequences of SUB_BYTES bytes, one
-thread each: the threads decode from guessed states, hand each other their
-end states until nothing changes (Huffman streams resynchronise), a prefix
-sum places every subsequence's data units, a last decode stores them, and
-the DC predictions are summed afterwards. For a CPU tensor both functions
+lie in their files, one copy per image. `unstuff_segments` (kernel K2u,
+csrc/unstuff.cu, one pass over the raw bytes) drops the stuffed zeros and
+the restart markers there and leaves one flat byte buffer with per-segment
+offsets -- what the JAX backend's _pack_group builds on the host -- and
+K2's record layout, all on the device; `decode_segments` (kernel K2,
+csrc/entropy_decode.cu) follows without the host reading anything back (it
+sizes its scratch by the raw lengths, which bound the unstuffed ones) and
+turns the buffer into int16 zigzag data units written straight into the
+zeroed coefficient planes. K2 cuts every segment into subsequences of
+SUB_BYTES bytes, one thread each: the threads decode from guessed states,
+hand each other their end states until nothing changes (Huffman streams
+resynchronise), a prefix sum places every subsequence's data units, a last
+decode stores them, and the DC predictions are summed afterwards. For a CPU tensor both functions
 run their plain versions below: for K2 a torch loop over segments in
 lockstep -- one tensor lane per segment, one symbol per step, table
 lookups by indexing -- which is what the TPU kernel computes, without its
@@ -108,10 +111,17 @@ def pack_scan(structure, scan, total_mcus: int, n_units: int):
     return ri, stream, seg_off
 
 
-def check_status(status: torch.Tensor, seg_off: np.ndarray) -> None:
+def check_status(status: torch.Tensor, seg_off) -> None:
     """Raise as the JAX backend does from the per-segment (bad, consumed
-    bits) status: a bad code first, then truncation."""
-    st = status.cpu().numpy()
+    bits) status: a bad code first, then truncation. `seg_off` (the
+    unstuffed offsets) may lie on the device: it comes back in one copy
+    with the status."""
+    n = status.shape[0]
+    if isinstance(seg_off, torch.Tensor):
+        both = torch.cat([status.reshape(-1), seg_off.to(status.device)]).cpu().numpy()
+        st, seg_off = both[: 2 * n].reshape(n, 2), both[2 * n:]
+    else:
+        st = status.cpu().numpy()
     if st[:, 0].any():
         raise JpegEntropyError("device entropy decode hit an invalid Huffman code")
     if (st[:, 1] > 8 * np.diff(seg_off) + 7).any():
@@ -252,8 +262,16 @@ def sub_layout(seg_off: np.ndarray, sub_bytes: int = SUB_BYTES) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(nsub)]).astype(np.int64)
 
 
+def _sub_base_plain(seg_off: torch.Tensor, sub_bytes: int = SUB_BYTES) -> torch.Tensor:
+    """sub_layout on tensors, on seg_off's device: what K2u's second kernel
+    computes for K2."""
+    nsub = torch.clamp((seg_off[1:] - seg_off[:-1] + sub_bytes - 1) // sub_bytes, min=1)
+    return torch.cat([seg_off.new_zeros(1), torch.cumsum(nsub, 0)])
+
+
 def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_mcus,
-                                  units, tables, planes, sub_bytes: int = SUB_BYTES):
+                                  units, tables, planes, sub_bytes: int = SUB_BYTES,
+                                  capacity: int | None = None):
     """A model of K2's schedule (csrc/entropy_decode.cu) in Python integers,
     for the tests and the card check at small sizes; never a decode path.
     The same passes over the same records: pass 1 from guessed states, the
@@ -263,7 +281,10 @@ def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_m
     the write pass and the DC sums. Returns (status int64 [n_segs, 2],
     records) with records = dict(rec, used, first_du: int64 / int64 / int64
     arrays over all subsequences; sub_base; rounds; changed: the records
-    each round replaced); `planes` are written in place."""
+    each round replaced); `planes` are written in place. `capacity`: the
+    records' length, as K2's wrapper sizes them from the raw lengths when
+    the layout comes from the device (entries past sub_base[-1] stay 0);
+    by default sub_base[-1]."""
     st = stream.cpu().numpy()
     so = seg_off.cpu().numpy().astype(np.int64)
     img_h = seg_img.cpu().numpy()
@@ -274,7 +295,9 @@ def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_m
     n = so.shape[0] - 1
     n_units = units_h.shape[1]
     sub_base = sub_layout(so, sub_bytes)
-    n_subs = int(sub_base[-1])
+    n_subs = int(sub_base[-1]) if capacity is None else capacity
+    if n_subs < sub_base[-1]:
+        raise ValueError("_decode_segments_subseq_plain: capacity below the layout")
     rec = [0] * n_subs
     used = [0] * n_subs
     first_du = [0] * n_subs
@@ -423,15 +446,22 @@ def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_m
 
 
 class HostArrays(NamedTuple):
-    """The arguments of decode_segments that its wrapper reads on the host
-    (it validates them and lays the records out by the segments' lengths):
-    launch_args hands them over as it built them, so that the wrapper reads
-    nothing back from the device."""
+    """What decode_segments' wrapper needs on the host (it validates its
+    arguments and sizes the records by the segments' lengths): launch_args
+    hands it over as it built it, so that the wrapper reads nothing back
+    from the device."""
 
-    seg_off: np.ndarray     # int64 [n_segs + 1]; check_status reads it too
+    #: int64 [n_segs + 1]: segment s has at most seg_bound[s + 1] -
+    #: seg_bound[s] bytes -- exactly that many (the segments' offsets) when
+    #: sub_base is None, else the raw lengths, which launch_args knows
+    #: before K2u runs
+    seg_bound: np.ndarray
     seg_img: np.ndarray     # int32 [n_segs]
     total_mcus: np.ndarray  # int64 [n_img]
     units: np.ndarray       # int32 [n_img, P, 11]
+    #: K2's record layout on the device (unstuff_segments' sub_base), or
+    #: None: the host lays the records out by seg_bound
+    sub_base: torch.Tensor | None = None
 
 
 def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
@@ -451,8 +481,12 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
     the call is bad (check_status raises on a bad one before it looks at
     anything else).
 
+    `host`: see HostArrays; without it the wrapper reads seg_off, seg_img,
+    total_mcus and units back from the device.
+
     `records`, for checks and timing on the card: a dict that receives the
-    launch's scratch (rec, used, first_du, sub_base), the launches of pass 2
+    launch's scratch (rec, used, first_du up to the layout's end; sub_base
+    on the host, read back when it came from the device), the launches of pass 2
     (rounds), the steps inside them that replaced records (steps: the most
     of any block, summed over the launches; the model's rounds bound them)
     and the milliseconds of each pass (pass_ms: tables + pass 1,
@@ -460,8 +494,8 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
     if host is None:
         host = HostArrays(seg_off.cpu().numpy(), seg_img.cpu().numpy(),
                           total_mcus.cpu().numpy(), units.cpu().numpy())
-    seg_off_h, seg_img_h, total_h, units_h = host
-    if (seg_off_h.shape != tuple(seg_off.shape) or seg_img_h.shape != tuple(seg_img.shape)
+    seg_bound_h, seg_img_h, total_h, units_h, sub_base_dev = host
+    if (seg_bound_h.shape != tuple(seg_off.shape) or seg_img_h.shape != tuple(seg_img.shape)
             or total_h.shape != tuple(total_mcus.shape)
             or units_h.shape != tuple(units.shape)):
         raise ValueError("decode_segments: the host's copies disagree with the arguments")
@@ -501,10 +535,11 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
     status = torch.empty((n, 2), dtype=torch.int64, device=dev)
     if not n:
         return status
-    # The record layout is the host's: it needs the segments' lengths.
-    seg_len = np.diff(seg_off_h)
-    if ((seg_len < 0).any() or seg_off_h[0] < 0
-            or seg_off_h[-1] + 3 > stream.numel() or stream.data_ptr() % 4):
+    # The records are sized by the segments' lengths, or by bounds of them
+    # (the raw lengths) when the layout itself comes from the device.
+    seg_len = np.diff(seg_bound_h)
+    if ((seg_len < 0).any() or seg_bound_h[0] < 0
+            or seg_bound_h[-1] + 3 > stream.numel() or stream.data_ptr() % 4):
         raise ValueError("decode_segments: segment offsets outside the stream, or the"
                          " stream lacks its tail or its alignment")
     if (seg_len >= 1 << 28).any():  # a record holds a bit position in 32 bits
@@ -515,10 +550,23 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
     if _build.library().jdtc_entropy_sub_bytes() != SUB_BYTES:
         raise RuntimeError("decode_segments: the kernel library was built with another"
                            " subsequence size")
-    sub_base = sub_layout(seg_off_h)
+    if sub_base_dev is not None and (sub_base_dev.dtype != torch.int64
+                                     or not sub_base_dev.is_contiguous()
+                                     or sub_base_dev.device != dev
+                                     or tuple(sub_base_dev.shape) != (n + 1,)):
+        raise ValueError(f"decode_segments: sub_base must be contiguous int64 [{n + 1}] on {dev}")
+    sub_base = sub_layout(seg_bound_h)   # exact, or a bound per segment
     n_subs = int(sub_base[-1])
     du_base_img = np.concatenate([[0], np.cumsum(total_h * n_units)]).astype(np.int64)
-    aux = torch.from_numpy(np.concatenate([sub_base, du_base_img])).to(dev)
+    # non-blocking uploads: nothing between the raw bytes' upload and K2's
+    # first kernel waits for the device (a pageable source is staged before
+    # the call returns)
+    if sub_base_dev is None:
+        aux = torch.from_numpy(np.concatenate([sub_base, du_base_img])).to(
+            dev, non_blocking=True)
+        sub_base_dev, du_base_dev = aux[: n + 1], aux[n + 1:]
+    else:
+        du_base_dev = torch.from_numpy(du_base_img).to(dev, non_blocking=True)
     rec = torch.empty(n_subs, dtype=torch.int64, device=dev)
     used = torch.empty(n_subs, dtype=torch.int64, device=dev)
     first_du = torch.empty(n_subs, dtype=torch.int32, device=dev)
@@ -533,15 +581,18 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
         _build.ptr(seg_img), _build.ptr(seg_idx), n, ri,
         _build.ptr(total_mcus), _build.ptr(units), n_units,
         _build.ptr(tables), n_specs, _build.ptr(addresses), _build.ptr(status),
-        _build.ptr(aux), _build.ptr(aux[n + 1:]), int(np.diff(sub_base).max()),
+        _build.ptr(sub_base_dev), _build.ptr(du_base_dev), int(np.diff(sub_base).max()),
         _build.ptr(rec), _build.ptr(used), _build.ptr(first_du), _build.ptr(dcdiff),
         _build.ptr(lut), _build.ptr(flag), ctypes.c_void_p(ctypes.addressof(rounds)),
         None if pass_ms is None else ctypes.c_void_p(ctypes.addressof(pass_ms)),
         _build.stream_of(status),
     )
     if records is not None:
-        records.update(rec=rec, used=used, first_du=first_du, sub_base=sub_base,
-                       rounds=rounds[0], steps=rounds[1], pass_ms=list(pass_ms))
+        layout = sub_base_dev.cpu().numpy()
+        end = int(layout[-1])
+        records.update(rec=rec[:end], used=used[:end], first_du=first_du[:end],
+                       sub_base=layout, rounds=rounds[0], steps=rounds[1],
+                       pass_ms=list(pass_ms))
     return status
 
 
@@ -551,56 +602,135 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
 
 
 class Unstuffed(NamedTuple):
-    """unstuff_segments' result."""
+    """unstuff_segments' result, all on the raw bytes' device."""
 
-    stream: torch.Tensor      # uint8: the unstuffed segments + 8 zero bytes
-    seg_off: torch.Tensor     # int64 [n_segs + 1], on the stream's device
-    seg_off_host: np.ndarray  # the same on the host, for check_status
+    #: uint8 [n_raw + 8]: the unstuffed segments back to back, then 8 zero
+    #: bytes: stream[: seg_off[-1] + 8]; the bytes past those are undefined
+    #: (K2 never reads them)
+    stream: torch.Tensor
+    seg_off: torch.Tensor   # int64 [n_segs + 1]
+    sub_base: torch.Tensor  # int64 [n_segs + 1]: K2's record layout, sub_layout(seg_off)
 
 
-def _unstuff_plain(raw, lo, hi):
-    """K2u in torch ops (mask, cumsum, index): a byte is kept iff it lies in
-    a segment [lo[s], hi[s]) and is not the 0x00 after a 0xFF of the same
-    segment; returns (stream with 8 zero bytes of tail, seg_off)."""
-    n_raw = raw.numel()
-    j = torch.arange(n_raw, device=raw.device)
+def _keep_mask(raw, lo, hi):
+    """K2u's rule: a byte is kept iff it lies in a segment [lo[s], hi[s])
+    and is not the 0x00 after a 0xFF of the same segment."""
+    j = torch.arange(raw.numel(), device=raw.device)
+    if not lo.numel():
+        return torch.zeros_like(j, dtype=torch.bool)
     s = torch.searchsorted(lo, j, right=True) - 1      # last segment starting at or before j
     sc = torch.clamp(s, min=0)
     inside = (s >= 0) & (j < hi[sc])
     prev_ff = torch.cat([raw.new_zeros(1, dtype=torch.bool), raw[:-1] == 0xFF])
-    keep = inside & ~((raw == 0) & prev_ff & (j - 1 >= lo[sc]))
+    return inside & ~((raw == 0) & prev_ff & (j - 1 >= lo[sc]))
+
+
+def _unstuff_plain(raw, lo, hi) -> Unstuffed:
+    """K2u in torch ops (mask, cumsum, index); the bytes past the tail are
+    zeros here."""
+    keep = _keep_mask(raw, lo, hi)
     before = torch.cat([keep.new_zeros(1, dtype=torch.int64), torch.cumsum(keep, 0)])
     seg_off = torch.cat([before[lo], before[-1:]])
-    return torch.cat([raw[keep], raw.new_zeros(8)]), seg_off
+    kept = raw[keep]
+    stream = torch.cat([kept, raw.new_zeros(raw.numel() + 8 - kept.numel())])
+    return Unstuffed(stream, seg_off, _sub_base_plain(seg_off))
+
+
+def _unstuff_tiled_plain(raw, lo, hi, tile_bytes: int) -> Unstuffed:
+    """A model of K2u's schedule (csrc/unstuff.cu) on the host, for the
+    tests; never a decode path. Tile by tile in the order of their ids:
+    the segments that touch the tile (none cut it: every byte is inside
+    the one before; else the listed bounds decide), the keep mask from the
+    0x00 and 0xFF bytes and the byte before the tile, the tile's output
+    offset from the look-back (the sum of its predecessors' counts: in tile
+    order every predecessor has published its prefix), the compaction, the
+    offsets of the segments that start in the tile, and from the last tile
+    seg_off[n_segs] and the tail."""
+    r = raw.cpu().numpy()
+    lo_h, hi_h = lo.cpu().numpy(), hi.cpu().numpy()
+    n_raw, n = r.shape[0], lo_h.shape[0]
+    n_tiles = n_raw // tile_bytes + 1          # byte n_raw belongs to the last tile
+    out = np.zeros(n_raw + 8, dtype=np.uint8)
+    seg_off = np.zeros(n + 1, dtype=np.int64)
+    offset = 0                                 # the look-back's result
+    for tile in range(n_tiles):
+        t0, t1 = tile * tile_bytes, (tile + 1) * tile_bytes
+        j = np.arange(t0, t1)
+        b = np.zeros(tile_bytes, dtype=np.uint8)
+        b[: max(0, min(t1, n_raw) - t0)] = r[t0:t1]
+        sb, se = np.searchsorted(lo_h, t0), np.searchsorted(lo_h, t1)
+        starts = np.zeros(tile_bytes, dtype=bool)
+        if sb == se and sb > 0 and hi_h[sb - 1] >= t1:
+            inside = np.ones(tile_bytes, dtype=bool)
+        else:
+            inside = np.zeros(tile_bytes, dtype=bool)
+            for s in range(max(sb - 1, 0), se):
+                inside |= (j >= lo_h[s]) & (j < hi_h[s])
+                if lo_h[s] >= t0:
+                    starts[lo_h[s] - t0] = True
+        prev = np.concatenate([[r[t0 - 1] if 0 < t0 <= n_raw else 0], b[:-1]])
+        keep = inside & ~((b == 0) & (prev == 0xFF) & ~starts)
+        before = np.concatenate([[0], np.cumsum(keep)])
+        kept = b[keep]
+        out[offset : offset + kept.shape[0]] = kept
+        for s in range(sb, se):
+            seg_off[s] = offset + before[lo_h[s] - t0]
+        offset += kept.shape[0]
+    seg_off[n] = offset                        # the tail stays zero
+    seg_off_t = torch.from_numpy(seg_off)
+    return Unstuffed(torch.from_numpy(out), seg_off_t, _sub_base_plain(seg_off_t))
+
+
+def _check_unstuff_args(raw, lo, hi) -> None:
+    dev = raw.device
+    for t, dtype in ((raw, torch.uint8), (lo, torch.int64), (hi, torch.int64)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != dev or t.dim() != 1:
+            raise ValueError(f"unstuff_segments: expected contiguous 1-d {dtype} on {dev}")
+    if lo.shape != hi.shape or raw.data_ptr() % 16:
+        raise ValueError("unstuff_segments: bounds disagree, or the bytes are not 16-byte aligned")
 
 
 def unstuff_segments(raw, lo, hi) -> Unstuffed:
     """The raw entropy-coded bytes of a group's scans (uint8) and the raw
     bounds of its restart segments (int64 [n_segs] each, ascending; the
     markers lie between them) -> the unstuffed stream and its offsets, as
-    pack_scan builds them on the host. CPU tensors: the plain version. CUDA
-    tensors: K2u. Either way the offsets are read back once: the stream's
-    length is theirs, and check_status and K2's wrapper need them."""
+    pack_scan builds them on the host, and K2's record layout. CPU tensors:
+    the plain version. CUDA tensors: K2u, one call (a memset of its
+    look-back scratch, the single pass, then a one-block kernel for
+    sub_base); nothing is read back, so K2 can be queued straight after
+    it."""
     dev = raw.device
     if dev.type == "cpu":
-        stream, seg_off = _unstuff_plain(raw, lo, hi)
-        return Unstuffed(stream, seg_off, seg_off.numpy())
+        return _unstuff_plain(raw, lo, hi)
     if not raw.is_cuda:
         raise ValueError(f"unstuff_segments: no kernel for {dev}")
-    for t, dtype in ((raw, torch.uint8), (lo, torch.int64), (hi, torch.int64)):
-        if t.dtype != dtype or not t.is_contiguous() or t.device != dev or t.dim() != 1:
-            raise ValueError(f"unstuff_segments: expected contiguous 1-d {dtype} on {dev}")
-    if lo.shape != hi.shape or raw.data_ptr() % 16:
-        raise ValueError("unstuff_segments: bounds disagree, or the bytes are not 16-byte aligned")
+    _check_unstuff_args(raw, lo, hi)
     n_raw, n = raw.numel(), lo.numel()
     out = torch.empty(n_raw + 8, dtype=torch.uint8, device=dev)
     seg_off = torch.empty(n + 1, dtype=torch.int64, device=dev)
-    block_sum = torch.empty((n_raw + 1 + 4095) // 4096, dtype=torch.int64, device=dev)
+    sub_base = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    # a look-back word a tile and the tile counter; the C function clears them
+    scratch = torch.empty(n_raw // _build.library().jdtc_unstuff_tile_bytes() + 2,
+                          dtype=torch.int64, device=dev)
     _build.launch("jdtc_unstuff", _build.ptr(raw), n_raw, _build.ptr(lo), _build.ptr(hi),
+                  n, _build.ptr(scratch), _build.ptr(out), _build.ptr(seg_off),
+                  _build.ptr(sub_base), SUB_BYTES, _build.stream_of(out))
+    return Unstuffed(out, seg_off, sub_base)
+
+
+def _unstuff_3pass(raw, lo, hi):
+    """The earlier K2u design (three kernels), for measurement only: (out [n_raw + 8],
+    seg_off) on the card, as unstuff_segments' first two. No decode path
+    calls it."""
+    _check_unstuff_args(raw, lo, hi)
+    n_raw, n = raw.numel(), lo.numel()
+    out = torch.empty(n_raw + 8, dtype=torch.uint8, device=raw.device)
+    seg_off = torch.empty(n + 1, dtype=torch.int64, device=raw.device)
+    block_sum = torch.empty((n_raw + 1 + 4095) // 4096, dtype=torch.int64, device=raw.device)
+    _build.launch("jdtc_unstuff_3pass", _build.ptr(raw), n_raw, _build.ptr(lo), _build.ptr(hi),
                   n, _build.ptr(block_sum), _build.ptr(out), _build.ptr(seg_off),
                   _build.stream_of(out))
-    seg_off_h = seg_off.cpu().numpy()
-    return Unstuffed(out[: int(seg_off_h[-1]) + 8], seg_off, seg_off_h)
+    return out, seg_off
 
 
 class ScanPack(NamedTuple):
@@ -656,40 +786,52 @@ def _bytes_to_device(raws, device):
         warnings.simplefilter("ignore", UserWarning)
         parts = [torch.from_numpy(r) for r in raws]
     if len(parts) == 1:
-        return parts[0].to(device)
+        return parts[0].to(device, non_blocking=True)
     out = torch.empty(sum(p.numel() for p in parts), dtype=torch.uint8, device=device)
     at = 0
     for p in parts:
-        out[at : at + p.numel()].copy_(p)
+        out[at : at + p.numel()].copy_(p, non_blocking=True)
         at += p.numel()
     return out
 
 
 def to_device(args, device):
     """host_args' arrays as tensors on `device` (ri stays an int; the list
-    of raw byte arrays becomes one tensor, see _bytes_to_device)."""
+    of raw byte arrays becomes one tensor, see _bytes_to_device). The
+    copies do not wait for the device: from pageable memory the source is
+    staged before each call returns, so the host arrays may go at once."""
     return tuple(_bytes_to_device(a, device) if isinstance(a, list)
-                 else torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) else a
+                 else torch.from_numpy(a).to(device, non_blocking=True)
+                 if isinstance(a, np.ndarray) else a
                  for a in args)
+
+
+def raw_bound(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """HostArrays.seg_bound from the segments' raw bounds: the raw lengths,
+    which bound the unstuffed ones, back to back."""
+    return np.concatenate([[0], np.cumsum(hi - lo)]).astype(np.int64)
 
 
 def launch_args(packs, device):
     """(decode_segments' arguments before `planes` on `device`, their
     HostArrays) for ScanPacks of one group: each image's raw bytes copied
-    to the device, then unstuff_segments there. The HostArrays go to
-    decode_segments as `host`, their seg_off to check_status."""
+    to the device, then unstuff_segments there; nothing is read back. The
+    HostArrays go to decode_segments as `host` (the raw lengths bound the
+    segments', and K2u's sub_base is K2's layout); check_status takes the
+    device seg_off, args[1]."""
     on_host = host_args(packs)
     raw, lo, hi, *rest = to_device(on_host, device)
-    stream, seg_off, seg_off_host = unstuff_segments(raw, lo, hi)
-    _raws, _lo, _hi, seg_img, _seg_idx, _ri, total_mcus, units, _tables = on_host
-    return (stream, seg_off, *rest), HostArrays(seg_off_host, seg_img, total_mcus, units)
+    un = unstuff_segments(raw, lo, hi)
+    _raws, lo_h, hi_h, seg_img, _seg_idx, _ri, total_mcus, units, _tables = on_host
+    return ((un.stream, un.seg_off, *rest),
+            HostArrays(raw_bound(lo_h, hi_h), seg_img, total_mcus, units, un.sub_base))
 
 
 def decode_scan(structure, scan, planes) -> None:
     """One sequential scan -> `planes` (device tensors), raising on a bad
     or truncated stream: a group of one image."""
     args, host = launch_args([prepare_scan(structure, scan)], planes[0].device)
-    check_status(decode_segments(*args, [planes], host=host), host.seg_off)
+    check_status(decode_segments(*args, [planes], host=host), args[1])
 
 
 def batchable(structure) -> bool:
@@ -739,7 +881,7 @@ def entropy_decode_batch(structures, cfg: DecodeConfig, planes):
     launched = []
     for packs, group_planes in groups.values():
         args, host = launch_args(packs, group_planes[0][0].device)
-        launched.append((decode_segments(*args, group_planes, host=host), host.seg_off))
+        launched.append((decode_segments(*args, group_planes, host=host), args[1]))
     for status, seg_off in launched:
         check_status(status, seg_off)
     return results

@@ -43,7 +43,15 @@ from jpeg_decoder_tpu_torch.io.markers import Encoding
 from jpeg_decoder_tpu_torch.models import decoder as tdecoder
 from jpeg_decoder_tpu_torch.utils import jax_free
 
-from .torch_crossing import block_boundary_case, dc_only_stream
+from .torch_crossing import (
+    block_boundary_case,
+    bound_at,
+    dc_only_stream,
+    empty_segments,
+    pairs_across_edges,
+    scan_bytes,
+    unstuffed_by_the_host,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -93,7 +101,7 @@ def test_k2_matches_plain(cuda_device, name):
     st_p = entropy_cuda._decode_segments_plain(*args, [want])
     torch.cuda.synchronize()
     assert torch.equal(st_k.cpu(), st_p.cpu())
-    entropy_cuda.check_status(st_k, host.seg_off)
+    entropy_cuda.check_status(st_k, args[1])
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
 
@@ -120,7 +128,7 @@ def test_k2_on_photographs_matches_plain_and_native(cuda_device, name):
     st_k = entropy_cuda.decode_segments(*args, [got], host=host)
     st_p = entropy_cuda._decode_segments_plain(*args, [want])
     assert torch.equal(st_k.cpu(), st_p.cpu())
-    entropy_cuda.check_status(st_k, host.seg_off)
+    entropy_cuda.check_status(st_k, args[1])
     _, native, _ = thost.host_decode(data, DecodeConfig())
     for a, b, c in zip(got, want, native.planes):
         assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), torch.from_numpy(c))
@@ -143,7 +151,7 @@ def test_k2_batch_matches_plain_and_single_launches(cuda_device):
     st_p = entropy_cuda._decode_segments_plain(*args, want)
     torch.cuda.synchronize()
     assert torch.equal(st_k.cpu(), st_p.cpu())
-    entropy_cuda.check_status(st_k, host.seg_off)
+    entropy_cuda.check_status(st_k, args[1])
     for s, g, w in zip(structures, got, want):
         single = convert.zero_planes(s.frame, cuda_device)
         entropy_cuda.decode_scan(s, s.scans[0], single)
@@ -274,7 +282,7 @@ def test_k2_matches_plain_random_shapes(cuda_device, seed):
     st_k = entropy_cuda.decode_segments(*args, got)
     st_p = entropy_cuda._decode_segments_plain(*args, want)
     assert torch.equal(st_k.cpu(), st_p.cpu())
-    entropy_cuda.check_status(st_k, host.seg_off)
+    entropy_cuda.check_status(st_k, args[1])
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             assert torch.equal(a.cpu(), b.cpu())
@@ -299,14 +307,23 @@ def test_k2_dc_sum_wraps_like_the_int32_predictor(cuda_device):
 
 
 def _assert_k2u(raw, lo, hi, stream, seg_off, device):
+    """One K2u call (one launch) against the plain version on the card and
+    against the host's stream and offsets, bitwise: the first
+    seg_off[-1] + 8 bytes of the n_raw + 8 byte buffer, the offsets, and
+    K2's layout (sub_layout of the offsets)."""
+    raw, lo, hi = (torch.as_tensor(np.ascontiguousarray(a)) for a in (raw, lo, hi))
     before = _build.LAUNCHES["jdtc_unstuff"]
     got = entropy_cuda.unstuff_segments(raw.to(device), lo.to(device), hi.to(device))
     assert _build.LAUNCHES["jdtc_unstuff"] == before + 1
     plain = entropy_cuda._unstuff_plain(raw.to(device), lo.to(device), hi.to(device))
     torch.cuda.synchronize()
-    assert torch.equal(got.stream, plain[0]) and torch.equal(got.seg_off, plain[1])
-    np.testing.assert_array_equal(got.stream.cpu().numpy(), stream)
-    np.testing.assert_array_equal(got.seg_off_host, seg_off)
+    end = len(stream)
+    assert got.stream.numel() == raw.numel() + 8
+    assert torch.equal(got.stream[:end], plain.stream[:end])
+    assert torch.equal(got.seg_off, plain.seg_off) and torch.equal(got.sub_base, plain.sub_base)
+    np.testing.assert_array_equal(got.stream[:end].cpu().numpy(), stream)
+    np.testing.assert_array_equal(got.seg_off.cpu().numpy(), seg_off)
+    np.testing.assert_array_equal(got.sub_base.cpu().numpy(), entropy_cuda.sub_layout(seg_off))
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
@@ -353,7 +370,103 @@ def test_k2u_batch_with_an_empty_last_segment(cuda_device):
             sp.segment_bounds_flat().reshape(-1, 2) - sp.start))
     raw, lo, hi, *_ = entropy_cuda.to_device(entropy_cuda.host_args(packs), "cpu")
     want = entropy_cuda.unstuff_segments(raw, lo, hi)
-    _assert_k2u(raw, lo, hi, want.stream.numpy(), want.seg_off_host, cuda_device)
+    end = int(want.seg_off[-1]) + 8
+    _assert_k2u(raw, lo, hi, want.stream[:end].numpy(), want.seg_off.numpy(), cuda_device)
+
+
+def _k2u_cut_cases():
+    """Raw bytes cut where K2u's kernel cuts them: stuffed pairs across
+    every edge of its 16-byte loads (a thread's 32 bytes), of a warp's 1024
+    bytes and of its 4096-byte tiles; bounds at every position of a
+    thread's bytes and near the edges of a warp and of a tile; empty
+    segments, an empty last one, none, and a segment across several
+    tiles."""
+    cases = {f"pairs_every_{step}": pairs_across_edges(step) for step in (16, 1024, 4096)}
+    for p in [*range(0, 72), *range(1000, 1048), *range(4048, 4096)]:
+        cases[f"bound_at_{p}"] = bound_at(4096, p)
+    for tile in (16, 4096):
+        for i, case in enumerate(empty_segments(tile)):
+            cases[f"empty_{tile}_{i}"] = case
+    return cases
+
+
+@pytest.mark.parametrize("name", ["pairs_every_16", "pairs_every_1024", "pairs_every_4096",
+                                  "bound_at", "empty"])
+def test_k2u_where_the_kernel_cuts(cuda_device, name):
+    assert _build.library().jdtc_unstuff_tile_bytes() == 4096
+    for key, (raw, lo, hi) in _k2u_cut_cases().items():
+        if key.startswith(name):
+            _assert_k2u(raw, lo, hi, *unstuffed_by_the_host(raw, lo, hi), cuda_device)
+
+
+def test_k2u_eight_4k_images_in_one_call(cuda_device):
+    """A batch group of eight dense 3840x2160 requests (1080 segments,
+    65 MB of raw bytes: 15,800 tiles) in one call."""
+    datas = [make_jpeg(3840, 2160, F420, 240, seed) for seed in range(8)]
+    raw, lo, hi = scan_bytes(datas)
+    _assert_k2u(raw, lo, hi, *unstuffed_by_the_host(raw, lo, hi), cuda_device)
+
+
+def test_k2u_and_k2_read_nothing_back_before_k2(cuda_device):
+    """No synchronisation from the raw bytes' upload to K2's first kernel:
+    launch_args and K2's wrapper up to its launch run with PyTorch's sync
+    debug mode set to raise (K2's own flag reads in pass 2, a C call, are
+    not PyTorch's)."""
+    structures, packs, _ = _group([make_jpeg(640, 352, F420, 40, 12)], cuda_device)
+    got = [convert.zero_planes(structures[0].frame, cuda_device)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        args, host = entropy_cuda.launch_args(packs, cuda_device)
+        status = entropy_cuda.decode_segments(*args, got, host=host)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    entropy_cuda.check_status(status, args[1])
+    want = [convert.zero_planes(structures[0].frame, cuda_device)]
+    st_p = entropy_cuda._decode_segments_plain(*args, want)
+    assert torch.equal(status.cpu(), st_p.cpu())
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("entry", ["decode", "JpegDecoder", "decode_batch", "decode_stream",
+                                   "decode_many"])
+def test_pallas_paths_do_not_synchronise_before_k2(cuda_device, monkeypatch, entry):
+    """Every PALLAS path, from the upload of the raw bytes (to_device) to
+    K2's launch, under PyTorch's sync debug mode set to raise; the window
+    opens and closes once per K2 call."""
+    windows = []
+    to_device, launch = entropy_cuda.to_device, _build.launch
+
+    def opening(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        windows.append("open")
+        return to_device(*a, **k)
+
+    def closing(name, *a):
+        if name == "jdtc_entropy_decode":
+            torch.cuda.set_sync_debug_mode("default")
+            windows.append("closed")
+        return launch(name, *a)
+
+    monkeypatch.setattr(entropy_cuda, "to_device", opening)
+    monkeypatch.setattr(_build, "launch", closing)
+    datas = [make_jpeg(64, 48, F420, 4, 400 + i) for i in range(4)]
+    cfg = PALLAS
+    try:
+        if entry == "decode":
+            jtt.decode(datas[0], cfg, device=cuda_device)
+        elif entry == "JpegDecoder":
+            jtt.JpegDecoder(cfg, device=cuda_device).decode(datas[0])
+        elif entry == "decode_batch":
+            jtt.BatchDecoder(cfg, device=cuda_device).decode_batch(datas)
+        elif entry == "decode_stream":
+            list(jtt.BatchDecoder(cfg, device=cuda_device).decode_stream(datas, batch_size=2))
+        else:
+            jtt.BatchDecoder(cfg, device=cuda_device).decode_many(datas[:2] + [_stream("444_ri1")])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert windows and windows == ["open", "closed"] * (len(windows) // 2)
 
 
 def _idct_inputs(seed, by, bx):

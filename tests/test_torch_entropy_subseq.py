@@ -34,9 +34,9 @@ SIZES = [4, 8, 16, 128]
 
 def _args(datas):
     structures = [parse(d) for d in datas]
-    args, host = entropy_cuda.launch_args(
+    args, _host = entropy_cuda.launch_args(
         [entropy_cuda.prepare_scan(s, s.scans[0]) for s in structures], "cpu")
-    return structures, args, host.seg_off
+    return structures, args, args[1]
 
 
 def _zeros(structures):
@@ -263,16 +263,24 @@ def test_model_eob_and_zrl_at_a_boundary():
 # ---------------------------------------------------------------------------
 
 
+def assert_unstuffed(got, raw, stream, seg_off):
+    """unstuff_segments' contract: the n_raw + 8 byte buffer begins with
+    the host's stream (segments and 8 zero bytes; the plain version's are
+    zeros past it), seg_off is the host's, sub_base K2's layout of it."""
+    assert got.stream.numel() == raw.numel() + 8
+    np.testing.assert_array_equal(got.stream.numpy()[: len(stream)], stream)
+    assert not got.stream.numpy()[len(stream):].any()
+    np.testing.assert_array_equal(got.seg_off.numpy(), seg_off)
+    np.testing.assert_array_equal(got.sub_base.numpy(), entropy_cuda.sub_layout(seg_off))
+
+
 def _assert_unstuff_matches_pack_scan(data):
     s = parse(data)
     scan = s.scans[0]
     pack = entropy_cuda.prepare_scan(s, scan)
     _ri, stream, seg_off = entropy_cuda.pack_scan(s, scan, pack.total_mcus, pack.units.shape[0])
     raw, lo, hi, *_ = entropy_cuda.to_device(entropy_cuda.host_args([pack]), "cpu")
-    got = entropy_cuda.unstuff_segments(raw, lo, hi)
-    np.testing.assert_array_equal(got.stream.numpy(), stream)
-    np.testing.assert_array_equal(got.seg_off.numpy(), seg_off)
-    np.testing.assert_array_equal(got.seg_off_host, seg_off)
+    assert_unstuffed(entropy_cuda.unstuff_segments(raw, lo, hi), raw, stream, seg_off)
     return raw, stream
 
 
@@ -319,10 +327,8 @@ def test_unstuff_plain_batch_and_an_empty_last_segment():
     got = entropy_cuda.unstuff_segments(raw, lo, hi)
     want = [entropy_cuda.bsio.unstuff(raw.numpy(), int(a), int(b))[0]
             for a, b in zip(lo, hi)]
-    np.testing.assert_array_equal(got.stream.numpy(),
-                                  np.concatenate(want + [np.zeros(8, np.uint8)]))
-    np.testing.assert_array_equal(
-        got.seg_off_host, np.concatenate([[0], np.cumsum([len(x) for x in want])]))
+    assert_unstuffed(got, raw, np.concatenate(want + [np.zeros(8, np.uint8)]),
+                     np.concatenate([[0], np.cumsum([len(x) for x in want])]))
 
 
 def test_raw_bytes_go_to_the_device_from_where_they_lie():
@@ -348,7 +354,6 @@ def test_unstuff_plain_pair_across_a_4096_byte_block():
     pairs are placed across both kinds of boundary (the plain version has
     no blocks; the card test runs the same bytes through the kernel)."""
     raw, lo, hi, want_stream, want_off = block_boundary_case()
-    got = entropy_cuda.unstuff_segments(torch.from_numpy(raw), torch.from_numpy(lo),
-                                        torch.from_numpy(hi))
-    np.testing.assert_array_equal(got.stream.numpy(), want_stream)
-    np.testing.assert_array_equal(got.seg_off_host, want_off)
+    raw = torch.from_numpy(raw)
+    got = entropy_cuda.unstuff_segments(raw, torch.from_numpy(lo), torch.from_numpy(hi))
+    assert_unstuffed(got, raw, want_stream, want_off)

@@ -117,3 +117,79 @@ def block_boundary_case():
     stream = np.concatenate(segs + [np.zeros(8, np.uint8)])
     seg_off = np.concatenate([[0], np.cumsum([len(x) for x in segs])]).astype(np.int64)
     return raw, lo, hi, stream, seg_off
+
+
+def plain_bytes(rng, n):
+    """Random bytes with no 0x00 and no 0xFF."""
+    return rng.integers(1, 255, n, dtype=np.uint8)
+
+
+def scan_bytes(datas):
+    """raw, lo, hi of the streams' scans laid back to back, as host_args
+    lays out a group (any streams: unstuffing takes no group key)."""
+    from jpeg_decoder_tpu_torch.io.parser import parse
+
+    raws, bounds, at = [], [], 0
+    for data in datas:
+        span = parse(data).scans[0].span
+        raws.append(np.frombuffer(data[span.start : span.end], dtype=np.uint8))
+        bounds.append(span.segment_bounds_flat().reshape(-1, 2) - span.start + at)
+        at += raws[-1].shape[0]
+    b = np.concatenate(bounds)
+    return np.concatenate(raws), b[:, 0].copy(), b[:, 1].copy()
+
+
+def pairs_across_edges(step):
+    """(raw, lo, hi): a stuffed pair across every edge of `step` bytes
+    (0xFF the last byte before it, 0x00 the first after), in two segments
+    with a marker between, a 0x00 that starts the second segment right
+    after the marker, and a 0xFF 0x00 0x00 run (only the first 0x00 is
+    stuffed)."""
+    rng = np.random.default_rng(step)
+    n = 9 * step + 11
+    raw = plain_bytes(rng, n)
+    for edge in range(step, n, step):
+        raw[edge - 1 : edge + 1] = (0xFF, 0x00)
+    mid = 4 * step + 5
+    raw[mid : mid + 2] = (0xFF, 0xD3)
+    raw[mid + 2] = 0x00
+    raw[mid + 9 : mid + 12] = (0xFF, 0x00, 0x00)
+    return raw, np.array([0, mid + 2], dtype=np.int64), np.array([mid, n - 1], dtype=np.int64)
+
+
+def bound_at(tile, p, seed=0):
+    """(raw, lo, hi): segments that start and end at position p of a tile
+    of `tile` bytes, a marker between them, a stuffed pair on each side of
+    every bound."""
+    raw = plain_bytes(np.random.default_rng(seed + 1000 * tile + p), 6 * tile)
+    n = raw.shape[0]
+    lo = np.array([0, tile + p, 3 * tile + p], dtype=np.int64)
+    hi = np.array([tile + p - 2, 3 * tile + p - 2, n - (p % 3)], dtype=np.int64)
+    for b in (tile + p - 2, 3 * tile + p - 2):
+        raw[b : b + 2] = (0xFF, 0xD0 + p % 8)        # the marker
+        raw[b - 2 : b] = (0xFF, 0x00)                 # a pair that ends a segment
+        raw[b + 2 : b + 4] = (0xFF, 0x00)             # and one that starts the next
+    return raw, lo, hi
+
+
+def empty_segments(tile):
+    """[(raw, lo, hi)]: empty segments inside a tile of `tile` bytes and on
+    a tile edge, two segments that start at one byte, and an empty last
+    segment at the end of the bytes; no segment at all; one segment that
+    starts on a tile edge and spans several tiles."""
+    raw = plain_bytes(np.random.default_rng(7), 5 * tile)
+    n = raw.shape[0]
+    raw[tile - 1 : tile + 1] = (0xFF, 0x00)
+    none = np.zeros(0, np.int64)
+    return [(raw, np.array([0, 3, 3, tile, tile, 2 * tile + 1, n], dtype=np.int64),
+             np.array([1, 3, tile - 2, tile, 2 * tile, n - 2, n], dtype=np.int64)),
+            (raw, none, none),
+            (raw, np.array([tile], np.int64), np.array([4 * tile], np.int64))]
+
+
+def unstuffed_by_the_host(raw, lo, hi):
+    """The host's unstuffing of raw[lo[s]:hi[s]], segment by segment:
+    (stream with its 8 zero bytes of tail, seg_off)."""
+    segs = [bitstream.unstuff(raw, int(a), int(b))[0] for a, b in zip(lo, hi)]
+    seg_off = np.concatenate([[0], np.cumsum([len(x) for x in segs])]).astype(np.int64)
+    return np.concatenate(segs + [np.zeros(8, np.uint8)]), seg_off
