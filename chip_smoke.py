@@ -16,7 +16,9 @@ Phases, each of which exits non-zero on failure:
      wrote with restart markers (tests/wild_files/transcoded: a photograph,
      640x427 4:2:0, and a drawing, 161x161 4:2:2), and the coefficients of
      two photographs of that corpus tiled to 3840x2160 4:2:0 with a marker
-     per MCU row (benchmarks/inputs.photo_jpeg);
+     per MCU row (benchmarks/inputs.photo_jpeg), and the corpus's
+     4-component photograph (hopper_cmyk_adobe.jpg, 4:4:4, Adobe APP14
+     transform 0) tiled to 3840x2160 with a marker per MCU row;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it: K2 (entropy) bitwise, on a 640x352
      stream (where its per-subsequence records are also held against the
@@ -54,6 +56,16 @@ Phases, each of which exits non-zero on failure:
      their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at both chain
      lengths the probe path launches them at, in both table placements
      where the table fits shared memory, PK6 also from a random state;
+     K3f (fancy upsample + colour) bitwise on the dense 4K request's
+     planes, flower_dri_blocks7_422.jpg, random 4:1:1 and 4:2:1 planes at
+     4K, a batch of four and the 4K 4-component frame (YCCK EXACT, YCCK
+     FLOAT32, CMYK), both quirks, timed beside K3 on the same planes; K3c
+     (nearest-neighbour 4-component colour) bitwise on the 4K 4-component
+     frame and, under YCCK EXACT, on a 4096x4096 frame that walks R's whole
+     (y, cr, k) domain against the float64 chain in NumPy; K5 (the scaled
+     IDCT) at k = 1, 2 and 4 on the 4K request's planes, within 1 on at
+     most 1e-3 of the pixels and bitwise at k = 1, timed beside the product
+     alone as one torch.matmul;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
@@ -74,16 +86,28 @@ Phases, each of which exits non-zero on failure:
        one (which the PALLAS route hands to the native host decode) and
        the gray one; every RGB bitwise equal to the single-image decode
        with the same config, and to the reference under EXACT;
+     - the configs of ROADMAP item 2, PALLAS and NATIVE: a 4K fancy request
+       under EXACT (K0 x 3 + K3f, bitwise the host reference: the port's
+       use_device=False pixel path) and FLOAT32 (K1 x 3 + K3f), the 4K
+       4-component frame as YCCK (REFERENCE) and CMYK (CORRECT) (K0 x 4 +
+       K3c, bitwise the host reference), 4K requests at scale 1, 2 and 4
+       (K5 x 3 + K3, against the plain version on CPU tensors), and
+       BatchDecoder.decode_batch of the eight 4K requests with fancy
+       upsampling (K0 x 3 + K3f once, bitwise the host reference and the
+       single-image decodes);
      - the probe path through its entry point, benchmarks.gather_probe.main
        with all four rounds at the rounds' own chain lengths: 21 ns/step
        lines;
   5. stage times with CUDA events: per image (H2D, K2u, K2, K03 and K13,
      D2H), and per batch of eight (H2D, K2u, K2, K03 under EXACT or K13
      under FLOAT32, D2H), each with the host clock of the parse that
-     remains on the host.
-The last lines are the kernels' JSON record (fourteen kernels: K0-K3, K03,
-K13, K2u and PK1-PK7, each with its launches on the main paths, its time,
-its plain version's time and its bound), the card's name and power limit, and
+     remains on the host; and the pixel stage of item 2's routes on a 4K
+     request (fancy, scale 4 and 1, YCCK, CMYK) beside K03, one call and
+     the card alone, with the D2H and the warm PALLAS request latency.
+The last lines are the kernels' JSON record (seventeen kernels: K0-K3, K03,
+K13, K2u, K3f, K3c, K5 and PK1-PK7, each with its launches on the main
+paths, its time, its plain version's time and its bound), the card's name
+and power limit, and
 {"ok": true, "device": {...}}. The script imports the port alone, builds
 the CUDA kernels and the native host runtime from the port's own sources,
 and fails if anything loaded JAX or the JAX package jpeg_decoder_tpu.
@@ -211,7 +235,21 @@ def _ints(t) -> np.ndarray:
     return (t.to("cpu").numpy() if hasattr(t, "to") else np.asarray(t)).astype(np.int64)
 
 
+def _on_card(a, b) -> bool:
+    """Both are tensors on one CUDA device: compare them there, not through
+    int64 copies of every 4K output on the host."""
+    return (getattr(a, "is_cuda", False) and getattr(b, "is_cuda", False)
+            and a.device == b.device)
+
+
 def max_abs_err(a, b) -> int:
+    if _on_card(a, b):
+        if a.shape != b.shape:
+            fail(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+        import torch
+
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        return int(d.max().item()) if d.numel() else 0
     a, b = _ints(a), _ints(b)
     if a.shape != b.shape:
         fail(f"shape mismatch {a.shape} vs {b.shape}")
@@ -228,6 +266,11 @@ def wrapped_err(a, b) -> int:
 
 
 def share_differing(a, b) -> float:
+    if _on_card(a, b):
+        import torch
+
+        d = a.to(torch.int64) != b.to(torch.int64)
+        return float(d.double().mean().item()) if d.numel() else 0.0
     a, b = _ints(a), _ints(b)
     return float((a != b).mean()) if a.size else 0.0
 
@@ -1078,6 +1121,232 @@ def probe_path(kernels: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases: K3f, K3c and K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def pixel_planes_on(dev, data: bytes):
+    """(frame, the EXACT reference's uint8 pixel planes on the card)."""
+    import torch
+    from jpeg_decoder_tpu_torch import Quirks
+    from jpeg_decoder_tpu_torch.io.parser import parse
+
+    _, pix, _ = reference(data, Quirks.REFERENCE)
+    return parse(data).frame, [torch.from_numpy(p).to(dev) for p in pix]
+
+
+def random_planes(dev, w: int, h: int, factors, seed: int):
+    """Random uint8 pixel planes of a w x h frame of `factors` at MCU
+    padding, with an all-255 corner (the fancy passes' 256) and an all-0
+    one."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    mx, my = -(-w // (8 * mh)), -(-h // (8 * mv))
+    planes = []
+    for fh, fv in factors:
+        p = rng.integers(0, 256, (my * fv * 8, mx * fh * 8), dtype=np.uint8)
+        p[:9, :9] = 255
+        p[-9:, -9:] = 0
+        planes.append(torch.from_numpy(p).to(dev))
+    return planes
+
+
+#: 4-component transforms: name -> (exact, raw_cmyk)
+TRANSFORMS = {"YCCK EXACT": (True, False), "YCCK FLOAT32": (False, False),
+              "CMYK": (True, True)}
+
+
+def check_k3f(dev, requests, files: dict, cmyk: bytes, record: dict, card: str) -> None:
+    """K3f bitwise against its plain version (fancy_upsample + colour, torch
+    ops on the card), both quirks: the dense 4K 4:2:0 request's planes,
+    flower_dri_blocks7_422.jpg, random 4:1:1 and 4:2:1 planes at 4K, a
+    batch of four, and the 4K 4-component frame under YCCK EXACT, YCCK
+    FLOAT32 and CMYK. Then its time the card alone on the 4K request
+    beside K3's (nearest-neighbour) on the same planes."""
+    import torch
+    from jpeg_decoder_tpu_torch import Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.ops import color
+
+    frame, dense = pixel_planes_on(dev, requests[0])
+    flower = next(d for n, d in files.items() if "flower" in n)
+    fframe, fplanes = pixel_planes_on(dev, flower)
+    f411 = ((4, 1), (1, 1), (1, 1))
+    f421 = ((4, 2), (1, 1), (1, 1))
+    cframe, cplanes = pixel_planes_on(dev, cmyk)
+    stacked = [torch.stack([p, *(torch.roll(p, 17 * k, 1) for k in (1, 2, 3))]) for p in dense]
+    cases = {
+        f"dense {W}x{H} 4:2:0 request": (dense, H, W, F420, [(True, False)]),
+        "file flower_dri_blocks7_422.jpg (4:2:2)": (
+            fplanes, fframe.height, fframe.width, tuple((c.hsf, c.vsf) for c in fframe.components),
+            [(True, False)]),
+        f"random 4:1:1 planes at {W}x{H}": (random_planes(dev, W, H, f411, 41), H, W, f411,
+                                            [(True, False)]),
+        f"random 4:2:1 planes at {W}x{H}": (random_planes(dev, W, H, f421, 42), H, W, f421,
+                                            [(True, False)]),
+        f"batch of four {W}x{H} 4:2:0": (stacked, H, W, F420, [(True, False)]),
+        f"4-component {W}x{H} 4:4:4 (hopper_cmyk_adobe.jpg tiled)": (
+            cplanes, H, W, ((1, 1),) * 4, list(TRANSFORMS.values())),
+    }
+    err = 0
+    for name, (planes, h, w, factors, transforms) in cases.items():
+        e = 0
+        for quirks in (Quirks.REFERENCE, Quirks.CORRECT):
+            for exact, raw in transforms:
+                args = (planes, h, w, factors, quirks, "fancy", exact, raw)
+                e = max(e, max_abs_err(color.planes_to_rgb(*args),
+                                       color._planes_to_rgb_plain(*args)))
+        log(f"K3f fancy, {name}: max_abs_err {e} against its plain version (both quirks"
+            f"{', YCCK EXACT, YCCK FLOAT32 and CMYK' if len(transforms) > 1 else ''})")
+        err = max(err, e)
+    record["max_abs_err"] = err
+    if err != 0:
+        fail(f"K3f disagrees with its plain version (max_abs_err {err}; tolerance 0)")
+    q = Quirks.REFERENCE
+    fancy = lambda: color.planes_to_rgb(dense, H, W, F420, q, "fancy")  # noqa: E731
+    nn = lambda: color.planes_to_rgb(dense, H, W, F420, q)  # noqa: E731
+    k3 = pixel_sweep.card_ms(nn, 7)
+    ms = pixel_sweep.card_ms(fancy, 7)
+    plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(dense, H, W, F420, q, "fancy"), 3)
+    # Bound: the three planes in, 3 bytes a pixel out; 8 int32 operations
+    # a pixel for each chroma component (its share of a horizontal sum 3x +
+    # n + b, which two output rows use, and the vertical 3A + A' + 4b and
+    # shift), the colour step's ten float32 ones coming to less.
+    bnd = bound(nbytes_of(*dense) + 3 * H * W, 16 * H * W, "int32")
+    record.update(ms=ms, plain_ms=plain_ms, library_ms=None, k3_card_ms=k3,
+                  shape=f"{W}x{H} 4:2:0 planes", **bnd)
+    log(f"K3f fancy ({W}x{H} 4:2:0 planes): the card alone {ms:.4f} ms, K3"
+        f" (nearest-neighbour) on the same planes {k3:.4f} ms; plain"
+        f" {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+
+
+def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
+    """K3c (K3's kernel, jdtc_color, on four planes) bitwise against its
+    plain version (nearest-neighbour upsample +
+    YCCK or CMYK, torch ops on the card) on the 4K 4-component frame, both
+    quirks, YCCK EXACT, YCCK FLOAT32 and CMYK; then under YCCK EXACT on a
+    4096x4096 4:4:4 frame that walks R's whole (y, cr, k) domain against
+    the float64 chain in NumPy (core/numerics.ycck_channels_to_rgb). Its
+    time the card alone under each transform."""
+    import torch
+    from jpeg_decoder_tpu_torch import Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.core import numerics
+    from jpeg_decoder_tpu_torch.ops import color
+
+    f4 = ((1, 1),) * 4
+    _, planes = pixel_planes_on(dev, cmyk)
+    err = 0
+    for quirks in (Quirks.REFERENCE, Quirks.CORRECT):
+        for exact, raw in TRANSFORMS.values():
+            args = (planes, H, W, f4, quirks, "nn", exact, raw)
+            err = max(err, max_abs_err(color.planes_to_rgb(*args),
+                                       color._planes_to_rgb_plain(*args)))
+    log(f"K3c (K3 on four planes), 4-component {W}x{H} 4:4:4 (hopper_cmyk_adobe.jpg tiled): max_abs_err"
+        f" {err} against its plain version (both quirks; YCCK EXACT, YCCK FLOAT32, CMYK)")
+    y, cr, k = np.meshgrid(*[np.arange(256, dtype=np.uint8)] * 3, indexing="ij")
+    walk = [a.reshape(4096, 4096) for a in (y, np.full_like(y, 77), cr, k)]
+    on_card = [torch.from_numpy(a).to(dev) for a in walk]
+    dom = 0
+    for quirks in (Quirks.REFERENCE, Quirks.CORRECT):
+        got = color.planes_to_rgb(on_card, 4096, 4096, f4, quirks, "nn", True, False)
+        dom = max(dom, max_abs_err(got, numerics.ycck_channels_to_rgb(*walk, quirks)))
+    log(f"K3c (K3 on four planes), YCCK EXACT over R's whole (y, cr, k) domain (4096x4096 4:4:4): max_abs_err"
+        f" {dom} against the float64 chain in NumPy (both quirks)")
+    record["max_abs_err"] = max(err, dom)
+    if record["max_abs_err"] != 0:
+        fail(f"K3c disagrees (max_abs_err {record['max_abs_err']}; tolerance 0)")
+    q = Quirks.REFERENCE
+    times = {}
+    for name, (exact, raw) in TRANSFORMS.items():
+        fn = lambda: color.planes_to_rgb(planes, H, W, f4, q, "nn", exact, raw)  # noqa: E731
+        times[name] = pixel_sweep.card_ms(fn, 7)
+    plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(planes, H, W, f4, q), 3)
+    # Bound: the four planes in, 3 bytes a pixel out; YCCK EXACT's two
+    # dozen float64 operations a pixel come to less.
+    bnd = bound(nbytes_of(*planes) + 3 * H * W, 24 * H * W, "float64")
+    record.update(ms=times["YCCK EXACT"], plain_ms=plain_ms, library_ms=None,
+                  ms_by_transform=times, shape=f"{W}x{H} 4:4:4, four planes", **bnd)
+    log(f"K3c (K3 on four planes, {W}x{H} 4:4:4, four planes): the card alone "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items())
+        + f"; plain (YCCK EXACT) {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
+        f" {bnd['bound_by']} [{card}]")
+
+
+def check_k5(dev, big: bytes, record: dict, card: str) -> None:
+    """K5 against its plain version (idct_matmul_scaled and blocks_to_plane,
+    torch ops on the card) on the 4K request's three coefficient planes at
+    k = 1, 2 and 4: within 1 on at most K1_SHARE of the pixels, bitwise at
+    k = 1. Its time the card alone (three launches, one a plane) beside the
+    product alone as one library call (torch.matmul of the float32
+    coefficients by the folded [64, k*k] matrix, TF32 off, three calls)."""
+    import torch
+    from jpeg_decoder_tpu_torch import DecodeConfig, convert
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.core.types import ZIGZAG
+    from jpeg_decoder_tpu_torch.models import host
+    from jpeg_decoder_tpu_torch.ops import idct
+
+    frame, planes, qts = host.host_decode(big, DecodeConfig())
+    coeffs = [torch.from_numpy(p).to(dev) for p in planes.planes]
+    tables = [convert.quant_table_to_device(qts[c.qtid], dev) for c in frame.components]
+    zz = torch.as_tensor(ZIGZAG, dtype=torch.long, device=dev)
+
+    def plain(c, q, k):
+        by, bx, _ = c.shape
+        return idct.blocks_to_plane(idct.idct_matmul_scaled(c.reshape(-1, 64), q, k), by, bx, k)
+
+    err, share, by_k = 0, 0.0, {}
+    blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
+    for k in (1, 2, 4):
+        e, sh = 0, 0.0
+        for c, q in zip(coeffs, tables):
+            got, want = idct.idct_plane(c, q, False, scale=k), plain(c, q, k)
+            e, sh = max(e, max_abs_err(got, want)), max(sh, share_differing(got, want))
+        if k == 1 and e != 0:
+            fail(f"K5 at k = 1 differs from its plain version (max_abs_err {e}; tolerance 0)")
+        err, share = max(err, e), max(share, sh)
+        run = lambda: [idct.idct_plane(c, q, False, scale=k)  # noqa: E731
+                       for c, q in zip(coeffs, tables)]
+        ms = pixel_sweep.card_ms(run, 7)
+        xs = [c.reshape(-1, 64).to(torch.float32) for c in coeffs]
+        ms_ = [idct.idct_matrix_scaled_on(dev, k) * q[zz].to(torch.float32)[:, None]
+               for q in tables]
+        outs = [torch.empty((x.shape[0], k * k), dtype=torch.float32, device=dev) for x in xs]
+        with idct._true_float32_matmul():
+            product = pixel_sweep.card_ms(
+                lambda: [torch.matmul(x, m, out=o) for x, m, o in zip(xs, ms_, outs)], 7)
+        plain_ms = cuda_ms(lambda: [plain(c, q, k) for c, q in zip(coeffs, tables)], 3)
+        # Bound: of each block's int16 coefficients only the band (zigzag
+        # rows of M_k that are not zero: z <= 0, 4, 24 at k = 1, 2, 4),
+        # rounded up to the 32-byte sectors memory moves, read once; the
+        # tables and M_k read once; k*k bytes a block written; 2 k^4
+        # float32 operations a block.
+        band = int(np.flatnonzero(np.abs(idct.idct_matrix_zz_scaled(k)).sum(1))[-1]) + 1
+        read = -(-2 * band // 32) * 32
+        bnd = bound(read * blocks + nbytes_of(*tables) + 64 * k * k * 4 + blocks * k * k,
+                    2 * k ** 4 * blocks, "float32")
+        by_k[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=product, max_abs_err=e,
+                       share_differing=sh, band_bytes_read=read, **bnd)
+        log(f"K5 idct_scaled, k = {k} (the 4K request's three planes, {blocks} blocks): the"
+            f" card alone {ms:.4f} ms, the product alone (torch.matmul, TF32 off)"
+            f" {product:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
+            f" {bnd['bound_by']} ({read} B read a block, the band of {band} coefficients in"
+            f" 32-byte sectors; {ms / bnd['bound_ms']:.1f}x the bound); against plain"
+            f" max_abs_err {e}, share differing {sh:.3e} [{card}]")
+    record.update(max_abs_err=err, share_differing=share, by_k=by_k,
+                  shape=f"the {W}x{H} 4:2:0 request's three planes at k = 4 (by_k: 1, 2, 4)",
+                  **{key: by_k[4][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "bound_bytes", "bound_ops",
+                                                  "bound_ops_kind")})
+    if err > 1 or share > K1_SHARE:
+        fail(f"K5 disagrees with its plain version (max_abs_err {err}, share {share:.3e};"
+             f" tolerance 1 on at most {K1_SHARE})")
+
+
+# ---------------------------------------------------------------------------
 # Phases: the main paths
 # ---------------------------------------------------------------------------
 
@@ -1289,6 +1558,143 @@ def batch_path(dev, batch, many, card: str) -> dict:
     return runs
 
 
+@functools.lru_cache(maxsize=None)
+def host_reference(data: bytes, quirks, upsample: str):
+    """The JAX-free reference of a full-size EXACT decode: the port's
+    use_device=False host pixel path (models/decoder._host_pixel_stage: the
+    NumPy oracle's EXACT IDCT, then its colour conversion or, for fancy
+    upsampling, the NumPy triangular passes) on the native host planes,
+    with `reference`'s pixel planes. Returns (pixel planes, RGB)."""
+    from jpeg_decoder_tpu_torch.core import oracle
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.models import decoder
+
+    frame = parse(data).frame
+    _, pix, rgb = reference(data, quirks)
+    if upsample == "fancy" and frame.ncs in (3, 4):
+        rgb = decoder._host_fancy_convert(frame, pix, quirks)
+    else:
+        rgb = oracle.color_convert(frame, pix, quirks)
+    return pix, rgb
+
+
+def new_paths(dev, requests, batch, cmyk: bytes, card: str) -> dict:
+    """The configs of ROADMAP item 2 through JpegDecoder and BatchDecoder,
+    PALLAS and NATIVE, each on the route of PixelStage:
+    - a 4K fancy request, EXACT (K0 x 3 + K3f: RGB and planes bitwise the
+      host reference) and FLOAT32 (K1 x 3 + K3f: planes within 1 of it,
+      RGB bitwise the colour stage of the returned planes);
+    - the 4K 4-component frame under REFERENCE (YCCK) and CORRECT (its
+      APP14 transform 0: CMYK) quirks (K0 x 4 + K3c), bitwise the host
+      reference;
+    - 4K requests at scale 1, 2 and 4 (K5 x 3 + K3): against the plain
+      version on CPU tensors (NATIVE entropy), planes by K1's rule and
+      bitwise at scale 1, RGB within 3 and bitwise the colour stage of the
+      returned planes;
+    - BatchDecoder: decode_batch of the eight 4K requests with fancy
+      upsampling (K0 x 3 + K3f once), each RGB bitwise the host reference
+      and the single-image decode.
+    Returns path -> launch counts of its run."""
+    import torch
+    from jpeg_decoder_tpu_torch import (
+        BatchDecoder,
+        DecodeConfig,
+        EntropyBackend,
+        IdctPrecision,
+        JpegDecoder,
+        Quirks,
+    )
+    from jpeg_decoder_tpu_torch import decode as port_decode
+    from jpeg_decoder_tpu_torch.ops import color
+
+    FLOAT32 = IdctPrecision.FLOAT32
+    runs = {}
+
+    def pixel_part(launches):
+        return {k: v for k, v in launches.items()
+                if k not in ("jdtc_entropy_decode", "jdtc_unstuff")}
+
+    for backend in (EntropyBackend.PALLAS, EntropyBackend.NATIVE):
+        b = backend.value
+        requests_of = {
+            f"JpegDecoder {b} fancy exact": (requests[0], DecodeConfig(upsample="fancy"),
+                                             {"jdtc_idct_exact": 3, "jdtc_fancy": 1}),
+            f"JpegDecoder {b} fancy float32": (
+                requests[0], DecodeConfig(upsample="fancy", idct_precision=FLOAT32),
+                {"jdtc_idct_float": 3, "jdtc_fancy": 1}),
+            f"JpegDecoder {b} ycck exact": (cmyk, DecodeConfig(),
+                                            {"jdtc_idct_exact": 4, "jdtc_color": 1}),
+            f"JpegDecoder {b} cmyk exact": (cmyk, DecodeConfig(quirks=Quirks.CORRECT),
+                                            {"jdtc_idct_exact": 4, "jdtc_color": 1}),
+            **{f"JpegDecoder {b} scale {k}": (requests[0], DecodeConfig(scale=k),
+                                              {"jdtc_idct_scaled": 3, "jdtc_color": 1})
+               for k in (1, 2, 4)},
+        }
+        for name, (data, cfg, route) in requests_of.items():
+            cfg = cfg.replace(entropy_backend=backend)
+            dec = JpegDecoder(cfg, device=dev)
+            t0 = time.perf_counter()
+            img, runs[name] = run_path(f"main path {name}", lambda: dec.decode(data))
+            e2e = (time.perf_counter() - t0) * 1e3
+            if pixel_part(runs[name]) != route:
+                fail(f"{name}: the pixel stage launched {runs[name]}, expected {route}")
+            f = img.frame
+            if cfg.scale == 8:
+                pix, rgb = host_reference(data, cfg.quirks, cfg.upsample)
+                if cfg.idct_precision == IdctPrecision.EXACT:
+                    if not (np.array_equal(img.rgb, rgb)
+                            and all(np.array_equal(x, y) for x, y in zip(img.planes, pix))):
+                        fail(f"{name}: RGB or planes differ from the host reference")
+                    note = "RGB and planes bitwise the host reference"
+                else:
+                    e = max(max_abs_err(x, y) for x, y in zip(img.planes, pix))
+                    own = color._planes_to_rgb_plain(
+                        [torch.from_numpy(p).to(dev) for p in img.planes], f.height, f.width,
+                        F420, cfg.quirks, cfg.upsample, False).cpu().numpy()
+                    if e > 1 or not np.array_equal(img.rgb, own):
+                        fail(f"{name}: planes {e} from the host reference's, or RGB not the"
+                             f" colour stage of its planes")
+                    note = (f"planes max_abs_err {e} against the host reference, RGB bitwise"
+                            f" the colour stage of the planes")
+            else:
+                want = port_decode(data, cfg.replace(entropy_backend=EntropyBackend.NATIVE),
+                                   device="cpu")
+                e = max(max_abs_err(x, y) for x, y in zip(img.planes, want.planes))
+                sh = max(share_differing(x, y) for x, y in zip(img.planes, want.planes))
+                h, w = img.rgb.shape[:2]
+                own = color._planes_to_rgb_plain(
+                    [torch.from_numpy(p).to(dev) for p in img.planes], h, w, F420,
+                    cfg.quirks).cpu().numpy()
+                rgb_e = max_abs_err(img.rgb, want.rgb)
+                if (e > 1 or sh > K1_SHARE or (cfg.scale == 1 and e != 0) or rgb_e > 3
+                        or not np.array_equal(img.rgb, own)):
+                    fail(f"{name}: planes {e} (share {sh:.3e}) or RGB {rgb_e} from the plain"
+                         f" version on CPU tensors, or RGB not the colour stage of its planes")
+                note = (f"{w}x{h}; planes against the plain version on CPU tensors max_abs_err"
+                        f" {e}, share {sh:.3e}; RGB max_abs_err {rgb_e}, bitwise the colour"
+                        f" stage of the planes")
+            log(f"main path {name}: {note}; end-to-end {e2e:.3f} ms (host clock) [{card}]")
+
+        name = f"BatchDecoder {b} fancy exact decode_batch"
+        cfg = DecodeConfig(entropy_backend=backend, upsample="fancy")
+        dec = BatchDecoder(cfg, device=dev)
+        t0 = time.perf_counter()
+        rgb, runs[name] = run_path(f"main path {name}", lambda: dec.decode_batch(batch))
+        e2e = (time.perf_counter() - t0) * 1e3
+        want = {"jdtc_idct_exact": 3, "jdtc_fancy": 1}
+        if pixel_part(runs[name]) != want:
+            fail(f"{name}: launched {runs[name]}, expected {want} for the pixel stage")
+        one = JpegDecoder(cfg, device=dev)
+        for g, d in zip(rgb, batch):
+            if not np.array_equal(g, host_reference(d, Quirks.REFERENCE, "fancy")[1]):
+                fail(f"{name}: a batched RGB differs from the host reference")
+            if not np.array_equal(g, one.decode_rgb(d)):
+                fail(f"{name}: a batched RGB differs from its single-image decode")
+        log(f"main path {name}: {len(batch)} RGB outputs bitwise the host reference and the"
+            f" single-image decode; decode_batch {e2e:.3f} ms (host clock) [{card}]")
+    return runs
+
+
 #: request -> the request whose reference it shares (same coefficients)
 REFERENCE_OF: dict = {}
 
@@ -1337,6 +1743,56 @@ def stage_times(dev, requests, card: str, label: str = "image") -> None:
         log(f"stage times {label} {i}: host parse {host_ms:.3f} ms,"
             f" H2D {h2d:.3f} ms ({sum(r.nbytes for r in host[0])} B), K2u {k2u:.3f} ms, K2 {k2:.3f} ms,"
             f" K03 {k03:.3f} ms (FLOAT32: K13 {k13:.3f} ms), D2H rgb {d2h:.3f} ms [{card}]")
+
+
+def new_stage_times(dev, big: bytes, cmyk: bytes, card: str) -> None:
+    """The pixel stage of item 2's routes on a 4K request, JpegDecoder's
+    call (RGB and planes): CUDA events around one call and the card alone
+    (pixel_sweep.card_ms), and the warm request latency through
+    JpegDecoder (PALLAS, the median of three; host clock), beside the
+    nearest-neighbour EXACT route (K03) on the same request."""
+    import torch
+    from jpeg_decoder_tpu_torch import (
+        DecodeConfig,
+        EntropyBackend,
+        IdctPrecision,
+        JpegDecoder,
+        Quirks,
+        convert,
+    )
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.models import decoder, host
+
+    configs = {
+        "4:2:0 nn exact (K03)": (big, DecodeConfig()),
+        "4:2:0 fancy exact (K0 x 3 + K3f)": (big, DecodeConfig(upsample="fancy")),
+        "4:2:0 fancy float32 (K1 x 3 + K3f)": (
+            big, DecodeConfig(upsample="fancy", idct_precision=IdctPrecision.FLOAT32)),
+        "4:2:0 scale 4 (K5 x 3 + K3)": (big, DecodeConfig(scale=4)),
+        "4:2:0 scale 1 (K5 x 3 + K3)": (big, DecodeConfig(scale=1)),
+        "4:4:4 YCCK exact (K0 x 4 + K3c)": (cmyk, DecodeConfig()),
+        "4:4:4 CMYK exact (K0 x 4 + K3c)": (cmyk, DecodeConfig(quirks=Quirks.CORRECT)),
+    }
+    for name, (data, cfg) in configs.items():
+        frame, planes, qts = host.host_decode(data, DecodeConfig())
+        coeffs = convert.planes_to_device(planes, dev)
+        stage = decoder.device_stage_for(frame, qts, cfg, dev)
+        run = lambda: stage(*coeffs, want_planes=True)  # noqa: E731
+        one = cuda_ms(run, 3)
+        alone = pixel_sweep.card_ms(run, 3)
+        box = {}
+        cuda_ms(lambda: box.update(out=run()), 1)
+        d2h = cuda_ms(lambda: [box["out"][0].cpu(), *(p.cpu() for p in box["out"][1])], 1)
+        dec = JpegDecoder(cfg.replace(entropy_backend=EntropyBackend.PALLAS), device=dev)
+        dec.decode(data)
+        e2e = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dec.decode(data)
+            e2e.append((time.perf_counter() - t0) * 1e3)
+        log(f"stage times {name}: pixel stage {one:.3f} ms one call, {alone:.4f} ms the card"
+            f" alone; D2H RGB and planes {d2h:.3f} ms; PALLAS request (warm, host clock)"
+            f" {statistics.median(e2e):.3f} ms [{card}]")
 
 
 def batch_stage_times(dev, batch, card: str) -> None:
@@ -1402,6 +1858,7 @@ def main() -> None:
     try:
         from jpeg_decoder_tpu_torch import _build
         from jpeg_decoder_tpu_torch.benchmarks.inputs import (
+            CMYK_FILE,
             DRI_FILES,
             PHOTOS,
             PHOTOS_420,
@@ -1437,11 +1894,15 @@ def main() -> None:
     files = {f"file {p.name}": p.read_bytes() for p in DRI_FILES}
     tiled = {f"photograph {p.name} tiled to {W}x{H}": photo_jpeg(p, W, H, RI)
              for p in PHOTOS_420}
+    # 4:4:4, a marker per MCU row; APP14 transform 0: YCCK under REFERENCE
+    # quirks, raw CMYK under CORRECT
+    cmyk = photo_jpeg(CMYK_FILE, W, H, W // 8)
     log(f"inputs: {len(batch)} x {W}x{H} 4:2:0, ri {RI},"
         f" {[len(r) for r in batch]} bytes; the same frame restart-free"
         f" ({len(no_dri)} bytes); {len(files)} foreign files with restart markers"
         f" ({[len(r) for r in files.values()]} bytes); {len(tiled)} photographs tiled to"
-        f" {W}x{H} ({[len(r) for r in tiled.values()]} bytes); made in"
+        f" {W}x{H} ({[len(r) for r in tiled.values()]} bytes); {CMYK_FILE.name} tiled to"
+        f" {W}x{H} ({len(cmyk)} bytes, 4 components); made in"
         f" {time.perf_counter() - t0:.1f} s")
 
     kernels = {
@@ -1473,6 +1934,21 @@ def main() -> None:
             name="K13 pixel_float", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/pixel_float.cu",
             replaces="jpeg_decoder_tpu/ops/pallas_kernels.py:103"),
+        "jdtc_fancy": dict(
+            name="K3f fancy", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/color.cu",
+            replaces="jpeg_decoder_tpu/ops/color.py:73"),
+        # K3's kernel on four planes: its launches are jdtc_color's on the
+        # 4-component paths (which K3's count includes)
+        "K3c": dict(
+            name="K3c color (K3 on four planes)", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/color.cu",
+            replaces="jpeg_decoder_tpu/ops/color.py:181", entry="jdtc_color",
+            on_paths=("ycck", "cmyk")),
+        "jdtc_idct_scaled": dict(
+            name="K5 idct_scaled", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/idct_scaled.cu",
+            replaces="jpeg_decoder_tpu/ops/idct.py:261"),
     }
     for key, (name, _standing, _ops, replaces) in PROBE_KERNELS.items():
         kernels[key] = dict(name=name, route="cuda",
@@ -1495,9 +1971,13 @@ def main() -> None:
     timed_phase("K03", check_k03, dev, cases, batch, kernels["jdtc_pixel_exact"], card)
     timed_phase("K13", check_k13, dev, cases, batch, kernels["jdtc_pixel_float"], card)
     del cases
+    timed_phase("K3f", check_k3f, dev, requests, files, cmyk, kernels["jdtc_fancy"], card)
+    timed_phase("K3c", check_k3c, dev, cmyk, kernels["K3c"], card)
+    timed_phase("K5", check_k5, dev, requests[0], kernels["jdtc_idct_scaled"], card)
     timed_phase("probes against plain", check_probes, dev, kernels, card)
     for key, rec in kernels.items():
-        if key not in ("jdtc_idct_float", "jdtc_pixel_float") and rec["max_abs_err"] != 0:
+        if (key not in ("jdtc_idct_float", "jdtc_pixel_float", "jdtc_idct_scaled")
+                and rec["max_abs_err"] != 0):
             fail(f"{rec['name']} disagrees with its plain version"
                  f" (max_abs_err {rec['max_abs_err']}; tolerance 0)")
 
@@ -1507,10 +1987,15 @@ def main() -> None:
                           " (foreign files, photographs at 4K)"))
     runs.update(float32_path(dev, requests, gray, card))
     runs.update(timed_phase("main paths, batches", batch_path, dev, batch, many, card))
+    runs.update(timed_phase("main paths, fancy, 4 components, scaled", new_paths, dev,
+                            requests, batch, cmyk, card))
     runs.update(timed_phase("main path, probes", probe_path, kernels))
     for key, rec in kernels.items():
-        rec["launches"] = sum(r.get(key, 0) for r in runs.values())
-        rec["launches_by_path"] = {p: r[key] for p, r in runs.items() if key in r}
+        entry = rec.get("entry", key)
+        paths = {p: r for p, r in runs.items()
+                 if any(w in p for w in rec.get("on_paths", ("",)))}
+        rec["launches"] = sum(r.get(entry, 0) for r in paths.values())
+        rec["launches_by_path"] = {p: r[entry] for p, r in paths.items() if entry in r}
         if rec["launches"] == 0:
             fail(f"{rec['name']} was not launched by a main path")
     for path, key in (("JpegDecoder pallas exact", "jdtc_entropy_decode"),
@@ -1521,12 +2006,24 @@ def main() -> None:
                       ("JpegDecoder native float32", "jdtc_pixel_float"),
                       ("BatchDecoder pallas float32 decode_batch", "jdtc_pixel_float"),
                       ("JpegDecoder pallas (gray) float32", "jdtc_idct_float"),
-                      ("JpegDecoder native (gray) exact", "jdtc_idct_exact")):
+                      ("JpegDecoder native (gray) exact", "jdtc_idct_exact"),
+                      *[(f"JpegDecoder {b} {c}", k) for b in ("pallas", "native")
+                        for c, k in (("fancy exact", "jdtc_fancy"),
+                                     ("fancy float32", "jdtc_fancy"),
+                                     ("ycck exact", "jdtc_color"),
+                                     ("cmyk exact", "jdtc_color"),
+                                     ("scale 1", "jdtc_idct_scaled"),
+                                     ("scale 2", "jdtc_idct_scaled"),
+                                     ("scale 4", "jdtc_idct_scaled"))],
+                      ("BatchDecoder pallas fancy exact decode_batch", "jdtc_fancy"),
+                      ("BatchDecoder native fancy exact decode_batch", "jdtc_fancy")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")
-    stage_times(dev, requests, card)
+    timed_phase("stage times", stage_times, dev, requests, card)
     stage_times(dev, list(tiled.values()), card, "photograph at 4K")
-    batch_stage_times(dev, batch, card)
+    timed_phase("batch stage times", batch_stage_times, dev, batch, card)
+    timed_phase("stage times, fancy, 4 components, scaled", new_stage_times, dev, requests[0],
+                cmyk, card)
     if not jax_free():
         fail("JAX or the JAX package jpeg_decoder_tpu was loaded")
     required = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -31,7 +31,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("entropy_decode.cu", "unstuff.cu", "idct_exact.cu", "idct_float.cu",
-           "color.cu", "pixel_exact.cu", "pixel_float.cu", "probes.cu")
+           "idct_scaled.cu", "color.cu", "pixel_exact.cu", "pixel_float.cu", "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -66,18 +66,20 @@ SIGNATURES = {
     "jdtc_idct_exact": [_P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_float": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
+    # coeffs, qt, k_matrix [64, k*k], n_blocks, blocks_x, k, bits12, out,
+    # cuda_stream
+    "jdtc_idct_scaled": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
     # coeff0..2, qt0..2, n_images, h, w, hsf0..2, vsf0..2, hratio0..2,
     # vratio0..2, mcus_x, mcus_y, strip, bits12, correct, rgb, plane0..2
     # (null: not stored), cuda_stream
     "jdtc_pixel_exact": [*[_P] * 6, *[_I32] * 9, *[_F32] * 6, *[_I32] * 5, *[_P] * 5],
     # jdtc_pixel_exact's arguments with k_matrix after qt2
     "jdtc_pixel_float": [*[_P] * 7, *[_I32] * 9, *[_F32] * 6, *[_I32] * 5, *[_P] * 5],
-    # plane0..2, n_images, img_stride0..2, n_comps, h, w, stride0..2,
-    # hratio0..2, vratio0..2, correct, out, cuda_stream
-    "jdtc_color": [
-        _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _I32,
-        _I32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P, _P,
-    ],
+    # K3 (nearest-neighbour) and K3f (fancy): plane0..3, n_images, n_comps,
+    # h, w, geometry (host int64 [4][4]), ratios (host float [4][2]), mode,
+    # correct, out, cuda_stream
+    "jdtc_color": [*[_P] * 4, *[_I32] * 4, _P, _P, _I32, _I32, _P, _P],
+    "jdtc_fancy": [*[_P] * 4, *[_I32] * 4, _P, _P, _I32, _I32, _P, _P],
     # The probes (csrc/probes.cu), each: its tensors, its sizes, steps, ...,
     # cuda_stream.
     # tab, idx0, out, n_lanes, lane_cols, row_stride, col_stride, idx_stride,

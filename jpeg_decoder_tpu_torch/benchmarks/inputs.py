@@ -30,6 +30,7 @@ end-of-block code, and entropy-coded bits per block. It needs no card.
 from __future__ import annotations
 
 import json
+import struct
 import sys
 from pathlib import Path
 
@@ -44,14 +45,30 @@ DRI_FILES = (_WILD / "transcoded" / "china_dri_rows1_420.jpg",
              _WILD / "transcoded" / "flower_dri_blocks7_422.jpg")
 #: The two 4:2:0 photographs that the card checks tile to 3840x2160.
 PHOTOS_420 = (DRI_FILES[0], PHOTOS[1])
+#: A 4-component photograph (512x600 4:4:4, Adobe APP14 transform 0: raw
+#: CMYK, which the reference decodes as YCCK), re-encoded from
+#: PHOTOS[1] (tests/wild_files/SOURCES.txt); the card checks tile it to
+#: 3840x2160.
+CMYK_FILE = _WILD / "transcoded" / "hopper_cmyk_adobe.jpg"
 F420 = ((2, 2), (1, 1), (1, 1))
 
 
-def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts) -> bytes:
+def adobe_app14(transform: int) -> bytes:
+    """An Adobe APP14 segment (DCTEncode version 100, no flags) with colour
+    transform `transform`: for a 4-component frame 0 is raw (inverted)
+    CMYK and 2 YCCK (io/parser._attach_adobe)."""
+    payload = b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform)
+    return b"\xff\xee" + struct.pack(">H", 2 + len(payload)) + payload
+
+
+def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts,
+              adobe_transform: int | None = None) -> bytes:
     """A baseline JPEG of the int16 zigzag block planes `planes` (per
     component [blocks_y, blocks_x, 64] at MCU padding): component 0 with the
-    Annex K luminance Huffman tables and qts[0], the others with the
-    chrominance tables and qts[1]; restart interval `ri` MCUs (0: none)."""
+    Annex K luminance Huffman tables and qts[0], the others (1 to 3 of
+    them) with the chrominance tables and qts[1]; restart interval `ri`
+    MCUs (0: none); an Adobe APP14 marker with `adobe_transform` unless it
+    is None."""
     from ..core import huffman
     from ..io import writer
     from ..native import runtime
@@ -75,6 +92,8 @@ def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts) -> bytes:
         [huffman.build_encode_table(s) for s in ac_specs], ri,
     )
     parts = [writer.soi()]
+    if adobe_transform is not None:
+        parts.append(adobe_app14(adobe_transform))
     parts += [writer.dqt(i, q) for i, q in enumerate(qts[:n_tab])]
     parts.append(writer.sof(
         w, h, [(ci + 1, fh, fv, min(ci, 1)) for ci, (fh, fv) in enumerate(factors)]))
@@ -87,10 +106,13 @@ def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts) -> bytes:
     return b"".join(parts)
 
 
-def make_jpeg(w: int, h: int, factors, ri: int, seed: int) -> bytes:
+def make_jpeg(w: int, h: int, factors, ri: int, seed: int,
+              adobe_transform: int | None = None) -> bytes:
     """A baseline JPEG of random coefficients: DC in [-60, 60], AC
     Laplace(4) rounded and clipped to +-1023, so every DC difference and AC
-    value lies in the Annex K categories; the Annex K quantisation tables."""
+    value lies in the Annex K categories; the Annex K quantisation tables.
+    1, 3 or 4 components (`factors`); an Adobe APP14 marker with
+    `adobe_transform` unless it is None."""
     from ..core import types
 
     rng = np.random.default_rng(seed)
@@ -104,24 +126,29 @@ def make_jpeg(w: int, h: int, factors, ri: int, seed: int) -> bytes:
         p[..., 0] = rng.integers(-60, 61, shape[:2])
         planes.append(p.astype(np.int16))
     return pack_jpeg(planes, w, h, factors, ri,
-                     [types.standard_luminance_qtable(), types.standard_chrominance_qtable()])
+                     [types.standard_luminance_qtable(), types.standard_chrominance_qtable()],
+                     adobe_transform)
 
 
 def photo_jpeg(path, w: int, h: int, ri: int, shift: int = 0) -> bytes:
-    """The photograph in the file `path` (8-bit, gray or three components,
-    the chrominance components sharing their sampling and table) as a w x h
-    baseline JPEG: its coefficient planes, as its encoder quantised them,
-    cut to the whole MCUs that lie inside the picture and repeated to fill
-    the frame; `shift` rolls the tiling by that many MCUs each way, which
-    gives several requests of the same statistics. Its own sampling factors
-    and quantisation tables; restart interval `ri` MCUs."""
+    """The photograph in the file `path` (8-bit, gray or three or four
+    components, the components after the first sharing their table) as a
+    w x h baseline JPEG: its coefficient planes, as its encoder quantised
+    them, cut to the whole MCUs that lie inside the picture and repeated to
+    fill the frame; `shift` rolls the tiling by that many MCUs each way,
+    which gives several requests of the same statistics. Its own sampling
+    factors, quantisation tables and Adobe colour transform (a
+    4-component file's APP14 marker, e.g. tests/wild_files/transcoded/
+    hopper_cmyk_adobe.jpg); restart interval `ri` MCUs."""
     from .. import DecodeConfig
     from ..models import host
 
     frame, coeffs, qts = host.host_decode(Path(path).read_bytes(), DecodeConfig())
     comps = frame.components
-    if frame.precision != 8 or len(comps) not in (1, 3):
-        raise ValueError(f"{path}: not an 8-bit gray or three-component photograph")
+    if (frame.precision != 8 or len(comps) not in (1, 3, 4)
+            or len({c.qtid for c in comps[1:]}) > 1):
+        raise ValueError(f"{path}: not an 8-bit photograph of 1, 3 or 4 components"
+                         " whose components after the first share a table")
     factors = tuple((c.hsf, c.vsf) for c in comps)
     hmax, vmax = frame.max_hsf, frame.max_vsf
     src_x, src_y = frame.width // (8 * hmax), frame.height // (8 * vmax)
@@ -132,7 +159,8 @@ def photo_jpeg(path, w: int, h: int, ri: int, shift: int = 0) -> bytes:
                        (shift * c.vsf, shift * c.hsf), (0, 1))
         reps = (-(-mcus_y // src_y), -(-mcus_x // src_x), 1)
         planes.append(np.tile(tile, reps)[: mcus_y * c.vsf, : mcus_x * c.hsf])
-    return pack_jpeg(planes, w, h, factors, ri, [qts[c.qtid] for c in comps[:2]])
+    adobe = frame.adobe_transform if len(comps) == 4 else None
+    return pack_jpeg(planes, w, h, factors, ri, [qts[c.qtid] for c in comps[:2]], adobe)
 
 
 def block_stats(data: bytes) -> dict:

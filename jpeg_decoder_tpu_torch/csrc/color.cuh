@@ -1,6 +1,6 @@
-// The colour stage's arithmetic, shared by K3 (color.cu) and, through the
-// strip skeleton (strip.cuh), K03 (pixel_exact.cu) and K13 (pixel_float.cu)
-// so that they cannot drift.
+// The colour stage's arithmetic, shared by K3 and K3f (color.cu) and,
+// through the strip skeleton (strip.cuh), K03 (pixel_exact.cu) and K13
+// (pixel_float.cu) so that they cannot drift.
 //
 // The chroma index is (uint32)(i * ratio) with a float32 multiply and
 // ratio = float32(sf) / float32(max_sf) (core/numerics._nn_index_f32).
@@ -11,6 +11,16 @@
 // but it keeps the kernels bitwise equal to their plain PyTorch versions.
 // The store truncates (REFERENCE) or rounds half up (CORRECT), then
 // saturates.
+//
+// The 4-component transforms (K3 on 4 planes, K3f): YCCK under EXACT is the
+// reference's chain of float64 statements, each stored to float32
+// (core/numerics.ycck_channels_to_rgb), spelled with __dadd_rn / __dsub_rn /
+// __dmul_rn / __ddiv_rn so that nvcc contracts no FMA (a contracted
+// a*b+c rounds once where the chain rounds twice, and the stores to float32
+// then differ); under FLOAT32 the JAX package's float32 order
+// (ops/color.py ycck_to_rgb) with __f*_rn, __fdiv_rn included (a plain `/`
+// may be compiled to a product by the reciprocal). Raw Adobe CMYK is
+// (c * k + 127) / 255 in int32.
 
 #pragma once
 
@@ -47,6 +57,74 @@ static __device__ __forceinline__ void ycbcr_to_rgb(uint8_t y8, uint8_t cb8, uin
   o[0] = store(r, correct);
   o[1] = store(g, correct);
   o[2] = store(b, correct);
+}
+
+// The colour transforms of jpeg_decoder_tpu_torch/ops/color.py colour_mode.
+enum Mode { kYCbCr = 0, kYcckExact = 1, kYcckFloat = 2, kCmyk = 3, kGray = 4 };
+
+// YCCK under EXACT: C/M/Y as float64 expressions stored to float32, then
+// 255 * (1 - X/255) * (K/255) in float64, stored to float32.
+static __device__ __forceinline__ void ycck_exact(uint8_t y8, uint8_t cb8, uint8_t cr8,
+                                                  uint8_t k8, int correct, uint8_t* o) {
+  const double y = static_cast<double>(y8);
+  const double cb = __dsub_rn(static_cast<double>(cb8), 128.0);
+  const double cr = __dsub_rn(static_cast<double>(cr8), 128.0);
+  const float cmy[3] = {
+      __double2float_rn(__dadd_rn(y, __dmul_rn(1.402, cr))),
+      __double2float_rn(__dsub_rn(__dsub_rn(y, __dmul_rn(0.34414, cb)), __dmul_rn(0.71414, cr))),
+      __double2float_rn(__dadd_rn(y, __dmul_rn(1.772, cb)))};
+  const double kk = __ddiv_rn(static_cast<double>(k8), 255.0);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const double x = static_cast<double>(cmy[c]);
+    const double v = __dmul_rn(__dmul_rn(255.0, __dsub_rn(1.0, __ddiv_rn(x, 255.0))), kk);
+    o[c] = store(__double2float_rn(v), correct);
+  }
+}
+
+// YCCK under FLOAT32: the YCbCr chain of ycbcr_to_rgb, then the composite,
+// every operation a float32 rounding of its own.
+static __device__ __forceinline__ void ycck_float(uint8_t y8, uint8_t cb8, uint8_t cr8,
+                                                  uint8_t k8, int correct, uint8_t* o) {
+  const float y = static_cast<float>(y8);
+  const float cb = __fsub_rn(static_cast<float>(cb8), 128.0f);
+  const float cr = __fsub_rn(static_cast<float>(cr8), 128.0f);
+  const float k_rv = static_cast<float>(1.402);
+  const float k_gu = static_cast<float>(0.34414);
+  const float k_gv = static_cast<float>(0.71414);
+  const float k_bu = static_cast<float>(1.772);
+  const float cmy[3] = {
+      __fadd_rn(y, __fmul_rn(k_rv, cr)),
+      __fsub_rn(__fsub_rn(y, __fmul_rn(k_gu, cb)), __fmul_rn(k_gv, cr)),
+      __fadd_rn(y, __fmul_rn(k_bu, cb))};
+  const float kk = __fdiv_rn(static_cast<float>(k8), 255.0f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float v =
+        __fmul_rn(__fmul_rn(255.0f, __fsub_rn(1.0f, __fdiv_rn(cmy[c], 255.0f))), kk);
+    o[c] = store(v, correct);
+  }
+}
+
+// Raw Adobe CMYK: integer-exact, no store quirk.
+static __device__ __forceinline__ void cmyk(uint8_t c8, uint8_t m8, uint8_t y8, uint8_t k8,
+                                            uint8_t* o) {
+  const int k = k8;
+  o[0] = static_cast<uint8_t>((c8 * k + 127) / 255);
+  o[1] = static_cast<uint8_t>((m8 * k + 127) / 255);
+  o[2] = static_cast<uint8_t>((y8 * k + 127) / 255);
+}
+
+// One pixel's samples s[0..n) -> its three RGB bytes at o[0..2], by `mode`.
+static __device__ __forceinline__ void convert(int mode, const uint8_t* s, int correct,
+                                               uint8_t* o) {
+  switch (mode) {
+    case kYCbCr: ycbcr_to_rgb(s[0], s[1], s[2], correct, o); break;
+    case kYcckExact: ycck_exact(s[0], s[1], s[2], s[3], correct, o); break;
+    case kYcckFloat: ycck_float(s[0], s[1], s[2], s[3], correct, o); break;
+    case kCmyk: cmyk(s[0], s[1], s[2], s[3], o); break;
+    default: o[0] = o[1] = o[2] = s[0]; break;
+  }
 }
 
 }  // namespace colour

@@ -5,21 +5,26 @@ stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
   entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS on the device
            (models/host.py; ops/entropy_cuda.py, kernel K2)
   device:  one PixelStage per (geometry, tables, config). A 3-component
-           frame whose samples stay in their MCUs runs as one step
-           (ops/pixel.py; K03 for EXACT, K13 for FLOAT32); otherwise dequant
-           + IDCT + block scatter (ops/idct.py; K0 for EXACT, K1 for
-           FLOAT32), then chroma upsample + colour conversion (ops/color.py,
-           K3)
+           nearest-neighbour frame whose samples stay in their MCUs runs as
+           one step (ops/pixel.py; K03 for EXACT, K13 for FLOAT32);
+           otherwise dequant + IDCT + block scatter per component
+           (ops/idct.py; K0 for EXACT, K1 for FLOAT32, K5 at scale < 8),
+           then chroma upsample + colour conversion (ops/color.py; K3 for
+           nearest-neighbour, named K3c on 4 components, K3f for fancy
+           upsampling)
+  host:    with use_device=False, the pixel stage on the host instead
+           (core/oracle.py: the EXACT IDCT and colour conversion in NumPy)
 
 Host-decoded planes go to the device in one copy per image; PALLAS planes
 are born there. RGB and the pixel planes come back in one copy each. The
 batch serving path (parallel/batch.py) runs the same PixelStage over
 stacked [B, by, bx, 64] planes and asks for RGB alone.
 
-The port covers 1 and 3 components, 8- and 12-bit samples, both Quirks,
-nearest-neighbour upsampling, the EXACT and FLOAT32 IDCT contracts and
-full-size output; the rest raises JpegUnsupportedError naming the ROADMAP
-item that ports it.
+The port covers what the JAX package's pixel stage takes: 1, 3 and 4
+components (YCbCr, YCCK, raw Adobe CMYK), 8- and 12-bit samples, both
+Quirks, nearest-neighbour and fancy upsampling, the EXACT and FLOAT32 IDCT
+contracts, scale 1, 2, 4 and 8, and use_device=False. Only the DEVICE
+entropy backend raises JpegUnsupportedError (models/host.py).
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.types import DecodedImage, FrameHeader, JpegStructure
+from ..core import numerics, oracle
+from ..core.types import CoefficientPlanes, DecodedImage, FrameHeader, JpegStructure
 from ..io.parser import parse
-from ..utils.config import DecodeConfig, IdctPrecision
-from ..utils.errors import JpegFormatError, JpegUnsupportedError
+from ..utils.config import DecodeConfig, IdctPrecision, Quirks
+from ..utils.errors import JpegConfigError, JpegFormatError
 from ..utils.metrics import GLOBAL_METRICS as metrics
 from ..utils.metrics import device_trace
 
@@ -63,52 +69,42 @@ def _stage_key(frame: FrameHeader, qt_by_comp: tuple[bytes, ...], cfg: DecodeCon
     )
 
 
-#: The ROADMAP item that ports what _check_config and _check_frame reject.
-_NEXT_ITEM = ("ROADMAP queue 1 item 2: fancy upsampling, YCCK and CMYK,"
-              " scale < 8 and the use_device=False host pixel path")
-
-
-def _check_config(cfg: DecodeConfig) -> None:
-    """Reject what the port does not run yet, before any decode work. Both
-    IDCT contracts (EXACT and FLOAT32) run."""
-    if cfg.upsample != "nn":
-        raise JpegUnsupportedError(f"fancy upsampling is not ported yet ({_NEXT_ITEM})")
-    if cfg.scale != 8:
-        raise JpegUnsupportedError(f"scaled decode is not ported yet ({_NEXT_ITEM})")
-    if not cfg.use_device:
-        raise JpegUnsupportedError(
-            f"use_device=False (the all-host pixel path) is not ported yet ({_NEXT_ITEM})")
-
-
-def _check_frame(frame: FrameHeader) -> None:
-    if frame.ncs not in (1, 3):
-        raise JpegUnsupportedError(
-            f"{frame.ncs}-component frames are not ported yet ({_NEXT_ITEM})")
-
-
 class PixelStage(nn.Module):
-    """Coefficient planes -> (RGB uint8 [H, W, 3], pixel planes) for one
+    """Coefficient planes -> (RGB uint8 [h, w, 3], pixel planes) for one
     (geometry, tables, config) key: the counterpart of build_stage_raw.
-    Stacked planes [B, by, bx, 64] give [B, H, W, 3] and [B, rows, stride]
-    planes (the counterpart of parallel/batch._batched_stage's vmap).
+    Stacked planes [B, by, bx, 64] give [B, h, w, 3] and [B, rows, stride]
+    planes (the counterpart of parallel/batch._batched_stage's vmap). At
+    scale k < 8, h and w are ceil(height * k / 8) and ceil(width * k / 8)
+    and a plane is [by*k, bx*k].
 
-    The route is fixed by the key: a 3-component frame that ops/pixel.fits
-    (its planes on the MCU grid, every sample inside its pixel's MCU) runs
+    The route is fixed by the key. `fused`: a 3-component frame with
+    nearest-neighbour upsampling at full size that ops/pixel.fits (its
+    planes on the MCU grid, every sample inside its pixel's MCU) runs
     ops/pixel.pixel_exact (EXACT) or pixel_float (FLOAT32), one K03 or K13
-    launch on the card; any other runs one IDCT launch per component (K0 or
-    K1) and one K3 launch. `want_planes=False` gives None for the planes
-    (K03 and K13 then store none)."""
+    launch on the card. Any other runs one IDCT launch per component (K0,
+    K1, or K5 at scale < 8 under either contract) and one colour launch:
+    K3 (nearest-neighbour; K3c on 4 components) or K3f (fancy). `want_planes=False` gives None for
+    the planes (K03 and K13 then store none)."""
 
     def __init__(self, key, device):
         super().__init__()
         frame, qt_by_comp, precision, quirks, upsample, scale = key
-        _check_frame(frame)
+        if frame.ncs not in (1, 3, 4):
+            raise ValueError(f"no color transform for {frame.ncs} components")
         self.frame = frame
         self.precision = precision
         self.quirks = quirks
+        self.upsample = upsample
+        self.scale = scale
+        self.h = -(-frame.height * scale // 8)
+        self.w = -(-frame.width * scale // 8)
         self.bits12 = frame.precision == 12
         self.factors = tuple((c.hsf, c.vsf) for c in frame.components)
-        self.fused = pixel_ops.fits(frame)
+        # build_stage_raw: raw CMYK only for APP14 transform 0 under CORRECT
+        self.raw_cmyk = (frame.ncs == 4 and quirks != Quirks.REFERENCE
+                         and frame.adobe_transform == 0)
+        self.fused = (frame.ncs == 3 and upsample == "nn" and scale == 8
+                      and pixel_ops.fits(frame))
         for ci, q in enumerate(qt_by_comp):
             self.register_buffer(
                 f"qt{ci}",
@@ -122,12 +118,14 @@ class PixelStage(nn.Module):
                      else pixel_ops.pixel_float)
             return fused(coeff_planes, qts, self.frame, self.quirks, want_planes)
         pixel = [
-            idct_ops.idct_plane(p, qt, self.bits12, self.precision)
+            idct_ops.idct_plane(p, qt, self.bits12, self.precision, self.scale)
             for p, qt in zip(coeff_planes, qts)
         ]
         rgb = color_ops.planes_to_rgb(
-            pixel, self.frame.height, self.frame.width, self.factors,
-            self.quirks,
+            pixel, self.h, self.w, self.factors, self.quirks, self.upsample,
+            exact=self.precision == IdctPrecision.EXACT, raw_cmyk=self.raw_cmyk,
+            # the REFERENCE gray shear replicates a full-size store only
+            gray_shear=self.quirks == Quirks.REFERENCE and self.scale == 8,
         )
         return rgb, (pixel if want_planes else None)
 
@@ -149,10 +147,56 @@ def device_stage_for(frame: FrameHeader, qtid_tables, cfg: DecodeConfig,
     return _build_pixel_stage(key, torch.device(device))
 
 
-def _pixel_stage(frame: FrameHeader, planes, qts, cfg: DecodeConfig,
-                 device) -> DecodedImage:
+def _host_fancy_convert(frame: FrameHeader, pixel_planes, quirks):
+    """The host's fancy colour path for use_device=False (the JAX package's
+    models/decoder._host_fancy_convert): the triangular 2x passes in NumPy
+    (oracle.fancy_upsample_np), nearest-neighbour for any ratio that
+    remains, then the float64 channel conversions."""
+    h, w = frame.height, frame.width
+    mh, mv = frame.max_hsf, frame.max_vsf
+    chans = []
+    for p, c in zip(pixel_planes, frame.components):
+        x = oracle.fancy_upsample_np(p, c.hsf, c.vsf, mh, mv)
+        _, _, eh, ev = color_ops.fancy_passes(c.hsf, c.vsf, mh, mv)
+        if eh == mh and ev == mv:
+            chans.append(x[:h, :w])
+        else:
+            rows = np.asarray(numerics._nn_index_f32(h, np.float32(ev) / np.float32(mv)))
+            cols = np.asarray(numerics._nn_index_f32(w, np.float32(eh) / np.float32(mh)))
+            chans.append(x[rows[:, None], cols[None, :]])
+    if frame.ncs == 3:
+        return numerics.ycbcr_channels_to_rgb(*chans, quirks)
+    if quirks != Quirks.REFERENCE and frame.adobe_transform == 0:
+        return numerics.cmyk_channels_to_rgb(*chans, quirks)
+    return numerics.ycck_channels_to_rgb(*chans, quirks)
+
+
+def _host_pixel_stage(frame: FrameHeader, planes, qts, cfg: DecodeConfig) -> DecodedImage:
+    """use_device=False: the pixel stage on the host (core/oracle.py), as
+    the JAX package runs it. PALLAS planes come back from the device first."""
+    if cfg.scale != 8:
+        raise JpegConfigError(
+            "scaled decode (scale != 8) runs on the device pixel path; "
+            "set use_device=True (under JAX_PLATFORMS=cpu it executes on "
+            "the host via XLA)"
+        )
+    if isinstance(planes, list):
+        planes = convert.planes_from(frame, [p.cpu().numpy() for p in planes])
+    with metrics.timer("pixel_host"):
+        pixel_planes = oracle.pixels_from_coeffs(frame, planes, qts)
+        if cfg.upsample == "fancy" and frame.ncs in (3, 4):
+            rgb = _host_fancy_convert(frame, pixel_planes, cfg.quirks)
+        else:
+            rgb = oracle.color_convert(frame, pixel_planes, cfg.quirks)
+    return DecodedImage(frame=frame, planes=pixel_planes, rgb=rgb)
+
+
+def _pixel_stage(frame: FrameHeader, planes: CoefficientPlanes | list, qts,
+                 cfg: DecodeConfig, device) -> DecodedImage:
     """Coefficient planes (host CoefficientPlanes or device tensors) ->
     DecodedImage with host RGB and pixel planes."""
+    if not cfg.use_device:
+        return _host_pixel_stage(frame, planes, qts, cfg)
     stage = device_stage_for(frame, qts, cfg, device)
     with metrics.timer("device_stage", items=frame.width * frame.height):
         with device_trace("jpegtpu.device_stage", cfg.collect_metrics):
@@ -168,9 +212,7 @@ def decode_structure(structure: JpegStructure, cfg: DecodeConfig | None = None,
                      device="cuda") -> DecodedImage:
     """Decode an already-parsed stream."""
     cfg = cfg or DecodeConfig()
-    _check_config(cfg)
     device = convert.resolve_device(device)
-    _check_frame(structure.frame)
     planes, qts = host._entropy_decode(structure, cfg, device=device)
     return _pixel_stage(structure.frame, planes, qts, cfg, device)
 
@@ -179,7 +221,6 @@ def decode(data: bytes | np.ndarray, cfg: DecodeConfig | None = None,
            device="cuda") -> DecodedImage:
     """Decode one JPEG byte stream end to end on `device`."""
     cfg = cfg or DecodeConfig()
-    _check_config(cfg)
     device = convert.resolve_device(device)
     from ..io import bitstream as bs
 
@@ -218,7 +259,6 @@ class JpegDecoder:
 
     def __init__(self, cfg: DecodeConfig | None = None, device="cuda"):
         self.cfg = cfg or DecodeConfig()
-        _check_config(self.cfg)
         self.device = convert.resolve_device(device)
 
     def parse(self, data) -> JpegStructure:

@@ -1,21 +1,29 @@
 """Chroma upsample + colour conversion + RGB store (counterpart of
-jpeg_decoder_tpu/ops/color.py, nearest-neighbour upsampling, 1 and 3
-components).
+jpeg_decoder_tpu/ops/color.py): nearest-neighbour and fancy (libjpeg's
+triangular 2x) upsampling; gray, YCbCr, YCCK and raw Adobe CMYK.
 
 The plain PyTorch functions are device-agnostic and keep the JAX package's
 arithmetic: the reference's (uint32)(i * float32(sf / max_sf)) index rule
 (core/numerics._nn_index_f32, computed on the host), YCbCr -> RGB in plain
 float32 (proven byte-exact against the reference's float64 chain for every
-input, ops/color.py ycbcr_to_rgb), and the truncating (REFERENCE) or
-rounding (CORRECT) saturated store.
+input, ops/color.py ycbcr_to_rgb), YCCK in the reference's float64 chain
+(EXACT; core/numerics.ycck_channels_to_rgb, which the JAX package emulates
+with double-float pairs) or in float32 (FLOAT32), CMYK in int32, and the
+truncating (REFERENCE) or rounding (CORRECT) saturated store. Every
+division divides by a tensor, never by a Python number: PyTorch may turn
+`x / 255.0` into a product by the reciprocal, which rounds otherwise.
 
 `planes_to_rgb` is the wrapper the decoder calls: for CPU tensors it runs
-the plain versions, for CUDA tensors it launches kernel K3 (csrc/color.cu).
-Planes may carry a leading batch dimension ([B, rows, stride], the batch
-path's stacked images); one launch then makes [B, h, w, 3].
+the plain versions; for CUDA tensors it launches kernel K3 (csrc/color.cu
+jdtc_color: 1, 3 or 4 components, nearest-neighbour; named K3c on 4) or
+K3f (the same file's jdtc_fancy: fancy, 3 or 4 components). Planes may
+carry a leading batch dimension ([B, rows, stride], the batch path's
+stacked images); one launch then makes [B, h, w, 3].
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -26,6 +34,7 @@ from ..utils.config import Quirks
 from .. import _build
 
 F32 = torch.float32
+F64 = torch.float64
 
 # BT.601 constants exactly as spelled in the reference (colour_conversion.c:71-74),
 # rounded to float32 (exact as Python floats, so a float32 op keeps them).
@@ -81,34 +90,162 @@ def gray_to_rgb(y8: torch.Tensor) -> torch.Tensor:
     return y8[..., None].expand(*y8.shape, 3).contiguous()
 
 
-def _gray_source(plane: torch.Tensor, h: int, w: int, quirks: Quirks):
-    """The [..., h, w] gray samples. REFERENCE indexes the padded plane at
-    the IMAGE width stride (colour_conversion.c:20), which shears widths
-    that are not a multiple of 8; CORRECT crops."""
+def _gray_source(plane: torch.Tensor, h: int, w: int, shear: bool):
+    """The [..., h, w] gray samples. With `shear` (REFERENCE at full size)
+    the padded plane is indexed at the IMAGE width stride
+    (colour_conversion.c:20), which shears widths that are not a multiple
+    of 8; otherwise (CORRECT, or a scaled decode) it is cropped."""
     lead = plane.shape[:-2]
-    if quirks == Quirks.REFERENCE:
+    if shear:
         return plane.reshape(*lead, -1)[..., : h * w].reshape(*lead, h, w)
     return plane[..., :h, :w]
 
 
-def _planes_to_rgb_plain(planes, h, w, factors, quirks):
+# ---------------------------------------------------------------------------
+# Fancy upsampling and the 4-component transforms
+# ---------------------------------------------------------------------------
+
+
+def fancy_h2x(xf: torch.Tensor) -> torch.Tensor:
+    """Horizontal 2x triangular upsample of float32 [..., rows, cols]
+    (libjpeg's h2v1 rule: the nearer-left phase gets the +1 rounding, the
+    nearer-right +2), the edge columns replicated."""
+    left = torch.cat([xf[..., :1], xf[..., :-1]], dim=-1)
+    right = torch.cat([xf[..., 1:], xf[..., -1:]], dim=-1)
+    even = (3.0 * xf + left + 1.0) * 0.25
+    odd = (3.0 * xf + right + 2.0) * 0.25
+    return torch.stack([even, odd], dim=-1).reshape(*xf.shape[:-1], -1)
+
+
+def fancy_v2x(xf: torch.Tensor) -> torch.Tensor:
+    """Vertical 2x triangular upsample (the same rule over rows)."""
+    up = torch.cat([xf[..., :1, :], xf[..., :-1, :]], dim=-2)
+    down = torch.cat([xf[..., 1:, :], xf[..., -1:, :]], dim=-2)
+    even = (3.0 * xf + up + 1.0) * 0.25
+    odd = (3.0 * xf + down + 2.0) * 0.25
+    return torch.stack([even, odd], dim=-2).reshape(*xf.shape[:-2], -1, xf.shape[-1])
+
+
+def fancy_passes(hsf: int, vsf: int, max_hsf: int, max_vsf: int):
+    """(horizontal 2x pass, vertical 2x pass, the factors eh and ev after
+    them): a pass runs where the component has half the maximum factor."""
+    h2, v2 = 2 * hsf == max_hsf, 2 * vsf == max_vsf
+    return h2, v2, (2 * hsf if h2 else hsf), (2 * vsf if v2 else vsf)
+
+
+def fancy_upsample(plane: torch.Tensor, out_h: int, out_w: int, hsf: int, vsf: int,
+                   max_hsf: int, max_vsf: int) -> torch.Tensor:
+    """Triangular upsample of a uint8 plane [..., rows, stride] for 2x
+    factors, nearest-neighbour for the ratios that remain, to [..., out_h,
+    out_w] uint8. The edges replicated are the padded plane's. Every float32
+    intermediate is exact (integer sums below 2^14 times 1/4 or 1/16); an
+    all-255 neighbourhood gives 256, hence the clamp."""
+    x = plane.to(F32)
+    h2, v2, eh, ev = fancy_passes(hsf, vsf, max_hsf, max_vsf)
+    if h2:
+        x = fancy_h2x(x)
+    if v2:
+        x = fancy_v2x(x)
+    x = torch.clamp(torch.floor(x), 0.0, 255.0).to(torch.uint8)
+    if eh == max_hsf and ev == max_vsf:
+        return x[..., :out_h, :out_w]
+    return nn_upsample(x, out_h, out_w, eh, ev, max_hsf, max_vsf)
+
+
+def cmyk_to_rgb(c8, m8, y8, k8) -> torch.Tensor:
+    """Raw Adobe CMYK (APP14 transform 0, stored inverted): R = (c * k +
+    127) // 255 in int32, and so for G and B."""
+    k = k8.to(torch.int32)
+    return torch.stack([((ch.to(torch.int32) * k + 127) // 255).to(torch.uint8)
+                        for ch in (c8, m8, y8)], dim=-1)
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, a division (by a tensor of d: a Python divisor may become a
+    product by its reciprocal)."""
+    return x / torch.full_like(x, d)
+
+
+def ycck_channels(y8, cb8, cr8, k8, exact: bool):
+    """YCCK's float32 R, G, B before the store: C/M/Y by the YCbCr chain,
+    then 255 * (1 - X/255) * (K/255). EXACT: the reference's float64
+    statements each stored to float32 (core/numerics.ycck_channels_to_rgb,
+    colour_conversion.c:137-141). FLOAT32: the JAX package's float32 order
+    (ops/color.py ycck_to_rgb)."""
+    if exact:
+        y = y8.to(F64)
+        cb = cb8.to(F64) - 128.0
+        cr = cr8.to(F64) - 128.0
+        k = k8.to(F64)
+        cmy = [(y + 1.402 * cr).to(F32).to(F64),
+               (y - 0.34414 * cb - 0.71414 * cr).to(F32).to(F64),
+               (y + 1.772 * cb).to(F32).to(F64)]
+    else:
+        cmy = _ycbcr_channels_f32(y8, cb8, cr8)
+        k = k8.to(F32)
+    kk = _div(k, 255.0)
+    return [(255.0 * (1.0 - _div(x, 255.0)) * kk).to(F32) for x in cmy]
+
+
+def ycck_to_rgb(y8, cb8, cr8, k8, exact: bool = True,
+                quirks: Quirks = Quirks.REFERENCE) -> torch.Tensor:
+    """4-component YCCK composite (yccb_rgb, colour_conversion.c:85-162) of
+    full-resolution uint8 channels -> uint8 RGB [..., 3]."""
+    return _store_rgb(*ycck_channels(y8, cb8, cr8, k8, exact), quirks)
+
+
+#: The colour transform of a frame, as the kernels number it.
+YCBCR, YCCK_EXACT, YCCK_FLOAT, CMYK, GRAY = range(5)
+
+
+def colour_mode(n_comps: int, exact: bool, raw_cmyk: bool) -> int:
+    """The transform build_stage_raw applies: YCbCr for 3 components; for 4,
+    raw CMYK where the frame asks for it (`raw_cmyk`: an APP14 transform of
+    0 under CORRECT), else YCCK under the IDCT's contract."""
+    if n_comps == 3:
+        return YCBCR
+    if raw_cmyk:
+        return CMYK
+    return YCCK_EXACT if exact else YCCK_FLOAT
+
+
+def _convert(chans, mode: int, quirks: Quirks) -> torch.Tensor:
+    if mode == YCBCR:
+        return ycbcr_to_rgb(*chans, quirks)
+    if mode == CMYK:
+        return cmyk_to_rgb(*chans)
+    return ycck_to_rgb(*chans, mode == YCCK_EXACT, quirks)
+
+
+def _planes_to_rgb_plain(planes, h, w, factors, quirks, upsample: str = "nn",
+                         exact: bool = True, raw_cmyk: bool = False,
+                         gray_shear: bool | None = None):
+    """The colour stage of build_stage_raw in plain PyTorch (the plain
+    version of K3 and K3f). `gray_shear` (default: REFERENCE quirks)
+    indexes a gray plane at the image width."""
     if len(planes) == 1:
-        return gray_to_rgb(_gray_source(planes[0], h, w, quirks))
+        shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
+        return gray_to_rgb(_gray_source(planes[0], h, w, shear))
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
-    y, cb, cr = (
-        nn_upsample(p, h, w, fh, fv, mh, mv) for p, (fh, fv) in zip(planes, factors)
-    )
-    return ycbcr_to_rgb(y, cb, cr, quirks)
+    up = nn_upsample if upsample == "nn" else fancy_upsample
+    chans = [up(p, h, w, fh, fv, mh, mv) for p, (fh, fv) in zip(planes, factors)]
+    return _convert(chans, colour_mode(len(planes), exact, raw_cmyk), quirks)
 
 
-def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks) -> torch.Tensor:
+def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str = "nn",
+                  exact: bool = True, raw_cmyk: bool = False,
+                  gray_shear: bool | None = None) -> torch.Tensor:
     """uint8 pixel planes [rows, stride], or [B, rows, stride] for a batch
-    (1 or 3 components, sampling `factors` = ((hsf, vsf), ...)) -> [h, w, 3]
-    or [B, h, w, 3] uint8 RGB: the device stage after the IDCT. CPU
-    tensors: the plain versions. CUDA: K3, one launch for the batch (one
-    per 65,535 images, _build.image_chunks)."""
-    if len(planes) not in (1, 3):
+    (1, 3 or 4 components, sampling `factors` = ((hsf, vsf), ...)) -> [h, w,
+    3] or [B, h, w, 3] uint8 RGB: the device stage after the IDCT.
+    `upsample` "nn" or "fancy"; `exact` the IDCT's contract, which picks
+    YCCK's arithmetic; `raw_cmyk` a 4-component frame's raw CMYK transform;
+    `gray_shear` as in _planes_to_rgb_plain. CPU tensors: the plain
+    versions. CUDA: K3 (1, 3 or 4 components, nn) or K3f (fancy, 3 or 4
+    components), one launch for the batch (one per 65,535 images,
+    _build.image_chunks). A gray frame ignores `upsample`."""
+    if len(planes) not in (1, 3, 4):
         raise ValueError(f"planes_to_rgb: {len(planes)} components")
     lead = planes[0].shape[:-2]
     if len(lead) > 1 or any(p.dim() != planes[0].dim() or p.shape[:-2] != lead
@@ -116,42 +253,74 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks) -> torch.Tens
         raise ValueError("planes_to_rgb: planes must be [rows, stride] or [B, rows, stride], one B")
     dev = planes[0].device
     if dev.type == "cpu":
-        return _planes_to_rgb_plain(planes, h, w, factors, quirks)
+        return _planes_to_rgb_plain(planes, h, w, factors, quirks, upsample, exact, raw_cmyk,
+                                    gray_shear)
     if not planes[0].is_cuda:
         raise ValueError(f"planes_to_rgb: no kernel for {dev}")
     for p in planes:
         if p.dtype != torch.uint8 or not p.is_contiguous() or p.device != dev:
             raise ValueError("planes_to_rgb: planes must be contiguous uint8 on one device")
-    n_images = lead[0] if lead else 1
+    shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
+    fancy = upsample == "fancy" and len(planes) > 1
+    mode = GRAY if len(planes) == 1 else colour_mode(len(planes), exact, raw_cmyk)
+    return _launch("jdtc_fancy" if fancy else "jdtc_color", planes, lead, h, w, factors,
+                   quirks, mode, shear)
+
+
+#: Bits of a component's flags in K3's and K3f's geometry (csrc/color.cu).
+_H2X, _V2X, _NN = 1, 2, 4
+
+
+def upsample_geometry(planes_shapes, h: int, w: int, factors, fancy: bool):
+    """K3f's (`fancy`) or K3's geometry: per component (rows, stride,
+    flags) and (hratio, vratio) of its nearest-neighbour step. K3 indexes
+    every plane below the full factors by the reference's rule; K3f runs
+    the 2x passes first, and takes the rule where a ratio other than 2x
+    remains. A component at the full factors is read in place. Raises if
+    a kernel would read outside a plane."""
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
-    strides, img_strides, hr, vr = [0, 0, 0], [0, 0, 0], [0.0] * 3, [0.0] * 3
-    for c, (p, (fh, fv)) in enumerate(zip(planes, factors)):
-        rows, cols = p.shape[-2:]
-        hr[c] = float(np.float32(fh) / np.float32(mh))
-        vr[c] = float(np.float32(fv) / np.float32(mv))
-        strides[c] = cols
-        img_strides[c] = rows * cols
-        # Memory safety: the kernel gathers without bounds checks, so the
-        # last row and column it will index must lie inside every image's
-        # plane.
-        if len(planes) == 3 and h and w and (
-            int(_nn_index_f32(h, np.float32(vr[c]))[-1]) >= rows
-            or int(_nn_index_f32(w, np.float32(hr[c]))[-1]) >= cols
-        ):
+    geom, ratios = [], []
+    for (rows, cols), (fh, fv) in zip(planes_shapes, factors):
+        if fancy:
+            h2, v2, eh, ev = fancy_passes(fh, fv, mh, mv)
+        else:
+            h2 = v2 = False
+            eh, ev = fh, fv
+        nn = eh != mh or ev != mv
+        flags = _H2X * h2 | _V2X * v2 | _NN * nn
+        hr = np.float32(eh) / np.float32(mh)
+        vr = np.float32(ev) / np.float32(mv)
+        # the extent of the passes' output, and the last row and column read
+        xr, xc = rows * (2 if v2 else 1), cols * (2 if h2 else 1)
+        last_r = int(_nn_index_f32(h, vr)[-1]) if nn else h - 1
+        last_c = int(_nn_index_f32(w, hr)[-1]) if nn else w - 1
+        if h and w and (last_r >= xr or last_c >= xc):
             raise ValueError("planes_to_rgb: plane smaller than its upsampled extent")
-    if len(planes) == 1:
-        rows, cols = planes[0].shape[-2:]
-        if rows < h or cols < w:
-            raise ValueError("planes_to_rgb: gray plane smaller than the image")
-        strides[0] = w if quirks == Quirks.REFERENCE else cols
-    out = torch.empty((*lead, h, w, 3), dtype=torch.uint8, device=dev)
+        geom.append((rows, cols, flags))
+        ratios.append((float(hr), float(vr)))
+    return geom, ratios
+
+
+def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
+            mode: int, shear: bool) -> torch.Tensor:
+    """Launch K3 (`jdtc_color`) or K3f (`jdtc_fancy`) over `planes`; a
+    gray plane is read at the image width where `shear`."""
+    geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors,
+                                     entry == "jdtc_fancy")
+    n = len(planes)
+    g = np.zeros((4, 4), dtype=np.int64)   # img_stride, rows, stride, flags
+    r = np.zeros((4, 2), dtype=np.float32)
+    for c, ((rows, cols, flags), ratio) in enumerate(zip(geom, ratios)):
+        g[c] = (rows * cols, rows, w if n == 1 and shear else cols, flags)
+        r[c] = ratio
+    out = torch.empty((*lead, h, w, 3), dtype=torch.uint8, device=planes[0].device)
     if h * w:
-        padded = [*planes, *[None] * (3 - len(planes))]
+        n_images = lead[0] if lead else 1
+        padded = [*planes, *[None] * (4 - n)]
         for _first, count, ptrs in _build.image_chunks(n_images, *padded, out):
-            _build.launch(
-                "jdtc_color", *ptrs[:3], count, *img_strides, len(planes), h, w,
-                *strides, *hr, *vr, int(quirks != Quirks.REFERENCE),
-                ptrs[3], _build.stream_of(out),
-            )
+            _build.launch(entry, *ptrs[:4], count, n, h, w, ctypes.c_void_p(g.ctypes.data),
+                          ctypes.c_void_p(r.ctypes.data),
+                          mode, int(quirks != Quirks.REFERENCE), ptrs[4],
+                          _build.stream_of(out))
     return out

@@ -16,10 +16,16 @@ that holds it imports JAX), in idct_pallas's formula
 (ops/pallas_kernels.py _kernel): dequantize in float32, multiply by K,
 floor, then the output store. Within +-1 LSB of EXACT.
 
+SCALED (scale k in {1, 2, 4}, under either contract, as the JAX package
+runs it): a [N, 64] @ [64, k*k] float32 product by the truncated k-point
+IDCT's matrix (idct_matrix_zz_scaled, copied from the JAX module) with the
+table folded in, then the FLOAT32 store: idct_matmul_scaled.
+
 `idct_plane` is the wrapper the decoder calls: for a CPU tensor it runs the
 plain version of the chosen contract, for a CUDA tensor it launches kernel
-K0 (csrc/idct_exact.cu, EXACT) or K1 (csrc/idct_float.cu, FLOAT32), each of
-which fuses dequant, IDCT, output store and the block-to-plane scatter.
+K0 (csrc/idct_exact.cu, EXACT), K1 (csrc/idct_float.cu, FLOAT32) or, at
+scale < 8, K5 (csrc/idct_scaled.cu), each of which fuses dequant, IDCT,
+output store and the block-to-plane scatter.
 """
 
 from __future__ import annotations
@@ -261,6 +267,62 @@ def idct_float(coeffs_zz: torch.Tensor, qtable_natural,
 
 
 # ---------------------------------------------------------------------------
+# Scaled decode
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def idct_matrix_zz_scaled(k: int) -> np.ndarray:
+    """[64, k*k] float32 M_k with pixels_kxk = dequantized zigzag
+    coefficients @ M_k (jpeg_decoder_tpu/ops/idct.py idct_matrix_zz_scaled):
+    the truncated k-point inverse DCT of the k lowest frequencies per axis,
+    g = (k/8) B_k F[:k, :k] B_k^T with B_k[x, u] = sqrt(2/k) c_u cos((2x + 1)
+    u pi / (2k)), c_0 = 1/sqrt(2), so that a DC-only block maps to the
+    constant the full IDCT gives. Row z is the response of the z-th zigzag
+    coefficient (zero above the band), columns raster-order pixels."""
+    if k not in (1, 2, 4, 8):
+        raise ValueError(f"scaled IDCT supports k in {{1, 2, 4, 8}}, got {k}")
+    x = np.arange(k, dtype=np.float64)[:, None]
+    u = np.arange(k, dtype=np.float64)[None, :]
+    b = np.sqrt(2.0 / k) * np.cos((2.0 * x + 1.0) * u * np.pi / (2.0 * k))
+    b[:, 0] *= 1.0 / np.sqrt(2.0)
+    mat = np.zeros((64, k * k), dtype=np.float64)
+    for z in range(64):
+        nat = int(ZIGZAG[z])
+        v_row, u_col = nat // 8, nat % 8
+        if v_row >= k or u_col >= k:
+            continue
+        mat[z] = (k / 8.0) * np.outer(b[:, v_row], b[:, u_col]).reshape(-1)
+    out = mat.astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def idct_matrix_scaled_on(device: torch.device, k: int) -> torch.Tensor:
+    """M_k as a float32 [64, k*k] tensor on `device`."""
+    return torch.from_numpy(idct_matrix_zz_scaled(k).copy()).to(device)
+
+
+def idct_matmul_scaled(coeffs_zz: torch.Tensor, qtable_natural, k: int,
+                       bits12: bool = False) -> torch.Tensor:
+    """The scaled decode's IDCT, plain PyTorch (the plain version of K5):
+    [N, 64] zigzag coefficients -> [N, k*k] uint8 raster pixels of a k x k
+    tile. As the JAX function: the table folded into M_k (one float32
+    product an entry), float32(coeffs) @ it in true float32, the FLOAT32
+    store."""
+    dev = coeffs_zz.device
+    if not isinstance(qtable_natural, torch.Tensor):
+        qtable_natural = torch.from_numpy(np.asarray(qtable_natural, dtype=np.int32))
+    zz = torch.as_tensor(ZIGZAG, dtype=torch.long, device=dev)
+    qt_zz = qtable_natural.to(device=dev)[zz].to(F32)
+    m = idct_matrix_scaled_on(dev, k) * qt_zz[:, None]
+    with _true_float32_matmul():
+        y = coeffs_zz.to(F32) @ m
+    return _quantize_output_float(y, bits12)
+
+
+# ---------------------------------------------------------------------------
 # Block scatter and the dispatch
 # ---------------------------------------------------------------------------
 
@@ -283,18 +345,26 @@ _ENTRY = {IdctPrecision.EXACT: "jdtc_idct_exact",
 
 def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
                bits12: bool = False,
-               precision: IdctPrecision = IdctPrecision.EXACT) -> torch.Tensor:
+               precision: IdctPrecision = IdctPrecision.EXACT,
+               scale: int = 8) -> torch.Tensor:
     """int16 [..., by, bx, 64] zigzag coefficient planes -> uint8
-    [..., by*8, bx*8] pixel planes. Leading (batch) dimensions stack as
-    block rows: [B, by, bx, 64] is [B*by, bx, 64] to the kernel.
+    [..., by*k, bx*k] pixel planes, k = `scale`. Leading (batch) dimensions
+    stack as block rows: [B, by, bx, 64] is [B*by, bx, 64] to the kernel.
+    At scale < 8 `precision` is not read (the JAX package's scaled decode
+    is its FLOAT32 product under either contract).
 
-    CPU tensor: the plain version of `precision`. CUDA tensor: K0 (EXACT)
-    or K1 (FLOAT32)."""
+    CPU tensor: the plain version. CUDA tensor: K0 (EXACT), K1 (FLOAT32) or
+    K5 (scale < 8)."""
     *lead, by, bx, _ = coeff_plane.shape
     rows = int(np.prod(lead, dtype=np.int64)) * by
+    k = scale
     if coeff_plane.device.type == "cpu":
-        pix = _PLAIN[precision](coeff_plane.reshape(-1, 64), qtable_natural, bits12)
-        return blocks_to_plane(pix, rows, bx).reshape(*lead, by * 8, bx * 8)
+        flat = coeff_plane.reshape(-1, 64)
+        if k < 8:
+            pix = idct_matmul_scaled(flat, qtable_natural, k, bits12)
+        else:
+            pix = _PLAIN[precision](flat, qtable_natural, bits12)
+        return blocks_to_plane(pix, rows, bx, k).reshape(*lead, by * k, bx * k)
     if not coeff_plane.is_cuda:
         raise ValueError(f"idct_plane: no kernel for {coeff_plane.device}")
     if coeff_plane.dtype != torch.int16 or not coeff_plane.is_contiguous():
@@ -303,9 +373,18 @@ def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
             or not qtable_natural.is_contiguous()
             or qtable_natural.device != coeff_plane.device):
         raise ValueError("idct_plane: qtable must be contiguous int32 [64] on the same device")
-    out = torch.empty((*lead, by * 8, bx * 8), dtype=torch.uint8,
+    out = torch.empty((*lead, by * k, bx * k), dtype=torch.uint8,
                       device=coeff_plane.device)
     if rows * bx:
+        if k < 8:
+            if coeff_plane.data_ptr() % 16:
+                raise ValueError("idct_plane: scaled decode needs 16-byte aligned coefficients")
+            _build.launch(
+                "jdtc_idct_scaled", _build.ptr(coeff_plane), _build.ptr(qtable_natural),
+                _build.ptr(idct_matrix_scaled_on(coeff_plane.device, k)), rows * bx, bx, k,
+                int(bits12), _build.ptr(out), _build.stream_of(out),
+            )
+            return out
         extra = ()
         if precision == IdctPrecision.FLOAT32:
             extra = (_build.ptr(idct_matrix_on(coeff_plane.device)),)

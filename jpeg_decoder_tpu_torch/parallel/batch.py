@@ -13,9 +13,12 @@ The serving shape: many JPEGs per step.
     (progressive, restart-free over 256 MCUs, oversized segments) takes the
     native host decode, and its planes are copied into its slice.
 Then one PixelStage call over the stacked planes, RGB alone: one K03
-(EXACT) or K13 (FLOAT32) launch for a 3-component batch (ops/pixel.py),
-else one K0 (EXACT) or K1 (FLOAT32) launch per component and one K3 launch;
-and one device-to-host copy of [B, H, W, 3].
+(EXACT) or K13 (FLOAT32) launch for a 3-component nearest-neighbour batch
+(ops/pixel.py), else one K0 (EXACT), K1 (FLOAT32) or K5 (scale < 8) launch
+per component and one K3 or K3f launch (models/decoder.PixelStage);
+and one device-to-host copy of [B, h, w, 3]. As the JAX class, it takes
+every config and never reads `use_device`: the pixel stage runs on the
+device.
 
 The JAX class's `mesh` is not taken: meshes are ROADMAP queue 1 item 10.
 """
@@ -60,7 +63,6 @@ class BatchDecoder:
 
     def __init__(self, cfg: DecodeConfig | None = None, device="cuda"):
         self.cfg = cfg or DecodeConfig()
-        decoder_mod._check_config(self.cfg)
         self.device = convert.resolve_device(device)
         self._pool = host.PlanePool()
 

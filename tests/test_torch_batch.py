@@ -31,7 +31,6 @@ from jpeg_decoder_tpu_torch import (
     EntropyBackend,
     IdctPrecision,
     JpegFormatError,
-    JpegUnsupportedError,
 )
 from jpeg_decoder_tpu_torch.io.parser import parse
 from jpeg_decoder_tpu_torch.ops import entropy_cuda
@@ -181,7 +180,76 @@ def test_empty_requests():
 
 
 def test_module_decode_batch_and_config_checks():
+    """The module's decode_batch; and BatchDecoder(scale=4) gives the JAX
+    BatchDecoder's [B, h/2, w/2, 3] (scale 4 is the FLOAT32 product under
+    either contract: RGB within 3)."""
     got = jtt.decode_batch(DATAS[:2], DecodeConfig(), device="cpu")
     np.testing.assert_array_equal(got, _jax_batch(IdctPrecision.EXACT)[:2])
-    with pytest.raises(JpegUnsupportedError):
-        jtt.BatchDecoder(DecodeConfig(scale=4), device="cpu")
+    small = jtt.BatchDecoder(DecodeConfig(scale=4), device="cpu").decode_batch(DATAS[:2])
+    want = jbatch.BatchDecoder(jt.DecodeConfig(scale=4), mesh=None).decode_batch(DATAS[:2])
+    assert small.shape == (2, 24, 32, 3)
+    _assert_rgb(small, want, IdctPrecision.FLOAT32)
+
+
+# ---------------------------------------------------------------------------
+# Fancy upsampling, scaled decode and 4 components
+# ---------------------------------------------------------------------------
+
+
+def _four_streams(transform):
+    """Four same-geometry 4-component streams (random coefficients packed
+    by the port's native runtime, a restart marker every 2 MCUs) with
+    APP14 transform `transform`."""
+    from jpeg_decoder_tpu_torch.benchmarks.inputs import make_jpeg
+
+    return [make_jpeg(40, 24, ((1, 1),) * 4, 2, 60 + i, transform) for i in range(4)]
+
+
+#: name -> (config fields, the streams)
+BATCH_CONFIGS = {
+    "fancy": (dict(upsample="fancy"), DATAS[:4]),
+    "fancy_float32": (dict(upsample="fancy", idct_precision=IdctPrecision.FLOAT32),
+                      DATAS[:4]),
+    "scale4": (dict(scale=4), DATAS[:4]),
+    "scale2_float32": (dict(scale=2, idct_precision=IdctPrecision.FLOAT32), DATAS[:4]),
+    "ycck": (dict(), _four_streams(2)),
+    "cmyk_correct_fancy": (dict(quirks=jtt.Quirks.CORRECT, upsample="fancy"),
+                           _four_streams(0)),
+    "host_pixels_flag": (dict(use_device=False), DATAS[:4]),
+}
+
+
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+@pytest.mark.parametrize("name", sorted(BATCH_CONFIGS))
+def test_new_configs_batch_match_jax(name, backend):
+    """decode_batch against the JAX BatchDecoder(mesh=None) (which never
+    reads use_device: the pixel stage runs on the device), and each batched
+    RGB bitwise its single-image decode. EXACT at full size bitwise, except
+    YCCK, which is held bitwise against the JAX package's host chain and
+    within 1 of its jitted stage (ROADMAP.md §3); FLOAT32 and scaled
+    decodes within 3."""
+    fields, datas = BATCH_CONFIGS[name]
+    cfg = DecodeConfig(entropy_backend=backend, **fields)
+    dec = jtt.BatchDecoder(cfg, device="cpu")
+    got = dec.decode_batch(datas)
+    jcfg = jt.DecodeConfig(
+        idct_precision=jt.IdctPrecision[cfg.idct_precision.name],
+        quirks=jt.Quirks[cfg.quirks.name], upsample=cfg.upsample, scale=cfg.scale,
+        use_device=cfg.use_device)
+    want = jbatch.BatchDecoder(jcfg, mesh=None).decode_batch(datas)
+    k = cfg.scale
+    assert got.shape == want.shape == (len(datas), -(-parse(datas[0]).frame.height * k // 8),
+                                      -(-parse(datas[0]).frame.width * k // 8), 3)
+    exact = cfg.idct_precision == IdctPrecision.EXACT and k == 8
+    if name == "ycck":
+        host = np.stack([jt.decode(d, jcfg.replace(use_device=False)).rgb for d in datas])
+        np.testing.assert_array_equal(got, host)
+        assert np.abs(got.astype(np.int32) - want).max() <= 1
+    else:
+        _assert_rgb(got, want, IdctPrecision.EXACT if exact else IdctPrecision.FLOAT32)
+    _assert_matches_single(got, datas, cfg)
+    if cfg.use_device:
+        return
+    # the batch path is the device stage whatever use_device says
+    np.testing.assert_array_equal(
+        got, jtt.BatchDecoder(cfg.replace(use_device=True), device="cpu").decode_batch(datas))

@@ -1,13 +1,24 @@
 """The port's colour stage (jpeg_decoder_tpu_torch/ops/color.py) against the
-JAX package: bitwise, on the same numpy inputs."""
+JAX package: bitwise, on the same numpy inputs, except YCCK under FLOAT32
+(within 1: float32 chains that the two frameworks may round otherwise).
 
+YCCK under EXACT is held on the whole input domain of R and B (16.7 M
+(y, cr, k) and (y, cb, k) triples each) against the JAX function as it is
+called (op by op) and against the float64 chain of core/numerics (the
+reference's statements). The JAX package's jitted stage, which fuses the
+same df32 operations, differs from both on a few inputs (ROADMAP.md §3):
+the port follows the chain."""
+
+import jax
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
+from jpeg_decoder_tpu.core import numerics as jnumerics
 from jpeg_decoder_tpu.ops import color as jcolor
 from jpeg_decoder_tpu.utils.config import Quirks as JaxQuirks
+from jpeg_decoder_tpu_torch.core import numerics as tnumerics
 from jpeg_decoder_tpu_torch.ops import color as tcolor
 from jpeg_decoder_tpu_torch.utils.config import Quirks
 
@@ -60,8 +71,9 @@ def _pixel_planes(h, w, factors, seed):
             for fh, fv in factors]
 
 
-def _jax_stage_rgb(planes, h, w, factors, quirks):
-    """build_stage_raw's colour half (models/decoder.py:115-144)."""
+def _jax_stage_rgb(planes, h, w, factors, quirks, upsample="nn", exact=True,
+                   raw_cmyk=False):
+    """build_stage_raw's colour half (models/decoder.py:115-160)."""
     if len(planes) == 1:
         p = jnp.asarray(planes[0])
         if quirks == Quirks.REFERENCE:
@@ -72,9 +84,14 @@ def _jax_stage_rgb(planes, h, w, factors, quirks):
         return np.asarray(jcolor.gray_to_rgb(y))
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
-    chans = [jcolor.nn_upsample(jnp.asarray(p), h, w, fh, fv, mh, mv)
-             for p, (fh, fv) in zip(planes, factors)]
-    return np.asarray(jcolor.ycbcr_to_rgb(*chans, True, JaxQuirks[quirks.name]))
+    up = jcolor.nn_upsample if upsample == "nn" else jcolor.fancy_upsample
+    chans = [up(jnp.asarray(p), h, w, fh, fv, mh, mv) for p, (fh, fv) in zip(planes, factors)]
+    jq = JaxQuirks[quirks.name]
+    if len(planes) == 3:
+        return np.asarray(jcolor.ycbcr_to_rgb(*chans, True, jq))
+    if raw_cmyk:
+        return np.asarray(jcolor.cmyk_to_rgb(*chans))
+    return np.asarray(jcolor.ycck_to_rgb(*chans, exact, jq))
 
 
 @pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
@@ -116,3 +133,206 @@ def test_planes_to_rgb_rejects_mismatched_batches():
     with pytest.raises(ValueError):
         tcolor.planes_to_rgb([planes[0][None], planes[1], planes[2]], 16, 16,
                              ((1, 1),) * 3, Quirks.REFERENCE)
+
+
+# ---------------------------------------------------------------------------
+# Fancy upsampling, YCCK and CMYK
+# ---------------------------------------------------------------------------
+
+
+#: (hsf, vsf, max_hsf, max_vsf): every branch of fancy_upsample
+FANCY_PAIRS = [(1, 1, 2, 2), (1, 1, 2, 1), (1, 1, 1, 2), (1, 1, 4, 1), (1, 1, 4, 2),
+               (2, 2, 2, 2), (2, 1, 4, 2)]
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 24), (13, 21)], ids=["even", "odd"])
+@pytest.mark.parametrize("hsf,vsf,mh,mv", FANCY_PAIRS,
+                         ids=[f"{a}x{b}_of_{c}x{d}" for a, b, c, d in FANCY_PAIRS])
+def test_fancy_upsample_matches_jax(hsf, vsf, mh, mv, rows, cols):
+    """Bitwise, on planes with an all-255 corner (where the two passes give
+    256 before the clamp) and an all-0 one; the output cropped short of the
+    plane's extent, so that the edges replicated are the plane's."""
+    rng = np.random.default_rng(rows * cols + 10 * mh + mv)
+    plane = rng.integers(0, 256, (rows, cols), dtype=np.uint8)
+    plane[:4, :4] = 255
+    plane[-4:, -4:] = 0
+    out_h, out_w = rows * mv // vsf - 3, cols * mh // hsf - 5
+    got = tcolor.fancy_upsample(torch.from_numpy(plane), out_h, out_w, hsf, vsf, mh, mv)
+    want = jcolor.fancy_upsample(jnp.asarray(plane), out_h, out_w, hsf, vsf, mh, mv)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the passes alone, in float32
+    x = plane.astype(np.float32)
+    np.testing.assert_array_equal(tcolor.fancy_h2x(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jcolor.fancy_h2x(jnp.asarray(x))))
+    np.testing.assert_array_equal(tcolor.fancy_v2x(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jcolor.fancy_v2x(jnp.asarray(x))))
+
+
+def _domain(channel):
+    """(y, cb, cr, k) uint8 arrays that walk R's whole (y, cr, k) domain
+    (channel 0) or B's (y, cb, k) (channel 2), the other chroma at 128."""
+    y, c, k = (a.ravel() for a in np.meshgrid(
+        np.arange(256, dtype=np.uint8), np.arange(256, dtype=np.uint8),
+        np.arange(256, dtype=np.uint8), indexing="ij"))
+    mid = np.full_like(y, 128)
+    return (y, mid, c, k) if channel == 0 else (y, c, mid, k)
+
+
+@pytest.mark.parametrize("channel", [0, 2], ids=["R", "B"])
+def test_ycck_exact_matches_jax_and_numerics_on_the_full_domain(channel):
+    """YCCK EXACT bitwise against the JAX function (op by op) and the
+    float64 chain, both quirks, over every (y, chroma, k) of R or B."""
+    chans = _domain(channel)
+    step = 1 << 22
+    for quirks in QUIRKS:
+        jq = JaxQuirks[quirks.name]
+        for lo in range(0, chans[0].size, step):
+            part = [c[lo: lo + step] for c in chans]
+            got = tcolor.ycck_to_rgb(*map(torch.from_numpy, part), True, quirks).numpy()
+            np.testing.assert_array_equal(
+                got[:, channel], tnumerics.ycck_channels_to_rgb(*part, quirks)[:, channel])
+            np.testing.assert_array_equal(
+                got[:, channel], jnumerics.ycck_channels_to_rgb(*part, jq)[:, channel])
+            want = np.asarray(jcolor.ycck_to_rgb(*map(jnp.asarray, part), True, jq))
+            np.testing.assert_array_equal(got[:, channel], want[:, channel])
+
+
+@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
+def test_ycck_matches_jax_on_a_random_million(quirks):
+    """Every channel (G depends on all four samples) on a random million:
+    EXACT bitwise against the JAX function and the float64 chain; FLOAT32
+    within 1 of the JAX function, called op by op and jitted. On this
+    sample the port's FLOAT32 equals the op-by-op JAX function everywhere
+    and differs by 1 from the jitted one on about 1e-5 of the values
+    (2.5e-5 REFERENCE, 1.1e-5 CORRECT, seed 3, in a CPU run of this test)."""
+    rng = np.random.default_rng(3)
+    chans = rng.integers(0, 256, (4, 1 << 20), dtype=np.uint8)
+    jq = JaxQuirks[quirks.name]
+    got = tcolor.ycck_to_rgb(*map(torch.from_numpy, chans), True, quirks).numpy()
+    np.testing.assert_array_equal(got, jnumerics.ycck_channels_to_rgb(*chans, jq))
+    np.testing.assert_array_equal(got, np.asarray(
+        jcolor.ycck_to_rgb(*map(jnp.asarray, chans), True, jq)))
+    got = tcolor.ycck_to_rgb(*map(torch.from_numpy, chans), False, quirks).numpy()
+    eager = np.asarray(jcolor.ycck_to_rgb(*map(jnp.asarray, chans), False, jq))
+    jitted = np.asarray(jax.jit(lambda *x: jcolor.ycck_to_rgb(*x, False, jq))(
+        *map(jnp.asarray, chans)))
+    for want in (eager, jitted):
+        d = np.abs(got.astype(np.int32) - want)
+        assert d.max() <= 1
+        assert (d != 0).mean() <= 1e-4
+
+
+#: Inputs (y, cb, cr, k) on which the JAX package's jitted YCCK EXACT differs
+#: from its op-by-op function and the float64 chain (ROADMAP.md §3): the
+#: pixel (172, 52) of tests/wild_files/transcoded/hopper_cmyk_adobe.jpg,
+#: whose R is 128, and R and B cases of the full-domain sweep.
+JIT_DIVERGENCES = [((127, 115, 128, 255), 0, 128), ((65, 128, 128, 153), 0, 114),
+                   ((75, 128, 128, 17), 0, 12), ((6, 27, 128, 143), 2, 239)]
+
+
+@pytest.mark.parametrize("sample,channel,value", JIT_DIVERGENCES)
+def test_ycck_exact_follows_the_chain_where_jitted_jax_does_not(sample, channel, value):
+    """REFERENCE quirks: the port gives the float64 chain's byte."""
+    chans = [np.array([v], dtype=np.uint8) for v in sample]
+    got = tcolor.ycck_to_rgb(*map(torch.from_numpy, chans), True, Quirks.REFERENCE).numpy()
+    assert got[0, channel] == value
+    assert jnumerics.ycck_channels_to_rgb(*chans, JaxQuirks.REFERENCE)[0, channel] == value
+
+
+def test_cmyk_to_rgb_matches_jax_on_the_full_domain():
+    """Every (c, k) pair, in each of the three channels."""
+    c, k = (a.ravel() for a in np.meshgrid(np.arange(256, dtype=np.uint8),
+                                           np.arange(256, dtype=np.uint8), indexing="ij"))
+    chans = (c, np.roll(c, 1), np.roll(c, 2), k)
+    got = tcolor.cmyk_to_rgb(*map(torch.from_numpy, chans)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jcolor.cmyk_to_rgb(*map(jnp.asarray, chans))))
+    np.testing.assert_array_equal(got, jnumerics.cmyk_channels_to_rgb(*chans))
+
+
+F4 = ((1, 1),) * 4
+#: name -> (h, w, factors, upsample, exact, raw_cmyk)
+STAGES = {
+    "fancy_420": (37, 45, ((2, 2), (1, 1), (1, 1)), "fancy", True, False),
+    "fancy_422": (37, 45, ((2, 1), (1, 1), (1, 1)), "fancy", True, False),
+    "fancy_411": (37, 45, ((4, 1), (1, 1), (1, 1)), "fancy", True, False),
+    "fancy_421": (37, 45, ((4, 2), (1, 1), (1, 1)), "fancy", True, False),
+    "ycck_exact": (24, 40, F4, "nn", True, False),
+    "ycck_float32": (24, 40, F4, "nn", False, False),
+    "cmyk": (24, 40, F4, "nn", True, True),
+    "ycck_420_fancy": (37, 45, ((2, 2), (1, 1), (1, 1), (2, 2)), "fancy", True, False),
+    "cmyk_422_fancy": (37, 45, ((2, 1), (1, 1), (1, 1), (2, 1)), "fancy", True, True),
+}
+
+
+@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
+@pytest.mark.parametrize("name", sorted(STAGES))
+def test_planes_to_rgb_new_stages_match_jax(name, quirks):
+    """4 components and fancy upsampling, single and batched, against the
+    JAX stage's colour half (op by op): bitwise, YCCK FLOAT32 within 1."""
+    h, w, factors, upsample, exact, raw = STAGES[name]
+    batch = [_pixel_planes(h, w, factors, 200 + i) for i in range(2)]
+    for planes in batch:
+        planes[0][:9, :9] = 255
+    stacked = [torch.from_numpy(np.stack([b[c] for b in batch])) for c in range(len(factors))]
+    got = tcolor.planes_to_rgb(stacked, h, w, factors, quirks, upsample, exact, raw)
+    assert got.shape == (2, h, w, 3)
+    for i, planes in enumerate(batch):
+        single = tcolor.planes_to_rgb([torch.from_numpy(p) for p in planes], h, w, factors,
+                                      quirks, upsample, exact, raw)
+        assert torch.equal(single, got[i])
+        want = _jax_stage_rgb(planes, h, w, factors, quirks, upsample, exact, raw)
+        d = np.abs(single.numpy().astype(np.int32) - want)
+        assert d.max() <= (0 if exact else 1)
+
+
+@pytest.mark.parametrize("factors,flags", [
+    (((1, 1),), [0]),
+    (((2, 2), (1, 1), (1, 1)), [0, tcolor._NN, tcolor._NN]),
+    (((2, 1), (1, 1), (1, 1)), [0, tcolor._NN, tcolor._NN]),
+    (((1, 1),) * 3, [0, 0, 0]),
+    (((2, 2), (1, 1), (1, 1), (2, 2)), [0, tcolor._NN, tcolor._NN, 0]),
+], ids=["gray", "420", "422", "444", "4x_420"])
+def test_nn_geometry_reads_full_factor_planes_in_place(factors, flags):
+    """K3's geometry: a component at the full factors is read in place (the
+    rule's index at ratio 1 is the pixel's own), the others by the rule at
+    their ratio."""
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    shapes = [(16 * fv // mv, 32 * fh // mh) for fh, fv in factors]
+    geom, ratios = tcolor.upsample_geometry(shapes, 16, 32, factors, False)
+    assert [g[2] for g in geom] == flags
+    for (fh, fv), (hr, vr) in zip(factors, ratios):
+        assert (hr, vr) == (fh / mh, fv / mv)
+    for i in (0, 15):
+        assert tnumerics._nn_index_f32(i + 1, np.float32(1.0))[i] == i
+
+
+def test_colour_modes_match_the_kernels_enum():
+    """The host numbers the colour transforms as csrc/color.cuh's Mode does."""
+    from jpeg_decoder_tpu_torch import _build
+
+    text = (_build.SRC_DIR / "color.cuh").read_text()
+    enum = text[text.index("enum Mode {") + len("enum Mode {"):]
+    enum = enum[: enum.index("}")]
+    got = {k.strip(): int(v) for k, v in (e.split("=") for e in enum.split(","))}
+    assert got == {"kYCbCr": tcolor.YCBCR, "kYcckExact": tcolor.YCCK_EXACT,
+                   "kYcckFloat": tcolor.YCCK_FLOAT, "kCmyk": tcolor.CMYK,
+                   "kGray": tcolor.GRAY}
+
+
+def test_upsample_geometry_refuses_a_plane_too_small():
+    """K3f's and K3's geometry: the flags of each branch, and the bounds
+    check the kernels rely on."""
+    geom, ratios = tcolor.upsample_geometry([(16, 32), (8, 8), (8, 8)], 16, 32,
+                                            ((4, 2), (1, 1), (1, 1)), True)
+    # the full-resolution component is cropped; the others take the
+    # vertical pass, then the nearest-neighbour rule at 1/4 across
+    assert [g[2] for g in geom] == [0, tcolor._V2X | tcolor._NN, tcolor._V2X | tcolor._NN]
+    assert ratios[1] == (0.25, 1.0)
+    geom, _ = tcolor.upsample_geometry([(16, 16), (8, 8), (8, 8)], 16, 16,
+                                       ((2, 2), (1, 1), (1, 1)), True)
+    assert [g[2] for g in geom] == [0, tcolor._H2X | tcolor._V2X, tcolor._H2X | tcolor._V2X]
+    with pytest.raises(ValueError, match="smaller"):
+        tcolor.upsample_geometry([(16, 16), (8, 7), (8, 8)], 16, 16,
+                                 ((2, 2), (1, 1), (1, 1)), True)
+    with pytest.raises(ValueError, match="smaller"):
+        tcolor.upsample_geometry([(16, 16)] * 3 + [(15, 16)], 16, 16, F4, False)

@@ -1,9 +1,10 @@
-"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3 and the probes PK1-PK7) against
-their plain PyTorch versions, and the decode and batch paths on the card
-against the same paths on the CPU. Bitwise, except FLOAT32 (K1, K13): within 1 of the plain
-version on at most 1e-3 of the pixels (the two sum the 64 products in other orders),
-and so within 3 in RGB (a chroma step of 1 moves R or B by up to 1.772); K13 is
-bitwise equal to K1 x 3 + K3, which sum in the same order.
+"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3, K3f, K3c, K5 and the probes
+PK1-PK7) against their plain PyTorch versions, and the decode and batch paths on the card
+against the same paths on the CPU. Bitwise, except FLOAT32 (K1, K13) and the scaled IDCT
+(K5): within 1 of the plain version on at most 1e-3 of the pixels (the two sum the
+products in other orders; K5 bitwise at k = 1, one term), and so within 3 in RGB (a
+chroma step of 1 moves R or B by up to 1.772); K13 is bitwise equal to K1 x 3 + K3,
+which sum in the same order.
 
 This file imports neither JAX, nor the JAX package jpeg_decoder_tpu, nor
 Pillow, so that it runs on a machine with a card and without them:
@@ -805,6 +806,215 @@ def test_65536_images_launch_in_chunks_bitwise_per_chunk(cuda_device):
         got = tcolor.planes_to_rgb(pix, 16, 16, F420, Quirks.REFERENCE)
         assert _build.LAUNCHES == {"jdtc_color": 2}
         assert torch.equal(got, rgb)
+
+
+# ---------------------------------------------------------------------------
+# K3f (fancy upsample + colour), K3c (K3 on four planes) and K5 (scaled IDCT)
+# ---------------------------------------------------------------------------
+
+
+#: Samplings of K3f and K3c (K3 on four planes): name -> factors, 3 and 4 components; 4:1:1 and
+#: 4:2:1 keep a 4x ratio after the 2x passes.
+UPSAMPLINGS = {
+    "420": F420,
+    "422": ((2, 1), (1, 1), (1, 1)),
+    "440": ((1, 2), (1, 1), (1, 1)),
+    "411": ((4, 1), (1, 1), (1, 1)),
+    "421": ((4, 2), (1, 1), (1, 1)),
+    "444": F444,
+    "4x_444": ((1, 1),) * 4,
+    "4x_420": ((2, 2), (1, 1), (1, 1), (2, 2)),
+    "4x_422": ((2, 1), (1, 1), (1, 1), (2, 1)),
+}
+#: 4-component colour transforms: (exact, raw_cmyk)
+TRANSFORMS = {"ycck_exact": (True, False), "ycck_float": (False, False),
+              "cmyk": (True, True)}
+
+
+def _upsample_cases(four):
+    return [(s, t) for s in sorted(UPSAMPLINGS) if (len(UPSAMPLINGS[s]) == 4) == four
+            for t in (sorted(TRANSFORMS) if four else ["ycbcr"])]
+
+
+def _saturated_planes(factors, h, w, seed, lead, device):
+    """Random planes with an all-255 corner (the fancy passes' 256) and an
+    all-0 one."""
+    planes = _pixel_planes(factors, h, w, seed, lead)
+    for p in planes:
+        p[..., :9, :9] = 255
+        p[..., -9:, -9:] = 0
+    return [p.to(device) for p in planes]
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["image", "batch"])
+@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
+@pytest.mark.parametrize("sampling,transform", _upsample_cases(False) + _upsample_cases(True))
+def test_k3f_matches_plain(cuda_device, sampling, transform, quirks, lead):
+    """K3f bitwise against the plain fancy_upsample + colour on the card and
+    on the CPU, one launch for the batch."""
+    factors = UPSAMPLINGS[sampling]
+    exact, raw = TRANSFORMS.get(transform, (True, False))
+    h, w = 67, 45
+    planes = _saturated_planes(factors, h, w, 7, lead, cuda_device)
+    _build.LAUNCHES.clear()
+    got = tcolor.planes_to_rgb(planes, h, w, factors, quirks, "fancy", exact, raw)
+    assert _build.LAUNCHES == {"jdtc_fancy": 1}
+    want = tcolor._planes_to_rgb_plain(planes, h, w, factors, quirks, "fancy", exact, raw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    cpu = tcolor.planes_to_rgb([p.cpu() for p in planes], h, w, factors, quirks, "fancy",
+                               exact, raw)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["image", "batch"])
+@pytest.mark.parametrize("quirks", QUIRKS, ids=lambda q: q.value)
+@pytest.mark.parametrize("sampling,transform", _upsample_cases(True))
+def test_k3c_matches_plain(cuda_device, sampling, transform, quirks, lead):
+    """K3c (K3's kernel on four planes) bitwise against the plain
+    nearest-neighbour upsample + YCCK or CMYK on the card and on the CPU."""
+    factors = UPSAMPLINGS[sampling]
+    exact, raw = TRANSFORMS[transform]
+    h, w = 67, 45
+    planes = _saturated_planes(factors, h, w, 8, lead, cuda_device)
+    _build.LAUNCHES.clear()
+    got = tcolor.planes_to_rgb(planes, h, w, factors, quirks, "nn", exact, raw)
+    assert _build.LAUNCHES == {"jdtc_color": 1}
+    want = tcolor._planes_to_rgb_plain(planes, h, w, factors, quirks, "nn", exact, raw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    cpu = tcolor.planes_to_rgb([p.cpu() for p in planes], h, w, factors, quirks, "nn",
+                               exact, raw)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_k3c_ycck_exact_on_the_full_r_domain(cuda_device):
+    """K3c under YCCK EXACT on a 4096x4096 4:4:4 frame that walks R's whole
+    (y, cr, k) domain, against the float64 chain in NumPy
+    (core/numerics.ycck_channels_to_rgb)."""
+    from jpeg_decoder_tpu_torch.core import numerics
+
+    y, cr, k = (torch.from_numpy(v) for v in np.meshgrid(
+        np.arange(256, dtype=np.uint8), np.arange(256, dtype=np.uint8),
+        np.arange(256, dtype=np.uint8), indexing="ij"))
+    planes = [c.reshape(4096, 4096).contiguous() for c in
+              (y, torch.full_like(y, 77), cr, k)]
+    for quirks in QUIRKS:
+        got = tcolor.planes_to_rgb([p.to(cuda_device) for p in planes], 4096, 4096,
+                                   ((1, 1),) * 4, quirks, "nn", True, False)
+        want = numerics.ycck_channels_to_rgb(*(p.numpy() for p in planes), quirks)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(40, 30), (3, 17, 11)], ids=["plane", "batch"])
+def test_k5_matches_plain(cuda_device, shape, k, bits12):
+    """K5 against its plain version (one torch.matmul, TF32 off): within 1
+    on at most 1e-3 of the pixels, bitwise at k = 1 (one term)."""
+    blocks = _random_blocks(k + 10 * bits12, shape, -2048 if bits12 else -1024,
+                            2048 if bits12 else 1024).to(cuda_device)
+    qt = convert.quant_table_to_device(np.random.default_rng(k).integers(1, 256, 64),
+                                       cuda_device)
+    _build.LAUNCHES.clear()
+    got = tidct.idct_plane(blocks, qt, bits12, IdctPrecision.EXACT, k)
+    assert _build.LAUNCHES == {"jdtc_idct_scaled": 1}
+    assert got.shape == (*shape[:-2], shape[-2] * k, shape[-1] * k)
+    *lead, by, bx = shape
+    rows = int(np.prod(lead, dtype=np.int64)) * by
+    want = tidct.blocks_to_plane(
+        tidct.idct_matmul_scaled(blocks.reshape(-1, 64), qt, k, bits12), rows, bx, k)
+    d = (got.reshape(rows * k, bx * k).cpu().to(torch.int32)
+         - want.cpu().to(torch.int32)).abs()
+    if bits12:
+        d = torch.minimum(d, 256 - d)  # the 12-bit rescale's low byte
+    if k == 1:
+        assert int(d.max()) == 0
+    assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
+    # the CPU's plain version, the same rule
+    cpu = tidct.idct_plane(blocks.cpu(), qt.cpu(), bits12, IdctPrecision.EXACT, k)
+    d = (got.cpu().to(torch.int32) - cpu.to(torch.int32)).abs()
+    if bits12:
+        d = torch.minimum(d, 256 - d)
+    assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
+
+
+F4 = ((1, 1),) * 4
+#: name -> (stream arguments of make_jpeg, config, the pixel stage's launches)
+NEW_PATHS = {
+    "fancy_420_exact": ((64, 48, F420, 4, 31), dict(upsample="fancy"),
+                        {"jdtc_idct_exact": 3, "jdtc_fancy": 1}),
+    "fancy_422_float32": ((72, 40, ((2, 1), (1, 1), (1, 1)), 3, 32),
+                          dict(upsample="fancy", idct_precision=IdctPrecision.FLOAT32),
+                          {"jdtc_idct_float": 3, "jdtc_fancy": 1}),
+    "scale4_420": ((64, 48, F420, 4, 33), dict(scale=4),
+                   {"jdtc_idct_scaled": 3, "jdtc_color": 1}),
+    "scale2_gray": ((100, 37, GRAY, 0, 34), dict(scale=2),
+                    {"jdtc_idct_scaled": 1, "jdtc_color": 1}),
+    "scale1_fancy_420": ((64, 48, F420, 4, 35), dict(scale=1, upsample="fancy"),
+                         {"jdtc_idct_scaled": 3, "jdtc_fancy": 1}),
+    "ycck_exact": ((40, 24, F4, 1, 36, 2), dict(),
+                   {"jdtc_idct_exact": 4, "jdtc_color": 1}),
+    "cmyk_correct": ((40, 24, F4, 1, 37, 0), dict(quirks=Quirks.CORRECT),
+                     {"jdtc_idct_exact": 4, "jdtc_color": 1}),
+    "ycck_float32_fancy": ((48, 32, ((2, 2), (1, 1), (1, 1), (2, 2)), 2, 38, 2),
+                           dict(upsample="fancy", idct_precision=IdctPrecision.FLOAT32),
+                           {"jdtc_idct_float": 4, "jdtc_fancy": 1}),
+    "ycck_scale4": ((40, 24, F4, 1, 39, 0), dict(scale=4),
+                    {"jdtc_idct_scaled": 4, "jdtc_color": 1}),
+}
+
+
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+@pytest.mark.parametrize("name", sorted(NEW_PATHS))
+def test_new_paths_on_cuda_match_cpu(cuda_device, name, backend):
+    """Fancy, scaled and 4-component decodes on the card against the same
+    decode on the CPU, through the route of PixelStage: EXACT bitwise;
+    FLOAT32 and scaled planes within 1 and RGB within 3, and bitwise the
+    colour stage of the card's own planes."""
+    args, kw, route = NEW_PATHS[name]
+    data = make_jpeg(*args)
+    cfg = DecodeConfig(entropy_backend=backend, **kw)
+    _build.LAUNCHES.clear()
+    got = jtt.JpegDecoder(cfg, device=cuda_device).decode(data)
+    launches = dict(_build.LAUNCHES)
+    if backend == EntropyBackend.PALLAS:
+        route = route | {"jdtc_entropy_decode": 1, "jdtc_unstuff": 1}
+    assert launches == route
+    want = jtt.decode(data, cfg, device="cpu")
+    assert got.rgb.shape == want.rgb.shape
+    if cfg.idct_precision == IdctPrecision.EXACT and cfg.scale == 8:
+        np.testing.assert_array_equal(got.rgb, want.rgb)
+        for a, b in zip(got.planes, want.planes):
+            np.testing.assert_array_equal(a, b)
+        return
+    for a, b in zip(got.planes, want.planes):
+        assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+    _assert_float32_rgb(got.rgb, want.rgb)
+    f = got.frame
+    h, w = -(-f.height * cfg.scale // 8), -(-f.width * cfg.scale // 8)
+    raw = f.ncs == 4 and cfg.quirks == Quirks.CORRECT and f.adobe_transform == 0
+    np.testing.assert_array_equal(got.rgb, tcolor.planes_to_rgb(
+        [torch.from_numpy(p) for p in got.planes], h, w,
+        tuple((c.hsf, c.vsf) for c in f.components), cfg.quirks, cfg.upsample,
+        cfg.idct_precision == IdctPrecision.EXACT, raw,
+        cfg.quirks == Quirks.REFERENCE and cfg.scale == 8).numpy())
+
+
+@pytest.mark.parametrize("name", ["fancy_420_exact", "scale4_420", "ycck_exact",
+                                  "ycck_float32_fancy"])
+def test_new_paths_batch_on_cuda(cuda_device, name):
+    """BatchDecoder (PALLAS) on the card: one K2u and one K2 call, the
+    pixel stage's launches once for the batch, each RGB bitwise its
+    single-image decode on the card."""
+    args, kw, route = NEW_PATHS[name]
+    datas = [make_jpeg(*args[:4], args[4] + 100 * i, *args[5:]) for i in range(4)]
+    cfg = DecodeConfig(entropy_backend=EntropyBackend.PALLAS, **kw)
+    _build.LAUNCHES.clear()
+    got = jtt.BatchDecoder(cfg, device=cuda_device).decode_batch(datas)
+    assert dict(_build.LAUNCHES) == route | {"jdtc_entropy_decode": 1, "jdtc_unstuff": 1}
+    for rgb, d in zip(got, datas):
+        np.testing.assert_array_equal(rgb, jtt.decode(d, cfg, device=cuda_device).rgb)
 
 
 # ---------------------------------------------------------------------------

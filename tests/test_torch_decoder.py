@@ -151,6 +151,19 @@ def _colour_of(img, quirks=Quirks.REFERENCE):
         tuple((c.hsf, c.vsf) for c in f.components), quirks).numpy()
 
 
+def jcfg(cfg: DecodeConfig):
+    """The JAX package's config with the same fields (its own enums)."""
+    return jt.DecodeConfig(
+        idct_precision=jt.IdctPrecision[cfg.idct_precision.name],
+        quirks=jt.Quirks[cfg.quirks.name], upsample=cfg.upsample, scale=cfg.scale,
+        use_device=cfg.use_device)
+
+
+def _assert_rgb_within(got, want, tol):
+    assert got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= tol
+
+
 @pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_float32_decode_matches_jax(name, backend):
@@ -173,16 +186,35 @@ def test_float32_decode_matches_jax(name, backend):
     ids=["fancy", "scale4", "host_pixels", "device_entropy"],
 )
 def test_outside_the_slice_raises(cfg):
-    with pytest.raises(JpegUnsupportedError):
-        jtt.decode(CASES["dri_420"], cfg, device="cpu")
-    assert_same_error_class(JpegUnsupportedError, jt.JpegUnsupportedError)
+    """The configs that once raised as outside the port: fancy, scale 4 and
+    use_device=False now decode as the JAX package does (EXACT at full size
+    bitwise; scale 4 is the FLOAT32 product under either contract: planes
+    within 1, RGB within 3); the DEVICE entropy backend alone still raises.
+    The name is the one the test had while all four raised."""
+    data = CASES["dri_420"]
+    if cfg.entropy_backend == EntropyBackend.DEVICE:
+        with pytest.raises(JpegUnsupportedError):
+            jtt.decode(data, cfg, device="cpu")
+        assert_same_error_class(JpegUnsupportedError, jt.JpegUnsupportedError)
+        return
+    got = jtt.decode(data, cfg, device="cpu")
+    want = jt.decode(data, jcfg(cfg))
+    if cfg.scale == 8:
+        _assert_same(got, want)
+    else:
+        _assert_within_1(got.planes, want.planes)
+        _assert_rgb_within(got.rgb, want.rgb, 3)
 
 
 @pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
 def test_four_components_raise(backend):
+    """A 4-component frame (Pillow's CMYK, APP14 transform 0: YCCK under
+    REFERENCE quirks) decodes per backend, bitwise the JAX package's. The
+    name is the one the test had while 4-component frames raised."""
     cmyk = dict(corpus.baseline_corpus())["cmyk_q90"]
-    with pytest.raises(JpegUnsupportedError):
-        jtt.decode(cmyk, DecodeConfig(entropy_backend=backend), device="cpu")
+    got = jtt.decode(cmyk, DecodeConfig(entropy_backend=backend), device="cpu")
+    assert got.frame.ncs == 4
+    _assert_same(got, jt.decode(cmyk, jt.DecodeConfig()))
 
 
 def test_cuda_without_a_card_raises():
@@ -255,3 +287,160 @@ def test_public_exports_decode_like_the_reference():
     with pytest.raises(JpegUnsupportedError, match="item 4"):
         jtt.encode(np.zeros((8, 8, 3), np.uint8))
     assert jtt.EncodeConfig().quality == jt.EncodeConfig().quality
+
+
+# ---------------------------------------------------------------------------
+# Fancy upsampling, scaled decode, 4 components and the host pixel path
+# ---------------------------------------------------------------------------
+
+
+HOPPER_CMYK = (REPO / "tests" / "wild_files" / "transcoded" / "hopper_cmyk_adobe.jpg").read_bytes()
+FLOAT32 = IdctPrecision.FLOAT32
+#: Streams: a 4:2:0 DRI one, Pillow's CMYK (40x56, restart-free but under
+#: 256 MCUs, so PALLAS takes it) and a foreign encoder's Adobe CMYK
+#: (512x600, restart-free, 4800 MCUs: NATIVE only, as the JAX backend's
+#: guard refuses it under PALLAS). Both CMYK files carry APP14 transform 0:
+#: YCCK under REFERENCE quirks, raw CMYK under CORRECT.
+NEW_CASES = {"dri_420": CASES["dri_420"],
+             "cmyk_q90": dict(corpus.baseline_corpus())["cmyk_q90"],
+             "hopper_cmyk": HOPPER_CMYK}
+NEW_CONFIGS = {
+    "fancy": dict(upsample="fancy"),
+    "fancy_float32": dict(upsample="fancy", idct_precision=FLOAT32),
+    "fancy_correct": dict(upsample="fancy", quirks=Quirks.CORRECT),
+    "scale1": dict(scale=1),
+    "scale2_correct": dict(scale=2, quirks=Quirks.CORRECT),
+    "scale4": dict(scale=4),
+    "scale4_float32_fancy": dict(scale=4, idct_precision=FLOAT32, upsample="fancy"),
+    "correct": dict(quirks=Quirks.CORRECT),
+    "float32": dict(idct_precision=FLOAT32),
+}
+NEW_RUNS = [(n, c, b) for n in sorted(NEW_CASES) for c in sorted(NEW_CONFIGS)
+            for b in BACKENDS
+            if not (n == "hopper_cmyk" and (b == EntropyBackend.PALLAS
+                                            or c not in ("fancy", "scale4", "correct",
+                                                         "float32")))]
+
+
+def _colour_stage(img, cfg):
+    """The port's colour stage of a decode's own planes, as PixelStage
+    calls it."""
+    from jpeg_decoder_tpu_torch.ops import color as tcolor
+
+    f = img.frame
+    raw = f.ncs == 4 and cfg.quirks == Quirks.CORRECT and f.adobe_transform == 0
+    return tcolor.planes_to_rgb(
+        [torch.from_numpy(p) for p in img.planes], -(-f.height * cfg.scale // 8),
+        -(-f.width * cfg.scale // 8), tuple((c.hsf, c.vsf) for c in f.components),
+        cfg.quirks, cfg.upsample, cfg.idct_precision == IdctPrecision.EXACT, raw,
+        cfg.quirks == Quirks.REFERENCE and cfg.scale == 8).numpy()
+
+
+@pytest.mark.parametrize("name,config,backend", NEW_RUNS,
+                         ids=[f"{n}-{c}-{b.value}" for n, c, b in NEW_RUNS])
+def test_new_configs_match_jax(name, config, backend):
+    """Whole decodes against jpeg_decoder_tpu.decode. EXACT at full size:
+    planes bitwise, RGB bitwise the JAX package's host path (its float64
+    chain, the reference's) and its device path wherever that agrees with
+    its host path (its jitted YCCK differs by 1 on a few inputs, ROADMAP.md
+    §3). FLOAT32, and every scaled decode (the FLOAT32 product under either
+    contract): planes within 1, RGB within 3 and bitwise the colour stage of
+    the port's own planes."""
+    data = NEW_CASES[name]
+    cfg = DecodeConfig(entropy_backend=backend, **NEW_CONFIGS[config])
+    got = jtt.decode(data, cfg, device="cpu")
+    want = jt.decode(data, jcfg(cfg))
+    assert got.rgb.shape == want.rgb.shape
+    assert [p.shape for p in got.planes] == [p.shape for p in want.planes]
+    if cfg.idct_precision == IdctPrecision.EXACT and cfg.scale == 8:
+        host = jt.decode(data, jcfg(cfg.replace(use_device=False)))
+        for a, b in zip(got.planes, want.planes):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got.rgb, host.rgb)
+        agree = want.rgb == host.rgb
+        np.testing.assert_array_equal(got.rgb[agree], want.rgb[agree])
+        assert np.abs(got.rgb.astype(np.int32) - want.rgb).max() <= 1
+        return
+    _assert_within_1(got.planes, want.planes)
+    _assert_rgb_within(got.rgb, want.rgb, 3)
+    np.testing.assert_array_equal(got.rgb, _colour_stage(got, cfg))
+
+
+#: (stream, backend): hopper_cmyk NATIVE only (a restart-free scan of 4800
+#: MCUs, which both packages' PALLAS backends refuse)
+HOST_RUNS = [(n, b) for n in ["dri_420", "cmyk_q90", "gray_odd_width", "hopper_cmyk"]
+             for b in BACKENDS if not (n == "hopper_cmyk" and b == EntropyBackend.PALLAS)]
+
+
+@pytest.mark.parametrize("quirks", [Quirks.REFERENCE, Quirks.CORRECT], ids=lambda q: q.value)
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+@pytest.mark.parametrize("name,backend", HOST_RUNS, ids=[f"{n}-{b.value}" for n, b in HOST_RUNS])
+def test_use_device_false_matches_jax(name, backend, upsample, quirks):
+    """The host pixel path, bitwise the JAX package's use_device=False,
+    fancy and 4 components included."""
+    data = NEW_CASES.get(name) or CASES[name]
+    cfg = DecodeConfig(entropy_backend=backend, use_device=False, upsample=upsample,
+                       quirks=quirks)
+    _assert_same(jtt.decode(data, cfg, device="cpu"), jt.decode(data, jcfg(cfg)))
+
+
+@pytest.mark.parametrize("scale", [1, 2, 4])
+def test_use_device_false_scaled_raises_config_error(scale):
+    from jpeg_decoder_tpu.utils.errors import JpegConfigError as JaxJpegConfigError
+    from jpeg_decoder_tpu_torch.utils.errors import JpegConfigError
+
+    cfg = DecodeConfig(use_device=False, scale=scale)
+    with pytest.raises(JpegConfigError, match="scale"):
+        jtt.decode(CASES["dri_420"], cfg, device="cpu")
+    with pytest.raises(JaxJpegConfigError, match="scale"):
+        jt.decode(CASES["dri_420"], jcfg(cfg))
+    assert_same_error_class(JpegConfigError, JaxJpegConfigError)
+
+
+def _stage_of(data, cfg):
+    from jpeg_decoder_tpu_torch.models import decoder as tdecoder
+
+    s = jtt.parse(data)
+    return tdecoder.device_stage_for(
+        s.frame, {t: q.values for t, q in s.scans[0].quant_tables.items()}, cfg, "cpu")
+
+
+@pytest.mark.parametrize("config,fused", [
+    ("nn", True), ("nn_float32", True), ("fancy", False), ("fancy_float32", False),
+    ("scale4", False), ("scale1_float32", False), ("four_components", False),
+])
+def test_fused_flag_per_config(config, fused):
+    """PixelStage.fused (one K03 or K13 launch on the card) only for 3
+    components, nearest-neighbour, full size: a fancy request routed to K03
+    would return nearest-neighbour pixels without raising."""
+    kw = {"nn": {}, "nn_float32": dict(idct_precision=FLOAT32),
+          "fancy": dict(upsample="fancy"),
+          "fancy_float32": dict(upsample="fancy", idct_precision=FLOAT32),
+          "scale4": dict(scale=4), "scale1_float32": dict(scale=1, idct_precision=FLOAT32),
+          "four_components": {}}[config]
+    data = NEW_CASES["cmyk_q90" if config == "four_components" else "dri_420"]
+    cfg = DecodeConfig(**kw)
+    assert _stage_of(data, cfg).fused is fused
+    if cfg.upsample == "fancy":
+        # the fancy decode is not the nearest-neighbour one, and is JAX's
+        fancy = jtt.decode(data, cfg, device="cpu").rgb
+        nn = jtt.decode(data, cfg.replace(upsample="nn"), device="cpu").rgb
+        assert not np.array_equal(fancy, nn)
+        _assert_rgb_within(fancy, jt.decode(data, jcfg(cfg)).rgb,
+                           0 if cfg.idct_precision == IdctPrecision.EXACT else 3)
+
+
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+def test_decoder_handle_and_file_decode_new_configs(tmp_path, upsample):
+    """JpegDecoder and decode_file serve 4-component and scaled requests
+    with the same stage cache."""
+    path = tmp_path / "cmyk.jpg"
+    path.write_bytes(NEW_CASES["cmyk_q90"])
+    dec = jtt.JpegDecoder(DecodeConfig(upsample=upsample, quirks=Quirks.CORRECT), device="cpu")
+    want = jt.decode(NEW_CASES["cmyk_q90"], jt.DecodeConfig(upsample=upsample,
+                                                            quirks=jt.Quirks.CORRECT))
+    np.testing.assert_array_equal(dec.decode_rgb(NEW_CASES["cmyk_q90"]), want.rgb)
+    cfg = DecodeConfig(upsample=upsample, quirks=Quirks.CORRECT)
+    _assert_same(jtt.decode_file(path, cfg, device="cpu"), want)
+    small = jtt.decode_file(path, cfg.replace(scale=2), device="cpu")
+    assert small.rgb.shape == (10, 14, 3)

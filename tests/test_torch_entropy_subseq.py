@@ -357,3 +357,18 @@ def test_unstuff_plain_pair_across_a_4096_byte_block():
     raw = torch.from_numpy(raw)
     got = entropy_cuda.unstuff_segments(raw, torch.from_numpy(lo), torch.from_numpy(hi))
     assert_unstuffed(got, raw, want_stream, want_off)
+
+
+#: 4-component streams with restart markers: 4:4:4 (4 data units an MCU)
+#: and 10 units an MCU, the most JPEG allows; K2's record holds the unit in
+#: 4 bits (entropy_cuda._COUNT_MASK), so both fit.
+FOUR = [("cmyk_444", make_jpeg(40, 24, ((1, 1),) * 4, 2, 41, 0)),
+        ("ycck_10_units", make_jpeg(48, 32, ((2, 2), (1, 1), (1, 1), (2, 2)), 1, 42, 2))]
+
+
+@pytest.mark.parametrize("sub_bytes", SIZES)
+@pytest.mark.parametrize("name,data", FOUR, ids=lambda v: v if isinstance(v, str) else "")
+def test_model_matches_plain_and_oracle_four_components(name, data, sub_bytes):
+    structures, planes, _ = _model_vs_plain([data], sub_bytes)
+    assert structures[0].frame.ncs == 4
+    _assert_oracle(data, planes[0])

@@ -193,3 +193,69 @@ def test_kernel_zigzag_tables_match_core():
     assert _cuda_table("idct_float.cuh", "kZigzag") == [int(x) for x in ZIGZAG]
     # K0's and K03's, in the header they share
     assert _cuda_table("idct_exact.cuh", "kInvZigzag") == [int(x) for x in INV_ZIGZAG]
+    # K5's bands: the zigzag positions of the k x k lowest frequencies
+    for k in (2, 4):
+        body = re.search(rf"kBand{k}\[{k * k}\] = \{{([^}}]*)\}}",
+                         (CSRC / "idct_scaled.cu").read_text()).group(1)
+        band = [z for z in range(64) if ZIGZAG[z] // 8 < k and ZIGZAG[z] % 8 < k]
+        assert [int(x) for x in body.split(",")] == band
+        assert np.flatnonzero(tidct.idct_matrix_zz_scaled(k).any(axis=1)).tolist() == band
+
+
+# ---------------------------------------------------------------------------
+# Scaled decode (scale k in {1, 2, 4}): the plain K5
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_idct_matrix_zz_scaled_matches_jax(k):
+    np.testing.assert_array_equal(tidct.idct_matrix_zz_scaled(k),
+                                  jidct.idct_matrix_zz_scaled(k))
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_idct_matmul_scaled_matches_jax(k, bits12):
+    """The plain K5 against idct_matmul_scaled: within 1 on at most 1e-3 of
+    the pixels (both fold the table into M_k; the products sum in other
+    orders), bitwise at k = 1, where the sum has one term. 12-bit samples
+    are compared modulo 256 (the rescale's low byte)."""
+    coeffs, qt = _inputs(20 + k)
+    if not bits12:
+        coeffs = np.clip(coeffs, -2048, 2047)
+    got = tidct.idct_matmul_scaled(torch.from_numpy(coeffs), qt, k, bits12).numpy()
+    want = np.asarray(jidct.idct_matmul_scaled(jnp.asarray(coeffs.astype(np.int32)), qt, k,
+                                               bits12))
+    assert got.shape == want.shape == (coeffs.shape[0], k * k)
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    d = np.minimum(d, 256 - d)
+    if k == 1:
+        assert d.max() == 0
+    assert d.max() <= 1
+    assert (d != 0).mean() <= FLOAT32_SHARE
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_blocks_to_plane_tile_matches_jax(k):
+    rng = np.random.default_rng(k)
+    pix = rng.integers(0, 256, (3 * 5, k * k), dtype=np.uint8)
+    got = tidct.blocks_to_plane(torch.from_numpy(pix), 3, 5, k).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jidct.blocks_to_plane(jnp.asarray(pix), 3, 5,
+                                                                        k)))
+
+
+@pytest.mark.parametrize("precision", list(IdctPrecision), ids=lambda p: p.value)
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_idct_plane_scaled_is_the_plain_version_under_either_contract(k, precision):
+    """idct_plane at scale < 8 runs idct_matmul_scaled, whatever the
+    contract (the JAX package's scaled decode ignores EXACT), and stacked
+    planes give each image's plane."""
+    coeffs, qt = _inputs(6, n=3 * 4 * 5)
+    stack = torch.from_numpy(np.clip(coeffs, -2048, 2047).reshape(3, 4, 5, 64))
+    qt_t = torch.from_numpy(qt.astype(np.int32))
+    got = tidct.idct_plane(stack, qt_t, False, precision, k)
+    assert got.shape == (3, 4 * k, 5 * k)
+    for i in range(3):
+        want = tidct.blocks_to_plane(
+            tidct.idct_matmul_scaled(stack[i].reshape(-1, 64), qt, k), 4, 5, k)
+        assert torch.equal(got[i], want)

@@ -447,11 +447,13 @@ def test_every_source_is_built_and_headers_are_hashed(tmp_path, monkeypatch):
     ("idct_float.cu", ("idct_float.cuh",)),
     ("idct_exact.cu", ("idct_exact.cuh",)),
     ("color.cu", ("color.cuh",)),
+    ("idct_scaled.cu", ("idct_float.cuh",)),
 ])
 def test_kernels_share_their_arithmetic_through_headers(name, headers):
-    """K03 and K13 take the strip skeleton from one header, K1 and K13 the
-    FLOAT32 arithmetic from another (and the colour step through
-    strip.cuh's color.cuh), so that the bytes cannot drift apart."""
+    """K03 and K13 take the strip skeleton from one header, K1, K13 and K5
+    the FLOAT32 arithmetic from another (and the colour step through
+    strip.cuh's color.cuh, which K3 and K3f include), so that the bytes
+    cannot drift apart."""
     text = (_build.SRC_DIR / name).read_text()
     for header in headers:
         assert f'#include "{header}"' in text
