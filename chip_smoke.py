@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main decode path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's main decode and encode paths once on one CUDA card.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -18,7 +18,10 @@ Phases, each of which exits non-zero on failure:
      two photographs of that corpus tiled to 3840x2160 4:2:0 with a marker
      per MCU row (benchmarks/inputs.photo_jpeg), and the corpus's
      4-component photograph (hopper_cmyk_adobe.jpg, 4:4:4, Adobe APP14
-     transform 0) tiled to 3840x2160 with a marker per MCU row;
+     transform 0) tiled to 3840x2160 with a marker per MCU row; for the
+     encoder, the JAX-free EXACT decode of the first photograph's 4K tile,
+     a uniform random 3840x2160 image from a seed, a 33x47 and an 8x8
+     RGB image and a 41x57 gray one;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it: K2 (entropy) bitwise, on a 640x352
      stream (where its per-subsequence records are also held against the
@@ -65,7 +68,12 @@ Phases, each of which exits non-zero on failure:
      (y, cr, k) domain against the float64 chain in NumPy; K5 (the scaled
      IDCT) at k = 1, 2 and 4 on the 4K request's planes, within 1 on at
      most 1e-3 of the pixels and bitwise at k = 1, timed beside the product
-     alone as one torch.matmul;
+     alone as one torch.matmul; K4 (the encoder's device stage: colour,
+     pad, box subsample, FDCT, quantize) bitwise on every coefficient of
+     both 4K images and the small ones, the six chroma samplings, gray and
+     a 2-D gray image at q = 10, 85 and 100, timed on the 4K photograph at
+     4:2:0 and 4:4:4 beside the product alone as one torch.matmul, with its
+     registers and shared memory;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
@@ -98,13 +106,22 @@ Phases, each of which exits non-zero on failure:
      - the probe path through its entry point, benchmarks.gather_probe.main
        with all four rounds at the rounds' own chain lengths: 21 ns/step
        lines;
+     - JpegEncoder on the card (one K4 launch an image, no plain version,
+       no Python packer): the 4K photograph at 4:2:0, q85, a marker per MCU
+       row, Annex K, byte for byte the port's CPU encode; with optimized
+       tables, progressive and 4:4:4, the native host decode of the bytes
+       giving K4's planes; encode_stream of four 4K images against four
+       encode calls; the photograph's bytes through JpegDecoder(PALLAS,
+       EXACT), bitwise the reference, with K4's planes;
   5. stage times with CUDA events: per image (H2D, K2u, K2, K03 and K13,
      D2H), and per batch of eight (H2D, K2u, K2, K03 under EXACT or K13
      under FLOAT32, D2H), each with the host clock of the parse that
      remains on the host; and the pixel stage of item 2's routes on a 4K
      request (fancy, scale 4 and 1, YCCK, CMYK) beside K03, one call and
-     the card alone, with the D2H and the warm PALLAS request latency.
-The last lines are the kernels' JSON record (seventeen kernels: K0-K3, K03,
+     the card alone, with the D2H and the warm PALLAS request latency; and
+     a warm 4K encode (H2D, K4, D2H of the planes, native count and pack,
+     assembly, latency, encode_stream of eight).
+The last lines are the kernels' JSON record (eighteen kernels: K0-K4, K03,
 K13, K2u, K3f, K3c, K5 and PK1-PK7, each with its launches on the main
 paths, its time, its plain version's time and its bound), the card's name
 and power limit, and
@@ -659,6 +676,7 @@ def check_k1(dev, big: bytes, record: dict) -> None:
     inputs, which is reported and not gated."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, convert
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import idct
     from jpeg_decoder_tpu_torch.core import types
@@ -709,15 +727,19 @@ def check_k1(dev, big: bytes, record: dict) -> None:
     ms = cuda_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 10)
     plain_ms = cuda_ms(lambda: plain(blocks, qt, False), 3)
     exact_ms = cuda_ms(lambda: idct.idct_plane(blocks, qt), 10)
+    # the product alone at K1's own shape, [by * bx, 64] x [64, 64], as one
+    # cuBLAS call (TF32 off), the card alone
+    matmul_ms = pixel_sweep.product_ms([blocks], [qt], 7)
     # Bound: the same bytes as K0; the [64] x [64, 64] product is 4096 FMAs
     # a block, two float32 operations each. No one PyTorch call computes
     # dequant, product, floor, level shift, clamp and block scatter.
     record.update(max_abs_err=err, share_differing=share, ms=ms, plain_ms=plain_ms,
-                  library_ms=None, shape=f"luma plane {by}x{bx} blocks",
+                  library_ms=None, matmul_ms=matmul_ms, shape=f"luma plane {by}x{bx} blocks",
                   **bound(nbytes_of(blocks, qt) + by * bx * 64, 2 * 4096 * by * bx, "float32"))
     log(f"K1 idct_float: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K0 on the"
-        f" same blocks {exact_ms:.3f} ms ({record['shape']}); max_abs_err {err},"
-        f" share differing {share:.3e} (8-bit, 12-bit)")
+        f" same blocks {exact_ms:.3f} ms, the product alone (torch.matmul"
+        f" [{by * bx}, 64] x [64, 64], TF32 off; the card alone) {matmul_ms:.4f} ms"
+        f" ({record['shape']}); max_abs_err {err}, share differing {share:.3e} (8-bit, 12-bit)")
     if err > 1 or share > K1_SHARE:
         fail(f"K1 disagrees with its plain version (max_abs_err {err}, share"
              f" {share:.3e}; tolerance 1 on at most {K1_SHARE})")
@@ -1848,6 +1870,277 @@ def batch_stage_times(dev, batch, card: str) -> None:
             f" ({box['rgb'].numel()} B) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The encoder (ROADMAP item 4): K4 and the encode path
+# ---------------------------------------------------------------------------
+
+ENCODE_SEED = 20261017           # the uniform random 4K image and the small ones
+K4_QUALITIES = (10, 85, 100)
+#: the encode path's config: 4:2:0, q85, a restart marker per MCU row, Annex K
+ENCODE_CFG = dict(quality=85, subsampling="420", restart_interval=W // 16)
+
+
+def encode_images(photo_data: bytes) -> dict:
+    """The encoder's inputs: a 3840x2160 photograph (the JAX-free EXACT
+    decode of a photograph's tile, benchmarks.inputs.photo_jpeg), a uniform
+    random 3840x2160 image from a seed (the packer's worst case), a 33x47
+    and an 8x8 RGB image (planes of one block) and a 41x57 gray one."""
+    from jpeg_decoder_tpu_torch import Quirks
+
+    rng = np.random.default_rng(ENCODE_SEED)
+    return {f"photograph {W}x{H}": np.ascontiguousarray(reference(photo_data, Quirks.REFERENCE)[2]),
+            f"random {W}x{H}": rng.integers(0, 256, (H, W, 3), dtype=np.uint8),
+            "random 33x47": rng.integers(0, 256, (33, 47, 3), dtype=np.uint8),
+            "random 8x8": rng.integers(0, 256, (8, 8, 3), dtype=np.uint8),
+            "random 41x57 gray": rng.integers(0, 256, (41, 57), dtype=np.uint8)}
+
+
+def k4_cases(img) -> dict:
+    """K4's cases on one image: name -> (its factors, the image it takes):
+    the six chroma samplings and gray (luma) of an RGB image, and a 2-D gray
+    image (an RGB image's green channel)."""
+    from jpeg_decoder_tpu_torch.models import encoder
+
+    if img.ndim == 2:
+        return {"gray 2-D": (((1, 1),), img)}
+    cases = {s: (f, img) for s, f in encoder._SAMPLING.items()}
+    cases["gray"] = (((1, 1),), img)
+    cases["gray 2-D"] = (((1, 1),), np.ascontiguousarray(img[..., 1]))
+    return cases
+
+
+def check_k4(dev, images: dict, record: dict, card: str) -> None:
+    """K4 against its plain version on the card, every coefficient bitwise:
+    both 4K images and the two small ones, every sampling and gray, at
+    q = 10, 85 and 100. Then its time on the 4K photograph at 4:2:0 and
+    4:4:4, q85 (the card alone and one call), beside the product alone as
+    one torch.matmul ([N, 64] x [64, 64], TF32 off), and its registers and
+    shared memory."""
+    import torch
+    from jpeg_decoder_tpu_torch.benchmarks import k2u_sweep, pixel_sweep
+    from jpeg_decoder_tpu_torch.models import encoder
+    from jpeg_decoder_tpu_torch.ops import fdct, idct
+
+    differing, compared, err = 0, 0, 0
+    for name, img in images.items():
+        for case, (factors, x) in k4_cases(img).items():
+            src = torch.from_numpy(x).to(dev)
+            for q in K4_QUALITIES:
+                kq = fdct.fdct_tables(encoder.quality_qtables(q)[: 1 if len(factors) == 1 else 2],
+                                      dev)
+                got = fdct.encode_planes(src, factors, kq)
+                want = fdct._planes_plain(src, factors, kq)
+                for a, b in zip(got, want, strict=True):
+                    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+                    differing += int((d != 0).sum().item())
+                    err = max(err, int(d.max().item()))
+                    compared += d.numel()
+        log(f"K4 fdct, {name}: {len(k4_cases(img))} samplings x q {K4_QUALITIES} against"
+            f" the plain version on the card")
+    log(f"K4 fdct: {differing} of {compared} coefficients differ from the plain version"
+        f" (max_abs_err {err}; tolerance 0)")
+    record.update(max_abs_err=err, differing=differing, coefficients_compared=compared)
+    if differing:
+        fail(f"K4 differs from its plain version on {differing} coefficients")
+
+    photo = torch.from_numpy(images[f"photograph {W}x{H}"]).to(dev)
+    for sub in ("420", "444"):
+        factors = encoder._SAMPLING[sub]
+        kq = fdct.fdct_tables(encoder.quality_qtables(85), dev)
+        _, _, comps = fdct.plane_layout(H, W, factors)
+        blocks = sum(by * bx for by, bx, _, _ in comps)
+        out = torch.empty(blocks * 64, dtype=torch.int16, device=dev)
+        run = lambda: fdct.encode_planes(photo, factors, kq, out)  # noqa: E731
+        one = [cuda_ms(run, 10), cuda_ms(run, 10)]
+        alone = [pixel_sweep.card_ms(run, 7), pixel_sweep.card_ms(run, 7)]
+        plain_ms = cuda_ms(lambda: fdct._planes_plain(photo, factors, kq), 1)
+        x = torch.randn(blocks, 64, device=dev)
+        prod = torch.empty_like(x)
+        with idct._true_float32_matmul():
+            matmul_ms = pixel_sweep.card_ms(lambda: torch.matmul(x, kq[0], out=prod), 7)
+        # Bound: the RGB read once, the int16 coefficients and Kq written and
+        # read once; the chain is 4096 FMAs a block, two float32 operations
+        # each (the colour and box steps' few a sample far below).
+        bnd = bound(nbytes_of(photo, out, kq), 2 * 4096 * blocks, "float32")
+        shape = f"{W}x{H} {sub}, {blocks} blocks"
+        log(f"K4 fdct ({shape}): the card alone {alone[0]:.4f} and {alone[1]:.4f} ms, one call"
+            f" {one[0]:.3f} and {one[1]:.3f} ms; the product alone (torch.matmul [{blocks}, 64]"
+            f" x [64, 64], TF32 off; the card alone) {matmul_ms:.4f} ms; plain {plain_ms:.3f} ms;"
+            f" bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+        if sub == "420":
+            record.update(ms=statistics.median(alone), plain_ms=plain_ms, library_ms=None,
+                          shape=shape, card_ms=alone, one_call_ms=one, matmul_ms=matmul_ms, **bnd)
+        else:
+            record.update(shape_444=shape, card_ms_444=alone, one_call_ms_444=one,
+                          plain_ms_444=plain_ms, matmul_ms_444=matmul_ms,
+                          bound_ms_444=bnd["bound_ms"])
+    record["ptxas"] = k2u_sweep.ptxas_report("fdct.cu")
+    log(f"K4 registers and shared memory (nvcc -Xptxas -v): {record['ptxas']}")
+
+
+def k4_planes(dev, img, cfg) -> list:
+    """The coefficient planes K4 makes of `img` under `cfg`, on the host."""
+    import torch
+    from jpeg_decoder_tpu_torch.models import encoder
+
+    qts = encoder.quality_qtables(cfg.quality)
+    stage = encoder._build_encode_stage(
+        img.shape[0], img.shape[1], cfg.subsampling, (qts[0].tobytes(), qts[1].tobytes()),
+        cfg.subsampling == "gray" or img.ndim == 2, dev)
+    return [p.cpu().numpy() for p in stage(torch.from_numpy(img).to(dev))[1]]
+
+
+def encode_path(dev, images: dict, card: str) -> dict:
+    """JpegEncoder on the card: the 4K photograph at 4:2:0, q85, a restart
+    marker per MCU row, Annex K tables, byte for byte the port's CPU
+    encode; then once each with optimized tables, progressive and 4:4:4,
+    whose native host decode gives K4's planes; encode_stream of four 4K
+    images against four encode calls. Each run: one K4 launch an image and
+    nothing else, no plain version, no Python packer. Then the photograph's
+    bytes through JpegDecoder(PALLAS, EXACT): RGB bitwise the JAX-free
+    reference, its host planes K4's. Returns path -> launch counts."""
+    from jpeg_decoder_tpu_torch import (
+        DecodeConfig,
+        EncodeConfig,
+        EntropyBackend,
+        JpegDecoder,
+        JpegEncoder,
+        Quirks,
+        encode,
+    )
+    from jpeg_decoder_tpu_torch.models import encoder, host
+    from jpeg_decoder_tpu_torch.ops import fdct
+
+    photo = images[f"photograph {W}x{H}"]
+    rand = images[f"random {W}x{H}"]
+    runs = {}
+
+    def on_card(path, cfg, imgs, stream=False):
+        enc = JpegEncoder(cfg, device=dev)
+        fdct.PLAIN_CALLS.clear()
+        encoder.FALLBACKS.clear()
+        t0 = time.perf_counter()
+        out, launches = run_path(
+            f"main path {path}",
+            lambda: list(enc.encode_stream(imgs)) if stream else [enc.encode(i) for i in imgs])
+        ms = (time.perf_counter() - t0) * 1e3
+        if launches != {"jdtc_fdct": len(imgs)} or fdct.PLAIN_CALLS or encoder.FALLBACKS:
+            fail(f"{path}: launches {launches}, plain calls {dict(fdct.PLAIN_CALLS)}, Python"
+                 f" packer {dict(encoder.FALLBACKS)}; want one K4 launch an image alone")
+        runs[path] = launches
+        log(f"main path {path}: {len(imgs)} images, {[len(b) for b in out]} bytes,"
+            f" {ms:.1f} ms (host clock, first call) [{card}]")
+        return out
+
+    base = EncodeConfig(**ENCODE_CFG)
+    (card_bytes,) = on_card("JpegEncoder 4:2:0 q85 annex_k", base, [photo])
+    t0 = time.perf_counter()
+    cpu_bytes = encode(photo, base, device="cpu")
+    log(f"encode path: the card's bytes {'equal' if card_bytes == cpu_bytes else 'DIFFER FROM'}"
+        f" the CPU encode's ({len(cpu_bytes)} bytes; the CPU encode took"
+        f" {time.perf_counter() - t0:.1f} s)")
+    if card_bytes != cpu_bytes:
+        fail("the card's encode differs from the CPU encode (plain versions)")
+    for label, cfg in (("optimized", base.replace(huffman="optimized")),
+                       ("progressive", base.replace(progressive=True)),
+                       ("4:4:4", base.replace(subsampling="444"))):
+        (data,) = on_card(f"JpegEncoder {label}", cfg, [photo])
+        _, planes, _ = host.host_decode(data, DecodeConfig())
+        want = k4_planes(dev, photo, cfg)
+        if len(planes.planes) != len(want) or not all(
+                np.array_equal(a, b) for a, b in zip(planes.planes, want)):
+            fail(f"encode {label}: the host decode of its bytes is not K4's planes")
+        log(f"encode path {label}: the native host decode of its {len(data)} bytes gives K4's"
+            f" planes")
+    four = [photo, rand, np.ascontiguousarray(photo[::-1]), np.ascontiguousarray(rand[:, ::-1])]
+    streamed = on_card("JpegEncoder encode_stream", base, four, stream=True)
+    enc = JpegEncoder(base, device=dev)
+    if streamed != [enc.encode(i) for i in four]:
+        fail("encode_stream differs from per-image encode calls")
+    log("encode path: encode_stream of four 4K images equals four encode calls")
+
+    dec = JpegDecoder(DecodeConfig(entropy_backend=EntropyBackend.PALLAS), device=dev)
+    img, runs["JpegDecoder pallas exact (encoded photograph)"] = run_path(
+        "main path JpegDecoder pallas exact (encoded photograph)", lambda: dec.decode(card_bytes))
+    planes, _, rgb = reference(card_bytes, Quirks.REFERENCE)
+    if not np.array_equal(img.rgb, rgb):
+        fail("PALLAS EXACT's decode of the encoded photograph differs from the reference")
+    if not all(np.array_equal(a, b) for a, b in
+               zip(planes.planes, k4_planes(dev, photo, base), strict=True)):
+        fail("the host planes of the encoded photograph are not K4's")
+    log("encode path: PALLAS EXACT decodes the encoded 4K photograph bitwise to the"
+        " reference, and its host planes are K4's")
+    return runs
+
+
+def encode_stage_times(dev, images: dict, card: str) -> None:
+    """A warm 4K 4:2:0 encode of the photograph, stage by stage: H2D of the
+    RGB, K4, D2H of the planes into a pinned buffer (CUDA events); the
+    native symbol count (optimized tables), the native pack and the whole
+    assembly (tables, pack, markers; host clock, median of three); the
+    encode latency (median of three) and the time an image of a warm
+    encode_stream of eight; the host's steps of each (dispatch, wait,
+    assembly; the encoder's metrics timers)."""
+    import torch
+    from jpeg_decoder_tpu_torch import EncodeConfig, JpegEncoder
+    from jpeg_decoder_tpu_torch.core import huffman
+    from jpeg_decoder_tpu_torch.models import encoder
+    from jpeg_decoder_tpu_torch.utils.metrics import GLOBAL_METRICS as metrics
+
+    photo = images[f"photograph {W}x{H}"]
+    cfg = EncodeConfig(**ENCODE_CFG)
+    enc = JpegEncoder(cfg, device=dev)
+    enc.encode(photo)
+    qts, qt_bytes = enc._qts()
+    stage = encoder._build_encode_stage(H, W, cfg.subsampling, qt_bytes, False, dev)
+    box = {}
+    h2d = cuda_ms(lambda: box.update(src=torch.from_numpy(photo).to(dev)), 3)
+    k4 = cuda_ms(lambda: box.update(flat=stage(box["src"])[0]), 10)
+    pinned = torch.empty(box["flat"].shape, dtype=torch.int16, pin_memory=True)
+    d2h = cuda_ms(lambda: pinned.copy_(box["flat"], non_blocking=True), 5)
+    coeffs = stage.split(pinned.numpy())
+    mx, my, factors = stage.mcus_x, stage.mcus_y, stage.factors
+
+    def steps_ms() -> dict:
+        return {k.removeprefix("encode_"): round(v["mean_s"] * 1e3, 3)
+                for k, v in metrics.summary().items() if k.startswith("encode_")}
+
+    def host_ms(fn) -> float:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    count = host_ms(lambda: enc._count(coeffs, factors, mx, my, 2,
+                                       cfg.replace(huffman="optimized")))
+    dc_specs, ac_specs = enc._huffman_specs(cfg, coeffs, factors, mx, my, False)
+    dc = [huffman.build_encode_table(s) for s in dc_specs]
+    ac = [huffman.build_encode_table(s) for s in ac_specs]
+    pack = host_ms(lambda: enc._pack(coeffs, factors, mx, my, dc, ac, 2, cfg))
+    assemble = host_ms(lambda: enc._assemble_baseline(cfg, H, W, False, coeffs, factors, mx,
+                                                      my, qts))
+    metrics.stages.clear()
+    latency = host_ms(lambda: enc.encode(photo))
+    single = steps_ms()
+    eight = [photo if k % 2 == 0 else np.ascontiguousarray(photo[::-1]) for k in range(8)]
+    list(enc.encode_stream(eight))  # warm: the stream's second pinned buffer
+    metrics.stages.clear()
+    t0 = time.perf_counter()
+    list(enc.encode_stream(eight))
+    per_image = (time.perf_counter() - t0) * 1e3 / len(eight)
+    streamed = steps_ms()
+    log(f"encode stage times ({W}x{H} 4:2:0 photograph, q85, ri {cfg.restart_interval}):"
+        f" H2D rgb {h2d:.3f} ms ({photo.nbytes} B), K4 {k4:.3f} ms, D2H planes {d2h:.3f} ms"
+        f" ({box['flat'].numel() * 2} B, pinned); native count (optimized) {count:.3f} ms,"
+        f" native pack {pack:.3f} ms, assembly (tables, pack, markers) {assemble:.3f} ms;"
+        f" encode latency (warm, median of three) {latency:.3f} ms; encode_stream of eight"
+        f" {per_image:.3f} ms an image [{card}]")
+    log(f"encode steps, ms an image (host clock: the upload, K4 and the copy queued; the wait"
+        f" for the planes; tables, pack and markers): encode {single}; encode_stream {streamed}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1949,6 +2242,10 @@ def main() -> None:
             name="K5 idct_scaled", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/idct_scaled.cu",
             replaces="jpeg_decoder_tpu/ops/idct.py:261"),
+        "jdtc_fdct": dict(
+            name="K4 fdct", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/fdct.cu",
+            replaces="jpeg_decoder_tpu/models/encoder.py:68"),
     }
     for key, (name, _standing, _ops, replaces) in PROBE_KERNELS.items():
         kernels[key] = dict(name=name, route="cuda",
@@ -1975,6 +2272,8 @@ def main() -> None:
     timed_phase("K3c", check_k3c, dev, cmyk, kernels["K3c"], card)
     timed_phase("K5", check_k5, dev, requests[0], kernels["jdtc_idct_scaled"], card)
     timed_phase("probes against plain", check_probes, dev, kernels, card)
+    images = encode_images(tiled[f"photograph {PHOTOS_420[0].name} tiled to {W}x{H}"])
+    timed_phase("K4", check_k4, dev, images, kernels["jdtc_fdct"], card)
     for key, rec in kernels.items():
         if (key not in ("jdtc_idct_float", "jdtc_pixel_float", "jdtc_idct_scaled")
                 and rec["max_abs_err"] != 0):
@@ -1990,6 +2289,7 @@ def main() -> None:
     runs.update(timed_phase("main paths, fancy, 4 components, scaled", new_paths, dev,
                             requests, batch, cmyk, card))
     runs.update(timed_phase("main path, probes", probe_path, kernels))
+    runs.update(timed_phase("main path, encode", encode_path, dev, images, card))
     for key, rec in kernels.items():
         entry = rec.get("entry", key)
         paths = {p: r for p, r in runs.items()
@@ -2016,7 +2316,10 @@ def main() -> None:
                                      ("scale 2", "jdtc_idct_scaled"),
                                      ("scale 4", "jdtc_idct_scaled"))],
                       ("BatchDecoder pallas fancy exact decode_batch", "jdtc_fancy"),
-                      ("BatchDecoder native fancy exact decode_batch", "jdtc_fancy")):
+                      ("BatchDecoder native fancy exact decode_batch", "jdtc_fancy"),
+                      ("JpegEncoder 4:2:0 q85 annex_k", "jdtc_fdct"),
+                      ("JpegEncoder encode_stream", "jdtc_fdct"),
+                      ("JpegDecoder pallas exact (encoded photograph)", "jdtc_pixel_exact")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")
     timed_phase("stage times", stage_times, dev, requests, card)
@@ -2024,6 +2327,7 @@ def main() -> None:
     timed_phase("batch stage times", batch_stage_times, dev, batch, card)
     timed_phase("stage times, fancy, 4 components, scaled", new_stage_times, dev, requests[0],
                 cmyk, card)
+    timed_phase("encode stage times", encode_stage_times, dev, images, card)
     if not jax_free():
         fail("JAX or the JAX package jpeg_decoder_tpu was loaded")
     required = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

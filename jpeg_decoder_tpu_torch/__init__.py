@@ -6,8 +6,10 @@ imports nothing of that package and runs with it absent: the host layers
 native/src/ into build/) are the port's own copies, and the device half is
 new: the pixel stage is a torch.nn.Module whose hot ops are CUDA
 kernels written for sm_90a (csrc/, built with nvcc at first use) -- the
-EXACT and FLOAT32 IDCT contracts each have one -- and the PALLAS entropy
-backend decodes restart segments on the card, a batch's in one launch.
+EXACT and FLOAT32 IDCT contracts each have one -- the PALLAS entropy
+backend decodes restart segments on the card, a batch's in one launch, and
+the encoder's device stage (colour, subsample, FDCT, quantize) is one
+kernel, bitwise the JAX package's CPU output.
 
 Every entry point takes `device=` (default "cuda"). Without CUDA a "cuda"
 device raises; pass device="cpu" to run the plain PyTorch versions of the
@@ -24,7 +26,8 @@ Public API:
     decode_oracle(data)            -> DecodedImage (bit-serial conformance oracle)
     parse(data)                    -> JpegStructure (marker walk only)
     host_decode_batch(datas, cfg, pool, max_workers) -> (frame, planes, qts) per image
-    encode(rgb, cfg)               -> not ported yet (raises JpegUnsupportedError)
+    encode(rgb, cfg, device)       -> JPEG bytes (device stage: kernel K4)
+    JpegEncoder(cfg, device)       -> reusable handle: encode, encode_stream
     python -m jpeg_decoder_tpu_torch.benchmarks.gather_probe: the cost of
         one dependent step (lookup, shift, ladder, refill) on the card
 """
@@ -49,6 +52,7 @@ from .core.oracle import decode as decode_oracle  # noqa: F401
 
 from .models.decoder import JpegDecoder, decode, decode_file, decode_rgb  # noqa: F401
 from .parallel.batch import BatchDecoder, decode_batch  # noqa: F401
+from .models.encoder import JpegEncoder, encode  # noqa: F401
 
 __version__ = "0.6.0"
 
@@ -61,8 +65,3 @@ def host_decode_batch(datas, cfg=None, pool=None, max_workers=0):
 
     return _b(datas, cfg, pool, max_workers)
 
-
-def encode(rgb, cfg=None):
-    """The encoder is not ported yet: raises JpegUnsupportedError (ROADMAP
-    queue 1 item 4 ports it with EncodeConfig's device stage)."""
-    raise JpegUnsupportedError("the encoder is not ported yet (ROADMAP queue 1 item 4)")

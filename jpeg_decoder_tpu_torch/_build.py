@@ -31,7 +31,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("entropy_decode.cu", "unstuff.cu", "idct_exact.cu", "idct_float.cu",
-           "idct_scaled.cu", "color.cu", "pixel_exact.cu", "pixel_float.cu", "probes.cu")
+           "idct_scaled.cu", "color.cu", "pixel_exact.cu", "pixel_float.cu", "probes.cu",
+           "fdct.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -80,6 +81,9 @@ SIGNATURES = {
     # correct, out, cuda_stream
     "jdtc_color": [*[_P] * 4, *[_I32] * 4, _P, _P, _I32, _I32, _P, _P],
     "jdtc_fancy": [*[_P] * 4, *[_I32] * 4, _P, _P, _I32, _I32, _P, _P],
+    # K4 (the encoder's device stage): img, h, w, channels, n_comps, comps
+    # (host int64 [3][7]), kq, consts (host float [5]), cuda_stream
+    "jdtc_fdct": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     # The probes (csrc/probes.cu), each: its tensors, its sizes, steps, ...,
     # cuda_stream.
     # tab, idx0, out, n_lanes, lane_cols, row_stride, col_stride, idx_stride,

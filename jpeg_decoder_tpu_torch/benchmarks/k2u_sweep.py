@@ -179,8 +179,8 @@ def replay(named: dict, reps: int, card: str) -> list[dict]:
     return out
 
 
-def ptxas_report() -> dict:
-    """kernel -> {registers, spill bytes, shared memory} of csrc/unstuff.cu as
+def ptxas_report(source: str = "unstuff.cu") -> dict:
+    """kernel -> {registers, spill bytes, shared memory} of csrc/`source` as
     nvcc -Xptxas -v reports them ({} without nvcc)."""
     from .. import _build
 
@@ -190,7 +190,7 @@ def ptxas_report() -> dict:
         return {}
     with tempfile.TemporaryDirectory() as tmp:
         r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                            str(_build.SRC_DIR / "unstuff.cu"), "-o", str(Path(tmp) / "u.o")],
+                            str(_build.SRC_DIR / source), "-o", str(Path(tmp) / "u.o")],
                            capture_output=True, text=True, timeout=300)
     report, name = {}, None
     for line in (r.stdout + r.stderr).splitlines():
@@ -198,7 +198,8 @@ def ptxas_report() -> dict:
         if m:
             sym = m.group(1)
             name = next((k for k in ("unstuff_kernel", "sub_base_kernel", "count_kernel",
-                                     "block_scan_kernel", "scatter_kernel") if k in sym), sym)
+                                     "block_scan_kernel", "scatter_kernel", "fdct_kernel")
+                         if k in sym), sym)
             continue
         if name is None:
             continue

@@ -35,7 +35,7 @@ from .core.types import (
     Scan,
 )
 from .native.runtime import scan_layout
-from .utils.config import DecodeConfig
+from .utils.config import DecodeConfig, EncodeConfig
 
 from .models.host import _StructureShim
 
@@ -71,6 +71,12 @@ def config_from(obj) -> DecodeConfig:
             v = type(default)[v.name]
         kw[f.name] = v
     return DecodeConfig(**kw)
+
+
+def encode_config_from(obj) -> EncodeConfig:
+    """The port's EncodeConfig from any object with the same field names."""
+    return EncodeConfig(**{f.name: getattr(obj, f.name)
+                           for f in dataclasses.fields(EncodeConfig)})
 
 
 def huff_spec_from(obj) -> HuffTableSpec:

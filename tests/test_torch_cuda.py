@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3, K3f, K3c, K5 and the probes
-PK1-PK7) against their plain PyTorch versions, and the decode and batch paths on the card
-against the same paths on the CPU. Bitwise, except FLOAT32 (K1, K13) and the scaled IDCT
+"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3, K3f, K3c, K4, K5 and the probes
+PK1-PK7) against their plain PyTorch versions, and the decode, batch and encode paths on
+the card against the same paths on the CPU. Bitwise, except FLOAT32 (K1, K13) and the scaled IDCT
 (K5): within 1 of the plain version on at most 1e-3 of the pixels (the two sum the
 products in other orders; K5 bitwise at k = 1, one term), and so within 3 in RGB (a
 chroma step of 1 moves R or B by up to 1.772); K13 is bitwise equal to K1 x 3 + K3,
@@ -42,6 +42,8 @@ from jpeg_decoder_tpu_torch.ops import probes
 from jpeg_decoder_tpu_torch.core import types as ttypes
 from jpeg_decoder_tpu_torch.io.markers import Encoding
 from jpeg_decoder_tpu_torch.models import decoder as tdecoder
+from jpeg_decoder_tpu_torch.models import encoder as tenc
+from jpeg_decoder_tpu_torch.ops import fdct as tfdct
 from jpeg_decoder_tpu_torch.utils import jax_free
 
 from .torch_crossing import (
@@ -1088,6 +1090,83 @@ def test_gather_probe_entry_point_on_the_card(cuda_device, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(records) == 21 and len(lines) == 21
     assert all(" ns/step" in ln and "W]" in ln for ln in lines)
+
+
+# ---------------------------------------------------------------------------
+# K4: the encoder's device stage
+# ---------------------------------------------------------------------------
+
+#: subsampling -> (its factors, gray); "gray2d" is a 2-D image
+K4_SAMPLINGS = {
+    **{s: (f, False) for s, f in tenc._SAMPLING.items()},
+    "gray": (GRAY, True),
+    "gray2d": (GRAY, True),
+}
+
+
+def _encode_image(h, w, seed, gray2d=False):
+    """A smooth gradient with noise, and uniform noise in its lower half."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                     (xx + yy) * 127 // max(h + w - 2, 1)], -1)
+    img = np.clip(base + rng.integers(-8, 9, base.shape), 0, 255)
+    img[h // 2 :] = rng.integers(0, 256, img[h // 2 :].shape)
+    img = img.astype(np.uint8)
+    return img[..., 1].copy() if gray2d else img
+
+
+@pytest.mark.parametrize("quality", [10, 85, 100])
+@pytest.mark.parametrize("size", [(1, 1), (8, 8), (16, 16), (33, 47), (41, 57), (48, 48),
+                                  (270, 333)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("sampling", sorted(K4_SAMPLINGS))
+def test_k4_matches_plain(cuda_device, sampling, size, quality):
+    """Every coefficient of every component bitwise the plain version's on
+    the same image, on the card and on the CPU; planes of one block (1x1,
+    8x8, 16x16) take the matrix-vector order."""
+    factors, _ = K4_SAMPLINGS[sampling]
+    img = _encode_image(*size, seed=quality, gray2d=sampling == "gray2d")
+    kq = tfdct.fdct_tables(tenc.quality_qtables(quality), cuda_device)
+    src = torch.from_numpy(img).to(cuda_device)
+    got = tfdct.encode_planes(src, factors, kq)
+    plain = tfdct._planes_plain(src, factors, kq)
+    cpu = tfdct.encode_planes(src.cpu(), factors, kq.cpu())
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, plain, cpu, strict=True):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(subsampling="420", restart_interval=3),
+    dict(subsampling="mixed", huffman="optimized", restart_interval=1),
+    dict(subsampling="444", progressive=True),
+    dict(subsampling="gray", quality=40),
+], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_encode_on_cuda_matches_cpu(cuda_device, cfg):
+    """Bytes of the card's encode equal the CPU's; one K4 launch per
+    image, no plain version and no Python packer."""
+    imgs = [_encode_image(33, 47, 1), _encode_image(64, 80, 2), _encode_image(17, 9, 3),
+            _encode_image(8, 8, 4)]
+    enc = jtt.JpegEncoder(jtt.EncodeConfig(**cfg), device=cuda_device)
+    want = [jtt.encode(i, jtt.EncodeConfig(**cfg), device="cpu") for i in imgs]
+    _build.LAUNCHES.clear()
+    tfdct.PLAIN_CALLS.clear()
+    tenc.FALLBACKS.clear()
+    got = [enc.encode(i) for i in imgs] + list(enc.encode_stream(imgs))
+    assert got == want + want
+    assert _build.LAUNCHES["jdtc_fdct"] == 2 * len(imgs)
+    assert not tfdct.PLAIN_CALLS and not tenc.FALLBACKS
+
+
+def test_k4_refuses_what_it_does_not_take(cuda_device):
+    kq = tfdct.fdct_tables(tenc.quality_qtables(85), cuda_device)
+    img = torch.zeros((16, 16, 3), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="uint8"):
+        tfdct.encode_planes(img.float(), F420, kq)
+    with pytest.raises(ValueError, match="kq"):
+        tfdct.encode_planes(img, F420, kq.double())
+    with pytest.raises(ValueError, match="components"):
+        tfdct.encode_planes(img[..., 0].contiguous(), F420, kq)
 
 
 def test_this_file_leaves_jax_and_the_jax_package_unloaded(cuda_device):

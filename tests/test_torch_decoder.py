@@ -284,8 +284,8 @@ def test_public_exports_decode_like_the_reference():
     assert isinstance(jtt.parse(data), jtt.JpegStructure)
     assert isinstance(got[0][1], jtt.CoefficientPlanes)
     assert isinstance(got[0][0], jtt.FrameHeader)
-    with pytest.raises(JpegUnsupportedError, match="item 4"):
-        jtt.encode(np.zeros((8, 8, 3), np.uint8))
+    rgb = _image((24, 40, 3), 7)
+    assert jtt.encode(rgb, device="cpu") == jt.encode(rgb)
     assert jtt.EncodeConfig().quality == jt.EncodeConfig().quality
 
 

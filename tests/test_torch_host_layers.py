@@ -24,14 +24,16 @@ import pytest
 
 import jpeg_decoder_tpu as jt
 import jpeg_decoder_tpu_torch as jtt
+from jpeg_decoder_tpu.core import entropy_encode as j_entropy_encode
 from jpeg_decoder_tpu.core import entropy_np as j_entropy_np
+from jpeg_decoder_tpu.core import huffman as j_huffman
 from jpeg_decoder_tpu.core import oracle as j_oracle
 from jpeg_decoder_tpu.io.parser import parse as jparse
 from jpeg_decoder_tpu.native import build as j_build
 from jpeg_decoder_tpu.native import runtime as j_runtime
 from jpeg_decoder_tpu.utils import errors as j_errors
 from jpeg_decoder_tpu_torch import convert
-from jpeg_decoder_tpu_torch.core import entropy_np, oracle
+from jpeg_decoder_tpu_torch.core import entropy_encode, entropy_np, huffman, oracle
 from jpeg_decoder_tpu_torch.io.parser import parse
 from jpeg_decoder_tpu_torch.native import build as t_build
 from jpeg_decoder_tpu_torch.native import runtime
@@ -75,7 +77,8 @@ def test_the_port_has_its_own_host_modules_and_no_shared_module():
     for rel in ("utils/errors.py", "utils/config.py", "utils/logging.py", "utils/metrics.py",
                 "io/markers.py", "io/bitstream.py", "io/parser.py", "io/writer.py",
                 "core/types.py", "core/huffman.py", "core/numerics.py", "core/driver.py",
-                "core/oracle.py", "core/entropy_np.py", "native/build.py",
+                "core/oracle.py", "core/entropy_np.py", "core/entropy_encode.py",
+                "native/build.py",
                 "native/runtime.py", "native/src/jdt_entropy.cpp",
                 "native/src/jdt_encode.cpp"):
         assert (PORT / rel).is_file(), rel
@@ -297,3 +300,71 @@ def test_device_trace_is_a_torch_profiler_range():
         with metrics.device_trace("jdt_region", enabled=True):
             np.zeros(1)
     assert any(e.key == "jdt_region" for e in prof.key_averages())
+
+
+# ---------------------------------------------------------------------------
+# The encoder's host layer: core/entropy_encode.py
+# ---------------------------------------------------------------------------
+
+
+def _mcu_blocks(seed: int, n_mcus: int, units: list[int]):
+    """Random zigzag blocks in MCU order with a zero tail per block (runs,
+    ZRL and EOB all occur); units lists each unit's scan component."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_mcus):
+        for sci in units:
+            b = rng.integers(-300, 301, 64) * (rng.random(64) < 0.3)
+            b[0] = rng.integers(-1024, 1024)
+            b[rng.integers(1, 64):] = 0
+            out.append((sci, b.astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("ri", [0, 1, 5])
+@pytest.mark.parametrize("units", [[0], [0, 0, 0, 0, 1, 2]], ids=["gray", "420"])
+def test_entropy_encode_matches_the_jax_package(units, ri):
+    """The port's copy of core/entropy_encode gives the original's bytes and
+    symbol counts on the same blocks: encode_blocks, count_symbols and the
+    progressive encode_dc_scan / encode_ac_scan."""
+    blocks = _mcu_blocks(ri + len(units), 40, units)
+    n_t = 1 if len(units) == 1 else 2
+    tables = [(0, 0) if sci == 0 else (n_t - 1, n_t - 1) for sci in units]
+    got_f = entropy_encode.count_symbols(blocks, n_t, n_t, tables, len(units), ri)
+    want_f = j_entropy_encode.count_symbols(blocks, n_t, n_t, tables, len(units), ri)
+    for g, w in zip(got_f, want_f, strict=True):
+        for a, b in zip(g, w, strict=True):
+            np.testing.assert_array_equal(a, b)
+    specs = [(huffman.optimal_code_lengths(got_f[0][t]), huffman.optimal_code_lengths(got_f[1][t]))
+             for t in range(n_t)]
+    jspecs = [(j_huffman.optimal_code_lengths(want_f[0][t]),
+               j_huffman.optimal_code_lengths(want_f[1][t])) for t in range(n_t)]
+    dc = [huffman.build_encode_table(s[0]) for s in specs]
+    ac = [huffman.build_encode_table(s[1]) for s in specs]
+    jdc = [j_huffman.build_encode_table(s[0]) for s in jspecs]
+    jac = [j_huffman.build_encode_table(s[1]) for s in jspecs]
+    got = entropy_encode.encode_blocks(blocks, dc, ac, tables, len(units), ri)
+    assert got == j_entropy_encode.encode_blocks(blocks, jdc, jac, tables, len(units), ri)
+    assert len(got) > 100
+    dcs = np.array([b[0] for _, b in blocks])
+    sci = [s for s, _ in blocks[: len(units)]]
+    dc_t = [t for t, _ in tables]
+    freq = [np.zeros(256, np.int64) for _ in range(n_t)]
+    jfreq = [np.zeros(256, np.int64) for _ in range(n_t)]
+    entropy_encode.encode_dc_scan(dcs, sci, dc_t, None, freq=freq)
+    j_entropy_encode.encode_dc_scan(dcs, sci, dc_t, None, freq=jfreq)
+    for a, b in zip(freq, jfreq, strict=True):
+        np.testing.assert_array_equal(a, b)
+    dc = [huffman.build_encode_table(huffman.optimal_code_lengths(f)) for f in freq]
+    jdc = [j_huffman.build_encode_table(j_huffman.optimal_code_lengths(f)) for f in jfreq]
+    assert entropy_encode.encode_dc_scan(dcs, sci, dc_t, dc) == \
+        j_entropy_encode.encode_dc_scan(dcs, sci, dc_t, jdc)
+    seq = np.stack([b for _, b in blocks])
+    freq, jfreq = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    entropy_encode.encode_ac_scan(seq, 1, 63, None, freq=freq)
+    j_entropy_encode.encode_ac_scan(seq, 1, 63, None, freq=jfreq)
+    np.testing.assert_array_equal(freq, jfreq)
+    spec = huffman.optimal_code_lengths(freq)
+    assert entropy_encode.encode_ac_scan(seq, 1, 63, huffman.build_encode_table(spec)) == \
+        j_entropy_encode.encode_ac_scan(seq, 1, 63, j_huffman.build_encode_table(
+            j_huffman.optimal_code_lengths(jfreq)))
