@@ -73,7 +73,18 @@ Phases, each of which exits non-zero on failure:
      both 4K images and the small ones, the six chroma samplings, gray and
      a 2-D gray image at q = 10, 85 and 100, timed on the 4K photograph at
      4:2:0 and 4:4:4 beside the product alone as one torch.matmul, with its
-     registers and shared memory;
+     registers and shared memory; K6n (the nearest-neighbour pixel stage of
+     streamed and striped decode: K03, K13 or K0/K1 + K3 launched with the
+     stripe rule) bitwise its plain version (the JAX program stripe by
+     stripe) on a 16384x2048 chunk of the gigapixel frame (below) and with 8
+     stripes on the dense 4K request, a 4K gray frame, a 4K frame of 7/12
+     vertical factors (refused by the guard: K0 + K3, the clamp live) and
+     the 4-component photograph tiled to 4K (YCCK), and under FLOAT32 bitwise
+     K1 x 3 + K3 with the rule; K6f (K0 + K3f under the striped fancy rule)
+     bitwise its plain version on the dense 4K request in 8 stripes, where it
+     differs from the whole-image fancy decode in row 2159 alone, and on a
+     frame with a (2, 4)-ratio component; each timed one call and the card
+     alone;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
@@ -113,6 +124,15 @@ Phases, each of which exits non-zero on failure:
        giving K4's planes; encode_stream of four 4K images against four
        encode calls; the photograph's bytes through JpegDecoder(PALLAS,
        EXACT), bitwise the reference, with K4's planes;
+     - streamed and striped decode of a 16384x32768 4:2:0 frame of the first
+       photograph's blocks with a marker per MCU row
+       (benchmarks/inputs.gigapixel_jpeg, 0.537 GP): decode_streamed
+       (NATIVE, 16 chunks, one K6n launch a chunk) under EXACT bitwise
+       decode_striped (8 stripes, one K6n launch) and JpegDecoder's
+       whole-image decode, and under FLOAT32 bitwise the whole-image FLOAT32
+       decode; decode_striped of the dense 4K request with fancy upsampling
+       (K6f) bitwise its plain version; wall time, MP/s and the card's peak
+       allocation of each;
   5. stage times with CUDA events: per image (H2D, K2u, K2, K03 and K13,
      D2H), and per batch of eight (H2D, K2u, K2, K03 under EXACT or K13
      under FLOAT32, D2H), each with the host clock of the parse that
@@ -120,9 +140,13 @@ Phases, each of which exits non-zero on failure:
      request (fancy, scale 4 and 1, YCCK, CMYK) beside K03, one call and
      the card alone, with the D2H and the warm PALLAS request latency; and
      a warm 4K encode (H2D, K4, D2H of the planes, native count and pack,
-     assembly, latency, encode_stream of eight).
-The last lines are the kernels' JSON record (eighteen kernels: K0-K4, K03,
-K13, K2u, K3f, K3c, K5 and PK1-PK7, each with its launches on the main
+     assembly, latency, encode_stream of eight); the gigapixel frame's
+     chunks (host entropy, H2D, K6n, D2H into fresh and into touched host
+     pages), and decode_streamed and decode_striped each in a process of its
+     own (benchmarks/gigapixel.py: time, the card's peak allocation, the
+     host's resident set before and at its peak during the decode).
+The last lines are the kernels' JSON record (twenty kernels: K0-K4, K03,
+K13, K2u, K3f, K3c, K5, K6n, K6f and PK1-PK7, each with its launches on the main
 paths, its time, its plain version's time and its bound), the card's name
 and power limit, and
 {"ok": true, "device": {...}}. The script imports the port alone, builds
@@ -1373,6 +1397,334 @@ def check_k5(dev, big: bytes, record: dict, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Streamed and striped decode (parallel/stripes.py): K6n, K6f
+# ---------------------------------------------------------------------------
+
+#: The gigapixel frame's chunk that K6n is held on against its plain version.
+GIGA_CHUNK = 7
+#: Stripes of decode_striped on the 4K and the gigapixel frames.
+N_STRIPES = 8
+
+
+def striped_case(dev, data: bytes, cfg, n: int = N_STRIPES):
+    """decode_striped's StripeStage and its padded planes on the card."""
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.parallel import stripes
+
+    return stripes._striped_planes(parse(data, cfg), cfg, n, dev)
+
+
+def synthetic_stripe_case(dev, h: int, w: int, factors, seed: int, upsample: str = "nn",
+                          quirks=None, n: int = N_STRIPES):
+    """A StripeStage of an h x w frame of `factors` with random tables, and
+    random padded coefficient planes on the card."""
+    import torch
+    from jpeg_decoder_tpu_torch import IdctPrecision, Quirks
+    from jpeg_decoder_tpu_torch.core import types
+    from jpeg_decoder_tpu_torch.io.markers import Encoding
+    from jpeg_decoder_tpu_torch.parallel import stripes
+
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    frame = types.FrameHeader(
+        Encoding.BASELINE_DCT, 8, w, h,
+        tuple(types.Component(i + 1, fh, fv, min(i, 1), -(-w * fh // mh), -(-h * fv // mv))
+              for i, (fh, fv) in enumerate(factors)))
+    rng = np.random.default_rng(seed)
+    qts = tuple(rng.integers(1, 64, 64).astype(np.uint16).tobytes() for _ in factors)
+    stage = stripes.StripeStage((frame, qts, IdctPrecision.EXACT, quirks or Quirks.REFERENCE,
+                                 upsample, 8), n, dev)
+    planes = [torch.from_numpy(rng.integers(-300, 300, (n * lby, c.blocks_x, 64))
+                               .astype(np.int16)).to(dev)
+              for lby, c in zip(stage.lby, frame.components)]
+    return stage, planes
+
+
+def gigapixel_chunk(dev, giga: bytes, k: int, precision):
+    """(ChunkStage, chunk k's planes on the card) of decode_streamed on the
+    gigapixel frame, the chunk's entropy decoded as decode_streamed does."""
+    import torch
+    from jpeg_decoder_tpu_torch import DecodeConfig
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.parallel import stripes
+
+    cfg = DecodeConfig(idct_precision=precision)
+    structure = parse(giga, cfg)
+    frame = structure.frame
+    n = -(-frame.height * frame.width // stripes.CHUNK_PIXELS)
+    plan = stripes._striped_entropy_plan(structure, cfg, n)
+    if plan is None:
+        fail("the gigapixel frame's restart rows do not align with its chunks")
+    decode_stripe, lby, qts = plan
+    bufs = [np.zeros((rows, c.blocks_x, 64), np.int16) for rows, c in zip(lby, frame.components)]
+    decode_stripe(k, bufs)
+    stage = stripes.make_chunk_stage(stripes._stage_for(frame, qts, cfg), n, dev)
+    return stage, [torch.from_numpy(b).to(dev) for b in bufs]
+
+
+def k6_bound(planes, qts, rgb) -> dict:
+    """K6n's and K6f's bound: the int16 coefficients and the tables read
+    once, RGB written once; about 700 float64 operations a block, the EXACT
+    IDCT's (csrc/idct_exact.cuh), the colour and upsampling steps' few
+    integer and float32 ones a pixel being far below."""
+    blocks = sum(p[..., 0].numel() for p in planes)
+    return bound(nbytes_of(*planes, *qts, rgb), 700 * blocks, "float64")
+
+
+def check_k6n(dev, giga: bytes, requests, cmyk: bytes, record: dict, card: str) -> None:
+    """K6n (the nearest-neighbour pixel stage of a chunk or of every stripe
+    with the stripe rule) bitwise against its plain version (the JAX
+    program stripe by stripe, torch ops on the card): on chunk GIGA_CHUNK
+    of the gigapixel frame (K03 with the chunk's origin), and with 8
+    stripes on the dense 4K request (K03), a 4K gray frame (K0 + K3), a 4K
+    frame of 7/12 vertical factors (not tile-local: K0 + K3, the clamp
+    live) and the 4-component photograph tiled to 4K (YCCK, K0 x 4 + K3c).
+    Under FLOAT32, K13 with the stripe rule bitwise K1 x 3 + K3 with it, on
+    the same chunk and the 4K request. Then its time on the chunk, one call
+    and the card alone, beside K03 on the whole 4K request."""
+    from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.ops import color, idct, pixel
+
+    exact, f32 = IdctPrecision.EXACT, IdctPrecision.FLOAT32
+    chunk, planes = gigapixel_chunk(dev, giga, GIGA_CHUNK, exact)
+    cases = {
+        f"gigapixel chunk {GIGA_CHUNK} ({chunk.frame.width}x{chunk.hs} of"
+        f" {chunk.frame.width}x{chunk.frame.height}, K03)": (
+            chunk, lambda: chunk(GIGA_CHUNK, *planes),
+            lambda: chunk(GIGA_CHUNK, *planes, plain=True)),
+    }
+    for name, case in {
+        f"dense {W}x{H} 4:2:0 request, 8 stripes (K03)": striped_case(dev, requests[0],
+                                                                     DecodeConfig()),
+        f"{W}x{H} gray, 8 stripes (K0 + K3)": synthetic_stripe_case(dev, H, W, ((1, 1),), 61),
+        f"{W}x{H} 7/12 vertical factors, 8 stripes (K0 x 3 + K3, not tile-local)":
+            synthetic_stripe_case(dev, H, W, ((1, 12), (1, 7), (1, 7)), 62),
+        f"hopper_cmyk_adobe.jpg tiled to {W}x{H}, YCCK, 8 stripes (K0 x 4 + K3c)":
+            striped_case(dev, cmyk, DecodeConfig()),
+    }.items():
+        stage, p = case
+        cases[name] = (stage, lambda s=stage, p=p: s(*p), lambda s=stage, p=p: s(*p, plain=True))
+    err = 0
+    for name, (stage, kernel, plain) in cases.items():
+        e = max_abs_err(kernel(), plain())
+        log(f"K6n stripes, {name}: max_abs_err {e} against its plain version"
+            f" (fused: {stage.fused})")
+        err = max(err, e)
+    record["max_abs_err"] = err
+    if err != 0:
+        fail(f"K6n disagrees with its plain version (max_abs_err {err}; tolerance 0)")
+    f32_cases = {f"gigapixel chunk {GIGA_CHUNK}": gigapixel_chunk(dev, giga, GIGA_CHUNK, f32),
+                 f"dense {W}x{H} 4:2:0 request, 8 stripes": striped_case(
+                     dev, requests[0], DecodeConfig(idct_precision=f32))}
+    for name, (stage, p) in f32_cases.items():
+        chunk_k = GIGA_CHUNK if name.startswith("gigapixel") else None
+        got = stage(chunk_k, *p) if chunk_k is not None else stage(*p)
+        rows = stage.hs if chunk_k is not None else stage.pad_h
+        stripes = color.Stripes(chunk_k * stage.hs if chunk_k is not None else 0, stage.hs)
+        pix = [idct.idct_plane(x, q, False, f32) for x, q in zip(p, stage._qts())]
+        split = stage._colour(pix, rows, "nn", stripes)
+        plain = stage(chunk_k, *p, plain=True) if chunk_k is not None else stage(*p, plain=True)
+        e = max_abs_err(got, split)
+        e_plain, sh_plain = max_abs_err(got, plain), share_differing(got, plain)
+        log(f"K6n stripes FLOAT32 (K13), {name}: max_abs_err {e} against K1 x 3 + K3 with the"
+            f" stripe rule; against the plain version (another order of the products)"
+            f" {sh_plain:.2e} of the RGB samples differ, max_abs_err {e_plain}"
+            f" (tolerance 3 and 1e-3)")
+        if e != 0:
+            fail(f"K6n FLOAT32 on {name}: max_abs_err {e} against K1 x 3 + K3")
+        if e_plain > 3 or sh_plain > 1e-3:
+            fail(f"K6n FLOAT32 on {name}: max_abs_err {e_plain}, share {sh_plain:.3e} against"
+                 f" its plain version (tolerance 3 and 1e-3)")
+        del got, split, plain, pix
+
+    kernel = lambda: chunk(GIGA_CHUNK, *planes)  # noqa: E731
+    ms = [cuda_ms(kernel, 10), cuda_ms(kernel, 10)]
+    card_ms = pixel_sweep.card_ms(kernel, 7)
+    plain_ms = cuda_ms(lambda: chunk(GIGA_CHUNK, *planes, plain=True), 1)
+    bnd = k6_bound(planes, chunk._qts(), kernel())
+    shape = (f"gigapixel chunk {GIGA_CHUNK}: {chunk.frame.width}x{chunk.hs} 4:2:0,"
+             f" {sum(p[..., 0].numel() for p in planes)} blocks, no planes")
+    stage4k, p4k = striped_case(dev, requests[0], DecodeConfig())
+    frame4k = stage4k.frame
+    whole = [x[: c.blocks_y] for x, c in zip(p4k, frame4k.components)]
+    stripes4k = pixel_sweep.card_ms(lambda: stage4k(*p4k), 7)
+    k03_4k = pixel_sweep.card_ms(lambda: pixel.pixel_exact(whole, stage4k._qts(), frame4k,
+                                                           Quirks.REFERENCE, False), 7)
+    log(f"K6n stripes ({shape}): one call {ms[0]:.3f} and {ms[1]:.3f} ms, the card alone"
+        f" {card_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
+        f" {bnd['bound_by']}; the dense 4K request in 8 stripes the card alone"
+        f" {stripes4k:.4f} ms, K03 on its unpadded planes {k03_4k:.4f} ms [{card}]")
+    record.update(ms=statistics.median(ms), ms_runs=ms, card_ms=card_ms, plain_ms=plain_ms,
+                  library_ms=None, shape=shape, stripes_4k_card_ms=stripes4k,
+                  k03_4k_card_ms=k03_4k, **bnd)
+
+
+def check_k6f(dev, requests, record: dict, card: str) -> None:
+    """K6f (K0 over the padded planes, then K3f under the striped rule, all
+    stripes in one launch each) bitwise against its plain version (the JAX
+    program's halo exchange over a list of stripe planes, torch ops on the
+    card): the dense 4K 4:2:0 request in 8 stripes (135 MCU rows padded to
+    136), under CORRECT, where it must differ from the whole-image fancy
+    decode in row 2159 alone; and a random 4K frame with a (2, 4)-ratio
+    component, which takes the nearest-neighbour rule. Then its time."""
+    from jpeg_decoder_tpu_torch import DecodeConfig, JpegDecoder, Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
+    cfg = DecodeConfig(upsample="fancy", quirks=Quirks.CORRECT)
+    stage, planes = striped_case(dev, requests[0], cfg)
+    got = stage(*planes)
+    e = max_abs_err(got, stage(*planes, plain=True))
+    whole = JpegDecoder(cfg, device=dev).decode_rgb(requests[0])
+    rows = np.flatnonzero((got[:H].cpu().numpy() != whole).any(axis=(1, 2))).tolist()
+    log(f"K6f stripes, dense {W}x{H} 4:2:0 request, 8 stripes: max_abs_err {e} against its"
+        f" plain version; rows differing from the whole-image fancy decode: {rows}")
+    if rows != [H - 1]:
+        fail(f"K6f: rows {rows} differ from the whole-image decode, expected [{H - 1}]")
+    s24, p24 = synthetic_stripe_case(dev, H, W, ((2, 4), (1, 1), (1, 1)), 63, "fancy",
+                                     Quirks.CORRECT)
+    e24 = max_abs_err(s24(*p24), s24(*p24, plain=True))
+    log(f"K6f stripes, random {W}x{H} planes with a (2, 4)-ratio component, 8 stripes:"
+        f" max_abs_err {e24} against its plain version")
+    record["max_abs_err"] = max(e, e24)
+    if record["max_abs_err"] != 0:
+        fail(f"K6f disagrees with its plain version (max_abs_err {record['max_abs_err']})")
+    kernel = lambda: stage(*planes)  # noqa: E731
+    ms = [cuda_ms(kernel, 10), cuda_ms(kernel, 10)]
+    card_ms = pixel_sweep.card_ms(kernel, 7)
+    plain_ms = cuda_ms(lambda: stage(*planes, plain=True), 1)
+    bnd = k6_bound(planes, stage._qts(), got)
+    shape = f"{W}x{H} 4:2:0 in 8 stripes, padded to {stage.pad_h} rows"
+    log(f"K6f stripes ({shape}): one call {ms[0]:.3f} and {ms[1]:.3f} ms, the card alone"
+        f" {card_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
+        f" {bnd['bound_by']} [{card}]")
+    record.update(ms=statistics.median(ms), ms_runs=ms, card_ms=card_ms, plain_ms=plain_ms,
+                  library_ms=None, shape=shape, **bnd)
+
+
+def gigapixel_path(dev, giga: bytes, requests, card: str) -> dict:
+    """decode_streamed of the gigapixel frame under EXACT (chunk-local
+    native entropy, one K6n launch a chunk) bitwise decode_striped with 8
+    stripes (one K6n launch) and JpegDecoder(NATIVE, EXACT).decode_rgb of
+    the same bytes (K03); under FLOAT32, decode_streamed bitwise the
+    whole-image FLOAT32 decode (K13 either way, the same sums). Then
+    decode_striped of the dense 4K request with fancy upsampling in 8
+    stripes (K6f) bitwise its plain version. Wall times (host clock) and
+    the card's peak allocated memory of each."""
+    import torch
+    from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, JpegDecoder, Quirks
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.parallel import stripes
+
+    frame = parse(giga).frame
+    n_chunks = -(-frame.width * frame.height // stripes.CHUNK_PIXELS)
+    runs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, runs[name] = run_path(name, fn)
+        s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        mp = out.shape[0] * out.shape[1] / 1e6
+        log(f"{name} ({out.shape[1]}x{out.shape[0]}, {mp:.1f} MP): {s:.3f} s,"
+            f" {mp / s:.1f} MP/s; peak allocated on the card {peak:.0f} MiB [{card}]")
+        return out
+
+    for precision in (IdctPrecision.EXACT, IdctPrecision.FLOAT32):
+        cfg = DecodeConfig(idct_precision=precision)
+        p = precision.value
+        streamed = timed(f"decode_streamed {p}",
+                         lambda: stripes.decode_streamed(giga, cfg, device=dev))
+        if runs[f"decode_streamed {p}"].get("K6n") != n_chunks:
+            fail(f"decode_streamed {p} launched {runs[f'decode_streamed {p}']},"
+                 f" not K6n once a chunk ({n_chunks})")
+        whole = timed(f"JpegDecoder gigapixel {p}",
+                      lambda: JpegDecoder(cfg, device=dev).decode_rgb(giga))
+        if not np.array_equal(streamed, whole):
+            fail(f"decode_streamed {p} differs from JpegDecoder's whole-image decode")
+        del whole
+        if precision == IdctPrecision.EXACT:
+            striped = timed(f"decode_striped {p}", lambda: stripes.decode_striped(
+                giga, cfg, n_stripes=N_STRIPES, device=dev))
+            if not np.array_equal(streamed, striped):
+                fail("decode_striped differs from decode_streamed")
+            del striped
+        log(f"main path gigapixel {p}: decode_streamed bitwise JpegDecoder's whole-image"
+            f" decode{' and decode_striped (8 stripes)' if p == 'exact' else ''}")
+        del streamed
+    cfg = DecodeConfig(upsample="fancy", quirks=Quirks.CORRECT)
+    got = timed("decode_striped fancy 4K", lambda: stripes.decode_striped(
+        requests[0], cfg, n_stripes=N_STRIPES, device=dev))
+    stage, planes = striped_case(dev, requests[0], cfg)
+    if not np.array_equal(got, stage(*planes, plain=True)[:H].cpu().numpy()):
+        fail("decode_striped fancy differs from K6f's plain version")
+    log("main path decode_striped fancy 4K: bitwise the plain version of the striped rule")
+    return runs
+
+
+def gigapixel_stage_times(dev, giga: bytes, card: str) -> None:
+    """decode_streamed's chunks one by one with their steps timed: host
+    entropy (host clock), H2D of the chunk's int16 planes, K6n one call and
+    the D2H of the chunk's real rows into the zeroed host output (first
+    touch of its pages) and again into the same rows (CUDA events); then
+    the host's peak resident set and the card's peak allocated memory of
+    decode_streamed and of decode_striped (8 stripes), each in a process of
+    its own (benchmarks/gigapixel.py: VmRSS sampled during the decode)."""
+    import torch
+    from jpeg_decoder_tpu_torch import DecodeConfig, _build
+    from jpeg_decoder_tpu_torch.benchmarks import gigapixel
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.parallel import stripes
+
+    cfg = DecodeConfig()
+    structure = parse(giga, cfg)
+    frame = structure.frame
+    n = -(-frame.height * frame.width // stripes.CHUNK_PIXELS)
+    decode_stripe, lby, qts = stripes._striped_entropy_plan(structure, cfg, n)
+    stage = stripes.make_chunk_stage(stripes._stage_for(frame, qts, cfg), n, dev)
+    flat, bufs, flat_dev, chunk_dev = stripes._chunk_buffers(frame, lby, dev)
+    out = np.zeros((frame.height, frame.width, 3), np.uint8)
+    steps = {"host entropy": [], "H2D": [], "K6n": [], "D2H first touch": [], "D2H again": []}
+    box = {}
+    for k in range(n):
+        t0 = time.perf_counter()
+        flat.fill(0)
+        decode_stripe(k, bufs)
+        steps["host entropy"].append((time.perf_counter() - t0) * 1e3)
+        steps["H2D"].append(cuda_ms(lambda: flat_dev.copy_(torch.from_numpy(flat)), 1))
+        steps["K6n"].append(cuda_ms(lambda: box.update(rgb=stage(k, *chunk_dev)), 1))
+        r0 = k * stage.hs
+        take = min(stage.hs, frame.height - r0)
+        for key in ("D2H first touch", "D2H again"):
+            steps[key].append(cuda_ms(lambda: torch.from_numpy(out[r0:r0 + take]).copy_(
+                box["rgb"][:take]), 1))
+    coef_mb = flat.nbytes / 1e6
+    rgb_mb = stage.hs * frame.width * 3 / 1e6
+    for key, ts in steps.items():
+        log(f"gigapixel stage times, {key}: {sum(ts):.1f} ms over {n} chunks, per chunk"
+            f" {[round(t, 3) for t in ts]} ms ({coef_mb:.1f} MB of coefficients,"
+            f" {rgb_mb:.1f} MB of RGB a chunk) [{card}]")
+    del out
+    path = _build.BUILD_DIR / "gigapixel_input.jpg"
+    path.write_bytes(giga)
+    try:
+        for engine, stripes_n in (("streamed", None), ("striped", N_STRIPES)):
+            r = gigapixel.measure(path, engine, n_stripes=stripes_n)
+            log(f"gigapixel memory, decode_{engine} exact (a process of its own):"
+                f" {r['decode_s']:.3f} s, {r['mp_per_s']:.1f} MP/s, peak allocated on the card"
+                f" {r['max_memory_allocated_mb']:.0f} MiB, host peak resident set (VmRSS"
+                f" sampled every 2 ms) {r['peak_rss_mb']:.0f} MiB; before the decode"
+                f" {r['rss_before_mb']:.0f} MiB, of which {r['rss_after_imports_mb']:.0f}"
+                f" after importing the package and torch, the rest the warm-up's (the card's"
+                f" context, the kernels, a 2048x2048 decode); VmHWM {r['vm_hwm_mb']}"
+                f" MiB, ru_maxrss {r['ru_maxrss_mb']:.0f} MiB (this script's at the fork"
+                f" included) [{r['card']}]")
+    finally:
+        path.unlink(missing_ok=True)
+
+
 def pixel_launches_ok(launches: dict, n: int, fused: bool) -> bool:
     """The pixel stage of n EXACT requests (or batches) launched K03 once
     each and neither K0 nor K3 (`fused`), or K0 for each component and K3
@@ -2153,8 +2505,10 @@ def main() -> None:
         from jpeg_decoder_tpu_torch.benchmarks.inputs import (
             CMYK_FILE,
             DRI_FILES,
+            GIGAPIXEL,
             PHOTOS,
             PHOTOS_420,
+            gigapixel_jpeg,
             make_jpeg,
             photo_jpeg,
         )
@@ -2246,6 +2600,27 @@ def main() -> None:
             name="K4 fdct", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/fdct.cu",
             replaces="jpeg_decoder_tpu/models/encoder.py:68"),
+        # striped and streamed decode: K03/K13, or K0/K1 + K3/K3c, launched
+        # with the stripe rule (colour::nn_row). The colour kernel's launch
+        # counts here; a K0/K1 launch before it counts under its own name.
+        # `ms` times the whole stage (K03 alone on the gigapixel chunk).
+        "K6n": dict(
+            name="K6n stripes, nearest-neighbour", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/pixel_exact.cu",
+            sources=["jpeg_decoder_tpu_torch/csrc/pixel_exact.cu",
+                     "jpeg_decoder_tpu_torch/csrc/pixel_float.cu",
+                     "jpeg_decoder_tpu_torch/csrc/color.cu"],
+            launches_count="the colour kernel (K03, K13, K3 or K3c) once a stage call",
+            replaces="jpeg_decoder_tpu/parallel/stripes.py:322"),
+        # K0/K1 over the padded planes, then K3f under the striped rule:
+        # K3f's launch counts here, `ms` times K0 x 3 + K3f
+        "K6f": dict(
+            name="K6f stripes, fancy", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/color.cu",
+            sources=["jpeg_decoder_tpu_torch/csrc/idct_exact.cu",
+                     "jpeg_decoder_tpu_torch/csrc/color.cu"],
+            launches_count="K3f once a stage call; K0's launches count as jdtc_idct_exact",
+            replaces="jpeg_decoder_tpu/parallel/stripes.py:86"),
     }
     for key, (name, _standing, _ops, replaces) in PROBE_KERNELS.items():
         kernels[key] = dict(name=name, route="cuda",
@@ -2274,6 +2649,12 @@ def main() -> None:
     timed_phase("probes against plain", check_probes, dev, kernels, card)
     images = encode_images(tiled[f"photograph {PHOTOS_420[0].name} tiled to {W}x{H}"])
     timed_phase("K4", check_k4, dev, images, kernels["jdtc_fdct"], card)
+    t0 = time.perf_counter()
+    giga = gigapixel_jpeg()
+    log(f"inputs: {PHOTOS_420[0].name} tiled to {GIGAPIXEL[0]}x{GIGAPIXEL[1]} 4:2:0 with a"
+        f" marker per MCU row ({len(giga)} bytes) in {time.perf_counter() - t0:.1f} s")
+    timed_phase("K6n", check_k6n, dev, giga, requests, cmyk, kernels["K6n"], card)
+    timed_phase("K6f", check_k6f, dev, requests, kernels["K6f"], card)
     for key, rec in kernels.items():
         if (key not in ("jdtc_idct_float", "jdtc_pixel_float", "jdtc_idct_scaled")
                 and rec["max_abs_err"] != 0):
@@ -2290,6 +2671,8 @@ def main() -> None:
                             requests, batch, cmyk, card))
     runs.update(timed_phase("main path, probes", probe_path, kernels))
     runs.update(timed_phase("main path, encode", encode_path, dev, images, card))
+    runs.update(timed_phase("main paths, streamed and striped", gigapixel_path, dev, giga,
+                            requests, card))
     for key, rec in kernels.items():
         entry = rec.get("entry", key)
         paths = {p: r for p, r in runs.items()
@@ -2319,7 +2702,9 @@ def main() -> None:
                       ("BatchDecoder native fancy exact decode_batch", "jdtc_fancy"),
                       ("JpegEncoder 4:2:0 q85 annex_k", "jdtc_fdct"),
                       ("JpegEncoder encode_stream", "jdtc_fdct"),
-                      ("JpegDecoder pallas exact (encoded photograph)", "jdtc_pixel_exact")):
+                      ("JpegDecoder pallas exact (encoded photograph)", "jdtc_pixel_exact"),
+                      ("decode_streamed exact", "K6n"), ("decode_streamed float32", "K6n"),
+                      ("decode_striped exact", "K6n"), ("decode_striped fancy 4K", "K6f")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")
     timed_phase("stage times", stage_times, dev, requests, card)
@@ -2328,6 +2713,7 @@ def main() -> None:
     timed_phase("stage times, fancy, 4 components, scaled", new_stage_times, dev, requests[0],
                 cmyk, card)
     timed_phase("encode stage times", encode_stage_times, dev, images, card)
+    timed_phase("gigapixel stage times", gigapixel_stage_times, dev, giga, card)
     if not jax_free():
         fail("JAX or the JAX package jpeg_decoder_tpu was loaded")
     required = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

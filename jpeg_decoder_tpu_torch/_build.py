@@ -71,16 +71,17 @@ SIGNATURES = {
     # cuda_stream
     "jdtc_idct_scaled": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
     # coeff0..2, qt0..2, n_images, h, w, hsf0..2, vsf0..2, hratio0..2,
-    # vratio0..2, mcus_x, mcus_y, strip, bits12, correct, rgb, plane0..2
-    # (null: not stored), cuda_stream
-    "jdtc_pixel_exact": [*[_P] * 6, *[_I32] * 9, *[_F32] * 6, *[_I32] * 5, *[_P] * 5],
+    # vratio0..2, mcus_x, mcus_y, strip, bits12, correct, row0, stripe_h
+    # (striped decode; 0, 0 for whole frames), rgb, plane0..2 (null: not
+    # stored), cuda_stream
+    "jdtc_pixel_exact": [*[_P] * 6, *[_I32] * 9, *[_F32] * 6, *[_I32] * 7, *[_P] * 5],
     # jdtc_pixel_exact's arguments with k_matrix after qt2
-    "jdtc_pixel_float": [*[_P] * 7, *[_I32] * 9, *[_F32] * 6, *[_I32] * 5, *[_P] * 5],
+    "jdtc_pixel_float": [*[_P] * 7, *[_I32] * 9, *[_F32] * 6, *[_I32] * 7, *[_P] * 5],
     # K3 (nearest-neighbour) and K3f (fancy): plane0..3, n_images, n_comps,
-    # h, w, geometry (host int64 [4][4]), ratios (host float [4][2]), mode,
-    # correct, out, cuda_stream
-    "jdtc_color": [*[_P] * 4, *[_I32] * 4, _P, _P, _I32, _I32, _P, _P],
-    "jdtc_fancy": [*[_P] * 4, *[_I32] * 4, _P, _P, _I32, _I32, _P, _P],
+    # h, w, geometry (host int64 [4][5]), ratios (host float [4][2]), row0,
+    # stripe_h, mode, correct, out, cuda_stream
+    "jdtc_color": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
+    "jdtc_fancy": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
     # K4 (the encoder's device stage): img, h, w, channels, n_comps, comps
     # (host int64 [3][7]), kq, consts (host float [5]), cuda_stream
     "jdtc_fdct": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
@@ -109,7 +110,9 @@ SIGNATURES = {
 MAX_IMAGES = 65535
 
 #: Kernel launches per C entry point since the process started (or since a
-#: caller last cleared it). Only `launch` adds to it.
+#: caller last cleared it). Only `launch` adds to it. Launches of striped
+#: and streamed decode are counted under their stage's name instead (K6n,
+#: K6f: parallel/stripes.py), so that each record counts its own.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -211,12 +214,17 @@ def library() -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call C entry point `name` (which launches its kernel) and raise if
     the launch was refused; count it otherwise."""
+    launch_as(name, name, *args)
+
+
+def launch_as(count_as: str, name: str, *args) -> None:
+    """launch, the launch counted under `count_as` (K6n, K6f)."""
     lib = library()
     rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = lib.jdtc_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-    LAUNCHES[name] += 1
+    LAUNCHES[count_as] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -51,6 +51,9 @@ PHOTOS_420 = (DRI_FILES[0], PHOTOS[1])
 #: 3840x2160.
 CMYK_FILE = _WILD / "transcoded" / "hopper_cmyk_adobe.jpg"
 F420 = ((2, 2), (1, 1), (1, 1))
+#: The repository's gigapixel frame (benchmarks/gigapixel_stripes.py's
+#: default): 16384 x 32768, 0.537 gigapixels, 4:2:0.
+GIGAPIXEL = (16384, 32768)
 
 
 def adobe_app14(transform: int) -> bytes:
@@ -62,13 +65,15 @@ def adobe_app14(transform: int) -> bytes:
 
 
 def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts,
-              adobe_transform: int | None = None) -> bytes:
+              adobe_transform: int | None = None, precision: int = 8) -> bytes:
     """A baseline JPEG of the int16 zigzag block planes `planes` (per
     component [blocks_y, blocks_x, 64] at MCU padding): component 0 with the
     Annex K luminance Huffman tables and qts[0], the others (1 to 3 of
     them) with the chrominance tables and qts[1]; restart interval `ri`
     MCUs (0: none); an Adobe APP14 marker with `adobe_transform` unless it
-    is None."""
+    is None. `precision` 12 writes an extended sequential (SOF1) frame of
+    12-bit samples (the Annex K tables take DC differences up to 2047 and
+    AC values up to 1023)."""
     from ..core import huffman
     from ..io import writer
     from ..native import runtime
@@ -96,7 +101,8 @@ def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts,
         parts.append(adobe_app14(adobe_transform))
     parts += [writer.dqt(i, q) for i, q in enumerate(qts[:n_tab])]
     parts.append(writer.sof(
-        w, h, [(ci + 1, fh, fv, min(ci, 1)) for ci, (fh, fv) in enumerate(factors)]))
+        w, h, [(ci + 1, fh, fv, min(ci, 1)) for ci, (fh, fv) in enumerate(factors)],
+        precision=precision, marker=0xC0 if precision == 8 else 0xC1))
     parts += [writer.dht(s) for s in dc_specs + ac_specs]
     if ri:
         parts.append(writer.dri(ri))
@@ -107,12 +113,13 @@ def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts,
 
 
 def make_jpeg(w: int, h: int, factors, ri: int, seed: int,
-              adobe_transform: int | None = None) -> bytes:
+              adobe_transform: int | None = None, precision: int = 8) -> bytes:
     """A baseline JPEG of random coefficients: DC in [-60, 60], AC
     Laplace(4) rounded and clipped to +-1023, so every DC difference and AC
     value lies in the Annex K categories; the Annex K quantisation tables.
     1, 3 or 4 components (`factors`); an Adobe APP14 marker with
-    `adobe_transform` unless it is None."""
+    `adobe_transform` unless it is None; 8- or 12-bit samples
+    (`precision`)."""
     from ..core import types
 
     rng = np.random.default_rng(seed)
@@ -127,7 +134,7 @@ def make_jpeg(w: int, h: int, factors, ri: int, seed: int,
         planes.append(p.astype(np.int16))
     return pack_jpeg(planes, w, h, factors, ri,
                      [types.standard_luminance_qtable(), types.standard_chrominance_qtable()],
-                     adobe_transform)
+                     adobe_transform, precision)
 
 
 def photo_jpeg(path, w: int, h: int, ri: int, shift: int = 0) -> bytes:
@@ -157,10 +164,24 @@ def photo_jpeg(path, w: int, h: int, ri: int, shift: int = 0) -> bytes:
     for c, plane in zip(comps, coeffs.planes):
         tile = np.roll(plane[: src_y * c.vsf, : src_x * c.hsf],
                        (shift * c.vsf, shift * c.hsf), (0, 1))
-        reps = (-(-mcus_y // src_y), -(-mcus_x // src_x), 1)
-        planes.append(np.tile(tile, reps)[: mcus_y * c.vsf, : mcus_x * c.hsf])
+        # the tiling in one allocation of the frame's size (a gigapixel
+        # frame's planes are 1.6 GB)
+        by, bx = mcus_y * c.vsf, mcus_x * c.hsf
+        planes.append(np.pad(tile, ((0, max(0, by - tile.shape[0])),
+                                    (0, max(0, bx - tile.shape[1])), (0, 0)),
+                             mode="wrap")[:by, :bx])
     adobe = frame.adobe_transform if len(comps) == 4 else None
     return pack_jpeg(planes, w, h, factors, ri, [qts[c.qtid] for c in comps[:2]], adobe)
+
+
+def gigapixel_jpeg(w: int = GIGAPIXEL[0], h: int = GIGAPIXEL[1]) -> bytes:
+    """The gigapixel input of striped and streamed decode: the first 4:2:0
+    photograph's coefficients (PHOTOS_420[0], china_dri_rows1_420.jpg)
+    tiled to w x h by photo_jpeg, with a restart marker per MCU row (the
+    restart interval is the MCU row's width, as benchmarks/
+    gigapixel_stripes.py writes it), so that the host's entropy stage runs
+    stripe by stripe."""
+    return photo_jpeg(PHOTOS_420[0], w, h, -(-w // 16))
 
 
 def block_stats(data: bytes) -> dict:

@@ -46,6 +46,18 @@
 // stride is the image width under REFERENCE (the y_rgb shear,
 // colour_conversion.c:20) and the padded plane's under CORRECT.
 //
+// Striped and streamed decode (K6n and K6f in the records; the XLA
+// programs of jpeg_decoder_tpu/parallel/stripes.py make_chunk_stage :322
+// and make_shard_fn :86) launch both over a chunk of MCU rows or over the
+// whole padded frame, with the launch's first row of the padded frame and
+// the stripe height: the nearest-neighbour rows then follow colour::nn_row.
+// K3f there takes the triangular passes only for a component whose factors
+// reach the maximum after them (stripes.py:139-144), and the
+// nearest-neighbour rule at its own ratios for every other component (the
+// host sets its flags so); on one card every stripe is resident, so the
+// vertical pass over the padded plane's rows is the stripes' one-row halo
+// exchange, the padded plane's last row its outer edge.
+//
 // What bounds it on the H100: memory. A pixel reads each component's
 // sample (for fancy, at most three neighbours more: a 2x2 quad of sources
 // shared by the pixel's neighbours, so mostly from cache) and writes three
@@ -75,8 +87,10 @@ struct Geometry {
   int rows[kMaxComps];
   int stride[kMaxComps];
   int flags[kMaxComps];
+  int local_rows[kMaxComps];  // plane rows a stripe (striped decode)
   float hratio[kMaxComps];
   float vratio[kMaxComps];
+  int row0, stripe_h;  // striped decode: colour::nn_row; 0, 0 for whole frames
 };
 
 // The horizontal pass's integer sum A = 3x + n + b at output column q of a
@@ -96,7 +110,7 @@ __device__ __forceinline__ uint8_t sample(const Geometry& g, int64_t img, int c,
   const int flags = g.flags[c];
   int r = i, q = j;
   if (flags & kNN) {
-    r = static_cast<int>(colour::nn_index(i, g.vratio[c]));
+    r = colour::nn_row(i, g.vratio[c], g.row0, g.stripe_h, g.local_rows[c]);
     q = static_cast<int>(colour::nn_index(j, g.hratio[c]));
   }
   if (!kFancy || !(flags & (kH2x | kV2x))) return p[static_cast<int64_t>(r) * cols + q];
@@ -143,21 +157,25 @@ void run(const Geometry& g, int n_images, int h, int w, int correct, void* out,
 template <bool kFancy>
 int launch(const void* plane0, const void* plane1, const void* plane2, const void* plane3,
            int n_images, int n_comps, int h, int w, const void* geom, const void* ratios,
-           int mode, int correct, void* out, void* cuda_stream) {
-  // geom: host int64 [4][4], per component (image stride, rows, stride,
-  // flags); ratios: host float [4][2], per component (hratio, vratio).
+           int row0, int stripe_h, int mode, int correct, void* out, void* cuda_stream) {
+  // geom: host int64 [4][5], per component (image stride, rows, stride,
+  // flags, plane rows a stripe); ratios: host float [4][2], per component
+  // (hratio, vratio).
   const auto* gm = static_cast<const int64_t*>(geom);
   const auto* rt = static_cast<const float*>(ratios);
   Geometry g{{static_cast<const uint8_t*>(plane0), static_cast<const uint8_t*>(plane1),
               static_cast<const uint8_t*>(plane2), static_cast<const uint8_t*>(plane3)}};
   for (int c = 0; c < kMaxComps; ++c) {
-    g.img_stride[c] = gm[4 * c];
-    g.rows[c] = static_cast<int>(gm[4 * c + 1]);
-    g.stride[c] = static_cast<int>(gm[4 * c + 2]);
-    g.flags[c] = static_cast<int>(gm[4 * c + 3]);
+    g.img_stride[c] = gm[5 * c];
+    g.rows[c] = static_cast<int>(gm[5 * c + 1]);
+    g.stride[c] = static_cast<int>(gm[5 * c + 2]);
+    g.flags[c] = static_cast<int>(gm[5 * c + 3]);
+    g.local_rows[c] = static_cast<int>(gm[5 * c + 4]);
     g.hratio[c] = rt[2 * c];
     g.vratio[c] = rt[2 * c + 1];
   }
+  g.row0 = row0;
+  g.stripe_h = stripe_h;
   // the mode fixes the component count
   const int comps = mode == colour::kGray ? 1 : (mode == colour::kYCbCr ? 3 : 4);
   if (n_comps != comps) return static_cast<int>(cudaErrorInvalidValue);
@@ -177,17 +195,17 @@ int launch(const void* plane0, const void* plane1, const void* plane2, const voi
 // K3 (K3c on 4 planes): nearest-neighbour upsampling, 1, 3 or 4 components.
 extern "C" int jdtc_color(const void* plane0, const void* plane1, const void* plane2,
                           const void* plane3, int n_images, int n_comps, int h, int w,
-                          const void* geom, const void* ratios, int mode, int correct,
-                          void* out, void* cuda_stream) {
+                          const void* geom, const void* ratios, int row0, int stripe_h,
+                          int mode, int correct, void* out, void* cuda_stream) {
   return launch<false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                       mode, correct, out, cuda_stream);
+                       row0, stripe_h, mode, correct, out, cuda_stream);
 }
 
 // K3f: fancy upsampling, 3 or 4 components.
 extern "C" int jdtc_fancy(const void* plane0, const void* plane1, const void* plane2,
                           const void* plane3, int n_images, int n_comps, int h, int w,
-                          const void* geom, const void* ratios, int mode, int correct,
-                          void* out, void* cuda_stream) {
+                          const void* geom, const void* ratios, int row0, int stripe_h,
+                          int mode, int correct, void* out, void* cuda_stream) {
   return launch<true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                      mode, correct, out, cuda_stream);
+                       row0, stripe_h, mode, correct, out, cuda_stream);
 }

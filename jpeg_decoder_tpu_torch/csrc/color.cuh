@@ -34,6 +34,25 @@ static __device__ __forceinline__ uint32_t nn_index(int i, float ratio) {
   return static_cast<uint32_t>(__fmul_rn(static_cast<float>(i), ratio));
 }
 
+// The source row, among the launch's plane rows, of the launch's output row
+// i. Whole frames (stripe_h == 0, row0 == 0): nn_index(i). Striped and
+// streamed decode (jpeg_decoder_tpu/parallel/stripes.py make_chunk_stage,
+// make_shard_fn): the launch starts at row row0 of the padded frame, a
+// multiple of the stripe height stripe_h, and each stripe of stripe_h output
+// rows owns local_rows plane rows. The rule runs on the padded frame's row g
+// (the float32 product depends on the absolute index), its source is made
+// local to g's stripe and clamped into it, then placed among the launch's
+// stripes.
+static __device__ __forceinline__ int nn_row(int i, float ratio, int row0, int stripe_h,
+                                             int local_rows) {
+  const int g = row0 + i;
+  const int src = static_cast<int>(nn_index(g, ratio));
+  if (stripe_h <= 0) return src;
+  const int st = g / stripe_h;
+  const int r = min(max(src - st * local_rows, 0), local_rows - 1);
+  return r + (st - row0 / stripe_h) * local_rows;
+}
+
 static __device__ __forceinline__ uint8_t store(float v, int correct) {
   float q = correct ? floorf(__fadd_rn(v, 0.5f)) : truncf(v);
   q = q > 255.0f ? 255.0f : (q < 0.0f ? 0.0f : q);

@@ -174,8 +174,8 @@ extern "C" int jdtc_pixel_float(
     const void* qt1, const void* qt2, const void* kmat, int n_images, int h, int w, int hsf0,
     int hsf1, int hsf2, int vsf0, int vsf1, int vsf2, float hratio0, float hratio1,
     float hratio2, float vratio0, float vratio1, float vratio2, int mcus_x, int mcus_y,
-    int strip, int bits12, int correct, void* rgb, void* plane0, void* plane1, void* plane2,
-    void* cuda_stream) {
+    int strip, int bits12, int correct, int row0, int stripe_h, void* rgb, void* plane0,
+    void* plane1, void* plane2, void* cuda_stream) {
   const void* coeff[3] = {coeff0, coeff1, coeff2};
   const void* qt[3] = {qt0, qt1, qt2};
   void* plane[3] = {plane0, plane1, plane2};
@@ -184,7 +184,7 @@ extern "C" int jdtc_pixel_float(
   const float hr[3] = {hratio0, hratio1, hratio2};
   const float vr[3] = {vratio0, vratio1, vratio2};
   Params p = jdtc_strip::make_params(coeff, qt, plane, rgb, h, w, hsf, vsf, hr, vr, mcus_x,
-                                     mcus_y, strip, bits12, correct);
+                                     mcus_y, strip, bits12, correct, row0, stripe_h);
   p.kmat = static_cast<const float*>(kmat);
   const int groups = (p.blocks + kBlocksPerThread - 1) / kBlocksPerThread;
   // Shared memory: coefficients | tables (float, zigzag order) | K | the

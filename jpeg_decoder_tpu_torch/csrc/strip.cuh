@@ -14,9 +14,11 @@
 //     unrolling). index_tables: the shared offset of each tile row and each
 //     staged RGB row, and the colour stage's sources by K3's index rule on
 //     the GLOBAL row and column (the float32 product depends on the absolute
-//     index), computed once a row and once a column of the strip rather than
-//     once a pixel (a float multiply and two conversions a component, and
-//     conversions issue at a quarter of the float32 rate).
+//     index; in striped and streamed decode the padded frame's row, the
+//     source made local to its stripe: colour::nn_row), computed once a row
+//     and once a column of the strip rather than once a pixel (a float
+//     multiply and two conversions a component, and conversions issue at a
+//     quarter of the float32 rate).
 //  2-3. the kernel's IDCT: coefficients -> the three uint8 tiles.
 //  4. store_planes, when the caller asks for the planes: each tile row in
 //     16-byte windows.
@@ -31,7 +33,8 @@
 //
 // Locality: with nearest-neighbour upsampling every output pixel's chroma
 // sample lies in its own MCU (the host checks this for the geometry,
-// ops/pixel.tile_local, before it routes a frame to either kernel), so a
+// ops/pixel.tile_local, before it routes a frame to either kernel; for a
+// stripe or a chunk, on the rows of the padded frame up to its end), so a
 // strip's pixels depend on the strip's coefficient blocks alone and the
 // pixel tiles never leave shared memory.
 
@@ -58,6 +61,10 @@ struct Params {
   int h, w, mcus_x, mcus_y, hmax, vmax, strip;  // strip: G, MCUs a CTA
   int blocks;                                   // coefficient blocks of a full strip
   int bits12, correct;
+  // striped and streamed decode (colour::nn_row): the padded frame's row of
+  // the launch's row 0 and the output rows of a stripe (0: a whole frame),
+  // and each component's plane rows a stripe
+  int row0, stripe_h, local_rows[3];
   // dynamic shared memory layout, in bytes: the coefficients at 0, then the
   // kernel's own tables (sm_qt, sm_inv, sm_k), then what finish_layout sets
   int sm_qt, sm_inv, sm_k, sm_rows, sm_work, sm_tile[3], pitch[3], rgb_pitch;
@@ -178,7 +185,8 @@ static __device__ __forceinline__ void index_tables(const Params& p, const Strip
     if (c < 3) {
       row_off[k] = tile_row(p, s, c, y);
       const int sr =
-          static_cast<int>(colour::nn_index(s.i0 + y, p.vratio[c])) - 8 * p.vsf[c] * s.mr;
+          colour::nn_row(s.i0 + y, p.vratio[c], p.row0, p.stripe_h, p.local_rows[c]) -
+          8 * p.vsf[c] * s.mr;
       src_row[k] = tile_row(p, s, c, sr);
     } else {
       const int64_t pix = (s.img * p.h + s.i0 + y) * p.w + s.j0;
@@ -273,7 +281,7 @@ static inline Params make_params(const void* const coeff[3], const void* const q
                                  void* const plane[3], void* rgb, int h, int w,
                                  const int hsf[3], const int vsf[3], const float hratio[3],
                                  const float vratio[3], int mcus_x, int mcus_y, int strip,
-                                 int bits12, int correct) {
+                                 int bits12, int correct, int row0, int stripe_h) {
   Params p{};
   int per_mcu = 0;
   for (int c = 0; c < 3; ++c) {
@@ -299,6 +307,9 @@ static inline Params make_params(const void* const coeff[3], const void* const q
   p.blocks = strip * per_mcu;
   p.bits12 = bits12;
   p.correct = correct;
+  p.row0 = row0;
+  p.stripe_h = stripe_h;
+  for (int c = 0; c < 3; ++c) p.local_rows[c] = stripe_h / p.vmax * vsf[c];
   return p;
 }
 

@@ -19,11 +19,19 @@ jdtc_color: 1, 3 or 4 components, nearest-neighbour; named K3c on 4) or
 K3f (the same file's jdtc_fancy: fancy, 3 or 4 components). Planes may
 carry a leading batch dimension ([B, rows, stride], the batch path's
 stacked images); one launch then makes [B, h, w, 3].
+
+Striped and streamed decode (parallel/stripes.py) pass `stripes`: the
+launch covers a chunk of a padded frame, or the whole of it, cut in stripes
+of MCU rows, and the nearest-neighbour rows follow the JAX package's stripe
+rule (`nn_rows`); under fancy upsampling only the components that
+`fancy_ok` takes get the triangular passes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,12 +52,52 @@ _K_GV = float(np.float32(0.71414))
 _K_BU = float(np.float32(1.772))
 
 
+class Stripes(NamedTuple):
+    """A launch of striped or streamed decode: `row0`, the padded frame's
+    row of the launch's first output row, a multiple of `height`, the output
+    rows of a stripe (a whole number of MCU rows)."""
+
+    row0: int
+    height: int
+
+
+def nn_rows(n: int, sf: int, max_sf: int, stripes: Stripes | None = None) -> np.ndarray:
+    """The plane row each of a launch's n output rows samples under the
+    reference's (uint32)(i * float32(sf/max_sf)) rule. With `stripes`, the
+    JAX package's stripe rule (jpeg_decoder_tpu/parallel/stripes.py
+    make_chunk_stage :354-380, make_shard_fn :160-163): the rule runs on the
+    padded frame's row, its source is made local to that row's stripe of
+    height * sf / max_sf plane rows and clamped into it, then placed among
+    the launch's stripes (the kernels' colour::nn_row)."""
+    ratio = np.float32(sf) / np.float32(max_sf)
+    if stripes is None:
+        return _nn_index_f32(n, ratio)
+    row0, height = stripes
+    src = _nn_index_f32(row0 + n, ratio)[row0:]
+    local = height * sf // max_sf
+    st = np.arange(row0, row0 + n, dtype=np.int64) // height
+    return np.clip(src - st * local, 0, local - 1) + (st - row0 // height) * local
+
+
+def fancy_ok(hsf: int, vsf: int, max_hsf: int, max_vsf: int) -> bool:
+    """Whether striped decode gives a component the triangular passes
+    (jpeg_decoder_tpu/parallel/stripes.py:139-144): at least one 2x pass,
+    and the full factors after them. Every other component takes the
+    nearest-neighbour rule at its own ratios, where whole-frame decode runs
+    the passes it can and the rule after them (fancy_upsample)."""
+    return ((hsf == max_hsf or 2 * hsf == max_hsf)
+            and (vsf == max_vsf or 2 * vsf == max_vsf)
+            and (2 * hsf == max_hsf or 2 * vsf == max_vsf))
+
+
 def nn_upsample(plane: torch.Tensor, out_h: int, out_w: int, hsf: int,
-                vsf: int, max_hsf: int, max_vsf: int) -> torch.Tensor:
+                vsf: int, max_hsf: int, max_vsf: int,
+                stripes: Stripes | None = None) -> torch.Tensor:
     """Nearest-neighbour upsample of one component plane [..., rows, stride]
     to [..., out_h, out_w] with the reference's (uint32)(i *
-    float32(sf/max_sf)) index rule."""
-    rows = _nn_index_f32(out_h, np.float32(vsf) / np.float32(max_vsf))
+    float32(sf/max_sf)) index rule; rows by the stripe rule with
+    `stripes` (nn_rows)."""
+    rows = nn_rows(out_h, vsf, max_vsf, stripes)
     cols = _nn_index_f32(out_w, np.float32(hsf) / np.float32(max_hsf))
     rows_t = torch.from_numpy(rows).to(plane.device)
     cols_t = torch.from_numpy(cols).to(plane.device)
@@ -219,23 +267,31 @@ def _convert(chans, mode: int, quirks: Quirks) -> torch.Tensor:
 
 def _planes_to_rgb_plain(planes, h, w, factors, quirks, upsample: str = "nn",
                          exact: bool = True, raw_cmyk: bool = False,
-                         gray_shear: bool | None = None):
+                         gray_shear: bool | None = None, stripes: Stripes | None = None):
     """The colour stage of build_stage_raw in plain PyTorch (the plain
     version of K3 and K3f). `gray_shear` (default: REFERENCE quirks)
-    indexes a gray plane at the image width."""
+    indexes a gray plane at the image width. With `stripes`, the stripe
+    rule: nearest-neighbour rows by nn_rows, and under fancy upsampling the
+    passes (over the whole padded plane, which on one card is the stripes'
+    halo exchange) only where fancy_ok."""
     if len(planes) == 1:
         shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
         return gray_to_rgb(_gray_source(planes[0], h, w, shear))
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
-    up = nn_upsample if upsample == "nn" else fancy_upsample
-    chans = [up(p, h, w, fh, fv, mh, mv) for p, (fh, fv) in zip(planes, factors)]
+    chans = []
+    for p, (fh, fv) in zip(planes, factors):
+        if upsample == "nn" or (stripes is not None and not fancy_ok(fh, fv, mh, mv)):
+            chans.append(nn_upsample(p, h, w, fh, fv, mh, mv, stripes))
+        else:
+            chans.append(fancy_upsample(p, h, w, fh, fv, mh, mv))
     return _convert(chans, colour_mode(len(planes), exact, raw_cmyk), quirks)
 
 
 def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str = "nn",
                   exact: bool = True, raw_cmyk: bool = False,
-                  gray_shear: bool | None = None) -> torch.Tensor:
+                  gray_shear: bool | None = None,
+                  stripes: Stripes | None = None) -> torch.Tensor:
     """uint8 pixel planes [rows, stride], or [B, rows, stride] for a batch
     (1, 3 or 4 components, sampling `factors` = ((hsf, vsf), ...)) -> [h, w,
     3] or [B, h, w, 3] uint8 RGB: the device stage after the IDCT.
@@ -244,7 +300,9 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str
     `gray_shear` as in _planes_to_rgb_plain. CPU tensors: the plain
     versions. CUDA: K3 (1, 3 or 4 components, nn) or K3f (fancy, 3 or 4
     components), one launch for the batch (one per 65,535 images,
-    _build.image_chunks). A gray frame ignores `upsample`."""
+    _build.image_chunks). A gray frame ignores `upsample`. `stripes`: a
+    chunk or a whole padded frame of striped decode, one image (the
+    launches count as K6n, or K6f under fancy upsampling)."""
     if len(planes) not in (1, 3, 4):
         raise ValueError(f"planes_to_rgb: {len(planes)} components")
     lead = planes[0].shape[:-2]
@@ -252,9 +310,11 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str
                             for p in planes):
         raise ValueError("planes_to_rgb: planes must be [rows, stride] or [B, rows, stride], one B")
     dev = planes[0].device
+    if stripes is not None and lead:
+        raise ValueError("planes_to_rgb: striped decode takes one image")
     if dev.type == "cpu":
         return _planes_to_rgb_plain(planes, h, w, factors, quirks, upsample, exact, raw_cmyk,
-                                    gray_shear)
+                                    gray_shear, stripes)
     if not planes[0].is_cuda:
         raise ValueError(f"planes_to_rgb: no kernel for {dev}")
     for p in planes:
@@ -264,25 +324,28 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str
     fancy = upsample == "fancy" and len(planes) > 1
     mode = GRAY if len(planes) == 1 else colour_mode(len(planes), exact, raw_cmyk)
     return _launch("jdtc_fancy" if fancy else "jdtc_color", planes, lead, h, w, factors,
-                   quirks, mode, shear)
+                   quirks, mode, shear, stripes)
 
 
 #: Bits of a component's flags in K3's and K3f's geometry (csrc/color.cu).
 _H2X, _V2X, _NN = 1, 2, 4
 
 
-def upsample_geometry(planes_shapes, h: int, w: int, factors, fancy: bool):
+def upsample_geometry(planes_shapes, h: int, w: int, factors, fancy: bool,
+                      stripes: Stripes | None = None):
     """K3f's (`fancy`) or K3's geometry: per component (rows, stride,
-    flags) and (hratio, vratio) of its nearest-neighbour step. K3 indexes
-    every plane below the full factors by the reference's rule; K3f runs
-    the 2x passes first, and takes the rule where a ratio other than 2x
-    remains. A component at the full factors is read in place. Raises if
-    a kernel would read outside a plane."""
+    flags, plane rows a stripe) and (hratio, vratio) of its
+    nearest-neighbour step. K3 indexes every plane below the full factors
+    by the reference's rule; K3f runs the 2x passes first, and takes the
+    rule where a ratio other than 2x remains; under `stripes` only the
+    components fancy_ok takes get the passes, the others the rule alone. A
+    component at the full factors is read in place. Raises if a kernel
+    would read outside a plane."""
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
     geom, ratios = [], []
     for (rows, cols), (fh, fv) in zip(planes_shapes, factors):
-        if fancy:
+        if fancy and (stripes is None or fancy_ok(fh, fv, mh, mv)):
             h2, v2, eh, ev = fancy_passes(fh, fv, mh, mv)
         else:
             h2 = v2 = False
@@ -291,36 +354,40 @@ def upsample_geometry(planes_shapes, h: int, w: int, factors, fancy: bool):
         flags = _H2X * h2 | _V2X * v2 | _NN * nn
         hr = np.float32(eh) / np.float32(mh)
         vr = np.float32(ev) / np.float32(mv)
+        local = stripes.height * ev // mv if stripes is not None else 0
         # the extent of the passes' output, and the last row and column read
         xr, xc = rows * (2 if v2 else 1), cols * (2 if h2 else 1)
-        last_r = int(_nn_index_f32(h, vr)[-1]) if nn else h - 1
-        last_c = int(_nn_index_f32(w, hr)[-1]) if nn else w - 1
+        last_r = int(nn_rows(h, ev, mv, stripes).max()) if nn and h else h - 1
+        last_c = int(_nn_index_f32(w, hr)[-1]) if nn and w else w - 1
         if h and w and (last_r >= xr or last_c >= xc):
             raise ValueError("planes_to_rgb: plane smaller than its upsampled extent")
-        geom.append((rows, cols, flags))
+        geom.append((rows, cols, flags, local))
         ratios.append((float(hr), float(vr)))
     return geom, ratios
 
 
 def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
-            mode: int, shear: bool) -> torch.Tensor:
+            mode: int, shear: bool, stripes: Stripes | None = None) -> torch.Tensor:
     """Launch K3 (`jdtc_color`) or K3f (`jdtc_fancy`) over `planes`; a
     gray plane is read at the image width where `shear`."""
-    geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors,
-                                     entry == "jdtc_fancy")
+    fancy = entry == "jdtc_fancy"
+    geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy,
+                                     stripes)
     n = len(planes)
-    g = np.zeros((4, 4), dtype=np.int64)   # img_stride, rows, stride, flags
+    g = np.zeros((4, 5), dtype=np.int64)   # img_stride, rows, stride, flags, stripe rows
     r = np.zeros((4, 2), dtype=np.float32)
-    for c, ((rows, cols, flags), ratio) in enumerate(zip(geom, ratios)):
-        g[c] = (rows * cols, rows, w if n == 1 and shear else cols, flags)
+    for c, ((rows, cols, flags, local), ratio) in enumerate(zip(geom, ratios)):
+        g[c] = (rows * cols, rows, w if n == 1 and shear else cols, flags, local)
         r[c] = ratio
+    row0, stripe_h = stripes if stripes is not None else (0, 0)
+    launch = (_build.launch if stripes is None
+              else functools.partial(_build.launch_as, "K6f" if fancy else "K6n"))
     out = torch.empty((*lead, h, w, 3), dtype=torch.uint8, device=planes[0].device)
     if h * w:
         n_images = lead[0] if lead else 1
         padded = [*planes, *[None] * (4 - n)]
         for _first, count, ptrs in _build.image_chunks(n_images, *padded, out):
-            _build.launch(entry, *ptrs[:4], count, n, h, w, ctypes.c_void_p(g.ctypes.data),
-                          ctypes.c_void_p(r.ctypes.data),
-                          mode, int(quirks != Quirks.REFERENCE), ptrs[4],
-                          _build.stream_of(out))
+            launch(entry, *ptrs[:4], count, n, h, w, ctypes.c_void_p(g.ctypes.data),
+                   ctypes.c_void_p(r.ctypes.data), row0, stripe_h,
+                   mode, int(quirks != Quirks.REFERENCE), ptrs[4], _build.stream_of(out))
     return out

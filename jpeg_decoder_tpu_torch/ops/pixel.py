@@ -21,6 +21,13 @@ float32 index rule could break it where a ratio sf / max_sf rounds down, so
 a frame that fails it keeps the K0 + K3 (or K1 + K3) launches.
 `_pixel_tiled_plain` runs the kernels' schedule on the CPU, strip by strip,
 and raises if a pixel would read outside its strip.
+
+Striped and streamed decode (parallel/stripes.py) pass `stripes`
+(ops/color.Stripes): `frame` is then the chunk's, or the whole padded
+frame's, and the index rule runs on the padded frame's rows, each source
+made local to its stripe (ops/color.nn_rows, the kernels' colour::nn_row).
+The guard is taken on the padded frame's rows up to the launch's end, not
+on the chunk's own.
 """
 
 from __future__ import annotations
@@ -92,11 +99,12 @@ def fits(frame: FrameHeader) -> bool:
 
 
 def _pixel_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-                 want_planes: bool = True, precision: IdctPrecision = EXACT):
+                 want_planes: bool = True, precision: IdctPrecision = EXACT,
+                 stripes: color_ops.Stripes | None = None):
     """The plain composition, on any device: per component the IDCT of
-    `precision` and blocks_to_plane, then the colour stage. Planes [..., by,
-    bx, 64] -> (RGB [..., h, w, 3], pixel planes [..., by*8, bx*8] or
-    None)."""
+    `precision` and blocks_to_plane, then the colour stage (with the stripe
+    rule under `stripes`). Planes [..., by, bx, 64] -> (RGB [..., h, w, 3],
+    pixel planes [..., by*8, bx*8] or None)."""
     bits12 = frame.precision == 12
     pixel = []
     for p, qt in zip(coeff_planes, qts):
@@ -105,33 +113,34 @@ def _pixel_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
         pix = idct_ops._PLAIN[precision](p.reshape(-1, 64), qt, bits12)
         pixel.append(idct_ops.blocks_to_plane(pix, rows, bx).reshape(*lead, by * 8, bx * 8))
     rgb = color_ops._planes_to_rgb_plain(pixel, frame.height, frame.width, _factors(frame),
-                                         quirks)
+                                         quirks, stripes=stripes)
     return rgb, (pixel if want_planes else None)
 
 
 def _pixel_exact_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-                       want_planes: bool = True):
+                       want_planes: bool = True, stripes: color_ops.Stripes | None = None):
     """K03's plain version: _pixel_plain under EXACT."""
-    return _pixel_plain(coeff_planes, qts, frame, quirks, want_planes, EXACT)
+    return _pixel_plain(coeff_planes, qts, frame, quirks, want_planes, EXACT, stripes)
 
 
 def _pixel_float_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-                       want_planes: bool = True):
+                       want_planes: bool = True, stripes: color_ops.Stripes | None = None):
     """K13's plain version: _pixel_plain under FLOAT32."""
-    return _pixel_plain(coeff_planes, qts, frame, quirks, want_planes, FLOAT32)
+    return _pixel_plain(coeff_planes, qts, frame, quirks, want_planes, FLOAT32, stripes)
 
 
 def _pixel_tiled_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
                        want_planes: bool = True, strip: int | None = None,
-                       precision: IdctPrecision = EXACT):
+                       precision: IdctPrecision = EXACT,
+                       stripes: color_ops.Stripes | None = None):
     """K03's and K13's schedule on the CPU: for each image, MCU row and
     strip of `strip` MCUs (the last one ragged), the IDCT of `precision` of
     that strip's blocks alone into one tile per component, then the RGB of
     the strip's pixels inside the image from those tiles alone, by the index
-    rule on the global row and column. Raises RuntimeError if a pixel's
-    sample lies outside its strip's tile. The result of _pixel_plain (under
-    FLOAT32 up to the order in which one product over other row counts may
-    sum: within 1)."""
+    rule on the global row and column (under `stripes`, the stripe rule's
+    rows). Raises RuntimeError if a pixel's sample lies outside its strip's
+    tile. The result of _pixel_plain (under FLOAT32 up to the order in
+    which one product over other row counts may sum: within 1)."""
     factors = _factors(frame)
     strip = strip or default_strip(factors, precision)
     h, w = frame.height, frame.width
@@ -146,7 +155,7 @@ def _pixel_tiled_plain(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
     rgb = torch.zeros((n_img, h, w, 3), dtype=torch.uint8, device=dev)
     planes = [torch.zeros((n_img, p.shape[1] * 8, p.shape[2] * 8), dtype=torch.uint8,
                           device=dev) for p in flat]
-    src_rows = [_nn_index_f32(h, _ratio(fv, mv)) for _fh, fv in factors]
+    src_rows = [color_ops.nn_rows(h, fv, mv, stripes) for _fh, fv in factors]
     src_cols = [_nn_index_f32(w, _ratio(fh, mh)) for fh, _fv in factors]
     for b in range(n_img):
         for mr in range(mcus_y):
@@ -203,9 +212,11 @@ def _geometry(frame: FrameHeader):
 
 
 def _launch(entry: str, coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-            want_planes: bool, strip: int | None, precision: IdctPrecision):
+            want_planes: bool, strip: int | None, precision: IdctPrecision,
+            stripes: color_ops.Stripes | None = None):
     """Check the arguments and launch K03 or K13 (`entry`), one launch per
-    65,535 images (_build.image_chunks)."""
+    65,535 images (_build.image_chunks); under `stripes`, one image, the
+    launch counted as K6n."""
     name = entry[len("jdtc_"):]
     if len(coeff_planes) != 3 or len(qts) != 3:
         raise ValueError(f"{name}: three components")
@@ -213,12 +224,14 @@ def _launch(entry: str, coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
     if not coeff_planes[0].is_cuda:
         raise ValueError(f"{name}: no kernel for {dev}")
     geometry = _geometry(frame)
-    if geometry is None:
+    if geometry is None or (stripes is not None and not tile_local(
+            _factors(frame), stripes.row0 + frame.height, frame.width)):
         raise ValueError(f"{name}: the frame's geometry is not tile-local")
     shapes, plane_shapes, args = geometry
     lead = coeff_planes[0].shape[:-3]
-    if len(lead) > 1:
-        raise ValueError(f"{name}: planes must be [by, bx, 64] or [B, by, bx, 64]")
+    if len(lead) > 1 or (stripes is not None and lead):
+        raise ValueError(f"{name}: planes must be [by, bx, 64] or [B, by, bx, 64]"
+                         " ([by, bx, 64] under stripes)")
     for p, q, shape in zip(coeff_planes, qts, shapes):
         if (p.shape[-3:] != shape or p.shape[:-3] != lead or p.dtype != torch.int16
                 or not p.is_contiguous() or p.device != dev or p.data_ptr() % 16):
@@ -236,40 +249,46 @@ def _launch(entry: str, coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
     if rgb.numel():
         kmat = (_build.ptr(idct_ops.idct_matrix_on(dev)),) if precision == FLOAT32 else ()
         strip = strip or default_strip(_factors(frame), precision)
+        row0, stripe_h = stripes if stripes is not None else (0, 0)
+        launch = (_build.launch if stripes is None
+                  else functools.partial(_build.launch_as, "K6n"))
         for _first, count, ptrs in _build.image_chunks(
                 n_images, *coeff_planes, rgb, *(planes or [None] * 3)):
-            _build.launch(
+            launch(
                 entry, *ptrs[:3], *map(_build.ptr, qts), *kmat, count, *args, strip,
-                int(frame.precision == 12), int(quirks != Quirks.REFERENCE), *ptrs[3:],
-                _build.stream_of(rgb),
+                int(frame.precision == 12), int(quirks != Quirks.REFERENCE), row0, stripe_h,
+                *ptrs[3:], _build.stream_of(rgb),
             )
     return rgb, planes
 
 
 def pixel_exact(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-                want_planes: bool = True, strip: int | None = None):
+                want_planes: bool = True, strip: int | None = None,
+                stripes: color_ops.Stripes | None = None):
     """int16 zigzag coefficient planes [by, bx, 64] or [B, by, bx, 64], one
     per component of a 3-component frame, and their int32 natural-order
     quantisation tables [64] -> (uint8 RGB [..., h, w, 3], uint8 pixel
     planes [..., by*8, bx*8] per component, or None unless `want_planes`),
-    under the EXACT contract.
+    under the EXACT contract; `stripes`: a chunk or a padded frame of
+    striped decode (module docstring).
 
     CPU tensors: the plain composition. CUDA tensors: K03, one launch for
     the batch, `strip` MCUs a block of threads (default_strip)."""
     if len(coeff_planes) == 3 and coeff_planes[0].device.type == "cpu":
-        return _pixel_exact_plain(coeff_planes, qts, frame, quirks, want_planes)
+        return _pixel_exact_plain(coeff_planes, qts, frame, quirks, want_planes, stripes)
     return _launch("jdtc_pixel_exact", coeff_planes, qts, frame, quirks, want_planes, strip,
-                   EXACT)
+                   EXACT, stripes)
 
 
 def pixel_float(coeff_planes, qts, frame: FrameHeader, quirks: Quirks,
-                want_planes: bool = True, strip: int | None = None):
+                want_planes: bool = True, strip: int | None = None,
+                stripes: color_ops.Stripes | None = None):
     """pixel_exact under the FLOAT32 contract: the IDCT is ops/idct.idct_float
     (a 64-term float32 dot product a pixel).
 
     CPU tensors: the plain composition. CUDA tensors: K13, one launch for
     the batch, `strip` MCUs a strip (default_strip)."""
     if len(coeff_planes) == 3 and coeff_planes[0].device.type == "cpu":
-        return _pixel_float_plain(coeff_planes, qts, frame, quirks, want_planes)
+        return _pixel_float_plain(coeff_planes, qts, frame, quirks, want_planes, stripes)
     return _launch("jdtc_pixel_float", coeff_planes, qts, frame, quirks, want_planes, strip,
-                   FLOAT32)
+                   FLOAT32, stripes)

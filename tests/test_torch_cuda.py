@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3, K3f, K3c, K4, K5 and the probes
-PK1-PK7) against their plain PyTorch versions, and the decode, batch and encode paths on
-the card against the same paths on the CPU. Bitwise, except FLOAT32 (K1, K13) and the scaled IDCT
+"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3, K3f, K3c, K4, K5, K6n, K6f and
+the probes PK1-PK7) against their plain PyTorch versions, and the decode, batch, encode,
+streamed and striped paths on the card against the same paths on the CPU or the card's
+whole-image decode. Bitwise, except FLOAT32 (K1, K13) and the scaled IDCT
 (K5): within 1 of the plain version on at most 1e-3 of the pixels (the two sum the
 products in other orders; K5 bitwise at k = 1, one term), and so within 3 in RGB (a
 chroma step of 1 moves R or B by up to 1.772); K13 is bitwise equal to K1 x 3 + K3,
@@ -44,6 +45,7 @@ from jpeg_decoder_tpu_torch.io.markers import Encoding
 from jpeg_decoder_tpu_torch.models import decoder as tdecoder
 from jpeg_decoder_tpu_torch.models import encoder as tenc
 from jpeg_decoder_tpu_torch.ops import fdct as tfdct
+from jpeg_decoder_tpu_torch.parallel import stripes as tstripes
 from jpeg_decoder_tpu_torch.utils import jax_free
 
 from .torch_crossing import (
@@ -1167,6 +1169,158 @@ def test_k4_refuses_what_it_does_not_take(cuda_device):
         tfdct.encode_planes(img, F420, kq.double())
     with pytest.raises(ValueError, match="components"):
         tfdct.encode_planes(img[..., 0].contiguous(), F420, kq)
+
+
+# ---------------------------------------------------------------------------
+# K6n and K6f: streamed and striped decode (parallel/stripes.py)
+# ---------------------------------------------------------------------------
+
+#: (h, w, factors, stripes): the last is not tile-local (7/12 leaves its MCU
+#: from row 864), so K0 + K3 run it with the clamp live at one MCU row a
+#: stripe
+K6_CASES = {
+    "420": (216, 40, F420, 5),
+    "422": (203, 72, ((2, 1), (1, 1), (1, 1)), 4),
+    "444": (61, 45, F444, 3),
+    "gray": (77, 19, GRAY, 4),
+    "ycck": (100, 40, F420 + ((2, 2),), 3),
+    "ratio_2x4": (100, 32, ((2, 4), (1, 1), (1, 1)), 4),
+    "refused_7_12": (1000, 8, ((1, 12), (1, 7), (1, 7)), 11),
+    "420_4k": (2160, 3840, F420, 8),
+}
+
+
+def _k6_key(name, precision, upsample="nn", quirks=Quirks.REFERENCE, bits=8):
+    h, w, factors, n = K6_CASES[name]
+    frame = _k03_frame(h, w, factors, bits)
+    rng = np.random.default_rng(len(name))
+    qts = tuple(rng.integers(1, 64, 64).astype(np.uint16).tobytes() for _ in factors)
+    return (frame, qts, precision, quirks, upsample, 8), n
+
+
+def _k6_planes(stage, rows, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(-300, 300, (n, c.blocks_x, 64)).astype(np.int16))
+            .to(device) for n, c in zip(rows, stage.frame.components)]
+
+
+@pytest.mark.parametrize("bits,quirks", K03_NUMERICS, ids=["8bit_reference", "12bit_correct"])
+@pytest.mark.parametrize("name", sorted(K6_CASES))
+def test_k6n_chunks_match_plain(cuda_device, name, bits, quirks):
+    """ChunkStage, EXACT: each chunk's launches (K03 with the chunk's
+    origin, or K0 + K3 with it) bitwise the plain route, one K6n launch a
+    chunk."""
+    key, n = _k6_key(name, IdctPrecision.EXACT, quirks=quirks, bits=bits)
+    stage = tstripes.ChunkStage(key, n, cuda_device)
+    for k in (0, n // 2, n - 1):
+        planes = _k6_planes(stage, stage.lby, k, cuda_device)
+        _build.LAUNCHES.clear()
+        got = stage(k, *planes)
+        assert _build.LAUNCHES["K6n"] == 1
+        assert "jdtc_pixel_exact" not in _build.LAUNCHES and "jdtc_color" not in _build.LAUNCHES
+        assert torch.equal(got.cpu(), stage(k, *planes, plain=True).cpu())
+
+
+@pytest.mark.parametrize("name", sorted(K6_CASES))
+def test_k6n_float32_chunks_match_k1_k3(cuda_device, name):
+    """ChunkStage, FLOAT32: K13 with the chunk's origin bitwise K1 x 3 + K3
+    with it (one order of the 64 products); RGB within 3 of the plain route
+    (a sample within 1, and a chroma step of 1 moves R or B by up to
+    1.772)."""
+    key, n = _k6_key(name, IdctPrecision.FLOAT32)
+    stage = tstripes.ChunkStage(key, n, cuda_device)
+    k = n - 1
+    planes = _k6_planes(stage, stage.lby, k, cuda_device)
+    got = stage(k, *planes)
+    stripes = tcolor.Stripes(k * stage.hs, stage.hs)
+    pix = [tidct.idct_plane(p, q, False, IdctPrecision.FLOAT32)
+           for p, q in zip(planes, stage._qts())]
+    split = stage._colour(pix, stage.hs, "nn", stripes)
+    assert torch.equal(got.cpu(), split.cpu())
+    plain = stage(k, *planes, plain=True)
+    assert (got.cpu().int() - plain.cpu().int()).abs().max() <= 3
+
+
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+@pytest.mark.parametrize("name", sorted(K6_CASES))
+def test_k6_stripe_stage_matches_plain(cuda_device, name, upsample):
+    """StripeStage, EXACT: every stripe in one launch per kernel (K6n; K6f
+    under fancy: K0 per component, then K3f under the striped rule) bitwise
+    the JAX program stripe by stripe."""
+    key, n = _k6_key(name, IdctPrecision.EXACT, upsample,
+                     Quirks.CORRECT if upsample == "fancy" else Quirks.REFERENCE)
+    stage = tstripes.StripeStage(key, n, cuda_device)
+    planes = _k6_planes(stage, [n * lby for lby in stage.lby], 7, cuda_device)
+    _build.LAUNCHES.clear()
+    got = stage(*planes)
+    kind = "K6f" if upsample == "fancy" and len(stage.factors) > 1 else "K6n"
+    assert _build.LAUNCHES[kind] == 1
+    assert got.shape == (stage.pad_h, stage.frame.width, 3)
+    assert torch.equal(got.cpu(), stage(*planes, plain=True).cpu())
+
+
+def test_k6f_diverges_in_the_last_row_of_a_padded_4k_frame(cuda_device):
+    """3840x2160 4:2:0 in 8 stripes: 135 MCU rows padded to 136. Under
+    fancy upsampling K6f differs from the whole-image K3f in row 2159
+    alone (the vertical pass's neighbour below it is the padding's copy of
+    the last block row), as the JAX stripes do."""
+    key, n = _k6_key("420_4k", IdctPrecision.EXACT, "fancy", Quirks.CORRECT)
+    stage = tstripes.StripeStage(key, n, cuda_device)
+    frame = stage.frame
+    planes = _k6_planes(stage, [c.blocks_y for c in frame.components], 3, cuda_device)
+    padded = [tstripes._pad_plane_rows(p, n * lby) for p, lby in zip(planes, stage.lby)]
+    got = stage(*padded)[: frame.height]
+    pixel = [tidct.idct_plane(p, q) for p, q in zip(planes, stage._qts())]
+    whole = tcolor.planes_to_rgb(pixel, frame.height, frame.width, stage.factors,
+                                 Quirks.CORRECT, "fancy")
+    rows = torch.nonzero((got != whole).any(dim=2).any(dim=1)).flatten().tolist()
+    assert rows == [2159]
+
+
+def _photo_frame():
+    """A 2048x1536 4:2:0 frame of the corpus photograph's blocks with a
+    restart marker per MCU row (3.1 MP; 96 MCU rows)."""
+    return photo_jpeg(DRI_FILES[0], 2048, 1536, 128)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b.value)
+def test_streamed_and_striped_match_jpeg_decoder(cuda_device, backend, precision):
+    """decode_streamed (4 chunks: stripe-local entropy under NATIVE, the
+    device planes sliced under PALLAS) and decode_striped (8 stripes)
+    bitwise the card's whole-image JpegDecoder on a 3.1 MP frame whose MCU
+    rows fill the stripes (no padding)."""
+    data = _photo_frame()
+    cfg = DecodeConfig(entropy_backend=backend, idct_precision=precision)
+    want = jtt.JpegDecoder(cfg, device=cuda_device).decode_rgb(data)
+    _build.LAUNCHES.clear()
+    np.testing.assert_array_equal(
+        tstripes.decode_streamed(data, cfg, n_chunks=4, device=cuda_device), want)
+    assert _build.LAUNCHES["K6n"] == 4
+    np.testing.assert_array_equal(
+        tstripes.decode_striped(data, cfg, n_stripes=8, device=cuda_device), want)
+    assert _build.LAUNCHES["K6n"] == 5
+
+
+def test_striped_fancy_matches_jpeg_decoder(cuda_device):
+    data = _photo_frame()
+    cfg = DecodeConfig(upsample="fancy", quirks=Quirks.CORRECT)
+    want = jtt.JpegDecoder(cfg, device=cuda_device).decode_rgb(data)
+    _build.LAUNCHES.clear()
+    np.testing.assert_array_equal(
+        tstripes.decode_streamed(data, cfg, n_chunks=4, device=cuda_device), want)
+    np.testing.assert_array_equal(
+        tstripes.decode_striped(data, cfg, n_stripes=8, device=cuda_device), want)
+    assert _build.LAUNCHES["K6f"] == 2 and _build.LAUNCHES["jdtc_idct_exact"] == 6
+
+
+def test_streamed_sink_gets_card_tensors(cuda_device):
+    data = _photo_frame()
+    got = []
+    tstripes.decode_streamed(data, DecodeConfig(), n_chunks=3, device=cuda_device,
+                             sink=lambda k, rgb, r0, take: got.append(rgb[:take].cpu()))
+    want = jtt.JpegDecoder(device=cuda_device).decode_rgb(data)
+    np.testing.assert_array_equal(torch.cat(got).numpy(), want)
 
 
 def test_this_file_leaves_jax_and_the_jax_package_unloaded(cuda_device):
