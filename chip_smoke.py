@@ -40,10 +40,17 @@ Phases, each of which exits non-zero on failure:
      beside the three-kernel version in turns, a device-to-device copy of the
      raw bytes and raw[keep] (benchmarks/k2u_sweep.measure), with its
      registers and shared memory (nvcc -Xptxas -v);
-     K0 (EXACT IDCT) bitwise; K1 (FLOAT32 IDCT) within 1 on at most 1e-3
-     of the pixels, at the 4K luma shape, 8- and 12-bit, with the error
-     on extreme inputs reported; K3 (colour) bitwise, per image and
-     batched; K03 (the EXACT pixel stage of a 3-component frame in one
+     K0 (EXACT IDCT) bitwise against its plain version and its earlier
+     design (jdtc_idct_exact_gather) on the 4K request's three planes, the
+     4K four-component frame's four, random +-2048 coefficients x a table
+     of 255, 8- and 12-bit, and ragged shapes, timed the card alone and
+     with L2 flushed beside the earlier design in turns, with both designs'
+     F2F conversions a block from their SASS; K1 (FLOAT32 IDCT) within 1 on
+     at most 1e-3 of the pixels, at the 4K luma shape, 8- and 12-bit, with
+     the error on extreme inputs reported, timed the card alone on the luma
+     plane and over the request's three planes; K3 (colour) bitwise against
+     its plain version and its earlier design (a thread a pixel), per image
+     and batched, timed beside it in turns; K03 (the EXACT pixel stage of a 3-component frame in one
      kernel) bitwise against its plain version and against K0 x 3 + K3, on
      the dense 4K request, the two photographs tiled to 4K, a 4:2:2 and a
      4:4:4 file of the corpus, random 12-bit planes at 4K and a batch of
@@ -59,13 +66,17 @@ Phases, each of which exits non-zero on failure:
      their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at both chain
      lengths the probe path launches them at, in both table placements
      where the table fits shared memory, PK6 also from a random state;
-     K3f (fancy upsample + colour) bitwise on the dense 4K request's
-     planes, flower_dri_blocks7_422.jpg, random 4:1:1 and 4:2:1 planes at
-     4K, a batch of four and the 4K 4-component frame (YCCK EXACT, YCCK
-     FLOAT32, CMYK), both quirks, timed beside K3 on the same planes; K3c
-     (nearest-neighbour 4-component colour) bitwise on the 4K 4-component
-     frame and, under YCCK EXACT, on a 4096x4096 frame that walks R's whole
-     (y, cr, k) domain against the float64 chain in NumPy; K5 (the scaled
+     K3f (fancy upsample + colour) bitwise against its plain version and
+     its earlier design on the dense 4K request's planes,
+     flower_dri_blocks7_422.jpg, random 4:1:1 and 4:2:1 planes at 4K, a
+     batch of four and the 4K 4-component frame (YCCK EXACT, YCCK FLOAT32,
+     CMYK), both quirks, timed beside its earlier design in turns (one
+     image and the batch of four) and beside K3 on the same planes; K3c
+     (nearest-neighbour 4-component colour) bitwise against its plain
+     version and its earlier design on the 4K 4-component frame and, under
+     YCCK EXACT, on a 4096x4096 frame that walks R's whole (y, cr, k) domain
+     against the float64 chain in NumPy, timed beside its earlier design
+     under each transform; K5 (the scaled
      IDCT) at k = 1, 2 and 4 on the 4K request's planes, within 1 on at
      most 1e-3 of the pixels and bitwise at k = 1, timed beside the product
      alone as one torch.matmul; K4 (the encoder's device stage: colour,
@@ -86,7 +97,10 @@ Phases, each of which exits non-zero on failure:
      frame with a (2, 4)-ratio component; each timed one call and the card
      alone;
   4. the main paths, each with every launch count set to 0 just before it
-     and read just after:
+     and read just after, and the work of the IDCT and colour launches
+     (_build.LAUNCH_UNITS: coefficient blocks, output pixels), from which
+     the time K0, K1, K3, K3f and K3c lose on them is weighed in 4K units
+     (size_weighted):
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
        requests, every RGB and pixel plane bitwise equal to the JAX-free
        EXACT reference (core.oracle over the native planes), one K03
@@ -147,8 +161,9 @@ Phases, each of which exits non-zero on failure:
      host's resident set before and at its peak during the decode).
 The last lines are the kernels' JSON record (twenty kernels: K0-K4, K03,
 K13, K2u, K3f, K3c, K5, K6n, K6f and PK1-PK7, each with its launches on the main
-paths, its time, its plain version's time and its bound), the card's name
-and power limit, and
+paths, its time, its plain version's time and its bound; K0, K1, K3, K3f and
+K3c also with the card-alone time, their work in 4K units and the time
+lost), the card's name and power limit, and
 {"ok": true, "device": {...}}. The script imports the port alone, builds
 the CUDA kernels and the native host runtime from the port's own sources,
 and fails if anything loaded JAX or the JAX package jpeg_decoder_tpu.
@@ -324,16 +339,36 @@ def timed_phase(name: str, fn, *args):
     return out
 
 
+def turns_line(t: dict) -> str:
+    """The times of pixel_sweep.in_turns, for a log line."""
+    return (f"the card alone {t['card_ms'][0]:.4f} and {t['card_ms'][1]:.4f} ms, its earlier"
+            f" design {t['earlier_card_ms'][0]:.4f} and {t['earlier_card_ms'][1]:.4f} ms (in"
+            f" turns); L2 flushed {t['flushed_ms'][0]:.4f} and {t['flushed_ms'][1]:.4f} ms,"
+            f" earlier {t['earlier_flushed_ms'][0]:.4f} and {t['earlier_flushed_ms'][1]:.4f} ms")
+
+
 def run_path(name: str, fn):
     """Run one main path with every launch count set to 0 just before it;
     returns (fn's result, the counts read just after)."""
     from jpeg_decoder_tpu_torch import _build
 
     _build.LAUNCHES.clear()
+    _build.LAUNCH_UNITS.clear()
     out = fn()
     launches = dict(_build.LAUNCHES)
-    log(f"{name}: launches {launches}")
+    PATH_UNITS[name] = dict(_build.LAUNCH_UNITS)
+    log(f"{name}: launches {launches}, units {PATH_UNITS[name]}")
     return out, launches
+
+
+#: path -> entry point -> the work of its launches on that path
+#: (_build.LAUNCH_UNITS: coefficient blocks for the IDCT kernels, output
+#: pixels for the colour kernels), read by size_weighted.
+PATH_UNITS: dict = {}
+#: One 3840x2160 4:2:0 request, the unit of size_weighted: its three
+#: planes' coefficient blocks, and its output pixels.
+UNIT_BLOCKS = (W // 8) * (H // 8) + 2 * (W // 16) * (H // 16)
+UNIT_PIXELS = W * H
 
 
 # ---------------------------------------------------------------------------
@@ -526,6 +561,41 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
                   batch_pass_ms=rec["pass_ms"])
 
 
+def size_weighted(kernels: dict) -> None:
+    """The work of K0, K1, K3, K3f and K3c on the main paths in 4K units
+    (UNIT_BLOCKS coefficient blocks or UNIT_PIXELS output pixels: one
+    3840x2160 4:2:0 request), and the time each lost there: units x (the
+    card-alone time of one unit - its bound). K1's unit time is the 4K
+    request's three planes; K3's the 4K 4:2:0 nearest-neighbour one, which
+    also weighs its gray and scaled launches, while its K3c launches count
+    at K3c's times, per transform (the YCCK paths at YCCK EXACT's, the CMYK
+    ones at CMYK's). Striped launches of K3/K3f count under K6n/K6f, not
+    here."""
+    units_of = {"jdtc_idct_exact": UNIT_BLOCKS, "jdtc_idct_float": UNIT_BLOCKS,
+                "jdtc_color": UNIT_PIXELS, "jdtc_fancy": UNIT_PIXELS}
+    for key, per in units_of.items():
+        rec = kernels[key]
+        by_path = {p: u[key] / per for p, u in PATH_UNITS.items() if key in u}
+        unit_ms = rec.get("request_card_ms", rec["ms"])
+        unit_bound = rec.get("request_bound_ms", rec["bound_ms"])
+        rec["units_4k"] = sum(by_path.values())
+        rec["units_4k_by_path"] = by_path
+        rec["lost_ms"] = rec["units_4k"] * (unit_ms - unit_bound)
+    k3c = kernels["K3c"]
+    by_path = {p: u["jdtc_color"] / UNIT_PIXELS for p, u in PATH_UNITS.items()
+               if "jdtc_color" in u and any(w in p for w in k3c["on_paths"])}
+    k3c["units_4k"] = sum(by_path.values())
+    k3c["units_4k_by_path"] = by_path
+    k3c["lost_ms"] = sum(n * (k3c["ms_by_transform"]["CMYK" if "cmyk" in p else "YCCK EXACT"]
+                              - k3c["bound_ms"]) for p, n in by_path.items())
+    k3 = kernels["jdtc_color"]
+    k3["lost_ms"] = (k3["units_4k"] - k3c["units_4k"]) * (k3["ms"] - k3["bound_ms"]) + k3c[
+        "lost_ms"]
+    log("lost on the main paths, 4K units x (time - bound): " + ", ".join(
+        f"{kernels[k]['name']} {kernels[k]['units_4k']:.2f} units, {kernels[k]['lost_ms']:.3f} ms"
+        for k in (*units_of, "K3c")))
+
+
 def check_k2_photographs(dev, files: dict, tiled: dict, record: dict) -> None:
     """K2 on real blocks (an end-of-block code in nine of ten, where chains
     from wrong starts fall into step within a few blocks), planes bitwise
@@ -647,42 +717,76 @@ def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict, card: st
     log(f"K2u registers and shared memory (nvcc -Xptxas -v): {record['ptxas']}")
 
 
-def check_k0(dev, big: bytes, record: dict) -> None:
-    """K0 against its plain version, bitwise: the 4K request's three planes,
-    and random coefficients at the luma shape, 8- and 12-bit. Its time is
-    the request's: the three launches of its three planes."""
+def check_k0(dev, big: bytes, cmyk: bytes, record: dict, card: str) -> None:
+    """K0 bitwise against its plain version and its earlier design
+    (jdtc_idct_exact_gather, reached by no wrapper): the 4K request's three
+    planes, random +-2048 coefficients x a table of 255 at the luma shape,
+    8- and 12-bit, the 4K 4:4:4 four-component frame's four planes, and
+    ragged shapes (one block wide, an odd width, a block count that is not a
+    multiple of the CTA's 128, a stacked batch, 12-bit). Its time is the
+    request's (three launches), the card alone and with L2 flushed, beside
+    the earlier design's in turns (pixel_sweep.k0_turns); the F2F
+    conversions a block in both designs' SASS."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
     from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import idct
 
     frame, planes, qts = host.host_decode(big, DecodeConfig())
     coeffs = [torch.from_numpy(p).to(dev) for p in planes.planes]
     tables = [convert.quant_table_to_device(qts[c.qtid], dev) for c in frame.components]
-
-    def plain(c, q, bits12):
-        by, bx, _ = c.shape
-        return idct.blocks_to_plane(idct.idct_exact(c.reshape(-1, 64), q, bits12), by, bx)
-
-    err = max(max_abs_err(idct.idct_plane(c, q), plain(c, q, False))
-              for c, q in zip(coeffs, tables))
-    # extremes and the 12-bit store, on random coefficients at the 4K shape
+    cframe, cplanes, cqts = host.host_decode(cmyk, DecodeConfig())
+    cases = {f"the {W}x{H} 4:2:0 request's plane {k}": (c, q, False)
+             for k, (c, q) in enumerate(zip(coeffs, tables))}
+    for k, (c, comp) in enumerate(zip(cplanes.planes, cframe.components)):
+        cases[f"the {W}x{H} 4:4:4 four-component frame's plane {k}"] = (
+            torch.from_numpy(c).to(dev), convert.quant_table_to_device(cqts[comp.qtid], dev),
+            False)
     rng = np.random.default_rng(7)
-    wild = torch.from_numpy(rng.integers(-2048, 2048, coeffs[0].shape, dtype=np.int16)).to(dev)
-    q255 = convert.quant_table_to_device(rng.integers(1, 256, 64), dev)
-    for bits12 in (False, True):
-        err = max(err, max_abs_err(idct.idct_plane(wild, q255, bits12),
-                                   plain(wild, q255, bits12)))
+    wild = torch.from_numpy(rng.integers(-2048, 2049, coeffs[0].shape, dtype=np.int16)).to(dev)
+    q255 = convert.quant_table_to_device(np.full(64, 255), dev)
+    cases["+-2048 x 255 at the luma shape, 8-bit"] = (wild, q255, False)
+    cases["+-2048 x 255 at the luma shape, 12-bit"] = (wild, q255, True)
+    qr = convert.quant_table_to_device(rng.integers(1, 256, 64), dev)
+    for name, dims in (("one block wide", (37, 1)), ("an odd width", (19, 33)),
+                       ("350 blocks", (7, 50)), ("a stacked batch of three", (3, 17, 12))):
+        c = torch.from_numpy(rng.integers(-2048, 2049, (*dims, 64), dtype=np.int16)).to(dev)
+        cases[f"{name} {dims}, 8-bit"] = (c, qr, False)
+        cases[f"{name} {dims}, 12-bit"] = (c, qr, True)
+    err = 0
+    for name, (c, q, bits12) in cases.items():
+        got = idct.idct_plane(c, q, bits12)
+        e = max(max_abs_err(got, pixel_sweep.k0_plain(c, q, bits12)),
+                max_abs_err(got, pixel_sweep.k0_gather(c, q, bits12)))
+        if e:
+            log(f"K0 idct_exact, {name}: max_abs_err {e} against its plain version or its"
+                f" earlier design")
+        err = max(err, e)
+    log(f"K0 idct_exact: max_abs_err {err} against its plain version and its earlier design"
+        f" on {len(cases)} planes ({', '.join(cases)})")
+    turns = pixel_sweep.k0_turns(coeffs, tables, 7)
     ms = cuda_ms(lambda: [idct.idct_plane(c, q) for c, q in zip(coeffs, tables)], 10)
-    plain_ms = cuda_ms(lambda: [plain(c, q, False) for c, q in zip(coeffs, tables)], 3)
-    blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
-    # Bound: int16 coefficients and the tables in, uint8 pixels out; about
-    # 700 float64 operations a block (csrc/idct_exact.cu).
-    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                  shape=f"3 planes of the {W}x{H} 4:2:0 request, {blocks} blocks",
-                  **bound(nbytes_of(*coeffs, *tables) + blocks * 64, 700 * blocks, "float64"))
-    log(f"K0 idct_exact: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-        f" ({record['shape']}); max_abs_err {err} (8-bit, 12-bit, extremes)")
+    plain_ms = cuda_ms(lambda: [pixel_sweep.k0_plain(c, q) for c, q in zip(coeffs, tables)], 3)
+    blocks = turns["blocks"]
+    mix = pixel_sweep.sass_mix()
+    f2f = {k: mix.get(k, {}).get("F2F") for k in ("idct_exact_kernel", "idct_exact_gather_kernel")}
+    regs = {k: mix.get("resources", {}).get(k) for k in f2f}
+    # Bound: int16 coefficients and the tables in, uint8 pixels out; 511
+    # float64 operations a block (the chain's products and sums: 31 in each
+    # of 16 passes and 15 in the pre-scale, csrc/idct_exact.cuh).
+    bnd = bound(nbytes_of(*coeffs, *tables) + blocks * 64, 511 * blocks, "float64")
+    record.update(max_abs_err=err, ms=statistics.median(turns["card_ms"]), ms_one_call=ms,
+                  plain_ms=plain_ms, library_ms=None, **turns, f2f_a_block=f2f, resources=regs,
+                  shape=f"3 planes of the {W}x{H} 4:2:0 request, {blocks} blocks", **bnd)
+    log(f"K0 idct_exact ({record['shape']}): the card alone {turns['card_ms'][0]:.4f} and"
+        f" {turns['card_ms'][1]:.4f} ms, its earlier design {turns['earlier_card_ms'][0]:.4f}"
+        f" and {turns['earlier_card_ms'][1]:.4f} ms (in turns); L2 flushed"
+        f" {turns['flushed_ms'][0]:.4f} and {turns['flushed_ms'][1]:.4f} ms, earlier"
+        f" {turns['earlier_flushed_ms'][0]:.4f} and {turns['earlier_flushed_ms'][1]:.4f} ms;"
+        f" one call {ms:.3f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
+        f" {bnd['bound_by']}; F2F a block {f2f['idct_exact_kernel']} (earlier design"
+        f" {f2f['idct_exact_gather_kernel']}); resources {regs} [{card}]")
 
 
 def _random_blocks(rng, shape, lo=-1024, hi=1024):
@@ -693,11 +797,13 @@ def _random_blocks(rng, shape, lo=-1024, hi=1024):
     return np.where(np.arange(64) < cut[..., None], blocks, 0).astype(np.int16)
 
 
-def check_k1(dev, big: bytes, record: dict) -> None:
+def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     """K1 against its plain version at the 4K luma shape (270x480 blocks),
     8- and 12-bit: within 1 on at most K1_SHARE of the pixels. Also the
     request's own luma plane against EXACT (K0), and the error on extreme
-    inputs, which is reported and not gated."""
+    inputs, which is reported and not gated. Its time one call and the card
+    alone on the luma plane, and the card alone over the request's three
+    planes (the fancy FLOAT32 route's launches)."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, convert
     from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
@@ -749,6 +855,13 @@ def check_k1(dev, big: bytes, record: dict) -> None:
             f" {share_differing(got, plain(c, q255, bits12)):.3e}; against EXACT"
             f" max_abs_err {max_abs_err(got, idct.idct_plane(c, q255, bits12))} (not gated)")
     ms = cuda_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 10)
+    card_ms = pixel_sweep.card_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 7)
+    # the fancy FLOAT32 request's launches: K1 on each of its three planes
+    frame, _, qts = host.host_decode(big, DecodeConfig())
+    request = [(torch.from_numpy(p).to(dev), convert.quant_table_to_device(qts[c.qtid], dev))
+               for p, c in zip(planes.planes, frame.components)]
+    request_ms = pixel_sweep.card_ms(
+        lambda: [idct.idct_plane(c, q, False, f32) for c, q in request], 7)
     plain_ms = cuda_ms(lambda: plain(blocks, qt, False), 3)
     exact_ms = cuda_ms(lambda: idct.idct_plane(blocks, qt), 10)
     # the product alone at K1's own shape, [by * bx, 64] x [64, 64], as one
@@ -757,9 +870,15 @@ def check_k1(dev, big: bytes, record: dict) -> None:
     # Bound: the same bytes as K0; the [64] x [64, 64] product is 4096 FMAs
     # a block, two float32 operations each. No one PyTorch call computes
     # dequant, product, floor, level shift, clamp and block scatter.
+    n_req = sum(c[..., 0].numel() for c, _ in request)
     record.update(max_abs_err=err, share_differing=share, ms=ms, plain_ms=plain_ms,
+                  card_ms=card_ms, request_card_ms=request_ms,
+                  request_bound_ms=bound(nbytes_of(*[c for c, _ in request]) + 64 * n_req,
+                                         2 * 4096 * n_req, "float32")["bound_ms"],
                   library_ms=None, matmul_ms=matmul_ms, shape=f"luma plane {by}x{bx} blocks",
                   **bound(nbytes_of(blocks, qt) + by * bx * 64, 2 * 4096 * by * bx, "float32"))
+    log(f"K1 idct_float: the card alone {card_ms:.4f} ms, over the 4K request's three planes"
+        f" {request_ms:.4f} ms (bound {record['request_bound_ms']:.4f}) [{card}]")
     log(f"K1 idct_float: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K0 on the"
         f" same blocks {exact_ms:.3f} ms, the product alone (torch.matmul"
         f" [{by * bx}, 64] x [64, 64], TF32 off; the card alone) {matmul_ms:.4f} ms"
@@ -769,9 +888,15 @@ def check_k1(dev, big: bytes, record: dict) -> None:
              f" {share:.3e}; tolerance 1 on at most {K1_SHARE})")
 
 
-def check_k3(dev, big: bytes, gray: bytes, record: dict) -> None:
+def check_k3(dev, big: bytes, gray: bytes, record: dict, card: str) -> None:
+    """K3 bitwise against its plain version and its earlier design (a
+    thread a pixel, jdtc_color_pixel) on the 4K request's planes and the
+    gray one, both quirks, single and a batch of four; its time the card
+    alone and with L2 flushed on the 4K 4:2:0 planes beside the earlier
+    design's, in turns (pixel_sweep.colour_turns)."""
     import torch
     from jpeg_decoder_tpu_torch import Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
     from jpeg_decoder_tpu_torch.ops import color
 
     err = 0
@@ -783,21 +908,24 @@ def check_k3(dev, big: bytes, gray: bytes, record: dict) -> None:
                    for p in planes]
         for q in (Quirks.REFERENCE, Quirks.CORRECT):
             for ps in (planes, stacked):
-                err = max(err, max_abs_err(
-                    color.planes_to_rgb(ps, h, w, factors, q),
-                    color._planes_to_rgb_plain(ps, h, w, factors, q)))
+                got = color.planes_to_rgb(ps, h, w, factors, q)
+                err = max(err, max_abs_err(got, color._planes_to_rgb_plain(ps, h, w, factors, q)),
+                          max_abs_err(got, pixel_sweep.colour_pixel(ps, h, w, factors, q)))
         if data is big:
             args = (planes, h, w, factors, Quirks.REFERENCE)
             ms = cuda_ms(lambda: color.planes_to_rgb(*args), 10)
             plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(*args), 3)
+            turns = pixel_sweep.colour_turns(planes, h, w, factors, 7)
             # Bound: the three planes in, 3 bytes a pixel out; two index
             # products and ten float32 operations a pixel.
             bnd = bound(nbytes_of(*planes) + 3 * h * w, 14 * h * w, "float32")
-    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                  shape=f"{W}x{H} 4:2:0 planes", **bnd)
-    log(f"K3 color: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-        f" ({record['shape']}); max_abs_err {err} (both quirks, gray shear,"
-        f" single and batched)")
+    record.update(max_abs_err=err, ms=statistics.median(turns["card_ms"]), ms_one_call=ms,
+                  plain_ms=plain_ms, library_ms=None, shape=f"{W}x{H} 4:2:0 planes", **turns,
+                  **bnd)
+    log(f"K3 color: max_abs_err {err} against its plain version and its earlier design (both"
+        f" quirks, gray shear, single and batched)")
+    log(f"K3 color ({record['shape']}): {turns_line(turns)}; one call {ms:.3f} ms, plain"
+        f" {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
 
 
 def k03_cases(dev, requests, tiled: dict, photos: dict) -> dict:
@@ -1242,30 +1370,34 @@ def check_k3f(dev, requests, files: dict, cmyk: bytes, record: dict, card: str) 
         for quirks in (Quirks.REFERENCE, Quirks.CORRECT):
             for exact, raw in transforms:
                 args = (planes, h, w, factors, quirks, "fancy", exact, raw)
-                e = max(e, max_abs_err(color.planes_to_rgb(*args),
-                                       color._planes_to_rgb_plain(*args)))
-        log(f"K3f fancy, {name}: max_abs_err {e} against its plain version (both quirks"
+                got = color.planes_to_rgb(*args)
+                e = max(e, max_abs_err(got, color._planes_to_rgb_plain(*args)),
+                        max_abs_err(got, pixel_sweep.colour_pixel(*args)))
+        log(f"K3f fancy, {name}: max_abs_err {e} against its plain version and its earlier"
+            f" design (both quirks"
             f"{', YCCK EXACT, YCCK FLOAT32 and CMYK' if len(transforms) > 1 else ''})")
         err = max(err, e)
     record["max_abs_err"] = err
     if err != 0:
         fail(f"K3f disagrees with its plain version (max_abs_err {err}; tolerance 0)")
     q = Quirks.REFERENCE
-    fancy = lambda: color.planes_to_rgb(dense, H, W, F420, q, "fancy")  # noqa: E731
     nn = lambda: color.planes_to_rgb(dense, H, W, F420, q)  # noqa: E731
     k3 = pixel_sweep.card_ms(nn, 7)
-    ms = pixel_sweep.card_ms(fancy, 7)
+    turns = pixel_sweep.colour_turns(dense, H, W, F420, 7, "fancy")
+    batch = pixel_sweep.colour_turns(stacked, H, W, F420, 7, "fancy")
     plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(dense, H, W, F420, q, "fancy"), 3)
     # Bound: the three planes in, 3 bytes a pixel out; 8 int32 operations
     # a pixel for each chroma component (its share of a horizontal sum 3x +
     # n + b, which two output rows use, and the vertical 3A + A' + 4b and
     # shift), the colour step's ten float32 ones coming to less.
     bnd = bound(nbytes_of(*dense) + 3 * H * W, 16 * H * W, "int32")
-    record.update(ms=ms, plain_ms=plain_ms, library_ms=None, k3_card_ms=k3,
-                  shape=f"{W}x{H} 4:2:0 planes", **bnd)
-    log(f"K3f fancy ({W}x{H} 4:2:0 planes): the card alone {ms:.4f} ms, K3"
-        f" (nearest-neighbour) on the same planes {k3:.4f} ms; plain"
-        f" {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+    record.update(ms=statistics.median(turns["card_ms"]), plain_ms=plain_ms, library_ms=None,
+                  k3_card_ms=k3, shape=f"{W}x{H} 4:2:0 planes", **turns,
+                  batch_of_four=batch, **bnd)
+    log(f"K3f fancy ({W}x{H} 4:2:0 planes): {turns_line(turns)}; K3 (nearest-neighbour) on"
+        f" the same planes {k3:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms"
+        f" by {bnd['bound_by']} [{card}]")
+    log(f"K3f fancy (a batch of four {W}x{H} 4:2:0, one launch): {turns_line(batch)} [{card}]")
 
 
 def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
@@ -1288,10 +1420,12 @@ def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
     for quirks in (Quirks.REFERENCE, Quirks.CORRECT):
         for exact, raw in TRANSFORMS.values():
             args = (planes, H, W, f4, quirks, "nn", exact, raw)
-            err = max(err, max_abs_err(color.planes_to_rgb(*args),
-                                       color._planes_to_rgb_plain(*args)))
+            got = color.planes_to_rgb(*args)
+            err = max(err, max_abs_err(got, color._planes_to_rgb_plain(*args)),
+                      max_abs_err(got, pixel_sweep.colour_pixel(*args)))
     log(f"K3c (K3 on four planes), 4-component {W}x{H} 4:4:4 (hopper_cmyk_adobe.jpg tiled): max_abs_err"
-        f" {err} against its plain version (both quirks; YCCK EXACT, YCCK FLOAT32, CMYK)")
+        f" {err} against its plain version and its earlier design (both quirks; YCCK EXACT,"
+        f" YCCK FLOAT32, CMYK)")
     y, cr, k = np.meshgrid(*[np.arange(256, dtype=np.uint8)] * 3, indexing="ij")
     walk = [a.reshape(4096, 4096) for a in (y, np.full_like(y, 77), cr, k)]
     on_card = [torch.from_numpy(a).to(dev) for a in walk]
@@ -1304,17 +1438,19 @@ def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
     record["max_abs_err"] = max(err, dom)
     if record["max_abs_err"] != 0:
         fail(f"K3c disagrees (max_abs_err {record['max_abs_err']}; tolerance 0)")
-    q = Quirks.REFERENCE
-    times = {}
+    times, turns = {}, {}
     for name, (exact, raw) in TRANSFORMS.items():
-        fn = lambda: color.planes_to_rgb(planes, H, W, f4, q, "nn", exact, raw)  # noqa: E731
-        times[name] = pixel_sweep.card_ms(fn, 7)
-    plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(planes, H, W, f4, q), 3)
+        turns[name] = pixel_sweep.colour_turns(planes, H, W, f4, 7, "nn", exact, raw)
+        times[name] = statistics.median(turns[name]["card_ms"])
+        log(f"K3c (K3 on four planes, {W}x{H} 4:4:4), {name}: {turns_line(turns[name])}"
+            f" [{card}]")
+    plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(planes, H, W, f4, Quirks.REFERENCE), 3)
     # Bound: the four planes in, 3 bytes a pixel out; YCCK EXACT's two
     # dozen float64 operations a pixel come to less.
     bnd = bound(nbytes_of(*planes) + 3 * H * W, 24 * H * W, "float64")
     record.update(ms=times["YCCK EXACT"], plain_ms=plain_ms, library_ms=None,
-                  ms_by_transform=times, shape=f"{W}x{H} 4:4:4, four planes", **bnd)
+                  ms_by_transform=times, turns_by_transform=turns,
+                  **turns["YCCK EXACT"], shape=f"{W}x{H} 4:4:4, four planes", **bnd)
     log(f"K3c (K3 on four planes, {W}x{H} 4:4:4, four planes): the card alone "
         + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items())
         + f"; plain (YCCK EXACT) {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
@@ -2634,9 +2770,9 @@ def main() -> None:
                 kernels["jdtc_entropy_decode"])
     timed_phase("K2u", check_k2u, dev, smalls[0], requests[0], batch, kernels["jdtc_unstuff"],
                 card)
-    timed_phase("K0", check_k0, dev, requests[0], kernels["jdtc_idct_exact"])
-    timed_phase("K1", check_k1, dev, requests[0], kernels["jdtc_idct_float"])
-    timed_phase("K3", check_k3, dev, requests[0], gray, kernels["jdtc_color"])
+    timed_phase("K0", check_k0, dev, requests[0], cmyk, kernels["jdtc_idct_exact"], card)
+    timed_phase("K1", check_k1, dev, requests[0], kernels["jdtc_idct_float"], card)
+    timed_phase("K3", check_k3, dev, requests[0], gray, kernels["jdtc_color"], card)
     photos = {f"file {DRI_FILES[1].name} (4:2:2)": DRI_FILES[1].read_bytes(),
               f"file {PHOTOS[0].name} (4:4:4)": PHOTOS[0].read_bytes()}
     cases = k03_cases(dev, requests, tiled, photos)
@@ -2681,6 +2817,7 @@ def main() -> None:
         rec["launches_by_path"] = {p: r[entry] for p, r in paths.items() if entry in r}
         if rec["launches"] == 0:
             fail(f"{rec['name']} was not launched by a main path")
+    size_weighted(kernels)
     for path, key in (("JpegDecoder pallas exact", "jdtc_entropy_decode"),
                       ("JpegDecoder pallas exact", "jdtc_unstuff"),
                       ("JpegDecoder pallas exact", "jdtc_pixel_exact"),

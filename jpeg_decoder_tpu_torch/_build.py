@@ -65,6 +65,8 @@ SIGNATURES = {
     "jdtc_unstuff_3pass": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
     # coeffs, qt, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_exact": [_P, _P, _I64, _I32, _I32, _P, _P],
+    # K0's earlier design, for measurement: the same arguments
+    "jdtc_idct_exact_gather": [_P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_float": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix [64, k*k], n_blocks, blocks_x, k, bits12, out,
@@ -82,6 +84,10 @@ SIGNATURES = {
     # stripe_h, mode, correct, out, cuda_stream
     "jdtc_color": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
     "jdtc_fancy": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
+    # their earlier design (a thread a pixel), for measurement: the same
+    # arguments
+    "jdtc_color_pixel": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
+    "jdtc_fancy_pixel": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
     # K4 (the encoder's device stage): img, h, w, channels, n_comps, comps
     # (host int64 [3][7]), kq, consts (host float [5]), cuda_stream
     "jdtc_fdct": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
@@ -114,6 +120,11 @@ MAX_IMAGES = 65535
 #: and streamed decode are counted under their stage's name instead (K6n,
 #: K6f: parallel/stripes.py), so that each record counts its own.
 LAUNCHES: collections.Counter = collections.Counter()
+#: The work of those launches, counted beside them where the wrapper gives
+#: it: coefficient blocks for the IDCT kernels (K0, K1, K5), output pixels
+#: (all images) for the colour kernels (K3, K3f; K6n and K6f when they
+#: launch K3 or K3f), so that a batch launch weighs what it does.
+LAUNCH_UNITS: collections.Counter = collections.Counter()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -225,6 +236,11 @@ def launch_as(count_as: str, name: str, *args) -> None:
         msg = lib.jdtc_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
     LAUNCHES[count_as] += 1
+
+
+def add_units(count_as: str, units: int) -> None:
+    """Count `units` of work for the launch just made under `count_as`."""
+    LAUNCH_UNITS[count_as] += units
 
 
 def ptr(t) -> ctypes.c_void_p:

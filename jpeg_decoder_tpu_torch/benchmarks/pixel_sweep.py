@@ -3,7 +3,7 @@ at other strip sizes, on one CUDA card.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.pixel_sweep \\
         [--strip 2 4 8 16 32] [--reps 15] [--precision exact float32]
-        [--halve-in-float] [--k13-variants] [--no-sweep]
+        [--k13-variants] [--k0] [--colour] [--no-sweep]
 
 G, the MCUs of one strip (one block of threads for K03; one step of a
 block of threads' walk for K13), is an argument of the kernels, so one
@@ -19,18 +19,26 @@ threads (8 threads a block, at most 1024), and the card's time for one call
 K3) on the same inputs in the same way, with the card's name and power
 limit. Compare within one run only.
 
-Also one line of the instruction mix of K03, K0, K13 and K1 as built
-(cuobjdump -sass: the counts of the opcodes that take the time, per kernel,
-and cuobjdump -res-usage: registers, spills, static shared memory), and with
---halve-in-float the same timing for a copy of the package whose EXACT
-IDCT (csrc/idct_exact.cuh) computes each `st(mul(0.5, x))` as the float32
-product `__fmul_rn(0.5f, x)`: bitwise the same result (halving is exact
-in both types, so the float64 product rounded to float32 is the float32
-product), two 64-bit conversions fewer each; and with --k13-variants
-K13's variants (VARIANTS: two that drop work, to attribute its time, and
-the design choices it did not take). Each copy is built by nvcc in a
-temporary directory, run in a process of its own and, unless it drops
-work, held bitwise against the plain version (K03) or K1 x 3 + K3 (K13).
+Also one line of the instruction mix of K03, K0 (and its earlier design),
+K13 and K1 as built (cuobjdump -sass: the counts of the opcodes that take
+the time, per kernel, and cuobjdump -res-usage: registers, spills, static
+shared memory); and with --k13-variants the same timing for K13's variants
+(VARIANTS: two that drop work, to attribute its time, and the design
+choices it did not take). Each copy is built by nvcc in a temporary
+directory, run in a process of its own and, unless it drops work, held
+bitwise against the plain version (K03, K0) or K1 x 3 + K3 (K13).
+
+With --k0, K0 (csrc/idct_exact.cu) beside its earlier design
+(jdtc_idct_exact_gather, k0_gather), in turns (earlier, K0, K0, earlier),
+the card alone and with L2 flushed before each call, on the 4K request's
+three planes and eight such requests stacked, both held bitwise against
+the plain version first; then copies of the package whose K0 keeps the new
+layout with the chain's earlier spelling (`K0, earlier arithmetic`) and
+with the halvings alone (`K0, halvings in float32`), so that the layout's,
+the halvings' and the integer store's shares can each be read. With
+--colour, K3f, K3 and K3c beside their earlier design (a thread a pixel,
+colour_pixel) in the same way on the 4K 4:2:0 planes, eight 4K frames
+stacked, and the 4K 4:4:4 four-component frame under each transform.
 """
 
 from __future__ import annotations
@@ -57,8 +65,8 @@ W, H, RI = 3840, 2160, 240
 SASS_OPS = ("F2F", "F2I", "I2F", "I2FP", "FRND", "DMUL", "DADD", "FADD", "FMUL", "FFMA", "LDS",
             "STS")
 #: The kernels of the instruction mix, by their symbols' names.
-SASS_KERNELS = ("pixel_exact_kernel", "idct_exact_kernel", "pixel_float_kernel",
-                "idct_float_kernel")
+SASS_KERNELS = ("pixel_exact_kernel", "idct_exact_kernel", "idct_exact_gather_kernel",
+                "pixel_float_kernel", "idct_float_kernel")
 #: A spin of about 10 ms at the H100's 1.98 GHz: long enough for the host to
 #: queue a sample's calls behind it, K0 x 3 + K3 being 32 launches.
 PARK_CYCLES = 20_000_000
@@ -85,6 +93,42 @@ def card_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+#: Bytes written between two calls of card_ms_flushed: five times the H100's
+#: 50 MB L2, so that nothing of the call before stays in it.
+FLUSH_BYTES = 256 << 20
+
+
+def card_ms_flushed(fn, reps: int) -> float:
+    """The card's milliseconds for one fn() that finds the L2 cold: the
+    median over `reps` calls, each between two CUDA events and after a
+    write of FLUSH_BYTES, all queued behind a spin kernel (so the host's
+    time between launches does not count; the flush lies outside the
+    events)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(PARK_CYCLES)
+    for a, b in marks:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    marks[-1][1].synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def in_turns(new, earlier, reps: int) -> dict:
+    """`new` beside `earlier` the card alone and with L2 flushed, in turns
+    (earlier, new, new, earlier): the lists card_ms, earlier_card_ms,
+    flushed_ms and earlier_flushed_ms."""
+    out = {"card_ms": [], "earlier_card_ms": [], "flushed_ms": [], "earlier_flushed_ms": []}
+    for key, fn in (("earlier_", earlier), ("", new), ("", new), ("earlier_", earlier)):
+        out[f"{key}card_ms"].append(card_ms(fn, reps))
+        out[f"{key}flushed_ms"].append(card_ms_flushed(fn, reps))
+    return out
+
+
 def k0_k3(planes, qts, frame, quirks, want_planes: bool = True, precision=None):
     """The route K03 replaced: K0 per component, then K3; under
     `precision` FLOAT32 the route K13 replaced, K1 per component, then K3."""
@@ -97,6 +141,39 @@ def k0_k3(planes, qts, frame, quirks, want_planes: bool = True, precision=None):
     rgb = color.planes_to_rgb(pixel, frame.height, frame.width,
                               tuple((c.hsf, c.vsf) for c in frame.components), quirks)
     return rgb, (pixel if want_planes else None)
+
+
+def k0_gather(coeff_plane, qt, bits12: bool = False):
+    """K0's earlier design (csrc/idct_exact.cu jdtc_idct_exact_gather: a
+    thread a block gathering its coefficients from device memory, the
+    chain's earlier spelling) on a card tensor, as idct_plane launches K0:
+    for measurement, reached by no wrapper."""
+    from .. import _build
+
+    *lead, by, bx, _ = coeff_plane.shape
+    rows = int(np.prod(lead, dtype=np.int64)) * by
+    out = torch.empty((*lead, by * 8, bx * 8), dtype=torch.uint8, device=coeff_plane.device)
+    if rows * bx:
+        _build.launch("jdtc_idct_exact_gather", _build.ptr(coeff_plane), _build.ptr(qt),
+                      rows * bx, bx, int(bits12), _build.ptr(out), _build.stream_of(out))
+    return out
+
+
+def colour_pixel(planes, h, w, factors, quirks, upsample="nn", exact=True, raw_cmyk=False,
+                 gray_shear=None, stripes=None):
+    """K3's and K3f's earlier design (csrc/color.cu jdtc_color_pixel,
+    jdtc_fancy_pixel: a thread a pixel) on card tensors, with
+    planes_to_rgb's arguments and geometry: for measurement, reached by no
+    wrapper."""
+    from .. import Quirks
+    from ..ops import color
+
+    lead = planes[0].shape[:-2]
+    shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
+    fancy = upsample == "fancy" and len(planes) > 1
+    mode = color.GRAY if len(planes) == 1 else color.colour_mode(len(planes), exact, raw_cmyk)
+    return color._launch("jdtc_fancy_pixel" if fancy else "jdtc_color_pixel", planes, lead,
+                         h, w, factors, quirks, mode, shear, stripes)
 
 
 def k1_k3(planes, qts, frame, quirks, want_planes: bool = True):
@@ -192,7 +269,7 @@ def sass_mix() -> dict:
     """kernel -> {opcode: count} in the built library's SASS, for the
     kernels of SASS_KERNELS ({} where the toolkit has no cuobjdump): the
     instructions of their code as written, not counts a block (K0's code
-    runs once a block, K03's row and column passes once a row and once a
+    and its earlier design's run once a block, K03's row and column passes once a row and once a
     column, K13's product once a pixel row of four blocks); and under
     "resources" each one's registers, spill bytes and static shared memory
     (cuobjdump -res-usage)."""
@@ -234,15 +311,22 @@ def sass_mix() -> dict:
 #: Variants built from a copy of the package: name -> (the kernel, its
 #: source edits as (file in csrc/, regular expression, replacement, the
 #: count of matches expected), whether the copy must stay bitwise). The
-#: first is K03 halving in float32 (module docstring); the K13 ones test
+#: K0 ones keep its layout with the chain's earlier spelling (float64
+#: halvings and store) and with the halvings alone; the K13 ones test
 #: its design: two attribute its time (without the product; without the
 #: colour step and the stores of RGB and the planes), the others are the
 #: choices it did not take (blocks a thread, a floor of threads for the
 #: strip's other steps, K read from device memory through L1 instead of
 #: shared memory).
 VARIANTS = {
-    "halve in float32": ("K03", [("idct_exact.cuh", r"st\(mul\(0\.5, (.*)\)\);$",
-                                  r"__fmul_rn(0.5f, \1);", 12)], True),
+    "K0, earlier arithmetic": ("K0", [("idct_exact.cu", r"kArithmetic = 2;",
+                                       "kArithmetic = 0;", 1)], True),
+    "K0, halvings in float32": ("K0", [("idct_exact.cu", r"kArithmetic = 2;",
+                                        "kArithmetic = 1;", 1)], True),
+    "K0, 64 blocks a CTA": ("K0", [("idct_exact.cu", r"kThreads = 128;", "kThreads = 64;", 1)],
+                            True),
+    "K0, 256 blocks a CTA": ("K0", [("idct_exact.cu", r"kThreads = 128;", "kThreads = 256;",
+                                     1)], True),
     "K13 without the product": ("K13", [("pixel_float.cu", r"z < 64; z \+= 4", "z < 0; z += 4",
                                          1)], False),
     "K13 without the colour step and the stores": (
@@ -297,7 +381,7 @@ def _worker(name: str, inputs: str, reps: int) -> None:
     """In a variant's copy: its kernel held bitwise against K03's plain
     version or K1 x 3 + K3 (unless the variant drops work), then timed."""
     from .. import Quirks
-    from ..ops import pixel
+    from ..ops import idct, pixel
     from .gather_probe import card_line
 
     kernel, _edits, bitwise = VARIANTS[name]
@@ -307,6 +391,16 @@ def _worker(name: str, inputs: str, reps: int) -> None:
     for case, (frame, planes, qts, want) in torch.load(inputs, weights_only=False).items():
         planes = [t.cuda() for t in planes]
         qts = [t.cuda() for t in qts]
+        if kernel == "K0":
+            k0 = lambda: [idct.idct_plane(c, t) for c, t in zip(planes, qts)]  # noqa: E731
+            if any(not torch.equal(a, k0_plain(c, t)) for a, c, t in zip(k0(), planes, qts)):
+                raise RuntimeError(f"{case}: the variant {name!r} changed the bytes")
+            by_plane = [card_ms(lambda c=c, t=t: idct.idct_plane(c, t), reps)
+                        for c, t in zip(planes, qts)]
+            print(json.dumps(dict(case=case, variant=name, kernel=kernel, bitwise_checked=True,
+                                  ms=card_ms(k0, reps), flushed_ms=card_ms_flushed(k0, reps),
+                                  ms_by_plane=by_plane, card=card_line())), flush=True)
+            continue
         if bitwise:
             got = fn(planes, qts, frame, q, want)
             ref = want_fn(planes, qts, frame, q, want)
@@ -318,17 +412,93 @@ def _worker(name: str, inputs: str, reps: int) -> None:
                               ms=ms, card=card_line())), flush=True)
 
 
+def k0_plain(coeff_plane, qt, bits12: bool = False):
+    """K0's plain version on a coefficient plane [..., by, bx, 64]: the
+    pixel plane idct_plane gives on a CPU tensor, on the tensor's device."""
+    from ..ops import idct
+
+    *lead, by, bx, _ = coeff_plane.shape
+    rows = int(np.prod(lead, dtype=np.int64)) * by
+    return idct.blocks_to_plane(idct.idct_exact(coeff_plane.reshape(-1, 64), qt, bits12),
+                                rows, bx).reshape(*lead, by * 8, bx * 8)
+
+
+def k0_turns(planes, qts, reps: int) -> dict:
+    """K0 over the planes (one launch a plane, as a request) beside its
+    earlier design, in turns (in_turns), after holding both bitwise against
+    the plain version; with the blocks."""
+    from ..ops import idct
+
+    new = lambda: [idct.idct_plane(c, t) for c, t in zip(planes, qts)]  # noqa: E731
+    earlier = lambda: [k0_gather(c, t) for c, t in zip(planes, qts)]  # noqa: E731
+    for a, b, c, t in zip(new(), earlier(), planes, qts):
+        want = k0_plain(c, t)
+        if not (torch.equal(a, want) and torch.equal(b, want)):
+            raise RuntimeError("K0 or its earlier design differs from the plain version")
+    by_plane = [card_ms(lambda c=c, t=t: idct.idct_plane(c, t), reps) for c, t in zip(planes, qts)]
+    return dict(in_turns(new, earlier, reps), card_ms_by_plane=by_plane,
+                blocks=sum(c[..., 0].numel() for c in planes))
+
+
+def colour_turns(planes, h, w, factors, reps: int, upsample="nn", exact=True,
+                 raw_cmyk=False) -> dict:
+    """K3/K3f over the planes (REFERENCE) beside its earlier design, in
+    turns, after holding both bitwise against the plain version; with the
+    output pixels."""
+    from .. import Quirks
+    from ..ops import color
+
+    args = (planes, h, w, factors, Quirks.REFERENCE, upsample, exact, raw_cmyk)
+    new = lambda: color.planes_to_rgb(*args)  # noqa: E731
+    earlier = lambda: colour_pixel(*args)  # noqa: E731
+    want = color._planes_to_rgb_plain(*args)
+    if not (torch.equal(new(), want) and torch.equal(earlier(), want)):
+        raise RuntimeError("K3/K3f or its earlier design differs from the plain version")
+    return dict(in_turns(new, earlier, reps), pixels=want[..., 0].numel())
+
+
+def colour_cases(dense, cmyk) -> dict:
+    """The colour kernels' 4K cases: name -> (planes, h, w, factors,
+    upsample, exact, raw_cmyk), from the pixel planes of the dense 4K
+    request (one, and eight stacked) and of the 4K 4:4:4 four-component
+    frame."""
+    from ..core import oracle
+
+    def pix(data):
+        from .. import DecodeConfig
+        from ..models import host
+
+        frame, planes, qts = host.host_decode(data, DecodeConfig())
+        return [torch.from_numpy(p).cuda() for p in oracle.pixels_from_coeffs(frame, planes, qts)]
+
+    one = pix(dense[0])
+    eight = [torch.stack(ps) for ps in zip(*[pix(d) for d in dense])]
+    four = pix(cmyk)
+    f420 = ((2, 2), (1, 1), (1, 1))
+    f4 = ((1, 1),) * 4
+    return {
+        "K3f, 4K 4:2:0": (one, H, W, f420, "fancy", True, False),
+        "K3f, 8 x 4K 4:2:0": (eight, H, W, f420, "fancy", True, False),
+        "K3, 4K 4:2:0": (one, H, W, f420, "nn", True, False),
+        "K3c YCCK EXACT, 4K 4:4:4": (four, H, W, f4, "nn", True, False),
+        "K3c YCCK FLOAT32, 4K 4:4:4": (four, H, W, f4, "nn", False, False),
+        "K3c CMYK, 4K 4:4:4": (four, H, W, f4, "nn", True, True),
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--strip", type=int, nargs="+", default=[2, 4, 8, 16, 32])
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--precision", nargs="+", choices=["exact", "float32"],
                     default=["exact", "float32"])
-    ap.add_argument("--halve-in-float", action="store_true",
-                    help="also time K03 halving in float32 (a copy of the package)")
     ap.add_argument("--k13-variants", action="store_true",
                     help="also time K13's variants (copies of the package)")
-    ap.add_argument("--no-sweep", action="store_true", help="only the variants")
+    ap.add_argument("--k0", action="store_true",
+                    help="also K0 beside its earlier design, and its arithmetic's variants")
+    ap.add_argument("--colour", action="store_true",
+                    help="also K3f, K3 and K3c beside their earlier design")
+    ap.add_argument("--no-sweep", action="store_true", help="only the variants and --k0/--colour")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -339,8 +509,25 @@ def main(argv=None) -> None:
     from .inputs import F420, PHOTOS_420, make_jpeg, photo_jpeg
 
     dense = [make_jpeg(W, H, F420, RI, seed) for seed in range(8)]
-    names = (["halve in float32"] if ns.halve_in_float else []) + (
-        [n for n, v in VARIANTS.items() if v[0] == "K13"] if ns.k13_variants else [])
+    names = ([n for n, v in VARIANTS.items() if v[0] == "K13"] if ns.k13_variants else []) + (
+        [n for n, v in VARIANTS.items() if v[0] == "K0"] if ns.k0 else [])
+    from .gather_probe import card_line
+
+    if ns.k0:
+        for case, datas in (("4K request, 3 planes", dense[:1]), ("8 x 4K, 3 stacked planes",
+                                                                  dense)):
+            _frame, planes, qts = decoded(datas, torch.device("cuda"))
+            print(json.dumps(dict(kernel="K0", case=case, card=card_line(),
+                                  **k0_turns(planes, qts, ns.reps))), flush=True)
+    if ns.colour:
+        from .inputs import CMYK_FILE
+
+        cmyk = photo_jpeg(CMYK_FILE, W, H, W // 8)
+        for case, (planes, h, w, factors, up, exact, raw) in colour_cases(dense, cmyk).items():
+            print(json.dumps(dict(case=case, card=card_line(), **colour_turns(
+                planes, h, w, factors, ns.reps, up, exact, raw))), flush=True)
+    if ns.k0:
+        print(json.dumps({"sass": sass_mix()}), flush=True)
     if names:
         with tempfile.TemporaryDirectory() as tmp:
             inputs = Path(tmp) / "inputs.pt"

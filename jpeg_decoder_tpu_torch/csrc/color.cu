@@ -1,9 +1,9 @@
 // K3: nearest-neighbour chroma upsample + colour conversion + RGB store, 1,
 // 3 or 4 components (gray, YCbCr, YCCK, raw Adobe CMYK); K3f: the same with
 // fancy (triangular 2x) chroma upsampling, 3 or 4 components. One template,
-// one thread per output pixel, one launch per request or batch (blockIdx.y
-// is the image: the counterpart of jax.vmap over the stage in
-// jpeg_decoder_tpu/parallel/batch.py _batched_stage), reading the uint8
+// one thread per run of 16 output pixels of a row, one launch per request or
+// batch (blockIdx.z is the image: the counterpart of jax.vmap over the stage
+// in jpeg_decoder_tpu/parallel/batch.py _batched_stage), reading the uint8
 // pixel planes K0, K1 or K5 wrote.
 //
 // K3 replaces the XLA half of jpeg_decoder_tpu/models/decoder.py
@@ -58,14 +58,27 @@
 // vertical pass over the padded plane's rows is the stripes' one-row halo
 // exchange, the padded plane's last row its outer edge.
 //
-// What bounds it on the H100: memory. A pixel reads each component's
-// sample (for fancy, at most three neighbours more: a 2x2 quad of sources
-// shared by the pixel's neighbours, so mostly from cache) and writes three
-// bytes; the arithmetic is a few integer or float32 operations, and YCCK
-// EXACT's dozen float64 ones. Neighbouring threads touch neighbouring
-// bytes, so reads and writes coalesce; the 3-byte RGB stores are not
-// vectorised, and a strip with a halo on K03's skeleton, so that fancy
-// EXACT runs as one launch as nearest-neighbour does, is later work.
+// What bounds it on the H100: on paper memory (the planes in, three bytes
+// a pixel out); in practice the instructions a pixel. The first design ran
+// a thread a pixel: two 64-bit divisions for its row and column, every
+// fancy chroma sample computed afresh by each of the four pixels that share
+// its sources (six byte loads a component), three 1-byte stores. Now a
+// thread takes a run of 16 output pixels of one row; the row, the run and
+// the image come from the grid (blockDim 16 runs x 8 rows). Where the run
+// starts on a 16-pixel boundary and lies inside the row, each component's
+// sources come in as one vector: 16 bytes in place, or for the 2x passes
+// the 8 source bytes a run needs from each source row and their two edge
+// neighbours, whose horizontal sums the run's pixels then share; the
+// nearest-neighbour row is found once a run. Every other run (a ragged
+// edge, a 4:1:1 or mixed ratio, a plane not 8- or 16-byte aligned) takes
+// each pixel's sample by the first design's per-pixel rule (`sample`). The
+// 48 RGB bytes of a run go out as three aligned 16-byte stores: a row's
+// runs are shifted by its phase (0-15 pixels, from the output address) so
+// that they start on a 16-byte boundary, and the partial runs at the row's
+// two ends store their valid pixels byte by byte. The colour arithmetic is
+// color.cuh's, unchanged. The first design is kept for measurement as
+// colour_pixel_kernel (jdtc_color_pixel, jdtc_fancy_pixel), which no
+// wrapper reaches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,7 +87,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kPixelThreads = 256;  // the first design's CTA
+constexpr int kRun = 16;             // output pixels a thread
+constexpr int kRunThreads = 16;      // runs a CTA along a row
+constexpr int kRunRows = 8;          // rows a CTA
 constexpr int kMaxComps = 4;
 // A component's flags (ops/color.py upsample_geometry).
 constexpr int kH2x = 1;  // a horizontal 2x pass
@@ -125,12 +141,13 @@ __device__ __forceinline__ uint8_t sample(const Geometry& g, int64_t img, int c,
   return static_cast<uint8_t>(min(v, 255));
 }
 
+// The first design, for measurement only: one thread per output pixel.
 // One kernel per (upsampling, colour mode): a mode fixed at compile time
 // keeps YCCK EXACT's float64 registers out of the YCbCr and gray kernels
 // (a runtime switch cost K3 9% on 4K 4:2:0 planes, PERF.md).
 template <bool kFancy, int kMode>
-__global__ void __launch_bounds__(kThreads)
-colour_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) {
+__global__ void __launch_bounds__(kPixelThreads)
+colour_pixel_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) {
   constexpr int kComps = kMode == colour::kGray ? 1 : (kMode == colour::kYCbCr ? 3 : 4);
   const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t hw = static_cast<int64_t>(h) * w;
@@ -144,17 +161,234 @@ colour_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) 
   colour::convert(kMode, s, correct, out + (img * hw + p) * 3);
 }
 
+// 16 samples of one component for a run: sample k in byte k & 3 of w[k >> 2].
+struct Run16 {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ uint32_t byte_at(const Run16& r, int k) {
+  return (r.w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+}
+
+__device__ __forceinline__ uint32_t byte_of(uint2 v, int m) {
+  return ((m < 4 ? v.x : v.y) >> (8 * (m & 3))) & 0xFFu;
+}
+
+// The horizontal sums A = 3x + n + b of a run's 16 output columns q = j0 +
+// k (j0 even, s0 = j0 / 2): x = X[k / 2], n its left (even k, b = 1) or
+// right (odd k, b = 2) neighbour, with X[m] = byte m of `mid` for m in
+// [0, 8), X[-1] = left, X[8] = right (the edge-clamped neighbours).
+__device__ __forceinline__ void hsums(uint2 mid, uint32_t left, uint32_t right, int* a) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int m = k >> 1;
+    const int x = static_cast<int>(byte_of(mid, m));
+    const int n = (k & 1) ? (m == 7 ? static_cast<int>(right) : static_cast<int>(byte_of(mid, m + 1)))
+                          : (m == 0 ? static_cast<int>(left) : static_cast<int>(byte_of(mid, m - 1)));
+    a[k] = 3 * x + n + ((k & 1) ? 2 : 1);
+  }
+}
+
+__device__ __forceinline__ void pack16(const int* v, Run16& out) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    out.w[q] = static_cast<uint32_t>(v[4 * q]) | (static_cast<uint32_t>(v[4 * q + 1]) << 8) |
+               (static_cast<uint32_t>(v[4 * q + 2]) << 16) |
+               (static_cast<uint32_t>(v[4 * q + 3]) << 24);
+}
+
+__device__ __forceinline__ void load16(const uint8_t* p, Run16& out) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  out.w[0] = v.x;
+  out.w[1] = v.y;
+  out.w[2] = v.z;
+  out.w[3] = v.w;
+}
+
+// Component c's 16 samples of the run at output row i, columns j0..j0+15,
+// by vector loads; false where the component's geometry or its plane's
+// alignment has no vector form (the caller then takes fetch_pixels). The
+// caller guarantees j0 % 16 == 0 and j0 + 16 <= w; the reads then stay
+// inside the plane (upsample_geometry's bounds: w <= 2 * stride under an
+// H pass, j0 / 2 + 8 <= stride).
+template <bool kFancy>
+__device__ __forceinline__ bool fetch_vector(const Geometry& g, int img, int c, int i, int j0,
+                                             Run16& out) {
+  const uint8_t* p = g.plane[c] + img * g.img_stride[c];
+  const int cols = g.stride[c];
+  const int flags = g.flags[c];
+  const uint32_t align = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p)) |
+                         static_cast<uint32_t>(cols);
+  if (flags == 0) {  // read in place
+    if (align & 15) return false;
+    load16(p + static_cast<int64_t>(i) * cols + j0, out);
+    return true;
+  }
+  if (flags == kNN) {
+    const float hr = g.hratio[c];
+    if (!(hr == 1.0f && !(align & 15)) && !(hr == 0.5f && !(align & 7))) return false;
+    const int r = colour::nn_row(i, g.vratio[c], g.row0, g.stripe_h, g.local_rows[c]);
+    const uint8_t* row = p + static_cast<int64_t>(r) * cols;
+    if (hr == 1.0f) {
+      load16(row + j0, out);
+    } else {  // (uint32)(j * 0.5f) = j >> 1, exactly: each source byte twice
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + (j0 >> 1)));
+      out.w[0] = __byte_perm(v.x, 0, 0x1100);
+      out.w[1] = __byte_perm(v.x, 0, 0x3322);
+      out.w[2] = __byte_perm(v.y, 0, 0x1100);
+      out.w[3] = __byte_perm(v.y, 0, 0x3322);
+    }
+    return true;
+  }
+  if (!kFancy) return false;
+  if (flags == kV2x) {  // (3 row[q] + nrow[q] + bv) >> 2
+    if (align & 15) return false;
+    const int t = i >> 1;
+    const int tn = (i & 1) ? min(t + 1, g.rows[c] - 1) : max(t - 1, 0);
+    const int bv = (i & 1) ? 2 : 1;
+    Run16 x, y;
+    load16(p + static_cast<int64_t>(t) * cols + j0, x);
+    load16(p + static_cast<int64_t>(tn) * cols + j0, y);
+    int v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      v[k] = (3 * static_cast<int>(byte_at(x, k)) + static_cast<int>(byte_at(y, k)) + bv) >> 2;
+    pack16(v, out);
+    return true;
+  }
+  if (flags != kH2x && flags != (kH2x | kV2x)) return false;
+  if (align & 7) return false;
+  const int s0 = j0 >> 1;
+  const int left = max(s0 - 1, 0);
+  const int right = min(s0 + 8, cols - 1);
+  if (flags == kH2x) {  // A >> 2 of the row itself
+    const uint8_t* row = p + static_cast<int64_t>(i) * cols;
+    int a[16];
+    hsums(__ldg(reinterpret_cast<const uint2*>(row + s0)), row[left], row[right], a);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) a[k] >>= 2;
+    pack16(a, out);
+    return true;
+  }
+  // both passes: (3 A + A' + 4 bv) >> 4 over source row t and its
+  // neighbour tn, clamped to 255 (an all-255 neighbourhood gives 256)
+  const int t = i >> 1;
+  const int tn = (i & 1) ? min(t + 1, g.rows[c] - 1) : max(t - 1, 0);
+  const int bv = (i & 1) ? 2 : 1;
+  const uint8_t* row = p + static_cast<int64_t>(t) * cols;
+  const uint8_t* nrow = p + static_cast<int64_t>(tn) * cols;
+  int a[16], an[16];
+  hsums(__ldg(reinterpret_cast<const uint2*>(row + s0)), row[left], row[right], a);
+  hsums(__ldg(reinterpret_cast<const uint2*>(nrow + s0)), nrow[left], nrow[right], an);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) a[k] = min((3 * a[k] + an[k] + 4 * bv) >> 4, 255);
+  pack16(a, out);
+  return true;
+}
+
+// Component c's samples of the run by the first design's per-pixel rule,
+// each column clamped into [0, w) (a partial run's outside pixels are
+// computed and not stored). The bytes shift in from the top, so the loop
+// needs no register indexed at run time.
+template <bool kFancy>
+__device__ __forceinline__ void fetch_pixels(const Geometry& g, int img, int c, int i, int j0,
+                                             int w, Run16& out) {
+  uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+#pragma unroll 1
+  for (int k = 0; k < 16; ++k) {
+    const int j = min(max(j0 + k, 0), w - 1);
+    const uint32_t v = sample<kFancy>(g, img, c, i, j);
+    w0 = __funnelshift_r(w0, w1, 8);
+    w1 = __funnelshift_r(w1, w2, 8);
+    w2 = __funnelshift_r(w2, w3, 8);
+    w3 = __funnelshift_r(w3, v, 8);
+  }
+  out.w[0] = w0;
+  out.w[1] = w1;
+  out.w[2] = w2;
+  out.w[3] = w3;
+}
+
+// The design: thread (x, y) of CTA (bx, by, img) converts run bx * 16 + x
+// of output row by * 8 + y of image img. A row's runs start at j0 = 16 m -
+// ((16 - phase) & 15), phase the pixels from the row's start to its first
+// 16-byte aligned RGB byte (3 phase = -address mod 16, 3 * 11 = 1 mod 16).
 template <bool kFancy, int kMode>
+__global__ void __launch_bounds__(kRunThreads * kRunRows)
+colour_run_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) {
+  constexpr int kComps = kMode == colour::kGray ? 1 : (kMode == colour::kYCbCr ? 3 : 4);
+  const int i = static_cast<int>(blockIdx.y) * kRunRows + static_cast<int>(threadIdx.y);
+  if (i >= h) return;
+  const int img = static_cast<int>(blockIdx.z);
+  // the row's first RGB byte modulo 16 (32-bit wrap-around keeps it)
+  const uint32_t head = (static_cast<uint32_t>(img) * static_cast<uint32_t>(h) +
+                         static_cast<uint32_t>(i)) * static_cast<uint32_t>(w) * 3u +
+                        static_cast<uint32_t>(reinterpret_cast<uintptr_t>(out));
+  const int phase = static_cast<int>(((0u - head) * 11u) & 15u);
+  const int j0 = (static_cast<int>(blockIdx.x) * kRunThreads + static_cast<int>(threadIdx.x)) *
+                     kRun - ((kRun - phase) & 15);
+  if (j0 >= w) return;
+  const bool full = j0 >= 0 && j0 + kRun <= w;
+  const bool vector = full && phase == 0;
+  Run16 s[kComps];
+#pragma unroll
+  for (int c = 0; c < kComps; ++c)
+    if (!(vector && fetch_vector<kFancy>(g, img, c, i, j0, s[c])))
+      fetch_pixels<kFancy>(g, img, c, i, j0, w, s[c]);
+
+  uint32_t o[12] = {};  // the run's 48 RGB bytes
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    uint8_t px[kMaxComps] = {};
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) px[c] = static_cast<uint8_t>(byte_at(s[c], k));
+    uint8_t rgb[3];
+    colour::convert(kMode, px, correct, rgb);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      o[(3 * k + ch) >> 2] |= static_cast<uint32_t>(rgb[ch]) << (8 * ((3 * k + ch) & 3));
+  }
+  uint8_t* dst = out + ((static_cast<int64_t>(img) * h + i) * w + j0) * 3;
+  if (full) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      reinterpret_cast<uint4*>(dst)[q] = make_uint4(o[4 * q], o[4 * q + 1], o[4 * q + 2],
+                                                    o[4 * q + 3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    if (j0 + k < 0 || j0 + k >= w) continue;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      dst[3 * k + ch] = static_cast<uint8_t>(o[(3 * k + ch) >> 2] >> (8 * ((3 * k + ch) & 3)));
+  }
+}
+
+template <bool kPerPixel, bool kFancy, int kMode>
 void run(const Geometry& g, int n_images, int h, int w, int correct, void* out,
          void* cuda_stream) {
-  const int64_t n = static_cast<int64_t>(h) * w;
-  const dim3 blocks(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+  const auto stream = static_cast<cudaStream_t>(cuda_stream);
+  if (kPerPixel) {
+    const int64_t n = static_cast<int64_t>(h) * w;
+    const dim3 blocks(static_cast<unsigned>((n + kPixelThreads - 1) / kPixelThreads),
+                      static_cast<unsigned>(n_images));
+    colour_pixel_kernel<kFancy, kMode><<<blocks, kPixelThreads, 0, stream>>>(
+        g, h, w, correct, static_cast<uint8_t*>(out));
+    return;
+  }
+  // Runs a row: w / 16 where every row starts 16-byte aligned (w % 16 == 0
+  // and an aligned output), else one more for the head a phase opens.
+  const bool aligned = w % kRun == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int runs = aligned ? w / kRun : (w + 2 * kRun - 2) / kRun;
+  const dim3 blocks(static_cast<unsigned>((runs + kRunThreads - 1) / kRunThreads),
+                    static_cast<unsigned>((h + kRunRows - 1) / kRunRows),
                     static_cast<unsigned>(n_images));
-  colour_kernel<kFancy, kMode><<<blocks, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+  colour_run_kernel<kFancy, kMode><<<blocks, dim3(kRunThreads, kRunRows), 0, stream>>>(
       g, h, w, correct, static_cast<uint8_t*>(out));
 }
 
-template <bool kFancy>
+template <bool kPerPixel, bool kFancy>
 int launch(const void* plane0, const void* plane1, const void* plane2, const void* plane3,
            int n_images, int n_comps, int h, int w, const void* geom, const void* ratios,
            int row0, int stripe_h, int mode, int correct, void* out, void* cuda_stream) {
@@ -180,11 +414,11 @@ int launch(const void* plane0, const void* plane1, const void* plane2, const voi
   const int comps = mode == colour::kGray ? 1 : (mode == colour::kYCbCr ? 3 : 4);
   if (n_comps != comps) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case colour::kYCbCr: run<kFancy, colour::kYCbCr>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kYcckExact: run<kFancy, colour::kYcckExact>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kYcckFloat: run<kFancy, colour::kYcckFloat>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kCmyk: run<kFancy, colour::kCmyk>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kGray: run<kFancy, colour::kGray>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kYCbCr: run<kPerPixel, kFancy, colour::kYCbCr>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kYcckExact: run<kPerPixel, kFancy, colour::kYcckExact>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kYcckFloat: run<kPerPixel, kFancy, colour::kYcckFloat>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kCmyk: run<kPerPixel, kFancy, colour::kCmyk>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kGray: run<kPerPixel, kFancy, colour::kGray>(g, n_images, h, w, correct, out, cuda_stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -197,8 +431,8 @@ extern "C" int jdtc_color(const void* plane0, const void* plane1, const void* pl
                           const void* plane3, int n_images, int n_comps, int h, int w,
                           const void* geom, const void* ratios, int row0, int stripe_h,
                           int mode, int correct, void* out, void* cuda_stream) {
-  return launch<false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                       row0, stripe_h, mode, correct, out, cuda_stream);
+  return launch<false, false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                              row0, stripe_h, mode, correct, out, cuda_stream);
 }
 
 // K3f: fancy upsampling, 3 or 4 components.
@@ -206,6 +440,23 @@ extern "C" int jdtc_fancy(const void* plane0, const void* plane1, const void* pl
                           const void* plane3, int n_images, int n_comps, int h, int w,
                           const void* geom, const void* ratios, int row0, int stripe_h,
                           int mode, int correct, void* out, void* cuda_stream) {
-  return launch<true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                       row0, stripe_h, mode, correct, out, cuda_stream);
+  return launch<false, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                             row0, stripe_h, mode, correct, out, cuda_stream);
+}
+
+// The first design of K3 and K3f (a thread a pixel), reached by no wrapper.
+extern "C" int jdtc_color_pixel(const void* plane0, const void* plane1, const void* plane2,
+                                const void* plane3, int n_images, int n_comps, int h, int w,
+                                const void* geom, const void* ratios, int row0, int stripe_h,
+                                int mode, int correct, void* out, void* cuda_stream) {
+  return launch<true, false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                             row0, stripe_h, mode, correct, out, cuda_stream);
+}
+
+extern "C" int jdtc_fancy_pixel(const void* plane0, const void* plane1, const void* plane2,
+                                const void* plane3, int n_images, int n_comps, int h, int w,
+                                const void* geom, const void* ratios, int row0, int stripe_h,
+                                int mode, int correct, void* out, void* cuda_stream) {
+  return launch<true, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                            row0, stripe_h, mode, correct, out, cuda_stream);
 }

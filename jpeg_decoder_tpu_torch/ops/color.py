@@ -366,11 +366,163 @@ def upsample_geometry(planes_shapes, h: int, w: int, factors, fancy: bool,
     return geom, ratios
 
 
+#: K3's and K3f's run (csrc/color.cu colour_run_kernel): the output pixels
+#: of one row a thread converts.
+RUN = 16
+
+
+def run_phase(head: int) -> int:
+    """The pixels from a row's start to its first RGB byte on a 16-byte
+    boundary, `head` the address of the row's first RGB byte modulo 16:
+    3 * phase = -head (mod 16), and 3 * 11 = 1 (mod 16)."""
+    return (-head * 11) % 16
+
+
+def _rule_samples(flat, rows: int, cols: int, flags: int, fancy: bool, r: int, qs):
+    """color.cu `sample`, the per-pixel rule, at source row r (the output
+    row, or its nearest-neighbour row) and source columns qs (int64 array),
+    of one image's plane `flat` (1-D int64)."""
+    if not fancy or not flags & (_H2X | _V2X):
+        return flat[r * cols + qs]
+
+    def hsum(base, q):
+        s = q >> 1
+        n = np.where(q & 1, np.minimum(s + 1, cols - 1), np.maximum(s - 1, 0))
+        return 3 * flat[base + s] + flat[base + n] + np.where(q & 1, 2, 1)
+
+    if not flags & _V2X:
+        return hsum(r * cols, qs) >> 2
+    t = r >> 1
+    tn = min(t + 1, rows - 1) if r & 1 else max(t - 1, 0)
+    bv = 2 if r & 1 else 1
+    if not flags & _H2X:
+        return (3 * flat[t * cols + qs] + flat[tn * cols + qs] + bv) >> 2
+    return np.minimum((3 * hsum(t * cols, qs) + hsum(tn * cols, qs) + 4 * bv) >> 4, 255)
+
+
+def _vector_samples(flat, head: int, rows: int, cols: int, flags: int, fancy: bool, hratio,
+                    row: int, i: int, j0: int):
+    """color.cu `fetch_vector`: a run's 16 samples at output row i from
+    column j0 (j0 % 16 == 0, inside the row) by the vector loads, or None
+    where the kernel takes the per-pixel rule. `head`: the image's plane
+    address modulo 16; `row`: the nearest-neighbour row of i."""
+    align = head | cols
+    if flags == 0:
+        return None if align & 15 else flat[i * cols + j0:i * cols + j0 + RUN]
+    if flags == _NN:
+        if hratio == 1.0 and not align & 15:
+            return flat[row * cols + j0:row * cols + j0 + RUN]
+        if hratio == 0.5 and not align & 7:
+            return np.repeat(flat[row * cols + j0 // 2:row * cols + j0 // 2 + 8], 2)
+        return None
+    if not fancy:
+        return None
+    t = i >> 1
+    tn = min(t + 1, rows - 1) if i & 1 else max(t - 1, 0)
+    bv = 2 if i & 1 else 1
+    if flags == _V2X:
+        if align & 15:
+            return None
+        x = flat[t * cols + j0:t * cols + j0 + RUN]
+        y = flat[tn * cols + j0:tn * cols + j0 + RUN]
+        return (3 * x + y + bv) >> 2
+    if flags not in (_H2X, _H2X | _V2X) or align & 7:
+        return None
+    s0 = j0 >> 1
+    left, right = max(s0 - 1, 0), min(s0 + 8, cols - 1)
+    k = np.arange(RUN)
+    m = k >> 1
+
+    def hsums(base):
+        # the window X[-1..8] at positions 0..9: the left neighbour, the 8
+        # bytes of the vector load, the right neighbour
+        win = np.concatenate([flat[base + left:base + left + 1], flat[base + s0:base + s0 + 8],
+                              flat[base + right:base + right + 1]])
+        return 3 * win[m + 1] + np.where(k & 1, win[m + 2], win[m]) + np.where(k & 1, 2, 1)
+
+    if flags == _H2X:
+        return hsums(i * cols) >> 2
+    return np.minimum((3 * hsums(t * cols) + hsums(tn * cols) + 4 * bv) >> 4, 255)
+
+
+def _planes_to_rgb_runs_plain(planes, h: int, w: int, factors, quirks: Quirks,
+                              upsample: str = "nn", exact: bool = True, raw_cmyk: bool = False,
+                              gray_shear: bool | None = None, stripes: Stripes | None = None,
+                              out_head: int = 0, plane_heads=None, paths=None):
+    """K3's and K3f's schedule (csrc/color.cu colour_run_kernel) on the CPU,
+    with planes_to_rgb's arguments and the geometry _launch gives the
+    kernel: each row's runs of RUN pixels shifted by the row's phase
+    (`out_head`: the output's address modulo 16), each component's samples
+    of a full run at a 16-pixel boundary by the vector loads where its plane
+    allows (`plane_heads`: each plane's address modulo 16, default 0) and
+    by the per-pixel rule otherwise, then the colour transform of the plain
+    version. Raises RuntimeError unless every pixel is stored by exactly one
+    run. `paths`, a Counter, receives the runs each way took ("vector",
+    "pixel"; "partial" for the runs a row's ends cut). The result of
+    _planes_to_rgb_plain."""
+    n = len(planes)
+    lead = tuple(planes[0].shape[:-2])
+    n_img = lead[0] if lead else 1
+    shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
+    fancy = upsample == "fancy" and n > 1
+    geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy,
+                                     stripes)
+    mh = max(f[0] for f in factors)
+    mv = max(f[1] for f in factors)
+    heads = list(plane_heads) if plane_heads is not None else [0] * n
+    comps = []
+    for c, ((rows, cols, flags, _local), (hr, vr)) in enumerate(zip(geom, ratios)):
+        if n == 1 and shear:
+            cols = w
+        fh, fv = factors[c]
+        ev = (2 * fv if fancy and flags & _V2X else fv)
+        nn_row = nn_rows(h, ev, mv, stripes) if flags & _NN else np.arange(h)
+        nn_col = _nn_index_f32(w, np.float32(hr)) if flags & _NN else np.arange(w)
+        flat = planes[c].reshape(n_img, -1).to(torch.int64).numpy()
+        comps.append((flat, rows, cols, flags, hr, nn_row, nn_col, rows * planes[c].shape[-1]))
+    samples = np.zeros((n, n_img, h, w), dtype=np.int64)
+    stored = np.zeros((n_img, h, w), dtype=np.int64)
+    runs = w // RUN if w % RUN == 0 and out_head % 16 == 0 else (w + 2 * RUN - 2) // RUN
+    for img in range(n_img):
+        for i in range(h):
+            phase = run_phase(((img * h + i) * w * 3 + out_head) % 16)
+            for m in range(runs):
+                j0 = RUN * m - (RUN - phase) % 16
+                if j0 >= w:
+                    break
+                full = j0 >= 0 and j0 + RUN <= w
+                vector = full and phase == 0
+                js = np.arange(j0, j0 + RUN)
+                ok = (js >= 0) & (js < w)
+                stored[img, i, js[ok]] += 1
+                for c, (flat, rows, cols, flags, hr, nn_row, nn_col, img_stride) in enumerate(comps):
+                    one = flat[img]
+                    got = (_vector_samples(one, (heads[c] + img * img_stride) % 16, rows, cols,
+                                           flags, fancy, hr, int(nn_row[i]), i, j0)
+                           if vector else None)
+                    if paths is not None:
+                        paths["partial" if not full else "vector" if got is not None
+                              else "pixel"] += 1
+                    if got is None:
+                        qs = nn_col[np.clip(js, 0, w - 1)]
+                        got = _rule_samples(one, rows, cols, flags, fancy, int(nn_row[i]), qs)
+                    samples[c, img, i, js[ok]] = got[ok]
+    if h * w and not (stored == 1).all():
+        raise RuntimeError("the runs store a pixel other than once")
+    chans = [torch.from_numpy(samples[c].astype(np.uint8)).reshape(*lead, h, w)
+             for c in range(n)]
+    if n == 1:
+        return gray_to_rgb(chans[0])
+    return _convert(chans, colour_mode(n, exact, raw_cmyk), quirks)
+
+
 def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
             mode: int, shear: bool, stripes: Stripes | None = None) -> torch.Tensor:
     """Launch K3 (`jdtc_color`) or K3f (`jdtc_fancy`) over `planes`; a
-    gray plane is read at the image width where `shear`."""
-    fancy = entry == "jdtc_fancy"
+    gray plane is read at the image width where `shear`. (`jdtc_color_pixel`
+    and `jdtc_fancy_pixel`, their earlier design, take the same geometry;
+    only the benchmarks launch them.)"""
+    fancy = entry.startswith("jdtc_fancy")
     geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy,
                                      stripes)
     n = len(planes)
@@ -390,4 +542,6 @@ def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
             launch(entry, *ptrs[:4], count, n, h, w, ctypes.c_void_p(g.ctypes.data),
                    ctypes.c_void_p(r.ctypes.data), row0, stripe_h,
                    mode, int(quirks != Quirks.REFERENCE), ptrs[4], _build.stream_of(out))
+            _build.add_units(entry if stripes is None else ("K6f" if fancy else "K6n"),
+                             count * h * w)
     return out

@@ -125,6 +125,31 @@ def _quantize_output(pix_shifted: torch.Tensor, bits12: bool) -> torch.Tensor:
     return (resc & 0xFF).to(torch.uint8)
 
 
+def store_integer(x: np.ndarray, bits12: bool) -> np.ndarray:
+    """The CPU model of the integer output store of K0 and K03
+    (csrc/idct_exact.cuh `store`), bit for bit: float32 `x`, the IDCT's
+    value before the 0.25 scale, clamped, then floor(0.25 y) by the fma
+    rounded down to 1.5 * 2^23 + floor(0.25 y), read off the float32's bits
+    (`floor_quarter`), the level shift, the clamp, and the tiny negative
+    inputs that the float64 sum rounds up to the level shift. The tests
+    hold it against the float64 form (_quantize_output)."""
+    x = np.asarray(x, dtype=np.float32)
+    lo, hi, shift, top, tiny = ((-8200.0, 262144.0, 2048, 65535, 2.0 ** -41) if bits12
+                                else (-1024.0, 1024.0, 128, 255, 2.0 ** -45))
+    y = np.minimum(np.maximum(x, np.float32(lo)), np.float32(hi))
+    y = np.where(np.isnan(x), np.float32(lo), y)  # fmaxf(NaN, lo) is lo
+    # __fmaf_rd(y, 0.25f, 1.5 * 2^23): the float32 at or below the exact sum
+    t = (np.floor(0.25 * y.astype(np.float64)) + 12582912.0).astype(np.float32)
+    v = t.view(np.int32).astype(np.int64) - 0x4B400000 + shift
+    v = np.clip(v, 0, top)
+    v = np.where((x < 0) & (x >= -tiny), shift, v)
+    if not bits12:
+        return v.astype(np.uint8)
+    v16 = ((v & 0xFFFF) ^ 0x8000) - 0x8000
+    q = np.trunc(v16 * 255 / 4096).astype(np.int64)  # C's (v * 255) / 4096
+    return (q & 0xFF).astype(np.uint8)
+
+
 def dequantize_blocks(coeffs_zz: torch.Tensor, qtable_natural) -> torch.Tensor:
     """Dequant + dezigzag: [N, 64] zigzag ints -> [N, 64] natural float32
     (dequant_data_unit, quant_table.c:131-152): natural[ZIGZAG[i]] =
@@ -384,6 +409,7 @@ def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
                 _build.ptr(idct_matrix_scaled_on(coeff_plane.device, k)), rows * bx, bx, k,
                 int(bits12), _build.ptr(out), _build.stream_of(out),
             )
+            _build.add_units("jdtc_idct_scaled", rows * bx)
             return out
         extra = ()
         if precision == IdctPrecision.FLOAT32:
@@ -393,4 +419,5 @@ def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
             _build.ptr(qtable_natural), *extra, rows * bx, bx, int(bits12),
             _build.ptr(out), _build.stream_of(out),
         )
+        _build.add_units(_ENTRY[precision], rows * bx)
     return out

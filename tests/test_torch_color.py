@@ -7,7 +7,14 @@ YCCK under EXACT is held on the whole input domain of R and B (16.7 M
 called (op by op) and against the float64 chain of core/numerics (the
 reference's statements). The JAX package's jitted stage, which fuses the
 same df32 operations, differs from both on a few inputs (ROADMAP.md §3):
-the port follows the chain."""
+the port follows the chain.
+
+The CPU model of K3's and K3f's run schedule (ops/color.
+_planes_to_rgb_runs_plain) is held bitwise against the plain version and
+the JAX stage at widths that are not a multiple of the run, under the
+stripe rule, with misaligned outputs and planes."""
+
+import collections
 
 import jax
 import numpy as np
@@ -336,3 +343,106 @@ def test_upsample_geometry_refuses_a_plane_too_small():
                                  ((2, 2), (1, 1), (1, 1)), True)
     with pytest.raises(ValueError, match="smaller"):
         tcolor.upsample_geometry([(16, 16)] * 3 + [(15, 16)], 16, 16, F4, False)
+
+
+# ---------------------------------------------------------------------------
+# K3's and K3f's run schedule (csrc/color.cu colour_run_kernel) on the CPU
+# ---------------------------------------------------------------------------
+
+
+#: name -> (factors, upsample, exact, raw_cmyk): the samplings of the run
+#: schedule's CPU model, each of its per-component paths.
+RUN_CASES = {
+    "gray": (((1, 1),), "nn", True, False),
+    "420_nn": (((2, 2), (1, 1), (1, 1)), "nn", True, False),
+    "420_fancy": (((2, 2), (1, 1), (1, 1)), "fancy", True, False),
+    "422_fancy": (((2, 1), (1, 1), (1, 1)), "fancy", True, False),
+    "440_fancy": (((1, 2), (1, 1), (1, 1)), "fancy", True, False),
+    "411_fancy": (((4, 1), (1, 1), (1, 1)), "fancy", True, False),
+    "421_fancy": (((4, 2), (1, 1), (1, 1)), "fancy", True, False),
+    "ycck_exact_444": (F4, "nn", True, False),
+    "ycck_420_fancy": (((2, 2), (1, 1), (1, 1), (2, 2)), "fancy", True, False),
+    "cmyk_422_fancy": (((2, 1), (1, 1), (1, 1), (2, 1)), "fancy", True, True),
+}
+
+
+def _saturated(h, w, factors, seed, n=2):
+    """n images' planes with an all-255 corner (the fancy passes' 256)."""
+    batch = [_pixel_planes(h, w, factors, seed + i) for i in range(n)]
+    for planes in batch:
+        for p in planes:
+            p[:9, :9] = 255
+    return batch
+
+
+@pytest.mark.parametrize("w", [1, 15, 17, 45])
+@pytest.mark.parametrize("name", sorted(RUN_CASES))
+def test_run_schedule_matches_plain_and_jax(name, w):
+    """The CPU model of K3's and K3f's run schedule (runs of 16 pixels, the
+    row's phase, the vector paths and the per-pixel rule, the masked ends)
+    bitwise against the plain colour stage and the JAX stage's colour half,
+    at widths that are not a multiple of the run, an odd height, a batch of
+    two, both quirks, an aligned and a misaligned output and planes."""
+    factors, upsample, exact, raw = RUN_CASES[name]
+    h = 19
+    batch = _saturated(h, w, factors, 300 + w)
+    stacked = [torch.from_numpy(np.stack([b[c] for b in batch])) for c in range(len(factors))]
+    for quirks in QUIRKS:
+        want = tcolor._planes_to_rgb_plain(stacked, h, w, factors, quirks, upsample, exact, raw)
+        for out_head, plane_head in ((0, 0), (5, 8)):
+            got = tcolor._planes_to_rgb_runs_plain(
+                stacked, h, w, factors, quirks, upsample, exact, raw, out_head=out_head,
+                plane_heads=[plane_head] * len(factors))
+            assert torch.equal(got, want)
+        for i, planes in enumerate(batch):
+            jax_rgb = _jax_stage_rgb(planes, h, w, factors, quirks, upsample, exact, raw)
+            np.testing.assert_array_equal(want[i].numpy(), jax_rgb)
+
+
+def test_run_schedule_takes_every_path():
+    """At the 4K width a 4:2:0 fancy frame takes the vector loads on every
+    run of an aligned output; a width 8 more (3848) shifts the phase row by
+    row, so that the per-pixel rule and the partial runs at the rows' ends
+    are taken too; misaligned planes take the per-pixel rule."""
+    factors = ((2, 2), (1, 1), (1, 1))
+    for w, out_head, plane_head, expect in (
+            (3840, 0, 0, {"vector"}), (3848, 0, 0, {"vector", "pixel", "partial"}),
+            (3840, 0, 4, {"pixel"})):
+        planes = [torch.from_numpy(p) for p in _saturated(4, w, factors, 7, 1)[0]]
+        paths = collections.Counter()
+        got = tcolor._planes_to_rgb_runs_plain(planes, 4, w, factors, Quirks.REFERENCE,
+                                               "fancy", out_head=out_head,
+                                               plane_heads=[plane_head] * 3, paths=paths)
+        assert set(paths) == expect
+        assert torch.equal(got, tcolor._planes_to_rgb_plain(planes, 4, w, factors,
+                                                             Quirks.REFERENCE, "fancy"))
+
+
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+@pytest.mark.parametrize("factors", [((2, 2), (1, 1), (1, 1)), ((1, 1), (2, 4), (1, 1)), F4],
+                         ids=["420", "2x4", "444_four"])
+def test_run_schedule_under_the_stripe_rule(factors, upsample):
+    """With `stripes` (striped and streamed decode: the launch's first row
+    of the padded frame and the stripe height), the model follows the
+    plain version's stripe rule: a whole padded frame in stripes of one
+    MCU row, and a chunk that starts two stripes down."""
+    mh = max(f[0] for f in factors)
+    mv = max(f[1] for f in factors)
+    h, w = 8 * mv * 6, 8 * mh * 5 + 16
+    planes = [torch.from_numpy(p) for p in _saturated(h, w, factors, 11, 1)[0]]
+    for stripes in (tcolor.Stripes(0, 8 * mv), tcolor.Stripes(16 * mv, 16 * mv)):
+        chunk = [p[stripes.row0 * f[1] // mv:].contiguous() for p, f in zip(planes, factors)]
+        hh = h - stripes.row0
+        want = tcolor._planes_to_rgb_plain(chunk, hh, w, factors, Quirks.REFERENCE, upsample,
+                                           stripes=stripes)
+        got = tcolor._planes_to_rgb_runs_plain(chunk, hh, w, factors, Quirks.REFERENCE,
+                                               upsample, stripes=stripes)
+        assert torch.equal(got, want)
+
+
+def test_run_phase_aligns_every_row():
+    """3 * run_phase(head) + head is a multiple of 16 for every head, so a
+    row's first full run starts on a 16-byte boundary."""
+    for head in range(16):
+        phase = tcolor.run_phase(head)
+        assert 0 <= phase < 16 and (head + 3 * phase) % 16 == 0

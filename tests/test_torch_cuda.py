@@ -492,6 +492,46 @@ def test_k0_matches_plain(cuda_device, bits12):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+#: K0's ragged shapes: (blocks rows..., blocks_x); one block wide, an odd
+#: width (8-byte row stores), 350 blocks (not a multiple of the CTA's 128),
+#: a stacked batch of three, the 4K luma width.
+K0_SHAPES = {"bx1": (37, 1), "odd_bx": (19, 33), "ragged_cta": (7, 50),
+             "batch": (3, 17, 12), "luma_4k_width": (3, 480)}
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("extremes", [False, True], ids=["laplace", "pm2048_q255"])
+@pytest.mark.parametrize("shape", sorted(K0_SHAPES))
+def test_k0_matches_plain_and_its_earlier_design(cuda_device, shape, extremes, bits12):
+    """K0 bitwise against its plain version and against its earlier design
+    (jdtc_idct_exact_gather, reached only by the benchmarks), one launch,
+    its blocks counted as its units."""
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
+    dims = K0_SHAPES[shape]
+    rng = np.random.default_rng(sum(dims) + 17 * extremes)
+    if extremes:
+        coeffs = rng.integers(-2048, 2049, (*dims, 64))
+        qt = np.full(64, 255)
+    else:
+        coeffs = np.clip(np.rint(rng.laplace(0, 30, (*dims, 64))), -2048, 2047)
+        qt = rng.integers(1, 256, 64)
+    plane = torch.from_numpy(coeffs.astype(np.int16)).to(cuda_device)
+    qt = convert.quant_table_to_device(qt, cuda_device)
+    _build.LAUNCHES.clear()
+    _build.LAUNCH_UNITS.clear()
+    got = tidct.idct_plane(plane, qt, bits12)
+    assert _build.LAUNCHES == {"jdtc_idct_exact": 1}
+    assert _build.LAUNCH_UNITS == {"jdtc_idct_exact": int(np.prod(dims))}
+    rows = int(np.prod(dims[:-1]))
+    want = tidct.blocks_to_plane(tidct.idct_exact(plane.reshape(-1, 64), qt, bits12),
+                                 rows, dims[-1]).reshape(got.shape)
+    earlier = pixel_sweep.k0_gather(plane, qt, bits12)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, earlier)
+
+
 def _random_blocks(seed, shape, lo=-1024, hi=1024):
     """Uniform coefficients with a random zero suffix per block (the JAX
     tests' _random_blocks)."""
@@ -890,6 +930,62 @@ def test_k3c_matches_plain(cuda_device, sampling, transform, quirks, lead):
     cpu = tcolor.planes_to_rgb([p.cpu() for p in planes], h, w, factors, quirks, "nn",
                                exact, raw)
     assert torch.equal(got.cpu(), cpu)
+
+
+#: Output widths around K3's and K3f's run of 16 pixels: one pixel, one
+#: run less one, one run and one, and the 4K width and 8 (a phase that
+#: moves from row to row).
+RAGGED_WIDTHS = [1, 15, 17, 3848]
+
+
+@pytest.mark.parametrize("width", RAGGED_WIDTHS)
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+@pytest.mark.parametrize("sampling,transform", [("gray", "gray")] + _upsample_cases(False)
+                         + _upsample_cases(True))
+def test_colour_kernels_on_ragged_widths(cuda_device, sampling, transform, upsample, width):
+    """K3 (K3c on four planes) and K3f bitwise against their plain versions
+    and their earlier design (a thread a pixel: jdtc_color_pixel,
+    jdtc_fancy_pixel, reached only by the benchmarks) at widths that are not
+    a multiple of the run, both quirks (the gray plane sheared at the image
+    width under REFERENCE), a batch of two; the launch's units are its
+    output pixels."""
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
+    factors = GRAY if sampling == "gray" else UPSAMPLINGS[sampling]
+    exact, raw = TRANSFORMS.get(transform, (True, False))
+    h = 21
+    planes = _saturated_planes(factors, h, width, width, (2,), cuda_device)
+    entry = "jdtc_fancy" if upsample == "fancy" and len(factors) > 1 else "jdtc_color"
+    for quirks in QUIRKS:
+        args = (planes, h, width, factors, quirks, upsample, exact, raw)
+        _build.LAUNCHES.clear()
+        _build.LAUNCH_UNITS.clear()
+        got = tcolor.planes_to_rgb(*args)
+        assert _build.LAUNCHES == {entry: 1}
+        assert _build.LAUNCH_UNITS == {entry: 2 * h * width}
+        want = tcolor._planes_to_rgb_plain(*args)
+        earlier = pixel_sweep.colour_pixel(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, earlier)
+
+
+@pytest.mark.parametrize("name", ["fancy_420_exact", "ycck_exact"])
+def test_launch_units_of_a_fancy_and_a_ycck_request(cuda_device, name):
+    """A fancy request launches K0 x 3 + K3f, a YCCK request K0 x 4 + K3c
+    (jdtc_color on four planes); their units are the coefficient blocks of
+    each plane and the output pixels."""
+    args, kw, route = NEW_PATHS[name]
+    data = make_jpeg(*args)
+    cfg = DecodeConfig(entropy_backend=EntropyBackend.NATIVE, **kw)
+    _build.LAUNCHES.clear()
+    _build.LAUNCH_UNITS.clear()
+    got = jtt.JpegDecoder(cfg, device=cuda_device).decode(data)
+    assert dict(_build.LAUNCHES) == route
+    blocks = sum(p.size // 64 for p in got.planes)
+    colour = "jdtc_fancy" if "fancy" in name else "jdtc_color"
+    assert dict(_build.LAUNCH_UNITS) == {"jdtc_idct_exact": blocks,
+                                         colour: got.frame.height * got.frame.width}
 
 
 def test_k3c_ycck_exact_on_the_full_r_domain(cuda_device):

@@ -7,6 +7,10 @@ FLOAT32: the JAX contract, +-1 LSB (utils/config.py IdctPrecision). The
 port's plain K1 (x @ K after a float32 dequant, as idct_pallas) and the
 JAX package's idct_matmul (x @ diag(qt)K) and idct_pallas sum in other
 orders, so a floor can flip: at most 1e-3 of the pixels may differ, by 1.
+
+The EXACT kernels' two exact rewrites of the chain (csrc/idct_exact.cuh:
+the halvings in float32, the output store in integers) are held here
+against the float64 forms they replace, bitwise, on their edge cases.
 """
 
 import re
@@ -259,3 +263,129 @@ def test_idct_plane_scaled_is_the_plain_version_under_either_contract(k, precisi
         want = tidct.blocks_to_plane(
             tidct.idct_matmul_scaled(stack[i].reshape(-1, 64), qt, k), 4, 5, k)
         assert torch.equal(got[i], want)
+
+
+# ---------------------------------------------------------------------------
+# K0's and K03's exact rewrites (csrc/idct_exact.cuh half, store)
+# ---------------------------------------------------------------------------
+
+
+def _float32_patterns(n, seed):
+    """n random float32 bit patterns (every class: subnormals included), the
+    zeros, the smallest subnormals and normals and the largest finite
+    values, NaNs dropped."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    special = np.array([0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x007FFFFF,
+                        0x807FFFFF, 0x00800000, 0x80800000, 0x00800001, 0x7F7FFFFF,
+                        0xFF7FFFFF, 0x7F800000, 0xFF800000, 0x3F800000, 0x3F800001],
+                       dtype=np.uint32)
+    x = np.concatenate([bits, special]).view(np.float32)
+    return x[~np.isnan(x)]
+
+
+def test_halving_in_float32_is_exact():
+    """The twelve halvings of each pass: float32(0.5 * float64(x)) ==
+    float32(0.5) * x, bitwise, for 4 M float32 patterns, subnormals (whose
+    halves round), both zeros and the largest finite values included."""
+    x = _float32_patterns(4_000_000, 11)
+    with np.errstate(all="ignore"):
+        model = (0.5 * x.astype(np.float64)).astype(np.float32)
+        fast = np.float32(0.5) * x
+    np.testing.assert_array_equal(model.view(np.uint32), fast.view(np.uint32))
+    assert (x.view(np.uint32) & 0x7F800000 == 0).sum() > 1000  # subnormals were drawn
+
+
+def _store_f64(x, bits12):
+    """csrc/idct_exact.cuh store_f64, the earlier form, in NumPy float64:
+    0.25 x + the level shift rounded once, clamped, truncated; 12-bit: the
+    int16 wrap and trunc(v / 4096 * 255)."""
+    d = 0.25 * x.astype(np.float64) + (2048.0 if bits12 else 128.0)
+    d = np.where(np.isnan(d), 0.0, np.clip(d, 0.0, 65535.0 if bits12 else 255.0))
+    v = np.trunc(d).astype(np.int64)
+    if not bits12:
+        return v.astype(np.uint8)
+    v16 = ((v & 0xFFFF) ^ 0x8000) - 0x8000
+    return (np.trunc(v16 / 4096.0 * 255.0).astype(np.int64) & 0xFF).astype(np.uint8)
+
+
+def _store_edges(bits12):
+    """The store's edge cases: the tiny negatives on both sides of the
+    bound where float64 rounds the sum up to the level shift (2^-45, 2^-41
+    for 12-bit) and of the half of it, subnormals, the zeros, every quarter
+    step around the integers the clamps and the level shift meet, the int16
+    wrap of 12-bit, and the largest values."""
+    tiny = 2.0 ** (-41 if bits12 else -45)
+    near = [np.nextafter(np.float32(v), np.float32(t)) for v in (-tiny, -tiny / 2, -tiny * 2)
+            for t in (-1.0, 1.0)]
+    shift = 2048.0 if bits12 else 128.0
+    top = 65535.0 if bits12 else 255.0
+    steps = np.concatenate([np.arange(-4 * shift - 16, -4 * shift + 16, 0.25),
+                            np.arange(-16, 16, 0.25),
+                            np.arange(4 * (top - shift) - 16, 4 * (top - shift) + 16, 0.25),
+                            np.arange(4 * (32767 - shift) - 16, 4 * (32767 - shift) + 16, 0.25)])
+    lsb = [np.nextafter(np.float32(s), np.float32(t)) for s in steps[::3] for t in (-1e9, 1e9)]
+    x = np.concatenate([np.array([-tiny, -tiny / 2, -tiny * 2, tiny, -1e-30, -1e-38, -1e-44,
+                                  0.0, -0.0, 3.4e38, -3.4e38, 1e-45, -1e-45]),
+                        np.array(near, dtype=np.float64), steps,
+                        np.array(lsb, dtype=np.float64)]).astype(np.float32)
+    return np.concatenate([x, _float32_patterns(1_000_000, 13 + bits12)])
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+def test_integer_store_is_the_float64_store(bits12):
+    """The integer store (store_integer, the kernels' `store`) bitwise the
+    float64 form on its edge cases and a million random float32 patterns;
+    and on the normal range, where 0.25 x is exact in float32, the plain
+    version's _quantize_output."""
+    x = _store_edges(bits12)
+    with np.errstate(all="ignore"):
+        np.testing.assert_array_equal(tidct.store_integer(x, bits12), _store_f64(x, bits12))
+    normal = x[np.isfinite(x) & ((np.abs(x) >= 2.0 ** -100) | (x == 0))]
+    plain = tidct._quantize_output(0.25 * torch.from_numpy(normal), bits12).numpy()
+    np.testing.assert_array_equal(tidct.store_integer(normal, bits12), plain)
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+def test_integer_store_needs_its_tiny_negative_case(bits12):
+    """Just below zero and above -2^-45 (-2^-41) the float64 sum rounds up
+    to the level shift, where floor gives one less: the case the store takes
+    apart. Just beyond the bound float64 gives the floor. (In 12-bit the
+    rescale sends 2047 and 2048 to the same byte, 127, so there the case
+    changes no output; the store keeps it so that its level-shifted value is
+    the float64 form's.)"""
+    tiny = 2.0 ** (-41 if bits12 else -45)
+    x = np.array([-1e-30, -tiny, np.nextafter(np.float32(-tiny), np.float32(-1))],
+                 dtype=np.float32)
+    shift = 2048 if bits12 else 128
+    d = np.trunc(0.25 * x.astype(np.float64) + shift)
+    assert d.tolist() == [shift, shift, shift - 1]
+    floor = np.floor(0.25 * x.astype(np.float64)) + shift
+    assert floor.tolist() == [shift - 1] * 3
+    np.testing.assert_array_equal(tidct.store_integer(x, bits12), _store_f64(x, bits12))
+
+
+def test_floor_quarter_reads_the_floor_off_the_bits():
+    """floor_quarter: the float32 1.5 * 2^23 + floor(0.25 y) carries
+    floor(0.25 y) in its bits less 0x4B400000, across the clamped range of
+    both stores (quarter steps and their float32 neighbours)."""
+    y = np.arange(-8200.0, 262144.0, 0.25, dtype=np.float64)
+    f = np.floor(0.25 * y)
+    t = (f + 12582912.0).astype(np.float32)
+    assert np.array_equal(t.astype(np.float64), f + 12582912.0)  # exact in float32
+    np.testing.assert_array_equal(t.view(np.int32).astype(np.int64) - 0x4B400000, f)
+
+
+def test_idct_exact_source_halves_in_float32_and_stores_in_integers():
+    """The kernels' header takes the rewrites: the twelve halvings of a pass
+    go through `half`, K0 instantiates the design's spelling, and the store
+    has no float64 left."""
+    src = (CSRC / "idct_exact.cuh").read_text()
+    idct8 = src[src.index("static __device__ __forceinline__ void idct8"):]
+    idct8 = idct8[:idct8.index("\n}\n")]
+    assert idct8.count("half<kHalveInFloat>(") == 12
+    assert "mul(0.5," not in idct8
+    store = src[src.index("static __device__ __forceinline__ uint8_t store(float x"):]
+    store = store[:store.index("\n}\n")]
+    assert not any(op in store for op in ("double", "__dmul", "__dadd", "__ddiv", "mul(", "add("))
+    assert "constexpr int kArithmetic = 2;" in (CSRC / "idct_exact.cu").read_text()
