@@ -47,8 +47,12 @@ Phases, each of which exits non-zero on failure:
      with L2 flushed beside the earlier design in turns, with both designs'
      F2F conversions a block from their SASS; K1 (FLOAT32 IDCT) within 1 on
      at most 1e-3 of the pixels, at the 4K luma shape, 8- and 12-bit, with
-     the error on extreme inputs reported, timed the card alone on the luma
-     plane and over the request's three planes; K3 (colour) bitwise against
+     the error on extreme inputs reported, and bitwise its earlier design
+     (jdtc_idct_float_column) on those, the extremes and ragged shapes,
+     timed the card alone and with L2 flushed beside the earlier design in
+     turns on the luma plane and over the request's three planes, beside
+     the product alone as one cuBLAS call at both shapes, with both
+     designs' LDS and FFMA from their SASS; K3 (colour) bitwise against
      its plain version and its earlier design (a thread a pixel), per image
      and batched, timed beside it in turns; K03 (the EXACT pixel stage of a 3-component frame in one
      kernel) bitwise against its plain version and against K0 x 3 + K3, on
@@ -80,11 +84,14 @@ Phases, each of which exits non-zero on failure:
      IDCT) at k = 1, 2 and 4 on the 4K request's planes, within 1 on at
      most 1e-3 of the pixels and bitwise at k = 1, timed beside the product
      alone as one torch.matmul; K4 (the encoder's device stage: colour,
-     pad, box subsample, FDCT, quantize) bitwise on every coefficient of
-     both 4K images and the small ones, the six chroma samplings, gray and
-     a 2-D gray image at q = 10, 85 and 100, timed on the 4K photograph at
-     4:2:0 and 4:4:4 beside the product alone as one torch.matmul, with its
-     registers and shared memory; K6n (the nearest-neighbour pixel stage of
+     pad, box subsample, FDCT, quantize) bitwise its plain version and its
+     earlier design (jdtc_fdct_column) on every coefficient of both 4K
+     images and the small ones, the six chroma samplings, gray and a 2-D
+     gray image at q = 10, 85 and 100, timed on the 4K photograph at 4:2:0
+     and 4:4:4 the card alone and with L2 flushed beside the earlier design
+     in turns and beside the product alone as one torch.matmul, with its
+     registers and shared memory and both designs' LDS and FFMA from their
+     SASS; K6n (the nearest-neighbour pixel stage of
      streamed and striped decode: K03, K13 or K0/K1 + K3 launched with the
      stripe rule) bitwise its plain version (the JAX program stripe by
      stripe) on a 16384x2048 chunk of the gigapixel frame (below) and with 8
@@ -99,8 +106,8 @@ Phases, each of which exits non-zero on failure:
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and the work of the IDCT and colour launches
      (_build.LAUNCH_UNITS: coefficient blocks, output pixels), from which
-     the time K0, K1, K3, K3f and K3c lose on them is weighed in 4K units
-     (size_weighted):
+     the time K0, K1, K3, K3f, K3c, K4 and K5 lose on them is weighed in
+     4K units (size_weighted):
      - JpegDecoder(PALLAS) and JpegDecoder(NATIVE), EXACT, answer four 4K
        requests, every RGB and pixel plane bitwise equal to the JAX-free
        EXACT reference (core.oracle over the native planes), one K03
@@ -161,9 +168,9 @@ Phases, each of which exits non-zero on failure:
      host's resident set before and at its peak during the decode).
 The last lines are the kernels' JSON record (twenty kernels: K0-K4, K03,
 K13, K2u, K3f, K3c, K5, K6n, K6f and PK1-PK7, each with its launches on the main
-paths, its time, its plain version's time and its bound; K0, K1, K3, K3f and
-K3c also with the card-alone time, their work in 4K units and the time
-lost), the card's name and power limit, and
+paths, its time, its plain version's time and its bound; K0, K1, K3, K3f,
+K3c, K4 and K5 also with their work in 4K units and the time lost), the
+card's name and power limit, and
 {"ok": true, "device": {...}}. The script imports the port alone, builds
 the CUDA kernels and the native host runtime from the port's own sources,
 and fails if anything loaded JAX or the JAX package jpeg_decoder_tpu.
@@ -562,17 +569,19 @@ def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
 
 
 def size_weighted(kernels: dict) -> None:
-    """The work of K0, K1, K3, K3f and K3c on the main paths in 4K units
-    (UNIT_BLOCKS coefficient blocks or UNIT_PIXELS output pixels: one
+    """The work of K0, K1, K3, K3f, K3c, K4 and K5 on the main paths in 4K
+    units (UNIT_BLOCKS coefficient blocks or UNIT_PIXELS output pixels: one
     3840x2160 4:2:0 request), and the time each lost there: units x (the
     card-alone time of one unit - its bound). K1's unit time is the 4K
-    request's three planes; K3's the 4K 4:2:0 nearest-neighbour one, which
-    also weighs its gray and scaled launches, while its K3c launches count
-    at K3c's times, per transform (the YCCK paths at YCCK EXACT's, the CMYK
-    ones at CMYK's). Striped launches of K3/K3f count under K6n/K6f, not
-    here."""
+    request's three planes; K4's the 4K 4:2:0 photograph's encode, which
+    also weighs its 4:4:4 launch (two units); K5's its time at the path's
+    scale over the request's three planes; K3's the 4K 4:2:0
+    nearest-neighbour one, which also weighs its gray and scaled launches,
+    while its K3c launches count at K3c's times, per transform (the YCCK
+    paths at YCCK EXACT's, the CMYK ones at CMYK's). Striped launches of
+    K3/K3f count under K6n/K6f, not here."""
     units_of = {"jdtc_idct_exact": UNIT_BLOCKS, "jdtc_idct_float": UNIT_BLOCKS,
-                "jdtc_color": UNIT_PIXELS, "jdtc_fancy": UNIT_PIXELS}
+                "jdtc_color": UNIT_PIXELS, "jdtc_fancy": UNIT_PIXELS, "jdtc_fdct": UNIT_BLOCKS}
     for key, per in units_of.items():
         rec = kernels[key]
         by_path = {p: u[key] / per for p, u in PATH_UNITS.items() if key in u}
@@ -591,9 +600,18 @@ def size_weighted(kernels: dict) -> None:
     k3 = kernels["jdtc_color"]
     k3["lost_ms"] = (k3["units_4k"] - k3c["units_4k"]) * (k3["ms"] - k3["bound_ms"]) + k3c[
         "lost_ms"]
+    k5 = kernels["jdtc_idct_scaled"]
+    by_path = {p: u["jdtc_idct_scaled"] / UNIT_BLOCKS for p, u in PATH_UNITS.items()
+               if "jdtc_idct_scaled" in u}
+    k5["units_4k"] = sum(by_path.values())
+    k5["units_4k_by_path"] = by_path
+    k5["lost_ms"] = 0.0
+    for p, n in by_path.items():
+        at_k = k5["by_k"][int(p.rsplit("scale ", 1)[1].split()[0])]
+        k5["lost_ms"] += n * (at_k["ms"] - at_k["bound_ms"])
     log("lost on the main paths, 4K units x (time - bound): " + ", ".join(
         f"{kernels[k]['name']} {kernels[k]['units_4k']:.2f} units, {kernels[k]['lost_ms']:.3f} ms"
-        for k in (*units_of, "K3c")))
+        for k in (*units_of, "K3c", "jdtc_idct_scaled")))
 
 
 def check_k2_photographs(dev, files: dict, tiled: dict, record: dict) -> None:
@@ -797,13 +815,26 @@ def _random_blocks(rng, shape, lo=-1024, hi=1024):
     return np.where(np.arange(64) < cut[..., None], blocks, 0).astype(np.int16)
 
 
+def sass_of(mix: dict, kernels) -> dict:
+    """LDS and FFMA of each kernel in pixel_sweep.sass_mix's counts (the
+    instructions of its code as written)."""
+    return {k: {op: mix.get(k, {}).get(op) for op in ("LDS", "FFMA")} for k in kernels}
+
+
 def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     """K1 against its plain version at the 4K luma shape (270x480 blocks),
-    8- and 12-bit: within 1 on at most K1_SHARE of the pixels. Also the
-    request's own luma plane against EXACT (K0), and the error on extreme
-    inputs, which is reported and not gated. Its time one call and the card
-    alone on the luma plane, and the card alone over the request's three
-    planes (the fancy FLOAT32 route's launches)."""
+    8- and 12-bit: within 1 on at most K1_SHARE of the pixels; and bitwise
+    against its earlier design (jdtc_idct_float_column, reached by no
+    wrapper) on every case here: those, the request's luma plane, the
+    extremes and ragged shapes (one block wide, an odd width, a block count
+    that is not a multiple of the 64-block tile, a stacked batch; 8- and
+    12-bit). Also the request's own luma plane against EXACT (K0), and the
+    error on extreme inputs, which is reported and not gated. Its time on
+    the luma plane and over the request's three planes (the fancy FLOAT32
+    route's launches), the card alone and with L2 flushed, beside the
+    earlier design's in turns (pixel_sweep.k1_turns) and beside the product
+    alone as one cuBLAS call at the same shapes; LDS and FFMA in both
+    designs' SASS."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, convert
     from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
@@ -818,13 +849,18 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     rng = np.random.default_rng(85)
     blocks = torch.from_numpy(_random_blocks(rng, (by, bx))).to(dev)
 
-    def plain(c, q, bits12):
-        return idct.blocks_to_plane(idct.idct_float(c.reshape(-1, 64), q, bits12), by, bx)
+    earlier_err, earlier_cases = 0, 0
+
+    def against_earlier(got, c, q, bits12):
+        nonlocal earlier_err, earlier_cases
+        earlier_err = max(earlier_err, max_abs_err(got, pixel_sweep.k1_column(c, q, bits12)))
+        earlier_cases += 1
 
     err, share = 0, 0.0
     for bits12 in (False, True):
         got = idct.idct_plane(blocks, qt, bits12, f32)
-        want = plain(blocks, qt, bits12)
+        want = pixel_sweep.k1_plain(blocks, qt, bits12)
+        against_earlier(got, blocks, qt, bits12)
         e, sh = max_abs_err(got, want), share_differing(got, want)
         exact = idct.idct_plane(blocks, qt, bits12)
         log(f"K1 idct_float: {'12' if bits12 else '8'}-bit random blocks: against"
@@ -833,10 +869,11 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
         err, share = max(err, e), max(share, sh)
     luma = torch.from_numpy(planes.planes[0]).to(dev)
     got = idct.idct_plane(luma, qt, False, f32)
+    against_earlier(got, luma, qt, False)
     e_exact = max_abs_err(got, idct.idct_plane(luma, qt))
     log(f"K1 idct_float: 4K request luma plane against EXACT (K0): max_abs_err"
         f" {e_exact}, share {share_differing(got, idct.idct_plane(luma, qt)):.3e};"
-        f" against plain max_abs_err {max_abs_err(got, plain(luma, qt, False))}")
+        f" against plain max_abs_err {max_abs_err(got, pixel_sweep.k1_plain(luma, qt, False))}")
     if e_exact > 1:
         fail(f"K1 is more than 1 from EXACT on a 4K request ({e_exact})")
     # extremes, reported: +-2048 x qt 255; 12-bit pixels near the int16 wrap
@@ -850,39 +887,62 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     for label, c, bits12 in (("+-2048 x qt 255, 8-bit", wild, False),
                              ("near the int16 wrap, 12-bit", near, True)):
         got = idct.idct_plane(c, q255, bits12, f32)
+        against_earlier(got, c, q255, bits12)
         log(f"K1 idct_float extremes ({label}): against plain max_abs_err"
-            f" {max_abs_err(got, plain(c, q255, bits12))}, share"
-            f" {share_differing(got, plain(c, q255, bits12)):.3e}; against EXACT"
+            f" {max_abs_err(got, pixel_sweep.k1_plain(c, q255, bits12))}, share"
+            f" {share_differing(got, pixel_sweep.k1_plain(c, q255, bits12)):.3e}; against EXACT"
             f" max_abs_err {max_abs_err(got, idct.idct_plane(c, q255, bits12))} (not gated)")
-    ms = cuda_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 10)
-    card_ms = pixel_sweep.card_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 7)
-    # the fancy FLOAT32 request's launches: K1 on each of its three planes
+    qr = convert.quant_table_to_device(rng.integers(1, 256, 64), dev)
+    for dims in ((37, 1), (19, 33), (7, 50), (3, 17, 12)):
+        c = torch.from_numpy(_random_blocks(rng, dims)).to(dev)
+        for bits12 in (False, True):
+            got = idct.idct_plane(c, qr, bits12, f32)
+            against_earlier(got, c, qr, bits12)
+            want = pixel_sweep.k1_plain(c, qr, bits12)
+            err = max(err, max_abs_err(got, want))
+            share = max(share, share_differing(got, want))
+    log(f"K1 idct_float: max_abs_err {earlier_err} against its earlier design on"
+        f" {earlier_cases} planes (tolerance 0)")
+    if earlier_err:
+        fail(f"K1 differs from its earlier design (max_abs_err {earlier_err})")
+
     frame, _, qts = host.host_decode(big, DecodeConfig())
     request = [(torch.from_numpy(p).to(dev), convert.quant_table_to_device(qts[c.qtid], dev))
                for p, c in zip(planes.planes, frame.components)]
-    request_ms = pixel_sweep.card_ms(
-        lambda: [idct.idct_plane(c, q, False, f32) for c, q in request], 7)
-    plain_ms = cuda_ms(lambda: plain(blocks, qt, False), 3)
+    turns = pixel_sweep.k1_turns([luma], [qt], 7)
+    req_turns = pixel_sweep.k1_turns([c for c, _ in request], [q for _, q in request], 7)
+    ms = cuda_ms(lambda: idct.idct_plane(blocks, qt, False, f32), 10)
+    plain_ms = cuda_ms(lambda: pixel_sweep.k1_plain(blocks, qt, False), 3)
     exact_ms = cuda_ms(lambda: idct.idct_plane(blocks, qt), 10)
-    # the product alone at K1's own shape, [by * bx, 64] x [64, 64], as one
-    # cuBLAS call (TF32 off), the card alone
-    matmul_ms = pixel_sweep.product_ms([blocks], [qt], 7)
-    # Bound: the same bytes as K0; the [64] x [64, 64] product is 4096 FMAs
-    # a block, two float32 operations each. No one PyTorch call computes
-    # dequant, product, floor, level shift, clamp and block scatter.
+    # the product alone at K1's own shapes, [N, 64] x [64, 64], as one
+    # cuBLAS call (TF32 off), the card alone: the luma plane, and the
+    # request's three planes' blocks stacked
+    matmul_ms = pixel_sweep.product_ms([luma], [qt], 7)
+    request_matmul_ms = pixel_sweep.product_ms([c for c, _ in request],
+                                               [q for _, q in request], 7)
+    sass = sass_of(pixel_sweep.sass_mix(), ("idct_float_kernel", "idct_float_column_kernel"))
+    # Bound: int16 coefficients and the table in, uint8 pixels out; the
+    # [64] x [64, 64] product is 4096 FMAs a block, two float32 operations
+    # each. No one PyTorch call computes dequant, product, floor, level
+    # shift, clamp and block scatter.
     n_req = sum(c[..., 0].numel() for c, _ in request)
-    record.update(max_abs_err=err, share_differing=share, ms=ms, plain_ms=plain_ms,
-                  card_ms=card_ms, request_card_ms=request_ms,
-                  request_bound_ms=bound(nbytes_of(*[c for c, _ in request]) + 64 * n_req,
-                                         2 * 4096 * n_req, "float32")["bound_ms"],
-                  library_ms=None, matmul_ms=matmul_ms, shape=f"luma plane {by}x{bx} blocks",
-                  **bound(nbytes_of(blocks, qt) + by * bx * 64, 2 * 4096 * by * bx, "float32"))
-    log(f"K1 idct_float: the card alone {card_ms:.4f} ms, over the 4K request's three planes"
-        f" {request_ms:.4f} ms (bound {record['request_bound_ms']:.4f}) [{card}]")
-    log(f"K1 idct_float: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K0 on the"
-        f" same blocks {exact_ms:.3f} ms, the product alone (torch.matmul"
-        f" [{by * bx}, 64] x [64, 64], TF32 off; the card alone) {matmul_ms:.4f} ms"
-        f" ({record['shape']}); max_abs_err {err}, share differing {share:.3e} (8-bit, 12-bit)")
+    req_bound = bound(nbytes_of(*[c for c, _ in request]) + 64 * n_req, 2 * 4096 * n_req,
+                      "float32")["bound_ms"]
+    record.update(max_abs_err=err, share_differing=share, earlier_max_abs_err=earlier_err,
+                  ms=statistics.median(turns["card_ms"]), ms_one_call=ms, plain_ms=plain_ms,
+                  **turns, request_card_ms=statistics.median(req_turns["card_ms"]),
+                  request_turns=req_turns, request_bound_ms=req_bound, library_ms=None,
+                  matmul_ms=matmul_ms, request_matmul_ms=request_matmul_ms, sass=sass,
+                  shape=f"luma plane {by}x{bx} blocks",
+                  **bound(nbytes_of(luma, qt) + by * bx * 64, 2 * 4096 * by * bx, "float32"))
+    log(f"K1 idct_float (luma plane, {by * bx} blocks): {turns_line(turns)}; the product alone"
+        f" (torch.matmul [{by * bx}, 64] x [64, 64], TF32 off; the card alone) {matmul_ms:.4f}"
+        f" ms; bound {record['bound_ms']:.4f} ms [{card}]")
+    log(f"K1 idct_float (the 4K request's three planes, {n_req} blocks): {turns_line(req_turns)};"
+        f" the product alone {request_matmul_ms:.4f} ms; bound {req_bound:.4f} ms [{card}]")
+    log(f"K1 idct_float: one call {ms:.3f} ms, plain {plain_ms:.3f} ms, K0 on the same blocks"
+        f" {exact_ms:.3f} ms ({record['shape']}); max_abs_err {err}, share differing"
+        f" {share:.3e} (8-bit, 12-bit, ragged shapes); LDS and FFMA in the SASS {sass}")
     if err > 1 or share > K1_SHARE:
         fail(f"K1 disagrees with its plain version (max_abs_err {err}, share"
              f" {share:.3e}; tolerance 1 on at most {K1_SHARE})")
@@ -2398,18 +2458,20 @@ def k4_cases(img) -> dict:
 
 
 def check_k4(dev, images: dict, record: dict, card: str) -> None:
-    """K4 against its plain version on the card, every coefficient bitwise:
-    both 4K images and the two small ones, every sampling and gray, at
-    q = 10, 85 and 100. Then its time on the 4K photograph at 4:2:0 and
-    4:4:4, q85 (the card alone and one call), beside the product alone as
-    one torch.matmul ([N, 64] x [64, 64], TF32 off), and its registers and
-    shared memory."""
+    """K4 against its plain version and against its earlier design
+    (jdtc_fdct_column, reached by no wrapper) on the card, every coefficient
+    bitwise: both 4K images and the two small ones, every sampling and gray,
+    at q = 10, 85 and 100. Then its time on the 4K photograph at 4:2:0 and
+    4:4:4, q85, the card alone and with L2 flushed beside the earlier
+    design's in turns (pixel_sweep.k4_turns), and one call, beside the
+    product alone as one torch.matmul ([N, 64] x [64, 64], TF32 off); its
+    registers and shared memory, and LDS and FFMA in both designs' SASS."""
     import torch
     from jpeg_decoder_tpu_torch.benchmarks import k2u_sweep, pixel_sweep
     from jpeg_decoder_tpu_torch.models import encoder
     from jpeg_decoder_tpu_torch.ops import fdct, idct
 
-    differing, compared, err = 0, 0, 0
+    differing, earlier_differing, compared, err = 0, 0, 0, 0
     for name, img in images.items():
         for case, (factors, x) in k4_cases(img).items():
             src = torch.from_numpy(x).to(dev)
@@ -2418,18 +2480,22 @@ def check_k4(dev, images: dict, record: dict, card: str) -> None:
                                       dev)
                 got = fdct.encode_planes(src, factors, kq)
                 want = fdct._planes_plain(src, factors, kq)
-                for a, b in zip(got, want, strict=True):
+                earlier = pixel_sweep.fdct_column(src, factors, kq)
+                for a, b, c in zip(got, want, earlier, strict=True):
                     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
                     differing += int((d != 0).sum().item())
+                    earlier_differing += int((a != c).sum().item())
                     err = max(err, int(d.max().item()))
                     compared += d.numel()
         log(f"K4 fdct, {name}: {len(k4_cases(img))} samplings x q {K4_QUALITIES} against"
-            f" the plain version on the card")
+            f" the plain version and the earlier design on the card")
     log(f"K4 fdct: {differing} of {compared} coefficients differ from the plain version"
-        f" (max_abs_err {err}; tolerance 0)")
-    record.update(max_abs_err=err, differing=differing, coefficients_compared=compared)
-    if differing:
-        fail(f"K4 differs from its plain version on {differing} coefficients")
+        f" (max_abs_err {err}; tolerance 0), {earlier_differing} from the earlier design")
+    record.update(max_abs_err=err, differing=differing, coefficients_compared=compared,
+                  earlier_differing=earlier_differing)
+    if differing or earlier_differing:
+        fail(f"K4 differs from its plain version on {differing} coefficients, from its"
+             f" earlier design on {earlier_differing}")
 
     photo = torch.from_numpy(images[f"photograph {W}x{H}"]).to(dev)
     for sub in ("420", "444"):
@@ -2439,8 +2505,8 @@ def check_k4(dev, images: dict, record: dict, card: str) -> None:
         blocks = sum(by * bx for by, bx, _, _ in comps)
         out = torch.empty(blocks * 64, dtype=torch.int16, device=dev)
         run = lambda: fdct.encode_planes(photo, factors, kq, out)  # noqa: E731
+        turns = pixel_sweep.k4_turns(photo, factors, kq, 7)
         one = [cuda_ms(run, 10), cuda_ms(run, 10)]
-        alone = [pixel_sweep.card_ms(run, 7), pixel_sweep.card_ms(run, 7)]
         plain_ms = cuda_ms(lambda: fdct._planes_plain(photo, factors, kq), 1)
         x = torch.randn(blocks, 64, device=dev)
         prod = torch.empty_like(x)
@@ -2450,20 +2516,23 @@ def check_k4(dev, images: dict, record: dict, card: str) -> None:
         # read once; the chain is 4096 FMAs a block, two float32 operations
         # each (the colour and box steps' few a sample far below).
         bnd = bound(nbytes_of(photo, out, kq), 2 * 4096 * blocks, "float32")
-        shape = f"{W}x{H} {sub}, {blocks} blocks"
-        log(f"K4 fdct ({shape}): the card alone {alone[0]:.4f} and {alone[1]:.4f} ms, one call"
-            f" {one[0]:.3f} and {one[1]:.3f} ms; the product alone (torch.matmul [{blocks}, 64]"
-            f" x [64, 64], TF32 off; the card alone) {matmul_ms:.4f} ms; plain {plain_ms:.3f} ms;"
-            f" bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+        shape = f"{W}x{H} {sub}, {blocks} blocks, run {fdct.run_mcus(factors)} MCUs"
+        log(f"K4 fdct ({shape}): {turns_line(turns)}; one call {one[0]:.3f} and {one[1]:.3f}"
+            f" ms; the product alone (torch.matmul [{blocks}, 64] x [64, 64], TF32 off; the"
+            f" card alone) {matmul_ms:.4f} ms; plain {plain_ms:.3f} ms; bound"
+            f" {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
         if sub == "420":
-            record.update(ms=statistics.median(alone), plain_ms=plain_ms, library_ms=None,
-                          shape=shape, card_ms=alone, one_call_ms=one, matmul_ms=matmul_ms, **bnd)
+            record.update(ms=statistics.median(turns["card_ms"]), plain_ms=plain_ms,
+                          library_ms=None, shape=shape, **turns, one_call_ms=one,
+                          matmul_ms=matmul_ms, **bnd)
         else:
-            record.update(shape_444=shape, card_ms_444=alone, one_call_ms_444=one,
+            record.update(shape_444=shape, turns_444=turns, one_call_ms_444=one,
                           plain_ms_444=plain_ms, matmul_ms_444=matmul_ms,
                           bound_ms_444=bnd["bound_ms"])
     record["ptxas"] = k2u_sweep.ptxas_report("fdct.cu")
-    log(f"K4 registers and shared memory (nvcc -Xptxas -v): {record['ptxas']}")
+    record["sass"] = sass_of(pixel_sweep.sass_mix(), ("fdct_kernel", "fdct_column_kernel"))
+    log(f"K4 registers and shared memory (nvcc -Xptxas -v): {record['ptxas']}; LDS and FFMA"
+        f" in the SASS {record['sass']}")
 
 
 def k4_planes(dev, img, cfg) -> list:

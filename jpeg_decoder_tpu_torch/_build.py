@@ -69,6 +69,8 @@ SIGNATURES = {
     "jdtc_idct_exact_gather": [_P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_float": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
+    # K1's earlier design, for measurement: the same arguments
+    "jdtc_idct_float_column": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix [64, k*k], n_blocks, blocks_x, k, bits12, out,
     # cuda_stream
     "jdtc_idct_scaled": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
@@ -89,8 +91,10 @@ SIGNATURES = {
     "jdtc_color_pixel": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
     "jdtc_fancy_pixel": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
     # K4 (the encoder's device stage): img, h, w, channels, n_comps, comps
-    # (host int64 [3][7]), kq, consts (host float [5]), cuda_stream
+    # (host int64 [3][9]), kq, consts (host float [5]), cuda_stream
     "jdtc_fdct": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
+    # K4's earlier design, for measurement: the same arguments
+    "jdtc_fdct_column": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     # The probes (csrc/probes.cu), each: its tensors, its sizes, steps, ...,
     # cuda_stream.
     # tab, idx0, out, n_lanes, lane_cols, row_stride, col_stride, idx_stride,
@@ -121,7 +125,7 @@ MAX_IMAGES = 65535
 #: K6f: parallel/stripes.py), so that each record counts its own.
 LAUNCHES: collections.Counter = collections.Counter()
 #: The work of those launches, counted beside them where the wrapper gives
-#: it: coefficient blocks for the IDCT kernels (K0, K1, K5), output pixels
+#: it: coefficient blocks for the IDCT kernels (K0, K1, K5) and K4, output pixels
 #: (all images) for the colour kernels (K3, K3f; K6n and K6f when they
 #: launch K3 or K3f), so that a batch launch weighs what it does.
 LAUNCH_UNITS: collections.Counter = collections.Counter()
@@ -206,19 +210,24 @@ def build(force: bool = False) -> Path:
     return out
 
 
+def load(path) -> ctypes.CDLL:
+    """The kernel library at `path`, its entry points typed (SIGNATURES)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.jdtc_error_string.argtypes = [ctypes.c_int]
+    lib.jdtc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.jdtc_error_string.argtypes = [ctypes.c_int]
-            lib.jdtc_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 

@@ -46,8 +46,11 @@ ROUND_REPS = {1: 7, 2: 7, 3: 7, 4: 5}
 #: Launches between one pair of CUDA events (one sample).
 LAUNCHES_PER_SAMPLE = 8
 #: Clock cycles the card spins before a sample's first event, while the host
-#: queues the sample's launches behind it (about a millisecond).
-PARK_CYCLES = 2_000_000
+#: queues the sample's launches behind it (about ten milliseconds: at one
+#: millisecond a slow host once queued the eight launches of a probe with
+#: its table in global memory after the spin had ended, and the sample
+#: timed the host).
+PARK_CYCLES = 20_000_000
 
 
 def card_line() -> str:

@@ -198,7 +198,8 @@ def ptxas_report(source: str = "unstuff.cu") -> dict:
         if m:
             sym = m.group(1)
             name = next((k for k in ("unstuff_kernel", "sub_base_kernel", "count_kernel",
-                                     "block_scan_kernel", "scatter_kernel", "fdct_kernel")
+                                     "block_scan_kernel", "scatter_kernel", "fdct_kernel",
+                                     "fdct_column_kernel")
                          if k in sym), sym)
             continue
         if name is None:

@@ -3,7 +3,8 @@ at other strip sizes, on one CUDA card.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.pixel_sweep \\
         [--strip 2 4 8 16 32] [--reps 15] [--precision exact float32]
-        [--k13-variants] [--k0] [--colour] [--no-sweep]
+        [--k13-variants] [--k0] [--colour] [--k1] [--k4]
+        [--no-sweep]
 
 G, the MCUs of one strip (one block of threads for K03; one step of a
 block of threads' walk for K13), is an argument of the kernels, so one
@@ -39,6 +40,14 @@ the halvings' and the integer store's shares can each be read. With
 --colour, K3f, K3 and K3c beside their earlier design (a thread a pixel,
 colour_pixel) in the same way on the 4K 4:2:0 planes, eight 4K frames
 stacked, and the 4K 4:4:4 four-component frame under each transform.
+With --k1, K1 (csrc/idct_float.cu) beside its earlier design
+(jdtc_idct_float_column, k1_column) in the same way on the 4K request's
+luma plane and on its three planes, held bitwise against each other first,
+then K1's VARIANTS. With --k4, K4 (csrc/fdct.cu) beside its earlier design
+(jdtc_fdct_column, fdct_column) on a 3840x2160 photograph (photograph_4k)
+at 4:2:0 and 4:4:4, q85, held bitwise against each other first, then K4's
+VARIANTS (run lengths among them).
+Each of --k0, --k1 and --k4 ends with the instruction mix.
 """
 
 from __future__ import annotations
@@ -66,7 +75,8 @@ SASS_OPS = ("F2F", "F2I", "I2F", "I2FP", "FRND", "DMUL", "DADD", "FADD", "FMUL",
             "STS")
 #: The kernels of the instruction mix, by their symbols' names.
 SASS_KERNELS = ("pixel_exact_kernel", "idct_exact_kernel", "idct_exact_gather_kernel",
-                "pixel_float_kernel", "idct_float_kernel")
+                "pixel_float_kernel", "idct_float_kernel", "idct_float_column_kernel",
+                "fdct_kernel", "fdct_column_kernel")
 #: A spin of about 10 ms at the H100's 1.98 GHz: long enough for the host to
 #: queue a sample's calls behind it, K0 x 3 + K3 being 32 launches.
 PARK_CYCLES = 20_000_000
@@ -157,6 +167,116 @@ def k0_gather(coeff_plane, qt, bits12: bool = False):
         _build.launch("jdtc_idct_exact_gather", _build.ptr(coeff_plane), _build.ptr(qt),
                       rows * bx, bx, int(bits12), _build.ptr(out), _build.stream_of(out))
     return out
+
+
+def k1_column(coeff_plane, qt, bits12: bool = False):
+    """K1's earlier design (csrc/idct_float.cu jdtc_idct_float_column: a
+    thread a pixel position of 8 blocks) on a card tensor, as idct_plane
+    launches K1: for measurement, reached by no wrapper."""
+    from .. import _build
+    from ..ops import idct
+
+    *lead, by, bx, _ = coeff_plane.shape
+    rows = int(np.prod(lead, dtype=np.int64)) * by
+    out = torch.empty((*lead, by * 8, bx * 8), dtype=torch.uint8, device=coeff_plane.device)
+    if rows * bx:
+        _build.launch("jdtc_idct_float_column", _build.ptr(coeff_plane), _build.ptr(qt),
+                      _build.ptr(idct.idct_matrix_on(coeff_plane.device)), rows * bx, bx,
+                      int(bits12), _build.ptr(out), _build.stream_of(out))
+    return out
+
+
+def k1_plain(coeff_plane, qt, bits12: bool = False):
+    """K1's plain version on a coefficient plane [..., by, bx, 64]: the pixel
+    plane idct_plane gives on a CPU tensor, on the tensor's device."""
+    from ..ops import idct
+
+    *lead, by, bx, _ = coeff_plane.shape
+    rows = int(np.prod(lead, dtype=np.int64)) * by
+    return idct.blocks_to_plane(idct.idct_float(coeff_plane.reshape(-1, 64), qt, bits12),
+                                rows, bx).reshape(*lead, by * 8, bx * 8)
+
+
+def k1_turns(planes, qts, reps: int) -> dict:
+    """K1 over the planes (one launch a plane) beside its earlier design, in
+    turns (in_turns), after holding the two bitwise against each other;
+    with the blocks."""
+    from .. import IdctPrecision
+    from ..ops import idct
+
+    f32 = IdctPrecision.FLOAT32
+    new = lambda: [idct.idct_plane(c, t, False, f32) for c, t in zip(planes, qts)]  # noqa: E731
+    earlier = lambda: [k1_column(c, t) for c, t in zip(planes, qts)]  # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(new(), earlier())):
+        raise RuntimeError("K1 differs from its earlier design")
+    return dict(in_turns(new, earlier, reps), blocks=sum(c[..., 0].numel() for c in planes))
+
+
+def fdct_column(img, factors, kq, out=None):
+    """K4's earlier design (csrc/fdct.cu jdtc_fdct_column) on a card image,
+    with encode_planes's arguments: for measurement, reached by no
+    wrapper."""
+    import ctypes
+
+    from .. import _build
+    from ..ops import fdct
+
+    h, w = img.shape[:2]
+    _, _, comps = fdct.plane_layout(h, w, factors)
+    sizes = [by * bx * 64 for by, bx, _, _ in comps]
+    if out is None:
+        out = torch.empty(sum(sizes), dtype=torch.int16, device=img.device)
+    views = [v.view(by, bx, 64) for v, (by, bx, _, _) in zip(out.split(sizes), comps)]
+    if sum(sizes):
+        params = fdct.comp_params(views, comps, factors, kq.shape[0])
+        _build.launch("jdtc_fdct_column", _build.ptr(img), h, w, 1 if img.dim() == 2 else 3,
+                      len(factors), params.ctypes.data_as(ctypes.c_void_p), _build.ptr(kq),
+                      fdct.COLOR_CONSTANTS.ctypes.data_as(ctypes.c_void_p),
+                      _build.stream_of(img))
+    return views
+
+
+def k4_turns(img, factors, kq, reps: int) -> dict:
+    """K4 on one image beside its earlier design, in turns (in_turns), after
+    holding the two bitwise against each other; with the blocks."""
+    from ..ops import fdct
+
+    _, _, comps = fdct.plane_layout(img.shape[0], img.shape[1], factors)
+    blocks = sum(by * bx for by, bx, _, _ in comps)
+    out = torch.empty(blocks * 64, dtype=torch.int16, device=img.device)
+    old = torch.empty_like(out)
+    new = lambda: fdct.encode_planes(img, factors, kq, out)  # noqa: E731
+    earlier = lambda: fdct_column(img, factors, kq, old)  # noqa: E731
+    new()
+    earlier()
+    if not torch.equal(out, old):
+        raise RuntimeError("K4 differs from its earlier design")
+    return dict(in_turns(new, earlier, reps), blocks=blocks)
+
+
+def photograph_4k():
+    """A 3840x2160 photograph on the card: the EXACT decode of a corpus
+    photograph tiled to that size (inputs.photo_jpeg), K4's input in
+    chip_smoke.py."""
+    from .. import JpegDecoder
+    from .inputs import PHOTOS_420, photo_jpeg
+
+    rgb = JpegDecoder(device="cuda").decode_rgb(photo_jpeg(PHOTOS_420[0], W, H, RI))
+    return torch.from_numpy(np.ascontiguousarray(rgb)).cuda()
+
+
+def k4_sweep(reps: int) -> list[dict]:
+    """K4 on the 4K photograph at 4:2:0 and 4:4:4, q85, beside its earlier
+    design in turns (k4_turns)."""
+    from ..models import encoder
+    from ..ops import fdct
+    from .gather_probe import card_line
+
+    img = photograph_4k()
+    kq = fdct.fdct_tables(encoder.quality_qtables(85), img.device)
+    return [dict(kernel="K4", case=f"4K photograph {sub}", run=fdct.run_mcus(factors),
+                 card=card_line(), **k4_turns(img, factors, kq, reps))
+            for sub, factors in ((s, encoder._SAMPLING[s]) for s in ("420", "444"))]
 
 
 def colour_pixel(planes, h, w, factors, quirks, upsample="nn", exact=True, raw_cmyk=False,
@@ -308,6 +428,30 @@ def sass_mix() -> dict:
     return out
 
 
+#: K13's product as it was before K1, K13 and K4 shared idct_float.cuh's
+#: `product`: K as four float4 first, then a block's x and dot4 a pixel.
+K13_OWN_LOOP = r"""#pragma unroll
+      for (int j = 0; j < kBlocksPerThread; ++j) {
+#pragma unroll
+        for (int px = 0; px < 4; ++px) acc[j][px] = 0.0f;
+      }
+#pragma unroll 2
+      for (int z = 0; z < 64; z += 4) {
+        float4 k[4];  // K[z + d][4q .. 4q + 3]
+#pragma unroll
+        for (int d = 0; d < 4; ++d) k[d] = *reinterpret_cast<const float4*>(kq + (z + d) * 64);
+#pragma unroll
+        for (int j = 0; j < kBlocksPerThread; ++j) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(xt + (g + j * groups) * kXStride + z);
+          acc[j][0] = jdtc_float::dot4(acc[j][0], x, k[0].x, k[1].x, k[2].x, k[3].x);
+          acc[j][1] = jdtc_float::dot4(acc[j][1], x, k[0].y, k[1].y, k[2].y, k[3].y);
+          acc[j][2] = jdtc_float::dot4(acc[j][2], x, k[0].z, k[1].z, k[2].z, k[3].z);
+          acc[j][3] = jdtc_float::dot4(acc[j][3], x, k[0].w, k[1].w, k[2].w, k[3].w);
+        }
+      }
+"""
+
 #: Variants built from a copy of the package: name -> (the kernel, its
 #: source edits as (file in csrc/, regular expression, replacement, the
 #: count of matches expected), whether the copy must stay bitwise). The
@@ -317,7 +461,11 @@ def sass_mix() -> dict:
 #: colour step and the stores of RGB and the planes), the others are the
 #: choices it did not take (blocks a thread, a floor of threads for the
 #: strip's other steps, K read from device memory through L1 instead of
-#: shared memory).
+#: shared memory) and its product loop before the shared tile; the K1 and
+#: K4 ones their register tiles, thread counts and K4's run length, held
+#: bitwise against the earlier design, and (dropping work) their time
+#: without the product or, for K4, without forming the samples. A bitwise
+#: K13 variant is timed in turns beside the tree's K13 (_worker).
 VARIANTS = {
     "K0, earlier arithmetic": ("K0", [("idct_exact.cu", r"kArithmetic = 2;",
                                        "kArithmetic = 0;", 1)], True),
@@ -327,7 +475,7 @@ VARIANTS = {
                             True),
     "K0, 256 blocks a CTA": ("K0", [("idct_exact.cu", r"kThreads = 128;", "kThreads = 256;",
                                      1)], True),
-    "K13 without the product": ("K13", [("pixel_float.cu", r"z < 64; z \+= 4", "z < 0; z += 4",
+    "K13 without the product": ("K13", [("idct_float.cuh", r"z < 64; z \+= 4", "z < 0; z += 4",
                                          1)], False),
     "K13 without the colour step and the stores": (
         "K13", [("pixel_float.cu",
@@ -339,20 +487,73 @@ VARIANTS = {
                                             "kBlocksPerThread = 8;", 1)], True),
     "K13, 256 threads at least": ("K13", [("pixel_float.cu", r"kMinThreads = 64;",
                                            "kMinThreads = 256;", 1)], True),
+    "K13, its own product loop": ("K13", [
+        ("pixel_float.cu", r"      jdtc_float::product<kBlocksPerThread, 4>\(kq, xt \+ g \* kXStride,"
+                           r" groups \* kXStride, acc\);\n", K13_OWN_LOOP, 1)], True),
     "K13, K through L1": ("K13", [
         ("pixel_float.cu", r"kq = ks \+ 4 \* q;", "kq = p.kmat + 4 * q;", 1),
         ("pixel_float.cu", r"  for \(int k = tid; k < 64 \* 16; k \+= nt\) jdtc_strip::cp_async16"
                            r"\(ks \+ 4 \* k, p.kmat \+ 4 \* k\);\n", "", 1),
         ("pixel_float.cu", r"p.sm_k \+ 64 \* 64 \* 4,", "p.sm_k,", 1)], True),
+    "K1, 256 threads of four blocks": ("K1", [
+        ("idct_float.cu", r"kThreads = 128;", "kThreads = 256;", 1),
+        ("idct_float.cu", r"kBlocksPerThread = 8;", "kBlocksPerThread = 4;", 1)], True),
+    "K1, 256 threads of two blocks": ("K1", [
+        ("idct_float.cu", r"kThreads = 128;", "kThreads = 256;", 1),
+        ("idct_float.cu", r"kBlocksPerThread = 8;", "kBlocksPerThread = 2;", 1)], True),
+    "K1, 8 blocks x 8 pixels": ("K1", [("idct_float.cu", r"kCols = 4;", "kCols = 8;", 1)], True),
+    "K1 without the product": ("K1", [("idct_float.cu", r"    jdtc_float::product<kBlocksPerThread,"
+                                       r" kCols>\(.*?\n.*?acc\);",
+                                       "    for (auto& a : acc) for (auto& v : a) v = q;", 1)],
+                               False),
+    "K4 without the product": ("K4", [
+        ("fdct.cu", r"    jdtc_float::product<kBlocksPerThread, kCols>"
+                    r"\(kq, x, groups \* kXStride, acc\);",
+         "    for (auto& a : acc) for (auto& v : a) v = x[0];", 1)], False),
+    "K4 without the samples": ("K4", [
+        ("fdct.cu", r"    form_samples<S>\(p, r, rgb, tile, tid, nt\);", "", 1)], False),
+    "K4, registers for one block of threads an SM": (
+        "K4", [("fdct.cu", r"kMinBlocksPerSm = 2;", "kMinBlocksPerSm = 1;", 1)], True),
+    "K4, 256 threads": ("K4", [("fdct.cu", r"kMaxThreads = 512;", "kMaxThreads = 256;", 1)],
+                        True),
+    "K4, 4 blocks x 8 coefficients": ("K4", [("fdct.cu", r"kCols = 4;", "kCols = 8;", 1)], True),
+    "K4, 8 blocks x 4 coefficients, 256 threads": ("K4", [
+        ("fdct.cu", r"kBlocksPerThread = 4;", "kBlocksPerThread = 8;", 1),
+        ("fdct.cu", r"kMaxThreads = 512;", "kMaxThreads = 256;", 1)], True),
+    **{f"K4, runs of {n} blocks": ("K4", [("fdct.cu", r"kRunBlocks = 96;",
+                                           f"kRunBlocks = {n};", 1)], True)
+       for n in (48, 72, 120, 144, 192)},
 }
 
 
-def variant_inputs(path: Path, dense) -> None:
+def variant_inputs(path: Path, dense, photo=None) -> None:
     """The variants' inputs into `path`: the dense 4K request with planes
     and eight such requests without, as the native host decoder reads
-    them."""
-    torch.save({"dense 4K request, planes": (*decoded(dense[:1], "cpu"), True),
-                "8 x dense 4K, RGB only": (*decoded(dense, "cpu"), False)}, path)
+    them; K4's, the 4K photograph (photograph_4k), where given; and the
+    path of the tree's own kernel library, which a K13 variant is timed
+    beside."""
+    from .. import _build
+
+    cases = {"dense 4K request, planes": (*decoded(dense[:1], "cpu"), True),
+             "8 x dense 4K, RGB only": (*decoded(dense, "cpu"), False)}
+    torch.save({"cases": cases, "photograph": None if photo is None else photo.cpu(),
+                "library": str(_build.build())}, path)
+
+
+def on_library(lib, fn):
+    """fn with every launch it makes going to kernel library `lib`
+    (_build.load) instead of the process's own."""
+    from .. import _build
+
+    def call():
+        own = _build.library()
+        _build._lib = lib
+        try:
+            return fn()
+        finally:
+            _build._lib = own
+
+    return call
 
 
 def build_variant(name: str, inputs: Path, reps: int) -> list[dict]:
@@ -379,8 +580,11 @@ def build_variant(name: str, inputs: Path, reps: int) -> list[dict]:
 
 def _worker(name: str, inputs: str, reps: int) -> None:
     """In a variant's copy: its kernel held bitwise against K03's plain
-    version or K1 x 3 + K3 (unless the variant drops work), then timed."""
-    from .. import Quirks
+    version, K1 x 3 + K3 or (K1, K4) its earlier design, unless the variant
+    drops work, then timed; a bitwise K13 variant also held bitwise against
+    the tree's K13 and timed in turns beside it (in_turns: `tree_` the
+    tree's)."""
+    from .. import IdctPrecision, Quirks, _build
     from ..ops import idct, pixel
     from .gather_probe import card_line
 
@@ -388,9 +592,38 @@ def _worker(name: str, inputs: str, reps: int) -> None:
     fn, want_fn = ((pixel.pixel_exact, pixel._pixel_exact_plain) if kernel == "K03"
                    else (pixel.pixel_float, k1_k3))
     q = Quirks.REFERENCE
-    for case, (frame, planes, qts, want) in torch.load(inputs, weights_only=False).items():
+    data = torch.load(inputs, weights_only=False)
+    if kernel == "K4":
+        from ..models import encoder
+        from ..ops import fdct
+
+        photo = data["photograph"].cuda()
+        kq = fdct.fdct_tables(encoder.quality_qtables(85), photo.device)
+        for sub in ("420", "444"):
+            factors = encoder._SAMPLING[sub]
+            rec = (k4_turns(photo, factors, kq, reps) if bitwise else in_turns(
+                lambda f=factors: fdct.encode_planes(photo, f, kq),
+                lambda f=factors: fdct_column(photo, f, kq), reps))
+            print(json.dumps(dict(case=f"4K photograph {sub}", variant=name, kernel=kernel,
+                                  bitwise_checked=bitwise, card=card_line(), **rec)),
+                  flush=True)
+        return
+    for case, (frame, planes, qts, want) in data["cases"].items():
         planes = [t.cuda() for t in planes]
         qts = [t.cuda() for t in qts]
+        if kernel == "K1":
+            if case != "dense 4K request, planes":
+                continue
+            for label, cs, ts in (("luma plane", planes[:1], qts[:1]), ("3 planes", planes, qts)):
+                # held bitwise against the earlier design, unless the variant drops work
+                rec = k1_turns(cs, ts, reps) if bitwise else in_turns(
+                    lambda c=cs, t=ts: [idct.idct_plane(a, b, False, IdctPrecision.FLOAT32)
+                                        for a, b in zip(c, t)],
+                    lambda c=cs, t=ts: [k1_column(a, b) for a, b in zip(c, t)], reps)
+                print(json.dumps(dict(case=f"{case}, {label}", variant=name, kernel=kernel,
+                                      bitwise_checked=bitwise, card=card_line(), **rec)),
+                      flush=True)
+            continue
         if kernel == "K0":
             k0 = lambda: [idct.idct_plane(c, t) for c, t in zip(planes, qts)]  # noqa: E731
             if any(not torch.equal(a, k0_plain(c, t)) for a, c, t in zip(k0(), planes, qts)):
@@ -407,9 +640,19 @@ def _worker(name: str, inputs: str, reps: int) -> None:
             if not torch.equal(got[0], ref[0]) or (
                     want and not all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))):
                 raise RuntimeError(f"{case}: the variant {name!r} changed the bytes")
-        ms = card_ms(lambda: fn(planes, qts, frame, q, want), reps)
+        mine = lambda: fn(planes, qts, frame, q, want)  # noqa: E731
+        if kernel == "K13" and bitwise:
+            tree = on_library(_build.load(data["library"]), mine)
+            got, ref = mine(), tree()
+            if not torch.equal(got[0], ref[0]) or (
+                    want and not all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))):
+                raise RuntimeError(f"{case}: the variant {name!r} differs from the tree's K13")
+            turns = in_turns(mine, tree, reps)
+            rec = {k.replace("earlier_", "tree_"): v for k, v in turns.items()}
+        else:
+            rec = dict(ms=card_ms(mine, reps))
         print(json.dumps(dict(case=case, variant=name, kernel=kernel, bitwise_checked=bitwise,
-                              ms=ms, card=card_line())), flush=True)
+                              card=card_line(), **rec)), flush=True)
 
 
 def k0_plain(coeff_plane, qt, bits12: bool = False):
@@ -498,6 +741,10 @@ def main(argv=None) -> None:
                     help="also K0 beside its earlier design, and its arithmetic's variants")
     ap.add_argument("--colour", action="store_true",
                     help="also K3f, K3 and K3c beside their earlier design")
+    ap.add_argument("--k1", action="store_true",
+                    help="also K1 beside its earlier design, and K1's and K13's variants")
+    ap.add_argument("--k4", action="store_true",
+                    help="also K4 beside its earlier design, and K4's variants")
     ap.add_argument("--no-sweep", action="store_true", help="only the variants and --k0/--colour")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
@@ -510,7 +757,9 @@ def main(argv=None) -> None:
 
     dense = [make_jpeg(W, H, F420, RI, seed) for seed in range(8)]
     names = ([n for n, v in VARIANTS.items() if v[0] == "K13"] if ns.k13_variants else []) + (
-        [n for n, v in VARIANTS.items() if v[0] == "K0"] if ns.k0 else [])
+        [n for n, v in VARIANTS.items() if v[0] == "K0"] if ns.k0 else []) + (
+        [n for n, v in VARIANTS.items() if v[0] == "K1"] if ns.k1 else []) + (
+        [n for n, v in VARIANTS.items() if v[0] == "K4"] if ns.k4 else [])
     from .gather_probe import card_line
 
     if ns.k0:
@@ -526,12 +775,23 @@ def main(argv=None) -> None:
         for case, (planes, h, w, factors, up, exact, raw) in colour_cases(dense, cmyk).items():
             print(json.dumps(dict(case=case, card=card_line(), **colour_turns(
                 planes, h, w, factors, ns.reps, up, exact, raw))), flush=True)
-    if ns.k0:
+    if ns.k1:
+        for case, datas in (("4K request, luma plane", dense[:1]),
+                            ("4K request, 3 planes", dense[:1])):
+            _frame, planes, qts = decoded(datas, torch.device("cuda"))
+            if "luma" in case:
+                planes, qts = planes[:1], qts[:1]
+            print(json.dumps(dict(kernel="K1", case=case, card=card_line(),
+                                  **k1_turns(planes, qts, ns.reps))), flush=True)
+    if ns.k4:
+        for rec in k4_sweep(ns.reps):
+            print(json.dumps(rec), flush=True)
+    if ns.k0 or ns.k1 or ns.k4:
         print(json.dumps({"sass": sass_mix()}), flush=True)
     if names:
         with tempfile.TemporaryDirectory() as tmp:
             inputs = Path(tmp) / "inputs.pt"
-            variant_inputs(inputs, dense)
+            variant_inputs(inputs, dense, photograph_4k() if ns.k4 else None)
             for name in names:
                 for rec in build_variant(name, inputs, ns.reps):
                     print(json.dumps(rec), flush=True)

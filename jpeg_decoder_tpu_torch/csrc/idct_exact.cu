@@ -35,10 +35,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "idct_exact.cuh"
 
 namespace {
 
+using jdtc_common::cp_async16;
+using jdtc_common::cp_async_wait_all;
 using jdtc_exact::idct8;
 using jdtc_exact::kInvZigzag;
 using jdtc_exact::kIsqrt2;
@@ -76,11 +79,6 @@ constexpr bool zigzag_holds() {
 }
 static_assert(zigzag_holds(), "zigzag_of disagrees with the zigzag table");
 
-static __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
 template <int kArith>
 static __device__ __forceinline__ uint8_t store_of(float x, int bits12) {
   return kArith >= 2 ? jdtc_exact::store(x, bits12) : jdtc_exact::store_f64(x, bits12);
@@ -113,7 +111,7 @@ static __device__ __forceinline__ void load_tile(const int16_t* __restrict__ coe
     const uint8_t* src = reinterpret_cast<const uint8_t*>(coeffs + b0 * 64);
     for (int k = tid; k < nb * 8; k += kThreads)
       cp_async16(coef + (k >> 3) * kRowBytes + (k & 7) * 16, src + k * 16);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cp_async_wait_all();
   } else {
     for (int k = tid; k < nb * 64; k += kThreads)
       reinterpret_cast<int16_t*>(coef + (k >> 6) * kRowBytes)[k & 63] = coeffs[b0 * 64 + k];

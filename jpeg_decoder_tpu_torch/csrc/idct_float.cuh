@@ -1,6 +1,8 @@
 // The FLOAT32 IDCT's arithmetic, shared by K1 (idct_float.cu) and K13
 // (pixel_float.cu) so that the two cannot drift: the pixels of a block are
-// bitwise the same whichever kernel computes them.
+// bitwise the same whichever kernel computes them. The register tile of
+// the product (`product`) also serves K4 (fdct.cu), whose forward chain
+// has the same shape: fma over a raster index in order, from 0.
 //
 // The contract (ops/idct.idct_float, after idct_pallas): x =
 // float32(coeff_zz) * float32(qt_zz), one float32 product (exact for
@@ -41,6 +43,49 @@ static __device__ __forceinline__ float dot4(float acc, float4 x, float k0, floa
   acc = fmaf(x.y, k1, acc);
   acc = fmaf(x.z, k2, acc);
   return fmaf(x.w, k3, acc);
+}
+
+// The register tile of K1, K13 and K4: kBlocks blocks x kCols columns of
+// the product, acc[j][c] = sum over z of x_j[z] * k[z * 64 + c] for z =
+// 0..63 in order, fmaf from 0 (dot4's order), so a value does not depend on
+// the tile it lies in. k: the matrix's column kCols * q (rows of 64
+// floats); x: the first block's 64 values, block j at x + j * x_step; both
+// in shared memory, 16-byte aligned. Each step of four z loads one float4
+// of x a block, then, z by z, kCols / 4 float4 of k, for 4 kBlocks kCols
+// FMAs: at 4 x 4, 8 loads (LDS.128) for 64 FMAs.
+template <int kBlocks, int kCols>
+static __device__ __forceinline__ void product(const float* k, const float* x, int x_step,
+                                               float (&acc)[kBlocks][kCols]) {
+  static_assert(kCols % 4 == 0, "columns come as float4");
+#pragma unroll
+  for (int j = 0; j < kBlocks; ++j) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[j][c] = 0.0f;
+  }
+#pragma unroll 2
+  for (int z = 0; z < 64; z += 4) {
+    float4 v[kBlocks];  // x_j[z .. z + 3]
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j) v[j] = *reinterpret_cast<const float4*>(x + j * x_step + z);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      float4 kd[kCols / 4];  // k[z + d][0 .. kCols - 1]
+#pragma unroll
+      for (int e = 0; e < kCols / 4; ++e)
+        kd[e] = *reinterpret_cast<const float4*>(k + (z + d) * 64 + 4 * e);
+#pragma unroll
+      for (int j = 0; j < kBlocks; ++j) {
+        const float xv = d == 0 ? v[j].x : (d == 1 ? v[j].y : (d == 2 ? v[j].z : v[j].w));
+#pragma unroll
+        for (int e = 0; e < kCols / 4; ++e) {
+          acc[j][4 * e + 0] = fmaf(xv, kd[e].x, acc[j][4 * e + 0]);
+          acc[j][4 * e + 1] = fmaf(xv, kd[e].y, acc[j][4 * e + 1]);
+          acc[j][4 * e + 2] = fmaf(xv, kd[e].z, acc[j][4 * e + 2]);
+          acc[j][4 * e + 3] = fmaf(xv, kd[e].w, acc[j][4 * e + 3]);
+        }
+      }
+    }
+  }
 }
 
 // The FLOAT32 contract's store (ops/idct._quantize_output_float): float32

@@ -34,8 +34,9 @@
 //    float tile (zigzag order, kXStride floats a block); a thread owns four
 //    pixels of one pixel row (a float4 of K's row) of kBlocksPerThread
 //    blocks, so each 4-step of z loads 4 float4 of K and 4 of x for 64 FMAs:
-//    8 FMAs a shared-memory load where K1 has 2.7. Each pixel keeps K1's
-//    order, z = 0..63 with fmaf from 0. The sixteen threads of a block's
+//    8 FMAs a shared-memory load (the register tile of idct_float.cuh,
+//    `product`, which K1 and K4 share). Each pixel keeps K1's order, z =
+//    0..63 with fmaf from 0. The sixteen threads of a block's
 //    pixels read one row of K, 256 contiguous bytes, a load; a thread's
 //    blocks are g, g + groups, ... (kXStride = 68 puts neighbouring blocks
 //    on other banks). The variants measured on the card (eight pixels a
@@ -54,7 +55,6 @@
 namespace {
 
 using jdtc_float::dequant;
-using jdtc_float::dot4;
 using jdtc_float::kZigzag;
 using jdtc_strip::kCoefStride;
 using jdtc_strip::Params;
@@ -125,26 +125,7 @@ pixel_float_kernel(const Params p, int64_t n_strips, int strips_x) {
       const int g = t >> 4;
       const float* kq = ks + 4 * q;
       float acc[kBlocksPerThread][4];
-#pragma unroll
-      for (int j = 0; j < kBlocksPerThread; ++j) {
-#pragma unroll
-        for (int px = 0; px < 4; ++px) acc[j][px] = 0.0f;
-      }
-#pragma unroll 2
-      for (int z = 0; z < 64; z += 4) {
-        float4 k[4];  // K[z + d][4q .. 4q + 3]
-#pragma unroll
-        for (int d = 0; d < 4; ++d) k[d] = *reinterpret_cast<const float4*>(kq + (z + d) * 64);
-#pragma unroll
-        for (int j = 0; j < kBlocksPerThread; ++j) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(xt + (g + j * groups) * kXStride + z);
-          acc[j][0] = dot4(acc[j][0], x, k[0].x, k[1].x, k[2].x, k[3].x);
-          acc[j][1] = dot4(acc[j][1], x, k[0].y, k[1].y, k[2].y, k[3].y);
-          acc[j][2] = dot4(acc[j][2], x, k[0].z, k[1].z, k[2].z, k[3].z);
-          acc[j][3] = dot4(acc[j][3], x, k[0].w, k[1].w, k[2].w, k[3].w);
-        }
-      }
+      jdtc_float::product<kBlocksPerThread, 4>(kq, xt + g * kXStride, groups * kXStride, acc);
 #pragma unroll
       for (int j = 0; j < kBlocksPerThread; ++j) {
         const int b = g + j * groups;

@@ -44,6 +44,7 @@
 #include <stdint.h>
 
 #include "color.cuh"
+#include "common.cuh"
 
 namespace jdtc_strip {
 
@@ -118,14 +119,8 @@ static __device__ __forceinline__ int tile_row(const Params& p, const Strip& s, 
   return p.sm_tile[c] + y * p.pitch[c] + head;
 }
 
-static __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using jdtc_common::cp_async16;
+using jdtc_common::cp_async_wait_all;
 
 // Window q of a row of n bytes whose first byte lies at `head` = its device
 // address modulo 16: the device bytes [16q, 16q + 16) counted from the

@@ -6,6 +6,9 @@ jpeg_decoder_tpu/models/encoder.py _build_device_stage composes from it).
 `encode_planes` is the wrapper the encoder calls. For a CPU tensor it runs
 the plain composition below; for a CUDA tensor it launches kernel K4
 (csrc/fdct.cu), one launch per image for every component.
+`_planes_runs_plain` is the CPU model of K4's schedule (runs of MCUs, the
+staged rows, the tile and the register tile's stores), held against the
+plain version in tests/test_torch_fdct.py.
 
 The arithmetic is pinned to what the JAX package's jitted functions compute
 on the CPU, where XLA contracts and orders the float32 operations:
@@ -260,6 +263,139 @@ def _planes_plain(img: torch.Tensor, factors, kq: torch.Tensor):
     return out
 
 
+#: The blocks of K4's tile for a full run (csrc/fdct.cu kRunBlocks, which
+#: this mirrors): run_mcus gives a run as many MCUs as fit, a multiple of
+#: four. 96 was the fastest on the card at 4:2:0 and 4:4:4 (the run-length
+#: VARIANTS of benchmarks/pixel_sweep.py --k4; PERF.md).
+RUN_BLOCKS = 96
+#: The samplings K4 takes, each an instance of the kernel (csrc/fdct.cu
+#: `factor`, in this order): the encoder's, and one component.
+K4_SAMPLINGS = (((1, 1), (1, 1), (1, 1)), ((2, 1), (1, 1), (1, 1)),
+                ((2, 2), (1, 1), (1, 1)), ((4, 1), (1, 1), (1, 1)),
+                ((1, 2), (1, 1), (1, 1)), ((2, 2), (2, 1), (1, 2)), ((1, 1),))
+#: Blocks of K4's register tile: a thread forms four coefficients of each.
+K4_BLOCKS_PER_THREAD = 4
+
+
+def run_mcus(factors) -> int:
+    """MCUs of one of K4's runs under sampling `factors`: RUN_BLOCKS over the
+    blocks of an MCU, rounded down to a multiple of four (at least 1)."""
+    run = max(1, RUN_BLOCKS // sum(fh * fv for fh, fv in factors))
+    return run - run % 4 if run >= 4 else run
+
+
+def kernel_takes(factors) -> bool:
+    """Whether K4 takes sampling `factors`: one of K4_SAMPLINGS."""
+    return tuple(tuple(f) for f in factors) in K4_SAMPLINGS
+
+
+def comp_params(views, comps, factors, n_tables: int) -> np.ndarray:
+    """K4's host table, int64 [3, 9]: per component its output address,
+    blocks_y, blocks_x, box_h, box_v, by_rows, table, fh, fv."""
+    params = np.zeros((3, 9), dtype=np.int64)
+    for ci, (v, (by, bx, box_h, box_v), (fh, fv)) in enumerate(zip(views, comps, factors)):
+        params[ci] = (v.data_ptr(), by, bx, box_h, box_v, box_by_rows(box_h, box_v, bx * 8),
+                      min(ci, n_tables - 1), fh, fv)
+    return params
+
+
+def _staged_row(flat: np.ndarray, head: int, first: int, length: int, paths) -> np.ndarray:
+    """One of a run's pixel rows as K4 stages it in shared memory: the
+    16-byte chunks from the boundary at or below byte `first` of the image
+    (`flat`, whose address modulo 16 is `head`) to the row's last byte, a
+    chunk inside the image by cp.async and one that reaches outside it byte
+    by byte (`paths` counts them); unwritten bytes are -1."""
+    a0 = (head + first) & ~15
+    chunks = np.arange(a0, head + first + length, 16)
+    inside = (chunks >= head) & (chunks + 16 <= head + flat.size)
+    paths["async"] += int(inside.sum())
+    paths["bytes"] += int((~inside).sum())
+    at = chunks[:, None] + np.arange(16)[None, :] - head
+    ok = (at >= 0) & (at < flat.size)
+    row = np.where(ok, flat[np.clip(at, 0, flat.size - 1)].astype(np.int64), -1)
+    return row.reshape(-1)
+
+
+def _planes_runs_plain(img: torch.Tensor, factors, kq: torch.Tensor, head: int = 0,
+                       paths=None):
+    """K4's schedule (csrc/fdct.cu fdct_kernel) on the CPU, with
+    encode_planes's arguments: the runs of run_mcus MCUs of each MCU row;
+    each run's pixel rows staged as the kernel stages them (_staged_row;
+    `head` is the image's address modulo 16) and read back at
+    the clamped columns; the colour step once a pixel; each component's
+    samples in its pinned box order into the run's tile (component after
+    component, each padded to a multiple of four blocks); the chain of each
+    tile block; then the register tile's stores, thread (c, g, q) writing
+    coefficients 4q..4q+3 of blocks g + j * G, j < 4. Raises RuntimeError
+    unless every coefficient is written exactly once. `paths`, a Counter,
+    receives the staged chunks each way took. The result of _planes_plain."""
+    h, w = img.shape[:2]
+    run = run_mcus(factors)
+    paths = collections.Counter() if paths is None else paths
+    mcus_x, mcus_y, comps = plane_layout(h, w, factors)
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    ch = 1 if img.dim() == 2 else 3
+    flat = img.reshape(-1).numpy()
+    out = [np.zeros((by, bx, 64), dtype=np.int16) for by, bx, _, _ in comps]
+    written = [np.zeros((by, bx, 64), dtype=np.int64) for by, bx, _, _ in comps]
+    tiles = [[] for _ in factors]  # per component: (run's MCU row, first MCU, samples)
+    for my in range(mcus_y):
+        for mx0 in range(0, mcus_x, run):
+            mcus = min(run, mcus_x - mx0)
+            x0 = mx0 * hmax * 8
+            xlast = min(mcus * hmax * 8, w - x0) - 1
+            lx = np.minimum(np.arange(mcus * hmax * 8), xlast)
+            pix = np.empty((vmax * 8, mcus * hmax * 8, ch), dtype=np.int64)
+            for row in range(vmax * 8):
+                first = (min(my * vmax * 8 + row, h - 1) * w + x0) * ch
+                staged = _staged_row(flat, head, first, (xlast + 1) * ch, paths)
+                at = (head + first) % 16 + lx[:, None] * ch + np.arange(ch)[None, :]
+                pix[row] = staged[at]
+            if (pix < 0).any():
+                raise RuntimeError("K4 read a staged byte it did not copy")
+            pix = torch.from_numpy(pix.astype(np.uint8))
+            if ch == 1:
+                chans = [pix[..., 0].to(F32)]
+            else:
+                chans = list(rgb_to_ycbcr(pix))[: 1 if len(factors) == 1 else 3]
+            for ci, (by, bx, box_h, box_v) in enumerate(comps):
+                fh, fv = factors[ci]
+                sub = box_subsample(chans[ci], box_h, box_v, box_by_rows(box_h, box_v, bx * 8))
+                blocks = plane_to_blocks(sub, fv, mcus * fh)
+                pad = -blocks.shape[0] % 4  # a component's blocks in groups of four
+                tiles[ci].append((my, mx0, mcus, torch.cat(
+                    [blocks, torch.zeros((pad, 64), dtype=F32)])))
+    for ci, (by, bx, _, _) in enumerate(comps):
+        fh, fv = factors[ci]
+        table = kq[min(ci, kq.shape[0] - 1)]
+        x = torch.cat([t[3] for t in tiles[ci]])
+        if by * bx == 1:  # the matrix-vector order
+            zz = _fdct_kq(x[:1], table).to(torch.int16)
+        else:
+            acc = _fdct_chain(x - 128.0, table, range(64))
+            zz = (torch.sign(acc) * torch.floor(acc.abs() + 0.5)).to(torch.int16)
+        zz = zz.numpy()
+        start = 0
+        for my, mx0, mcus, samples in tiles[ci]:
+            cols, n = mcus * fh, mcus * fh * fv
+            groups = -(-n // 4)
+            g, q, j = np.meshgrid(np.arange(groups), np.arange(16),
+                                  np.arange(K4_BLOCKS_PER_THREAD), indexing="ij")
+            blk = g + j * groups
+            live = blk < n
+            blk, q = blk[live], q[live]
+            bby = my * fv + blk // cols
+            bbx = mx0 * fh + blk % cols
+            for d in range(4):
+                out[ci][bby, bbx, 4 * q + d] = zz[start + blk, 4 * q + d]
+                np.add.at(written[ci], (bby, bbx, 4 * q + d), 1)
+            start += samples.shape[0]
+    if any((wr != 1).any() for wr in written):
+        raise RuntimeError("K4's schedule wrote a coefficient other than once")
+    return [torch.from_numpy(o) for o in out]
+
+
 def encode_planes(img: torch.Tensor, factors, kq: torch.Tensor,
                   out: torch.Tensor | None = None) -> list[torch.Tensor]:
     """uint8 [H, W, 3] RGB or [H, W] gray -> int16 [by, bx, 64] zigzag
@@ -269,7 +405,9 @@ def encode_planes(img: torch.Tensor, factors, kq: torch.Tensor,
     the last. The planes are views of `out`, int16 [sum(by * bx * 64)]
     (allocated when None), component after component.
 
-    CPU tensor: the plain version. CUDA tensor: one launch of K4."""
+    CPU tensor: the plain version. CUDA tensor: one launch of K4, its
+    coefficient blocks counted (_build.add_units), runs of run_mcus MCUs;
+    K4 takes the samplings kernel_takes allows and raises on others."""
     h, w = img.shape[:2]
     _, _, comps = plane_layout(h, w, factors)
     sizes = [by * bx * 64 for by, bx, _, _ in comps]
@@ -290,23 +428,22 @@ def encode_planes(img: torch.Tensor, factors, kq: torch.Tensor,
         raise ValueError("encode_planes: image must be contiguous uint8 [H, W] or [H, W, 3]")
     if len(factors) not in (1, 3) or (img.dim() == 2 and len(factors) != 1):
         raise ValueError(f"encode_planes: {len(factors)} components of a {img.dim()}-D image")
+    if not kernel_takes(factors):
+        raise ValueError(f"encode_planes: K4 takes the encoder's samplings (K4_SAMPLINGS),"
+                         f" not {tuple(factors)}")
     if (kq.dtype != F32 or not kq.is_contiguous() or kq.dim() != 3
             or kq.shape[1:] != (64, 64) or kq.device != img.device):
         raise ValueError("encode_planes: kq must be contiguous float32 [n, 64, 64] on the"
                          " image's device")
-    if out.device != img.device:
-        raise ValueError("encode_planes: out must lie on the image's device")
+    if out.device != img.device or out.data_ptr() % 8:
+        raise ValueError("encode_planes: out must lie 8-byte aligned on the image's device")
     if sum(sizes) == 0:
         return views
-    # per component: output address, blocks_y, blocks_x, box_h, box_v,
-    # by_rows, table
-    params = np.zeros((3, 7), dtype=np.int64)
-    for ci, (v, (by, bx, box_h, box_v)) in enumerate(zip(views, comps)):
-        params[ci] = (v.data_ptr(), by, bx, box_h, box_v,
-                      box_by_rows(box_h, box_v, bx * 8), min(ci, kq.shape[0] - 1))
+    params = comp_params(views, comps, factors, kq.shape[0])
     _build.launch(
         "jdtc_fdct", _build.ptr(img), h, w, 1 if img.dim() == 2 else 3, len(factors),
         params.ctypes.data_as(ctypes.c_void_p), _build.ptr(kq),
         COLOR_CONSTANTS.ctypes.data_as(ctypes.c_void_p), _build.stream_of(img),
     )
+    _build.add_units("jdtc_fdct", sum(sizes) // 64)
     return views

@@ -291,6 +291,62 @@ def idct_float(coeffs_zz: torch.Tensor, qtable_natural,
     return _quantize_output_float(y, bits12)
 
 
+#: K1's tile (csrc/idct_float.cu): K1_GROUPS groups of 16 threads, each
+#: thread four pixels of K1_BLOCKS_PER_THREAD blocks.
+K1_GROUPS = 8
+K1_BLOCKS_PER_THREAD = 8
+K1_TILE = K1_GROUPS * K1_BLOCKS_PER_THREAD
+
+
+def idct_float_chain(x: torch.Tensor) -> torch.Tensor:
+    """The FLOAT32 product in K1's and K13's order (csrc/idct_float.cuh):
+    y[p] = fma(x[z], K[z][p], acc) for z = 0..63 in order from 0, each step
+    rounded once (ops/fdct._fma32); float32 [N, 64] dequantised zigzag
+    blocks -> float32 [N, 64] raster pixels before the store."""
+    from .fdct import _fma32
+
+    k = idct_matrix_on(x.device)
+    acc = torch.zeros((x.shape[0], 64), dtype=F32, device=x.device)
+    for z in range(64):
+        acc = _fma32(x[:, z : z + 1], k[z], acc)
+    return acc
+
+
+def _idct_float_tiled_plain(coeff_plane: torch.Tensor, qtable_natural,
+                            bits12: bool = False) -> torch.Tensor:
+    """K1's schedule (csrc/idct_float.cu idct_float_kernel) on the CPU, with
+    idct_plane's arguments: tiles of K1_TILE blocks, each dequantised into a
+    float tile padded with zero blocks; each tile block's pixels by
+    idct_float_chain and the store; then thread (g, q) of a tile stores
+    pixels 4q..4q+3 (row q // 2, columns 4 (q % 2) ..) of its blocks g +
+    K1_GROUPS j as one word. Raises RuntimeError unless every pixel is
+    stored exactly once. The uint8 [..., by*8, bx*8] plane."""
+    *lead, by, bx, _ = coeff_plane.shape
+    n = int(np.prod(lead, dtype=np.int64)) * by * bx
+    tiles = -(-n // K1_TILE)
+    if not isinstance(qtable_natural, torch.Tensor):
+        qtable_natural = torch.from_numpy(np.asarray(qtable_natural, dtype=np.int32))
+    qt_zz = qtable_natural.to(torch.int64)[torch.as_tensor(ZIGZAG, dtype=torch.long)].to(F32)
+    x = torch.zeros((tiles * K1_TILE, 64), dtype=F32)
+    x[:n] = coeff_plane.reshape(-1, 64).to(F32) * qt_zz
+    pix = _quantize_output_float(idct_float_chain(x), bits12).numpy()
+    out = np.zeros((n // bx * 8, bx * 8), dtype=np.uint8)
+    stored = np.zeros(out.shape, dtype=np.int64)
+    t, g, q, j = np.meshgrid(np.arange(tiles), np.arange(K1_GROUPS), np.arange(16),
+                             np.arange(K1_BLOCKS_PER_THREAD), indexing="ij")
+    b = t * K1_TILE + g + K1_GROUPS * j
+    live = b < n
+    b, q = b[live], q[live]
+    rows = (b // bx) * 8 + q // 2
+    for d in range(4):
+        cols = (b % bx) * 8 + 4 * (q % 2) + d
+        out[rows, cols] = pix[b, 4 * q + d]
+        np.add.at(stored, (rows, cols), 1)
+    if (stored != 1).any():
+        raise RuntimeError("K1's schedule stored a pixel other than once")
+    return torch.from_numpy(out).reshape(*lead, by * 8, bx * 8)
+
+
 # ---------------------------------------------------------------------------
 # Scaled decode
 # ---------------------------------------------------------------------------

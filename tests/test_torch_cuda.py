@@ -560,6 +560,43 @@ def test_k1_matches_plain(cuda_device, shape, bits12):
     assert float((d != 0).float().mean()) <= 1e-3
 
 
+#: K1's ragged shapes: (block rows..., blocks_x); one block wide, an odd
+#: width, 350 blocks (not a multiple of the 64-block tile), a stacked batch
+#: of three, the 4K luma plane
+K1_SHAPES = {"bx1": (37, 1), "odd_bx": (19, 33), "ragged_tile": (7, 50),
+             "batch": (3, 17, 12), "luma_4k": (270, 480)}
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("shape", sorted(K1_SHAPES))
+def test_k1_matches_plain_and_its_earlier_design(cuda_device, shape, bits12):
+    """K1 bitwise its earlier design (jdtc_idct_float_column, reached only
+    by the benchmarks; the same per-pixel order), within 1 of its plain
+    version on at most 1e-3 of the pixels; one launch, its blocks counted.
+    The unaligned case: coefficients at an odd address (2-byte loads)."""
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
+    dims = K1_SHAPES[shape]
+    plane = _random_blocks(sum(dims) + bits12, dims).to(cuda_device)
+    qt = convert.quant_table_to_device(
+        np.random.default_rng(sum(dims)).integers(1, 256, 64), cuda_device)
+    unaligned = torch.empty(plane.numel() + 1, dtype=torch.int16, device=cuda_device)
+    unaligned = unaligned[1:].view(plane.shape)
+    unaligned.copy_(plane)
+    _build.LAUNCHES.clear()
+    _build.LAUNCH_UNITS.clear()
+    got = tidct.idct_plane(plane, qt, bits12, IdctPrecision.FLOAT32)
+    assert _build.LAUNCHES == {"jdtc_idct_float": 1}
+    assert _build.LAUNCH_UNITS == {"jdtc_idct_float": int(np.prod(dims))}
+    odd = tidct.idct_plane(unaligned, qt, bits12, IdctPrecision.FLOAT32)
+    earlier = pixel_sweep.k1_column(plane, qt, bits12)
+    want = pixel_sweep.k1_plain(plane, qt, bits12)
+    torch.cuda.synchronize()
+    assert torch.equal(got, earlier) and torch.equal(odd, earlier)
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
+
+
 def _pixel_planes(factors, h, w, seed, lead=()):
     rng = np.random.default_rng(seed)
     mh = max(f[0] for f in factors)
@@ -1220,8 +1257,11 @@ def _encode_image(h, w, seed, gray2d=False):
 @pytest.mark.parametrize("sampling", sorted(K4_SAMPLINGS))
 def test_k4_matches_plain(cuda_device, sampling, size, quality):
     """Every coefficient of every component bitwise the plain version's on
-    the same image, on the card and on the CPU; planes of one block (1x1,
-    8x8, 16x16) take the matrix-vector order."""
+    the same image, on the card and on the CPU, and the earlier design's
+    (jdtc_fdct_column, reached only by the benchmarks); planes of one block
+    (1x1, 8x8, 16x16) take the matrix-vector order."""
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
     factors, _ = K4_SAMPLINGS[sampling]
     img = _encode_image(*size, seed=quality, gray2d=sampling == "gray2d")
     kq = tfdct.fdct_tables(tenc.quality_qtables(quality), cuda_device)
@@ -1229,9 +1269,63 @@ def test_k4_matches_plain(cuda_device, sampling, size, quality):
     got = tfdct.encode_planes(src, factors, kq)
     plain = tfdct._planes_plain(src, factors, kq)
     cpu = tfdct.encode_planes(src.cpu(), factors, kq.cpu())
+    earlier = pixel_sweep.fdct_column(src, factors, kq)
     torch.cuda.synchronize()
-    for a, b, c in zip(got, plain, cpu, strict=True):
-        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    for a, b, c, e in zip(got, plain, cpu, earlier, strict=True):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c) and torch.equal(a, e)
+
+
+@pytest.mark.parametrize("quality", [10, 85, 100])
+def test_k4_4k_matches_plain_and_its_earlier_design(cuda_device, quality):
+    """A 3840x2160 4:2:0 image: 15 runs of 16 MCUs a row; its 194,400
+    blocks bitwise the plain version's and the earlier design's; one
+    launch, its blocks counted."""
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
+    img = torch.from_numpy(_encode_image(2160, 3840, quality)).to(cuda_device)
+    kq = tfdct.fdct_tables(tenc.quality_qtables(quality), cuda_device)
+    _build.LAUNCHES.clear()
+    _build.LAUNCH_UNITS.clear()
+    got = tfdct.encode_planes(img, F420, kq)
+    assert _build.LAUNCHES == {"jdtc_fdct": 1}
+    assert _build.LAUNCH_UNITS == {"jdtc_fdct": 194_400}
+    plain = tfdct._planes_plain(img, F420, kq)
+    earlier = pixel_sweep.fdct_column(img, F420, kq)
+    for a, b, e in zip(got, plain, earlier, strict=True):
+        assert torch.equal(a, b) and torch.equal(a, e)
+
+
+@pytest.mark.parametrize("runs,extra", [(1, -1), (1, 1), (2, 3), (3, 1)])
+def test_k4_ragged_runs(cuda_device, runs, extra):
+    """MCU rows of `runs` full runs and `extra` MCUs (one short of a run;
+    several runs a row, the last ragged, a component's blocks not a
+    multiple of four), the last MCU cut by the image's edge, give the plain
+    version's coefficients."""
+    for factors in (F420, tenc._SAMPLING["mixed"], GRAY):
+        width = (runs * tfdct.run_mcus(factors) + extra) * max(f[0] for f in factors) * 8 - 3
+        img = torch.from_numpy(_encode_image(67, width, runs)).to(cuda_device)
+        kq = tfdct.fdct_tables(tenc.quality_qtables(85)[: 1 if len(factors) == 1 else 2],
+                                cuda_device)
+        got = tfdct.encode_planes(img, factors, kq)
+        for a, b in zip(got, tfdct._planes_plain(img, factors, kq), strict=True):
+            assert torch.equal(a, b)
+
+
+def test_launches_of_an_encode_and_a_fancy_float32_request(cuda_device):
+    """An encode is one K4 launch (its blocks its units); a fancy FLOAT32
+    request K1 x 3 + K3f."""
+    img = _encode_image(48, 64, 5)
+    _build.LAUNCHES.clear()
+    _build.LAUNCH_UNITS.clear()
+    jtt.JpegEncoder(jtt.EncodeConfig(subsampling="420"), device=cuda_device).encode(img)
+    assert dict(_build.LAUNCHES) == {"jdtc_fdct": 1}
+    assert dict(_build.LAUNCH_UNITS) == {"jdtc_fdct": 6 * 8 + 2 * 3 * 4}
+    args, kw, route = NEW_PATHS["fancy_422_float32"]
+    cfg = DecodeConfig(entropy_backend=EntropyBackend.NATIVE, upsample="fancy",
+                       idct_precision=IdctPrecision.FLOAT32)
+    _build.LAUNCHES.clear()
+    jtt.JpegDecoder(cfg, device=cuda_device).decode(make_jpeg(*args))
+    assert dict(_build.LAUNCHES) == {"jdtc_idct_float": 3, "jdtc_fancy": 1} == route
 
 
 @pytest.mark.parametrize("cfg", [
@@ -1259,6 +1353,11 @@ def test_encode_on_cuda_matches_cpu(cuda_device, cfg):
 def test_k4_refuses_what_it_does_not_take(cuda_device):
     kq = tfdct.fdct_tables(tenc.quality_qtables(85), cuda_device)
     img = torch.zeros((16, 16, 3), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="the encoder's samplings"):
+        tfdct.encode_planes(img, ((2, 4), (1, 1), (1, 1)), kq)
+    flat = torch.empty(16 * 16 // 64 * 3 * 64 + 1, dtype=torch.int16, device=cuda_device)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tfdct.encode_planes(img, ((1, 1),) * 3, kq, flat[1:])
     with pytest.raises(ValueError, match="uint8"):
         tfdct.encode_planes(img.float(), F420, kq)
     with pytest.raises(ValueError, match="kq"):

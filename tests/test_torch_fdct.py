@@ -16,6 +16,9 @@ the JAX package's own tests run it. Every comparison is bitwise:
 The port's plain versions are what its kernel K4 is held against on the card
 (tests/test_torch_cuda.py)."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -215,3 +218,108 @@ def test_plane_layout_matches_jax_geometry():
                 assert (by, bx) == (my * fv, mx * fh)
                 assert (box_h * fh, box_v * fv) == (max(f[0] for f in factors),
                                                     max(f[1] for f in factors))
+
+
+# ---------------------------------------------------------------------------
+# K4's schedule (csrc/fdct.cu): the CPU model of its runs, staged rows, tile
+# and register tile, ops/fdct._planes_runs_plain
+# ---------------------------------------------------------------------------
+
+#: 1x1 and 8x8: every plane one block (the matrix-vector order); 16x16: the
+#: chroma planes of 4:2:0 one block; 270x333: runs that do not divide the
+#: MCU row (4:2:0: 21 MCUs in runs of 16)
+MODEL_SIZES = [(1, 1), (8, 8), (16, 16), (33, 47), (270, 333)]
+MODEL_QUALITIES = [10, 85, 100]
+
+
+@pytest.mark.parametrize("size", MODEL_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("sampling", STAGE_SAMPLINGS)
+def test_k4_schedule_model_matches_plain_and_jax(sampling, size):
+    """Every coefficient written once and bitwise the plain version's at q
+    10, 85 and 100, and the JAX stage's on the CPU at one of them (each
+    quality in turn across the cases: one jit a case)."""
+    gray2d = sampling == "gray2d"
+    sub = "gray" if gray2d else sampling
+    img = _image(*size, seed=size[0] * 7 + len(sampling), gray2d=gray2d)
+    factors = ((1, 1),) if sub == "gray" else tenc._SAMPLING[sub]
+    src = torch.from_numpy(img)
+    jax_q = MODEL_QUALITIES[(MODEL_SIZES.index(size) + STAGE_SAMPLINGS.index(sampling)) % 3]
+    for q in MODEL_QUALITIES:
+        qts = jenc.quality_qtables(q)
+        kq = tfdct.fdct_tables(qts[: 1 if sub == "gray" else 2], "cpu")
+        got = tfdct._planes_runs_plain(src, factors, kq)
+        for g, w in zip(got, tfdct._planes_plain(src, factors, kq), strict=True):
+            assert torch.equal(g, w)
+        if q == jax_q:
+            stage, _, _ = jenc._build_device_stage(*size, sub, (qts[0].tobytes(),
+                                                               qts[1].tobytes()), sub == "gray")
+            for g, w in zip(got, stage(jnp.asarray(img)), strict=True):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("runs,extra", [(1, -1), (1, 1), (2, 3), (3, 1)])
+@pytest.mark.parametrize("sampling", ["420", "mixed", "411", "gray2d"])
+def test_k4_schedule_model_ragged_runs(sampling, runs, extra):
+    """MCU rows of `runs` full runs and `extra` MCUs (one short of a run;
+    several runs a row, the last ragged, a component's blocks not a
+    multiple of four), the last MCU cut by the image's edge, give the same
+    coefficients."""
+    gray2d = sampling == "gray2d"
+    factors = ((1, 1),) if gray2d else tenc._SAMPLING[sampling]
+    width = (runs * tfdct.run_mcus(factors) + extra) * max(f[0] for f in factors) * 8 - 3
+    img = torch.from_numpy(_image(41, width, seed=runs, gray2d=gray2d))
+    kq = tfdct.fdct_tables(tenc.quality_qtables(85)[: 1 if gray2d else 2], "cpu")
+    for g, w in zip(tfdct._planes_runs_plain(img, factors, kq),
+                    tfdct._planes_plain(img, factors, kq), strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("head", [0, 1, 9, 15])
+def test_k4_schedule_model_stages_rows_at_any_alignment(head):
+    """Rows staged from the 16-byte boundary below their first byte, at any
+    address of the image: chunks inside the image by cp.async, those that
+    reach outside it (the image's first and last bytes) byte by byte; the
+    coefficients stay the plain version's."""
+    import collections
+
+    img = torch.from_numpy(_image(27, 61, seed=head, gray2d=False))
+    factors = tenc._SAMPLING["422"]
+    kq = tfdct.fdct_tables(tenc.quality_qtables(50), "cpu")
+    paths = collections.Counter()
+    got = tfdct._planes_runs_plain(img, factors, kq, head=head, paths=paths)
+    for g, w in zip(got, tfdct._planes_plain(img, factors, kq), strict=True):
+        assert torch.equal(g, w)
+    assert paths["async"] > 0 and paths["bytes"] > 0
+
+
+def test_k4_schedule_model_checks_its_writes(monkeypatch):
+    """A register tile that misses blocks is refused: with two blocks a
+    thread, g and g + G, half of each run's blocks are never written."""
+    monkeypatch.setattr(tfdct, "K4_BLOCKS_PER_THREAD", 2)
+    img = torch.from_numpy(_image(32, 48, seed=2, gray2d=False))
+    kq = tfdct.fdct_tables(tenc.quality_qtables(85), "cpu")
+    with pytest.raises(RuntimeError, match="other than once"):
+        tfdct._planes_runs_plain(img, tenc._SAMPLING["420"], kq)
+
+
+def test_k4_run_and_guard():
+    """run_mcus: RUN_BLOCKS (96, csrc/fdct.cu's kRunBlocks) blocks a run at
+    most, a multiple of four MCUs; the kernel's instances are the
+    encoder's samplings and one component, in csrc/fdct.cu's order, and it
+    refuses any other."""
+    assert tfdct.K4_SAMPLINGS == (*tenc._SAMPLING.values(), ((1, 1),))
+    source = (Path(tfdct.__file__).parents[1] / "csrc" / "fdct.cu").read_text()
+    assert f"constexpr int kRunBlocks = {tfdct.RUN_BLOCKS};" in source
+    table = re.search(r"constexpr int f\[kSamplings\]\[kMaxComps\]\[2\] = \{(.*?)\n  \};",
+                      source, re.S)
+    rows = [tuple((int(a), int(b)) for a, b in re.findall(r"\{(\d), (\d)\}", line))
+            for line in table.group(1).splitlines() if line.strip()]
+    assert [tuple(f for f in r if f != (0, 0)) for r in rows] == list(tfdct.K4_SAMPLINGS)
+    for factors in tfdct.K4_SAMPLINGS:
+        run = tfdct.run_mcus(factors)
+        per = sum(fh * fv for fh, fv in factors)
+        assert run % 4 == 0 and run * per <= tfdct.RUN_BLOCKS < (run + 4) * per
+        assert tfdct.kernel_takes(factors)
+    assert not tfdct.kernel_takes(((2, 4), (1, 1), (1, 1)))
+    assert not tfdct.kernel_takes(((1, 1), (1, 1)))
+

@@ -389,3 +389,71 @@ def test_idct_exact_source_halves_in_float32_and_stores_in_integers():
     store = store[:store.index("\n}\n")]
     assert not any(op in store for op in ("double", "__dmul", "__dadd", "__ddiv", "mul(", "add("))
     assert "constexpr int kArithmetic = 2;" in (CSRC / "idct_exact.cu").read_text()
+
+
+# ---------------------------------------------------------------------------
+# K1's schedule (csrc/idct_float.cu): the CPU model of its tiles and register
+# tile, ops/idct._idct_float_tiled_plain
+# ---------------------------------------------------------------------------
+
+#: K1's ragged shapes: (block rows..., blocks_x); one block wide, an odd
+#: width, 350 blocks (not a multiple of the 64-block tile), a stacked batch
+K1_SHAPES = {"bx1": (37, 1), "odd_bx": (19, 33), "ragged_tile": (7, 50),
+             "batch": (3, 17, 12)}
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("shape", sorted(K1_SHAPES))
+def test_k1_schedule_model_is_the_chain(shape, bits12):
+    """Every pixel stored once, bitwise the chain in its order (fmaf, z =
+    0..63 from 0, then the store) on the plane's blocks in raster order;
+    within 1 on at most 1e-3 of the pixels of the plain K1 and of the JAX
+    package's FLOAT32 IDCT (idct_pallas in interpret mode, 8-bit only;
+    idct_matmul for 12-bit)."""
+    dims = K1_SHAPES[shape]
+    rng = np.random.default_rng(sum(dims) + bits12)
+    n = int(np.prod(dims))
+    coeffs = _random_blocks(sum(dims), n).reshape(*dims, 64)
+    qt = rng.integers(1, 256, 64).astype(np.int32)
+    qt[:4] = (1, 255, 255, 1)
+    plane = torch.from_numpy(coeffs)
+    got = tidct._idct_float_tiled_plain(plane, qt, bits12)
+    x = plane.reshape(-1, 64).to(torch.float32) * torch.from_numpy(qt[ZIGZAG].astype(np.float32))
+    pix = tidct._quantize_output_float(tidct.idct_float_chain(x), bits12)
+    rows = n // dims[-1]
+    chain = tidct.blocks_to_plane(pix, rows, dims[-1]).reshape(got.shape)
+    assert torch.equal(got, chain)
+    blocks = got.reshape(rows, 8, dims[-1], 8).permute(0, 2, 1, 3).reshape(-1, 64).numpy()
+    _assert_float32_close(blocks, tidct.idct_float(plane.reshape(-1, 64), qt, bits12).numpy())
+    flat = jnp.asarray(coeffs.reshape(-1, 64).astype(np.int32))
+    want = (jidct.idct_matmul(flat, qt, bits12) if bits12
+            else pallas_kernels.idct_pallas(flat, qt, interpret=True))
+    _assert_float32_close(blocks, want)
+
+
+def test_k1_schedule_model_checks_its_stores():
+    """A tile mapping that stores a pixel twice (or not at all) is refused."""
+    plane = torch.from_numpy(_random_blocks(4, 70).reshape(7, 10, 64))
+    qt = standard_luminance_qtable()
+    orig = tidct.K1_GROUPS
+    tidct.K1_GROUPS = 4  # blocks g + 4 j of a 64-block tile: half are missed
+    try:
+        with pytest.raises(RuntimeError, match="other than once"):
+            tidct._idct_float_tiled_plain(plane, qt)
+    finally:
+        tidct.K1_GROUPS = orig
+
+
+def test_idct_float_chain_order_matters():
+    """The chain's order has teeth: summed in reverse, some pixels of these
+    float-valued blocks differ after the store."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.random((4096, 64)) * 2000 - 1000).astype(np.float32))
+    fwd = tidct._quantize_output_float(tidct.idct_float_chain(x), False)
+    from jpeg_decoder_tpu_torch.ops.fdct import _fma32
+
+    k = tidct.idct_matrix_on(torch.device("cpu"))
+    acc = torch.zeros((4096, 64), dtype=torch.float32)
+    for z in range(63, -1, -1):
+        acc = _fma32(x[:, z : z + 1], k[z], acc)
+    assert (tidct._quantize_output_float(acc, False) != fwd).sum() > 0

@@ -28,6 +28,7 @@ from jpeg_decoder_tpu.models import decoder as jdecoder
 from jpeg_decoder_tpu.utils.config import IdctPrecision as JaxIdctPrecision
 from jpeg_decoder_tpu.utils.config import Quirks as JaxQuirks
 from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, Quirks, _build
+from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
 from jpeg_decoder_tpu_torch.core import types as ttypes
 from jpeg_decoder_tpu_torch.io.markers import Encoding
 from jpeg_decoder_tpu_torch.models import decoder as tdecoder
@@ -458,3 +459,15 @@ def test_kernels_share_their_arithmetic_through_headers(name, headers):
     for header in headers:
         assert f'#include "{header}"' in text
     assert '#include "color.cuh"' in (_build.SRC_DIR / "strip.cuh").read_text()
+
+
+@pytest.mark.parametrize("name", sorted(pixel_sweep.VARIANTS))
+def test_sweep_variants_edit_the_sources(name):
+    """Each of pixel_sweep's VARIANTS finds every source text it edits, as
+    often as it expects, so that a copy it builds differs from the tree
+    where it says it does."""
+    _kernel, edits, _bitwise = pixel_sweep.VARIANTS[name]
+    for file, pattern, replacement, count in edits:
+        text = (_build.SRC_DIR / file).read_text()
+        edited, n = re.subn(pattern, replacement, text, flags=re.M)
+        assert n == count and edited != text, (file, pattern)
