@@ -81,9 +81,13 @@ Phases, each of which exits non-zero on failure:
      YCCK EXACT, on a 4096x4096 frame that walks R's whole (y, cr, k) domain
      against the float64 chain in NumPy, timed beside its earlier design
      under each transform; K5 (the scaled
-     IDCT) at k = 1, 2 and 4 on the 4K request's planes, within 1 on at
-     most 1e-3 of the pixels and bitwise at k = 1, timed beside the product
-     alone as one torch.matmul; K4 (the encoder's device stage: colour,
+     IDCT, one launch for all components) at k = 1, 2 and 4 on the 4K
+     request's planes, within 1 on at most 1e-3 of the pixels and bitwise
+     at k = 1, bitwise its earlier design (a launch a plane) on them and,
+     12-bit, on random planes of their shapes, timed the card alone and
+     with L2 flushed beside its earlier design in turns, beside the launch
+     floor (an empty kernel at both designs' grids) and the product alone
+     as one torch.matmul; K4 (the encoder's device stage: colour,
      pad, box subsample, FDCT, quantize) bitwise its plain version and its
      earlier design (jdtc_fdct_column) on every coefficient of both 4K
      images and the small ones, the six chroma samplings, gray and a 2-D
@@ -131,7 +135,7 @@ Phases, each of which exits non-zero on failure:
        use_device=False pixel path) and FLOAT32 (K1 x 3 + K3f), the 4K
        4-component frame as YCCK (REFERENCE) and CMYK (CORRECT) (K0 x 4 +
        K3c, bitwise the host reference), 4K requests at scale 1, 2 and 4
-       (K5 x 3 + K3, against the plain version on CPU tensors), and
+       (K5 once + K3, against the plain version on CPU tensors), and
        BatchDecoder.decode_batch of the eight 4K requests with fancy
        upsampling (K0 x 3 + K3f once, bitwise the host reference and the
        single-image decodes);
@@ -145,6 +149,20 @@ Phases, each of which exits non-zero on failure:
        giving K4's planes; encode_stream of four 4K images against four
        encode calls; the photograph's bytes through JpegDecoder(PALLAS,
        EXACT), bitwise the reference, with K4's planes;
+     - checkpoint/resume (core/checkpoint.ScanDecoder) on the card: a
+       320x240 progressive stream of the port's encoder decoded scan by
+       scan, checkpointed after half its scans to a file, resumed by a new
+       ScanDecoder and finished on the card (K03), bitwise the CPU finish
+       and JpegDecoder's RGB; the dense 4K request's native host planes as
+       a finished checkpoint, restored and finished at full size, EXACT
+       (K03, bitwise the reference) and FLOAT32 (K13, bitwise
+       JpegDecoder's FLOAT32 decode on the card);
+     - the CLI, python -m jpeg_decoder_tpu_torch.cli in processes of its
+       own on the card (not counted in this process's launches): decode of
+       the 4K request to .npy and .ppm, --scale 1/2, --streamed,
+       decode-batch --format npy of four 4K requests, encode of the 4K
+       photograph from .npy and the decode of its bytes, info --json and
+       bench, each output bitwise the library call on the card;
      - streamed and striped decode of a 16384x32768 4:2:0 frame of the first
        photograph's blocks with a marker per MCU row
        (benchmarks/inputs.gigapixel_jpeg, 0.537 GP): decode_streamed
@@ -184,6 +202,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -1518,11 +1537,16 @@ def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
 
 
 def check_k5(dev, big: bytes, record: dict, card: str) -> None:
-    """K5 against its plain version (idct_matmul_scaled and blocks_to_plane,
-    torch ops on the card) on the 4K request's three coefficient planes at
-    k = 1, 2 and 4: within 1 on at most K1_SHARE of the pixels, bitwise at
-    k = 1. Its time the card alone (three launches, one a plane) beside the
-    product alone as one library call (torch.matmul of the float32
+    """K5 (one launch for all components) against its plain version
+    (idct_matmul_scaled and blocks_to_plane, torch ops on the card) on the
+    4K request's three coefficient planes at k = 1, 2 and 4: within 1 on at
+    most K1_SHARE of the pixels, bitwise at k = 1; bitwise its earlier
+    design (PR 8's, a launch a plane: pixel_sweep.k5_percomp, also with its
+    loads first) on those planes and, 12-bit, on random planes of their
+    shapes. Its time the card alone and with L2 flushed beside the earlier
+    design in turns (pixel_sweep.k5_turns, with the launch floor: an empty
+    kernel at the earlier design's three grids and at the one grid), beside
+    the product alone as one library call (torch.matmul of the float32
     coefficients by the folded [64, k*k] matrix, TF32 off, three calls)."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
@@ -1534,7 +1558,11 @@ def check_k5(dev, big: bytes, record: dict, card: str) -> None:
     frame, planes, qts = host.host_decode(big, DecodeConfig())
     coeffs = [torch.from_numpy(p).to(dev) for p in planes.planes]
     tables = [convert.quant_table_to_device(qts[c.qtid], dev) for c in frame.components]
+    host_tables = [np.asarray(qts[c.qtid]) for c in frame.components]
     zz = torch.as_tensor(ZIGZAG, dtype=torch.long, device=dev)
+    rng = np.random.default_rng(12)
+    coeffs12 = [torch.from_numpy(rng.integers(-2048, 2048, c.shape, dtype=np.int16)).to(dev)
+                for c in coeffs]
 
     def plain(c, q, k):
         by, bx, _ = c.shape
@@ -1543,16 +1571,23 @@ def check_k5(dev, big: bytes, record: dict, card: str) -> None:
     err, share, by_k = 0, 0.0, {}
     blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
     for k in (1, 2, 4):
+        got = idct.idct_planes_scaled(coeffs, host_tables, k)
         e, sh = 0, 0.0
-        for c, q in zip(coeffs, tables):
-            got, want = idct.idct_plane(c, q, False, scale=k), plain(c, q, k)
-            e, sh = max(e, max_abs_err(got, want)), max(sh, share_differing(got, want))
+        for g, c, q in zip(got, coeffs, tables):
+            want = plain(c, q, k)
+            e, sh = max(e, max_abs_err(g, want)), max(sh, share_differing(g, want))
         if k == 1 and e != 0:
             fail(f"K5 at k = 1 differs from its plain version (max_abs_err {e}; tolerance 0)")
         err, share = max(err, e), max(share, sh)
-        run = lambda: [idct.idct_plane(c, q, False, scale=k)  # noqa: E731
-                       for c, q in zip(coeffs, tables)]
-        ms = pixel_sweep.card_ms(run, 7)
+        for label, cs, bits12 in (("8-bit", coeffs, False), ("12-bit", coeffs12, True)):
+            new = idct.idct_planes_scaled(cs, host_tables, k, bits12)
+            for loads_first in (False, True):
+                old = pixel_sweep.k5_percomp(cs, tables, k, bits12, loads_first)
+                if not all(torch.equal(a, b) for a, b in zip(new, old)):
+                    fail(f"K5 at k = {k}, {label}, differs from its earlier design"
+                         f" (loads first: {loads_first}; tolerance 0)")
+        turns = pixel_sweep.k5_turns(coeffs, tables, k, 7)
+        ms = statistics.median(turns["card_ms"])
         xs = [c.reshape(-1, 64).to(torch.float32) for c in coeffs]
         ms_ = [idct.idct_matrix_scaled_on(dev, k) * q[zz].to(torch.float32)[:, None]
                for q in tables]
@@ -1571,13 +1606,19 @@ def check_k5(dev, big: bytes, record: dict, card: str) -> None:
         bnd = bound(read * blocks + nbytes_of(*tables) + 64 * k * k * 4 + blocks * k * k,
                     2 * k ** 4 * blocks, "float32")
         by_k[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=product, max_abs_err=e,
-                       share_differing=sh, band_bytes_read=read, **bnd)
-        log(f"K5 idct_scaled, k = {k} (the 4K request's three planes, {blocks} blocks): the"
-            f" card alone {ms:.4f} ms, the product alone (torch.matmul, TF32 off)"
+                       share_differing=sh, band_bytes_read=read, turns=turns, **bnd)
+        log(f"K5 idct_scaled, k = {k} (the 4K request's three planes, {blocks} blocks, one"
+            f" launch of {turns['ctas']} blocks of threads): {turns_line(turns)}; its earlier"
+            f" design with its loads first {turns['loads_first_ms']:.4f} ms; the launch floor"
+            f" (an empty kernel) at the earlier design's grids {turns['earlier_ctas']}"
+            f" {turns['empty_earlier_grids_ms']:.4f} ms, at the one grid"
+            f" {turns['empty_one_grid_ms']:.4f} ms; the product alone (torch.matmul, TF32 off)"
             f" {product:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
             f" {bnd['bound_by']} ({read} B read a block, the band of {band} coefficients in"
-            f" 32-byte sectors; {ms / bnd['bound_ms']:.1f}x the bound); against plain"
-            f" max_abs_err {e}, share differing {sh:.3e} [{card}]")
+            f" 32-byte sectors; {ms / bnd['bound_ms']:.1f}x the bound, half of it"
+            f" {'reached' if ms <= 2 * bnd['bound_ms'] else 'missed'}); against plain"
+            f" max_abs_err {e}, share differing {sh:.3e}; bitwise its earlier design, 8- and"
+            f" 12-bit [{card}]")
     record.update(max_abs_err=err, share_differing=share, by_k=by_k,
                   shape=f"the {W}x{H} 4:2:0 request's three planes at k = 4 (by_k: 1, 2, 4)",
                   **{key: by_k[4][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2157,7 +2198,7 @@ def new_paths(dev, requests, batch, cmyk: bytes, card: str) -> dict:
     - the 4K 4-component frame under REFERENCE (YCCK) and CORRECT (its
       APP14 transform 0: CMYK) quirks (K0 x 4 + K3c), bitwise the host
       reference;
-    - 4K requests at scale 1, 2 and 4 (K5 x 3 + K3): against the plain
+    - 4K requests at scale 1, 2 and 4 (K5 once + K3): against the plain
       version on CPU tensors (NATIVE entropy), planes by K1's rule and
       bitwise at scale 1, RGB within 3 and bitwise the colour stage of the
       returned planes;
@@ -2197,7 +2238,7 @@ def new_paths(dev, requests, batch, cmyk: bytes, card: str) -> dict:
             f"JpegDecoder {b} cmyk exact": (cmyk, DecodeConfig(quirks=Quirks.CORRECT),
                                             {"jdtc_idct_exact": 4, "jdtc_color": 1}),
             **{f"JpegDecoder {b} scale {k}": (requests[0], DecodeConfig(scale=k),
-                                              {"jdtc_idct_scaled": 3, "jdtc_color": 1})
+                                              {"jdtc_idct_scaled": 1, "jdtc_color": 1})
                for k in (1, 2, 4)},
         }
         for name, (data, cfg, route) in requests_of.items():
@@ -2269,6 +2310,236 @@ def new_paths(dev, requests, batch, cmyk: bytes, card: str) -> dict:
 REFERENCE_OF: dict = {}
 
 
+def scratch_dir():
+    """A fresh directory under the ignored build directory for this run's
+    files (checkpoints, the CLI's inputs and outputs); the caller removes
+    it."""
+    import shutil
+
+    from jpeg_decoder_tpu_torch import _build
+
+    d = _build.BUILD_DIR / "smoke_files"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+#: The progressive stream of the checkpoint phase: a random image of this
+#: size, encoded progressive by the port's encoder (its CPU path), decoded
+#: scan by scan (the Python scan loop: a 4K stream would take minutes)
+CHECKPOINT_SHAPE = (240, 320)
+
+
+def checkpoint_path(dev, big: bytes, card: str) -> dict:
+    """ScanDecoder (core/checkpoint.py) on the card:
+    - a progressive stream decoded scan by scan, checkpointed after half its
+      scans, resumed by a new ScanDecoder over a fresh parse and finished on
+      the card: bitwise the port's CPU finish of the same checkpoint and
+      JpegDecoder's decode on the card (K03 once);
+    - the 4K dense request's planes from the native host decode, written as
+      a finished checkpoint, restored and finished on the card at full
+      size: EXACT through K03, bitwise the JAX-free reference; FLOAT32
+      through K13, bitwise JpegDecoder(FLOAT32) on the card and within 1 of
+      the CPU finish on at most K1_SHARE of the pixels.
+    Returns path -> launch counts; prints the steps' host-clock times."""
+    import shutil
+
+    import torch
+    from jpeg_decoder_tpu_torch import (
+        DecodeConfig,
+        EncodeConfig,
+        IdctPrecision,
+        JpegDecoder,
+        Quirks,
+    )
+    from jpeg_decoder_tpu_torch import encode as port_encode
+    from jpeg_decoder_tpu_torch.core import checkpoint
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.models import host
+
+    runs = {}
+    tmp = scratch_dir()
+    try:
+        rng = np.random.default_rng(ENCODE_SEED + 1)
+        img = rng.integers(0, 256, (*CHECKPOINT_SHAPE, 3), dtype=np.uint8)
+        data = port_encode(img, EncodeConfig(progressive=True), device="cpu")
+        cfg = DecodeConfig()
+        ck = tmp / "progressive.npz"
+        t0 = time.perf_counter()
+        d = checkpoint.ScanDecoder(parse(data), cfg, device=dev)
+        half = d.total_scans // 2
+        while d.scans_done < half:
+            d.step()
+        d.checkpoint(ck)
+        first_s = time.perf_counter() - t0
+
+        def resume(device):
+            r = checkpoint.ScanDecoder.restore(ck, parse(data), cfg, device=device)
+            while not r.finished:
+                r.step()
+            return r
+
+        t0 = time.perf_counter()
+        r = resume(dev)
+        steps_s = time.perf_counter() - t0
+        name = "ScanDecoder progressive exact"
+        t0 = time.perf_counter()
+        got, runs[name] = run_path(f"main path {name}", r.finish)
+        finish_ms = (time.perf_counter() - t0) * 1e3
+        if runs[name] != {"jdtc_pixel_exact": 1}:
+            fail(f"{name}: finish launched {runs[name]}, expected K03 once")
+        cpu = resume("cpu").finish()
+        one = JpegDecoder(cfg, device=dev).decode(data)
+        if not (np.array_equal(got.rgb, cpu.rgb) and np.array_equal(got.rgb, one.rgb)
+                and all(np.array_equal(a, b) for a, b in zip(got.planes, cpu.planes))):
+            fail(f"{name}: finish on the card differs from the CPU finish or JpegDecoder's")
+        log(f"main path {name}: {CHECKPOINT_SHAPE[1]}x{CHECKPOINT_SHAPE[0]} 4:2:0, {d.total_scans}"
+            f" scans, checkpointed after {half} and resumed; RGB and planes bitwise the CPU"
+            f" finish and JpegDecoder's RGB; scans before the checkpoint and the file"
+            f" {first_s:.2f} s, restore and the remaining scans {steps_s:.2f} s (the Python"
+            f" scan loop), finish on the card {finish_ms:.3f} ms (host clock) [{card}]")
+
+        frame, planes, qts = host.host_decode(big, DecodeConfig())
+        structure = parse(big)
+        ck = tmp / "request_4k.npz"
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(ck, frame, planes, len(structure.scans), qts)
+        save_s = time.perf_counter() - t0
+        _, pix, rgb = reference(big, Quirks.REFERENCE)
+        for precision, entry in ((IdctPrecision.EXACT, "jdtc_pixel_exact"),
+                                 (IdctPrecision.FLOAT32, "jdtc_pixel_float")):
+            c = DecodeConfig(idct_precision=precision)
+            t0 = time.perf_counter()
+            r = checkpoint.ScanDecoder.restore(ck, structure, c, device=dev)
+            restore_s = time.perf_counter() - t0
+            if not r.finished:
+                fail("the 4K checkpoint did not restore as finished")
+            name = f"ScanDecoder 4K {precision.value} finish"
+            r.finish()  # warm: the stage's first call
+            t0 = time.perf_counter()
+            got, runs[name] = run_path(f"main path {name}", r.finish)
+            finish_ms = (time.perf_counter() - t0) * 1e3
+            if runs[name] != {entry: 1}:
+                fail(f"{name}: finish launched {runs[name]}, expected {entry} once")
+            if precision == IdctPrecision.EXACT:
+                if not (np.array_equal(got.rgb, rgb)
+                        and all(np.array_equal(a, b) for a, b in zip(got.planes, pix))):
+                    fail(f"{name}: RGB or planes differ from the reference")
+                note = "RGB and planes bitwise the JAX-free reference"
+            else:
+                one = JpegDecoder(c, device=dev).decode(big)
+                cpu = checkpoint.ScanDecoder.restore(ck, structure, c, device="cpu").finish()
+                e = max(max_abs_err(a, b) for a, b in zip(got.planes, cpu.planes))
+                sh = max(share_differing(a, b) for a, b in zip(got.planes, cpu.planes))
+                if (not np.array_equal(got.rgb, one.rgb)
+                        or not all(np.array_equal(a, b) for a, b in zip(got.planes, one.planes))
+                        or e > 1 or sh > K1_SHARE):
+                    fail(f"{name}: differs from JpegDecoder(FLOAT32) on the card, or planes"
+                         f" {e} (share {sh:.3e}) from the CPU finish")
+                note = (f"RGB and planes bitwise JpegDecoder(FLOAT32) on the card; planes"
+                        f" against the CPU finish max_abs_err {e}, share {sh:.3e}")
+            log(f"main path {name}: the {W}x{H} request's planes as a finished checkpoint"
+                f" ({ck.stat().st_size} bytes, written in {save_s:.2f} s, restored in"
+                f" {restore_s:.2f} s); {note}; finish (warm, RGB and planes to the host)"
+                f" {finish_ms:.3f} ms (host clock) [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+def run_cli(*args, timeout: int = 600) -> subprocess.CompletedProcess:
+    """`python -m jpeg_decoder_tpu_torch.cli *args` in a process of its own
+    (from the repository root: the port's checkout), on the card by the
+    CLI's default; fails on a nonzero exit."""
+    r = subprocess.run([sys.executable, "-m", "jpeg_decoder_tpu_torch.cli", *map(str, args)],
+                       capture_output=True, text=True, timeout=timeout,
+                       cwd=str(Path(__file__).resolve().parent))
+    if r.returncode != 0:
+        fail(f"the CLI {' '.join(map(str, args))} exited {r.returncode}: {r.stderr[-3000:]}")
+    return r
+
+
+def cli_phase(dev, big: bytes, batch: list, image, card: str) -> None:
+    """The CLI (python -m jpeg_decoder_tpu_torch.cli) on the card, each
+    command in a process of its own and each output against the library
+    call on the card in this process: decode of the 4K request to .npy and
+    .ppm, --scale 1/2, --streamed, decode-batch --format npy of four 4K
+    requests, encode of a 4K photograph from .npy (the bytes of
+    jtt.encode on the card) and the decode of those bytes, info --json (the
+    structure_summary), and bench, all at once."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jpeg_decoder_tpu_torch import DecodeConfig, EncodeConfig, JpegDecoder
+    from jpeg_decoder_tpu_torch import decode as port_decode
+    from jpeg_decoder_tpu_torch import encode as port_encode
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.parallel import stripes
+    from jpeg_decoder_tpu_torch.utils.debug import structure_summary
+
+    tmp = scratch_dir()
+    try:
+        src = tmp / "request.jpg"
+        src.write_bytes(big)
+        inputs = []
+        for i, d in enumerate(batch[:4]):
+            inputs.append(tmp / f"batch{i}.jpg")
+            inputs[-1].write_bytes(d)
+        np.save(tmp / "photo.npy", image)
+        # the library's bytes, which the CLI's encode must equal: the CLI
+        # decodes them back in the same step
+        jpg = port_encode(image, EncodeConfig(restart_interval=W // 16), device=dev)
+        (tmp / "photo_lib.jpg").write_bytes(jpg)
+        commands = {
+            "decode npy": ("decode", src, tmp / "out.npy"),
+            "decode ppm": ("decode", src, tmp / "out.ppm"),
+            "decode --scale 1/2": ("decode", src, tmp / "half.npy", "--scale", "1/2"),
+            "decode --streamed": ("decode", src, tmp / "streamed.npy", "--streamed"),
+            "decode-batch": ("decode-batch", *inputs, "--out-dir", tmp / "batch", "--format",
+                             "npy"),
+            "encode": ("encode", tmp / "photo.npy", tmp / "photo.jpg", "--restart-interval",
+                       W // 16),
+            "info --json": ("info", src, "--json"),
+            "decode of the encode": ("decode", tmp / "photo_lib.jpg", tmp / "photo_back.npy"),
+            "bench": ("bench", src, "--repeat", 5),
+        }
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(commands)) as ex:
+            done = dict(zip(commands, ex.map(lambda a: run_cli(*a), commands.values())))
+        wall_s = time.perf_counter() - t0
+        dec = JpegDecoder(DecodeConfig(), device=dev)
+        rgb = dec.decode_rgb(big)
+        checks = {
+            "decode npy": np.array_equal(np.load(tmp / "out.npy"), rgb),
+            "decode ppm": (tmp / "out.ppm").read_bytes()
+            == b"P6\n%d %d\n255\n" % (W, H) + rgb.tobytes(),
+            "decode --scale 1/2": np.array_equal(
+                np.load(tmp / "half.npy"), port_decode(big, DecodeConfig(scale=4), dev).rgb),
+            "decode --streamed": np.array_equal(
+                np.load(tmp / "streamed.npy"), stripes.decode_streamed(big, DecodeConfig(),
+                                                                      device=dev)),
+            "decode-batch": all(np.array_equal(np.load(tmp / "batch" / f"batch{i}.npy"),
+                                               dec.decode_rgb(d))
+                                for i, d in enumerate(batch[:4])),
+            "encode": (tmp / "photo.jpg").read_bytes() == jpg,
+            "info --json": json.loads(done["info --json"].stdout)
+            == json.loads(json.dumps(structure_summary(parse(big)))),
+            "decode of the encode": np.array_equal(np.load(tmp / "photo_back.npy"),
+                                                   dec.decode_rgb(jpg)),
+        }
+        rec = json.loads(done["bench"].stdout)
+        checks["bench"] = rec["metric"] == "cli_decode_throughput" and rec["value"] > 0
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"the CLI's output differs from the library call on the card: {bad}")
+        log(f"CLI on the card: {', '.join(checks)} bitwise the library calls on the card;"
+            f" {len(commands)} commands together {wall_s:.1f} s (each process imports torch"
+            f" and loads the built kernels; bench beside the others); decode stderr"
+            f" {done['decode npy'].stderr.strip()!r}; bench {rec} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 # Stage times
 # ---------------------------------------------------------------------------
@@ -2338,8 +2609,8 @@ def new_stage_times(dev, big: bytes, cmyk: bytes, card: str) -> None:
         "4:2:0 fancy exact (K0 x 3 + K3f)": (big, DecodeConfig(upsample="fancy")),
         "4:2:0 fancy float32 (K1 x 3 + K3f)": (
             big, DecodeConfig(upsample="fancy", idct_precision=IdctPrecision.FLOAT32)),
-        "4:2:0 scale 4 (K5 x 3 + K3)": (big, DecodeConfig(scale=4)),
-        "4:2:0 scale 1 (K5 x 3 + K3)": (big, DecodeConfig(scale=1)),
+        "4:2:0 scale 4 (K5 + K3)": (big, DecodeConfig(scale=4)),
+        "4:2:0 scale 1 (K5 + K3)": (big, DecodeConfig(scale=1)),
         "4:4:4 YCCK exact (K0 x 4 + K3c)": (cmyk, DecodeConfig()),
         "4:4:4 CMYK exact (K0 x 4 + K3c)": (cmyk, DecodeConfig(quirks=Quirks.CORRECT)),
     }
@@ -2876,6 +3147,9 @@ def main() -> None:
                             requests, batch, cmyk, card))
     runs.update(timed_phase("main path, probes", probe_path, kernels))
     runs.update(timed_phase("main path, encode", encode_path, dev, images, card))
+    runs.update(timed_phase("main paths, checkpoint/resume", checkpoint_path, dev, requests[0],
+                            card))
+    timed_phase("CLI", cli_phase, dev, requests[0], batch, images[f"photograph {W}x{H}"], card)
     runs.update(timed_phase("main paths, streamed and striped", gigapixel_path, dev, giga,
                             requests, card))
     for key, rec in kernels.items():
@@ -2909,6 +3183,9 @@ def main() -> None:
                       ("JpegEncoder 4:2:0 q85 annex_k", "jdtc_fdct"),
                       ("JpegEncoder encode_stream", "jdtc_fdct"),
                       ("JpegDecoder pallas exact (encoded photograph)", "jdtc_pixel_exact"),
+                      ("ScanDecoder progressive exact", "jdtc_pixel_exact"),
+                      ("ScanDecoder 4K exact finish", "jdtc_pixel_exact"),
+                      ("ScanDecoder 4K float32 finish", "jdtc_pixel_float"),
                       ("decode_streamed exact", "K6n"), ("decode_streamed float32", "K6n"),
                       ("decode_striped exact", "K6n"), ("decode_striped fancy 4K", "K6f")):
         if runs[path].get(key, 0) == 0:

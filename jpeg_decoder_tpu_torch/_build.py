@@ -71,9 +71,17 @@ SIGNATURES = {
     "jdtc_idct_float": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
     # K1's earlier design, for measurement: the same arguments
     "jdtc_idct_float_column": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
-    # coeffs, qt, k_matrix [64, k*k], n_blocks, blocks_x, k, bits12, out,
+    # K5, every component of a call in one launch: desc (host int64 [n][6]),
+    # folded tables (host float [t][k^4]), n_comps, n_tables, k, bits12,
     # cuda_stream
-    "jdtc_idct_scaled": [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "jdtc_idct_scaled": [_P, _P, _I32, _I32, _I32, _I32, _P],
+    # K5's earlier design (a launch a component), for measurement: coeffs,
+    # qt, k_matrix [64, k*k], n_blocks, blocks_x, k, bits12, loads_first,
+    # out, cuda_stream
+    "jdtc_idct_scaled_percomp": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P],
+    # an empty kernel of n_ctas blocks of K5's threads (the launch floor),
+    # for measurement: n_ctas, cuda_stream
+    "jdtc_idct_scaled_empty": [_I64, _P],
     # coeff0..2, qt0..2, n_images, h, w, hsf0..2, vsf0..2, hratio0..2,
     # vratio0..2, mcus_x, mcus_y, strip, bits12, correct, row0, stripe_h
     # (striped decode; 0, 0 for whole frames), rgb, plane0..2 (null: not

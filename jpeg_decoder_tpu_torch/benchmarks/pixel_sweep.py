@@ -3,7 +3,7 @@ at other strip sizes, on one CUDA card.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.pixel_sweep \\
         [--strip 2 4 8 16 32] [--reps 15] [--precision exact float32]
-        [--k13-variants] [--k0] [--colour] [--k1] [--k4]
+        [--k13-variants] [--k0] [--colour] [--k1] [--k4] [--k5]
         [--no-sweep]
 
 G, the MCUs of one strip (one block of threads for K03; one step of a
@@ -46,8 +46,17 @@ luma plane and on its three planes, held bitwise against each other first,
 then K1's VARIANTS. With --k4, K4 (csrc/fdct.cu) beside its earlier design
 (jdtc_fdct_column, fdct_column) on a 3840x2160 photograph (photograph_4k)
 at 4:2:0 and 4:4:4, q85, held bitwise against each other first, then K4's
-VARIANTS (run lengths among them).
-Each of --k0, --k1 and --k4 ends with the instruction mix.
+VARIANTS (run lengths among them). With --k5, K5 (csrc/idct_scaled.cu, one
+launch for all components) on the 4K request's three planes at k = 1, 2
+and 4 beside its earlier design (jdtc_idct_scaled_percomp, a launch a
+plane, k5_percomp) in turns, the card alone and with L2 flushed, after
+holding the two bitwise; beside them the earlier design with its
+coefficient loads issued before its shared-memory fold and barrier, and an
+empty kernel at the earlier design's three grids and at the new design's
+one grid (the launch floor); then each K5 kernel's registers, shared
+memory and instruction mix, and from them the blocks of threads resident
+on an SM and the waves of each launch (k5_occupancy).
+Each of --k0, --k1, --k4 and --k5 ends with the instruction mix.
 """
 
 from __future__ import annotations
@@ -70,13 +79,14 @@ PACKAGE = Path(__file__).resolve().parents[1]
 W, H, RI = 3840, 2160, 240
 #: The opcodes of the instruction mix: conversions (F2F between float and
 #: double, F2I, I2F, I2FP, FRND), float64 and float32 arithmetic, shared
-#: memory loads and stores.
+#: memory loads and stores, loads from the constant bank and device memory.
 SASS_OPS = ("F2F", "F2I", "I2F", "I2FP", "FRND", "DMUL", "DADD", "FADD", "FMUL", "FFMA", "LDS",
-            "STS")
+            "STS", "LDC", "LDG")
 #: The kernels of the instruction mix, by their symbols' names.
 SASS_KERNELS = ("pixel_exact_kernel", "idct_exact_kernel", "idct_exact_gather_kernel",
                 "pixel_float_kernel", "idct_float_kernel", "idct_float_column_kernel",
-                "fdct_kernel", "fdct_column_kernel")
+                "fdct_kernel", "fdct_column_kernel", "idct_scaled_kernel",
+                "idct_scaled_percomp_kernel")
 #: A spin of about 10 ms at the H100's 1.98 GHz: long enough for the host to
 #: queue a sample's calls behind it, K0 x 3 + K3 being 32 launches.
 PARK_CYCLES = 20_000_000
@@ -279,6 +289,128 @@ def k4_sweep(reps: int) -> list[dict]:
             for sub, factors in ((s, encoder._SAMPLING[s]) for s in ("420", "444"))]
 
 
+def k5_percomp(planes, qts, k: int, bits12: bool = False, loads_first: bool = False):
+    """K5's earlier design (csrc/idct_scaled.cu jdtc_idct_scaled_percomp: a
+    launch a plane, each block of threads folding the band into shared
+    memory; with `loads_first` its coefficient loads issued before the fold
+    and the barrier) on card planes and their int32 tables on the card, as
+    idct_planes_scaled's arguments: for measurement, reached by no
+    wrapper."""
+    from .. import _build
+    from ..ops import idct
+
+    outs = []
+    for c, q in zip(planes, qts):
+        *lead, by, bx, _ = c.shape
+        rows = int(np.prod(lead, dtype=np.int64)) * by
+        out = torch.empty((*lead, by * k, bx * k), dtype=torch.uint8, device=c.device)
+        if rows * bx:
+            _build.launch("jdtc_idct_scaled_percomp", _build.ptr(c), _build.ptr(q),
+                          _build.ptr(idct.idct_matrix_scaled_on(c.device, k)), rows * bx, bx, k,
+                          int(bits12), int(loads_first), _build.ptr(out), _build.stream_of(out))
+        outs.append(out)
+    return outs
+
+
+def k5_empty(ctas) -> None:
+    """An empty kernel of K5's threads once for each count of blocks of
+    threads in `ctas`: the launch floor of a design with those grids."""
+    from .. import _build
+
+    stream = _build.stream_of(torch.empty(0, device="cuda"))
+    for n in ctas:
+        _build.launch("jdtc_idct_scaled_empty", int(n), stream)
+
+
+def k5_grids(planes) -> tuple[list[int], int]:
+    """The blocks of threads of the earlier design's launches (one a plane)
+    and of the new design's one launch (each plane from a block of
+    threads' boundary: the same count)."""
+    from ..ops import idct
+
+    per = [-(-c[..., 0].numel() // idct.K5_THREADS) for c in planes]
+    return per, sum(per)
+
+
+def k5_turns(planes, qts, k: int, reps: int, bits12: bool = False) -> dict:
+    """K5 (one launch) beside its earlier design (a launch a plane) over the
+    planes, in turns (in_turns), after holding the new design, the earlier
+    one and the earlier one with its loads first bitwise against each
+    other; beside them, the card alone and with L2 flushed, the earlier
+    design with its loads first and the empty kernel at the earlier design's
+    grids and at the new design's grid (k5_grids); with the blocks."""
+    from ..ops import idct
+
+    host = [q.cpu().numpy() for q in qts]
+    new = lambda: idct.idct_planes_scaled(planes, host, k, bits12)  # noqa: E731
+    earlier = lambda: k5_percomp(planes, qts, k, bits12)  # noqa: E731
+    first = lambda: k5_percomp(planes, qts, k, bits12, loads_first=True)  # noqa: E731
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(new(), earlier(), first())):
+        raise RuntimeError(f"K5 differs from its earlier design at k = {k}")
+    per, one = k5_grids(planes)
+    out = dict(in_turns(new, earlier, reps), blocks=sum(c[..., 0].numel() for c in planes),
+               ctas=one, earlier_ctas=per)
+    for key, fn in (("loads_first", first), ("empty_earlier_grids", lambda: k5_empty(per)),
+                    ("empty_one_grid", lambda: k5_empty([one]))):
+        out[f"{key}_ms"] = card_ms(fn, reps)
+        out[f"{key}_flushed_ms"] = card_ms_flushed(fn, reps)
+    return out
+
+
+#: The H100's limits an SM for the blocks of threads resident at once: 2048
+#: threads, 32 blocks of threads, 65,536 registers (allocated a warp at a
+#: time in units of 256), 228 KB of shared memory with 1 KB reserved a
+#: block of threads; 132 SMs.
+SM_THREADS, SM_CTAS, SM_REGS, SM_SHARED, CTA_RESERVED, SMS = 2048, 32, 65536, 233472, 1024, 132
+
+
+def k5_occupancy(ctas_by_k: dict, threads: int = 256) -> dict:
+    """Each K5 kernel instance (template arguments in the symbol: K, and
+    the earlier design's loads-first flag) as built: its registers, shared
+    memory and instruction mix (_symbol_mix), the blocks of threads
+    resident on an SM by the limits above, and the waves of its launches
+    at `ctas_by_k` (k -> {"new": one grid, "earlier": the grids of its
+    launches})."""
+    from .. import _build
+
+    mix, resources = _symbol_mix(str(_build.build()))
+    out = {}
+    for symbol, r in resources.items():
+        if "idct_scaled" not in symbol or "empty" in symbol:
+            continue
+        m = re.search(r"ILi(\d)E(?:Lb(\d)E)?", symbol)
+        k = int(m.group(1))
+        earlier = "percomp" in symbol
+        name = (f"earlier k={k}" + (" loads first" if m.group(2) == "1" else "")) if earlier \
+            else f"new k={k}"
+        warps = -(-threads // 32)
+        regs_cta = -(-r.get("reg", 0) * 32 // 256) * 256 * warps
+        resident = min(SM_THREADS // threads, SM_CTAS,
+                       SM_REGS // regs_cta if regs_cta else SM_CTAS,
+                       SM_SHARED // (r.get("shared", 0) + CTA_RESERVED))
+        grids = ctas_by_k[k]["earlier" if earlier else "new"]
+        out[name] = dict(**r, sass=dict(mix.get(symbol, {})), resident_ctas_per_sm=resident,
+                         grids=grids,
+                         waves=[round(g / (SMS * resident), 3) for g in grids])
+    return out
+
+
+def k5_sweep(reps: int) -> list[dict]:
+    """K5 on the 4K request's three planes at k = 4, 2 and 1 (k5_turns), 8-
+    bit, then each instance's occupancy (k5_occupancy)."""
+    from .gather_probe import card_line
+    from .inputs import F420, make_jpeg
+
+    _frame, planes, qts = decoded([make_jpeg(W, H, F420, RI, 0)], torch.device("cuda"))
+    per, one = k5_grids(planes)
+    recs = [dict(kernel="K5", case=f"4K request, 3 planes, k = {k}", k=k, card=card_line(),
+                 **k5_turns(planes, qts, k, reps)) for k in (4, 2, 1)]
+    recs.append(dict(kernel="K5", occupancy=k5_occupancy(
+        {k: {"new": [one], "earlier": per} for k in (1, 2, 4)})))
+    return recs
+
+
 def colour_pixel(planes, h, w, factors, quirks, upsample="nn", exact=True, raw_cmyk=False,
                  gray_shear=None, stripes=None):
     """K3's and K3f's earlier design (csrc/color.cu jdtc_color_pixel,
@@ -385,20 +517,16 @@ def _kernel_of(symbol: str):
     return next((k for k in SASS_KERNELS if k in symbol), None)
 
 
-def sass_mix() -> dict:
-    """kernel -> {opcode: count} in the built library's SASS, for the
-    kernels of SASS_KERNELS ({} where the toolkit has no cuobjdump): the
-    instructions of their code as written, not counts a block (K0's code
-    and its earlier design's run once a block, K03's row and column passes once a row and once a
-    column, K13's product once a pixel row of four blocks); and under
-    "resources" each one's registers, spill bytes and static shared memory
-    (cuobjdump -res-usage)."""
+def _symbol_mix(lib: str) -> tuple[dict, dict]:
+    """({symbol: {opcode: count}}, {symbol: resources}) of every kernel in
+    the library at `lib` (cuobjdump -sass and -res-usage; the opcodes of
+    SASS_OPS, the resources registers, spill bytes and static shared
+    memory); ({}, {}) where the toolkit has no cuobjdump."""
     from .. import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
-        return {}
-    lib = str(_build.build())
+        return {}, {}
     out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
                          text=True, check=True, timeout=300).stdout
     mix: dict = {}
@@ -406,7 +534,7 @@ def sass_mix() -> dict:
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = _kernel_of(m.group(1))
+            name = m.group(1)
             continue
         op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9]+)", line)
         if name and op and op.group(1) in SASS_OPS:
@@ -418,11 +546,36 @@ def sass_mix() -> dict:
     for line in res.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            name = _kernel_of(m.group(1))
+            name = m.group(1)
             continue
         if name and "REG:" in line:
             resources[name] = {k.lower(): int(v) for k, v in
                                re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line)}
+    return mix, resources
+
+
+def sass_mix() -> dict:
+    """kernel -> {opcode: count} in the built library's SASS, for the
+    kernels of SASS_KERNELS ({} where the toolkit has no cuobjdump): the
+    instructions of their code as written, not counts a block (K0's code
+    and its earlier design's run once a block, K03's row and column passes once a row and once a
+    column, K13's product once a pixel row of four blocks), a template's
+    instances summed; and under "resources" each one's registers, spill
+    bytes and static shared memory (cuobjdump -res-usage; the last
+    instance's)."""
+    from .. import _build
+
+    by_symbol, by_symbol_res = _symbol_mix(str(_build.build()))
+    mix: dict = {}
+    resources = {}
+    for symbol, counts in by_symbol.items():
+        name = _kernel_of(symbol)
+        if name:
+            mix.setdefault(name, collections.Counter()).update(counts)
+    for symbol, r in by_symbol_res.items():
+        name = _kernel_of(symbol)
+        if name:
+            resources[name] = r
     out = {k: dict(v) for k, v in mix.items()}
     out["resources"] = resources
     return out
@@ -745,7 +898,10 @@ def main(argv=None) -> None:
                     help="also K1 beside its earlier design, and K1's and K13's variants")
     ap.add_argument("--k4", action="store_true",
                     help="also K4 beside its earlier design, and K4's variants")
-    ap.add_argument("--no-sweep", action="store_true", help="only the variants and --k0/--colour")
+    ap.add_argument("--k5", action="store_true",
+                    help="also K5 beside its earlier design and the launch floor")
+    ap.add_argument("--no-sweep", action="store_true",
+                    help="only the variants and --k0/--colour/--k1/--k4/--k5")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -786,7 +942,10 @@ def main(argv=None) -> None:
     if ns.k4:
         for rec in k4_sweep(ns.reps):
             print(json.dumps(rec), flush=True)
-    if ns.k0 or ns.k1 or ns.k4:
+    if ns.k5:
+        for rec in k5_sweep(ns.reps):
+            print(json.dumps(rec), flush=True)
+    if ns.k0 or ns.k1 or ns.k4 or ns.k5:
         print(json.dumps({"sass": sass_mix()}), flush=True)
     if names:
         with tempfile.TemporaryDirectory() as tmp:

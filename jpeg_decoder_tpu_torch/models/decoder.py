@@ -8,8 +8,9 @@ stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
            nearest-neighbour frame whose samples stay in their MCUs runs as
            one step (ops/pixel.py; K03 for EXACT, K13 for FLOAT32);
            otherwise dequant + IDCT + block scatter per component
-           (ops/idct.py; K0 for EXACT, K1 for FLOAT32, K5 at scale < 8),
-           then chroma upsample + colour conversion (ops/color.py; K3 for
+           (ops/idct.py; K0 for EXACT, K1 for FLOAT32; at scale < 8 one K5
+           launch for all components), then chroma upsample + colour
+           conversion (ops/color.py; K3 for
            nearest-neighbour, named K3c on 4 components, K3f for fancy
            upsampling)
   host:    with use_device=False, the pixel stage on the host instead
@@ -81,10 +82,11 @@ class PixelStage(nn.Module):
     nearest-neighbour upsampling at full size that ops/pixel.fits (its
     planes on the MCU grid, every sample inside its pixel's MCU) runs
     ops/pixel.pixel_exact (EXACT) or pixel_float (FLOAT32), one K03 or K13
-    launch on the card. Any other runs one IDCT launch per component (K0,
-    K1, or K5 at scale < 8 under either contract) and one colour launch:
-    K3 (nearest-neighbour; K3c on 4 components) or K3f (fancy). `want_planes=False` gives None for
-    the planes (K03 and K13 then store none)."""
+    launch on the card. Any other runs one IDCT launch per component (K0 or
+    K1), or at scale < 8 one K5 launch for all components under either
+    contract, and one colour launch: K3 (nearest-neighbour; K3c on 4
+    components) or K3f (fancy). `want_planes=False` gives None for the
+    planes (K03 and K13 then store none)."""
 
     def __init__(self, key, device):
         super().__init__()
@@ -105,6 +107,8 @@ class PixelStage(nn.Module):
                          and frame.adobe_transform == 0)
         self.fused = (frame.ncs == 3 and upsample == "nn" and scale == 8
                       and pixel_ops.fits(frame))
+        # K5 folds its tables on the host (ops/idct.folded_band)
+        self.qt_host = [np.frombuffer(q, np.uint16) for q in qt_by_comp]
         for ci, q in enumerate(qt_by_comp):
             self.register_buffer(
                 f"qt{ci}",
@@ -117,10 +121,12 @@ class PixelStage(nn.Module):
             fused = (pixel_ops.pixel_exact if self.precision == IdctPrecision.EXACT
                      else pixel_ops.pixel_float)
             return fused(coeff_planes, qts, self.frame, self.quirks, want_planes)
-        pixel = [
-            idct_ops.idct_plane(p, qt, self.bits12, self.precision, self.scale)
-            for p, qt in zip(coeff_planes, qts)
-        ]
+        if self.scale < 8:
+            pixel = idct_ops.idct_planes_scaled(list(coeff_planes), self.qt_host, self.scale,
+                                                self.bits12)
+        else:
+            pixel = [idct_ops.idct_plane(p, qt, self.bits12, self.precision)
+                     for p, qt in zip(coeff_planes, qts)]
         rgb = color_ops.planes_to_rgb(
             pixel, self.h, self.w, self.factors, self.quirks, self.upsample,
             exact=self.precision == IdctPrecision.EXACT, raw_cmyk=self.raw_cmyk,

@@ -21,16 +21,18 @@ runs it): a [N, 64] @ [64, k*k] float32 product by the truncated k-point
 IDCT's matrix (idct_matrix_zz_scaled, copied from the JAX module) with the
 table folded in, then the FLOAT32 store: idct_matmul_scaled.
 
-`idct_plane` is the wrapper the decoder calls: for a CPU tensor it runs the
-plain version of the chosen contract, for a CUDA tensor it launches kernel
-K0 (csrc/idct_exact.cu, EXACT), K1 (csrc/idct_float.cu, FLOAT32) or, at
-scale < 8, K5 (csrc/idct_scaled.cu), each of which fuses dequant, IDCT,
-output store and the block-to-plane scatter.
+`idct_plane` is the wrapper the decoder calls at full size: for a CPU
+tensor it runs the plain version of the chosen contract, for a CUDA tensor
+it launches kernel K0 (csrc/idct_exact.cu, EXACT) or K1 (csrc/idct_float.cu,
+FLOAT32). At scale < 8 the decoder calls `idct_planes_scaled`, which
+launches K5 (csrc/idct_scaled.cu) once for all of a call's components. Each
+kernel fuses dequant, IDCT, output store and the block-to-plane scatter.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 
 import numpy as np
@@ -403,6 +405,167 @@ def idct_matmul_scaled(coeffs_zz: torch.Tensor, qtable_natural, k: int,
     return _quantize_output_float(y, bits12)
 
 
+#: K5's block of threads (csrc/idct_scaled.cu kThreads): one thread a
+#: coefficient block; each component starts on a block of threads.
+K5_THREADS = 256
+#: The most components, and distinct tables, one K5 launch takes.
+K5_MAX_COMPS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def band_z(k: int) -> tuple[int, ...]:
+    """The band of scale k: the zigzag positions whose natural position (v,
+    u) has v < k and u < k, in increasing z (csrc/idct_scaled.cu kBand2,
+    kBand4): the rows of M_k that are not zero."""
+    return tuple(z for z in range(64) if ZIGZAG[z] // 8 < k and ZIGZAG[z] % 8 < k)
+
+
+@functools.lru_cache(maxsize=256)
+def folded_band(qt_bytes: bytes, k: int) -> np.ndarray:
+    """K5's folded band for one natural-order table (int32 bytes): float32
+    [k*k * k*k], entry j * k*k + p = M_k[z_j][p] * float32(qt_zz[z_j]) for
+    band row j (band_z). One float32 product an entry, rounded to nearest:
+    bitwise the torch fold of idct_matmul_scaled and the __fmul_rn of K5's
+    earlier design. Read-only; cached per (table, k)."""
+    qt = np.frombuffer(qt_bytes, dtype=np.int32)
+    rows = np.asarray(band_z(k))
+    mat = idct_matrix_zz_scaled(k)[rows]
+    out = (mat * qt[ZIGZAG[rows]].astype(np.float32)[:, None]).astype(np.float32).reshape(-1)
+    out.flags.writeable = False
+    return out
+
+
+def scaled_layout(planes, qts, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """K5's descriptor without the pointers, and its tables, from the
+    planes' shapes [..., by, bx, 64] and their natural-order tables: int64
+    [n, 4] rows (leading dimensions times by), blocks_x, table index and
+    first block of threads of each component, in order, each component
+    from the block of threads after the last one's; and float32 [t, k^4]
+    the folded band of each distinct table, in order of first use
+    (folded_band)."""
+    desc = np.zeros((len(planes), 4), dtype=np.int64)
+    tables: dict[bytes, int] = {}
+    cta = 0
+    for c, (p, q) in enumerate(zip(planes, qts)):
+        *lead, by, bx, _ = p.shape
+        rows = int(np.prod(lead, dtype=np.int64)) * by
+        key = np.ascontiguousarray(q, dtype=np.int32).tobytes()
+        desc[c] = (rows, bx, tables.setdefault(key, len(tables)), cta)
+        cta += -(-rows * bx // K5_THREADS)
+    return desc, np.stack([folded_band(key, k) for key in tables])
+
+
+def _host_table(q) -> np.ndarray:
+    """A natural-order table on the host (a CUDA tensor is copied back: a
+    sync, which the decoder's own calls never make; PixelStage keeps its
+    tables on the host as well)."""
+    if isinstance(q, torch.Tensor):
+        q = q.cpu().numpy()
+    return np.asarray(q)
+
+
+def idct_planes_scaled(planes, qts, k: int, bits12: bool = False) -> list[torch.Tensor]:
+    """The scaled decode's IDCT over every component of a pixel-stage call:
+    int16 [..., by, bx, 64] zigzag coefficient planes (one leading shape
+    for all) and their natural-order tables -> uint8 [..., by*k, bx*k]
+    planes, k in {1, 2, 4}. Either contract: the JAX package's scaled
+    decode is its FLOAT32 product.
+
+    CPU tensors: the plain version (idct_matmul_scaled, blocks_to_plane)
+    plane by plane. CUDA tensors: one K5 launch for all of them, the
+    folded tables in its parameters (scaled_layout)."""
+    if not planes or k not in (1, 2, 4):
+        raise ValueError(f"idct_planes_scaled: k in (1, 2, 4) and planes, got k = {k}")
+    lead = planes[0].shape[:-3]
+    if any(p.shape[:-3] != lead or p.shape[-1] != 64 for p in planes):
+        raise ValueError("idct_planes_scaled: planes must share their leading shape")
+    dev = planes[0].device
+    if dev.type == "cpu":
+        outs = []
+        for p, q in zip(planes, qts):
+            *_, by, bx, _ = p.shape
+            rows = int(np.prod(lead, dtype=np.int64)) * by
+            pix = idct_matmul_scaled(p.reshape(-1, 64), q, k, bits12)
+            outs.append(blocks_to_plane(pix, rows, bx, k).reshape(*lead, by * k, bx * k))
+        return outs
+    if not all(p.is_cuda and p.device == dev for p in planes):
+        raise ValueError(f"idct_planes_scaled: no kernel for {dev}, or planes on two devices")
+    if len(planes) > K5_MAX_COMPS or len(qts) != len(planes):
+        raise ValueError(f"idct_planes_scaled: 1 to {K5_MAX_COMPS} planes, a table each")
+    for p in planes:
+        if p.dtype != torch.int16 or not p.is_contiguous() or p.data_ptr() % 16:
+            raise ValueError("idct_planes_scaled: coefficients must be contiguous, 16-byte"
+                             " aligned int16")
+    tables = [_host_table(q) for q in qts]
+    if any(q.size != 64 for q in tables):
+        raise ValueError("idct_planes_scaled: a table has 64 entries")
+    layout, folded = scaled_layout(planes, tables, k)
+    outs = [torch.empty((*lead, p.shape[-3] * k, p.shape[-2] * k), dtype=torch.uint8,
+                        device=dev) for p in planes]
+    blocks = int((layout[:, 0] * layout[:, 1]).sum())
+    if blocks:
+        desc = np.zeros((len(planes), 6), dtype=np.int64)
+        desc[:, 0] = [p.data_ptr() for p in planes]
+        desc[:, 1] = [o.data_ptr() for o in outs]
+        desc[:, 2:] = layout
+        _build.launch("jdtc_idct_scaled", desc.ctypes.data_as(ctypes.c_void_p),
+                      folded.ctypes.data_as(ctypes.c_void_p), len(planes), len(folded), k,
+                      int(bits12), _build.stream_of(outs[0]))
+        _build.add_units("jdtc_idct_scaled", blocks)
+    return outs
+
+
+def _idct_scaled_walk_plain(planes, qts, k: int, bits12: bool = False) -> list[torch.Tensor]:
+    """K5's one-launch walk (csrc/idct_scaled.cu idct_scaled_kernel) on the
+    CPU, with idct_planes_scaled's arguments: every block of threads finds
+    its component by comparing its index with the components' first blocks
+    of threads (scaled_layout), thread t of it takes block (index - first) *
+    K5_THREADS + t of that component, the band's coefficients as float32,
+    each pixel the fmaf chain over the band in order from 0 (ops/fdct._fma32,
+    each step rounded once) against the folded band of its table, the store,
+    and the tile into the plane. Raises RuntimeError unless every block is
+    taken and every pixel stored exactly once."""
+    from .fdct import _fma32
+
+    tables = [_host_table(q) for q in qts]
+    layout, folded = scaled_layout(planes, tables, k)
+    lead = planes[0].shape[:-3]
+    k2 = k * k
+    band = torch.as_tensor(band_z(k), dtype=torch.long)
+    n_ctas = int(layout[-1, 3] + -(-layout[-1, 0] * layout[-1, 1] // K5_THREADS))
+    # the first blocks of threads of components 1..3, INT_MAX past the last
+    first = np.full(K5_MAX_COMPS - 1, np.iinfo(np.int32).max, dtype=np.int64)
+    first[: len(planes) - 1] = layout[1:, 3]
+    cta = np.arange(n_ctas)
+    comp_of = (cta[:, None] >= first[None, :]).sum(axis=1)
+    outs = [np.zeros((rows * k, bx * k), dtype=np.uint8) for rows, bx, _, _ in layout]
+    stored = [np.zeros(o.shape, dtype=np.int64) for o in outs]
+    for c, p in enumerate(planes):
+        rows, bx, t, first_cta = (int(v) for v in layout[c])
+        ctas = cta[comp_of == c]
+        b = ((ctas[:, None] - first_cta) * K5_THREADS + np.arange(K5_THREADS)[None, :]).ravel()
+        b = b[b < rows * bx]
+        if b.size != rows * bx or (b.size and not np.array_equal(np.sort(b), np.arange(b.size))):
+            raise RuntimeError("K5's walk took a block other than once")
+        if not b.size:
+            continue
+        x = p.reshape(-1, 64)[torch.from_numpy(b)][:, band].to(F32)
+        m = torch.from_numpy(folded[t].reshape(k2, k2).copy())
+        acc = torch.zeros((b.size, k2), dtype=F32)
+        for j in range(k2):
+            acc = _fma32(x[:, j : j + 1], m[j], acc)
+        pix = _quantize_output_float(acc, bits12).numpy().reshape(-1, k, k)
+        by, bxx = b // bx, b % bx
+        for r in range(k):
+            for col in range(k):
+                outs[c][by * k + r, bxx * k + col] = pix[:, r, col]
+                np.add.at(stored[c], (by * k + r, bxx * k + col), 1)
+    if any((s != 1).any() for s in stored):
+        raise RuntimeError("K5's walk stored a pixel other than once")
+    return [torch.from_numpy(o).reshape(*lead, p.shape[-3] * k, p.shape[-2] * k)
+            for o, p in zip(outs, planes)]
+
+
 # ---------------------------------------------------------------------------
 # Block scatter and the dispatch
 # ---------------------------------------------------------------------------
@@ -439,13 +602,11 @@ def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
     *lead, by, bx, _ = coeff_plane.shape
     rows = int(np.prod(lead, dtype=np.int64)) * by
     k = scale
+    if k < 8:
+        return idct_planes_scaled([coeff_plane], [qtable_natural], k, bits12)[0]
     if coeff_plane.device.type == "cpu":
-        flat = coeff_plane.reshape(-1, 64)
-        if k < 8:
-            pix = idct_matmul_scaled(flat, qtable_natural, k, bits12)
-        else:
-            pix = _PLAIN[precision](flat, qtable_natural, bits12)
-        return blocks_to_plane(pix, rows, bx, k).reshape(*lead, by * k, bx * k)
+        pix = _PLAIN[precision](coeff_plane.reshape(-1, 64), qtable_natural, bits12)
+        return blocks_to_plane(pix, rows, bx).reshape(*lead, by * 8, bx * 8)
     if not coeff_plane.is_cuda:
         raise ValueError(f"idct_plane: no kernel for {coeff_plane.device}")
     if coeff_plane.dtype != torch.int16 or not coeff_plane.is_contiguous():
@@ -454,19 +615,9 @@ def idct_plane(coeff_plane: torch.Tensor, qtable_natural: torch.Tensor,
             or not qtable_natural.is_contiguous()
             or qtable_natural.device != coeff_plane.device):
         raise ValueError("idct_plane: qtable must be contiguous int32 [64] on the same device")
-    out = torch.empty((*lead, by * k, bx * k), dtype=torch.uint8,
+    out = torch.empty((*lead, by * 8, bx * 8), dtype=torch.uint8,
                       device=coeff_plane.device)
     if rows * bx:
-        if k < 8:
-            if coeff_plane.data_ptr() % 16:
-                raise ValueError("idct_plane: scaled decode needs 16-byte aligned coefficients")
-            _build.launch(
-                "jdtc_idct_scaled", _build.ptr(coeff_plane), _build.ptr(qtable_natural),
-                _build.ptr(idct_matrix_scaled_on(coeff_plane.device, k)), rows * bx, bx, k,
-                int(bits12), _build.ptr(out), _build.stream_of(out),
-            )
-            _build.add_units("jdtc_idct_scaled", rows * bx)
-            return out
         extra = ()
         if precision == IdctPrecision.FLOAT32:
             extra = (_build.ptr(idct_matrix_on(coeff_plane.device)),)

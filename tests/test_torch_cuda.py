@@ -1076,6 +1076,47 @@ def test_k5_matches_plain(cuda_device, shape, k, bits12):
     assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
 
 
+#: K5's cases: name -> (leading shape, each component's (by, bx), the
+#: distinct tables): a 4:2:0 frame whose luma plane spans several blocks of
+#: threads, four planes on four tables (K5's largest parameters), a batch
+#: of three, a gray plane and a component of one block
+K5_LAUNCH_CASES = {
+    "420": ((), [(40, 60), (20, 30), (20, 30)], 2),
+    "four_tables": ((), [(9, 40), (9, 40), (9, 40), (9, 40)], 4),
+    "batch": ((3,), [(17, 11), (9, 6), (9, 6)], 2),
+    "gray": ((), [(23, 31)], 1),
+    "one_block": ((), [(1, 1), (16, 17), (1, 1)], 3),
+}
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(K5_LAUNCH_CASES))
+def test_k5_one_launch_is_its_earlier_design_and_its_model(cuda_device, name, k, bits12):
+    """K5 covers every component in one launch, bitwise its earlier design
+    (a launch a plane, pixel_sweep.k5_percomp, also with its loads first)
+    and the CPU model of its walk (ops/idct._idct_scaled_walk_plain, the
+    fmaf chain emulated exactly)."""
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+
+    lead, dims, n_tables = K5_LAUNCH_CASES[name]
+    rng = np.random.default_rng(len(name) * 7 + k + bits12)
+    lo, hi = (-2048, 2048) if bits12 else (-1024, 1024)
+    planes = [_random_blocks(rng.integers(1 << 30), (*lead, by, bx), lo, hi) for by, bx in dims]
+    tables = [rng.integers(1, 256, 64).astype(np.int32) for _ in range(n_tables)]
+    qts = [tables[i % n_tables] for i in range(len(dims))]
+    on_card = [p.to(cuda_device) for p in planes]
+    _build.LAUNCHES.clear()
+    got = tidct.idct_planes_scaled(on_card, qts, k, bits12)
+    assert _build.LAUNCHES == {"jdtc_idct_scaled": 1}
+    card_qts = [torch.from_numpy(q).to(cuda_device) for q in qts]
+    model = tidct._idct_scaled_walk_plain(planes, qts, k, bits12)
+    for loads_first in (False, True):
+        earlier = pixel_sweep.k5_percomp(on_card, card_qts, k, bits12, loads_first)
+        assert all(torch.equal(g, e) for g, e in zip(got, earlier))
+    assert all(torch.equal(g.cpu(), m) for g, m in zip(got, model))
+
+
 F4 = ((1, 1),) * 4
 #: name -> (stream arguments of make_jpeg, config, the pixel stage's launches)
 NEW_PATHS = {
@@ -1085,11 +1126,11 @@ NEW_PATHS = {
                           dict(upsample="fancy", idct_precision=IdctPrecision.FLOAT32),
                           {"jdtc_idct_float": 3, "jdtc_fancy": 1}),
     "scale4_420": ((64, 48, F420, 4, 33), dict(scale=4),
-                   {"jdtc_idct_scaled": 3, "jdtc_color": 1}),
+                   {"jdtc_idct_scaled": 1, "jdtc_color": 1}),
     "scale2_gray": ((100, 37, GRAY, 0, 34), dict(scale=2),
                     {"jdtc_idct_scaled": 1, "jdtc_color": 1}),
     "scale1_fancy_420": ((64, 48, F420, 4, 35), dict(scale=1, upsample="fancy"),
-                         {"jdtc_idct_scaled": 3, "jdtc_fancy": 1}),
+                         {"jdtc_idct_scaled": 1, "jdtc_fancy": 1}),
     "ycck_exact": ((40, 24, F4, 1, 36, 2), dict(),
                    {"jdtc_idct_exact": 4, "jdtc_color": 1}),
     "cmyk_correct": ((40, 24, F4, 1, 37, 0), dict(quirks=Quirks.CORRECT),
@@ -1098,7 +1139,7 @@ NEW_PATHS = {
                            dict(upsample="fancy", idct_precision=IdctPrecision.FLOAT32),
                            {"jdtc_idct_float": 4, "jdtc_fancy": 1}),
     "ycck_scale4": ((40, 24, F4, 1, 39, 0), dict(scale=4),
-                    {"jdtc_idct_scaled": 4, "jdtc_color": 1}),
+                    {"jdtc_idct_scaled": 1, "jdtc_color": 1}),
 }
 
 
@@ -1152,6 +1193,78 @@ def test_new_paths_batch_on_cuda(cuda_device, name):
     assert dict(_build.LAUNCHES) == route | {"jdtc_entropy_decode": 1, "jdtc_unstuff": 1}
     for rgb, d in zip(got, datas):
         np.testing.assert_array_equal(rgb, jtt.decode(d, cfg, device=cuda_device).rgb)
+
+
+@pytest.mark.parametrize("scale", [8, 4, 1])
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+def test_scan_decoder_finish_on_cuda_matches_cpu(cuda_device, tmp_path, precision, scale):
+    """ScanDecoder (core/checkpoint.py) on a progressive stream of the
+    port's encoder, checkpointed after two scans and resumed: finish on the
+    card bitwise finish on the CPU (RGB and planes) and, at full size,
+    JpegDecoder's RGB on the card; the pixel stage's launches are the
+    route's (K13 or K03 at full size, K5 once at scale < 8)."""
+    from jpeg_decoder_tpu_torch.core import checkpoint
+    from jpeg_decoder_tpu_torch.io.parser import parse as tparse
+
+    rng = np.random.default_rng(51)
+    img = rng.integers(0, 256, (48, 80, 3), dtype=np.uint8)
+    data = jtt.encode(img, jtt.EncodeConfig(progressive=True), device="cpu")
+    cfg = DecodeConfig(idct_precision=precision, scale=scale)
+    ck = tmp_path / "c.npz"
+    d = checkpoint.ScanDecoder(tparse(data), cfg, device=cuda_device)
+    d.step()
+    d.step()
+    d.checkpoint(ck)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        r = checkpoint.ScanDecoder.restore(ck, tparse(data), cfg, device=dev)
+        while not r.finished:
+            r.step()
+        _build.LAUNCHES.clear()
+        out[str(dev)] = r.finish()
+        if dev == cuda_device:
+            launches = dict(_build.LAUNCHES)
+    got, want = out[str(cuda_device)], out["cpu"]
+    if scale < 8:
+        assert launches == {"jdtc_idct_scaled": 1, "jdtc_color": 1}
+    else:
+        assert launches == {("jdtc_pixel_exact" if precision == IdctPrecision.EXACT
+                             else "jdtc_pixel_float"): 1}
+    if precision == IdctPrecision.EXACT and scale == 8:
+        np.testing.assert_array_equal(got.rgb, want.rgb)
+        for a, b in zip(got.planes, want.planes):
+            np.testing.assert_array_equal(a, b)
+    else:  # the kernels' rule against their plain versions
+        for a, b in zip(got.planes, want.planes):
+            assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+        _assert_float32_rgb(got.rgb, want.rgb)
+    if scale == 8:
+        np.testing.assert_array_equal(
+            got.rgb, jtt.JpegDecoder(cfg, device=cuda_device).decode(data).rgb)
+
+
+@pytest.mark.parametrize("args", [[], ["--scale", "1/2"], ["--precision", "float32"],
+                                  ["--streamed", "--chunks", "2"], ["--striped"]],
+                         ids=["plain", "scale", "float32", "streamed", "striped"])
+def test_cli_decode_on_cuda_is_the_library_call(cuda_device, tmp_path, args):
+    """The CLI's decode on the card (its default device) writes the bytes of
+    the library call on the card."""
+    from jpeg_decoder_tpu_torch import cli
+    from jpeg_decoder_tpu_torch.parallel import stripes
+
+    src = tmp_path / "in.jpg"
+    src.write_bytes(make_jpeg(96, 64, F420, 2, 61))
+    out = tmp_path / "out.npy"
+    assert cli.main(["decode", str(src), str(out), *args]) == 0
+    cfg = DecodeConfig(idct_precision=IdctPrecision.FLOAT32 if "float32" in args
+                       else IdctPrecision.EXACT, scale=4 if "--scale" in args else 8)
+    if "--streamed" in args:
+        want = stripes.decode_streamed(src.read_bytes(), cfg, n_chunks=2, device=cuda_device)
+    elif "--striped" in args:
+        want = stripes.decode_striped(src.read_bytes(), cfg, device=cuda_device)
+    else:
+        want = jtt.decode(src.read_bytes(), cfg, device=cuda_device).rgb
+    np.testing.assert_array_equal(np.load(out), want)
 
 
 # ---------------------------------------------------------------------------

@@ -78,7 +78,7 @@ def test_the_port_has_its_own_host_modules_and_no_shared_module():
                 "io/markers.py", "io/bitstream.py", "io/parser.py", "io/writer.py",
                 "core/types.py", "core/huffman.py", "core/numerics.py", "core/driver.py",
                 "core/oracle.py", "core/entropy_np.py", "core/entropy_encode.py",
-                "native/build.py",
+                "core/checkpoint.py", "utils/debug.py", "native/build.py",
                 "native/runtime.py", "native/src/jdt_entropy.cpp",
                 "native/src/jdt_encode.cpp"):
         assert (PORT / rel).is_file(), rel
@@ -214,6 +214,21 @@ def test_oracle_decode_matches_bitwise(name, quirks):
     assert_same_fields(got.frame, want.frame)
     assert_same_fields(got.planes, want.planes)
     np.testing.assert_array_equal(got.rgb, want.rgb)
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_structure_dumps_match(name, capsys):
+    """The port's copy of utils/debug.py: structure_summary equal to the
+    original's and print_structure printing the same text."""
+    from jpeg_decoder_tpu.utils import debug as j_debug
+    from jpeg_decoder_tpu_torch.utils import debug
+
+    got, want = parse(STREAMS[name]), jparse(STREAMS[name])
+    assert debug.structure_summary(got) == j_debug.structure_summary(want)
+    debug.print_structure(got)
+    mine = capsys.readouterr().out
+    j_debug.print_structure(want)
+    assert mine == capsys.readouterr().out and mine
 
 
 def test_two_native_libraries_two_directories():

@@ -266,6 +266,129 @@ def test_idct_plane_scaled_is_the_plain_version_under_either_contract(k, precisi
 
 
 # ---------------------------------------------------------------------------
+# K5's one-launch schedule (csrc/idct_scaled.cu idct_scaled_kernel)
+# ---------------------------------------------------------------------------
+
+#: name -> (the leading shape, each component's (by, bx), its table's index
+#: of three): one plane over several blocks of threads, 4:2:0 (the luma
+#: plane 3 blocks of threads, chroma one, ragged), four planes on two
+#: tables, a batch of three images, and a component of one block
+K5_CASES = {
+    "gray": ((), [(23, 31)], [0]),
+    "420": ((), [(20, 30), (10, 15), (10, 15)], [0, 1, 1]),
+    "four_planes": ((), [(9, 40), (9, 40), (9, 40), (9, 40)], [0, 1, 1, 0]),
+    "batch_420": ((3,), [(8, 12), (4, 6), (4, 6)], [0, 1, 1]),
+    "one_block": ((), [(1, 1), (16, 17), (1, 1)], [2, 0, 1]),
+}
+
+
+def _k5_case(name, bits12):
+    lead, dims, table_of = K5_CASES[name]
+    rng = np.random.default_rng(len(name) + bits12)
+    lo, hi = (-2048, 2048) if bits12 else (-1024, 1024)
+    planes = [torch.from_numpy(_random_blocks(rng.integers(1 << 30), int(np.prod(lead)) * by * bx,
+                                              lo, hi).reshape(*lead, by, bx, 64))
+              for by, bx in dims]
+    tables = [rng.integers(1, 256, 64).astype(np.uint16) for _ in range(3)]
+    tables[0][:4] = (1, 255, 255, 1)
+    return planes, [tables[t] for t in table_of]
+
+
+@pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(K5_CASES))
+def test_k5_walk_model_matches_jax(name, k, bits12):
+    """The CPU model of K5's walk (one launch for all components: the
+    descriptor, components from block-of-threads boundaries, the fmaf
+    chain over the band) takes every block once and stores every pixel
+    once (else it raises), and equals the JAX package's
+    idct_matmul_scaled + blocks_to_plane per image and component: bitwise
+    at k = 1, within 1 on at most 1e-3 of the pixels at k = 2 and 4 (the
+    two sum the band in other orders); 12-bit samples modulo 256 (the
+    rescale's low byte). The plain K5 (idct_planes_scaled on CPU tensors)
+    keeps the same rule against the model."""
+    planes, qts = _k5_case(name, bits12)
+    got = tidct._idct_scaled_walk_plain(planes, qts, k, bits12)
+    plain = tidct.idct_planes_scaled(planes, qts, k, bits12)
+    mine, jax_pix, plain_pix = [], [], []
+    for g, p, c, q in zip(got, plain, planes, qts):
+        *lead, by, bx, _ = c.shape
+        assert g.shape == p.shape == (*lead, by * k, bx * k)
+        for i, img in enumerate(c.reshape(-1, by, bx, 64)):
+            pix = jidct.idct_matmul_scaled(jnp.asarray(img.reshape(-1, 64).numpy().astype(
+                np.int32)), q, k, bits12)
+            jax_pix.append(np.asarray(jidct.blocks_to_plane(pix, by, bx, k)).ravel())
+            mine.append(g.reshape(-1, by * k, bx * k)[i].numpy().ravel())
+            plain_pix.append(p.reshape(-1, by * k, bx * k)[i].numpy().ravel())
+    # the rule over the call's pixels, as chip_smoke.py's K1_SHARE
+    mine = np.concatenate(mine).astype(np.int32)
+    for other in (np.concatenate(jax_pix), np.concatenate(plain_pix)):
+        d = np.abs(mine - other.astype(np.int32))
+        d = np.minimum(d, 256 - d)
+        assert d.max() <= (0 if k == 1 else 1)
+        assert (d != 0).mean() <= FLOAT32_SHARE
+
+
+def test_k5_walk_model_checks_its_walk(monkeypatch):
+    """A layout whose second component starts on the first one's blocks of
+    threads leaves blocks of the first untaken, and is refused."""
+    planes, qts = _k5_case("420", False)
+    layout = tidct.scaled_layout
+
+    def overlapping(*args):
+        desc, folded = layout(*args)
+        desc[1, 3] = 0
+        return desc, folded
+
+    monkeypatch.setattr(tidct, "scaled_layout", overlapping)
+    with pytest.raises(RuntimeError, match="other than once"):
+        tidct._idct_scaled_walk_plain(planes, qts, 2)
+
+
+def test_k5_constants_match_the_kernel():
+    """The walk's block of threads and most components (ops/idct.py) are the
+    kernel's (csrc/idct_scaled.cu kThreads, kMaxComps)."""
+    src = (CSRC / "idct_scaled.cu").read_text()
+    assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == tidct.K5_THREADS
+    assert int(re.search(r"constexpr int kMaxComps = (\d+);", src).group(1)) == \
+        tidct.K5_MAX_COMPS
+
+
+@pytest.mark.parametrize("name", sorted(K5_CASES))
+def test_scaled_layout_starts_each_component_on_a_block_of_threads(name):
+    """Rows are the leading dimensions times by; the first block of threads
+    of each component follows the last one's, rounded up to K5_THREADS
+    blocks; equal tables share one folded band, in order of first use."""
+    planes, qts = _k5_case(name, False)
+    desc, folded = tidct.scaled_layout(planes, qts, 4)
+    lead, dims, table_of = K5_CASES[name]
+    cta = 0
+    for (rows, bx, t, first), (by, bxx), p in zip(desc, dims, planes):
+        assert (rows, bx, first) == (int(np.prod(lead)) * by, bxx, cta)
+        cta += -(-rows * bx // tidct.K5_THREADS)
+    assert len(folded) == len(set(table_of))
+    for (_, _, t, _), q in zip(desc, qts):
+        np.testing.assert_array_equal(folded[t], tidct.folded_band(
+            np.asarray(q, np.int32).tobytes(), 4))
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_folded_band_is_the_torch_fold(k):
+    """The host's float32 fold (K5's parameters) is bitwise the torch fold of
+    the plain version, idct_matrix_scaled_on(dev, k) * qt_zz[:, None], on
+    its band rows, for random tables and the extremes 1, 255 and 65535."""
+    rng = np.random.default_rng(40 + k)
+    for qt in (rng.integers(1, 256, 64), rng.integers(1, 65536, 64), np.full(64, 255),
+               np.ones(64)):
+        qt = qt.astype(np.int32)
+        got = tidct.folded_band(qt.tobytes(), k).reshape(k * k, k * k)
+        qt_zz = torch.from_numpy(qt)[torch.as_tensor(ZIGZAG, dtype=torch.long)].to(torch.float32)
+        fold = tidct.idct_matrix_scaled_on(torch.device("cpu"), k) * qt_zz[:, None]
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      fold[list(tidct.band_z(k))].numpy().view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
 # K0's and K03's exact rewrites (csrc/idct_exact.cuh half, store)
 # ---------------------------------------------------------------------------
 
