@@ -1541,7 +1541,7 @@ def check_k5(dev, big: bytes, record: dict, card: str) -> None:
     (idct_matmul_scaled and blocks_to_plane, torch ops on the card) on the
     4K request's three coefficient planes at k = 1, 2 and 4: within 1 on at
     most K1_SHARE of the pixels, bitwise at k = 1; bitwise its earlier
-    design (PR 8's, a launch a plane: pixel_sweep.k5_percomp, also with its
+    design (a launch a plane: pixel_sweep.k5_percomp, also with its
     loads first) on those planes and, 12-bit, on random planes of their
     shapes. Its time the card alone and with L2 flushed beside the earlier
     design in turns (pixel_sweep.k5_turns, with the launch floor: an empty

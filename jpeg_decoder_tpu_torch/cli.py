@@ -2,7 +2,7 @@
 (counterpart of jpeg_decoder_tpu/cli.py).
 
 The reference's CLI is `jpeg_decoder <file>` -> SDL2 window
-(reference/src/jpeg_decoder.c:29-141) and a non-compiling encoder driver
+(reference/src/jpeg_decoder.c:29-141) and a non-compiling encoder program
 (jpeg_encoder.c). This CLI covers both, file-based (PNG/PPM/NPY out) with
 an optional viewer (--show). PNG and --show need Pillow, imported only
 when used; PPM and NPY need nothing beyond NumPy.

@@ -35,7 +35,7 @@
 //   and first block of threads; components start on block-of-threads
 //   boundaries, so a block of threads finds its component by three compares
 //   of blockIdx.x. The 4K request's chroma planes alone are 127 blocks of
-//   threads each, fewer than the 132 SMs: as three launches (PR 8's design,
+//   threads each, fewer than the 132 SMs: as three launches (the earlier design,
 //   jdtc_idct_scaled_percomp) two of them could not fill the card;
 // - the folded band M_k[band] * qt_zz[band], for each distinct table, comes
 //   folded from the host (ops/idct.folded_band, a float32 product in NumPy:
@@ -195,7 +195,7 @@ int launch(const int64_t* desc, const float* folded, int n_comps, int n_tables, 
 }
 
 // ---------------------------------------------------------------------------
-// PR 8's design, for measurement (benchmarks/pixel_sweep.py --k5): one
+// The earlier design, for measurement (benchmarks/pixel_sweep.py --k5): one
 // launch per component, every block of threads folding the band into shared
 // memory behind a barrier before it loads its coefficients; with
 // kLoadsFirst the loads are issued before the fold and the barrier. Bitwise
