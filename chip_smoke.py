@@ -106,7 +106,13 @@ Phases, each of which exits non-zero on failure:
      bitwise its plain version on the dense 4K request in 8 stripes, where it
      differs from the whole-image fancy decode in row 2159 alone, and on a
      frame with a (2, 4)-ratio component; each timed one call and the card
-     alone;
+     alone; K6h (K3f over one stripe of a mesh, its two halo rows a
+     component given) stripe by stripe, each stripe's halo rows its
+     neighbours' edge rows, bitwise K6f in one launch and its plain version
+     (the JAX program's stripe) on the dense 4K request in 2 and 8 stripes
+     and a (2, 4)-ratio frame, and bitwise K6f under FLOAT32 (K1), timed one
+     call on a stripe and the card alone over both stripes beside K6f's K3f
+     in turns;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and the work of the IDCT and colour launches
      (_build.LAUNCH_UNITS: coefficient blocks, output pixels), from which
@@ -172,6 +178,19 @@ Phases, each of which exits non-zero on failure:
        decode; decode_striped of the dense 4K request with fancy upsampling
        (K6f) bitwise its plain version; wall time, MP/s and the card's peak
        allocation of each;
+     - the mesh paths (parallel/mesh.py, multihost.py), each rank a process
+       of its own on this card (benchmarks/mesh_ranks.py), its launch counts
+       read in the rank: a one-rank NCCL group (BatchDecoder(mesh) of the
+       eight 4K requests, PALLAS and NATIVE, EXACT and FLOAT32;
+       decode_striped(mesh) of the dense 4K request, fancy EXACT and
+       FLOAT32 and nearest-neighbour; dryrun_multichip(1)) and two gloo
+       ranks on this card (the same batches over a data axis of 2; the 4K
+       request over a stripe axis of 2, fancy through K6h with the halo rows
+       exchanged and nearest-neighbour through K6n; dryrun_multichip(2);
+       the gigapixel frame in 2 stripes, EXACT, nearest-neighbour), each
+       bitwise the call without a mesh, with each rank's wall time and the
+       host-clock time of its halo exchanges and all_gathers. NCCL across
+       two or more cards is not run here: the machine has one card;
   5. stage times with CUDA events: per image (H2D, K2u, K2, K03 and K13,
      D2H), and per batch of eight (H2D, K2u, K2, K03 under EXACT or K13
      under FLOAT32, D2H), each with the host clock of the parse that
@@ -184,8 +203,8 @@ Phases, each of which exits non-zero on failure:
      pages), and decode_streamed and decode_striped each in a process of its
      own (benchmarks/gigapixel.py: time, the card's peak allocation, the
      host's resident set before and at its peak during the decode).
-The last lines are the kernels' JSON record (twenty kernels: K0-K4, K03,
-K13, K2u, K3f, K3c, K5, K6n, K6f and PK1-PK7, each with its launches on the main
+The last lines are the kernels' JSON record (twenty-one kernels: K0-K4, K03,
+K13, K2u, K3f, K3c, K5, K6n, K6f, K6h and PK1-PK7, each with its launches on the main
 paths, its time, its plain version's time and its bound; K0, K1, K3, K3f,
 K3c, K4 and K5 also with their work in 4K units and the time lost), the
 card's name and power limit, and
@@ -1901,6 +1920,209 @@ def gigapixel_path(dev, giga: bytes, requests, card: str) -> dict:
     return runs
 
 
+def resident_exchanges(stage, stripe_planes):
+    """Stand-ins for a mesh's halo exchange with every stripe on this card:
+    stripe k's `exchange(first, last)` for StripeStage.stripe gives its
+    neighbours' edge rows (StripeStage.edge_rows of their K0/K1 planes), its
+    own at the two ends."""
+    from jpeg_decoder_tpu_torch.ops import idct
+
+    edges = [stage.edge_rows([idct.idct_plane(p, q, stage.bits12, stage.precision)
+                              for p, q in zip(planes, stage._qts())])
+             for planes in stripe_planes]
+    n = len(edges)
+    return [lambda first, last, k=k: (edges[k - 1][2] if k else first,
+                                      edges[k + 1][1] if k < n - 1 else last)
+            for k in range(n)]
+
+
+def stripe_by_stripe(stage, planes, plain: bool = False):
+    """The padded frame decoded as a mesh's stripe axis decodes it, each
+    stripe alone on this card (StripeStage.stripe: K0/K1, then K6h under
+    fancy upsampling, its halo rows from resident_exchanges), concatenated."""
+    import torch
+
+    parts = stage._stripes(planes)
+    exchanges = resident_exchanges(stage, parts)
+    return torch.cat([stage.stripe(k, p, exchanges[k], plain=plain) for k, p in enumerate(parts)])
+
+
+#: Stripes of the mesh phase's striped decodes, one a rank.
+MESH_STRIPES = 2
+
+
+def check_k6h(dev, requests, record: dict, card: str) -> None:
+    """K6h (K3f over ONE stripe, its two halo rows a component given: the
+    fancy colour stage of a rank of a mesh's stripe axis) bitwise against
+    the one-launch K6f over the padded frame and against its plain version
+    (StripeStage._fancy_stripe_plain, the JAX program's stripe): the dense
+    4K request under CORRECT in 2 and 8 stripes, each stripe decoded alone
+    (K0, then K6h with its neighbours' edge rows); under FLOAT32 (K1) in 2
+    stripes against K6f; a random 4K frame with a (2, 4)-ratio component
+    (the rule, so no halo on it) in 2 stripes. Then its time on the 4K
+    request in 2 stripes: one call on one stripe, and the card alone over
+    both stripes (two launches) beside K6f's K3f over the padded frame (one
+    launch) in turns; the whole pixel stage, K0 x 3 + K6h a stripe beside K0
+    x 3 + K3f, the card alone."""
+    from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, Quirks
+    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
+    from jpeg_decoder_tpu_torch.ops import color, idct
+
+    cfg = DecodeConfig(upsample="fancy", quirks=Quirks.CORRECT)
+    cases = {f"dense {W}x{H} 4:2:0 request, {n} stripes": (
+        striped_case(dev, requests[0], cfg, n), True) for n in (MESH_STRIPES, N_STRIPES)}
+    cases[f"dense {W}x{H} 4:2:0 request, FLOAT32, {MESH_STRIPES} stripes"] = (
+        striped_case(dev, requests[0], cfg.replace(idct_precision=IdctPrecision.FLOAT32),
+                     MESH_STRIPES), False)
+    cases[f"random {W}x{H} planes, a (2, 4)-ratio component, {MESH_STRIPES} stripes"] = (
+        synthetic_stripe_case(dev, H, W, ((2, 4), (1, 1), (1, 1)), 64, "fancy", Quirks.CORRECT,
+                              n=MESH_STRIPES), True)
+    err = 0
+    for name, ((stage, planes), exact) in cases.items():
+        got = stripe_by_stripe(stage, planes)
+        e_f = max_abs_err(got, stage(*planes))
+        e_p = max_abs_err(got, stripe_by_stripe(stage, planes, plain=True)) if exact else 0
+        log(f"K6h, {name}: stripe by stripe max_abs_err {e_f} against K6f in one launch,"
+            f" {e_p if exact else 'not compared (FLOAT32)'} against the plain version")
+        err = max(err, e_f, e_p)
+        del got
+    record["max_abs_err"] = err
+    if err != 0:
+        fail(f"K6h disagrees with K6f or its plain version (max_abs_err {err}; tolerance 0)")
+    (stage, planes), _ = cases[f"dense {W}x{H} 4:2:0 request, {MESH_STRIPES} stripes"]
+    qts = stage._qts()
+    parts = stage._stripes(planes)
+    exchanges = resident_exchanges(stage, parts)
+    pixel = [[idct.idct_plane(p, q, False, stage.precision) for p, q in zip(ps, qts)]
+             for ps in parts]
+    halos = [stage._halos(px, exchanges[k]) for k, px in enumerate(pixel)]
+    whole = [idct.idct_plane(p, q, False, stage.precision) for p, q in zip(planes, qts)]
+
+    def k6h(k):
+        return stage._colour(pixel[k], stage.hs, "fancy", color.Stripes(k * stage.hs, stage.hs),
+                             halos[k])
+
+    def k6f():
+        return stage._colour(whole, stage.pad_h, "fancy", color.Stripes(0, stage.hs))
+
+    ms = [cuda_ms(lambda: k6h(0), 10), cuda_ms(lambda: k6h(0), 10)]
+    turns = pixel_sweep.in_turns(lambda: [k6h(k) for k in range(MESH_STRIPES)], k6f, 7)
+    stage_k6h = pixel_sweep.card_ms(lambda: [stage.stripe(k, p, exchanges[k])
+                                             for k, p in enumerate(parts)], 7)
+    stage_k6f = pixel_sweep.card_ms(lambda: stage(*planes), 7)
+    plain_ms = cuda_ms(lambda: stage._fancy_stripe_plain(0, pixel[0], halos[0]), 1)
+    rows = [r for pair in halos[0] if pair is not None for r in pair]
+    out = k6h(0)
+    bnd = bound(nbytes_of(*pixel[0], *rows, out), 16 * out.shape[0] * out.shape[1], "int32")
+    shape = (f"{W}x{stage.hs}, stripe 0 of {W}x{H} 4:2:0 in {MESH_STRIPES} stripes (padded to"
+             f" {stage.pad_h} rows), {len(rows)} halo rows")
+    log(f"K6h ({shape}): one call {ms[0]:.3f} and {ms[1]:.3f} ms; both stripes (two launches)"
+        f" {turns_line(turns).replace('its earlier design', 'K6f (K3f over the padded frame)')};"
+        f" plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; the"
+        f" pixel stage a stripe at a time (K0 x 3 + K6h, both stripes) the card alone"
+        f" {stage_k6h:.4f} ms, K6f (K0 x 3 + K3f, one launch each) {stage_k6f:.4f} ms [{card}]")
+    record.update(ms=statistics.median(ms), ms_runs=ms, card_ms=turns["card_ms"],
+                  k6f_card_ms=turns["earlier_card_ms"], flushed_ms=turns["flushed_ms"],
+                  k6f_flushed_ms=turns["earlier_flushed_ms"], stage_card_ms=stage_k6h,
+                  k6f_stage_card_ms=stage_k6f, plain_ms=plain_ms, library_ms=None, shape=shape,
+                  **bnd)
+
+
+def run_ranks(tmp, world: int, backend: str, cases, timeout: float = 600.0) -> list:
+    """benchmarks/mesh_ranks.py in `world` processes of one process group
+    (`backend`, a file store in `tmp`), all on this card; each rank's JSON
+    record. The first rank to fail (or the deadline) ends the others and the
+    script."""
+    import os
+
+    for f in [tmp / "store", *tmp.glob("rank*.json")]:
+        f.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "jpeg_decoder_tpu_torch.benchmarks.mesh_ranks",
+                 str(tmp), "--rank", str(r), "--world", str(world), "--backend", backend,
+                 "--cases", *cases],
+                cwd=str(Path(__file__).resolve().parent), env=env, stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        r = failed[0]
+        fail(f"mesh rank {r} of {world} ({backend}) exited {procs[r].returncode}:"
+             f" {logs[r].read_text()[-3000:]}")
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def mesh_path(dev, batch, giga: bytes, card: str) -> dict:
+    """The mesh paths (parallel/mesh.py, multihost.py), each rank a process
+    of its own on this card (benchmarks/mesh_ranks.py), every launch count
+    set to 0 in each rank just before its path and read just after:
+    - one rank under NCCL: BatchDecoder(mesh).decode_batch of the eight 4K
+      requests (PALLAS and NATIVE, EXACT and FLOAT32), decode_striped(mesh)
+      of the dense 4K request (fancy EXACT and FLOAT32, nearest-neighbour)
+      and dryrun_multichip(1);
+    - two ranks under gloo, both on this card: the same batches over a data
+      axis of 2, the 4K request over a stripe axis of 2 (fancy through K6h,
+      the halo rows exchanged; nearest-neighbour through K6n),
+      dryrun_multichip(2), and the gigapixel frame in 2 stripes (EXACT,
+      nearest-neighbour);
+    each bitwise the same call without a mesh on this card, every rank's
+    result the same. NCCL across two or more cards is not run: the machine
+    has one card."""
+    import shutil
+
+    tmp = scratch_dir()
+    runs = {}
+    try:
+        for i, d in enumerate(batch):
+            (tmp / f"batch{i}.jpg").write_bytes(d)
+        (tmp / "gigapixel.jpg").write_bytes(giga)
+        for world, backend, cases in ((1, "nccl", ("batches", "stripes", "dryrun")),
+                                      (MESH_STRIPES, "gloo",
+                                       ("batches", "stripes", "dryrun", "gigapixel"))):
+            t0 = time.perf_counter()
+            recs = run_ranks(tmp, world, backend, cases)
+            log(f"mesh, {world} rank(s) under {backend}: {time.perf_counter() - t0:.1f} s with"
+                f" the processes' start; {[r['process_info'] for r in recs]}")
+            for case in recs[0]:
+                if not isinstance(recs[0][case], dict) or "launches" not in recs[0][case]:
+                    continue
+                digests = {r[case]["sha256"] for r in recs}
+                if len(digests) != 1:
+                    fail(f"mesh {backend} x{world} {case}: the ranks' results differ")
+                if any(r[case]["bitwise"] is False for r in recs) or all(
+                        r[case]["bitwise"] is None for r in recs):
+                    fail(f"mesh {backend} x{world} {case}: differs from the call without a"
+                         f" mesh (or was compared on no rank)")
+                for r in recs:
+                    rec = r[case]
+                    path = f"mesh {backend} x{world} rank{r['rank']}: {case}"
+                    runs[path] = rec["launches"]
+                    PATH_UNITS[path] = rec["units"]
+                    log(f"{path}: launches {rec['launches']}; wall {rec['wall_s'] * 1e3:.1f} ms,"
+                        f" halo exchange {rec['halo_s'] * 1e3:.3f} ms in {rec['halo_calls']}"
+                        f" calls, all_gather {rec['gather_s'] * 1e3:.3f} ms in"
+                        f" {rec['gather_calls']} calls (host clock); output {rec['shape']};"
+                        f" bitwise the call without a mesh: {rec['bitwise']} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def gigapixel_stage_times(dev, giga: bytes, card: str) -> None:
     """decode_streamed's chunks one by one with their steps timed: host
     entropy (host clock), H2D of the chunk's int16 planes, K6n one call and
@@ -3097,6 +3319,15 @@ def main() -> None:
                      "jpeg_decoder_tpu_torch/csrc/color.cu"],
             launches_count="K3f once a stage call; K0's launches count as jdtc_idct_exact",
             replaces="jpeg_decoder_tpu/parallel/stripes.py:86"),
+        # one stripe of a mesh's stripe axis, its halo rows given: K3f's
+        # kernel with two halo rows a component (jdtc_fancy_halo); its
+        # launches are the mesh phase's ranks'
+        "K6h": dict(
+            name="K6h stripe of a mesh, fancy", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/color.cu",
+            launches_count="jdtc_fancy_halo once a stripe a rank; K0/K1's launches count"
+                           " under their own names",
+            replaces="jpeg_decoder_tpu/parallel/stripes.py:86"),
     }
     for key, (name, _standing, _ops, replaces) in PROBE_KERNELS.items():
         kernels[key] = dict(name=name, route="cuda",
@@ -3131,6 +3362,7 @@ def main() -> None:
         f" marker per MCU row ({len(giga)} bytes) in {time.perf_counter() - t0:.1f} s")
     timed_phase("K6n", check_k6n, dev, giga, requests, cmyk, kernels["K6n"], card)
     timed_phase("K6f", check_k6f, dev, requests, kernels["K6f"], card)
+    timed_phase("K6h", check_k6h, dev, requests, kernels["K6h"], card)
     for key, rec in kernels.items():
         if (key not in ("jdtc_idct_float", "jdtc_pixel_float", "jdtc_idct_scaled")
                 and rec["max_abs_err"] != 0):
@@ -3152,6 +3384,7 @@ def main() -> None:
     timed_phase("CLI", cli_phase, dev, requests[0], batch, images[f"photograph {W}x{H}"], card)
     runs.update(timed_phase("main paths, streamed and striped", gigapixel_path, dev, giga,
                             requests, card))
+    runs.update(timed_phase("main paths, mesh", mesh_path, dev, batch, giga, card))
     for key, rec in kernels.items():
         entry = rec.get("entry", key)
         paths = {p: r for p, r in runs.items()
@@ -3187,7 +3420,21 @@ def main() -> None:
                       ("ScanDecoder 4K exact finish", "jdtc_pixel_exact"),
                       ("ScanDecoder 4K float32 finish", "jdtc_pixel_float"),
                       ("decode_streamed exact", "K6n"), ("decode_streamed float32", "K6n"),
-                      ("decode_striped exact", "K6n"), ("decode_striped fancy 4K", "K6f")):
+                      ("decode_striped exact", "K6n"), ("decode_striped fancy 4K", "K6f"),
+                      *[(f"mesh {m}: {case}", key) for m in ("nccl x1 rank0", "gloo x2 rank0",
+                                                              "gloo x2 rank1")
+                        for case, key in (
+                            ("BatchDecoder mesh pallas exact decode_batch", "jdtc_pixel_exact"),
+                            ("BatchDecoder mesh native float32 decode_batch",
+                             "jdtc_pixel_float"),
+                            ("decode_striped mesh fancy exact", "K6h"),
+                            ("decode_striped mesh fancy pallas float32", "K6h"),
+                            ("decode_striped mesh nn exact", "K6n"))],
+                      ("mesh nccl x1 rank0: dryrun_multichip(1)", "K6h"),
+                      ("mesh gloo x2 rank0: dryrun_multichip(2)", "K6h"),
+                      ("mesh gloo x2 rank1: dryrun_multichip(2)", "jdtc_fdct"),
+                      ("mesh gloo x2 rank0: decode_striped mesh gigapixel exact", "K6n"),
+                      ("mesh gloo x2 rank1: decode_striped mesh gigapixel exact", "K6n")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")
     timed_phase("stage times", stage_times, dev, requests, card)

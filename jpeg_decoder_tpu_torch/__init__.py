@@ -20,9 +20,21 @@ Public API:
     decode_rgb(data, cfg, device)  -> [H, W, 3] uint8
     decode_file(path, cfg, device) -> DecodedImage
     JpegDecoder(cfg, device)       -> reusable handle
-    BatchDecoder(cfg, device)      -> same-geometry batches: decode_batch,
-                                      decode_stream, decode_many
-    decode_batch(datas, cfg, device) -> [B, H, W, 3] uint8
+    BatchDecoder(cfg, device, mesh) -> same-geometry batches: decode_batch,
+                                      decode_stream, decode_many; with a
+                                      mesh, sharded over its "data" ranks
+    decode_batch(datas, cfg, device, mesh) -> [B, H, W, 3] uint8
+    parallel.stripes.decode_streamed(data, cfg, n_chunks, sink, device),
+    parallel.stripes.decode_striped(data, cfg, n_stripes, device, mesh)
+                                   -> one large image in chunks or stripes;
+                                      with a mesh, a stripe a "stripe" rank
+    parallel.multihost.initialize(coordinator_address, num_processes,
+        process_id, local_device_ids, backend), is_distributed(),
+        process_info()             -> torch.distributed, one rank a device
+    parallel.mesh.make_mesh(n_data, n_stripe, devices) -> ("data", "stripe")
+                                      DeviceMesh over ranks; batch_sharding,
+                                      stripe_sharding, replicated
+    entry.entry(device), entry.dryrun_multichip(n_devices, device)
     decode_oracle(data)            -> DecodedImage (bit-serial conformance oracle)
     parse(data)                    -> JpegStructure (marker walk only)
     host_decode_batch(datas, cfg, pool, max_workers) -> (frame, planes, qts) per image

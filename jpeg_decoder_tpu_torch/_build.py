@@ -94,6 +94,10 @@ SIGNATURES = {
     # stripe_h, mode, correct, out, cuda_stream
     "jdtc_color": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
     "jdtc_fancy": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
+    # K6h (K3f over one stripe of a mesh): jdtc_fancy's arguments with
+    # halos (host int64 [4][2]: each component's top and bottom halo rows'
+    # device addresses, 0 for none) before out
+    "jdtc_fancy_halo": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P, _P],
     # their earlier design (a thread a pixel), for measurement: the same
     # arguments
     "jdtc_color_pixel": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
@@ -130,7 +134,7 @@ MAX_IMAGES = 65535
 #: Kernel launches per C entry point since the process started (or since a
 #: caller last cleared it). Only `launch` adds to it. Launches of striped
 #: and streamed decode are counted under their stage's name instead (K6n,
-#: K6f: parallel/stripes.py), so that each record counts its own.
+#: K6f, K6h: parallel/stripes.py), so that each record counts its own.
 LAUNCHES: collections.Counter = collections.Counter()
 #: The work of those launches, counted beside them where the wrapper gives
 #: it: coefficient blocks for the IDCT kernels (K0, K1, K5) and K4, output pixels
@@ -246,7 +250,7 @@ def launch(name: str, *args) -> None:
 
 
 def launch_as(count_as: str, name: str, *args) -> None:
-    """launch, the launch counted under `count_as` (K6n, K6f)."""
+    """launch, the launch counted under `count_as` (K6n, K6f, K6h)."""
     lib = library()
     rc = getattr(lib, name)(*args)
     if rc != 0:

@@ -8,9 +8,11 @@ an optional viewer (--show). PNG and --show need Pillow, imported only
 when used; PPM and NPY need nothing beyond NumPy.
 
 Every command runs on `--device` (default "cuda": the card's kernels;
-"cpu" runs their plain PyTorch versions). `--stripes N` cuts a --striped
-decode in N stripes of MCU rows (default: the CUDA devices, one on the
-CPU), in place of the JAX package's device mesh.
+"cpu" runs their plain PyTorch versions). The CLI is a one-process
+program: `--stripes N` cuts a --striped decode in N stripes of MCU rows on
+one device (default: the CUDA devices, one on the CPU), where the JAX CLI
+stripes over its device mesh; a mesh of ranks (parallel/mesh.py) is the
+library's, under torchrun or multihost.initialize.
 
     python -m jpeg_decoder_tpu_torch.cli decode in.jpg out.npy [--backend ...]
     python -m jpeg_decoder_tpu_torch.cli decode-batch a.jpg b.jpg --out-dir d --format npy

@@ -58,6 +58,17 @@
 // vertical pass over the padded plane's rows is the stripes' one-row halo
 // exchange, the padded plane's last row its outer edge.
 //
+// K6h (jdtc_fancy_halo) is K3f over ONE stripe of a mesh's stripe axis,
+// each rank holding its own stripe (parallel/stripes.py decode_striped
+// with a mesh; the shard_map body of stripes.py:86 with the ppermute of
+// :56). A component's vertical pass then reads its row -1 and its row
+// `rows` from two halo rows the caller passes, its neighbours' edge rows
+// that the ranks exchanged (or its own at the axis's ends): `vrow`. The
+// horizontal pass is row-local, so the halo rows are the IDCT's uint8
+// rows and the sums over them are the JAX program's floats, as above.
+// Nothing else changes: the planes stay as K0 or K1 wrote them. What
+// bounds it is K3f's; a stripe adds two rows a component.
+//
 // What bounds it on the H100: on paper memory (the planes in, three bytes
 // a pixel out); in practice the instructions a pixel. The first design ran
 // a thread a pixel: two 64-bit divisions for its row and column, every
@@ -107,7 +118,20 @@ struct Geometry {
   float hratio[kMaxComps];
   float vratio[kMaxComps];
   int row0, stripe_h;  // striped decode: colour::nn_row; 0, 0 for whole frames
+  // K6h: the rows above and below a one-image plane (null: its own edge rows)
+  const uint8_t* halo[kMaxComps][2];
 };
+
+// Row t of component c's plane for the vertical pass, t in [-1, rows]:
+// past the plane's edge the halo row given (K6h), else the plane's own
+// edge row replicated.
+__device__ __forceinline__ const uint8_t* vrow(const Geometry& g, const uint8_t* p, int c, int t,
+                                               int cols) {
+  if (t < 0) return g.halo[c][0] ? g.halo[c][0] : p;
+  if (t >= g.rows[c])
+    return g.halo[c][1] ? g.halo[c][1] : p + static_cast<int64_t>(g.rows[c] - 1) * cols;
+  return p + static_cast<int64_t>(t) * cols;
+}
 
 // The horizontal pass's integer sum A = 3x + n + b at output column q of a
 // source row (before the >> 2).
@@ -132,10 +156,9 @@ __device__ __forceinline__ uint8_t sample(const Geometry& g, int64_t img, int c,
   if (!kFancy || !(flags & (kH2x | kV2x))) return p[static_cast<int64_t>(r) * cols + q];
   if (!(flags & kV2x)) return static_cast<uint8_t>(hsum(p + static_cast<int64_t>(r) * cols, q, cols) >> 2);
   const int t = r >> 1;
-  const int tn = (r & 1) ? min(t + 1, g.rows[c] - 1) : max(t - 1, 0);
   const int bv = (r & 1) ? 2 : 1;
   const uint8_t* row = p + static_cast<int64_t>(t) * cols;
-  const uint8_t* nrow = p + static_cast<int64_t>(tn) * cols;
+  const uint8_t* nrow = vrow(g, p, c, (r & 1) ? t + 1 : t - 1, cols);
   if (!(flags & kH2x)) return static_cast<uint8_t>((3 * row[q] + nrow[q] + bv) >> 2);
   const int v = (3 * hsum(row, q, cols) + hsum(nrow, q, cols) + 4 * bv) >> 4;
   return static_cast<uint8_t>(min(v, 255));
@@ -218,7 +241,9 @@ __device__ __forceinline__ bool fetch_vector(const Geometry& g, int img, int c, 
   const int cols = g.stride[c];
   const int flags = g.flags[c];
   const uint32_t align = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p)) |
-                         static_cast<uint32_t>(cols);
+                         static_cast<uint32_t>(cols) |
+                         static_cast<uint32_t>(reinterpret_cast<uintptr_t>(g.halo[c][0])) |
+                         static_cast<uint32_t>(reinterpret_cast<uintptr_t>(g.halo[c][1]));
   if (flags == 0) {  // read in place
     if (align & 15) return false;
     load16(p + static_cast<int64_t>(i) * cols + j0, out);
@@ -244,11 +269,10 @@ __device__ __forceinline__ bool fetch_vector(const Geometry& g, int img, int c, 
   if (flags == kV2x) {  // (3 row[q] + nrow[q] + bv) >> 2
     if (align & 15) return false;
     const int t = i >> 1;
-    const int tn = (i & 1) ? min(t + 1, g.rows[c] - 1) : max(t - 1, 0);
     const int bv = (i & 1) ? 2 : 1;
     Run16 x, y;
     load16(p + static_cast<int64_t>(t) * cols + j0, x);
-    load16(p + static_cast<int64_t>(tn) * cols + j0, y);
+    load16(vrow(g, p, c, (i & 1) ? t + 1 : t - 1, cols) + j0, y);
     int v[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k)
@@ -273,10 +297,9 @@ __device__ __forceinline__ bool fetch_vector(const Geometry& g, int img, int c, 
   // both passes: (3 A + A' + 4 bv) >> 4 over source row t and its
   // neighbour tn, clamped to 255 (an all-255 neighbourhood gives 256)
   const int t = i >> 1;
-  const int tn = (i & 1) ? min(t + 1, g.rows[c] - 1) : max(t - 1, 0);
   const int bv = (i & 1) ? 2 : 1;
   const uint8_t* row = p + static_cast<int64_t>(t) * cols;
-  const uint8_t* nrow = p + static_cast<int64_t>(tn) * cols;
+  const uint8_t* nrow = vrow(g, p, c, (i & 1) ? t + 1 : t - 1, cols);
   int a[16], an[16];
   hsums(__ldg(reinterpret_cast<const uint2*>(row + s0)), row[left], row[right], a);
   hsums(__ldg(reinterpret_cast<const uint2*>(nrow + s0)), nrow[left], nrow[right], an);
@@ -391,12 +414,16 @@ void run(const Geometry& g, int n_images, int h, int w, int correct, void* out,
 template <bool kPerPixel, bool kFancy>
 int launch(const void* plane0, const void* plane1, const void* plane2, const void* plane3,
            int n_images, int n_comps, int h, int w, const void* geom, const void* ratios,
-           int row0, int stripe_h, int mode, int correct, void* out, void* cuda_stream) {
+           int row0, int stripe_h, int mode, int correct, const void* halos, void* out,
+           void* cuda_stream) {
   // geom: host int64 [4][5], per component (image stride, rows, stride,
   // flags, plane rows a stripe); ratios: host float [4][2], per component
-  // (hratio, vratio).
+  // (hratio, vratio); halos: null, or host int64 [4][2], per component the
+  // device addresses of its top and bottom halo rows (0: none), one image.
   const auto* gm = static_cast<const int64_t*>(geom);
   const auto* rt = static_cast<const float*>(ratios);
+  const auto* hl = static_cast<const int64_t*>(halos);
+  if (hl && n_images != 1) return static_cast<int>(cudaErrorInvalidValue);
   Geometry g{{static_cast<const uint8_t*>(plane0), static_cast<const uint8_t*>(plane1),
               static_cast<const uint8_t*>(plane2), static_cast<const uint8_t*>(plane3)}};
   for (int c = 0; c < kMaxComps; ++c) {
@@ -407,6 +434,9 @@ int launch(const void* plane0, const void* plane1, const void* plane2, const voi
     g.local_rows[c] = static_cast<int>(gm[5 * c + 4]);
     g.hratio[c] = rt[2 * c];
     g.vratio[c] = rt[2 * c + 1];
+    for (int e = 0; e < 2; ++e)
+      g.halo[c][e] = hl ? reinterpret_cast<const uint8_t*>(static_cast<uintptr_t>(hl[2 * c + e]))
+                        : nullptr;
   }
   g.row0 = row0;
   g.stripe_h = stripe_h;
@@ -432,7 +462,7 @@ extern "C" int jdtc_color(const void* plane0, const void* plane1, const void* pl
                           const void* geom, const void* ratios, int row0, int stripe_h,
                           int mode, int correct, void* out, void* cuda_stream) {
   return launch<false, false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                              row0, stripe_h, mode, correct, out, cuda_stream);
+                              row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
 }
 
 // K3f: fancy upsampling, 3 or 4 components.
@@ -441,7 +471,17 @@ extern "C" int jdtc_fancy(const void* plane0, const void* plane1, const void* pl
                           const void* geom, const void* ratios, int row0, int stripe_h,
                           int mode, int correct, void* out, void* cuda_stream) {
   return launch<false, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                             row0, stripe_h, mode, correct, out, cuda_stream);
+                             row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
+}
+
+// K6h: K3f over one stripe of a mesh, its halo rows given.
+extern "C" int jdtc_fancy_halo(const void* plane0, const void* plane1, const void* plane2,
+                               const void* plane3, int n_images, int n_comps, int h, int w,
+                               const void* geom, const void* ratios, int row0, int stripe_h,
+                               int mode, int correct, const void* halos, void* out,
+                               void* cuda_stream) {
+  return launch<false, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                             row0, stripe_h, mode, correct, halos, out, cuda_stream);
 }
 
 // The first design of K3 and K3f (a thread a pixel), reached by no wrapper.
@@ -450,7 +490,7 @@ extern "C" int jdtc_color_pixel(const void* plane0, const void* plane1, const vo
                                 const void* geom, const void* ratios, int row0, int stripe_h,
                                 int mode, int correct, void* out, void* cuda_stream) {
   return launch<true, false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                             row0, stripe_h, mode, correct, out, cuda_stream);
+                             row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
 }
 
 extern "C" int jdtc_fancy_pixel(const void* plane0, const void* plane1, const void* plane2,
@@ -458,5 +498,5 @@ extern "C" int jdtc_fancy_pixel(const void* plane0, const void* plane1, const vo
                                 const void* geom, const void* ratios, int row0, int stripe_h,
                                 int mode, int correct, void* out, void* cuda_stream) {
   return launch<true, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                            row0, stripe_h, mode, correct, out, cuda_stream);
+                            row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
 }

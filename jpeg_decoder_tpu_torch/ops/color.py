@@ -24,13 +24,15 @@ Striped and streamed decode (parallel/stripes.py) pass `stripes`: the
 launch covers a chunk of a padded frame, or the whole of it, cut in stripes
 of MCU rows, and the nearest-neighbour rows follow the JAX package's stripe
 rule (`nn_rows`); under fancy upsampling only the components that
-`fancy_ok` takes get the triangular passes.
+`fancy_ok` takes get the triangular passes. A rank of a mesh's stripe axis
+decodes one stripe and passes `halos`, the rows above and below its planes
+that its neighbours sent: the launch is K6h (the same file's
+jdtc_fancy_halo), whose vertical pass reads them at the planes' edges.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -88,6 +90,12 @@ def fancy_ok(hsf: int, vsf: int, max_hsf: int, max_vsf: int) -> bool:
     return ((hsf == max_hsf or 2 * hsf == max_hsf)
             and (vsf == max_vsf or 2 * vsf == max_vsf)
             and (2 * hsf == max_hsf or 2 * vsf == max_vsf))
+
+
+def takes_halo(hsf: int, vsf: int, max_hsf: int, max_vsf: int) -> bool:
+    """Whether a stripe's component reads a halo row under fancy
+    upsampling: fancy_ok and a vertical 2x pass."""
+    return fancy_ok(hsf, vsf, max_hsf, max_vsf) and 2 * vsf == max_vsf
 
 
 def nn_upsample(plane: torch.Tensor, out_h: int, out_w: int, hsf: int,
@@ -267,22 +275,28 @@ def _convert(chans, mode: int, quirks: Quirks) -> torch.Tensor:
 
 def _planes_to_rgb_plain(planes, h, w, factors, quirks, upsample: str = "nn",
                          exact: bool = True, raw_cmyk: bool = False,
-                         gray_shear: bool | None = None, stripes: Stripes | None = None):
+                         gray_shear: bool | None = None, stripes: Stripes | None = None,
+                         halos=None):
     """The colour stage of build_stage_raw in plain PyTorch (the plain
     version of K3 and K3f). `gray_shear` (default: REFERENCE quirks)
     indexes a gray plane at the image width. With `stripes`, the stripe
     rule: nearest-neighbour rows by nn_rows, and under fancy upsampling the
     passes (over the whole padded plane, which on one card is the stripes'
-    halo exchange) only where fancy_ok."""
+    halo exchange) only where fancy_ok; with `halos` (one stripe), the
+    passes over each plane between its halo rows."""
     if len(planes) == 1:
         shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
         return gray_to_rgb(_gray_source(planes[0], h, w, shear))
     mh = max(f[0] for f in factors)
     mv = max(f[1] for f in factors)
     chans = []
-    for p, (fh, fv) in zip(planes, factors):
+    for ci, (p, (fh, fv)) in enumerate(zip(planes, factors)):
         if upsample == "nn" or (stripes is not None and not fancy_ok(fh, fv, mh, mv)):
             chans.append(nn_upsample(p, h, w, fh, fv, mh, mv, stripes))
+        elif halos is not None and halos[ci] is not None:
+            top, bottom = halos[ci]
+            ext = torch.cat([top.reshape(1, -1), p, bottom.reshape(1, -1)])
+            chans.append(fancy_upsample(ext, 2 * ext.shape[0], w, fh, fv, mh, mv)[2:2 + h])
         else:
             chans.append(fancy_upsample(p, h, w, fh, fv, mh, mv))
     return _convert(chans, colour_mode(len(planes), exact, raw_cmyk), quirks)
@@ -291,7 +305,7 @@ def _planes_to_rgb_plain(planes, h, w, factors, quirks, upsample: str = "nn",
 def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str = "nn",
                   exact: bool = True, raw_cmyk: bool = False,
                   gray_shear: bool | None = None,
-                  stripes: Stripes | None = None) -> torch.Tensor:
+                  stripes: Stripes | None = None, halos=None) -> torch.Tensor:
     """uint8 pixel planes [rows, stride], or [B, rows, stride] for a batch
     (1, 3 or 4 components, sampling `factors` = ((hsf, vsf), ...)) -> [h, w,
     3] or [B, h, w, 3] uint8 RGB: the device stage after the IDCT.
@@ -302,7 +316,11 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str
     components), one launch for the batch (one per 65,535 images,
     _build.image_chunks). A gray frame ignores `upsample`. `stripes`: a
     chunk or a whole padded frame of striped decode, one image (the
-    launches count as K6n, or K6f under fancy upsampling)."""
+    launches count as K6n, or K6f under fancy upsampling). `halos`, with
+    `stripes` and fancy upsampling: one stripe of a mesh, per component
+    the (top, bottom) rows [1, stride] its vertical pass reads past the
+    plane's edges, given exactly where takes_halo holds (None elsewhere):
+    one K6h launch."""
     if len(planes) not in (1, 3, 4):
         raise ValueError(f"planes_to_rgb: {len(planes)} components")
     lead = planes[0].shape[:-2]
@@ -312,9 +330,20 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str
     dev = planes[0].device
     if stripes is not None and lead:
         raise ValueError("planes_to_rgb: striped decode takes one image")
+    if halos is not None:
+        mh = max(f[0] for f in factors)
+        mv = max(f[1] for f in factors)
+        if stripes is None or upsample != "fancy" or len(halos) != len(planes):
+            raise ValueError("planes_to_rgb: halos are one fancy stripe's, one a component")
+        for p, hl, (fh, fv) in zip(planes, halos, factors):
+            if (hl is not None) != takes_halo(fh, fv, mh, mv) or hl is not None and any(
+                    r.dtype != torch.uint8 or r.device != dev or not r.is_contiguous()
+                    or r.numel() != p.shape[-1] for r in hl):
+                raise ValueError("planes_to_rgb: a halo row is a contiguous uint8 row of"
+                                 " its plane, given where takes_halo holds")
     if dev.type == "cpu":
         return _planes_to_rgb_plain(planes, h, w, factors, quirks, upsample, exact, raw_cmyk,
-                                    gray_shear, stripes)
+                                    gray_shear, stripes, halos)
     if not planes[0].is_cuda:
         raise ValueError(f"planes_to_rgb: no kernel for {dev}")
     for p in planes:
@@ -323,8 +352,8 @@ def planes_to_rgb(planes, h: int, w: int, factors, quirks: Quirks, upsample: str
     shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
     fancy = upsample == "fancy" and len(planes) > 1
     mode = GRAY if len(planes) == 1 else colour_mode(len(planes), exact, raw_cmyk)
-    return _launch("jdtc_fancy" if fancy else "jdtc_color", planes, lead, h, w, factors,
-                   quirks, mode, shear, stripes)
+    entry = "jdtc_fancy_halo" if halos is not None else "jdtc_fancy" if fancy else "jdtc_color"
+    return _launch(entry, planes, lead, h, w, factors, quirks, mode, shear, stripes, halos)
 
 
 #: Bits of a component's flags in K3's and K3f's geometry (csrc/color.cu).
@@ -517,11 +546,13 @@ def _planes_to_rgb_runs_plain(planes, h: int, w: int, factors, quirks: Quirks,
 
 
 def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
-            mode: int, shear: bool, stripes: Stripes | None = None) -> torch.Tensor:
-    """Launch K3 (`jdtc_color`) or K3f (`jdtc_fancy`) over `planes`; a
-    gray plane is read at the image width where `shear`. (`jdtc_color_pixel`
-    and `jdtc_fancy_pixel`, their earlier design, take the same geometry;
-    only the benchmarks launch them.)"""
+            mode: int, shear: bool, stripes: Stripes | None = None,
+            halos=None) -> torch.Tensor:
+    """Launch K3 (`jdtc_color`), K3f (`jdtc_fancy`) or K6h
+    (`jdtc_fancy_halo`, with `halos`) over `planes`; a gray plane is read at
+    the image width where `shear`. (`jdtc_color_pixel` and
+    `jdtc_fancy_pixel`, their earlier design, take the same geometry; only
+    the benchmarks launch them.)"""
     fancy = entry.startswith("jdtc_fancy")
     geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy,
                                      stripes)
@@ -532,16 +563,23 @@ def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
         g[c] = (rows * cols, rows, w if n == 1 and shear else cols, flags, local)
         r[c] = ratio
     row0, stripe_h = stripes if stripes is not None else (0, 0)
-    launch = (_build.launch if stripes is None
-              else functools.partial(_build.launch_as, "K6f" if fancy else "K6n"))
+    count_as = (entry if stripes is None else "K6h" if halos is not None
+                else "K6f" if fancy else "K6n")
+    # K6h's halo rows: per component the device addresses of its top and
+    # bottom rows, 0 where it reads none
+    extra = ()
+    if halos is not None:
+        hl = np.array([[t.data_ptr() for t in pair] if pair is not None else [0, 0]
+                       for pair in [*halos, *[None] * (4 - n)]], dtype=np.int64)
+        extra = (ctypes.c_void_p(hl.ctypes.data),)
     out = torch.empty((*lead, h, w, 3), dtype=torch.uint8, device=planes[0].device)
     if h * w:
         n_images = lead[0] if lead else 1
         padded = [*planes, *[None] * (4 - n)]
         for _first, count, ptrs in _build.image_chunks(n_images, *padded, out):
-            launch(entry, *ptrs[:4], count, n, h, w, ctypes.c_void_p(g.ctypes.data),
-                   ctypes.c_void_p(r.ctypes.data), row0, stripe_h,
-                   mode, int(quirks != Quirks.REFERENCE), ptrs[4], _build.stream_of(out))
-            _build.add_units(entry if stripes is None else ("K6f" if fancy else "K6n"),
-                             count * h * w)
+            _build.launch_as(count_as, entry, *ptrs[:4], count, n, h, w,
+                             ctypes.c_void_p(g.ctypes.data), ctypes.c_void_p(r.ctypes.data),
+                             row0, stripe_h, mode, int(quirks != Quirks.REFERENCE), *extra,
+                             ptrs[4], _build.stream_of(out))
+            _build.add_units(count_as, count * h * w)
     return out

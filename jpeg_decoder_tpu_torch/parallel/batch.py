@@ -1,5 +1,5 @@
-"""Same-geometry batch serving on a torch device (counterpart of
-jpeg_decoder_tpu/parallel/batch.py, without a mesh).
+"""Same-geometry batch serving on a torch device, or on the ranks of a
+mesh (counterpart of jpeg_decoder_tpu/parallel/batch.py).
 
 The serving shape: many JPEGs per step.
   NATIVE (and the other host backends): host threads run the native
@@ -20,13 +20,25 @@ and one device-to-host copy of [B, h, w, 3]. As the JAX class, it takes
 every config and never reads `use_device`: the pixel stage runs on the
 device.
 
-The JAX class's `mesh` is not taken: meshes are ROADMAP queue 1 item 10.
+With a mesh (parallel/mesh.make_mesh), decode_batch, decode_stream and
+decode_many are SPMD: every rank passes the same list. The batch is padded
+to a multiple of the "data" axis's ranks with copies of its last stream
+(the JAX batch's padding, batch.py:178-184), and each rank of the axis runs
+the host stage and the pixel stage of its slice alone (the ranks of one
+data slice along "stripe" compute the same slice, as JAX's P("data") is
+replicated over "stripe"). The slices' RGB is gathered over the axis
+(all_gather_into_tensor) and cropped: every rank returns the whole batch,
+where the JAX class returns one global array. A slice that fails (a
+JpegError) or differs in geometry fails every rank alike, after a small
+exchange of each slice's status, rather than leaving the others waiting in
+the gather.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import hashlib
 import itertools
 import os
 
@@ -35,13 +47,14 @@ import torch
 
 from ..io.parser import parse
 from ..utils.config import DecodeConfig, EntropyBackend
-from ..utils.errors import JpegFormatError
+from ..utils.errors import JpegError, JpegFormatError
 from ..utils.metrics import GLOBAL_METRICS as metrics
 
 from .. import convert
 from ..models import decoder as decoder_mod
 from ..models import host
 from ..ops import entropy_cuda
+from . import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -59,12 +72,19 @@ class StackedPlanes:
 
 class BatchDecoder:
     """Same-geometry batch decoder on `device`: one pixel stage per
-    (geometry, tables, config), batches streamed through it."""
+    (geometry, tables, config), batches streamed through it; with `mesh`,
+    each rank of its "data" axis takes a slice of every batch."""
 
-    def __init__(self, cfg: DecodeConfig | None = None, device="cuda"):
+    def __init__(self, cfg: DecodeConfig | None = None, device="cuda", mesh=None):
         self.cfg = cfg or DecodeConfig()
         self.device = convert.resolve_device(device)
+        self.mesh = mesh
+        self._data = None if mesh is None else mesh_mod.batch_sharding(mesh)
         self._pool = host.PlanePool()
+
+    @property
+    def _n_data(self) -> int:
+        return 1 if self._data is None else self._data.size
 
     def _workers(self) -> int:
         return self.cfg.num_threads or os.cpu_count() or 1
@@ -140,18 +160,31 @@ class BatchDecoder:
                 results[i] = (slots[i], qts)
         return results
 
-    def _host_many_on(self, stream, datas):
-        """_host_many with its device work on `stream` (the consumer's):
+    def _host_share(self, datas):
+        """The host stage of this rank's share of a batch: all of it
+        without a mesh; with one, its slice of the batch padded to a
+        multiple of the data axis with copies of the last stream. Under a
+        mesh a JpegError is returned, to be raised on every rank alike."""
+        if self._data is None:
+            return self._host_many(datas)
+        padded = list(datas) + [datas[-1]] * ((-len(datas)) % self._n_data)
+        try:
+            return self._host_many(self._data.local(padded))
+        except JpegError as e:
+            return e
+
+    def _host_share_on(self, stream, datas):
+        """_host_share with its device work on `stream` (the consumer's):
         K2 launches from the prefetch thread stay ordered with the pixel
         stage of the batch before."""
         with torch.cuda.stream(stream):
-            return self._host_many(datas)
+            return self._host_share(datas)
 
     def decode_batch(self, datas: list[bytes]) -> np.ndarray:
         """Decode a batch of SAME-GEOMETRY JPEGs -> [B, H, W, 3] uint8."""
         if not datas:
             return np.zeros((0, 0, 0, 3), dtype=np.uint8)
-        return self._device_batch(self._host_many(datas))
+        return self._device_batch(self._host_share(datas), len(datas))
 
     def decode_stream(self, datas, batch_size: int | None = None):
         """Pipelined streaming decode: yields [B, H, W, 3] arrays per batch.
@@ -159,8 +192,9 @@ class BatchDecoder:
         While the device runs batch k, a worker thread runs the host stage
         of batch k+1 (parse and entropy, and under PALLAS its K2 launches,
         on the consumer's CUDA stream). Same-geometry inputs assumed (use
-        decode_many for mixed)."""
-        batch_size = batch_size or 2
+        decode_many for mixed). The default batch is two images a rank of
+        the data axis."""
+        batch_size = batch_size or 2 * self._n_data
         it = iter(datas)
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
@@ -168,17 +202,43 @@ class BatchDecoder:
             pending = None
             while True:
                 chunk = list(itertools.islice(it, batch_size))
-                nxt = (prefetcher.submit(self._host_many_on, stream, chunk)
-                       if chunk else None)
+                nxt = (prefetcher.submit(self._host_share_on, stream, chunk), len(chunk)) \
+                    if chunk else None
                 if pending is not None:
-                    yield self._device_batch(pending.result())
+                    yield self._device_batch(pending[0].result(), pending[1])
                 pending = nxt
                 if pending is None:
                     return
 
-    def _device_batch(self, results) -> np.ndarray:
-        """Device stage over pre-run host results: (frame, planes, qts)
-        triples, one per image -> numpy [B, H, W, 3]."""
+    def _device_batch(self, results, b: int) -> np.ndarray:
+        """The device stage of this rank's host results, (frame, planes,
+        qts) triples, then (with a mesh) the gather of every rank's slice:
+        numpy [b, H, W, 3], the batch's b images."""
+        if self._data is None:
+            return self._device_rgb(results)[0].cpu().numpy()
+        err = results if isinstance(results, JpegError) else None
+        rgb = key = None
+        if err is None:
+            try:
+                rgb, key = self._device_rgb(results)
+            except JpegError as e:
+                err = e
+        # every rank learns whether every slice decoded, and to one
+        # geometry, before the gather
+        digest = 0 if key is None else int.from_bytes(
+            hashlib.sha256(repr(key).encode()).digest()[:7], "little")
+        shape = [0] * 4 if rgb is None else list(rgb.shape)
+        status = self._data.gather(torch.tensor([[err is None, digest, *shape]],
+                                                dtype=torch.int64, device=self.device))
+        if not bool(status[:, 0].all()):
+            raise err or JpegError("another rank of the mesh failed its slice of the batch")
+        if bool((status[:, 1:] != status[:1, 1:]).any()):
+            raise JpegFormatError("decode_stream needs identical geometry/tables across inputs")
+        return self._data.gather(rgb)[:b].cpu().numpy()
+
+    def _device_rgb(self, results):
+        """The pixel stage over pre-run host results: (the RGB [n, H, W, 3]
+        on the device, the stage key)."""
         keys = set()
         for frame, _planes, qts in results:
             for c in frame.components:
@@ -208,7 +268,7 @@ class BatchDecoder:
                 for _frame, planes, _qts in results:
                     self._pool.release(planes)
             rgb, _ = stage(*coeffs, want_planes=False)
-            return rgb.cpu().numpy()
+            return rgb, keys.pop()
 
     def decode_many(self, datas: list[bytes]) -> list[np.ndarray]:
         """Decode a mixed batch: groups by geometry and per-scan header,
@@ -232,12 +292,12 @@ class BatchDecoder:
             order.setdefault(key, []).append(i)
         out: list = [None] * len(datas)
         for idxs in order.values():
-            rgbs = self._device_batch(self._host_many([datas[i] for i in idxs]))
+            rgbs = self._device_batch(self._host_share([datas[i] for i in idxs]), len(idxs))
             for j, i in enumerate(idxs):
                 out[i] = rgbs[j]
         return out
 
 
 def decode_batch(datas: list[bytes], cfg: DecodeConfig | None = None,
-                 device="cuda") -> np.ndarray:
-    return BatchDecoder(cfg, device).decode_batch(datas)
+                 device="cuda", mesh=None) -> np.ndarray:
+    return BatchDecoder(cfg, device, mesh).decode_batch(datas)

@@ -4,19 +4,29 @@
 The JAX package cuts one image's coefficient planes in stripes of MCU rows:
 decode_striped runs every stripe's pixel stage under shard_map over the
 mesh's stripe axis, decode_streamed one chunk at a time through one compiled
-program, so that memory stays bounded. The port has no mesh (ROADMAP item
-10); it takes `n_stripes` in place of the stripe axis, and on one card every
-stripe is resident:
+program, so that memory stays bounded. The port's decode_striped takes
+either `n_stripes`, all stripes resident on one device, or a mesh
+(parallel/mesh.py), one stripe a rank of its stripe axis:
 
-  decode_striped: block rows padded to a multiple of n_stripes with copies
-    of the last block row go to the device once, and StripeStage runs all
-    stripes in one launch per kernel. Nearest-neighbour: K6n, which is K03
+  decode_striped, one device: block rows padded to a multiple of n_stripes
+    with copies of the last block row go to the device, a stripe at a time,
+    and StripeStage runs all stripes in one launch per kernel.
+    Nearest-neighbour: K6n, which is K03
     (EXACT) or K13 (FLOAT32) for a 3-component frame whose PADDED geometry
     is tile-local, else K0 or K1 per component and K3 (K3c on four planes),
     each launched with the stripe rule. Fancy: K6f, K0 or K1 per component
     over the padded planes, then K3f under the striped rule: the
     triangular passes only where ops/color.fancy_ok holds, a stripe's halo
     row being its neighbour's edge row in the same padded plane.
+  decode_striped over a mesh: rank k of the stripe axis decodes stripe k
+    alone (StripeStage.stripe). Its entropy: the stripe's restart segments
+    where the plan allows, else the whole image, sliced (on the device for
+    PALLAS). Nearest-neighbour: K6n with the stripe's origin, no halo.
+    Fancy: K0 or K1 on the stripe, then the edge rows of each component
+    whose vertical pass needs them traded with the neighbouring ranks
+    (Sharding.halo_exchange, batch_isend_irecv), then K6h, K3f with those
+    halo rows. The stripes' RGB is gathered over the axis; every rank
+    returns the whole image.
   decode_streamed: ChunkStage runs one chunk of MCU rows at a time (K6n),
     one chunk's int16 buffers reused on the host and uploaded once a chunk,
     and only the chunk's real rows copied back.
@@ -63,6 +73,7 @@ from ..models import host
 from ..ops import color as color_ops
 from ..ops import idct as idct_ops
 from ..ops import pixel as pixel_ops
+from . import mesh as mesh_mod
 
 #: Output pixels a chunk aims at when decode_streamed picks n_chunks (the
 #: JAX package's rule, stripes.py:427).
@@ -78,16 +89,26 @@ def _halo_exchange_rows(xs: list[torch.Tensor]) -> list[torch.Tensor]:
                        xs[i + 1][:1] if i < n - 1 else x[-1:]]) for i, x in enumerate(xs)]
 
 
+def _v2x_extended(ext: torch.Tensor) -> torch.Tensor:
+    """The vertical 2x triangular pass of a float32 stripe plane between
+    its halo rows (ext: [top; rows; bottom]): floats in, floats out,
+    floored once later."""
+    up, mid, down = ext[:-2], ext[1:-1], ext[2:]
+    even = (3.0 * mid + up + 1.0) * 0.25
+    odd = (3.0 * mid + down + 2.0) * 0.25
+    return torch.stack([even, odd], dim=1).reshape(-1, mid.shape[1])
+
+
 def _fancy_upsample_v2x_striped(xs: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The vertical 2x triangular pass of each float32 stripe plane with its
-    halo rows (stripes.py:70): floats in, floats out, floored once later."""
-    out = []
-    for ext in _halo_exchange_rows(xs):
-        up, mid, down = ext[:-2], ext[1:-1], ext[2:]
-        even = (3.0 * mid + up + 1.0) * 0.25
-        odd = (3.0 * mid + down + 2.0) * 0.25
-        out.append(torch.stack([even, odd], dim=1).reshape(-1, mid.shape[1]))
-    return out
+    """The vertical pass of each float32 stripe plane with its halo rows
+    (stripes.py:70)."""
+    return [_v2x_extended(ext) for ext in _halo_exchange_rows(xs)]
+
+
+def _stripe_rows(plane, k: int, lby: int):
+    """Block rows k * lby .. (k + 1) * lby of `plane` [by, bx, 64] padded
+    with copies of its last block row (_pad_plane_rows's stripe k)."""
+    return _pad_plane_rows(plane, max(len(plane), (k + 1) * lby))[k * lby:(k + 1) * lby]
 
 
 def _padded_mcus_y(mcus_y: int, n_stripes: int) -> int:
@@ -155,6 +176,46 @@ def _striped_entropy_plan(structure, cfg: DecodeConfig, n_stripes: int):
     return decode_stripe, lby, qts
 
 
+def _zeroed(frame: FrameHeader, lby) -> list[np.ndarray]:
+    return [np.zeros((n, c.blocks_x, 64), dtype=np.int16) for n, c in zip(lby, frame.components)]
+
+
+def entropy_decode_stripe(structure, cfg: DecodeConfig, n_stripes: int, k: int, device):
+    """Stripe k alone of n: its int16 block rows [lby[ci], bx, 64] on
+    `device`, padding rows replicated as entropy_decode_striped replicates
+    them, and the tables (a rank of a mesh's stripe axis). Where
+    _striped_entropy_plan allows, the native runtime decodes the stripe's
+    restart segments alone (and, for a stripe wholly in padding rows, the
+    stripe that holds the image's last block row); otherwise the whole
+    image is decoded (PALLAS: on the device) and its stripe k taken."""
+    frame = structure.frame
+    plan = _striped_entropy_plan(structure, cfg, n_stripes)
+    if plan is None:
+        planes, qts = host._entropy_decode(structure, cfg, device=device)
+        if not isinstance(planes, list):
+            planes = [planes.plane(ci) for ci in range(frame.ncs)]
+        lby = [_padded_mcus_y(frame.mcus_y, n_stripes) // n_stripes * c.vsf
+               for c in frame.components]
+        rows = [_stripe_rows(p, k, n) for p, n in zip(planes, lby)]
+    else:
+        decode_stripe, lby, qts = plan
+        decoded = {k: _zeroed(frame, lby)}
+        decode_stripe(k, decoded[k])
+        rows = decoded[k]
+        for ci, c in enumerate(frame.components):
+            real = c.blocks_y - k * lby[ci]  # this stripe's rows inside the image
+            if real >= lby[ci]:
+                continue
+            last = c.blocks_y - 1  # the image's last block row, in stripe `holder`
+            holder = last // lby[ci]
+            if holder not in decoded:
+                decoded[holder] = _zeroed(frame, lby)
+                decode_stripe(holder, decoded[holder])
+            rows[ci][max(real, 0):] = decoded[holder][ci][last - holder * lby[ci]]
+    return [r.contiguous() if isinstance(r, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(r)).to(device) for r in rows], qts
+
+
 def entropy_decode_striped(structure, cfg: DecodeConfig, n_stripes: int):
     """Stripe-parallel host entropy: (stripe_planes, qts) with
     stripe_planes[k][ci] stripe k's [lby, bx, 64] int16 block rows, padding
@@ -167,8 +228,7 @@ def entropy_decode_striped(structure, cfg: DecodeConfig, n_stripes: int):
     frame = structure.frame
     stripe_planes = []
     for k in range(n_stripes):
-        planes = [np.zeros((lby[ci], c.blocks_x, 64), dtype=np.int16)
-                  for ci, c in enumerate(frame.components)]
+        planes = _zeroed(frame, lby)
         decode_stripe(k, planes)
         stripe_planes.append(planes)
     # stripes over padding MCU rows got no data: each of those block rows
@@ -231,11 +291,11 @@ class _StripedStage(nn.Module):
                  for p, q in zip(planes, qts)]
         return self._colour(pixel, frame.height, "nn", stripes)
 
-    def _colour(self, pixel, h: int, upsample: str, stripes: color_ops.Stripes):
+    def _colour(self, pixel, h: int, upsample: str, stripes: color_ops.Stripes, halos=None):
         # striped gray is CORRECT addressing, four components always YCCK
         return color_ops.planes_to_rgb(pixel, h, self.frame.width, self.factors, self.quirks,
                                        upsample, exact=self.exact, raw_cmyk=False,
-                                       gray_shear=False, stripes=stripes)
+                                       gray_shear=False, stripes=stripes, halos=halos)
 
     def _pixel_plain(self, planes):
         """Each component's pixel plane [lby * 8, bx * 8] of one stripe."""
@@ -331,27 +391,89 @@ class StripeStage(_StripedStage):
         return self._colour(pixel, self.pad_h, "fancy", stripes)
 
     def _fancy_plain(self, planes) -> torch.Tensor:
-        """make_shard_fn's fancy branch (stripes.py:139-156) for every
-        stripe: the passes where fancy_ok (the vertical one with the halo
-        rows), one floor and clamp, the crop; the rule elsewhere."""
-        mh, mv = self.frame.max_hsf, self.frame.max_vsf
-        w = self.frame.width
+        """make_shard_fn's fancy branch for every stripe, each with its
+        neighbours' edge rows as its halo rows."""
         pixel = [self._pixel_plain(s) for s in self._stripes(planes)]
-        chans = [[None] * self.frame.ncs for _ in range(self.n)]
+        ext = [_halo_exchange_rows([pixel[k][ci] for k in range(self.n)])
+               for ci in range(self.frame.ncs)]
+        return torch.cat([self._fancy_stripe_plain(
+            k, pixel[k], [(e[k][:1], e[k][-1:]) for e in ext]) for k in range(self.n)])
+
+    def _fancy_stripe_plain(self, k: int, pixel, halos) -> torch.Tensor:
+        """make_shard_fn's fancy branch (stripes.py:139-156) for stripe k's
+        uint8 pixel planes, halos[ci] its (top, bottom) halo rows: the
+        passes where fancy_ok (the vertical one over the plane between
+        them), one floor and clamp, the crop; the rule elsewhere. The plain
+        version of K6h."""
+        mh, mv = self.frame.max_hsf, self.frame.max_vsf
+        chans = []
         for ci, (fh, fv) in enumerate(self.factors):
             if not color_ops.fancy_ok(fh, fv, mh, mv):
-                for k in range(self.n):
-                    chans[k][ci] = self._stripe_nn(k, ci, pixel[k][ci])
+                chans.append(self._stripe_nn(k, ci, pixel[ci]))
                 continue
-            up = [pixel[k][ci].to(torch.float32) for k in range(self.n)]
+            rows = [pixel[ci]]
+            if 2 * fv == mv:
+                rows = [halos[ci][0].reshape(1, -1), pixel[ci], halos[ci][1].reshape(1, -1)]
+            up = [r.to(torch.float32) for r in rows]
             if 2 * fh == mh:
                 up = [color_ops.fancy_h2x(u) for u in up]
-            if 2 * fv == mv:
-                up = _fancy_upsample_v2x_striped(up)
-            for k in range(self.n):
-                chans[k][ci] = torch.clamp(torch.floor(up[k]), 0.0, 255.0).to(
-                    torch.uint8)[:self.hs, :w]
-        return torch.cat([self._convert(c) for c in chans])
+            up = _v2x_extended(torch.cat(up)) if 2 * fv == mv else up[0]
+            chans.append(torch.clamp(torch.floor(up), 0.0, 255.0).to(
+                torch.uint8)[:self.hs, :self.frame.width])
+        return self._convert(chans)
+
+    def stripe(self, k: int, planes, exchange=None, plain: bool = False) -> torch.Tensor:
+        """Stripe k alone, a rank's share of make_shard_fn: its int16 planes
+        [lby[ci], bx, 64] -> its RGB [hs, W, 3]. Nearest-neighbour: K6n
+        with the stripe's origin. Fancy: K0/K1 on the stripe, the edge rows
+        of each component whose vertical pass reads a halo row traded by
+        `exchange(first, last) -> (top, bottom)` (one row each, the
+        components' rows side by side; default: none, this stripe's own
+        edge rows, as at the ends of the stripe axis), then K6h. `plain`
+        (and CPU tensors): the JAX program's stripe."""
+        if plain or planes[0].device.type == "cpu":
+            if self.upsample != "fancy":
+                return self._stripe_nn_plain(k, planes)
+            pixel = self._pixel_plain(planes)
+            return self._fancy_stripe_plain(k, pixel, self._halos(pixel, exchange))
+        return self._stripe_launches(k, planes, exchange)
+
+    def _stripe_launches(self, k: int, planes, exchange=None) -> torch.Tensor:
+        """stripe's kernel route (on CPU tensors, each wrapper's plain
+        version)."""
+        stripes = color_ops.Stripes(k * self.hs, self.hs)
+        if self.upsample != "fancy":
+            return self._nn(planes, self.stripe_frame, stripes)
+        pixel = [idct_ops.idct_plane(p, q, self.bits12, self.precision)
+                 for p, q in zip(planes, self._qts())]
+        return self._colour(pixel, self.hs, "fancy", stripes, self._halos(pixel, exchange))
+
+    def edge_rows(self, pixel):
+        """(the components whose vertical pass reads a halo row, their
+        first rows side by side, their last rows side by side) of a
+        stripe's pixel planes: what a stripe sends its neighbours."""
+        mh, mv = self.frame.max_hsf, self.frame.max_vsf
+        takes = [ci for ci, (fh, fv) in enumerate(self.factors)
+                 if color_ops.takes_halo(fh, fv, mh, mv)]
+        if not takes:
+            return takes, None, None
+        return (takes, torch.cat([pixel[ci][0] for ci in takes]),
+                torch.cat([pixel[ci][-1] for ci in takes]))
+
+    def _halos(self, pixel, exchange):
+        """Each component's (top, bottom) halo rows [1, stride] for the
+        stripe of pixel planes `pixel`, None where its passes read none
+        (None for all: no halo, and the stripe's colour launch is K6f's):
+        its edge rows traded by `exchange`."""
+        takes, first, last = self.edge_rows(pixel)
+        if not takes:
+            return None
+        halos = [None] * self.frame.ncs
+        top, bottom = exchange(first, last) if exchange is not None else (first, last)
+        widths = [pixel[ci].shape[1] for ci in takes]
+        for ci, t, b in zip(takes, top.split(widths), bottom.split(widths)):
+            halos[ci] = (t.reshape(1, -1), b.reshape(1, -1))
+        return halos
 
 
 @functools.lru_cache(maxsize=64)
@@ -458,20 +580,43 @@ def decode_streamed(data, cfg: DecodeConfig | None = None, n_chunks: int | None 
 
 
 def decode_striped(data, cfg: DecodeConfig | None = None, n_stripes: int | None = None,
-                   device="cuda") -> np.ndarray:
-    """Decode one large image with its device stage cut in `n_stripes`
-    stripes of MCU rows (default: the CUDA devices, one stripe on the CPU),
-    all resident, one launch per kernel: [H, W, 3] uint8 on the host. Any
-    height (padded stripes). Host entropy runs stripe by stripe where the
-    restart intervals align with the stripes, else whole-image and padded
-    with copies of the last block row."""
+                   device="cuda", mesh=None) -> np.ndarray:
+    """Decode one large image with its device stage cut in stripes of MCU
+    rows: [H, W, 3] uint8 on the host. Any height (padded stripes). Host
+    entropy runs stripe by stripe where the restart intervals align with
+    the stripes, else whole-image and padded with copies of the last block
+    row.
+
+    Without a mesh: `n_stripes` stripes (default: the CUDA devices, one
+    stripe on the CPU), all resident on `device`, one launch per kernel.
+    With a mesh (parallel/mesh.make_mesh; every rank calls with the same
+    bytes): as many stripes as its stripe axis has ranks, rank k decoding
+    stripe k on `device`, the stripes' RGB gathered over the axis; every
+    rank returns the whole image."""
     cfg = cfg or DecodeConfig()
     device = convert.resolve_device(device)
+    structure = parse(data, cfg)
+    if mesh is not None:
+        sharding = mesh_mod.stripe_sharding(mesh)
+        if n_stripes not in (None, sharding.size):
+            raise ValueError(f"n_stripes {n_stripes} against a stripe axis of {sharding.size}")
+        return _decode_stripe_of(structure, cfg, sharding, device)
     if n_stripes is None:
         n_stripes = max(1, torch.cuda.device_count()) if device.type == "cuda" else 1
-    structure = parse(data, cfg)
     stage, planes = _striped_planes(structure, cfg, n_stripes, device)
     return stage(*planes)[: structure.frame.height].cpu().numpy()
+
+
+def _decode_stripe_of(structure, cfg: DecodeConfig, sharding, device) -> np.ndarray:
+    """decode_striped on this rank of a mesh: its stripe's entropy and
+    pixel stage, the halo rows traded with its neighbours on the stripe
+    axis, the gather of every stripe's RGB, cropped."""
+    frame = structure.frame
+    n, k = sharding.size, sharding.index
+    planes, qts = entropy_decode_stripe(structure, cfg, n, k, device)
+    stage = build_striped_stage(_stage_for(frame, qts, cfg), n, device)
+    rgb = stage.stripe(k, planes, sharding.halo_exchange if n > 1 else None)
+    return sharding.gather(rgb)[: frame.height].cpu().numpy()
 
 
 def _striped_planes(structure, cfg: DecodeConfig, n_stripes: int, device):
@@ -483,8 +628,15 @@ def _striped_planes(structure, cfg: DecodeConfig, n_stripes: int, device):
     striped = entropy_decode_striped(structure, cfg, n_stripes)
     if striped is not None:
         stripe_planes, qts = striped
-        inputs = [np.concatenate([stripe_planes[k][ci] for k in range(n_stripes)])
-                  for ci in range(frame.ncs)]
+        # the padded planes on the device, filled a stripe at a time
+        inputs = []
+        for ci, c in enumerate(frame.components):
+            lby = stripe_planes[0][ci].shape[0]
+            plane = torch.empty((n_stripes * lby, c.blocks_x, 64), dtype=torch.int16,
+                                device=device)
+            for k in range(n_stripes):
+                plane[k * lby:(k + 1) * lby].copy_(torch.from_numpy(stripe_planes[k][ci]))
+            inputs.append(plane)
     else:
         planes, qts = host._entropy_decode(structure, cfg, device=device)
         if not isinstance(planes, list):

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3, K3f, K3c, K4, K5, K6n, K6f and
-the probes PK1-PK7) against their plain PyTorch versions, and the decode, batch, encode,
-streamed and striped paths on the card against the same paths on the CPU or the card's
-whole-image decode. Bitwise, except FLOAT32 (K1, K13) and the scaled IDCT
+"""The port's CUDA kernels (K0, K03, K1, K13, K2, K2u, K3, K3f, K3c, K4, K5, K6n, K6f, K6h
+and the probes PK1-PK7) against their plain PyTorch versions, and the decode, batch, encode,
+streamed, striped and one-rank mesh paths on the card against the same paths on the CPU or
+the card's whole-image decode. Bitwise, except FLOAT32 (K1, K13) and the scaled IDCT
 (K5): within 1 of the plain version on at most 1e-3 of the pixels (the two sum the
 products in other orders; K5 bitwise at k = 1, one term), and so within 3 in RGB (a
 chroma step of 1 moves R or B by up to 1.772); K13 is bitwise equal to K1 x 3 + K3,
@@ -1620,6 +1620,95 @@ def test_striped_fancy_matches_jpeg_decoder(cuda_device):
     np.testing.assert_array_equal(
         tstripes.decode_striped(data, cfg, n_stripes=8, device=cuda_device), want)
     assert _build.LAUNCHES["K6f"] == 2 and _build.LAUNCHES["jdtc_idct_exact"] == 6
+
+
+# ---------------------------------------------------------------------------
+# K6h: one stripe of a mesh's stripe axis (StripeStage.stripe), and the mesh
+# ---------------------------------------------------------------------------
+
+
+def _resident_exchanges(stage, stripe_planes):
+    """Each stripe's exchange(first, last): its neighbours' edge rows (of
+    their K0/K1 planes on the card), its own at the two ends."""
+    edges = [stage.edge_rows([tidct.idct_plane(p, q, stage.bits12, stage.precision)
+                              for p, q in zip(planes, stage._qts())])
+             for planes in stripe_planes]
+    n = len(edges)
+    return [lambda first, last, k=k: (edges[k - 1][2] if k else first,
+                                      edges[k + 1][1] if k < n - 1 else last)
+            for k in range(n)]
+
+
+def _stripe_by_stripe(stage, planes, plain=False):
+    parts = stage._stripes(planes)
+    exchanges = _resident_exchanges(stage, parts)
+    return torch.cat([stage.stripe(k, p, exchanges[k], plain=plain)
+                      for k, p in enumerate(parts)])
+
+
+@pytest.mark.parametrize("precision", PRECISIONS, ids=lambda p: p.value)
+@pytest.mark.parametrize("n", [2, 8])
+def test_k6h_stripe_by_stripe_matches_k6f_at_4k(cuda_device, n, precision):
+    """3840x2160 4:2:0 under fancy upsampling in n stripes, each decoded
+    alone (K0 or K1, then one K6h launch with its neighbours' edge rows):
+    bitwise the one-launch K6f over the padded frame and, under EXACT, the
+    plain version (the JAX program's stripe)."""
+    key, _ = _k6_key("420_4k", precision, "fancy", Quirks.CORRECT)
+    stage = tstripes.StripeStage(key, n, cuda_device)
+    planes = _k6_planes(stage, [n * lby for lby in stage.lby], 11, cuda_device)
+    _build.LAUNCHES.clear()
+    got = _stripe_by_stripe(stage, planes)
+    assert _build.LAUNCHES["K6h"] == n and "K6f" not in _build.LAUNCHES
+    assert torch.equal(got, stage(*planes))
+    if precision == IdctPrecision.EXACT:
+        assert torch.equal(got.cpu(), _stripe_by_stripe(stage, planes, plain=True).cpu())
+
+
+@pytest.mark.parametrize("name", sorted(set(K6_CASES) - {"420_4k"}))
+def test_k6h_stripe_by_stripe_matches_k6f_and_plain(cuda_device, name):
+    """Every geometry of K6_CASES under fancy upsampling, a stripe at a time:
+    bitwise K6f and the plain version; a K6h launch a stripe where a
+    component's vertical pass reads a halo row (4:2:0, YCCK), else the
+    stripe's K3f (K6f) or, gray, K3 (K6n) launch: the (2, 4) ratio takes
+    the rule, 4:2:2 only the horizontal pass."""
+    key, n = _k6_key(name, IdctPrecision.EXACT, "fancy", Quirks.CORRECT)
+    stage = tstripes.StripeStage(key, n, cuda_device)
+    planes = _k6_planes(stage, [n * lby for lby in stage.lby], 13, cuda_device)
+    _build.LAUNCHES.clear()
+    got = _stripe_by_stripe(stage, planes)
+    halo = name in ("420", "ycck")
+    assert _build.LAUNCHES["K6h"] == (n if halo else 0)
+    assert torch.equal(got, stage(*planes))
+    assert torch.equal(got.cpu(), _stripe_by_stripe(stage, planes, plain=True).cpu())
+
+
+def test_one_rank_nccl_mesh_is_bitwise_no_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL group (a process of its own, benchmarks/mesh_ranks.py):
+    BatchDecoder(mesh).decode_batch of eight 640x352 requests (PALLAS and
+    NATIVE, EXACT and FLOAT32), decode_striped(mesh) (fancy and
+    nearest-neighbour) and dryrun_multichip(1), each bitwise the call
+    without a mesh, K6h launched on the fancy stripes."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.distributed.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    for i in range(8):
+        (tmp_path / f"batch{i}.jpg").write_bytes(make_jpeg(640, 352, F420, 40, 400 + i))
+    r = subprocess.run([sys.executable, "-m", "jpeg_decoder_tpu_torch.benchmarks.mesh_ranks",
+                        str(tmp_path), "--rank", "0", "--world", "1", "--backend", "nccl",
+                        "--cases", "batches", "stripes", "dryrun"],
+                       cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    rec = json.loads((tmp_path / "rank0.json").read_text())
+    cases = {k: v for k, v in rec.items() if isinstance(v, dict) and "bitwise" in v}
+    assert len(cases) == 8 and all(v["bitwise"] for v in cases.values()), cases
+    assert cases["decode_striped mesh fancy exact"]["launches"]["K6h"] == 1
+    assert cases["BatchDecoder mesh pallas exact decode_batch"]["launches"] == {
+        "jdtc_unstuff": 1, "jdtc_entropy_decode": 1, "jdtc_pixel_exact": 1}
 
 
 def test_streamed_sink_gets_card_tensors(cuda_device):
