@@ -191,6 +191,20 @@ Phases, each of which exits non-zero on failure:
        bitwise the call without a mesh, with each rank's wall time and the
        host-clock time of its halo exchanges and all_gathers. NCCL across
        two or more cards is not run here: the machine has one card;
+     - the bench and serving scripts, through their entry points: the
+       headline bench (benchmarks/bench.main at its 3840x2160 workload,
+       one host window: its JSON line, logged with the card, must hold
+       every key, bit_exact not false (the B=1 EXACT RGB bitwise the CPU
+       decode, every image of each B=16 call bitwise the B=1 call's) and
+       device_kind this card; K03, K13 and K4), benchmarks/k2_batched.main
+       (eight 4K images, K2u + K2 in one call, the planes bitwise the
+       native host decoder's), examples/serving.main and
+       progressive_serving (64 512x512 requests through
+       BatchDecoder.decode_stream, each frame bitwise the port's CPU
+       decode of its bytes; eight progressive ones through
+       host_decode_batch; K03) and benchmarks/scaling.main with --sizes 1
+       (one NCCL rank in a process of its own, its batch of 32 bitwise the
+       CPU decode, its launches read from the rank's record; K03);
   5. stage times with CUDA events: per image (H2D, K2u, K2, K03 and K13,
      D2H), and per batch of eight (H2D, K2u, K2, K03 under EXACT or K13
      under FLOAT32, D2H), each with the host clock of the parse that
@@ -2033,38 +2047,14 @@ def run_ranks(tmp, world: int, backend: str, cases, timeout: float = 600.0) -> l
     (`backend`, a file store in `tmp`), all on this card; each rank's JSON
     record. The first rank to fail (or the deadline) ends the others and the
     script."""
-    import os
+    from jpeg_decoder_tpu_torch.benchmarks import mesh_ranks
 
-    for f in [tmp / "store", *tmp.glob("rank*.json")]:
-        f.unlink(missing_ok=True)
-    env = dict(os.environ, PYTHONUNBUFFERED="1")
-    logs = [tmp / f"rank{r}.log" for r in range(world)]
-    procs = []
-    for r in range(world):
-        with open(logs[r], "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "jpeg_decoder_tpu_torch.benchmarks.mesh_ranks",
-                 str(tmp), "--rank", str(r), "--world", str(world), "--backend", backend,
-                 "--cases", *cases],
-                cwd=str(Path(__file__).resolve().parent), env=env, stdout=f,
-                stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + timeout
     try:
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if failed:
-        r = failed[0]
-        fail(f"mesh rank {r} of {world} ({backend}) exited {procs[r].returncode}:"
-             f" {logs[r].read_text()[-3000:]}")
-    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+        return mesh_ranks.run_ranks("jpeg_decoder_tpu_torch.benchmarks.mesh_ranks",
+                                    [str(tmp), "--backend", backend, "--cases", *cases],
+                                    world, tmp, timeout)
+    except RuntimeError as e:
+        fail(f"mesh ({backend}): {e}")
 
 
 def mesh_path(dev, batch, giga: bytes, card: str) -> dict:
@@ -2118,6 +2108,86 @@ def mesh_path(dev, batch, giga: bytes, card: str) -> dict:
                         f" calls, all_gather {rec['gather_s'] * 1e3:.3f} ms in"
                         f" {rec['gather_calls']} calls (host clock); output {rec['shape']};"
                         f" bitwise the call without a mesh: {rec['bitwise']} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+def printed_by(fn, *args):
+    """fn(*args) with its standard output kept: (its result, that output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def bench_path(dev, card: str) -> dict:
+    """The port of the JAX side's bench and serving scripts, each through
+    its entry point in run_path (so its launches count): the headline
+    bench at its full 4K workload with one host window, k2_batched at its
+    own (eight 4K images), serving's main and progressive_serving, and
+    scaling with --sizes 1 (one NCCL rank, a process of its own: its
+    launches are read from its record)."""
+    import shutil
+
+    import torch
+
+    from jpeg_decoder_tpu_torch import DecodeConfig
+    from jpeg_decoder_tpu_torch.benchmarks import bench, k2_batched, scaling
+    from jpeg_decoder_tpu_torch.examples import serving
+    from jpeg_decoder_tpu_torch.models.decoder import decode
+
+    runs = {}
+    tmp = scratch_dir()
+    try:
+        t0 = time.perf_counter()
+        (rc, _), runs["bench"] = run_path("bench", lambda: printed_by(
+            bench.main, ["--max-attempts", "1", "--out", str(tmp / "bench.json")]))
+        if rc != 0:
+            fail(f"the bench exited {rc}")
+        line = json.loads((tmp / "bench.json").read_text())
+        log(f"bench in {time.perf_counter() - t0:.1f} s [{card}]: {json.dumps(line)}")
+        if bench.LINE_KEYS - line.keys():
+            fail(f"the bench's line lacks {sorted(bench.LINE_KEYS - line.keys())}")
+        if line.get("bit_exact") is False:
+            fail("the bench's EXACT RGB differs from the port's CPU decode, or a B=16 call's"
+                 " images from its B=1 call's")
+        if line["device_kind"] != torch.cuda.get_device_name(0):
+            fail(f"the bench ran on {line['device_kind']!r}")
+
+        t0 = time.perf_counter()
+        (rc, out), runs["k2_batched"] = run_path("k2_batched", lambda: printed_by(
+            k2_batched.main, []))
+        if rc != 0:
+            fail(f"k2_batched exited {rc} (its planes differ from the native host decoder's)")
+        log(f"k2_batched in {time.perf_counter() - t0:.1f} s [{card}]: {out.strip()}")
+
+        t0 = time.perf_counter()
+        (datas, frames), runs["serving"] = run_path("serving", lambda: (
+            serving.main(dev), serving.progressive_serving(dev))[0])
+        if frames.shape != (len(datas), 512, 512, 3):
+            fail(f"serving gave frames {frames.shape}")
+        cpu = DecodeConfig().replace(use_device=False)
+        for i, d in enumerate(datas):
+            if not np.array_equal(frames[i], decode(d, cpu, device="cpu").rgb):
+                fail(f"serving's frame {i} differs from the port's CPU decode of its bytes")
+        log(f"serving in {time.perf_counter() - t0:.1f} s, its {len(datas)} frames bitwise"
+            f" the port's CPU decode [{card}]")
+
+        t0 = time.perf_counter()
+        rc, out = printed_by(scaling.main, ["--sizes", "1", "--out", str(tmp / "scaling.json")])
+        if rc != 0:
+            fail(f"scaling exited {rc} (a rank failed, or its batch differs from the port's"
+                 f" CPU decode)")
+        rec = json.loads((tmp / "scaling.json").read_text())["shared_core_raw"]["sizes"][0]
+        path = "scaling nccl x1 rank0"
+        runs[path] = rec["launches"][0]
+        PATH_UNITS[path] = rec["units"][0]
+        log(f"scaling in {time.perf_counter() - t0:.1f} s with the rank's start [{card}]:"
+            f" {out.strip()}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return runs
@@ -3385,6 +3455,7 @@ def main() -> None:
     runs.update(timed_phase("main paths, streamed and striped", gigapixel_path, dev, giga,
                             requests, card))
     runs.update(timed_phase("main paths, mesh", mesh_path, dev, batch, giga, card))
+    runs.update(timed_phase("main paths, bench and serving", bench_path, dev, card))
     for key, rec in kernels.items():
         entry = rec.get("entry", key)
         paths = {p: r for p, r in runs.items()
@@ -3434,7 +3505,11 @@ def main() -> None:
                       ("mesh gloo x2 rank0: dryrun_multichip(2)", "K6h"),
                       ("mesh gloo x2 rank1: dryrun_multichip(2)", "jdtc_fdct"),
                       ("mesh gloo x2 rank0: decode_striped mesh gigapixel exact", "K6n"),
-                      ("mesh gloo x2 rank1: decode_striped mesh gigapixel exact", "K6n")):
+                      ("mesh gloo x2 rank1: decode_striped mesh gigapixel exact", "K6n"),
+                      ("bench", "jdtc_pixel_exact"), ("bench", "jdtc_pixel_float"),
+                      ("bench", "jdtc_fdct"), ("k2_batched", "jdtc_entropy_decode"),
+                      ("k2_batched", "jdtc_unstuff"), ("serving", "jdtc_pixel_exact"),
+                      ("scaling nccl x1 rank0", "jdtc_pixel_exact")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")
     timed_phase("stage times", stage_times, dev, requests, card)

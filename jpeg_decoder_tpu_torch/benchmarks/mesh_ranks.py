@@ -29,6 +29,9 @@ Writes DIR/rank{R}.json: per case the launches and their work, the wall
 time (host clock, bytes to the host result), and the host-clock seconds
 of the halo exchanges and the gathers (utils.metrics `mesh_halo_exchange`,
 `mesh_gather`).
+
+run_ranks starts the ranks of such a script (this one, benchmarks/scaling.py)
+and collects their records.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
+import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -43,6 +49,45 @@ import numpy as np
 import torch
 
 CASES = ("batches", "stripes", "dryrun", "gigapixel")
+REPO = Path(__file__).resolve().parents[2]
+
+
+def run_ranks(module: str, args, world: int, tmp: Path, timeout: float = 600.0) -> list:
+    """`world` processes of `python -m module *args --rank R --world N`, from
+    the repository's root, whose ranks write tmp/rank{R}.json (tmp also holds
+    the group's file store and each rank's log); the records in rank order.
+    The first rank to fail, or the deadline, ends the others and raises
+    RuntimeError with that rank's log."""
+    for f in [tmp / "store", *tmp.glob("rank*.json")]:
+        f.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", module, *args, "--rank", str(r), "--world", str(world)],
+                cwd=str(REPO), env=env, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    killed = set()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for r, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                killed.add(r)
+            p.wait()
+    # the rank that failed on its own, before those ended for it
+    failed = sorted((r in killed, r) for r, p in enumerate(procs) if p.returncode != 0)
+    if failed:
+        r = failed[0][1]
+        raise RuntimeError(f"rank {r} of {world} exited {procs[r].returncode}:"
+                           f" {logs[r].read_text()[-3000:]}")
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
 
 
 def _digest(*arrays) -> str:
