@@ -39,7 +39,23 @@ Phases, each of which exits non-zero on failure:
      for the eight 4K requests in one call, each timed the card alone
      beside the three-kernel version in turns, a device-to-device copy of the
      raw bytes and raw[keep] (benchmarks/k2u_sweep.measure), with its
-     registers and shared memory (nvcc -Xptxas -v);
+     registers and shared memory (nvcc -Xptxas -v); K2 on the DEVICE
+     route (K2d: whole segments, none of the PALLAS route's lane guards)
+     bitwise against its plain lockstep loop, with its records against
+     the schedule's model on the CPU, on a restart-free 136x128 gray stream
+     and a gray gradient in two segments of 4100 MCUs, and damaged
+     restart-free streams raising the plain version's classes; then on six
+     3840x2160 inputs the PALLAS route refuses (the dense request without
+     markers, bench.py's restart-free image, a photograph tiled to 4K
+     without markers, a 12-bit restart-free stream, a stream of one
+     non-interleaved scan a component, segments of three MCU rows), every
+     plane bitwise the native host decoder's, each with its passes' times
+     and pass 2's launches and steps beside the same image with a marker
+     per MCU row on the PALLAS route; and K2's scan and dc passes as the
+     wrapper picks them (the dc pass in chunks; the scan pass in chunks
+     where a segment has more than one chunk of records) beside their
+     earlier design (a block per segment) in turns, on the dense 4K
+     request with a marker per MCU row and without markers;
      K0 (EXACT IDCT) bitwise against its plain version and its earlier
      design (jdtc_idct_exact_gather) on the 4K request's three planes, the
      4K four-component frame's four, random +-2048 coefficients x a table
@@ -128,6 +144,10 @@ Phases, each of which exits non-zero on failure:
        requests: one K13 launch a request and no K1 or K3, pixel planes
        within 1 of the reference's, RGB bitwise equal to the colour stage
        of the returned planes; then the gray one (K1 and K3);
+     - JpegDecoder(DEVICE), EXACT, on the six DEVICE inputs: RGB and pixel
+       planes bitwise JpegDecoder(NATIVE)'s, one K2u and one K2d launch a
+       scan; BatchDecoder(DEVICE).decode_batch of two restart-free 4K
+       requests, each bitwise its single decode;
      - BatchDecoder for PALLAS and NATIVE, each with EXACT and FLOAT32:
        decode_batch of the eight 4K requests (one K2u and one K2 call, then
        one K03 launch under EXACT, or one K13 launch under FLOAT32),
@@ -217,8 +237,8 @@ Phases, each of which exits non-zero on failure:
      pages), and decode_streamed and decode_striped each in a process of its
      own (benchmarks/gigapixel.py: time, the card's peak allocation, the
      host's resident set before and at its peak during the decode).
-The last lines are the kernels' JSON record (twenty-one kernels: K0-K4, K03,
-K13, K2u, K3f, K3c, K5, K6n, K6f, K6h and PK1-PK7, each with its launches on the main
+The last lines are the kernels' JSON record (twenty-two kernels: K0-K4, K03,
+K13, K2u, K2d, K3f, K3c, K5, K6n, K6f, K6h and PK1-PK7, each with its launches on the main
 paths, its time, its plain version's time and its bound; K0, K1, K3, K3f,
 K3c, K4 and K5 also with their work in 4K units and the time lost), the
 card's name and power limit, and
@@ -554,6 +574,239 @@ def check_k2(dev, small: bytes, big: bytes, record: dict) -> None:
                   pass2_steps=rec["steps"], pass_ms=rec["pass_ms"],
                   **bound(nbytes_of(*args[:4], args[6], args[7], *got),
                           K2_OPS_PER_SYMBOL * symbols, "int32"))
+
+
+#: The DEVICE route's small streams, K2 against its plain lockstep loop
+#: (w, h, factors, ri, seed, gradient): a restart-free gray scan of 17 x 16
+#: MCUs of dense blocks, and a gray gradient in two restart segments of
+#: 4100 MCUs (ri * P > 4096: past the PALLAS route's 512 MB lockstep bound;
+#: each segment two chunks of the dc pass). The plain loop on a 4K
+#: restart-free scan would be one lane of some 11 M symbols: never run.
+DEVICE_SMALL = {
+    "restart-free 136x128 gray": (136, 128, ((1, 1),), 0, 21, False),
+    "800x656 gray gradient, two segments of 4100 MCUs": (800, 656, ((1, 1),), 4100, 22, True),
+}
+#: 4K 4:2:0 segments of three MCU rows: ri * P = 4320 > 4096, refused by
+#: the PALLAS route's lockstep bound.
+LONG_RI = 3 * RI
+
+
+def device_inputs(no_dri: bytes, requests, tiled: dict) -> dict:
+    """The DEVICE phase's 4K inputs, name -> (stream, the same image with a
+    marker per MCU row for the PALLAS route, or None): the dense request
+    without markers, bench.py's restart-free input, a photograph tiled to
+    4K without markers, a 12-bit restart-free stream, a stream of one
+    non-interleaved scan a component, and segments of three MCU rows."""
+    from jpeg_decoder_tpu_torch.benchmarks import bench
+    from jpeg_decoder_tpu_torch.benchmarks.inputs import (
+        PHOTOS_420,
+        make_jpeg,
+        multiscan_jpeg,
+        photo_jpeg,
+    )
+
+    photo = PHOTOS_420[0]
+    return {
+        "dense 4K, restart-free": (no_dri, requests[0]),
+        "bench.make_input_nodri": (bench.make_input_nodri(), bench.make_input()),
+        f"{photo.name} tiled to 4K, restart-free": (
+            photo_jpeg(photo, W, H, 0), tiled[f"photograph {photo.name} tiled to {W}x{H}"]),
+        "12-bit dense 4K, restart-free": (make_jpeg(W, H, F420, 0, SEEDS[0], precision=12),
+                                          make_jpeg(W, H, F420, RI, SEEDS[0], precision=12)),
+        "dense 4K, a scan a component": (multiscan_jpeg(W, H, F420, SEEDS[0]), None),
+        f"dense 4K, ri {LONG_RI} (ri * P = {6 * LONG_RI})": (
+            make_jpeg(W, H, F420, LONG_RI, SEEDS[0]), requests[0]),
+    }
+
+
+def tail_turns(dev, data: bytes, guard, reps: int = 10) -> dict:
+    """K2's scan and dc passes as the wrapper picks them (the dc pass in
+    chunks; the scan pass a block per segment where every segment is one
+    chunk of records, else in chunks) and their earlier design (a block per
+    segment), in turns (new, earlier, earlier, new,
+    `reps` times) on one stream: the median ms of each pass (CUDA events
+    inside the call) and of the whole call (CUDA events around it, in a
+    call of its own without the pass events), and the largest difference
+    of their planes, status and first data units."""
+    from jpeg_decoder_tpu_torch import convert
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+
+    s = parse(data)
+    args, host_arrays = entropy_cuda.launch_args(
+        [entropy_cuda.prepare_scan(s, s.scans[0], guard)], dev)
+    planes = {e: convert.zero_planes(s.frame, dev) for e in (False, True)}
+    times = {False: ([], [], []), True: ([], [], [])}
+    outs = {}
+    for _ in range(reps):
+        for earlier in (False, True, True, False):
+            zero_all([planes[earlier]])
+            rec = {}
+            st = entropy_cuda.decode_segments(*args, [planes[earlier]], records=rec,
+                                              host=host_arrays, earlier_tail=earlier)
+            times[earlier][0].append(rec["pass_ms"][2])
+            times[earlier][1].append(rec["pass_ms"][4])
+            outs[earlier] = (st, rec["first_du"])
+            times[earlier][2].append(cuda_ms(lambda: entropy_cuda.decode_segments(
+                *args, [planes[earlier]], host=host_arrays, earlier_tail=earlier), 1,
+                before=lambda: zero_all([planes[earlier]])))
+    err = max(max_abs_err(outs[False][0], outs[True][0]),
+              max_abs_err(outs[False][1], outs[True][1]),
+              *[max_abs_err(a, b) for a, b in zip(planes[False], planes[True])])
+    med = statistics.median
+    return dict(scan_ms=med(times[False][0]), dc_ms=med(times[False][1]),
+                call_ms=med(times[False][2]),
+                earlier_scan_ms=med(times[True][0]), earlier_dc_ms=med(times[True][1]),
+                earlier_call_ms=med(times[True][2]),
+                scan_all=times[False][0], earlier_scan_all=times[True][0],
+                dc_all=times[False][1], earlier_dc_all=times[True][1],
+                call_all=times[False][2], earlier_call_all=times[True][2], max_abs_err=err)
+
+
+def check_k2d(dev, inputs: dict, dri: bytes, record: dict, card: str) -> None:
+    """K2 on the DEVICE route (whole segments, no lane guard): against its
+    plain lockstep loop, bitwise, on DEVICE_SMALL, with its records against
+    the schedule's model on the CPU and damaged restart-free streams raising
+    the plain version's classes; on the 4K inputs of device_inputs, every
+    plane bitwise the native host decoder's, with its passes' times beside
+    the same image with a marker per MCU row on the PALLAS route; the scan
+    and dc passes as the wrapper picks them against their earlier design in
+    turns on the dense 4K request with a marker per MCU row and
+    restart-free."""
+    import torch
+    from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, JpegError, convert
+    from jpeg_decoder_tpu_torch.benchmarks.inputs import make_jpeg
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.models import host
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, entropy_device
+
+    device_guard = entropy_cuda.check_scan_device
+    cfg = DecodeConfig(entropy_backend=EntropyBackend.DEVICE)
+    err = 0
+    for name, (w, h, factors, ri, seed, gradient) in DEVICE_SMALL.items():
+        data = make_jpeg(w, h, factors, ri, seed, gradient=gradient)
+        s = parse(data)
+        pack = entropy_cuda.prepare_scan(s, s.scans[0], device_guard)
+        args, host_arrays = entropy_cuda.launch_args([pack], dev)
+        got = convert.zero_planes(s.frame, dev)
+        want = convert.zero_planes(s.frame, dev)
+        box, rec = {}, {}
+        plain_ms = cuda_ms(lambda: box.update(
+            st=entropy_cuda._decode_segments_plain(*args, [want])), 1)
+        st_k = entropy_cuda.decode_segments(*args, [got], records=rec, host=host_arrays)
+        e = max(max_abs_err(st_k, box["st"]), *[max_abs_err(a, b) for a, b in zip(got, want)])
+        entropy_cuda.check_status(st_k, args[1])
+        ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got], host=host_arrays), 5,
+                     before=lambda: zero_all([got]))
+        e = max(e, *[max_abs_err(a, b) for a, b in zip(got, want)])
+        cpu_args, _ = entropy_cuda.launch_args([pack], "cpu")
+        st_m, model = entropy_cuda._decode_segments_subseq_plain(
+            *cpu_args, [convert.zero_planes(s.frame, "cpu")])
+        e = max(e, max_abs_err(st_k, st_m),
+                *[max_abs_err(rec[k], model[k]) for k in ("rec", "used", "first_du")])
+        err = max(err, e)
+        log(f"K2d (DEVICE route) {name}, {len(pack.bounds)} segment(s) of"
+            f" {pack.ri * pack.units.shape[0]} data units: kernel {ms:.3f} ms, plain"
+            f" {plain_ms:.1f} ms; max_abs_err {e} (status, planes, records against the"
+            f" model, which needs {model['rounds']} rounds); {k2_passes(rec)} [{card}]")
+        if e != 0 or not 1 <= rec["rounds"] <= model["rounds"] + 1:
+            fail(f"K2d disagrees with its plain version or the model on {name}")
+        if "plain_ms" not in record:
+            record.update(plain_ms=plain_ms, small_ms=ms,
+                          plain_shape=f"{name}: {w}x{h}, {len(pack.bounds)} segment(s)")
+        record.setdefault("small", {})[name] = dict(ms=ms, plain_ms=plain_ms)
+        if ri == 0:
+            for what, (bad, want_error) in damaged_streams(data).items():
+                outcomes = []
+                for device in (dev, "cpu"):
+                    sb = parse(bad)
+                    try:
+                        entropy_device.decode_scan_device(sb, sb.scans[0],
+                                                          convert.zero_planes(sb.frame, device))
+                        outcomes.append(None)
+                    except JpegError as ex:
+                        outcomes.append(type(ex))
+                if outcomes != [want_error, want_error]:
+                    fail(f"K2d on a damaged restart-free stream ({what}): card and plain"
+                         f" version gave {outcomes}, expected {want_error}")
+            log("K2d: damaged restart-free streams (bad code, truncated, both) raise the"
+                " plain version's error classes on the card")
+
+    # 4K: planes bitwise the native host decoder's; pass times beside PALLAS
+    per_input = {}
+    for name, (data, twin) in inputs.items():
+        s = parse(data)
+        recs = []
+        planes = convert.zero_planes(s.frame, dev)
+        for scan in s.scans:
+            rec = {}
+            entropy_device.decode_scan_device(s, scan, planes, records=rec)
+            recs.append(rec)
+        _, native, _ = host.host_decode(data, DecodeConfig())
+        e = max(max_abs_err(a, b) for a, b in zip(planes, native.planes))
+        err = max(err, e)
+        if e != 0:
+            fail(f"K2d planes differ from the native host decoder's on {name} (max_abs_err {e})")
+        line = "; ".join(k2_passes(r) for r in recs)
+        entry = dict(scans=len(recs), segments=[len(r["sub_base"]) - 1 for r in recs],
+                     subsequences=[int(r["sub_base"][-1]) for r in recs],
+                     pass2_launches=[r["rounds"] for r in recs],
+                     pass2_steps=[r["steps"] for r in recs],
+                     pass_ms=[r["pass_ms"] for r in recs])
+        if twin is not None:
+            st = parse(twin)
+            args, host_arrays = entropy_cuda.launch_args(
+                [entropy_cuda.prepare_scan(st, st.scans[0])], dev)
+            rec = {}
+            entropy_cuda.decode_segments(*args, [convert.zero_planes(st.frame, dev)],
+                                         records=rec, host=host_arrays)
+            entry["pallas_twin"] = dict(subsequences=int(rec["sub_base"][-1]),
+                                        pass2_launches=rec["rounds"], pass2_steps=rec["steps"],
+                                        pass_ms=rec["pass_ms"])
+            line += f"; with a marker per MCU row on PALLAS: {k2_passes(rec)}"
+        per_input[name] = entry
+        log(f"K2d {name} ({len(data)} bytes, {len(recs)} scan(s)): planes bitwise the native"
+            f" host decoder's; {line} [{card}]")
+
+    # the scan and dc passes as the wrapper picks them against their earlier
+    # design, in turns
+    turns = {"dense 4K, a marker per MCU row (PALLAS)": tail_turns(dev, dri,
+                                                                   entropy_cuda.check_scan),
+             "dense 4K, restart-free (DEVICE)": tail_turns(
+                 dev, inputs["dense 4K, restart-free"][0], device_guard)}
+    for name, t in turns.items():
+        err = max(err, t["max_abs_err"])
+        log(f"K2 scan and dc passes, {name}, in turns: as the wrapper picks them scan"
+            f" {t['scan_ms']:.4f} ms, dc {t['dc_ms']:.4f} ms, the call {t['call_ms']:.4f} ms;"
+            f" earlier (a block per"
+            f" segment) scan {t['earlier_scan_ms']:.4f} ms, dc {t['earlier_dc_ms']:.4f} ms, the"
+            f" call {t['earlier_call_ms']:.4f} ms (medians of {len(t['scan_all'])}; scan"
+            f" {min(t['scan_all']):.4f}-{max(t['scan_all']):.4f} against"
+            f" {min(t['earlier_scan_all']):.4f}-{max(t['earlier_scan_all']):.4f});"
+            f" max_abs_err {t['max_abs_err']} [{card}]")
+        if t["max_abs_err"] != 0:
+            fail(f"K2's scan and dc passes differ from their earlier design on {name}")
+
+    # the record: K2d at 4K on the dense restart-free request
+    data = inputs["dense 4K, restart-free"][0]
+    s = parse(data)
+    args, host_arrays = entropy_cuda.launch_args(
+        [entropy_cuda.prepare_scan(s, s.scans[0], device_guard)], dev)
+    got = convert.zero_planes(s.frame, dev)
+    ms = cuda_ms(lambda: entropy_cuda.decode_segments(*args, [got], host=host_arrays), 5,
+                 before=lambda: zero_all([got]))
+    n_blocks = sum(p.shape[0] * p.shape[1] for p in got)
+    symbols = 2 * n_blocks + sum(int(torch.count_nonzero(p[..., 1:])) for p in got)
+    first = per_input["dense 4K, restart-free"]
+    record.update(max_abs_err=err, ms=ms, library_ms=None, symbols=symbols,
+                  shape=f"{W}x{H} 4:2:0, restart-free (one segment)",
+                  subsequences=first["subsequences"][0], pass2_launches=first["pass2_launches"][0],
+                  pass2_steps=first["pass2_steps"][0], pass_ms=first["pass_ms"][0],
+                  inputs=per_input, tail_turns=turns,
+                  **bound(nbytes_of(*args[:4], args[6], args[7], *got),
+                          K2_OPS_PER_SYMBOL * symbols, "int32"))
+    log(f"K2d at 4K restart-free: {ms:.3f} ms one call, bound {record['bound_ms']:.4f} ms by"
+        f" {record['bound_by']} [{card}]")
 
 
 def check_k2_batch(dev, batch: list, smalls: list, record: dict) -> None:
@@ -2461,6 +2714,48 @@ def batch_path(dev, batch, many, card: str) -> dict:
     return runs
 
 
+def device_path(dev, inputs: dict, card: str) -> dict:
+    """JpegDecoder(DEVICE) on each 4K input of device_inputs, EXACT, its RGB
+    and pixel planes bitwise JpegDecoder(NATIVE)'s on the card, one K2u and
+    one K2d launch a scan and no PALLAS K2; and BatchDecoder(DEVICE).
+    decode_batch of two restart-free 4K images, each bitwise its single
+    decode."""
+    from jpeg_decoder_tpu_torch import BatchDecoder, DecodeConfig, EntropyBackend, JpegDecoder
+    from jpeg_decoder_tpu_torch.io.parser import parse
+
+    dec = JpegDecoder(DecodeConfig(entropy_backend=EntropyBackend.DEVICE), device=dev)
+    native = JpegDecoder(DecodeConfig(), device=dev)
+    runs = {}
+    for name, (data, _twin) in inputs.items():
+        path = f"JpegDecoder DEVICE exact ({name})"
+        t0 = time.perf_counter()
+        got, launches = run_path(path, lambda: dec.decode(data))
+        wall = (time.perf_counter() - t0) * 1e3
+        runs[path] = launches
+        want = native.decode(data)
+        n_scans = len(parse(data).scans)
+        if launches.get("K2d") != n_scans or launches.get("jdtc_unstuff") != n_scans \
+                or "jdtc_entropy_decode" in launches:
+            fail(f"{path} launched {launches}")
+        e = max(max_abs_err(got.rgb, want.rgb),
+                *[max_abs_err(a, b) for a, b in zip(got.planes, want.planes)])
+        if e != 0:
+            fail(f"{path}: RGB or planes differ from JpegDecoder(NATIVE) (max_abs_err {e})")
+        log(f"main path {path}: RGB and planes bitwise JpegDecoder(NATIVE)'s; host clock"
+            f" {wall:.1f} ms with the launch counts' bookkeeping [{card}]")
+    pair = [inputs["dense 4K, restart-free"][0], inputs["bench.make_input_nodri"][0]]
+    bdec = BatchDecoder(DecodeConfig(entropy_backend=EntropyBackend.DEVICE), device=dev)
+    path = "BatchDecoder DEVICE exact decode_batch"
+    rgb, runs[path] = run_path(path, lambda: bdec.decode_batch(pair[:1] * 2))
+    if runs[path].get("K2d") != 2:
+        fail(f"{path} launched {runs[path]}")
+    for g in rgb:
+        if not np.array_equal(g, dec.decode_rgb(pair[0])):
+            fail(f"{path}: a batched RGB differs from its single-image decode")
+    log(f"main path {path}: two restart-free 4K members, each bitwise its single decode")
+    return runs
+
+
 @functools.lru_cache(maxsize=None)
 def host_reference(data: bytes, quirks, upsample: str):
     """The JAX-free reference of a full-size EXACT decode: the port's
@@ -3325,6 +3620,12 @@ def main() -> None:
             name="K2 entropy_decode", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/entropy_decode.cu",
             replaces="jpeg_decoder_tpu/ops/entropy_pallas.py:607"),
+        # K2 on the DEVICE route: the same entry point, its launches counted
+        # under their own name (ops/entropy_device.COUNT_AS)
+        "K2d": dict(
+            name="K2d entropy_decode on the DEVICE route (whole segments)", route="cuda",
+            source="jpeg_decoder_tpu_torch/csrc/entropy_decode.cu",
+            replaces="jpeg_decoder_tpu/ops/entropy_device.py:61"),
         "jdtc_unstuff": dict(
             name="K2u unstuff", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/unstuff.cu",
@@ -3411,6 +3712,12 @@ def main() -> None:
                 kernels["jdtc_entropy_decode"])
     timed_phase("K2u", check_k2u, dev, smalls[0], requests[0], batch, kernels["jdtc_unstuff"],
                 card)
+    t0 = time.perf_counter()
+    dev_inputs = device_inputs(no_dri, requests, tiled)
+    log(f"inputs of the DEVICE route: {[(n, len(d)) for n, (d, _t) in dev_inputs.items()]}"
+        f" bytes, made in {time.perf_counter() - t0:.1f} s")
+    timed_phase("K2d, the DEVICE route", check_k2d, dev, dev_inputs, requests[0],
+                kernels["K2d"], card)
     timed_phase("K0", check_k0, dev, requests[0], cmyk, kernels["jdtc_idct_exact"], card)
     timed_phase("K1", check_k1, dev, requests[0], kernels["jdtc_idct_float"], card)
     timed_phase("K3", check_k3, dev, requests[0], gray, kernels["jdtc_color"], card)
@@ -3445,6 +3752,7 @@ def main() -> None:
                           " (foreign files, photographs at 4K)"))
     runs.update(float32_path(dev, requests, gray, card))
     runs.update(timed_phase("main paths, batches", batch_path, dev, batch, many, card))
+    runs.update(timed_phase("main paths, DEVICE entropy", device_path, dev, dev_inputs, card))
     runs.update(timed_phase("main paths, fancy, 4 components, scaled", new_paths, dev,
                             requests, batch, cmyk, card))
     runs.update(timed_phase("main path, probes", probe_path, kernels))
@@ -3509,6 +3817,8 @@ def main() -> None:
                       ("bench", "jdtc_pixel_exact"), ("bench", "jdtc_pixel_float"),
                       ("bench", "jdtc_fdct"), ("k2_batched", "jdtc_entropy_decode"),
                       ("k2_batched", "jdtc_unstuff"), ("serving", "jdtc_pixel_exact"),
+                      *[(f"JpegDecoder DEVICE exact ({n})", "K2d") for n in dev_inputs],
+                      ("BatchDecoder DEVICE exact decode_batch", "K2d"),
                       ("scaling nccl x1 rank0", "jdtc_pixel_exact")):
         if runs[path].get(key, 0) == 0:
             fail(f"{path} did not launch {key}")

@@ -47,14 +47,18 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     # stream, seg_off, seg_img, seg_idx, n_segs, ri, total_mcus, units,
     # n_units, tables, n_specs, plane_ptrs, status, sub_base, du_base_img,
-    # max_subs, rec, used, first_du, dcdiff, lut, flag, rounds (host int*),
-    # pass_ms (host float[5]* or null), cuda_stream
+    # max_subs, rec, used, first_du, dcdiff, lut, flag, chain, chain_words,
+    # earlier_tail, rounds (host int*), pass_ms (host float[5]* or null),
+    # cuda_stream
     "jdtc_entropy_decode": [
         _P, _P, _P, _P, _I64, _I64, _P, _P, _I32, _P, _I32, _P, _P,
-        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P, _P, _P,
     ],
     # the subsequence size K2 was built with (no launch)
     "jdtc_entropy_sub_bytes": [],
+    # the records of a scan-pass block (0) and the data units of a dc-pass
+    # block (1) K2 was built with (no launch)
+    "jdtc_entropy_chunk": [_I32],
     # raw, n_raw, lo, hi, n_segs, scratch, out, seg_off, sub_base,
     # sub_bytes, cuda_stream
     "jdtc_unstuff": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _P],

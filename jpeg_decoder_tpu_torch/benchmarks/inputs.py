@@ -112,16 +112,10 @@ def pack_jpeg(planes, w: int, h: int, factors, ri: int, qts,
     return b"".join(parts)
 
 
-def make_jpeg(w: int, h: int, factors, ri: int, seed: int,
-              adobe_transform: int | None = None, precision: int = 8) -> bytes:
-    """A baseline JPEG of random coefficients: DC in [-60, 60], AC
-    Laplace(4) rounded and clipped to +-1023, so every DC difference and AC
-    value lies in the Annex K categories; the Annex K quantisation tables.
-    1, 3 or 4 components (`factors`); an Adobe APP14 marker with
-    `adobe_transform` unless it is None; 8- or 12-bit samples
-    (`precision`)."""
-    from ..core import types
-
+def _random_planes(w: int, h: int, factors, seed: int, gradient: bool = False):
+    """make_jpeg's coefficient planes at MCU padding. `gradient`: a DC ramp
+    across the block columns (+-2 of noise) and AC Laplace(1) in the first
+    two zigzag positions alone, a few symbols a block."""
     rng = np.random.default_rng(seed)
     hmax = max(f[0] for f in factors)
     vmax = max(f[1] for f in factors)
@@ -129,12 +123,72 @@ def make_jpeg(w: int, h: int, factors, ri: int, seed: int,
     planes = []
     for fh, fv in factors:
         shape = (mcus_y * fv, mcus_x * fh, 64)
-        p = np.clip(np.rint(rng.laplace(0.0, 4.0, shape)), -1023, 1023)
-        p[..., 0] = rng.integers(-60, 61, shape[:2])
+        if gradient:
+            p = np.zeros(shape)
+            p[..., 1:3] = np.clip(np.rint(rng.laplace(0.0, 1.0, shape[:2] + (2,))), -1023, 1023)
+            ramp = np.rint(-60 + 120 * np.arange(shape[1]) / max(1, shape[1] - 1))
+            p[..., 0] = np.clip(ramp[None, :] + rng.integers(-2, 3, shape[:2]), -60, 60)
+        else:
+            p = np.clip(np.rint(rng.laplace(0.0, 4.0, shape)), -1023, 1023)
+            p[..., 0] = rng.integers(-60, 61, shape[:2])
         planes.append(p.astype(np.int16))
-    return pack_jpeg(planes, w, h, factors, ri,
-                     [types.standard_luminance_qtable(), types.standard_chrominance_qtable()],
-                     adobe_transform, precision)
+    return planes
+
+
+def _standard_qts():
+    from ..core import types
+
+    return [types.standard_luminance_qtable(), types.standard_chrominance_qtable()]
+
+
+def make_jpeg(w: int, h: int, factors, ri: int, seed: int,
+              adobe_transform: int | None = None, precision: int = 8,
+              gradient: bool = False) -> bytes:
+    """A baseline JPEG of random coefficients: DC in [-60, 60], AC
+    Laplace(4) rounded and clipped to +-1023, so every DC difference and AC
+    value lies in the Annex K categories; the Annex K quantisation tables.
+    1, 3 or 4 components (`factors`); an Adobe APP14 marker with
+    `adobe_transform` unless it is None; 8- or 12-bit samples
+    (`precision`). `gradient`: sparse blocks instead (a DC ramp, two small
+    AC values), whose plain lockstep decode takes a few steps a block."""
+    return pack_jpeg(_random_planes(w, h, factors, seed, gradient), w, h, factors, ri,
+                     _standard_qts(), adobe_transform, precision)
+
+
+def multiscan_jpeg(w: int, h: int, factors, seed: int, gradient: bool = False) -> bytes:
+    """make_jpeg's coefficients (no restart markers, 8-bit, 3 components:
+    component 0 with the Annex K luminance tables, the others with the
+    chrominance ones) in a sequential frame of one non-interleaved scan a
+    component, the multi-scan sequential shape (spec B.2.3): a scan codes
+    its component's own ceil(x / 8) x ceil(y / 8) blocks and leaves the
+    MCU padding zero."""
+    from ..core import huffman
+    from ..io import writer
+    from ..native import runtime
+
+    if not runtime.available():
+        raise RuntimeError("the native runtime did not build")
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    dc_specs = [huffman.annex_k_dc_luminance(), huffman.annex_k_dc_chrominance()]
+    ac_specs = [huffman.annex_k_ac_luminance(), huffman.annex_k_ac_chrominance()]
+    parts = [writer.soi(), *[writer.dqt(i, q) for i, q in enumerate(_standard_qts())],
+             writer.sof(w, h, [(ci + 1, fh, fv, min(ci, 1))
+                               for ci, (fh, fv) in enumerate(factors)]),
+             *[writer.dht(s) for s in dc_specs + ac_specs]]
+    for ci, ((fh, fv), plane) in enumerate(zip(factors, _random_planes(w, h, factors, seed,
+                                                                        gradient))):
+        t = min(ci, 1)
+        bx = -(-(-(-w * fh // hmax)) // 8)
+        by = -(-(-(-h * fv // vmax)) // 8)
+        parts.append(writer.sos([(ci + 1, t, t)]))
+        parts.append(runtime.encode_scan_planes(
+            [np.ascontiguousarray(plane[:by, :bx])], bx, bx * by,
+            np.array([(0, 1, 1, 0, 0, 0, 0, 0)], dtype=np.int32),
+            [huffman.build_encode_table(dc_specs[t])],
+            [huffman.build_encode_table(ac_specs[t])], 0))
+    parts.append(writer.eoi())
+    return b"".join(parts)
 
 
 def photo_jpeg(path, w: int, h: int, ri: int, shift: int = 0) -> bytes:

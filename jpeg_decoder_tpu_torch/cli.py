@@ -154,10 +154,11 @@ def cmd_decode_batch(args) -> int:
     t0 = time.perf_counter()
     total_mp = 0.0
     for path, (frame, planes, qts) in zip(
-        paths, host_decode_batch(datas, cfg, pool, max_workers=args.jobs)
+        paths, host_decode_batch(datas, cfg, pool, max_workers=args.jobs, device=device)
     ):
         img = _pixel_stage(frame, planes, qts, cfg, device)
-        pool.release(planes)
+        if not isinstance(planes, list):  # PALLAS and DEVICE planes are device tensors
+            pool.release(planes)
         total_mp += frame.width * frame.height / 1e6
         if out_dir is not None:
             _write_image(out_dir / f"{path.stem}.{args.format}", img.rgb)

@@ -38,6 +38,13 @@
 //            point, at worst in as many steps as a segment has subsequences.
 //   scan     an exclusive prefix sum of the data-unit counts per segment
 //            gives every subsequence the index of its first data unit.
+//            A segment of at most kScanChunk records takes one block that
+//            walks them kThreads at a time; a longer one (a restart-free
+//            scan is one segment) a block a chunk of kScanChunk records,
+//            the chunks chained by decoupled look-back, as csrc/unstuff.cu
+//            does over bytes. The choice is by length: on a 4K request with
+//            a marker per MCU row (some 470 records a segment) the chunked
+//            pass's staging cost more than the walk.
 //   write    every thread decodes its subsequence once more from its true
 //            start state and stores coefficients into the zeroed planes
 //            through the unit layout; the DC differences go to a compact
@@ -46,10 +53,16 @@
 //            code, and only up to the segment's MCU count: the thread that
 //            completes the segment's last data unit reports the consumed
 //            bits, and whatever lies beyond is never looked at.
-//   dc       a warp per (segment, scan component) forms the running sum of
-//            the differences in data-unit order and stores int16(pred); the
-//            serial design's int32 predictor wrapped and kept its low 16
-//            bits, so the sum is taken modulo 2^16.
+//   dc       the running sum of the differences per scan component, in
+//            data-unit order, stored as int16(pred): a block takes a chunk
+//            of kDcChunk data units of a segment, a thread a run of kDcRun
+//            of them, and the chunks of a segment chain their sums by
+//            decoupled look-back, a chain per scan component; the serial
+//            design's int32 predictor wrapped and kept its low 16 bits, so
+//            the sum is taken modulo 2^16. A segment with a marker per MCU
+//            row of a 4K frame (1,440 data units) is one chunk and looks
+//            back at nothing; a restart-free 4K 4:2:0 scan (194,400) is 48
+//            chunks, where a warp per component walked it alone before.
 //
 // The symbol step: a first-level table in shared memory, indexed by the
 // next kLutBits bits (symbol and length in 16 bits, 2 KB a table), built once
@@ -68,6 +81,12 @@
 // The subsequence size trades the steps against the length of each (64,
 // 128 and 256 bytes come within a fifth of each other on a 4K request;
 // benchmarks/k2_sweep.py); 128 bytes are fixed here.
+//
+// The DEVICE route (jpeg_decoder_tpu/ops/entropy_device.py's lane-per-segment
+// while_loop) runs these same kernels: nothing here depends on the length
+// of a segment beyond 2^28 bytes (a record's 32-bit bit position) and 2^32
+// data units, so a restart-free scan of any size is one segment cut into
+// as many subsequences, scan chunks and dc chunks as it needs.
 //
 // Batching (entropy_pallas.entropy_decode_batch's counterpart): a launch
 // takes every segment of a group of images that share (ri, P, unit
@@ -89,6 +108,17 @@ constexpr int kLutBits = 10;
 constexpr int kLutSize = 1 << kLutBits;
 constexpr int kMaxSpecs = 8;
 constexpr int kMaxUnits = 10;
+constexpr int kScanRun = 8;                      // records a thread of the scan pass
+constexpr int kScanChunk = kThreads * kScanRun;  // records a block of the scan pass
+constexpr int kDcRun = 16;                       // data units a thread of the dc pass
+constexpr int kDcChunk = kThreads * kDcRun;      // data units a block of the dc pass
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// A chunk's look-back word (scan and dc passes): the top two bits say what
+// the rest holds.
+constexpr unsigned long long kAggregate = 1ull << 62;  // the chunk's own sum
+constexpr unsigned long long kPrefix = 2ull << 62;     // the sum up to its end
+constexpr unsigned long long kValue = (1ull << 62) - 1;
 
 // A record, one 64-bit word so that it is read and written whole:
 // bits 63..32 p, 31..16 data units completed, 15..12 u, 11..6 k, 0 invalid.
@@ -223,6 +253,12 @@ struct Call {
   int16_t* dcdiff;             // DC differences, data-unit order
   uint16_t* lut;               // [n_specs, kLutSize] first-level tables
   int* flag;                   // pass 2: the most steps a block took that replaced a record
+  int64_t n_segs;
+  unsigned long long* tickets;     // [2] the next chunk of the scan and dc passes, zeroed
+  unsigned long long* scan_state;  // [n_segs][scan_chunks] look-back words, zeroed
+  int64_t scan_chunks;             // chunks of the longest segment's records
+  unsigned long long* dc_state;    // [n_segs][dc_chunks][4] look-back words, zeroed
+  int64_t dc_chunks;               // chunks of the longest segment's data units
 };
 
 __device__ __forceinline__ Segment segment_of(const Call& c, int64_t s,
@@ -478,9 +514,11 @@ __global__ void __launch_bounds__(kThreads) pass2_kernel(Call c) {
   if (threadIdx.x == 0 && steps) atomicMax(c.flag, steps);
 }
 
-// Exclusive prefix sum of the records' counts within each segment: a block
-// per segment walks its records kThreads at a time.
-__global__ void __launch_bounds__(kThreads) scan_kernel(Call c) {
+// Exclusive prefix sum of the records' counts within each segment, a block
+// per segment walking its records kThreads at a time: the scan pass where
+// every segment is one chunk of records, and for measurement (the
+// wrapper's `earlier_tail`) where it is not.
+__global__ void __launch_bounds__(kThreads) scan_segment_kernel(Call c) {
   __shared__ uint32_t warp_sum[kThreads / 32];
   const int64_t s = blockIdx.x;
   const int64_t sub0 = __ldg(c.sub_base + s);
@@ -530,10 +568,11 @@ __global__ void __launch_bounds__(kThreads) write_kernel(Call c) {
                    seg.total_du - first, first, c.dcdiff, c.status + 2 * s);
 }
 
-// The DC running sums: warp w of a block takes scan component w of the
-// block's segment, walks the segment's data units 32 at a time, and stores
-// int16(pred) for the blocks inside the plane.
-__global__ void __launch_bounds__(128) dc_kernel(Call c) {
+// The earlier dc pass, kept for measurement (the wrapper's `earlier_tail`):
+// warp w of a block takes scan component w of the block's segment, walks
+// the segment's data units 32 at a time, and stores int16(pred) for the
+// blocks inside the plane.
+__global__ void __launch_bounds__(128) dc_segment_kernel(Call c) {
   const int64_t s = blockIdx.x;
   if (c.status[2 * s] != 0) return;
   const Segment seg = segment_of(c, s, nullptr);
@@ -562,14 +601,242 @@ __global__ void __launch_bounds__(128) dc_kernel(Call c) {
   }
 }
 
+__device__ __forceinline__ unsigned long long load_state(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_state(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// Exclusive prefix of x over the block's threads, in thread order; *total
+// receives the block's sum. Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ T block_exclusive(T x, T* warp_sum, T* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T v = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  T before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const T ws = warp_sum[w];
+    if (w < warp) before += ws;
+    all += ws;
+  }
+  __syncthreads();  // warp_sum may be used again
+  *total = all;
+  return before + x - v;
+}
+
+// The sum, within `mask`, of the values of chunks [0, chunk) of one chain
+// (chunk j's word at state[j * stride]), by the 32 lanes of a warp: each
+// round reads the 32 words before the last one read, waits until each is
+// published, and stops at the nearest inclusive prefix (decoupled
+// look-back, Merrill & Garland). Chunks take their ids from a counter, in
+// order, so every chunk waited for belongs to a block that runs or ran.
+__device__ unsigned long long look_back(const unsigned long long* state, int64_t stride,
+                                        int64_t chunk, unsigned long long mask, int lane) {
+  unsigned long long sum = 0;
+  for (int64_t end = chunk;; end -= 32) {
+    const int64_t i = end - 1 - lane;
+    unsigned long long s = kPrefix;  // before chunk 0: a prefix of 0
+    if (i >= 0) {
+      do {
+        s = load_state(state + i * stride);
+      } while ((s >> 62) == 0);
+    }
+    const uint32_t p = __ballot_sync(kFull, (s >> 62) == 2);
+    const int stop = p ? __ffs(p) - 1 : 31;  // the nearest prefix
+    unsigned long long v = lane <= stop ? (s & kValue) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    sum = (sum + v) & mask;
+    if (p) return sum;
+  }
+}
+
+// The chunk a block of the scan or dc pass takes: chunk id / n_segs of
+// segment id % n_segs. Where segments are chained (more than one chunk),
+// the ids come from a counter in launch order, so that the chunks a
+// segment's look-back waits for were handed out before its own; where
+// every segment is one chunk of the dc pass (a restart interval of a few
+// MCU rows), no block waits for another and the id is the block's.
+__device__ __forceinline__ int64_t next_chunk(unsigned long long* ticket, bool chained,
+                                              int64_t* s_id) {
+  if (!chained) return blockIdx.x;
+  if (threadIdx.x == 0) *s_id = static_cast<int64_t>(atomicAdd(ticket, 1ull));
+  __syncthreads();
+  return *s_id;
+}
+
+// A padded index into a chunk staged in shared memory: thread t's run of
+// kScanRun words, t * kScanRun + r, spread over the banks.
+__device__ __forceinline__ int staged(int i) { return i + (i >> 5); }
+
+// Exclusive prefix sum of the records' counts within each segment where a
+// segment is more than one chunk: a block per chunk of kScanChunk records,
+// staged through shared memory (loads and stores coalesced), a thread a run
+// of kScanRun of them, the chunks of a segment chained by look-back.
+__global__ void __launch_bounds__(kThreads) scan_kernel(Call c) {
+  __shared__ uint32_t warp_sum[kThreads / 32];
+  __shared__ uint32_t counts[kScanChunk + kScanChunk / 32];
+  __shared__ int64_t s_id;
+  __shared__ uint32_t s_before;
+  const int64_t id = next_chunk(c.tickets, true, &s_id);
+  const int64_t s = id % c.n_segs, chunk = id / c.n_segs;
+  const int64_t sub0 = __ldg(c.sub_base + s);
+  const int64_t nsub = __ldg(c.sub_base + s + 1) - sub0;
+  const int64_t base = chunk * kScanChunk;
+  if (base >= nsub) return;
+  const int n = nsub - base < kScanChunk ? static_cast<int>(nsub - base) : kScanChunk;
+  for (int i = threadIdx.x; i < n; i += kThreads) counts[staged(i)] = count_of(c.rec[sub0 + base + i]);
+  __syncthreads();
+  const int first = threadIdx.x * kScanRun;
+  uint32_t v[kScanRun], sum = 0;
+#pragma unroll
+  for (int r = 0; r < kScanRun; ++r) {
+    v[r] = first + r < n ? counts[staged(first + r)] : 0;
+    sum += v[r];
+  }
+  uint32_t total;
+  const uint32_t before = block_exclusive<uint32_t>(sum, warp_sum, &total);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    unsigned long long* chain = c.scan_state + s * c.scan_chunks;
+    if (lane == 0) store_state(chain + chunk, (chunk == 0 ? kPrefix : kAggregate) | total);
+    uint32_t prefix = 0;
+    if (chunk > 0) {
+      prefix = static_cast<uint32_t>(look_back(chain, 1, chunk, 0xFFFFFFFFull, lane));
+      if (lane == 0) store_state(chain + chunk, kPrefix | static_cast<uint32_t>(prefix + total));
+    }
+    if (lane == 0) s_before = prefix;
+  }
+  __syncthreads();
+  uint32_t at = s_before + before;
+#pragma unroll
+  for (int r = 0; r < kScanRun; ++r) {
+    if (first + r < n) counts[staged(first + r)] = at;
+    at += v[r];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kThreads) c.first_du[sub0 + base + i] = counts[staged(i)];
+}
+
+// Scan component u's difference x (as 16 bits) in the field of its
+// component: components 0 and 1 in the low and high words of one 64-bit
+// sum, 2 and 3 in another, so that a chunk's carries stay in their field.
+__device__ __forceinline__ void add_dc(int comp, uint32_t x, unsigned long long* s01,
+                                       unsigned long long* s23) {
+  const unsigned long long w = comp & 1 ? static_cast<unsigned long long>(x) << 32 : x;
+  if (comp < 2) *s01 += w; else *s23 += w;
+}
+
+__device__ __forceinline__ uint32_t dc_field(unsigned long long s01, unsigned long long s23,
+                                             int comp) {
+  const unsigned long long w = comp < 2 ? s01 : s23;
+  return static_cast<uint32_t>(comp & 1 ? w >> 32 : w) & 0xFFFF;
+}
+
+// The DC running sums: a block per chunk of kDcChunk data units of a
+// segment, a thread a run of kDcRun of them. The thread's sums per scan
+// component, the block's exclusive prefix of them, the chunk's prefix by
+// look-back (warp w the chain of component w), then the run walked again,
+// storing int16(pred) for the blocks inside the plane.
+__global__ void __launch_bounds__(kThreads) dc_kernel(Call c) {
+  __shared__ unsigned long long warp_sum[kThreads / 32];
+  __shared__ int32_t s_units[kMaxUnits * kUnitCols];
+  __shared__ int64_t s_id;
+  __shared__ uint32_t s_before[4];
+  const int64_t id = next_chunk(c.tickets + 1, c.dc_chunks > 1, &s_id);
+  const int64_t s = id % c.n_segs, chunk = id / c.n_segs;
+  // a bad segment's planes are not looked at (check_status raises): every
+  // chunk of it returns here, so none waits for another
+  if (c.status[2 * s] != 0) return;
+  Segment seg = segment_of(c, s, nullptr);
+  if (chunk * kDcChunk >= seg.total_du) return;
+  for (int i = threadIdx.x; i < seg.n_units * kUnitCols; i += blockDim.x) s_units[i] = seg.units[i];
+  __syncthreads();
+  seg.units = s_units;
+  const uint32_t d0 = static_cast<uint32_t>(chunk * kDcChunk) + threadIdx.x * kDcRun;
+  const int16_t* diff = c.dcdiff + seg.du_base;
+  const uint32_t u0 = d0 % seg.n_units;
+  int16_t v[kDcRun];
+  unsigned long long s01 = 0, s23 = 0;
+  uint32_t u = u0;
+#pragma unroll
+  for (int r = 0; r < kDcRun; ++r) {
+    v[r] = d0 + r < seg.total_du ? diff[d0 + r] : 0;
+    add_dc(s_units[u * kUnitCols + 1], static_cast<uint16_t>(v[r]), &s01, &s23);
+    u = u + 1 == static_cast<uint32_t>(seg.n_units) ? 0 : u + 1;
+  }
+  unsigned long long t01, t23;
+  const unsigned long long b01 = block_exclusive<unsigned long long>(s01, warp_sum, &t01);
+  const unsigned long long b23 = block_exclusive<unsigned long long>(s23, warp_sum, &t23);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 4) {
+    unsigned long long* chain = c.dc_state + s * c.dc_chunks * 4 + warp;
+    const uint32_t total = dc_field(t01, t23, warp);
+    if (lane == 0) store_state(chain + chunk * 4, (chunk == 0 ? kPrefix : kAggregate) | total);
+    uint32_t prefix = 0;
+    if (chunk > 0) {
+      prefix = static_cast<uint32_t>(look_back(chain, 4, chunk, 0xFFFFull, lane));
+      if (lane == 0) store_state(chain + chunk * 4, kPrefix | ((prefix + total) & 0xFFFF));
+    }
+    if (lane == 0) s_before[warp] = prefix;
+  }
+  __syncthreads();
+  uint32_t pred[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) pred[k] = s_before[k] + dc_field(b01, b23, k);
+  u = u0;
+  uint32_t m = seg.m_lo + d0 / seg.n_units;
+#pragma unroll
+  for (int r = 0; r < kDcRun; ++r) {
+    if (d0 + r < seg.total_du) {
+      const int32_t* ul = s_units + u * kUnitCols;
+      const int comp = ul[1];
+      uint32_t p = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k == comp) {
+          pred[k] += static_cast<uint32_t>(static_cast<int32_t>(v[r]));
+          p = pred[k];
+        }
+      }
+      int16_t* du = du_address(seg, ul, m);
+      if (du != nullptr) du[0] = static_cast<int16_t>(static_cast<uint16_t>(p));
+    }
+    if (++u == static_cast<uint32_t>(seg.n_units)) {
+      u = 0;
+      ++m;
+    }
+  }
+}
+
 }  // namespace
 
 // The subsequence size the kernels were built with: the wrapper lays the
 // records out by it.
 extern "C" int jdtc_entropy_sub_bytes() { return kSubBytes; }
 
+// The records a block of the scan pass takes (which = 0) and the data units
+// a block of the dc pass takes (which = 1): the wrapper sizes the
+// look-back scratch by them.
+extern "C" int jdtc_entropy_chunk(int which) { return which == 0 ? kScanChunk : kDcChunk; }
+
 // One decode of a group: first-level tables, pass 1, pass 2 until no record
 // changes (the host reads a flag after each launch), scan, write, dc.
+// `chain` is the scan and dc passes' look-back scratch, `chain_words` int64
+// of it: 2 + n_segs * (ceil(max_subs / kScanChunk) + 4 * ceil(ri * n_units
+// / kDcChunk)), cleared here. `earlier_tail` runs the earlier scan and dc
+// passes (a block per segment) whatever the segments' length, for
+// measurement.
 // `rounds` receives the launches of pass 2 and, summed over them, the most
 // steps a block took within a launch (the length of the longest chain that
 // had to be walked). `pass_ms`, when not null,
@@ -580,9 +847,16 @@ extern "C" int jdtc_entropy_decode(
     int64_t n_segs, int64_t ri, const void* total_mcus, const void* units, int n_units,
     const void* tables, int n_specs, const void* plane_ptrs, void* status,
     const void* sub_base, const void* du_base_img, int64_t max_subs, void* rec, void* used,
-    void* first_du, void* dcdiff, void* lut, void* flag, int* rounds, float* pass_ms,
-    void* cuda_stream) {
-  if (n_units > kMaxUnits || n_specs > kMaxSpecs || n_units < 1 || n_specs < 1)
+    void* first_du, void* dcdiff, void* lut, void* flag, void* chain, int64_t chain_words,
+    int earlier_tail, int* rounds, float* pass_ms, void* cuda_stream) {
+  if (n_units > kMaxUnits || n_specs > kMaxSpecs || n_units < 1 || n_specs < 1 || n_segs < 1
+      || ri < 1 || max_subs < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t scan_chunks = (max_subs + kScanChunk - 1) / kScanChunk;
+  const int64_t dc_chunks = (ri * n_units + kDcChunk - 1) / kDcChunk;
+  const int64_t words = 2 + n_segs * (scan_chunks + 4 * dc_chunks);
+  if (chain_words < words || n_segs * scan_chunks >= (1ll << 31)
+      || n_segs * dc_chunks >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   Call c;
@@ -606,6 +880,12 @@ extern "C" int jdtc_entropy_decode(
   c.dcdiff = static_cast<int16_t*>(dcdiff);
   c.lut = static_cast<uint16_t*>(lut);
   c.flag = static_cast<int*>(flag);
+  c.n_segs = n_segs;
+  c.tickets = static_cast<unsigned long long*>(chain);
+  c.scan_state = c.tickets + 2;
+  c.scan_chunks = scan_chunks;
+  c.dc_state = c.scan_state + n_segs * scan_chunks;
+  c.dc_chunks = dc_chunks;
 
   cudaEvent_t ev[6];
   if (pass_ms != nullptr)
@@ -621,6 +901,7 @@ extern "C" int jdtc_entropy_decode(
 
   mark(0);
   cudaMemsetAsync(status, 0, sizeof(int64_t) * 2 * n_segs, st);
+  cudaMemsetAsync(chain, 0, sizeof(unsigned long long) * words, st);
   build_lut_kernel<<<n_specs, 256, 0, st>>>(c.tables, c.lut);
   pass1_kernel<<<grid, kThreads, 0, st>>>(c);
   mark(1);
@@ -642,11 +923,17 @@ extern "C" int jdtc_entropy_decode(
   }
   mark(2);
   if (err == 0) {
-    scan_kernel<<<segs, kThreads, 0, st>>>(c);
+    if (earlier_tail || scan_chunks == 1)
+      scan_segment_kernel<<<segs, kThreads, 0, st>>>(c);
+    else
+      scan_kernel<<<static_cast<unsigned>(n_segs * scan_chunks), kThreads, 0, st>>>(c);
     mark(3);
     write_kernel<<<grid, kThreads, 0, st>>>(c);
     mark(4);
-    dc_kernel<<<segs, 128, 0, st>>>(c);
+    if (earlier_tail)
+      dc_segment_kernel<<<segs, 128, 0, st>>>(c);
+    else
+      dc_kernel<<<static_cast<unsigned>(n_segs * dc_chunks), kThreads, 0, st>>>(c);
     mark(5);
     err = static_cast<int>(cudaGetLastError());
   }

@@ -2,8 +2,9 @@
 stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
 
   host:    marker walk + table parse              (io/parser.py)
-  entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS on the device
-           (models/host.py; ops/entropy_cuda.py, kernel K2)
+  entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS or DEVICE on the
+           device (models/host.py; ops/entropy_cuda.py and
+           ops/entropy_device.py, kernels K2u and K2)
   device:  one PixelStage per (geometry, tables, config). A 3-component
            nearest-neighbour frame whose samples stay in their MCUs runs as
            one step (ops/pixel.py; K03 for EXACT, K13 for FLOAT32);
@@ -16,16 +17,17 @@ stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
   host:    with use_device=False, the pixel stage on the host instead
            (core/oracle.py: the EXACT IDCT and colour conversion in NumPy)
 
-Host-decoded planes go to the device in one copy per image; PALLAS planes
-are born there. RGB and the pixel planes come back in one copy each. The
-batch serving path (parallel/batch.py) runs the same PixelStage over
-stacked [B, by, bx, 64] planes and asks for RGB alone.
+Host-decoded planes go to the device in one copy per image; PALLAS and
+DEVICE planes are born there. RGB and the pixel planes come back in one
+copy each. The batch serving path (parallel/batch.py) runs the same
+PixelStage over stacked [B, by, bx, 64] planes and asks for RGB alone.
 
 The port covers what the JAX package's pixel stage takes: 1, 3 and 4
 components (YCbCr, YCCK, raw Adobe CMYK), 8- and 12-bit samples, both
 Quirks, nearest-neighbour and fancy upsampling, the EXACT and FLOAT32 IDCT
-contracts, scale 1, 2, 4 and 8, and use_device=False. Only the DEVICE
-entropy backend raises JpegUnsupportedError (models/host.py).
+contracts, scale 1, 2, 4 and 8, and use_device=False; and every entropy
+backend of the JAX package, each on the streams that package's backend
+takes (PALLAS keeps its lane guards; DEVICE takes every sequential scan).
 """
 
 from __future__ import annotations
@@ -179,7 +181,8 @@ def _host_fancy_convert(frame: FrameHeader, pixel_planes, quirks):
 
 def _host_pixel_stage(frame: FrameHeader, planes, qts, cfg: DecodeConfig) -> DecodedImage:
     """use_device=False: the pixel stage on the host (core/oracle.py), as
-    the JAX package runs it. PALLAS planes come back from the device first."""
+    the JAX package runs it. PALLAS and DEVICE planes come back from the
+    device first."""
     if cfg.scale != 8:
         raise JpegConfigError(
             "scaled decode (scale != 8) runs on the device pixel path; "

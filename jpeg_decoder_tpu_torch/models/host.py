@@ -3,8 +3,9 @@ path and the pipelined host stages.
 
 A JAX-free copy of jpeg_decoder_tpu/models/decoder.py (PlanePool through
 host_decode_batch), which cannot be imported without JAX. The code is the
-JAX package's; what differs is the entropy dispatch: PALLAS decodes on the
-torch device (ops/entropy_cuda.py, kernel K2) and DEVICE is not ported.
+JAX package's; what differs is the entropy dispatch: PALLAS and DEVICE
+decode on the torch device (ops/entropy_cuda.py and ops/entropy_device.py,
+kernels K2u and K2) into device tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from ..core.types import (
 from ..io.markers import Encoding
 from ..io.parser import parse
 from ..utils.config import DecodeConfig, EntropyBackend
-from ..utils.errors import JpegUnsupportedError
 from ..utils.logging import get_logger
 from ..utils.metrics import GLOBAL_METRICS as metrics
 
@@ -98,8 +98,9 @@ def _entropy_decode(
 ):
     """Run every scan's entropy decode into coefficient planes on the chosen
     backend; returns (planes, qtid -> natural-order table). `planes` may be
-    a reusable buffer from PlanePool (serving path). The PALLAS backend
-    decodes on `device` (default "cuda") into device tensors instead."""
+    a reusable buffer from PlanePool (serving path). The PALLAS and DEVICE
+    backends decode on `device` (default "cuda") into device tensors
+    instead."""
     frame = structure.frame
     backend = cfg.entropy_backend
 
@@ -119,12 +120,14 @@ def _entropy_decode(
             return entropy_np.entropy_decode(structure, cfg, planes)
 
     if backend == EntropyBackend.DEVICE:
-        # jpeg_decoder_tpu/ops/entropy_device.py is the XLA while_loop
-        # testbed that the entropy kernel (PALLAS here: K2) supersedes.
-        raise JpegUnsupportedError(
-            "the DEVICE entropy backend is not ported (ROADMAP: not to"
-            " port); use EntropyBackend.PALLAS for decode on the device"
-        )
+        from .. import convert
+        from ..ops import entropy_device
+
+        dev = convert.resolve_device("cuda" if device is None else device)
+        with metrics.timer("entropy_device"):
+            return entropy_device.entropy_decode(
+                structure, cfg, convert.zero_planes(frame, dev)
+            )
 
     if backend == EntropyBackend.PALLAS:
         from .. import convert
@@ -310,7 +313,8 @@ def host_decode(
     exactly what the device stage consumes. Uses the fused native path when
     the stream is a one-scan sequential JPEG (the serving shape), else the
     classic parse + per-scan decode. `pool` enables plane reuse. Under the
-    PALLAS backend the planes are tensors on `device` (default "cuda")."""
+    PALLAS and DEVICE backends the planes are tensors on `device` (default
+    "cuda"), never the pool's."""
     cfg = cfg or DecodeConfig()
     from ..io import bitstream as bs
 
@@ -320,11 +324,8 @@ def host_decode(
         return fast
     with metrics.timer("parse"):
         structure = parse(data, cfg)
-    planes = (
-        pool.acquire(structure)
-        if pool is not None and cfg.entropy_backend != EntropyBackend.PALLAS
-        else None
-    )
+    on_device = cfg.entropy_backend in (EntropyBackend.PALLAS, EntropyBackend.DEVICE)
+    planes = pool.acquire(structure) if pool is not None and not on_device else None
     planes, qts = _entropy_decode(structure, cfg, planes, device)
     return structure.frame, planes, qts
 
@@ -388,6 +389,7 @@ def host_decode_batch(
     cfg: DecodeConfig | None = None,
     pool: "PlanePool | None" = None,
     max_workers: int = 0,
+    device=None,
 ):
     """Concurrent host stage ACROSS images: yields (frame, planes, qts) per
     input, in input order, with up to `max_workers` images decoding at once.
@@ -405,7 +407,8 @@ def host_decode_batch(
 
     The failure contract matches stream order: the first-in-order failing
     image's error is raised from its yield position; decodes already in
-    flight for later images are completed and discarded.
+    flight for later images are completed and discarded. `device`: where
+    the PALLAS and DEVICE backends decode (host_decode's).
     """
     import collections
     import concurrent.futures as cf
@@ -427,7 +430,7 @@ def host_decode_batch(
             except StopIteration:
                 return False
             window.append(
-                ex.submit(host_decode, bs.as_byte_array(d), cfg, pool)
+                ex.submit(host_decode, bs.as_byte_array(d), cfg, pool, device)
             )
             return True
 

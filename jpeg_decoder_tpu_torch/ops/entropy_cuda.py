@@ -25,12 +25,17 @@ of images that share (ri, P, unit schedule, Huffman tables):
 `entropy_decode_batch` decodes a batch in one launch per group, and a
 single scan is a group of one.
 
-Guards and errors are the JAX backend's, so both packages accept the same
-streams: progressive scans, restart-free scans over 256 MCUs and segments
-whose lockstep output would pass 512 MB are rejected with
-JpegUnsupportedError; an invalid code raises JpegEntropyError, checked
-before truncation; a segment that consumed more than 8 * nbytes + 7 bits
-raises JpegTruncatedError.
+Two routes share these kernels, each with its JAX backend's guards, so
+that both packages accept the same streams. PALLAS (this module's
+entropy_decode, entropy_decode_batch; check_scan, batchable) keeps the
+Mosaic kernel's lane guards: progressive scans, restart-free scans over
+256 MCUs and segments whose lockstep output would pass 512 MB are
+rejected with JpegUnsupportedError. DEVICE (ops/entropy_device.py;
+check_scan_device) refuses progressive scans alone: a restart-free scan
+of any length is one segment, which K2 cuts into subsequences like any
+other. Errors are the same on both: an invalid code raises
+JpegEntropyError, checked before truncation; a segment that consumed more
+than 8 * nbytes + 7 bits raises JpegTruncatedError.
 """
 
 from __future__ import annotations
@@ -67,6 +72,12 @@ _INVALID = 0x1FF
 SUB_BYTES = 128
 #: Bits that index K2's first-level tables (kLutBits).
 _LUT_BITS = 10
+#: Records a block of K2's scan pass takes, and data units a block of its
+#: dc pass takes (kScanChunk, kDcChunk; the wrapper refuses a library built
+#: with others): a segment longer than that is several chunks chained by
+#: look-back.
+SCAN_CHUNK = 2048
+DC_CHUNK = 4096
 #: A K2 record as one 64-bit word: bits 63..32 the bit position p, 31..16
 #: the data units completed, 15..12 the unit u, 11..6 the zigzag position k,
 #: bit 0 invalid. A state is a record with the count cleared.
@@ -78,8 +89,9 @@ def _segments_too_long(ri: int, n_units: int) -> bool:
 
 
 def check_scan(scan, total_mcus: int, n_units: int) -> int:
-    """Check a scan against the backend's guards; returns its restart
-    interval in MCUs (the whole scan for a restart-free one)."""
+    """Check a scan against the PALLAS route's guards (the JAX backend's
+    lanes); returns its restart interval in MCUs (the whole scan for a
+    restart-free one)."""
     _check_segments(scan, total_mcus)
     if scan.restart_interval == 0 and total_mcus > 256:
         raise JpegUnsupportedError(
@@ -94,6 +106,14 @@ def check_scan(scan, total_mcus: int, n_units: int) -> int:
             f" ({ri} MCUs/segment); use the native backend"
         )
     return ri
+
+
+def check_scan_device(scan, total_mcus: int, n_units: int) -> int:
+    """check_scan for the DEVICE route (the JAX backend's lane-per-segment
+    loop, which has no lane guard): only the segment count is checked."""
+    del n_units  # a segment of any length decodes
+    _check_segments(scan, total_mcus)
+    return scan.restart_interval or total_mcus
 
 
 def pack_scan(structure, scan, total_mcus: int, n_units: int):
@@ -271,20 +291,26 @@ def _sub_base_plain(seg_off: torch.Tensor, sub_bytes: int = SUB_BYTES) -> torch.
 
 def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_mcus,
                                   units, tables, planes, sub_bytes: int = SUB_BYTES,
-                                  capacity: int | None = None):
+                                  capacity: int | None = None, scan_chunk: int = SCAN_CHUNK,
+                                  dc_chunk: int = DC_CHUNK):
     """A model of K2's schedule (csrc/entropy_decode.cu) in Python integers,
     for the tests and the card check at small sizes; never a decode path.
     The same passes over the same records: pass 1 from guessed states, the
     rounds of pass 2 (here every subsequence takes its predecessor's record
     of the round before; the kernel's blocks also iterate among themselves,
-    so it needs no more launches than this needs rounds), the prefix sum,
-    the write pass and the DC sums. Returns (status int64 [n_segs, 2],
+    so it needs no more launches than this needs rounds), the prefix sum
+    over chunks of `scan_chunk` records, the write pass and the DC sums
+    over chunks of `dc_chunk` data units. A chunk's prefix is the sum of
+    the aggregates of every chunk before it in its segment: the look-back
+    when none of them has published its inclusive prefix yet, which gives
+    what any order of the blocks gives. Returns (status int64 [n_segs, 2],
     records) with records = dict(rec, used, first_du: int64 / int64 / int64
     arrays over all subsequences; sub_base; rounds; changed: the records
-    each round replaced); `planes` are written in place. `capacity`: the
-    records' length, as K2's wrapper sizes them from the raw lengths when
-    the layout comes from the device (entries past sub_base[-1] stay 0);
-    by default sub_base[-1]."""
+    each round replaced; scan_chunks, dc_chunks: the chunks of the scan and
+    dc passes that held work); `planes` are written in place. `capacity`:
+    the records' length, as K2's wrapper sizes them from the raw lengths
+    when the layout comes from the device (entries past sub_base[-1] stay
+    0); by default sub_base[-1]."""
     st = stream.cpu().numpy()
     so = seg_off.cpu().numpy().astype(np.int64)
     img_h = seg_img.cpu().numpy()
@@ -304,6 +330,7 @@ def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_m
     status = np.zeros((n, 2), dtype=np.int64)
     flat = [[p.view(-1, 64) for p in img_planes] for img_planes in planes]
     changed: list[int] = []   # per round of pass 2, the records it replaced
+    n_chunks = [0, 0]         # chunks of the scan and dc passes that held work
 
     def address(ul, m):
         """Row of data unit (m, unit ul) in its plane, or None outside."""
@@ -419,29 +446,46 @@ def _decode_segments_subseq_plain(stream, seg_off, seg_img, seg_idx, ri, total_m
             changed[seg_rounds - 1] += n_changed
             if not n_changed:
                 break
-        # scan
-        for local in range(1, nsub):
-            first_du[b0 + local] = (first_du[b0 + local - 1]
-                                    + ((rec[b0 + local - 1] >> 16) & 0xFFFF))
+        # scan: each chunk's own exclusive sums, offset by the aggregates of
+        # the chunks before it
+        counts = [(r >> 16) & 0xFFFF for r in rec[b0:b0 + nsub]]
+        aggregates = [sum(counts[c0:c0 + scan_chunk]) for c0 in range(0, nsub, scan_chunk)]
+        n_chunks[0] += len(aggregates)
+        for chunk, c0 in enumerate(range(0, nsub, scan_chunk)):
+            run = sum(aggregates[:chunk]) & 0xFFFFFFFF
+            for local in range(c0, min(c0 + scan_chunk, nsub)):
+                first_du[b0 + local] = run
+                run += counts[local]
         # write
         for local in range(nsub):
             state = 0 if local == 0 else rec[b0 + local - 1] & ~_COUNT_MASK
             first = first_du[b0 + local]
             if not state & 1 and first < total_du:
                 decode(state, end_bit(local, True), total_du - first, first)
-        # dc: running sums per scan component, modulo 2^16
+        # dc: running sums per scan component, modulo 2^16, a chunk of
+        # data units at a time, each from the aggregates of the chunks
+        # before it
         if not status[s, 0]:
-            preds = [0, 0, 0, 0]
-            for d in range(total_du):
-                ul = ul_of[d % n_units]
-                preds[ul[1]] = (preds[ul[1]] + dcdiff[d]) & 0xFFFF
-                at = address(ul, m_lo + d // n_units)
-                if at is not None:
-                    v = preds[ul[1]]
-                    flat[img][at[0]][at[1], 0] = v - 0x10000 if v >= 0x8000 else v
+            aggregates = []
+            for c0 in range(0, total_du, dc_chunk):
+                agg = [0, 0, 0, 0]
+                for d in range(c0, min(c0 + dc_chunk, total_du)):
+                    agg[ul_of[d % n_units][1]] += dcdiff[d]
+                aggregates.append([a & 0xFFFF for a in agg])
+            n_chunks[1] += len(aggregates)
+            for chunk, c0 in enumerate(range(0, total_du, dc_chunk)):
+                preds = [sum(a[k] for a in aggregates[:chunk]) & 0xFFFF for k in range(4)]
+                for d in range(c0, min(c0 + dc_chunk, total_du)):
+                    ul = ul_of[d % n_units]
+                    preds[ul[1]] = (preds[ul[1]] + dcdiff[d]) & 0xFFFF
+                    at = address(ul, m_lo + d // n_units)
+                    if at is not None:
+                        v = preds[ul[1]]
+                        flat[img][at[0]][at[1], 0] = v - 0x10000 if v >= 0x8000 else v
     records = dict(rec=np.array(rec, dtype=np.int64), used=np.array(used, dtype=np.int64),
                    first_du=np.array(first_du, dtype=np.int64), sub_base=sub_base,
-                   rounds=max(1, len(changed)), changed=changed)
+                   rounds=max(1, len(changed)), changed=changed, scan_chunks=n_chunks[0],
+                   dc_chunks=n_chunks[1])
     return torch.from_numpy(status), records
 
 
@@ -466,7 +510,8 @@ class HostArrays(NamedTuple):
 
 def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
                     units, tables, planes, records: dict | None = None,
-                    host: HostArrays | None = None) -> torch.Tensor:
+                    host: HostArrays | None = None, count_as: str = "jdtc_entropy_decode",
+                    earlier_tail: bool = False) -> torch.Tensor:
     """Decode every restart segment of a group of scans (one per image, see
     convert.group_tables) into `planes` (per image, its int16 [by, bx, 64]
     planes per frame component, zeroed: the kernel stores nonzero
@@ -474,7 +519,13 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
     segment seg_idx[s] of image seg_img[s]. Returns the int64 [n_segs, 2]
     status (bad flag, consumed bits). CPU tensors: the plain version. CUDA
     tensors: K2, one call for the whole group (several kernels: tables,
-    pass 1, pass 2 until no record changes, scan, write, dc).
+    pass 1, pass 2 until no record changes, scan, write, dc), counted
+    under `count_as` (the DEVICE route counts its own). A segment may be
+    of any length up to 256 MB: the dc pass takes it in chunks of DC_CHUNK
+    data units, the scan pass, where a segment has more than SCAN_CHUNK
+    records, in chunks of SCAN_CHUNK, chained by look-back. `earlier_tail`,
+    for measurement only (no decode path sets it): the earlier scan and dc
+    passes, a block per segment, whatever its length.
 
     The status's bad flags equal the plain version's on every stream; the
     consumed bits and the planes equal them bitwise whenever no segment of
@@ -544,12 +595,15 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
                          " stream lacks its tail or its alignment")
     if (seg_len >= 1 << 28).any():  # a record holds a bit position in 32 bits
         raise ValueError("decode_segments: a segment of 256 MB or more")
-    if (not 0 < ri * n_units <= 0xFFFF or (total_h < 0).any()
+    # a segment's data units are counted in 32 bits
+    if (not 0 < ri * n_units < 1 << 32 or (total_h < 0).any()
             or (total_h >= 1 << 28).any()):
         raise ValueError("decode_segments: restart interval or MCU count out of range")
-    if _build.library().jdtc_entropy_sub_bytes() != SUB_BYTES:
+    lib = _build.library()
+    if (lib.jdtc_entropy_sub_bytes() != SUB_BYTES or lib.jdtc_entropy_chunk(0) != SCAN_CHUNK
+            or lib.jdtc_entropy_chunk(1) != DC_CHUNK):
         raise RuntimeError("decode_segments: the kernel library was built with another"
-                           " subsequence size")
+                           " subsequence or chunk size")
     if sub_base_dev is not None and (sub_base_dev.dtype != torch.int64
                                      or not sub_base_dev.is_contiguous()
                                      or sub_base_dev.device != dev
@@ -557,6 +611,11 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
         raise ValueError(f"decode_segments: sub_base must be contiguous int64 [{n + 1}] on {dev}")
     sub_base = sub_layout(seg_bound_h)   # exact, or a bound per segment
     n_subs = int(sub_base[-1])
+    max_subs = int(np.diff(sub_base).max())
+    # the scan and dc passes' look-back words: two chunk counters, then a
+    # word per scan chunk and four (a scan component each) per dc chunk
+    chain = torch.empty(2 + n * (-(-max_subs // SCAN_CHUNK) + 4 * -(-ri * n_units // DC_CHUNK)),
+                        dtype=torch.int64, device=dev)
     du_base_img = np.concatenate([[0], np.cumsum(total_h * n_units)]).astype(np.int64)
     # non-blocking uploads: nothing between the raw bytes' upload and K2's
     # first kernel waits for the device (a pageable source is staged before
@@ -576,14 +635,15 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
     addresses = convert.plane_addresses(planes, dev)
     rounds = (ctypes.c_int * 2)()
     pass_ms = (ctypes.c_float * 5)() if records is not None else None
-    _build.launch(
-        "jdtc_entropy_decode", _build.ptr(stream), _build.ptr(seg_off),
+    _build.launch_as(
+        count_as, "jdtc_entropy_decode", _build.ptr(stream), _build.ptr(seg_off),
         _build.ptr(seg_img), _build.ptr(seg_idx), n, ri,
         _build.ptr(total_mcus), _build.ptr(units), n_units,
         _build.ptr(tables), n_specs, _build.ptr(addresses), _build.ptr(status),
-        _build.ptr(sub_base_dev), _build.ptr(du_base_dev), int(np.diff(sub_base).max()),
+        _build.ptr(sub_base_dev), _build.ptr(du_base_dev), max_subs,
         _build.ptr(rec), _build.ptr(used), _build.ptr(first_du), _build.ptr(dcdiff),
-        _build.ptr(lut), _build.ptr(flag), ctypes.c_void_p(ctypes.addressof(rounds)),
+        _build.ptr(lut), _build.ptr(flag), _build.ptr(chain), chain.numel(), int(earlier_tail),
+        ctypes.c_void_p(ctypes.addressof(rounds)),
         None if pass_ms is None else ctypes.c_void_p(ctypes.addressof(pass_ms)),
         _build.stream_of(status),
     )
@@ -745,11 +805,12 @@ class ScanPack(NamedTuple):
     bounds: np.ndarray    # int64 [n_segs, 2]: each segment's [lo, hi) in `raw`
 
 
-def prepare_scan(structure, scan) -> ScanPack:
-    """Unit layout, tables and group key of a sequential scan, check_scan's
-    guards, and the scan's raw bytes with its segments' bounds."""
+def prepare_scan(structure, scan, guard=check_scan) -> ScanPack:
+    """Unit layout, tables and group key of a sequential scan, the route's
+    guards (check_scan for PALLAS, check_scan_device for DEVICE), and the
+    scan's raw bytes with its segments' bounds."""
     key, total_mcus, units, tabs = convert.group_key(structure.frame, scan)
-    ri = check_scan(scan, total_mcus, units.shape[0])
+    ri = guard(scan, total_mcus, units.shape[0])
     span = scan.span
     bounds = span.segment_bounds_flat().reshape(-1, 2) - span.start
     return ScanPack(key, ri, total_mcus, units, tabs,

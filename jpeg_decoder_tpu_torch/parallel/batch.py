@@ -12,6 +12,9 @@ The serving shape: many JPEGs per step.
     batch tensor of each component. A member K2 does not take
     (progressive, restart-free over 256 MCUs, oversized segments) takes the
     native host decode, and its planes are copied into its slice.
+  DEVICE: one image at a time, as the JAX class takes it: parse, then the
+    DEVICE route (ops/entropy_device.py: K2u and K2 per scan) into the
+    image's own zeroed planes on the device, stacked for the pixel stage.
 Then one PixelStage call over the stacked planes, RGB alone: one K03
 (EXACT) or K13 (FLOAT32) launch for a 3-component nearest-neighbour batch
 (ops/pixel.py), else one K0 (EXACT), K1 (FLOAT32) or K5 (scale < 8) launch
@@ -93,12 +96,17 @@ class BatchDecoder:
         """Host stage for a batch of raw streams: (frame, planes, qts)
         triples. NATIVE: the fused host path per image, images across host
         threads, planes from the pool. PALLAS: parse, then the device
-        entropy decode of the whole batch (planes are StackedPlanes)."""
+        entropy decode of the whole batch (planes are StackedPlanes).
+        DEVICE: host_decode per image in this thread (so that its launches
+        stay on this thread's stream), planes a list of device tensors."""
         workers = self._workers()
         if self.cfg.entropy_backend == EntropyBackend.PALLAS:
             structures = [parse(d, self.cfg) for d in datas]
             results = self._entropy_many_pallas(structures, workers)
             return [(s.frame, p, q) for s, (p, q) in zip(structures, results)]
+        if self.cfg.entropy_backend == EntropyBackend.DEVICE:
+            with metrics.timer("entropy_device_batch", items=len(datas)):
+                return [host.host_decode(d, self.cfg, device=self.device) for d in datas]
 
         def one(d):
             return host.host_decode(d, self.cfg, self._pool)
@@ -257,6 +265,10 @@ class BatchDecoder:
                 # K2 (and the fallback copies) wrote every member in place:
                 # one key means one frame, so one stack, in member order
                 coeffs = list(first.stacks)
+            elif isinstance(first, list):
+                # the DEVICE route's planes, already on the device
+                coeffs = [torch.stack([p[ci] for _f, p, _q in results])
+                          for ci in range(frame.ncs)]
             else:
                 coeffs = [
                     torch.from_numpy(np.stack([p.plane(ci) for _f, p, _q in results]))

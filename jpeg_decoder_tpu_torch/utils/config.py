@@ -66,11 +66,16 @@ class EntropyBackend(enum.Enum):
     NATIVE — the C++ runtime (restart-segment-parallel, LUT-based). Default.
     NUMPY  — vectorized NumPy decoder (no native build required).
     ORACLE — the bit-serial NumPy oracle (slow; for conformance testing).
-    DEVICE — the JAX package's XLA while_loop testbed (not ported: raises).
-    PALLAS — on-device lockstep kernel (ops/entropy_cuda.py, kernel K2):
-             one restart segment per thread; the compressed bytes go to
-             the card and the coefficient planes are born there. The name
-             is the JAX package's, kept so configs read the same.
+    DEVICE — every sequential scan on the device (ops/entropy_device.py):
+             the JAX package's lane-per-segment while_loop, here K2u and
+             K2 with no lane guard, so restart-free scans of any length
+             decode on the card; progressive frames raise.
+    PALLAS — on-device kernel (ops/entropy_cuda.py, kernels K2u and K2)
+             with the JAX Pallas kernel's lane guards (restart-free scans
+             of at most 256 MCUs, segments within its 512 MB bound); the
+             compressed bytes go to the card and the coefficient planes
+             are born there. The names are the JAX package's, kept so
+             configs read the same.
     """
 
     NATIVE = "native"

@@ -307,6 +307,153 @@ def test_k2_dc_sum_wraps_like_the_int32_predictor(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# K2 on the DEVICE route: whole segments, no lane guard
+# ---------------------------------------------------------------------------
+
+DEVICE = DecodeConfig(entropy_backend=EntropyBackend.DEVICE)
+
+#: Streams the PALLAS route refuses: restart-free gray of 17 x 16 MCUs (dense
+#: blocks), and a gray gradient in two segments of 4100 MCUs (ri * P > 4096;
+#: each segment two chunks of the dc pass).
+DEVICE_STREAMS = {
+    "restart_free_272": (136, 128, GRAY, 0, 6),
+    "two_long_segments": (800, 656, GRAY, 4100, 7),
+}
+
+
+def _device_stream(name):
+    w, h, factors, ri, seed = DEVICE_STREAMS[name]
+    return make_jpeg(w, h, factors, ri, seed, gradient=name == "two_long_segments")
+
+
+def _device_args(data, device):
+    s = parse(data)
+    pack = entropy_cuda.prepare_scan(s, s.scans[0], entropy_cuda.check_scan_device)
+    return s, pack, entropy_cuda.launch_args([pack], device)
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_STREAMS))
+def test_k2_device_route_matches_plain(cuda_device, name):
+    """K2 on whole segments against the plain lockstep loop on the card, and
+    its records against the schedule's model on the CPU."""
+    s, pack, (args, host) = _device_args(_device_stream(name), cuda_device)
+    with pytest.raises(JpegError):
+        entropy_cuda.prepare_scan(s, s.scans[0])  # the PALLAS guards
+    got = convert.zero_planes(s.frame, cuda_device)
+    want = convert.zero_planes(s.frame, cuda_device)
+    rec = {}
+    _build.LAUNCHES.clear()
+    st_k = entropy_cuda.decode_segments(*args, [got], records=rec, host=host, count_as="K2d")
+    assert dict(_build.LAUNCHES) == {"K2d": 1}
+    st_p = entropy_cuda._decode_segments_plain(*args, [want])
+    assert torch.equal(st_k.cpu(), st_p.cpu())
+    entropy_cuda.check_status(st_k, args[1])
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    cpu_args, _ = entropy_cuda.launch_args([pack], "cpu")
+    model_planes = convert.zero_planes(s.frame, "cpu")
+    st_m, model = entropy_cuda._decode_segments_subseq_plain(*cpu_args, [model_planes])
+    assert torch.equal(st_k.cpu(), st_m)
+    for key in ("rec", "used", "first_du"):
+        np.testing.assert_array_equal(rec[key].cpu().numpy().astype(np.int64), model[key])
+    assert 1 <= rec["rounds"] <= model["rounds"] + 1
+
+
+def test_k2_chunked_passes_over_a_long_segment_wrap_like_the_int32_predictor(cuda_device):
+    """One restart-free segment of 150,000 DC-only blocks (about 375 KB: two
+    chunks of the scan pass, 37 of the dc pass) whose differences wrap the
+    predictor: every DC the closed form, (cumsum + 2^15) mod 2^16 - 2^15."""
+    rng = np.random.default_rng(11)
+    diffs = rng.integers(-32767, 32768, 150_000).tolist()
+    s, _pack, (args, host) = _device_args(dc_only_stream(diffs, nb_x=500), cuda_device)
+    got = convert.zero_planes(s.frame, cuda_device)
+    rec = {}
+    status = entropy_cuda.decode_segments(*args, [got], records=rec, host=host)
+    entropy_cuda.check_status(status, args[1])
+    n_subs = int(rec["sub_base"][-1])
+    assert n_subs > entropy_cuda.SCAN_CHUNK
+    first = rec["first_du"].cpu().numpy().astype(np.int64)
+    counts = (rec["rec"].cpu().numpy().astype(np.int64) >> 16) & 0xFFFF
+    np.testing.assert_array_equal(first, np.concatenate([[0], np.cumsum(counts)[:-1]]))
+    dc = got[0].reshape(-1, 64)[:, 0].cpu().numpy().astype(np.int64)
+    np.testing.assert_array_equal(dc, ((np.cumsum(diffs) + 2**15) % 2**16) - 2**15)
+
+
+@pytest.mark.parametrize("name", ["420_ri4", "420_ri5_edges", "444_ri1", "dc_only_restart_free"])
+def test_k2_chunked_tail_matches_its_earlier_design(cuda_device, name):
+    """The scan and dc passes as the wrapper picks them (the dc pass in
+    chunks; the scan pass in chunks where a segment holds more than one
+    chunk of records) against the earlier passes (a block per segment) on
+    DRI streams and on one restart-free segment of 120,000 DC-only blocks
+    (2,285 subsequences: two chunks of records): the same first data units,
+    status and planes."""
+    if name == "dc_only_restart_free":
+        diffs = np.random.default_rng(12).integers(-32767, 32768, 120_000).tolist()
+        structures = [parse(dc_only_stream(diffs, nb_x=400))]
+        pack = entropy_cuda.prepare_scan(structures[0], structures[0].scans[0],
+                                         entropy_cuda.check_scan_device)
+        args, host = entropy_cuda.launch_args([pack], cuda_device)
+    else:
+        structures, _packs, (args, host) = _group([_stream(name)], cuda_device)
+    outs = []
+    for earlier in (False, True):
+        planes = convert.zero_planes(structures[0].frame, cuda_device)
+        rec = {}
+        status = entropy_cuda.decode_segments(*args, [planes], records=rec, host=host,
+                                              earlier_tail=earlier)
+        outs.append((status.cpu(), rec["first_du"].cpu(), [p.cpu() for p in planes]))
+    (st_a, first_a, planes_a), (st_b, first_b, planes_b) = outs
+    assert torch.equal(st_a, st_b) and torch.equal(first_a, first_b)
+    for a, b in zip(planes_a, planes_b):
+        assert torch.equal(a, b)
+
+
+def test_device_backend_at_4k_matches_native(cuda_device):
+    """A restart-free 3840x2160 4:2:0 stream (one segment of about 63,000
+    subsequences) through JpegDecoder(DEVICE): planes and RGB bitwise the
+    NATIVE decode on the card; one K2u and one K2d launch."""
+    data = make_jpeg(3840, 2160, F420, 0, 20261016)
+    _build.LAUNCHES.clear()
+    got = jtt.JpegDecoder(DEVICE, device=cuda_device).decode(data)
+    launches = dict(_build.LAUNCHES)
+    want = jtt.JpegDecoder(DecodeConfig(), device=cuda_device).decode(data)
+    np.testing.assert_array_equal(got.rgb, want.rgb)
+    for a, b in zip(got.planes, want.planes):
+        np.testing.assert_array_equal(a, b)
+    assert launches["K2d"] == 1 and launches["jdtc_unstuff"] == 1
+    assert "jdtc_entropy_decode" not in launches
+
+
+@pytest.mark.parametrize("case", ["restart_free_272", "several_scans", "12bit"])
+def test_device_decode_on_cuda_matches_cpu(cuda_device, case):
+    from jpeg_decoder_tpu_torch.benchmarks.inputs import multiscan_jpeg
+
+    data = {"restart_free_272": lambda: _device_stream("restart_free_272"),
+            "several_scans": lambda: multiscan_jpeg(150, 90, F420, 3, gradient=True),
+            "12bit": lambda: make_jpeg(100, 37, GRAY, 0, 9, precision=12)}[case]()
+    got = jtt.decode(data, DEVICE, device=cuda_device)
+    want = jtt.decode(data, DEVICE, device="cpu")
+    np.testing.assert_array_equal(got.rgb, want.rgb)
+    for a, b in zip(got.planes, want.planes):
+        np.testing.assert_array_equal(a, b)
+    native = jtt.decode(data, DecodeConfig(), device="cpu")
+    np.testing.assert_array_equal(got.rgb, native.rgb)
+
+
+def test_device_batch_decoder_on_cuda_matches_cpu(cuda_device):
+    """BatchDecoder(DEVICE): its members one image at a time, on the card
+    as on the CPU."""
+    datas = [make_jpeg(136, 128, GRAY, 0, 20 + i) for i in range(3)]
+    many = [datas[0], _stream("420_ri4"), datas[1]]
+    card = jtt.BatchDecoder(DEVICE, device=cuda_device)
+    cpu = jtt.BatchDecoder(DEVICE, device="cpu")
+    np.testing.assert_array_equal(card.decode_batch(datas), cpu.decode_batch(datas))
+    for a, b in zip(card.decode_many(many), cpu.decode_many(many)):
+        np.testing.assert_array_equal(a, b)
+
+
+
+# ---------------------------------------------------------------------------
 # K2u: unstuffing on the card
 # ---------------------------------------------------------------------------
 
@@ -441,21 +588,23 @@ def test_pallas_paths_do_not_synchronise_before_k2(cuda_device, monkeypatch, ent
     K2's launch, under PyTorch's sync debug mode set to raise; the window
     opens and closes once per K2 call."""
     windows = []
-    to_device, launch = entropy_cuda.to_device, _build.launch
+    to_device, launch_as = entropy_cuda.to_device, _build.launch_as
 
     def opening(*a, **k):
         torch.cuda.set_sync_debug_mode("error")
         windows.append("open")
         return to_device(*a, **k)
 
-    def closing(name, *a):
+    def closing(count_as, name, *a):
         if name == "jdtc_entropy_decode":
             torch.cuda.set_sync_debug_mode("default")
             windows.append("closed")
-        return launch(name, *a)
+        return launch_as(count_as, name, *a)
 
+    # every launch goes through launch_as (launch is launch_as under the
+    # entry point's own name; K2's wrapper names its count)
     monkeypatch.setattr(entropy_cuda, "to_device", opening)
-    monkeypatch.setattr(_build, "launch", closing)
+    monkeypatch.setattr(_build, "launch_as", closing)
     datas = [make_jpeg(64, 48, F420, 4, 400 + i) for i in range(4)]
     cfg = PALLAS
     try:

@@ -24,7 +24,6 @@ from jpeg_decoder_tpu_torch import (
     DecodeConfig,
     EntropyBackend,
     IdctPrecision,
-    JpegUnsupportedError,
     Quirks,
 )
 
@@ -186,19 +185,18 @@ def test_float32_decode_matches_jax(name, backend):
     ids=["fancy", "scale4", "host_pixels", "device_entropy"],
 )
 def test_outside_the_slice_raises(cfg):
-    """The configs that once raised as outside the port: fancy, scale 4 and
-    use_device=False now decode as the JAX package does (EXACT at full size
-    bitwise; scale 4 is the FLOAT32 product under either contract: planes
-    within 1, RGB within 3); the DEVICE entropy backend alone still raises.
-    The name is the one the test had while all four raised."""
+    """The configs that once raised as outside the port: fancy, scale 4,
+    use_device=False and the DEVICE entropy backend now decode as the JAX
+    package does (EXACT at full size bitwise; scale 4 is the FLOAT32
+    product under either contract: planes within 1, RGB within 3). DEVICE
+    is held against the JAX package's DEVICE backend (its while_loop). The
+    name is the one the test had while all four raised."""
     data = CASES["dri_420"]
+    want_cfg = jcfg(cfg)
     if cfg.entropy_backend == EntropyBackend.DEVICE:
-        with pytest.raises(JpegUnsupportedError):
-            jtt.decode(data, cfg, device="cpu")
-        assert_same_error_class(JpegUnsupportedError, jt.JpegUnsupportedError)
-        return
+        want_cfg = jt.DecodeConfig(entropy_backend=jt.EntropyBackend.DEVICE)
     got = jtt.decode(data, cfg, device="cpu")
-    want = jt.decode(data, jcfg(cfg))
+    want = jt.decode(data, want_cfg)
     if cfg.scale == 8:
         _assert_same(got, want)
     else:
