@@ -44,7 +44,7 @@ from ..io.parser import parse
 from ..utils.config import DecodeConfig, IdctPrecision, Quirks
 from ..utils.errors import JpegConfigError, JpegFormatError
 from ..utils.metrics import GLOBAL_METRICS as metrics
-from ..utils.metrics import device_trace
+from ..utils.metrics import span
 
 from .. import convert
 from ..ops import color as color_ops
@@ -206,14 +206,16 @@ def _pixel_stage(frame: FrameHeader, planes: CoefficientPlanes | list, qts,
     DecodedImage with host RGB and pixel planes."""
     if not cfg.use_device:
         return _host_pixel_stage(frame, planes, qts, cfg)
-    stage = device_stage_for(frame, qts, cfg, device)
-    with metrics.timer("device_stage", items=frame.width * frame.height):
-        with device_trace("jpegtpu.device_stage", cfg.collect_metrics):
-            if not isinstance(planes, list):
-                planes = convert.planes_to_device(planes, device)
-            rgb_dev, planes_dev = stage(*planes, want_planes=True)
-        rgb = rgb_dev.cpu().numpy()
-    host_planes = [p.cpu().numpy() for p in planes_dev]
+    on = cfg.collect_metrics
+    with span("stage_lookup", on):
+        stage = device_stage_for(frame, qts, cfg, device)
+    with span("device_stage", on, items=frame.width * frame.height):
+        if not isinstance(planes, list):
+            planes = convert.planes_to_device(planes, device)
+        rgb_dev, planes_dev = stage(*planes, want_planes=True)
+        with span("copy_out", on):
+            rgb = rgb_dev.cpu().numpy()
+            host_planes = [p.cpu().numpy() for p in planes_dev]
     return DecodedImage(frame=frame, planes=host_planes, rgb=rgb)
 
 
@@ -238,7 +240,7 @@ def decode(data: bytes | np.ndarray, cfg: DecodeConfig | None = None,
     if fast is not None:
         frame, planes, qts = fast
         return _pixel_stage(frame, planes, qts, cfg, device)
-    with metrics.timer("parse"):
+    with span("parse", cfg.collect_metrics):
         structure = parse(data_arr, cfg)
     return decode_structure(structure, cfg, device)
 

@@ -23,6 +23,7 @@ from ..io.parser import parse
 from ..utils.config import DecodeConfig, EntropyBackend
 from ..utils.logging import get_logger
 from ..utils.metrics import GLOBAL_METRICS as metrics
+from ..utils.metrics import span
 
 log = get_logger("torch.host")
 
@@ -124,7 +125,7 @@ def _entropy_decode(
         from ..ops import entropy_device
 
         dev = convert.resolve_device("cuda" if device is None else device)
-        with metrics.timer("entropy_device"):
+        with span("entropy_device", cfg.collect_metrics):
             return entropy_device.entropy_decode(
                 structure, cfg, convert.zero_planes(frame, dev)
             )

@@ -59,6 +59,7 @@ from ..utils.errors import (
     JpegUnsupportedError,
 )
 
+from ..utils.metrics import count, span
 from .. import _build, convert
 
 #: The JAX backend's lane width and per-lane-group output cap
@@ -647,6 +648,7 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
         None if pass_ms is None else ctypes.c_void_p(ctypes.addressof(pass_ms)),
         _build.stream_of(status),
     )
+    count("k2_pass2_steps", rounds[1])
     if records is not None:
         layout = sub_base_dev.cpu().numpy()
         end = int(layout[-1])
@@ -881,18 +883,42 @@ def launch_args(packs, device):
     segments', and K2u's sub_base is K2's layout); check_status takes the
     device seg_off, args[1]."""
     on_host = host_args(packs)
-    raw, lo, hi, *rest = to_device(on_host, device)
+    return _unstuffed(on_host, to_device(on_host, device))
+
+
+def _unstuffed(on_host, on_device):
+    """launch_args from host_args' arrays and their copies on the device:
+    K2u runs there."""
+    raw, lo, hi, *rest = on_device
     un = unstuff_segments(raw, lo, hi)
     _raws, lo_h, hi_h, seg_img, _seg_idx, _ri, total_mcus, units, _tables = on_host
     return ((un.stream, un.seg_off, *rest),
             HostArrays(raw_bound(lo_h, hi_h), seg_img, total_mcus, units, un.sub_base))
 
 
-def decode_scan(structure, scan, planes) -> None:
+def decode_group(on_host, planes, on: bool, records: dict | None = None,
+                 count_as: str = "jdtc_entropy_decode"):
+    """host_args' arrays of a group -> (K2's status, the device seg_off),
+    for check_status: the copies to the planes' device (span
+    "entropy_upload"), then K2u and decode_segments (span "entropy_launch";
+    `on` opens their profiler ranges, `records` and `count_as` as
+    decode_segments takes them)."""
+    with span("entropy_upload", on):
+        on_device = to_device(on_host, planes[0][0].device)
+    with span("entropy_launch", on):
+        args, host = _unstuffed(on_host, on_device)
+        return decode_segments(*args, planes, records=records, host=host,
+                               count_as=count_as), args[1]
+
+
+def decode_scan(structure, scan, planes, on: bool = False) -> None:
     """One sequential scan -> `planes` (device tensors), raising on a bad
-    or truncated stream: a group of one image."""
-    args, host = launch_args([prepare_scan(structure, scan)], planes[0].device)
-    check_status(decode_segments(*args, [planes], host=host), args[1])
+    or truncated stream: a group of one image. `on`: the spans' ranges."""
+    with span("entropy_prepare", on):
+        on_host = host_args([prepare_scan(structure, scan)])
+    status, seg_off = decode_group(on_host, [planes], on)
+    with span("entropy_check", on):
+        check_status(status, seg_off)
 
 
 def batchable(structure) -> bool:
@@ -923,39 +949,40 @@ def entropy_decode_batch(structures, cfg: DecodeConfig, planes):
     [(planes, qts)] aligned with `structures`. Every stream must be a
     single-scan sequential one that the backend takes (batchable); each
     group's status is checked in group order, a bad code before
-    truncation."""
-    del cfg  # the device decode has no tunable; kept for the JAX signature
+    truncation. `cfg.collect_metrics` opens the spans' profiler ranges."""
+    on = cfg.collect_metrics
     results = [None] * len(structures)
     groups: dict = {}
-    for i, structure in enumerate(structures):
-        if (structure.frame.process == Encoding.PROGRESSIVE_DCT
-                or len(structure.scans) != 1):
-            raise JpegUnsupportedError(
-                "device batched decode handles single-scan sequential streams"
-            )
-        scan = structure.scans[0]
-        pack = prepare_scan(structure, scan)
-        results[i] = (planes[i], {tid: qt.values for tid, qt in scan.quant_tables.items()})
-        group = groups.setdefault(pack.key, ([], []))
-        group[0].append(pack)
-        group[1].append(planes[i])
-    launched = []
-    for packs, group_planes in groups.values():
-        args, host = launch_args(packs, group_planes[0][0].device)
-        launched.append((decode_segments(*args, group_planes, host=host), args[1]))
-    for status, seg_off in launched:
-        check_status(status, seg_off)
+    with span("entropy_prepare", on):
+        for i, structure in enumerate(structures):
+            if (structure.frame.process == Encoding.PROGRESSIVE_DCT
+                    or len(structure.scans) != 1):
+                raise JpegUnsupportedError(
+                    "device batched decode handles single-scan sequential streams"
+                )
+            scan = structure.scans[0]
+            pack = prepare_scan(structure, scan)
+            results[i] = (planes[i], {tid: qt.values for tid, qt in scan.quant_tables.items()})
+            group = groups.setdefault(pack.key, ([], []))
+            group[0].append(pack)
+            group[1].append(planes[i])
+        hosted = [(host_args(packs), group_planes) for packs, group_planes in groups.values()]
+    launched = [decode_group(on_host, group_planes, on) for on_host, group_planes in hosted]
+    with span("entropy_check", on):
+        for status, seg_off in launched:
+            check_status(status, seg_off)
     return results
 
 
 def entropy_decode(structure, cfg: DecodeConfig, planes):
     """All scans -> (planes, qtid -> natural-order table). `planes` are the
     zeroed device tensors to decode into (convert.zero_planes); their
-    device picks K2 or the plain version. Sequential scans only."""
-    del cfg  # the device decode has no tunable; kept for the JAX signature
+    device picks K2 or the plain version. Sequential scans only.
+    `cfg.collect_metrics` opens the spans' profiler ranges."""
     if structure.frame.process == Encoding.PROGRESSIVE_DCT:
         raise JpegUnsupportedError(
             "device entropy backend does not decode progressive scans"
         )
-    qts = run_scans(structure, planes, decode_scan)
+    qts = run_scans(structure, planes,
+                    lambda s, scan, p: decode_scan(s, scan, p, cfg.collect_metrics))
     return planes, qts

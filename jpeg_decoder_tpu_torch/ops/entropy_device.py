@@ -34,6 +34,7 @@ from ..core.types import JpegStructure
 from ..io.markers import Encoding
 from ..utils.config import DecodeConfig
 from ..utils.errors import JpegUnsupportedError
+from ..utils.metrics import span
 
 from .. import convert
 from . import entropy_cuda
@@ -47,13 +48,16 @@ def decode_scan_device(structure: JpegStructure, scan, planes, cfg: DecodeConfig
     """One sequential scan -> `planes` (zeroed int16 [by, bx, 64] tensors,
     one per frame component, on one device; the scan writes the blocks it
     covers), raising on a bad or truncated stream. `records` as
-    entropy_cuda.decode_segments takes it (card checks and timing)."""
-    del cfg  # the device decode has no tunable; kept for the JAX signature
-    pack = entropy_cuda.prepare_scan(structure, scan, entropy_cuda.check_scan_device)
-    args, host = entropy_cuda.launch_args([pack], planes[0].device)
-    status = entropy_cuda.decode_segments(*args, [planes], records=records, host=host,
-                                          count_as=COUNT_AS)
-    entropy_cuda.check_status(status, args[1])
+    entropy_cuda.decode_segments takes it (card checks and timing);
+    `cfg.collect_metrics` opens the spans' profiler ranges."""
+    on = cfg is not None and cfg.collect_metrics
+    with span("entropy_prepare", on):
+        on_host = entropy_cuda.host_args(
+            [entropy_cuda.prepare_scan(structure, scan, entropy_cuda.check_scan_device)])
+    status, seg_off = entropy_cuda.decode_group(on_host, [planes], on, records=records,
+                                                count_as=COUNT_AS)
+    with span("entropy_check", on):
+        entropy_cuda.check_status(status, seg_off)
 
 
 def entropy_decode(structure: JpegStructure, cfg: DecodeConfig, planes=None, device="cuda"):

@@ -52,6 +52,7 @@ from ..io.parser import parse
 from ..utils.config import DecodeConfig, EntropyBackend
 from ..utils.errors import JpegError, JpegFormatError
 from ..utils.metrics import GLOBAL_METRICS as metrics
+from ..utils.metrics import span
 
 from .. import convert
 from ..models import decoder as decoder_mod
@@ -101,7 +102,8 @@ class BatchDecoder:
         stay on this thread's stream), planes a list of device tensors."""
         workers = self._workers()
         if self.cfg.entropy_backend == EntropyBackend.PALLAS:
-            structures = [parse(d, self.cfg) for d in datas]
+            with span("batch_parse", self.cfg.collect_metrics, items=len(datas)):
+                structures = [parse(d, self.cfg) for d in datas]
             results = self._entropy_many_pallas(structures, workers)
             return [(s.frame, p, q) for s, (p, q) in zip(structures, results)]
         if self.cfg.entropy_backend == EntropyBackend.DEVICE:
@@ -123,6 +125,7 @@ class BatchDecoder:
         batchable members, and the native host decode, copied into its
         slice, for each member K2 does not take -- per member, not by
         failing the batch."""
+        on = self.cfg.collect_metrics
         slots: list = [None] * len(structures)
         by_frame: dict = {}
         for i, s in enumerate(structures):
@@ -139,7 +142,7 @@ class BatchDecoder:
         results: list = [None] * len(structures)
         batch_idx = [i for i, s in enumerate(structures) if entropy_cuda.batchable(s)]
         if batch_idx:
-            with metrics.timer("entropy_pallas_batch", items=len(batch_idx)):
+            with span("entropy_pallas_batch", on, items=len(batch_idx)):
                 outs = entropy_cuda.entropy_decode_batch(
                     [structures[i] for i in batch_idx], self.cfg,
                     [slots[i].planes for i in batch_idx],
@@ -155,17 +158,18 @@ class BatchDecoder:
                 s = structures[i]
                 return i, host._entropy_decode(s, host_cfg, self._pool.acquire(s))
 
-            with metrics.timer("entropy_batch_fallback", items=len(rest)):
+            with span("entropy_batch_fallback", on, items=len(rest)):
                 if workers == 1 or len(rest) == 1:
                     done = [one(i) for i in rest]
                 else:
                     with cf.ThreadPoolExecutor(max_workers=workers) as pool:
                         done = list(pool.map(one, rest))
-            for i, (planes, qts) in done:
-                for dst, src in zip(slots[i].planes, planes.planes):
-                    dst.copy_(torch.from_numpy(src))
-                self._pool.release(planes)
-                results[i] = (slots[i], qts)
+            with span("fallback_copy", on, items=len(rest)):
+                for i, (planes, qts) in done:
+                    for dst, src in zip(slots[i].planes, planes.planes):
+                        dst.copy_(torch.from_numpy(src))
+                    self._pool.release(planes)
+                    results[i] = (slots[i], qts)
         return results
 
     def _host_share(self, datas):
@@ -213,7 +217,9 @@ class BatchDecoder:
                 nxt = (prefetcher.submit(self._host_share_on, stream, chunk), len(chunk)) \
                     if chunk else None
                 if pending is not None:
-                    yield self._device_batch(pending[0].result(), pending[1])
+                    with span("batch_wait", self.cfg.collect_metrics, items=pending[1]):
+                        results = pending[0].result()
+                    yield self._device_batch(results, pending[1])
                 pending = nxt
                 if pending is None:
                     return
@@ -223,7 +229,9 @@ class BatchDecoder:
         qts) triples, then (with a mesh) the gather of every rank's slice:
         numpy [b, H, W, 3], the batch's b images."""
         if self._data is None:
-            return self._device_rgb(results)[0].cpu().numpy()
+            rgb = self._device_rgb(results)[0]
+            with span("copy_out", self.cfg.collect_metrics):
+                return rgb.cpu().numpy()
         err = results if isinstance(results, JpegError) else None
         rgb = key = None
         if err is None:
@@ -247,20 +255,22 @@ class BatchDecoder:
     def _device_rgb(self, results):
         """The pixel stage over pre-run host results: (the RGB [n, H, W, 3]
         on the device, the stage key)."""
-        keys = set()
-        for frame, _planes, qts in results:
-            for c in frame.components:
-                if c.qtid not in qts:
-                    raise JpegFormatError(
-                        f"component {c.id} references undefined quant table {c.qtid}")
-            keys.add(decoder_mod._stage_key(
-                frame, decoder_mod.qt_by_comp_bytes(frame, qts), self.cfg))
-        if len(keys) != 1:
-            raise JpegFormatError(
-                "decode_stream needs identical geometry/tables across inputs")
-        frame, first, qts = results[0]
-        stage = decoder_mod.device_stage_for(frame, qts, self.cfg, self.device)
-        with metrics.timer("device_batch", items=len(results)):
+        on = self.cfg.collect_metrics
+        with span("stage_lookup", on):
+            keys = set()
+            for frame, _planes, qts in results:
+                for c in frame.components:
+                    if c.qtid not in qts:
+                        raise JpegFormatError(
+                            f"component {c.id} references undefined quant table {c.qtid}")
+                keys.add(decoder_mod._stage_key(
+                    frame, decoder_mod.qt_by_comp_bytes(frame, qts), self.cfg))
+            if len(keys) != 1:
+                raise JpegFormatError(
+                    "decode_stream needs identical geometry/tables across inputs")
+            frame, first, qts = results[0]
+            stage = decoder_mod.device_stage_for(frame, qts, self.cfg, self.device)
+        with span("device_batch", on, items=len(results)):
             if isinstance(first, StackedPlanes):
                 # K2 (and the fallback copies) wrote every member in place:
                 # one key means one frame, so one stack, in member order

@@ -1,10 +1,18 @@
-"""Per-stage timing and throughput metrics.
+"""Per-stage timing and throughput metrics, and the spans that name them in
+a trace.
 
 The reference's only performance instrumentation is a commented-out timing
 loop (`reference/src/jpeg_decoder.c:51,105`) and ad-hoc `perf record`
 runs (perf.data in its .gitignore). Here metrics are first-class: a
-lightweight registry of named counters/timers that the pipeline populates
-when `DecodeConfig.collect_metrics` is on, plus `torch.profiler` trace hooks.
+lightweight registry of named timers and counters that the pipeline always
+populates (`GLOBAL_METRICS`), whatever `DecodeConfig.collect_metrics` says.
+`span(name, enabled)` times a region in the registry and, only when
+`enabled` (call sites pass `cfg.collect_metrics`), also opens the
+`torch.profiler` range "jpegtpu.<name>", on the clock of the card's events
+in the same trace. The profiler records a range opened on a worker thread
+(a loader's prefetch thread) only under
+`_ExperimentalConfig(profile_all_threads=True)`; the timer records it
+always.
 """
 
 from __future__ import annotations
@@ -69,14 +77,24 @@ class Metrics:
 GLOBAL_METRICS = Metrics()
 
 
-@contextlib.contextmanager
-def device_trace(name: str, enabled: bool = False):
-    """Wrap a region in a torch.profiler record_function range when
-    enabled (it shows as a named span in a torch.profiler trace)."""
+def span(name: str, enabled: bool, items: float = 0.0):
+    """Time a region under `name` in GLOBAL_METRICS; when `enabled`, also
+    open the torch.profiler range "jpegtpu.<name>" around it. Disabled, it
+    is GLOBAL_METRICS.timer and nothing more: no range object is built."""
     if not enabled:
-        yield
-        return
+        return GLOBAL_METRICS.timer(name, items)
+    return _ranged(name, items)
+
+
+@contextlib.contextmanager
+def _ranged(name: str, items: float):
     import torch.profiler  # deferred: keep utils importable without torch
 
-    with torch.profiler.record_function(name):
+    with torch.profiler.record_function("jpegtpu." + name), GLOBAL_METRICS.timer(name, items):
         yield
+
+
+def count(name: str, n: float) -> None:
+    """A counter in GLOBAL_METRICS's table: one more call under `name`, n
+    more items, no seconds."""
+    GLOBAL_METRICS.record(name, 0.0, n)

@@ -47,6 +47,7 @@ from jpeg_decoder_tpu_torch.models import encoder as tenc
 from jpeg_decoder_tpu_torch.ops import fdct as tfdct
 from jpeg_decoder_tpu_torch.parallel import stripes as tstripes
 from jpeg_decoder_tpu_torch.utils import jax_free
+from jpeg_decoder_tpu_torch.utils.metrics import GLOBAL_METRICS, StageStat
 
 from .torch_crossing import (
     block_boundary_case,
@@ -357,6 +358,20 @@ def test_k2_device_route_matches_plain(cuda_device, name):
     for key in ("rec", "used", "first_du"):
         np.testing.assert_array_equal(rec[key].cpu().numpy().astype(np.int64), model[key])
     assert 1 <= rec["rounds"] <= model["rounds"] + 1
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_STREAMS))
+def test_k2_pass2_steps_counter_is_the_records_steps(cuda_device, name):
+    """The k2_pass2_steps counter (GLOBAL_METRICS) counts one call a K2
+    launch and adds the steps of pass 2 that K2's records give for it."""
+    s, _pack, (args, host) = _device_args(_device_stream(name), cuda_device)
+    planes = convert.zero_planes(s.frame, cuda_device)
+    before = GLOBAL_METRICS.stages.get("k2_pass2_steps", StageStat())
+    calls, items, secs = before.calls, before.total_items, before.total_s
+    rec = {}
+    entropy_cuda.decode_segments(*args, [planes], records=rec, host=host, count_as="K2d")
+    st = GLOBAL_METRICS.stages["k2_pass2_steps"]
+    assert (st.calls, st.total_items, st.total_s) == (calls + 1, items + rec["steps"], secs)
 
 
 def test_k2_chunked_passes_over_a_long_segment_wrap_like_the_int32_predictor(cuda_device):

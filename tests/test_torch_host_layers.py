@@ -305,16 +305,24 @@ def test_a_format_error_is_the_ports_own_class():
 
 
 def test_device_trace_is_a_torch_profiler_range():
-    from jpeg_decoder_tpu_torch.utils import metrics
-
-    with metrics.device_trace("off"):
-        pass
+    """utils/metrics.span, which took over device_trace: enabled, a
+    torch.profiler range "jpegtpu.<name>" and the host timer; disabled, the
+    timer alone."""
     import torch.profiler
 
+    from jpeg_decoder_tpu_torch.utils import metrics
+
+    before = metrics.GLOBAL_METRICS.stages.get("jdt_region", metrics.StageStat())
+    calls, items = before.calls, before.total_items
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with metrics.device_trace("jdt_region", enabled=True):
+        with metrics.span("jdt_region", False, items=2):
             np.zeros(1)
-    assert any(e.key == "jdt_region" for e in prof.key_averages())
+        with metrics.span("jdt_region", True, items=3):
+            np.zeros(1)
+    assert [e.name for e in prof.events() if "jdt_region" in e.name] == ["jpegtpu.jdt_region"]
+    st = metrics.GLOBAL_METRICS.stages["jdt_region"]
+    assert (st.calls, st.total_items) == (calls + 2, items + 5)
+    assert not hasattr(metrics, "device_trace")
 
 
 # ---------------------------------------------------------------------------
