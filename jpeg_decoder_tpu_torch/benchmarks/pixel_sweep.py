@@ -3,7 +3,7 @@ at other strip sizes, on one CUDA card.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.pixel_sweep \\
         [--strip 2 4 8 16 32] [--reps 15] [--precision exact float32]
-        [--k13-variants] [--k0] [--colour] [--k1] [--k4] [--k5]
+        [--k13-variants] [--k0] [--colour [--against LIB]] [--k1] [--k4] [--k5]
         [--no-sweep]
 
 G, the MCUs of one strip (one block of threads for K03; one step of a
@@ -39,7 +39,11 @@ with the halvings alone (`K0, halvings in float32`), so that the layout's,
 the halvings' and the integer store's shares can each be read. With
 --colour, K3f, K3 and K3c beside their earlier design (a thread a pixel,
 colour_pixel) in the same way on the 4K 4:2:0 planes, eight 4K frames
-stacked, and the 4K 4:4:4 four-component frame under each transform.
+stacked, the 4K 4:4:4 four-component frame under each transform, and a
+loader's batch of 256 500x375 4:2:0 images (rows whose heads cycle 0, 12,
+8, 4); with --against LIB also beside the same entry point of another
+build of the kernel library (a path from `python -m
+jpeg_decoder_tpu_torch._build` in another checkout: on_library), in turns.
 With --k1, K1 (csrc/idct_float.cu) beside its earlier design
 (jdtc_idct_float_column, k1_column) in the same way on the 4K request's
 luma plane and on its three planes, held bitwise against each other first,
@@ -853,11 +857,34 @@ def colour_turns(planes, h, w, factors, reps: int, upsample="nn", exact=True,
     return dict(in_turns(new, earlier, reps), pixels=want[..., 0].numel())
 
 
+def against_turns(planes, h, w, factors, reps: int, lib, upsample="nn", exact=True,
+                  raw_cmyk=False) -> dict:
+    """K3/K3f over the planes (REFERENCE) beside the same call on kernel
+    library `lib` (_build.load of another build: `earlier_*`), in turns,
+    after holding both bitwise against the plain version."""
+    from .. import Quirks
+    from ..ops import color
+
+    args = (planes, h, w, factors, Quirks.REFERENCE, upsample, exact, raw_cmyk)
+    new = lambda: color.planes_to_rgb(*args)  # noqa: E731
+    earlier = on_library(lib, new)
+    want = color._planes_to_rgb_plain(*args)
+    if not (torch.equal(new(), want) and torch.equal(earlier(), want)):
+        raise RuntimeError("K3/K3f or the other library's differs from the plain version")
+    return dict(in_turns(new, earlier, reps), pixels=want[..., 0].numel())
+
+
+#: A loader's batch: 256 images of ImageNet's modal 500x375, 4:2:0 (MCU
+#: planes 384 x 512 and 192 x 256).
+LOADER_BATCH, LOADER_H, LOADER_W = 256, 375, 500
+
+
 def colour_cases(dense, cmyk) -> dict:
-    """The colour kernels' 4K cases: name -> (planes, h, w, factors,
-    upsample, exact, raw_cmyk), from the pixel planes of the dense 4K
-    request (one, and eight stacked) and of the 4K 4:4:4 four-component
-    frame."""
+    """The colour kernels' cases: name -> (planes, h, w, factors, upsample,
+    exact, raw_cmyk), from the pixel planes of the dense 4K request (one,
+    and eight stacked) and of the 4K 4:4:4 four-component frame, and a
+    loader's batch of random 500x375 4:2:0 planes (K3f's work does not
+    depend on the values)."""
     from ..core import oracle
 
     def pix(data):
@@ -870,6 +897,10 @@ def colour_cases(dense, cmyk) -> dict:
     one = pix(dense[0])
     eight = [torch.stack(ps) for ps in zip(*[pix(d) for d in dense])]
     four = pix(cmyk)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    loader = [torch.randint(0, 256, (LOADER_BATCH, rows, cols), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+              for rows, cols in ((384, 512), (192, 256), (192, 256))]
     f420 = ((2, 2), (1, 1), (1, 1))
     f4 = ((1, 1),) * 4
     return {
@@ -879,6 +910,7 @@ def colour_cases(dense, cmyk) -> dict:
         "K3c YCCK EXACT, 4K 4:4:4": (four, H, W, f4, "nn", True, False),
         "K3c YCCK FLOAT32, 4K 4:4:4": (four, H, W, f4, "nn", False, False),
         "K3c CMYK, 4K 4:4:4": (four, H, W, f4, "nn", True, True),
+        "K3f, 256 x 500x375 4:2:0": (loader, LOADER_H, LOADER_W, f420, "fancy", True, False),
     }
 
 
@@ -894,6 +926,8 @@ def main(argv=None) -> None:
                     help="also K0 beside its earlier design, and its arithmetic's variants")
     ap.add_argument("--colour", action="store_true",
                     help="also K3f, K3 and K3c beside their earlier design")
+    ap.add_argument("--against", metavar="LIB",
+                    help="with --colour, also beside another build of the kernel library")
     ap.add_argument("--k1", action="store_true",
                     help="also K1 beside its earlier design, and K1's and K13's variants")
     ap.add_argument("--k4", action="store_true",
@@ -928,9 +962,16 @@ def main(argv=None) -> None:
         from .inputs import CMYK_FILE
 
         cmyk = photo_jpeg(CMYK_FILE, W, H, W // 8)
+        from .. import _build
+
+        lib = _build.load(ns.against) if ns.against else None
         for case, (planes, h, w, factors, up, exact, raw) in colour_cases(dense, cmyk).items():
             print(json.dumps(dict(case=case, card=card_line(), **colour_turns(
                 planes, h, w, factors, ns.reps, up, exact, raw))), flush=True)
+            if lib is not None:
+                print(json.dumps(dict(case=case, against=ns.against, card=card_line(),
+                                      **against_turns(planes, h, w, factors, ns.reps, lib, up,
+                                                      exact, raw))), flush=True)
     if ns.k1:
         for case, datas in (("4K request, luma plane", dense[:1]),
                             ("4K request, 3 planes", dense[:1])):

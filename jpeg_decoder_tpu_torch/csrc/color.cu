@@ -74,22 +74,38 @@
 // a thread a pixel: two 64-bit divisions for its row and column, every
 // fancy chroma sample computed afresh by each of the four pixels that share
 // its sources (six byte loads a component), three 1-byte stores. Now a
-// thread takes a run of 16 output pixels of one row; the row, the run and
-// the image come from the grid (blockDim 16 runs x 8 rows). Where the run
-// starts on a 16-pixel boundary and lies inside the row, each component's
-// sources come in as one vector: 16 bytes in place, or for the 2x passes
-// the 8 source bytes a run needs from each source row and their two edge
-// neighbours, whose horizontal sums the run's pixels then share; the
-// nearest-neighbour row is found once a run. Every other run (a ragged
-// edge, a 4:1:1 or mixed ratio, a plane not 8- or 16-byte aligned) takes
-// each pixel's sample by the first design's per-pixel rule (`sample`). The
-// 48 RGB bytes of a run go out as three aligned 16-byte stores: a row's
-// runs are shifted by its phase (0-15 pixels, from the output address) so
-// that they start on a 16-byte boundary, and the partial runs at the row's
-// two ends store their valid pixels byte by byte. The colour arithmetic is
-// color.cuh's, unchanged. The first design is kept for measurement as
-// colour_pixel_kernel (jdtc_color_pixel, jdtc_fancy_pixel), which no
-// wrapper reaches.
+// thread takes a run of 16 output pixels of one row, j0 = 16 m to j0 + 15;
+// the row, the run and the image come from the grid (blockDim 16 runs x 8
+// rows). Every run brings each component's sources in as one vector: 16
+// bytes in place, or for the 2x passes the 8 source bytes a run needs from
+// each source row and their two edge neighbours, whose horizontal sums the
+// run's pixels then share; the nearest-neighbour row is found once a run.
+// The row's partial last run too: its loads stay inside the padded plane
+// (fetch_vector), and its pixels past the row's end are not stored. Only a
+// 4:1:1 or mixed ratio, or a plane not 8- or 16-byte aligned, takes each
+// pixel's sample by the first design's per-pixel rule (`sample`): a warp
+// waits for its slowest lane, so one such run slows the 31 beside it. The
+// colour arithmetic is color.cuh's, unchanged.
+//
+// The stores. A run's 48 RGB bytes start at the row's head (the address of
+// the row's first RGB byte modulo 16: 48 m adds nothing to it). Where the
+// head is 0 they go out as three aligned 16-byte stores, the partial run's
+// valid pixels byte by byte: every row of an aligned launch (a width a
+// multiple of 16 and an aligned output: 4K stills, aligned stripes) takes
+// only this. Elsewhere (a 500-wide row is 1,500 bytes, 12 modulo 16, so
+// the heads of its rows cycle 0, 12, 8, 4) the thread takes the first 16
+// bytes of the next run from its lane's neighbour by a shuffle, and stores
+// the three aligned 16-byte chunks that start `lead` = 16 - head bytes into
+// its run: its own last 48 - lead bytes and the next run's first lead. The
+// first run of the CTA's row segment (256 pixels) stores its first lead
+// bytes byte by byte, and a chunk that would pass the segment's end (the
+// next CTA's bytes, or the row's end) stores its bytes up to the end byte
+// by byte: neighbouring CTAs write disjoint bytes. (Runs placed by the
+// output instead, shifted by the row's head to store aligned, would start
+// off the source's 16-pixel boundaries on three rows in four of a 500-wide
+// batch, and take the per-pixel rule there.) The first design is kept for
+// measurement as colour_pixel_kernel (jdtc_color_pixel, jdtc_fancy_pixel),
+// which no wrapper reaches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -231,9 +247,12 @@ __device__ __forceinline__ void load16(const uint8_t* p, Run16& out) {
 // Component c's 16 samples of the run at output row i, columns j0..j0+15,
 // by vector loads; false where the component's geometry or its plane's
 // alignment has no vector form (the caller then takes fetch_pixels). The
-// caller guarantees j0 % 16 == 0 and j0 + 16 <= w; the reads then stay
-// inside the plane (upsample_geometry's bounds: w <= 2 * stride under an
-// H pass, j0 / 2 + 8 <= stride).
+// caller guarantees j0 % 16 == 0 and j0 < w; the reads then stay inside the
+// row, the row's partial last run included: where the alignment allows a
+// vector form, the output columns the row covers (its stride, twice that
+// under an H pass or a ratio of 1/2 across) are a multiple of 16 and at
+// least w (upsample_geometry's bounds), so at least j0 + 16. A partial
+// run's pixels past w are computed from the padded plane and not stored.
 template <bool kFancy>
 __device__ __forceinline__ bool fetch_vector(const Geometry& g, int img, int c, int i, int j0,
                                              Run16& out) {
@@ -310,7 +329,7 @@ __device__ __forceinline__ bool fetch_vector(const Geometry& g, int img, int c, 
 }
 
 // Component c's samples of the run by the first design's per-pixel rule,
-// each column clamped into [0, w) (a partial run's outside pixels are
+// each column clamped below w (a partial run's outside pixels are
 // computed and not stored). The bytes shift in from the top, so the loop
 // needs no register indexed at run time.
 template <bool kFancy>
@@ -319,7 +338,7 @@ __device__ __forceinline__ void fetch_pixels(const Geometry& g, int img, int c, 
   uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
 #pragma unroll 1
   for (int k = 0; k < 16; ++k) {
-    const int j = min(max(j0 + k, 0), w - 1);
+    const int j = min(j0 + k, w - 1);
     const uint32_t v = sample<kFancy>(g, img, c, i, j);
     w0 = __funnelshift_r(w0, w1, 8);
     w1 = __funnelshift_r(w1, w2, 8);
@@ -332,34 +351,69 @@ __device__ __forceinline__ void fetch_pixels(const Geometry& g, int img, int c, 
   out.w[3] = w3;
 }
 
-// The design: thread (x, y) of CTA (bx, by, img) converts run bx * 16 + x
-// of output row by * 8 + y of image img. A row's runs start at j0 = 16 m -
-// ((16 - phase) & 15), phase the pixels from the row's start to its first
-// 16-byte aligned RGB byte (3 phase = -address mod 16, 3 * 11 = 1 mod 16).
+// Byte b of the words v (b known at compile time).
+__device__ __forceinline__ uint8_t byte_of_words(const uint32_t* v, int b) {
+  return static_cast<uint8_t>(v[b >> 2] >> (8 * (b & 3)));
+}
+
+// Store a run's 48 RGB bytes `o` at dst, `head` (1-15) bytes past a
+// 16-byte boundary, by aligned 16-byte chunks: bytes [lead, lead + 48) of o
+// followed by the next run's first 16 bytes `nx` (lead = 16 - head). The
+// thread writes only the `lim` bytes from dst on: a chunk that passes them
+// goes out byte by byte up to lim. `first`: also o's bytes [0, lead), which
+// no other run's chunk covers.
+__device__ __forceinline__ void store_shifted(uint8_t* dst, int head, const uint32_t* o,
+                                              const uint32_t* nx, int lim, bool first) {
+  const int lead = 16 - head;
+  uint32_t x[16];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) x[k] = o[k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x[12 + k] = nx[k];
+  // shift by whole words, then by lead & 3 bytes: x[k] = bytes 4k + lead..
+  if (lead & 8) {
+#pragma unroll
+    for (int k = 0; k < 14; ++k) x[k] = x[k + 2];
+  }
+  if (lead & 4) {
+#pragma unroll
+    for (int k = 0; k < 13; ++k) x[k] = x[k + 1];
+  }
+  const uint32_t sh = 8u * static_cast<uint32_t>(lead & 3);
+  uint32_t r[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r[k] = __funnelshift_r(x[k], x[k + 1], sh);
+  if (first) {
+#pragma unroll
+    for (int b = 0; b < 15; ++b)
+      if (b < lead && b < lim) dst[b] = byte_of_words(o, b);
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int b0 = lead + 16 * q;
+    if (b0 + 16 <= lim) {
+      *reinterpret_cast<uint4*>(dst + b0) = make_uint4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                                                       r[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (b0 + b < lim) dst[b0 + b] = byte_of_words(r, 16 * q + b);
+    }
+  }
+}
+
+// The 48 RGB bytes of run j0..j0+15 of row i of image img, into o.
 template <bool kFancy, int kMode>
-__global__ void __launch_bounds__(kRunThreads * kRunRows)
-colour_run_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) {
+__device__ __forceinline__ void convert_run(const Geometry& g, int img, int i, int j0, int w,
+                                            int correct, uint32_t* o) {
   constexpr int kComps = kMode == colour::kGray ? 1 : (kMode == colour::kYCbCr ? 3 : 4);
-  const int i = static_cast<int>(blockIdx.y) * kRunRows + static_cast<int>(threadIdx.y);
-  if (i >= h) return;
-  const int img = static_cast<int>(blockIdx.z);
-  // the row's first RGB byte modulo 16 (32-bit wrap-around keeps it)
-  const uint32_t head = (static_cast<uint32_t>(img) * static_cast<uint32_t>(h) +
-                         static_cast<uint32_t>(i)) * static_cast<uint32_t>(w) * 3u +
-                        static_cast<uint32_t>(reinterpret_cast<uintptr_t>(out));
-  const int phase = static_cast<int>(((0u - head) * 11u) & 15u);
-  const int j0 = (static_cast<int>(blockIdx.x) * kRunThreads + static_cast<int>(threadIdx.x)) *
-                     kRun - ((kRun - phase) & 15);
-  if (j0 >= w) return;
-  const bool full = j0 >= 0 && j0 + kRun <= w;
-  const bool vector = full && phase == 0;
   Run16 s[kComps];
 #pragma unroll
   for (int c = 0; c < kComps; ++c)
-    if (!(vector && fetch_vector<kFancy>(g, img, c, i, j0, s[c])))
+    if (!fetch_vector<kFancy>(g, img, c, i, j0, s[c]))
       fetch_pixels<kFancy>(g, img, c, i, j0, w, s[c]);
-
-  uint32_t o[12] = {};  // the run's 48 RGB bytes
+#pragma unroll
+  for (int q = 0; q < 12; ++q) o[q] = 0;
 #pragma unroll
   for (int k = 0; k < kRun; ++k) {
     uint8_t px[kMaxComps] = {};
@@ -371,8 +425,12 @@ colour_run_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ o
     for (int ch = 0; ch < 3; ++ch)
       o[(3 * k + ch) >> 2] |= static_cast<uint32_t>(rgb[ch]) << (8 * ((3 * k + ch) & 3));
   }
-  uint8_t* dst = out + ((static_cast<int64_t>(img) * h + i) * w + j0) * 3;
-  if (full) {
+}
+
+// A run's 48 RGB bytes o at a 16-byte boundary: three aligned 16-byte
+// stores, or where the row's end cuts the run its valid pixels byte by byte.
+__device__ __forceinline__ void store_aligned(uint8_t* dst, const uint32_t* o, int j0, int w) {
+  if (j0 + kRun <= w) {
 #pragma unroll
     for (int q = 0; q < 3; ++q)
       reinterpret_cast<uint4*>(dst)[q] = make_uint4(o[4 * q], o[4 * q + 1], o[4 * q + 2],
@@ -381,11 +439,52 @@ colour_run_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ o
   }
 #pragma unroll
   for (int k = 0; k < kRun; ++k) {
-    if (j0 + k < 0 || j0 + k >= w) continue;
+    if (j0 + k >= w) continue;
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      dst[3 * k + ch] = static_cast<uint8_t>(o[(3 * k + ch) >> 2] >> (8 * ((3 * k + ch) & 3)));
+    for (int ch = 0; ch < 3; ++ch) dst[3 * k + ch] = byte_of_words(o, 3 * k + ch);
   }
+}
+
+// The design: thread (x, y) of CTA (bx, by, img) converts run bx * 16 + x,
+// pixels j0 = 16 (bx * 16 + x) to j0 + 15, of output row by * 8 + y of
+// image img (see the top of the file). A warp holds two rows' runs of one
+// CTA, lane x + 1 the next run of lane x's row for x < 15.
+template <bool kFancy, int kMode>
+__global__ void __launch_bounds__(kRunThreads * kRunRows)
+colour_run_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) {
+  const int i = static_cast<int>(blockIdx.y) * kRunRows + static_cast<int>(threadIdx.y);
+  const int img = static_cast<int>(blockIdx.z);
+  const int j0 = (static_cast<int>(blockIdx.x) * kRunThreads + static_cast<int>(threadIdx.x)) *
+                 kRun;
+  const bool live = i < h && j0 < w;
+  uint32_t o[12];  // the run's 48 RGB bytes
+  // Every row's head is 0 (uniform over the launch): no run needs its
+  // neighbour's bytes.
+  if (w % kRun == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    if (!live) return;
+    convert_run<kFancy, kMode>(g, img, i, j0, w, correct, o);
+    store_aligned(out + ((static_cast<int64_t>(img) * h + i) * w + j0) * 3, o, j0, w);
+    return;
+  }
+  if (live) {
+    convert_run<kFancy, kMode>(g, img, i, j0, w, correct, o);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 12; ++q) o[q] = 0;
+  }
+  uint32_t nx[4];  // the next run's first 16 bytes: every lane takes part
+#pragma unroll
+  for (int q = 0; q < 4; ++q) nx[q] = __shfl_down_sync(0xFFFFFFFFu, o[q], 1);
+  if (!live) return;
+  uint8_t* dst = out + ((static_cast<int64_t>(img) * h + i) * w + j0) * 3;
+  const int head = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  if (head == 0) {
+    store_aligned(dst, o, j0, w);
+    return;
+  }
+  // the bytes to the end of the CTA's row segment
+  const int seg_end = min(w, (static_cast<int>(blockIdx.x) + 1) * kRunThreads * kRun);
+  store_shifted(dst, head, o, nx, 3 * (seg_end - j0), threadIdx.x == 0);
 }
 
 template <bool kPerPixel, bool kFancy, int kMode>
@@ -400,10 +499,7 @@ void run(const Geometry& g, int n_images, int h, int w, int correct, void* out,
         g, h, w, correct, static_cast<uint8_t*>(out));
     return;
   }
-  // Runs a row: w / 16 where every row starts 16-byte aligned (w % 16 == 0
-  // and an aligned output), else one more for the head a phase opens.
-  const bool aligned = w % kRun == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  const int runs = aligned ? w / kRun : (w + 2 * kRun - 2) / kRun;
+  const int runs = (w + kRun - 1) / kRun;  // a row's runs
   const dim3 blocks(static_cast<unsigned>((runs + kRunThreads - 1) / kRunThreads),
                     static_cast<unsigned>((h + kRunRows - 1) / kRunRows),
                     static_cast<unsigned>(n_images));

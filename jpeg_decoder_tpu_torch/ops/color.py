@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.numerics import _nn_index_f32
+from ..utils.metrics import count
 from ..utils.config import Quirks
 
 from .. import _build
@@ -396,15 +397,50 @@ def upsample_geometry(planes_shapes, h: int, w: int, factors, fancy: bool,
 
 
 #: K3's and K3f's run (csrc/color.cu colour_run_kernel): the output pixels
-#: of one row a thread converts.
+#: of one row a thread converts, and the runs of a CTA's row segment.
 RUN = 16
+SEGMENT_RUNS = 16
 
 
-def run_phase(head: int) -> int:
-    """The pixels from a row's start to its first RGB byte on a 16-byte
-    boundary, `head` the address of the row's first RGB byte modulo 16:
-    3 * phase = -head (mod 16), and 3 * 11 = 1 (mod 16)."""
-    return (-head * 11) % 16
+def _vector_form(align: int, flags: int, hratio: float, fancy: bool) -> bool:
+    """Whether color.cu `fetch_vector` loads a component's samples of a run
+    as vectors: by its flags, its nearest-neighbour ratio across, and
+    `align`, its plane's address, stride and halo rows' addresses or'ed."""
+    if flags == 0 or fancy and flags == _V2X:
+        return not align & 15
+    if flags == _NN:
+        return hratio == 1.0 and not align & 15 or hratio == 0.5 and not align & 7
+    return fancy and flags in (_H2X, _H2X | _V2X) and not align & 7
+
+
+def vector_share(g, r, addrs, fancy: bool) -> float:
+    """The `colour_vector_pct` of a K3, K3f or K6h launch: the percent of its
+    runs whose every component takes the vector loads. `g`, `r`: the
+    launch's geometry (launch_geometry); `addrs`: per component its plane's
+    address, or'ed with its halo rows' (K6h). Every run does, the row's
+    partial last run included, where every component has a vector form
+    (_vector_form), and none does otherwise: a stride that allows one is a
+    multiple of its alignment, and so is rows * stride, so every image and
+    row keeps the plane's alignment; the output's address does not enter
+    (runs are placed by the source, the stores realigned)."""
+    return 100.0 if all(_vector_form(a | int(g[c, 2]), int(g[c, 3]), float(r[c, 0]), fancy)
+                        for c, a in enumerate(addrs)) else 0.0
+
+
+def launch_geometry(shapes, h: int, w: int, factors, fancy: bool, shear: bool,
+                    stripes: Stripes | None = None):
+    """The geometry K3 (`fancy` False), K3f and K6h take for planes of
+    `shapes` ([rows, stride] each): int64 [4, 5], per component (image
+    stride, rows, stride, flags, plane rows a stripe), and float32 [4, 2],
+    (hratio, vratio) (upsample_geometry); a gray plane's stride is the
+    image width where `shear`."""
+    geom, ratios = upsample_geometry(shapes, h, w, factors, fancy, stripes)
+    g = np.zeros((4, 5), dtype=np.int64)
+    r = np.zeros((4, 2), dtype=np.float32)
+    for c, ((rows, cols, flags, local), ratio) in enumerate(zip(geom, ratios)):
+        g[c] = (rows * cols, rows, w if len(shapes) == 1 and shear else cols, flags, local)
+        r[c] = ratio
+    return g, r
 
 
 def _rule_samples(flat, rows: int, cols: int, flags: int, fancy: bool, r: int, qs):
@@ -432,31 +468,29 @@ def _rule_samples(flat, rows: int, cols: int, flags: int, fancy: bool, r: int, q
 def _vector_samples(flat, head: int, rows: int, cols: int, flags: int, fancy: bool, hratio,
                     row: int, i: int, j0: int):
     """color.cu `fetch_vector`: a run's 16 samples at output row i from
-    column j0 (j0 % 16 == 0, inside the row) by the vector loads, or None
-    where the kernel takes the per-pixel rule. `head`: the image's plane
-    address modulo 16; `row`: the nearest-neighbour row of i."""
-    align = head | cols
+    column j0 (j0 % 16 == 0, j0 < w) by the vector loads, or None where the
+    kernel takes the per-pixel rule. `head`: the image's plane address
+    modulo 16; `row`: the nearest-neighbour row of i. Raises RuntimeError
+    where the loads would leave the row (the kernel relies on
+    upsample_geometry's bounds to keep even a partial run's loads in it)."""
+    if not _vector_form(head | cols, flags, hratio, fancy):
+        return None
+    span = 2 * cols if flags & _H2X or flags == _NN and hratio == 0.5 else cols
+    if j0 + RUN > span:
+        raise RuntimeError("a run's vector loads leave its row")
     if flags == 0:
-        return None if align & 15 else flat[i * cols + j0:i * cols + j0 + RUN]
+        return flat[i * cols + j0:i * cols + j0 + RUN]
     if flags == _NN:
-        if hratio == 1.0 and not align & 15:
+        if hratio == 1.0:
             return flat[row * cols + j0:row * cols + j0 + RUN]
-        if hratio == 0.5 and not align & 7:
-            return np.repeat(flat[row * cols + j0 // 2:row * cols + j0 // 2 + 8], 2)
-        return None
-    if not fancy:
-        return None
+        return np.repeat(flat[row * cols + j0 // 2:row * cols + j0 // 2 + 8], 2)
     t = i >> 1
     tn = min(t + 1, rows - 1) if i & 1 else max(t - 1, 0)
     bv = 2 if i & 1 else 1
     if flags == _V2X:
-        if align & 15:
-            return None
         x = flat[t * cols + j0:t * cols + j0 + RUN]
         y = flat[tn * cols + j0:tn * cols + j0 + RUN]
         return (3 * x + y + bv) >> 2
-    if flags not in (_H2X, _H2X | _V2X) or align & 7:
-        return None
     s0 = j0 >> 1
     left, right = max(s0 - 1, 0), min(s0 + 8, cols - 1)
     k = np.arange(RUN)
@@ -477,109 +511,174 @@ def _vector_samples(flat, head: int, rows: int, cols: int, flags: int, fancy: bo
 def _planes_to_rgb_runs_plain(planes, h: int, w: int, factors, quirks: Quirks,
                               upsample: str = "nn", exact: bool = True, raw_cmyk: bool = False,
                               gray_shear: bool | None = None, stripes: Stripes | None = None,
-                              out_head: int = 0, plane_heads=None, paths=None):
+                              out_head: int = 0, plane_heads=None, paths=None, stores=None):
     """K3's and K3f's schedule (csrc/color.cu colour_run_kernel) on the CPU,
     with planes_to_rgb's arguments and the geometry _launch gives the
-    kernel: each row's runs of RUN pixels shifted by the row's phase
-    (`out_head`: the output's address modulo 16), each component's samples
-    of a full run at a 16-pixel boundary by the vector loads where its plane
-    allows (`plane_heads`: each plane's address modulo 16, default 0) and
-    by the per-pixel rule otherwise, then the colour transform of the plain
-    version. Raises RuntimeError unless every pixel is stored by exactly one
-    run. `paths`, a Counter, receives the runs each way took ("vector",
-    "pixel"; "partial" for the runs a row's ends cut). The result of
-    _planes_to_rgb_plain."""
+    kernel: each row's runs of RUN pixels from column 0, each component's
+    samples of a run (the row's partial last run too) by the vector loads
+    where its plane allows (`plane_heads`: each plane's address modulo 16,
+    default 0) and by the per-pixel rule otherwise, the colour transform of
+    the plain version, then the kernel's stores (_store_runs) into an output
+    `out_head` bytes past a 16-byte boundary. `paths`, a Counter, receives
+    the runs each way took: "vector" (every component by the vector loads)
+    or "pixel" (some component by the per-pixel rule); `stores` the stores
+    by width (16 or 1 bytes). The result of _planes_to_rgb_plain."""
     n = len(planes)
     lead = tuple(planes[0].shape[:-2])
     n_img = lead[0] if lead else 1
     shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
     fancy = upsample == "fancy" and n > 1
-    geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy,
-                                     stripes)
-    mh = max(f[0] for f in factors)
+    g, r = launch_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy, shear,
+                           stripes)
     mv = max(f[1] for f in factors)
     heads = list(plane_heads) if plane_heads is not None else [0] * n
     comps = []
-    for c, ((rows, cols, flags, _local), (hr, vr)) in enumerate(zip(geom, ratios)):
-        if n == 1 and shear:
-            cols = w
-        fh, fv = factors[c]
-        ev = (2 * fv if fancy and flags & _V2X else fv)
+    for c in range(n):
+        img_stride, rows, cols, flags = (int(v) for v in g[c, :4])
+        hr = float(r[c, 0])
+        ev = 2 * factors[c][1] if fancy and flags & _V2X else factors[c][1]
         nn_row = nn_rows(h, ev, mv, stripes) if flags & _NN else np.arange(h)
-        nn_col = _nn_index_f32(w, np.float32(hr)) if flags & _NN else np.arange(w)
+        nn_col = _nn_index_f32(w, r[c, 0]) if flags & _NN else np.arange(w)
         flat = planes[c].reshape(n_img, -1).to(torch.int64).numpy()
-        comps.append((flat, rows, cols, flags, hr, nn_row, nn_col, rows * planes[c].shape[-1]))
-    samples = np.zeros((n, n_img, h, w), dtype=np.int64)
-    stored = np.zeros((n_img, h, w), dtype=np.int64)
-    runs = w // RUN if w % RUN == 0 and out_head % 16 == 0 else (w + 2 * RUN - 2) // RUN
+        comps.append((flat, rows, cols, flags, hr, nn_row, nn_col, img_stride))
+    samples = np.zeros((n, n_img, h, -(-w // RUN) * RUN), dtype=np.int64)
     for img in range(n_img):
         for i in range(h):
-            phase = run_phase(((img * h + i) * w * 3 + out_head) % 16)
-            for m in range(runs):
-                j0 = RUN * m - (RUN - phase) % 16
-                if j0 >= w:
-                    break
-                full = j0 >= 0 and j0 + RUN <= w
-                vector = full and phase == 0
-                js = np.arange(j0, j0 + RUN)
-                ok = (js >= 0) & (js < w)
-                stored[img, i, js[ok]] += 1
+            for j0 in range(0, w, RUN):
+                # the per-pixel rule's columns past the row's end repeat its last
+                js = np.minimum(np.arange(j0, j0 + RUN), w - 1)
+                took = []
                 for c, (flat, rows, cols, flags, hr, nn_row, nn_col, img_stride) in enumerate(comps):
                     one = flat[img]
-                    got = (_vector_samples(one, (heads[c] + img * img_stride) % 16, rows, cols,
-                                           flags, fancy, hr, int(nn_row[i]), i, j0)
-                           if vector else None)
-                    if paths is not None:
-                        paths["partial" if not full else "vector" if got is not None
-                              else "pixel"] += 1
+                    got = _vector_samples(one, (heads[c] + img * img_stride) % 16, rows, cols,
+                                          flags, fancy, hr, int(nn_row[i]), i, j0)
+                    took.append(got is not None)
                     if got is None:
-                        qs = nn_col[np.clip(js, 0, w - 1)]
-                        got = _rule_samples(one, rows, cols, flags, fancy, int(nn_row[i]), qs)
-                    samples[c, img, i, js[ok]] = got[ok]
-    if h * w and not (stored == 1).all():
-        raise RuntimeError("the runs store a pixel other than once")
-    chans = [torch.from_numpy(samples[c].astype(np.uint8)).reshape(*lead, h, w)
-             for c in range(n)]
-    if n == 1:
-        return gray_to_rgb(chans[0])
-    return _convert(chans, colour_mode(n, exact, raw_cmyk), quirks)
+                        got = _rule_samples(one, rows, cols, flags, fancy, int(nn_row[i]),
+                                            nn_col[js])
+                    samples[c, img, i, j0:j0 + RUN] = got
+                if paths is not None:
+                    paths["vector" if all(took) else "pixel"] += 1
+    chans = [torch.from_numpy(samples[c].astype(np.uint8)) for c in range(n)]
+    rgb = gray_to_rgb(chans[0]) if n == 1 else _convert(chans, colour_mode(n, exact, raw_cmyk),
+                                                        quirks)
+    out = _store_runs(rgb.numpy(), w, out_head, stores)
+    return torch.from_numpy(out).reshape(*lead, h, w, 3)
+
+
+def _store_runs(rgb, w: int, out_head: int, stores=None) -> np.ndarray:
+    """colour_run_kernel's stores: `rgb` [n_img, h, ceil(w / RUN) * RUN, 3],
+    every run's 48 bytes (a partial run's pixels past the row's end as
+    computed, never stored), into an output `out_head` bytes past a 16-byte
+    boundary; returns the output's [n_img * h * w * 3] bytes. A run at a row head of 0
+    stores 16-byte chunks (its valid bytes one by one where the row's end
+    cuts it); elsewhere it stores the aligned chunks from `lead` = 16 - head
+    bytes into its run, the next run's first 16 bytes taken from the lane
+    after it (none past the CTA's row segment: what the shuffle brings there
+    is never stored), and byte by byte what lies before the segment's first
+    chunk or past its end. Raises RuntimeError for a 16-byte store off a
+    16-byte boundary or an output byte stored other than once. `stores`, a
+    Counter, receives the stores by width."""
+    n_img, h = rgb.shape[:2]
+    runs = -(-w // RUN)
+    run_bytes = rgb.reshape(n_img, h, -1, 3 * RUN)
+    size = out_head + n_img * h * w * 3
+    out = np.zeros(size, dtype=np.uint8)
+    written = np.zeros(size, dtype=np.int64)
+    # what a lane's shuffle partner holds where the kernel never stores it
+    junk = np.full(RUN, 0xEE, dtype=np.uint8)
+
+    def put(addr: int, data) -> None:
+        if len(data) == 16 and addr % 16:
+            raise RuntimeError("a 16-byte store off a 16-byte boundary")
+        out[addr:addr + len(data)] = data
+        written[addr:addr + len(data)] += 1
+        if stores is not None:
+            stores[len(data)] += 1
+
+    def put_bytes(addr: int, data) -> None:
+        for k in range(len(data)):
+            put(addr + k, data[k:k + 1])
+
+    for img in range(n_img):
+        for i in range(h):
+            row = out_head + (img * h + i) * w * 3
+            for m in range(runs):
+                j0 = RUN * m
+                dst = row + 3 * j0
+                o = run_bytes[img, i, m]
+                head = dst % 16
+                if head == 0:
+                    if j0 + RUN <= w:
+                        for q in range(3):
+                            put(dst + 16 * q, o[16 * q:16 * q + 16])
+                    else:
+                        put_bytes(dst, o[:3 * (w - j0)])
+                    continue
+                x = m % SEGMENT_RUNS
+                if x + 1 < SEGMENT_RUNS:
+                    nx = run_bytes[img, i, m + 1, :16] if m + 1 < runs else np.zeros(16, np.uint8)
+                else:
+                    nx = junk
+                ext = np.concatenate([o, nx])
+                lead = 16 - head
+                lim = 3 * (min(w, (m - x + SEGMENT_RUNS) * RUN) - j0)
+                if x == 0:
+                    put_bytes(dst, o[:min(lead, lim)])
+                for q in range(3):
+                    b0 = lead + 16 * q
+                    if b0 + 16 <= lim:
+                        put(dst + b0, ext[b0:b0 + 16])
+                    elif b0 < lim:
+                        put_bytes(dst + b0, ext[b0:lim])
+    if (written[:out_head] != 0).any() or (written[out_head:] != 1).any():
+        raise RuntimeError("the runs store a byte other than once")
+    return out[out_head:]
 
 
 def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
             mode: int, shear: bool, stripes: Stripes | None = None,
-            halos=None) -> torch.Tensor:
+            halos=None, out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K3 (`jdtc_color`), K3f (`jdtc_fancy`) or K6h
-    (`jdtc_fancy_halo`, with `halos`) over `planes`; a gray plane is read at
-    the image width where `shear`. (`jdtc_color_pixel` and
-    `jdtc_fancy_pixel`, their earlier design, take the same geometry; only
-    the benchmarks launch them.)"""
+    (`jdtc_fancy_halo`, with `halos`) over `planes` into `out` (default a
+    new [*lead, h, w, 3] uint8 tensor; the card tests pass views at every
+    byte offset); a gray plane is read at the image width where `shear`.
+    Each launch counts `colour_vector_pct` (vector_share). (`jdtc_color_pixel`
+    and `jdtc_fancy_pixel`, their earlier design, take the same geometry and
+    count nothing; only the benchmarks launch them.)"""
     fancy = entry.startswith("jdtc_fancy")
-    geom, ratios = upsample_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy,
-                                     stripes)
+    g, r = launch_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy, shear, stripes)
     n = len(planes)
-    g = np.zeros((4, 5), dtype=np.int64)   # img_stride, rows, stride, flags, stripe rows
-    r = np.zeros((4, 2), dtype=np.float32)
-    for c, ((rows, cols, flags, local), ratio) in enumerate(zip(geom, ratios)):
-        g[c] = (rows * cols, rows, w if n == 1 and shear else cols, flags, local)
-        r[c] = ratio
     row0, stripe_h = stripes if stripes is not None else (0, 0)
     count_as = (entry if stripes is None else "K6h" if halos is not None
                 else "K6f" if fancy else "K6n")
     # K6h's halo rows: per component the device addresses of its top and
     # bottom rows, 0 where it reads none
     extra = ()
+    hl = np.zeros((4, 2), dtype=np.int64)
     if halos is not None:
         hl = np.array([[t.data_ptr() for t in pair] if pair is not None else [0, 0]
                        for pair in [*halos, *[None] * (4 - n)]], dtype=np.int64)
         extra = (ctypes.c_void_p(hl.ctypes.data),)
-    out = torch.empty((*lead, h, w, 3), dtype=torch.uint8, device=planes[0].device)
+    # the earlier design (a thread a pixel) has no runs
+    share = None if entry.endswith("_pixel") else vector_share(
+        g, r, [p.data_ptr() | int(hl[c, 0] | hl[c, 1]) for c, p in enumerate(planes)], fancy)
+    shape = (*lead, h, w, 3)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.uint8, device=planes[0].device)
+    elif (out.shape != shape or out.dtype != torch.uint8 or out.device != planes[0].device
+          or not out.is_contiguous()):
+        raise ValueError(f"_launch: out must be contiguous uint8 {list(shape)} on the planes'"
+                         " device")
     if h * w:
         n_images = lead[0] if lead else 1
         padded = [*planes, *[None] * (4 - n)]
-        for _first, count, ptrs in _build.image_chunks(n_images, *padded, out):
-            _build.launch_as(count_as, entry, *ptrs[:4], count, n, h, w,
+        for _first, images, ptrs in _build.image_chunks(n_images, *padded, out):
+            _build.launch_as(count_as, entry, *ptrs[:4], images, n, h, w,
                              ctypes.c_void_p(g.ctypes.data), ctypes.c_void_p(r.ctypes.data),
                              row0, stripe_h, mode, int(quirks != Quirks.REFERENCE), *extra,
                              ptrs[4], _build.stream_of(out))
-            _build.add_units(count_as, count * h * w)
+            _build.add_units(count_as, images * h * w)
+            if share is not None:
+                count("colour_vector_pct", share)
     return out

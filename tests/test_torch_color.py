@@ -10,9 +10,11 @@ same df32 operations, differs from both on a few inputs (ROADMAP.md §3):
 the port follows the chain.
 
 The CPU model of K3's and K3f's run schedule (ops/color.
-_planes_to_rgb_runs_plain) is held bitwise against the plain version and
-the JAX stage at widths that are not a multiple of the run, under the
-stripe rule, with misaligned outputs and planes."""
+_planes_to_rgb_runs_plain, its stores _store_runs) is held bitwise against
+the plain version and the JAX stage at widths that are not a multiple of the
+run, under the stripe rule, at every output address modulo 16 and with
+misaligned planes; the launch's `colour_vector_pct` (vector_share) against
+the model's paths."""
 
 import collections
 
@@ -379,7 +381,8 @@ def _saturated(h, w, factors, seed, n=2):
 @pytest.mark.parametrize("name", sorted(RUN_CASES))
 def test_run_schedule_matches_plain_and_jax(name, w):
     """The CPU model of K3's and K3f's run schedule (runs of 16 pixels, the
-    row's phase, the vector paths and the per-pixel rule, the masked ends)
+    vector paths and the per-pixel rule, the stores realigned to the row's
+    head, the masked ends)
     bitwise against the plain colour stage and the JAX stage's colour half,
     at widths that are not a multiple of the run, an odd height, a batch of
     two, both quirks, an aligned and a misaligned output and planes."""
@@ -401,12 +404,13 @@ def test_run_schedule_matches_plain_and_jax(name, w):
 
 def test_run_schedule_takes_every_path():
     """At the 4K width a 4:2:0 fancy frame takes the vector loads on every
-    run of an aligned output; a width 8 more (3848) shifts the phase row by
-    row, so that the per-pixel rule and the partial runs at the rows' ends
-    are taken too; misaligned planes take the per-pixel rule."""
+    run; a width 8 more (3848) moves the rows' heads row by row, and still
+    every run takes them, the partial run at each row's end too (its loads
+    stay inside the padded planes); misaligned planes take the per-pixel
+    rule."""
     factors = ((2, 2), (1, 1), (1, 1))
     for w, out_head, plane_head, expect in (
-            (3840, 0, 0, {"vector"}), (3848, 0, 0, {"vector", "pixel", "partial"}),
+            (3840, 0, 0, {"vector"}), (3848, 0, 0, {"vector"}), (3848, 5, 0, {"vector"}),
             (3840, 0, 4, {"pixel"})):
         planes = [torch.from_numpy(p) for p in _saturated(4, w, factors, 7, 1)[0]]
         paths = collections.Counter()
@@ -416,6 +420,59 @@ def test_run_schedule_takes_every_path():
         assert set(paths) == expect
         assert torch.equal(got, tcolor._planes_to_rgb_plain(planes, 4, w, factors,
                                                              Quirks.REFERENCE, "fancy"))
+
+
+@pytest.mark.parametrize("out_head", range(16))
+@pytest.mark.parametrize("w", [45, 500])
+def test_run_schedule_at_every_output_head(w, out_head):
+    """With the output at each address modulo 16, a batch of two 4:2:0
+    fancy images (the loader's 500 wide, whose rows' heads cycle 0, 12, 8,
+    4, and 45) is bitwise the plain version, and every run takes the
+    vector loads, the partial run at the row's end too."""
+    factors = ((2, 2), (1, 1), (1, 1))
+    h = 5
+    batch = _saturated(h, w, factors, 40 + w)
+    stacked = [torch.from_numpy(np.stack([b[c] for b in batch])) for c in range(3)]
+    paths = collections.Counter()
+    got = tcolor._planes_to_rgb_runs_plain(stacked, h, w, factors, Quirks.REFERENCE, "fancy",
+                                           out_head=out_head, paths=paths)
+    assert torch.equal(got, tcolor._planes_to_rgb_plain(stacked, h, w, factors,
+                                                        Quirks.REFERENCE, "fancy"))
+    assert paths == {"vector": 2 * h * -(-w // 16)}
+
+
+def _launch_share(planes, h, w, factors, upsample, quirks, plane_head):
+    """vector_share over the geometry _launch gives the kernel, each plane
+    at address `plane_head`."""
+    fancy = upsample == "fancy" and len(planes) > 1
+    g, r = tcolor.launch_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy,
+                                  quirks == Quirks.REFERENCE)
+    return tcolor.vector_share(g, r, [plane_head] * len(planes), fancy)
+
+
+@pytest.mark.parametrize("w", [15, 17, 45, 500, 3840, 3848])
+def test_colour_vector_pct_is_the_models_share(w):
+    """The launch's closed-form colour_vector_pct equals the share of runs
+    the CPU model takes by the vector loads, at output heads 0, 4, 5 and
+    12, aligned and misaligned planes, on 4:2:0 fancy (the loader's),
+    gray (its plane read at the image width under REFERENCE) and 4:1:1
+    fancy (the chroma has no vector form: no run is all vector)."""
+    h = 3
+    for name in ("420_fancy", "gray", "411_fancy"):
+        factors, upsample, exact, raw = RUN_CASES[name]
+        planes = [torch.from_numpy(p) for p in _pixel_planes(h, w, factors, w)]
+        for plane_head in (0, 4):
+            want = _launch_share(planes, h, w, factors, upsample, Quirks.REFERENCE, plane_head)
+            for out_head in (0, 4, 5, 12):
+                paths = collections.Counter()
+                tcolor._planes_to_rgb_runs_plain(
+                    planes, h, w, factors, Quirks.REFERENCE, upsample, exact, raw,
+                    out_head=out_head, plane_heads=[plane_head] * len(factors), paths=paths)
+                assert want == pytest.approx(100.0 * paths["vector"] / sum(paths.values()))
+    # the loader's launch (500 x 375): all 32 runs of a row
+    loader = [torch.zeros(s, dtype=torch.uint8) for s in ((384, 512), (192, 256), (192, 256))]
+    assert _launch_share(loader, 375, 500, RUN_CASES["420_fancy"][0], "fancy",
+                         Quirks.REFERENCE, 0) == 100.0
 
 
 @pytest.mark.parametrize("upsample", ["nn", "fancy"])
@@ -441,8 +498,17 @@ def test_run_schedule_under_the_stripe_rule(factors, upsample):
 
 
 def test_run_phase_aligns_every_row():
-    """3 * run_phase(head) + head is a multiple of 16 for every head, so a
-    row's first full run starts on a 16-byte boundary."""
+    """Whatever a row's head (its first RGB byte's address modulo 16), the
+    kernel's stores (_store_runs) put every byte of the row once, each
+    16-byte store on a 16-byte boundary, and store byte by byte only the
+    ends of each CTA's row segment of 256 pixels: the lead bytes before its
+    first chunk and what lies past its last one, at most 16 bytes a
+    segment and 15 more at the row's end."""
+    w = 600  # three segments, the last cut by the row's end
+    row = np.random.default_rng(3).integers(0, 256, (1, 1, 608, 3), dtype=np.uint8)
     for head in range(16):
-        phase = tcolor.run_phase(head)
-        assert 0 <= phase < 16 and (head + 3 * phase) % 16 == 0
+        stores = collections.Counter()
+        got = tcolor._store_runs(row, w, head, stores)
+        np.testing.assert_array_equal(got, row[0, 0, :w].reshape(-1))
+        assert set(stores) <= {1, 16} and 16 * stores[16] + stores[1] == 3 * w
+        assert stores[1] <= (16 * 3 + 15 if head else 3 * (w % 16))

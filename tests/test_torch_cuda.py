@@ -1171,6 +1171,44 @@ def test_colour_kernels_on_ragged_widths(cuda_device, sampling, transform, upsam
         assert torch.equal(got, earlier)
 
 
+#: Widths whose rows' heads differ: one run and one pixel, three MCUs, the
+#: loader's 500 (heads cycle 0, 12, 8, 4) and the 4K width and 8.
+HEAD_WIDTHS = [17, 45, 500, 3848]
+
+
+@pytest.mark.parametrize("width", HEAD_WIDTHS)
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+def test_colour_kernels_at_every_output_head(cuda_device, upsample, width):
+    """K3f (jdtc_fancy) and K3 (jdtc_color) on a batch of three 4:2:0
+    images, their output placed at byte offsets 0-15 of a larger buffer so
+    that every row head is taken: bitwise the plain version, and the
+    earlier design (jdtc_fancy_pixel, jdtc_color_pixel) at the same offset;
+    no byte around the output written; each run-kernel launch counts
+    colour_vector_pct once, 100 (every run, the partial ones too), the
+    earlier design's nothing."""
+    h, lead = 7, (3,)
+    planes = _saturated_planes(F420, h, width, width, lead, cuda_device)
+    entry = "jdtc_fancy" if upsample == "fancy" else "jdtc_color"
+    want = tcolor._planes_to_rgb_plain(planes, h, width, F420, Quirks.REFERENCE, upsample)
+    size = want.numel()
+    share = 100.0
+    for offset in range(16):
+        for name in (entry, entry + "_pixel"):
+            buf = torch.full((size + 32,), 0xA5, dtype=torch.uint8, device=cuda_device)
+            out = buf[offset:offset + size].view(*lead, h, width, 3)
+            before = GLOBAL_METRICS.stages.get("colour_vector_pct", StageStat())
+            calls, items = before.calls, before.total_items
+            tcolor._launch(name, planes, lead, h, width, F420, Quirks.REFERENCE, tcolor.YCBCR,
+                           True, out=out)
+            st = GLOBAL_METRICS.stages.get("colour_vector_pct", StageStat())
+            runs = name == entry
+            assert (st.calls, st.total_items) == (calls + runs,
+                                                  pytest.approx(items + runs * share))
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (name, offset)
+            assert bool((buf[:offset] == 0xA5).all()) and bool((buf[offset + size:] == 0xA5).all())
+
+
 @pytest.mark.parametrize("name", ["fancy_420_exact", "ycck_exact"])
 def test_launch_units_of_a_fancy_and_a_ycck_request(cuda_device, name):
     """A fancy request launches K0 x 3 + K3f, a YCCK request K0 x 4 + K3c

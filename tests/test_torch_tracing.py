@@ -247,6 +247,7 @@ def test_idle_unattributed_exact(name):
     ("host_wait_ms.loader", "batch_wait", 1e3 * 0.512 / 256),
     ("k2_pass2_steps.request", "k2_pass2_steps", 256 / 2),
     ("k2_pass2_steps.loader", "k2_pass2_steps", 256 / 2),
+    ("colour_vector_pct.loader", "colour_vector_pct", 256 / 2),
 ])
 def test_span_and_counter_readers(name, stage, want):
     """(calls, seconds, items) as the harness snapshots GLOBAL_METRICS: the
