@@ -64,10 +64,14 @@ class LoopResult:
     images: int = 0
     elapsed_s: float = 0.0
     window_s: float = 0.0
+    #: the pool index of each image the entry yielded, in order (batches)
+    indices: list = dataclasses.field(default_factory=list)
     #: (pool index, host RGB) of the outputs drawn for the check
     samples: list = dataclasses.field(default_factory=list)
-    #: launches of each entropy (K2) and pixel-stage call: images each covers
-    images_per_call: int = 1
+    #: launches of each entropy (K2) and pixel-stage call: images each
+    #: covers; None where a call launches once a group of one size and
+    #: table set in it, which the readers then weigh image by image
+    images_per_call: int | None = 1
 
 
 class Reservoir:
@@ -242,8 +246,9 @@ class Window:
 
 
 def check(samples: list, pool, config: dict, device) -> dict:
-    """Each drawn output against the reference's RGB of its input: the RGB
-    bytes that differ, the largest difference, how many were compared."""
+    """Each drawn output against the reference's RGB of its input, at that
+    image's own size and with its own tables: the RGB bytes that differ,
+    the largest difference, how many were compared."""
     import torch
 
     from . import gen, reference
@@ -255,7 +260,7 @@ def check(samples: list, pool, config: dict, device) -> dict:
             im = pool.images[idx]
             coeffs = [torch.from_numpy(c).to(device) for c in im.coeffs]
             expected[idx] = reference.decode_rgb(
-                pool.width, pool.height, gen.COMPS_420, coeffs,
+                im.width, im.height, gen.COMPS_420, coeffs,
                 [im.qts[0], im.qts[1], im.qts[1]], config["decode_config"].get("upsample", "nn"))
         exp = expected[idx]
         got = torch.from_numpy(rgb).to(device)

@@ -4,8 +4,8 @@ its pipeline (the host stage of batch k+1 beside the device stage of batch
 k) is full when the window opens. The pool's images are fed in turn,
 wrapping round. The window counts every image whose host RGB the stream
 yielded, up to the first batch yielded at or after its end, and its
-seconds end there. Traffic keys: batch, warmup_batches, sample (images
-drawn for the check)."""
+seconds end there, and it records each image's pool index. Traffic keys:
+batch, warmup_batches, sample (images drawn for the check)."""
 
 from __future__ import annotations
 
@@ -53,12 +53,15 @@ def run(cfg, config, traffic, pool, seconds, seed, device, window, rehearse):
                 out = None
                 stream = bd.decode_stream(_feed(datas, fed + b), batch_size=b)
         now = time.perf_counter()
-        marks.append(now - window.t_open)
         res.attempted += b
+        idx = []
         if out is not None:
-            res.images += out.shape[0]
-            for j, slot in keep.offer(out.shape[0]):
-                keep.put(slot, ((fed + j) % len(datas), out[j].copy()))
+            idx = [(fed + j) % len(datas) for j in range(out.shape[0])]
+            res.images += len(idx)
+            res.indices += idx
+            for j, slot in keep.offer(len(idx)):
+                keep.put(slot, (idx[j], out[j].copy()))
+        marks.append((now - window.t_open, sum(pool.images[i].pixels for i in idx)))
         fed += b
         if now >= deadline:
             break
@@ -68,8 +71,7 @@ def run(cfg, config, traffic, pool, seconds, seed, device, window, rehearse):
     res.window_s = window.t_close - window.t_open
     res.samples = list(keep.items)
     q = seconds / 4
-    rates = [sum(1 for m in marks if k * q <= m < (k + 1) * q) * b * pool.width * pool.height
-             / q / 1e6 for k in range(4)]
+    rates = [sum(px for m, px in marks if k * q <= m < (k + 1) * q) / q / 1e6 for k in range(4)]
     print(f"batches: {len(marks)}; quarters of the window, MP/s: "
           + " ".join(f"{r:.1f}" for r in rates), file=sys.stderr)
     return res

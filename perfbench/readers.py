@@ -25,17 +25,18 @@ def _trace(run):
     return run.trace if run.trace is not None and run.trace.window_s > 0 else None
 
 
+def _bound_s(run, im, which: str) -> float:
+    """One image's roofline bound in a layer, seconds."""
+    if which == "entropy":
+        return roofline.entropy_bound_s(im.scan_bytes, im.blocks, im.symbols)
+    return roofline.pixel_bound_s(im.blocks, im.pixels,
+                                  planes_out=run.config["entry"] == "JpegDecoder.decode_rgb",
+                                  fancy=run.config["decode_config"].get("upsample") == "fancy")
+
+
 def _per_image(run, which: str) -> float:
     """The mean over the pool of one image's roofline bound, seconds."""
-    pool = run.pool
-    blocks = pool.blocks
-    if which == "entropy":
-        b = [roofline.entropy_bound_s(im.scan_bytes, blocks, im.symbols) for im in pool.images]
-    else:
-        b = [roofline.pixel_bound_s(blocks, pool.width * pool.height,
-                                    planes_out=run.config["entry"] == "JpegDecoder.decode_rgb",
-                                    fancy=run.config["decode_config"].get("upsample") == "fancy")
-             for im in pool.images]
+    b = [_bound_s(run, im, which) for im in run.pool.images]
     return sum(b) / len(b)
 
 
@@ -47,9 +48,14 @@ _ANCHORS = {"entropy": ("pass1_kernel",),
 
 
 def roofline_pct(run, layer: str):
-    """The layer's kernels' share of their roofline, %: the calls in the
-    traced window times the images a call covers times one image's bound,
-    over the device time of the layer's kernels in the window."""
+    """The layer's kernels' share of their roofline, %: the bound of the
+    work of the traced window over the device time of the layer's kernels
+    in it. Where a loop's call covers a fixed number of images
+    (`images_per_call`), the work is the calls the trace holds times that
+    number times the mean image's bound; where a call's launches follow the
+    groups of one size and table set in it (None), it is the summed bound
+    of the images the window yielded. The entropy layer reads nothing
+    there once the host's entropy decoder took images K2 never saw."""
     tr = _trace(run)
     if tr is None:
         return None
@@ -57,7 +63,13 @@ def roofline_pct(run, layer: str):
     calls = sum(tr.launches(k) for k in _ANCHORS[layer])
     if not spent or not calls:
         return None
-    return 100.0 * calls * run.result.images_per_call * _per_image(run, layer) / spent
+    per_call = run.result.images_per_call
+    if per_call is not None:
+        return 100.0 * calls * per_call * _per_image(run, layer) / spent
+    if layer == "entropy" and run.stages.get("entropy_batch_fallback", (0, 0.0, 0))[2]:
+        return None
+    images = run.pool.images
+    return 100.0 * sum(_bound_s(run, images[i], layer) for i in run.result.indices) / spent
 
 
 def copy_ms(run, per: str):
@@ -87,7 +99,8 @@ def mps(run):
     r = run.result
     if not r.images or r.elapsed_s <= 0:
         return None
-    return r.images * run.pool.width * run.pool.height / r.elapsed_s / 1e6
+    images = run.pool.images
+    return sum(images[i].pixels for i in r.indices) / r.elapsed_s / 1e6
 
 
 def idle_pct(run):
