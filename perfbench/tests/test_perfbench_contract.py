@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from perfbench import gen, harness, packer, reference, roofline
+from perfbench.tests import queued
 
 HERE = Path(__file__).resolve().parents[1]
 ROOT = HERE.parent
@@ -27,6 +28,8 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 TRAFFIC = sorted({w["traffic"] for w in BENCH["workloads"]})
+#: BENCHMARK.json's cells and the queued ones it does not hold yet
+WORKLOADS = queued.workloads(BENCH)
 
 
 def _line_ok(s: str) -> bool:
@@ -253,31 +256,37 @@ def test_trace_busy_and_kernel_time():
     assert readers.kernel_us(Run, "image") == pytest.approx(400e-9 * 1e6 / 4)
 
 
-def _port_cfg(traffic: dict):
-    from jpeg_decoder_tpu_torch import DecodeConfig
+def _upsamplings(traffic: str) -> list:
+    """The upsampling of each cell's configuration that decodes `traffic`."""
+    return sorted({queued.config(BENCH, w)["decode_config"].get("upsample", "nn")
+                   for w in WORKLOADS if w["traffic"] == traffic})
 
-    return DecodeConfig(use_device=False,
-                        upsample="fancy" if traffic["loop"] == "stream_batches" else "nn")
 
-
-@pytest.mark.parametrize("traffic", TRAFFIC)
+@pytest.mark.parametrize("traffic", sorted({w["traffic"] for w in WORKLOADS}))
 @pytest.mark.parametrize("size", [(128, 64), (500, 375), (36, 20)])
 def test_reference_matches_program_cpu_decode(traffic, size):
     """The reference's RGB equals the program's host decode (use_device=False,
-    the EXACT arithmetic) on small frames of each traffic mix."""
+    the EXACT arithmetic) on small frames of each traffic mix, each image at
+    its own size and tables, under the upsampling of each cell's
+    configuration that decodes the mix."""
+    from jpeg_decoder_tpu_torch import DecodeConfig
     from jpeg_decoder_tpu_torch.models import decoder
 
-    t = json.loads((HERE / "traffic" / f"{traffic}.json").read_text())
-    t = {**t, "width": size[0], "height": size[1], "pool": 2,
+    t = queued.traffic(traffic)
+    over = ({"sizes": [list(size)], "size_weights": [1]} if "sizes" in t
+            else {"width": size[0], "height": size[1]})
+    t = {**t, **over, "pool": 2,
          "restart_interval": t["restart_interval"] and -(-size[0] // 16)}
     pool = gen.make_pool(t, 2**31 + 5)
-    cfg = _port_cfg(t)
-    for im in pool.images:
-        want = decoder.decode_rgb(im.data, cfg, device="cpu")
-        got = reference.decode_rgb(pool.width, pool.height, gen.COMPS_420,
-                                   [torch.from_numpy(c) for c in im.coeffs],
-                                   [im.qts[0], im.qts[1], im.qts[1]], cfg.upsample)
-        np.testing.assert_array_equal(got.numpy(), want)
+    for upsample in _upsamplings(traffic):
+        cfg = DecodeConfig(use_device=False, upsample=upsample)
+        for im in pool.images:
+            assert (im.width, im.height) == size
+            want = decoder.decode_rgb(im.data, cfg, device="cpu")
+            got = reference.decode_rgb(im.width, im.height, gen.COMPS_420,
+                                       [torch.from_numpy(c) for c in im.coeffs],
+                                       [im.qts[0], im.qts[1], im.qts[1]], upsample)
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_reservoir_is_seeded_and_uniform():

@@ -3,7 +3,8 @@
 byte, the readers' numbers on a uniform pool pinned, libjpeg's quality
 scaling, a mixed pool against its draws, and whole rehearsals of a
 `decode_many` cell that is in no BENCHMARK.json (its configuration in a
-temporary directory).
+temporary directory; its faults are cases of `test_perfbench_runs.py`'s
+`test_batch_faults_caught`).
 
     python -m pytest perfbench/tests -q
 """
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 
 from perfbench import gen, harness, readers, reference, trace
+from perfbench.tests import queued
 
 HERE = Path(__file__).resolve().parents[1]
 SEED = 2**31 + 7
@@ -129,13 +131,13 @@ def test_readers_weigh_a_mixed_pool_image_by_image():
     roofline share is the summed bound of the images yielded, and the rate
     sums each image's own pixels; the entropy share reads nothing once the
     host's entropy decoder took images."""
-    t = mixed_traffic()
+    t = queued.mixed_traffic()
     pool = gen.make_pool(t, SEED, rehearse=True)
     assert pool.width is None and len({(im.width, im.height) for im in pool.images}) == 3
     idx = [0, 1, 2, 3, 4, 5, 0]
     res = harness.LoopResult(attempted=7, images=7, elapsed_s=0.5, images_per_call=None,
                              indices=idx)
-    run = harness.Run({"name": "m"}, _mixed_config(), t, pool, res, 1.0, {}, {},
+    run = harness.Run({"name": "m"}, queued.mixed_config(), t, pool, res, 1.0, {}, {},
                       _synthetic_trace())
     assert readers.mps(run) == sum(pool.images[i].width * pool.images[i].height
                                    for i in idx) / 0.5 / 1e6
@@ -169,35 +171,12 @@ def test_jpeg_quality_scaling():
                                       gen.quality_tables(q)[:, reference.INV_ZIGZAG])
 
 
-#: Sizes at which the control (FLOAT32) departs from EXACT on the CPU in the
-#: first call of the window (it holds the whole pool).
-REHEARSE_MIXED = {"sizes": [[128, 96], [96, 128], [128, 80]], "size_weights": [1, 1, 1],
-                  "pool": 6, "batch": 6, "warmup_batches": 1, "sample": 6}
-
-
-def mixed_traffic(**over) -> dict:
-    """The loader cell the mixed keys were made for: ILSVRC2012's three
-    common 4:2:0 sizes, per-image quality 75-95."""
-    return {"name": "loader_mixed_photo_b256", "loop": "many_batches",
-            "sizes": [[500, 375], [375, 500], [500, 333]], "size_weights": [6, 3, 1],
-            "sampling": "420", "restart_interval": 0, "layout": "alternate",
-            "tables": "per_image", "quality": "75-95", "pool": 320, "batch": 256,
-            "warmup_batches": 5, "sample": 32, "rehearse": {**REHEARSE_MIXED, **over}}
-
-
-def _mixed_config() -> dict:
-    return {"name": "imagenet_mixed_pallas", "entry": "BatchDecoder.decode_many",
-            "decode_config": {"entropy_backend": "PALLAS", "idct_precision": "EXACT",
-                              "upsample": "fancy", "num_threads": 4},
-            "control": {"idct_precision": "FLOAT32"}}
-
-
 @pytest.mark.parametrize("rehearse", [True, False])
 def test_mixed_pool_matches_its_draws(rehearse):
     """Each stream's SOF gives its image's drawn size and its DQT the tables
     of its drawn quality; the sizes follow their weights exactly, so every
     seed holds the same sizes."""
-    t = mixed_traffic()
+    t = queued.mixed_traffic()
     pool = gen.make_pool(t, SEED, rehearse=rehearse)
     tt = {**t, **(t["rehearse"] if rehearse else {})}
     quality = gen._qualities(tt, SEED)
@@ -223,16 +202,12 @@ def test_mixed_pool_matches_its_draws(rehearse):
             np.testing.assert_array_equal(a, b)
 
 
-def _mixed_run(tmp_path, monkeypatch, control=False, **over) -> dict:
-    cfg = tmp_path / "imagenet_mixed_pallas.json"
-    cfg.write_text(json.dumps(_mixed_config()))
-    bench = {"configs": [{"name": "imagenet_mixed_pallas", "file": str(cfg)}],
-             "workloads": [{"name": "loader_mixed_b256", "config": "imagenet_mixed_pallas",
-                            "traffic": "loader_mixed_photo_b256", "chips": 1}],
-             "end_to_end": [], "per_layer": []}
+def _mixed_run(tmp_path, monkeypatch, control=False) -> dict:
+    cell = queued.QUEUED[0]
     monkeypatch.setattr(harness, "CACHES", {})
-    return harness.run("loader_mixed_b256", SEED, 0.1, False, 0.0, rehearse=True,
-                       control=control, bench=bench, traffic=mixed_traffic(**over))
+    return harness.run(cell["name"], SEED, 0.1, False, 0.0, rehearse=True, control=control,
+                       bench=queued.bench_for(queued.load_bench(), cell, tmp_path),
+                       traffic=queued.mixed_traffic())
 
 
 def test_mixed_decode_many_rehearsal_and_control(tmp_path, monkeypatch):
@@ -244,32 +219,3 @@ def test_mixed_decode_many_rehearsal_and_control(tmp_path, monkeypatch):
     control = _mixed_run(tmp_path, monkeypatch, control=True)
     assert control["correct"] is False
     assert control["checks"]["rgb_bytes_off"]["value"] > 0
-
-
-@pytest.mark.parametrize("fault", ["stale", "half", "altered", "raises"])
-def test_decode_many_faults_caught(fault, tmp_path, monkeypatch):
-    """decode_many broken underneath: a call that returns the last call's
-    images, half of them left out, one byte altered, or a call that raises."""
-    from jpeg_decoder_tpu_torch.parallel.batch import BatchDecoder
-
-    real = BatchDecoder.decode_many
-    state = {"last": None, "n": 0}
-
-    def decode_many(self, datas):
-        outs = real(self, datas)
-        state["n"] += 1
-        if fault == "stale":
-            outs, state["last"] = (state["last"] if state["last"] is not None else outs), outs
-        elif fault == "half":
-            outs = outs[:len(outs) // 2] + [np.zeros_like(o) for o in outs[len(outs) // 2:]]
-        elif fault == "altered":
-            outs = [o.copy() for o in outs]
-            outs[-1][0, 0, 0] ^= 4
-        elif fault == "raises" and state["n"] > 2:  # past the two warm-up calls
-            raise RuntimeError("planted")
-        return outs
-
-    monkeypatch.setattr(BatchDecoder, "decode_many", decode_many)
-    small = {"sizes": [[48, 32], [32, 48], [48, 24]], "pool": 3, "batch": 2, "sample": 8}
-    line = _mixed_run(tmp_path, monkeypatch, **small)
-    assert line["correct"] is False

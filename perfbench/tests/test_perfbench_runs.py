@@ -1,6 +1,8 @@
 """Whole runs of the harness without a card (`--rehearse`: the cells' small
 sizes on the CPU, the program's plain paths), the control, the faults the
-check has to catch, and a cell added by new files alone.
+check has to catch (in BENCHMARK.json's cells and the queued ones of
+`tests/queued.py`, chosen by the entry their configuration names), and a
+cell added by new files alone.
 
     python -m pytest perfbench/tests -q
 """
@@ -18,11 +20,14 @@ import numpy as np
 import pytest
 
 from perfbench import harness
+from perfbench.tests import queued
 
 HERE = Path(__file__).resolve().parents[1]
 ROOT = HERE.parent
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
+#: BENCHMARK.json's cells and the queued ones it does not hold yet
+WORKLOADS = {w["name"]: w for w in queued.workloads(BENCH)}
 KEYS = {"correct", "attempted", "failed", "metrics", "device", "breakdown", "checks"}
 SEED = 2**31 + 101
 
@@ -120,18 +125,40 @@ CONTROL_SECONDS = {"uhd_camera": 6.0, "uhd_dri": 3.0}
 #: A seed whose first uhd frame at these sizes already departs, so that the
 #: control fails on the window's first request however slow the CPU is.
 CONTROL_SEED = SEED + 1
+#: Sizes at which a batch cell's rehearsal makes calls that hold different
+#: images one after another (a stale call is then seen), small enough for
+#: many calls in the window.
+FAULT_SIZES = {"loader_mixed_b256": {"sizes": [[48, 32], [32, 48], [48, 24]], "pool": 3,
+                                     "batch": 2}}
+#: Images a batch cell's rehearsal draws for the check, as its full size
+#: does: a fault that breaks one image of a batch in four then goes unseen
+#: with a chance of about (3/4)**32 however many batches the window holds
+#: (with 8 drawn from 11 batches of 4, about one run in ten).
+FAULT_SAMPLE = 32
+
+
+def _entry(cell: str) -> str:
+    return queued.config(BENCH, WORKLOADS[cell])["entry"]
+
+
+def _cells(*entries: str) -> list:
+    """The cells whose configuration drives one of `entries`."""
+    return [c for c in WORKLOADS if _entry(c) in entries]
 
 
 def _traffic(cell: str, **over) -> dict:
-    name = next(w["traffic"] for w in BENCH["workloads"] if w["name"] == cell)
-    t = json.loads((HERE / "traffic" / f"{name}.json").read_text())
+    t = queued.traffic(WORKLOADS[cell]["traffic"])
     t["rehearse"] = {**t["rehearse"], **CONTROL_SIZES.get(cell, {}), **over}
     return t
 
 
-def _run(cell: str, monkeypatch, seconds: float = 0.5, seed: int = SEED, **kw) -> dict:
+def _run(cell: str, monkeypatch, seconds: float = 0.5, seed: int = SEED, tmp_path=None,
+         **kw) -> dict:
+    """A rehearsal of the cell; a queued cell's configuration file goes to
+    `tmp_path`."""
     monkeypatch.setattr(harness, "CACHES", {})
-    return harness.run(cell, seed, seconds, False, 0.0, rehearse=True, **kw)
+    bench = queued.bench_for(BENCH, WORKLOADS[cell], tmp_path)
+    return harness.run(cell, seed, seconds, False, 0.0, rehearse=True, bench=bench, **kw)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -170,40 +197,68 @@ def _patch_requests(monkeypatch, fault: str):
     monkeypatch.setattr(JpegDecoder, "decode_rgb", decode_rgb)
 
 
-def _patch_batches(monkeypatch, fault: str):
+def _patch_batches(monkeypatch, fault: str, entry: str):
+    """Break the entry the cell's configuration names underneath. Each batch
+    that `decode_stream` yields, or each list of arrays that a
+    `decode_many` call returns, comes out as the last one (stale), with its
+    second half zeroed (half), with its first image's first byte altered
+    (altered), or, once the window is open, as an exception (raises)."""
     from jpeg_decoder_tpu_torch.parallel.batch import BatchDecoder
 
-    real = BatchDecoder.decode_stream
+    state = {"last": None, "open": False}
+    real_open = harness.Window.open
+
+    def open_window(self):
+        real_open(self)
+        state["open"] = True
+
+    def broken(outs):
+        if fault == "raises" and state["open"]:
+            raise RuntimeError("planted")
+        if fault == "stale":  # the step returns its state unchanged
+            outs, state["last"] = (state["last"] if state["last"] is not None else outs), outs
+        elif fault in ("half", "altered"):
+            outs = outs.copy() if isinstance(outs, np.ndarray) else [o.copy() for o in outs]
+            if fault == "half":  # half of the batch left out
+                for o in outs[len(outs) // 2:]:
+                    o[...] = 0
+            else:  # an answer altered where it is produced
+                outs[0][0, 0, 0] ^= 4
+        return outs
+
+    real_stream, real_many = BatchDecoder.decode_stream, BatchDecoder.decode_many
 
     def decode_stream(self, datas, batch_size=None):
-        last = None
-        for out in real(self, datas, batch_size):
-            if fault == "stale":
-                out, last = (last if last is not None else out), out
-            elif fault == "half":  # half of the batch left out
-                out = out.copy()
-                out[out.shape[0] // 2:] = 0
-            elif fault == "altered":
-                out = out.copy()
-                out[0, 0, 0, 0] ^= 4
-            yield out
+        stream = real_stream(self, datas, batch_size)
+        try:
+            for out in stream:
+                yield broken(out)
+        finally:
+            stream.close()
 
-    monkeypatch.setattr(BatchDecoder, "decode_stream", decode_stream)
+    def decode_many(self, datas):
+        return broken(real_many(self, datas))
+
+    patched = {"BatchDecoder.decode_stream": decode_stream,
+               "BatchDecoder.decode_many": decode_many}
+    monkeypatch.setattr(harness.Window, "open", open_window)
+    monkeypatch.setattr(BatchDecoder, entry.split(".")[1], patched[entry])
 
 
 @pytest.mark.parametrize("fault", ["stale", "altered", "raises"])
-@pytest.mark.parametrize("cell", [c for c in CELLS if c.startswith("uhd")])
-def test_request_faults_caught(cell, fault, monkeypatch):
+@pytest.mark.parametrize("cell", _cells("JpegDecoder.decode_rgb"))
+def test_request_faults_caught(cell, fault, monkeypatch, tmp_path):
     _patch_requests(monkeypatch, fault)
-    line = _run(cell, monkeypatch, traffic=_traffic(cell, sample=8))
+    line = _run(cell, monkeypatch, tmp_path=tmp_path, traffic=_traffic(cell, sample=8))
     assert line["correct"] is False
 
 
-@pytest.mark.parametrize("fault", ["stale", "half", "altered"])
-@pytest.mark.parametrize("cell", [c for c in CELLS if c.startswith("loader")])
-def test_batch_faults_caught(cell, fault, monkeypatch):
-    _patch_batches(monkeypatch, fault)
-    line = _run(cell, monkeypatch, traffic=_traffic(cell, sample=8))
+@pytest.mark.parametrize("fault", ["stale", "half", "altered", "raises"])
+@pytest.mark.parametrize("cell", _cells("BatchDecoder.decode_stream", "BatchDecoder.decode_many"))
+def test_batch_faults_caught(cell, fault, monkeypatch, tmp_path):
+    _patch_batches(monkeypatch, fault, _entry(cell))
+    line = _run(cell, monkeypatch, tmp_path=tmp_path,
+                traffic=_traffic(cell, **FAULT_SIZES.get(cell, {}), sample=FAULT_SAMPLE))
     assert line["correct"] is False
 
 
