@@ -17,7 +17,9 @@ kernels, which is what the tests hold against the JAX package.
 
 Public API:
     decode(data, cfg, device)      -> DecodedImage
-    decode_rgb(data, cfg, device)  -> [H, W, 3] uint8
+    decode_rgb(data, cfg, device)  -> [H, W, 3] uint8 (no sample planes made;
+                                      from a CUDA device, in pinned memory
+                                      up to a budget held at once)
     decode_file(path, cfg, device) -> DecodedImage
     JpegDecoder(cfg, device)       -> reusable handle
     BatchDecoder(cfg, device, mesh) -> same-geometry batches: decode_batch,

@@ -19,6 +19,8 @@ the port's parser.
 from __future__ import annotations
 
 import functools
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -250,3 +252,58 @@ def planes_to_device(planes: CoefficientPlanes, device) -> list[torch.Tensor]:
     """CoefficientPlanes (numpy int16) -> device tensors, one copy each."""
     return [torch.from_numpy(np.ascontiguousarray(p)).to(device)
             for p in planes.planes]
+
+
+#: The most host memory that pinned read-backs hold at once, counted in
+#: the caching host allocator's blocks (a power of two each, so a 4K RGB of
+#: 24.9 MB holds 32 MiB): sixteen 4K frames. Torch keeps a pinned block
+#: page-locked until the process ends, so this also bounds what the
+#: allocator's cache keeps of them. A read-back past it, a gigapixel frame
+#: or one more output while a caller holds many, is pageable.
+PINNED_BUDGET_BYTES = 512 << 20
+
+_pinned_lock = threading.Lock()
+_pinned_held = 0
+
+
+def _take_pinned(n: int) -> bool:
+    """Book n bytes of PINNED_BUDGET_BYTES; False, and nothing booked, where
+    they would pass it."""
+    global _pinned_held
+    with _pinned_lock:
+        if _pinned_held + n > PINNED_BUDGET_BYTES:
+            return False
+        _pinned_held += n
+        return True
+
+
+def _give_pinned(n: int) -> None:
+    global _pinned_held
+    with _pinned_lock:
+        _pinned_held -= n
+
+
+def to_host(t: torch.Tensor, pin: bool = False) -> tuple[np.ndarray, bool]:
+    """A device tensor as a host numpy array, and whether it is pinned.
+    With `pin`, from a CUDA device, while PINNED_BUDGET_BYTES allows, the
+    copy lands in a block of torch's caching host allocator, pinned: the
+    DMA writes it directly, with no bounce through CUDA's own staging
+    buffer. The array keeps the block alive and owns it; when the caller
+    drops the array the allocator takes the block back, hands it to the
+    next read-back of its size, and the budget gets its bytes back.
+    Otherwise `.cpu()`, pageable."""
+    n = 1 << max(t.nbytes - 1, 0).bit_length()
+    if not pin or t.device.type != "cuda" or not _take_pinned(n):
+        return t.cpu().numpy(), False
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return _booked(host.numpy(), n), True
+
+
+def _booked(arr: np.ndarray, n: int) -> np.ndarray:
+    """`arr`, its n booked bytes given back when it goes. The array, not
+    the tensor: `.numpy()` bases the array on a wrapper of its own, so the
+    tensor object goes as `to_host` returns, while every view of the array,
+    and a tensor made from it by `torch.from_numpy`, keeps the array."""
+    weakref.finalize(arr, _give_pinned, n)
+    return arr

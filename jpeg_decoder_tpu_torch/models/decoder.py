@@ -18,9 +18,12 @@ stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
            (core/oracle.py: the EXACT IDCT and colour conversion in NumPy)
 
 Host-decoded planes go to the device in one copy per image; PALLAS and
-DEVICE planes are born there. RGB and the pixel planes come back in one
-copy each. The batch serving path (parallel/batch.py) runs the same
-PixelStage over stacked [B, by, bx, 64] planes and asks for RGB alone.
+DEVICE planes are born there. `decode` reads back the RGB and the pixel
+planes, one copy each, into pageable memory; `decode_rgb` asks the stage
+for RGB alone, and reads it back into pinned host memory on a CUDA device
+while convert.to_host's budget allows. The batch serving path
+(parallel/batch.py) runs the same PixelStage over stacked [B, by, bx, 64]
+planes and asks for RGB alone.
 
 The port covers what the JAX package's pixel stage takes: 1, 3 and 4
 components (YCbCr, YCCK, raw Adobe CMYK), 8- and 12-bit samples, both
@@ -44,7 +47,7 @@ from ..io.parser import parse
 from ..utils.config import DecodeConfig, IdctPrecision, Quirks
 from ..utils.errors import JpegConfigError, JpegFormatError
 from ..utils.metrics import GLOBAL_METRICS as metrics
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 
 from .. import convert
 from ..ops import color as color_ops
@@ -201,9 +204,14 @@ def _host_pixel_stage(frame: FrameHeader, planes, qts, cfg: DecodeConfig) -> Dec
 
 
 def _pixel_stage(frame: FrameHeader, planes: CoefficientPlanes | list, qts,
-                 cfg: DecodeConfig, device) -> DecodedImage:
+                 cfg: DecodeConfig, device, want_planes: bool = True) -> DecodedImage:
     """Coefficient planes (host CoefficientPlanes or device tensors) ->
-    DecodedImage with host RGB and pixel planes."""
+    DecodedImage with host RGB and pixel planes; with `want_planes` false
+    the stage makes none and only the RGB comes back (planes empty), into
+    pinned memory where convert.to_host's budget allows. With planes, every
+    array comes back pageable, as the caller of `decode` may keep many.
+    `copy_out` counts `readback_mb`, the MB read back, and
+    `readback_pinned_pct`, 100 where the RGB landed in pinned memory, else 0."""
     if not cfg.use_device:
         return _host_pixel_stage(frame, planes, qts, cfg)
     on = cfg.collect_metrics
@@ -212,43 +220,58 @@ def _pixel_stage(frame: FrameHeader, planes: CoefficientPlanes | list, qts,
     with span("device_stage", on, items=frame.width * frame.height):
         if not isinstance(planes, list):
             planes = convert.planes_to_device(planes, device)
-        rgb_dev, planes_dev = stage(*planes, want_planes=True)
+        rgb_dev, planes_dev = stage(*planes, want_planes=want_planes)
         with span("copy_out", on):
-            rgb = rgb_dev.cpu().numpy()
+            planes_dev = planes_dev or []
+            rgb, pinned = convert.to_host(rgb_dev, pin=not want_planes)
             host_planes = [p.cpu().numpy() for p in planes_dev]
+            count("readback_mb", sum(t.nbytes for t in [rgb_dev, *planes_dev]) / 1e6)
+            count("readback_pinned_pct", 100.0 if pinned else 0.0)
     return DecodedImage(frame=frame, planes=host_planes, rgb=rgb)
+
+
+def _decode_structure(structure: JpegStructure, cfg: DecodeConfig, device,
+                      want_planes: bool) -> DecodedImage:
+    planes, qts = host._entropy_decode(structure, cfg, device=device)
+    return _pixel_stage(structure.frame, planes, qts, cfg, device, want_planes)
 
 
 def decode_structure(structure: JpegStructure, cfg: DecodeConfig | None = None,
                      device="cuda") -> DecodedImage:
     """Decode an already-parsed stream."""
-    cfg = cfg or DecodeConfig()
-    device = convert.resolve_device(device)
-    planes, qts = host._entropy_decode(structure, cfg, device=device)
-    return _pixel_stage(structure.frame, planes, qts, cfg, device)
+    return _decode_structure(structure, cfg or DecodeConfig(),
+                             convert.resolve_device(device), True)
 
 
-def decode(data: bytes | np.ndarray, cfg: DecodeConfig | None = None,
-           device="cuda") -> DecodedImage:
-    """Decode one JPEG byte stream end to end on `device`."""
-    cfg = cfg or DecodeConfig()
-    device = convert.resolve_device(device)
+def _decode(data: bytes | np.ndarray, cfg: DecodeConfig, device,
+            want_planes: bool) -> DecodedImage:
     from ..io import bitstream as bs
 
     data_arr = bs.as_byte_array(data)
     fast = host._fast_host_decode(data_arr, cfg)
     if fast is not None:
         frame, planes, qts = fast
-        return _pixel_stage(frame, planes, qts, cfg, device)
+        return _pixel_stage(frame, planes, qts, cfg, device, want_planes)
     with span("parse", cfg.collect_metrics):
         structure = parse(data_arr, cfg)
-    return decode_structure(structure, cfg, device)
+    return _decode_structure(structure, cfg, device, want_planes)
+
+
+def decode(data: bytes | np.ndarray, cfg: DecodeConfig | None = None,
+           device="cuda") -> DecodedImage:
+    """Decode one JPEG byte stream end to end on `device`."""
+    return _decode(data, cfg or DecodeConfig(), convert.resolve_device(device), True)
 
 
 def decode_rgb(data: bytes | np.ndarray, cfg: DecodeConfig | None = None,
                device="cuda") -> np.ndarray:
-    """Decode straight to an [H, W, 3] uint8 RGB array."""
-    return decode(data, cfg, device).rgb
+    """Decode straight to an [H, W, 3] uint8 RGB array. The pixel stage
+    makes no sample planes, and only the RGB is read back. From a CUDA
+    device the array lives in pinned host memory (torch's caching host
+    allocator): the caller owns it, and the allocator takes the block back
+    when the caller drops the array. Past convert.PINNED_BUDGET_BYTES held
+    at once (a gigapixel frame, or many outputs kept) it is pageable."""
+    return _decode(data, cfg or DecodeConfig(), convert.resolve_device(device), False).rgb
 
 
 def decode_file(path, cfg: DecodeConfig | None = None, device="cuda") -> DecodedImage:

@@ -468,6 +468,68 @@ def test_device_batch_decoder_on_cuda_matches_cpu(cuda_device):
 
 
 
+def test_decode_rgb_reads_back_into_pinned_memory(cuda_device):
+    """JpegDecoder(DEVICE).decode_rgb returns its RGB in pinned host memory,
+    bitwise decode's, and counts readback_pinned_pct 100 and readback_mb
+    the RGB's bytes a request; decode's RGB stays pageable and counts 0.
+    An output the caller holds while three more frames of its size are
+    decoded (their outputs dropped, so the caching host allocator hands
+    their blocks round) stays as it was."""
+    datas = [make_jpeg(1280, 720, F420, 0, 40 + i) for i in range(4)]
+    dec = jtt.JpegDecoder(DEVICE, device=cuda_device)
+    names = ("readback_mb", "readback_pinned_pct")
+    before = {k: GLOBAL_METRICS.stages.get(k, StageStat()) for k in names}
+    before = {k: (st.calls, st.total_items) for k, st in before.items()}
+    held = dec.decode_rgb(datas[0])
+    kept = held.copy()
+    assert torch.from_numpy(held).is_pinned()
+    for data in datas[1:]:
+        out = dec.decode_rgb(data)
+        assert torch.from_numpy(out).is_pinned() and not np.array_equal(out, kept)
+        del out
+    np.testing.assert_array_equal(held, kept)
+    img = dec.decode(datas[0])
+    assert not torch.from_numpy(img.rgb).is_pinned()
+    np.testing.assert_array_equal(held, img.rgb)
+    got = {k: (GLOBAL_METRICS.stages[k].calls - before[k][0],
+               GLOBAL_METRICS.stages[k].total_items - before[k][1]) for k in names}
+    assert got["readback_pinned_pct"] == (5, pytest.approx(400.0))
+    mb = (5 * held.nbytes + sum(p.nbytes for p in img.planes)) / 1e6
+    assert got["readback_mb"] == (5, pytest.approx(mb))
+
+
+def test_decode_rgb_pins_within_its_budget(cuda_device, monkeypatch):
+    """With room for two 720p outputs' blocks (4 MiB each), two held
+    outputs are pinned and a third is pageable (readback_pinned_pct 0),
+    as a gigapixel frame past the budget is; dropping one gives its block
+    back to the next request, and dropping all gives the budget back
+    whole. Every output is bitwise decode's."""
+    import gc
+
+    from jpeg_decoder_tpu_torch import convert
+
+    datas = [make_jpeg(1280, 720, F420, 0, 50 + i) for i in range(4)]
+    dec = jtt.JpegDecoder(DEVICE, device=cuda_device)
+    want = [dec.decode(d).rgb for d in datas]
+    gc.collect()  # outputs earlier tests left in cycles give their bytes back now
+    start = convert._pinned_held
+    monkeypatch.setattr(convert, "PINNED_BUDGET_BYTES", start + (8 << 20))
+    pct = GLOBAL_METRICS.stages.get("readback_pinned_pct", StageStat())
+    c0, n0 = pct.calls, pct.total_items
+    outs = [dec.decode_rgb(d) for d in datas[:3]]
+    assert [torch.from_numpy(o).is_pinned() for o in outs] == [True, True, False]
+    assert convert._pinned_held == start + (8 << 20)
+    pct = GLOBAL_METRICS.stages["readback_pinned_pct"]
+    assert (pct.calls - c0, pct.total_items - n0) == (3, pytest.approx(200.0))
+    del outs[0]
+    outs.append(dec.decode_rgb(datas[3]))
+    assert torch.from_numpy(outs[-1]).is_pinned()
+    for o, w in zip(outs, want[1:]):
+        np.testing.assert_array_equal(o, w)
+    del outs, o
+    assert convert._pinned_held == start
+
+
 # ---------------------------------------------------------------------------
 # K2u: unstuffing on the card
 # ---------------------------------------------------------------------------

@@ -442,3 +442,86 @@ def test_decoder_handle_and_file_decode_new_configs(tmp_path, upsample):
     _assert_same(jtt.decode_file(path, cfg, device="cpu"), want)
     small = jtt.decode_file(path, cfg.replace(scale=2), device="cpu")
     assert small.rgb.shape == (10, 14, 3)
+
+
+def _counters():
+    from jpeg_decoder_tpu_torch.utils.metrics import GLOBAL_METRICS
+
+    return {k: (st.calls, st.total_items) for k, st in GLOBAL_METRICS.stages.items()
+            if k in ("readback_mb", "readback_pinned_pct")}
+
+
+def _counted(before, after, name):
+    """(calls, items) recorded under `name` between two _counters()."""
+    c0, n0 = before.get(name, (0, 0.0))
+    c1, n1 = after.get(name, (0, 0.0))
+    return c1 - c0, n1 - n0
+
+
+@pytest.mark.parametrize("precision", list(IdctPrecision), ids=lambda p: p.value)
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+@pytest.mark.parametrize("name", ["baseline_420", "baseline_444", "gray_odd_width"])
+def test_decode_rgb_reads_back_rgb_alone(monkeypatch, name, upsample, precision):
+    """decode_rgb asks the pixel stage for no planes, and its RGB is bitwise
+    decode's; decode still asks for them and returns them. `copy_out` counts
+    readback_mb (the bytes read back) and readback_pinned_pct (0 on the
+    CPU) once a request."""
+    from jpeg_decoder_tpu_torch.models import decoder as tdecoder
+
+    asked = []
+    forward = tdecoder.PixelStage.forward
+
+    def spy(self, *planes, want_planes=True):
+        asked.append(want_planes)
+        return forward(self, *planes, want_planes=want_planes)
+
+    monkeypatch.setattr(tdecoder.PixelStage, "forward", spy)
+    data = CASES[name]
+    cfg = DecodeConfig(upsample=upsample, idct_precision=precision)
+    c0 = _counters()
+    rgb = jtt.JpegDecoder(cfg, device="cpu").decode_rgb(data)
+    c1 = _counters()
+    img = jtt.decode(data, cfg, device="cpu")
+    c2 = _counters()
+    assert asked == [False, True]
+    np.testing.assert_array_equal(rgb, img.rgb)
+    assert len(img.planes) == (1 if name.startswith("gray") else 3)
+    assert all(p.dtype == np.uint8 and p.size for p in img.planes)
+    assert _counted(c0, c1, "readback_mb") == (1, pytest.approx(rgb.nbytes / 1e6))
+    assert _counted(c0, c1, "readback_pinned_pct") == (1, 0.0)
+    planes_mb = sum(p.nbytes for p in img.planes) / 1e6
+    assert _counted(c1, c2, "readback_mb") == (1, pytest.approx(rgb.nbytes / 1e6 + planes_mb))
+    assert _counted(c1, c2, "readback_pinned_pct") == (1, 0.0)
+
+
+@pytest.mark.parametrize("pin", [False, True])
+def test_pinned_budget_books_and_gives_back(monkeypatch, pin):
+    """convert's pinned budget: a booking past PINNED_BUDGET_BYTES is
+    refused and books nothing, a booking given back makes room again; a
+    read-back from the CPU is pageable whatever `pin` says, and books
+    nothing."""
+    from jpeg_decoder_tpu_torch import convert
+
+    monkeypatch.setattr(convert, "PINNED_BUDGET_BYTES", 3 << 20)
+    monkeypatch.setattr(convert, "_pinned_held", 0)
+    assert convert._take_pinned(2 << 20) and not convert._take_pinned(2 << 20)
+    assert convert._take_pinned(1 << 20) and not convert._take_pinned(1)
+    assert convert._pinned_held == 3 << 20
+    convert._give_pinned(2 << 20)
+    assert convert._take_pinned(2 << 20) and convert._pinned_held == 3 << 20
+    convert._give_pinned(3 << 20)
+    t = torch.arange(24, dtype=torch.uint8).reshape(2, 4, 3)
+    arr, pinned = convert.to_host(t, pin=pin)
+    assert not pinned and convert._pinned_held == 0
+    np.testing.assert_array_equal(arr, t.numpy())
+    # a booked read-back's bytes come back when its last holder goes
+    assert convert._take_pinned(1 << 20)
+    arr = convert._booked(torch.empty(t.shape, dtype=t.dtype).copy_(t).numpy(), 1 << 20)
+    view, tensor = arr[1:], torch.from_numpy(arr)
+    del arr
+    assert convert._pinned_held == 1 << 20
+    del view
+    assert convert._pinned_held == 1 << 20
+    np.testing.assert_array_equal(tensor.numpy(), t.numpy())
+    del tensor
+    assert convert._pinned_held == 0

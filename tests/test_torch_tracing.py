@@ -119,6 +119,22 @@ def test_request_spans_nest_as_documented():
     assert [r[0] for r in top] == ["parse", "entropy_device", "stage_lookup", "device_stage"]
 
 
+@pytest.mark.parametrize("entry", ["decode_rgb", "decode"])
+def test_traced_request_opens_copy_out_once(entry):
+    """A traced request opens `copy_out` once, inside `device_stage`,
+    whether it reads back the RGB alone (decode_rgb) or the planes too
+    (decode), and counts readback_mb and readback_pinned_pct once."""
+    dec = JpegDecoder(DecodeConfig(entropy_backend=EntropyBackend.DEVICE,
+                                   collect_metrics=True), device="cpu")
+    before = {k: GLOBAL_METRICS.stages[k].calls for k in ("readback_mb", "readback_pinned_pct")
+              if k in GLOBAL_METRICS.stages}
+    ranges = _ranges(lambda: getattr(dec, entry)(_request()))
+    copies = [r for r in ranges if r[0] == "copy_out"]
+    assert len(copies) == 1 and _parent(copies[0], ranges) == "device_stage"
+    for k in ("readback_mb", "readback_pinned_pct"):
+        assert GLOBAL_METRICS.stages[k].calls == before.get(k, 0) + 1
+
+
 def test_loader_spans_nest_as_documented():
     """A PALLAS decode_stream with collect_metrics on, every thread
     recorded: each loader span, nested as documented, the host stage's on
@@ -248,6 +264,8 @@ def test_idle_unattributed_exact(name):
     ("k2_pass2_steps.request", "k2_pass2_steps", 256 / 2),
     ("k2_pass2_steps.loader", "k2_pass2_steps", 256 / 2),
     ("colour_vector_pct.loader", "colour_vector_pct", 256 / 2),
+    ("readback_mb.request", "readback_mb", 256 / 2),
+    ("readback_pinned_pct.request", "readback_pinned_pct", 256 / 2),
 ])
 def test_span_and_counter_readers(name, stage, want):
     """(calls, seconds, items) as the harness snapshots GLOBAL_METRICS: the
