@@ -37,8 +37,8 @@ Phases, each of which exits non-zero on failure:
      layout) bitwise against its plain version and the host's per-segment
      unstuffing, stream, offsets and layout, on a 640x352 stream, at 4K and
      for the eight 4K requests in one call, each timed the card alone
-     beside the three-kernel version in turns, a device-to-device copy of the
-     raw bytes and raw[keep] (benchmarks/k2u_sweep.measure), with its
+     beside a device-to-device copy of the raw bytes and raw[keep]
+     (benchmarks/k2u_sweep.measure), with its
      registers and shared memory (nvcc -Xptxas -v); K2 on the DEVICE
      route (K2d: whole segments, none of the PALLAS route's lane guards)
      bitwise against its plain lockstep loop, with its records against
@@ -53,24 +53,20 @@ Phases, each of which exits non-zero on failure:
      and pass 2's launches and steps beside the same image with a marker
      per MCU row on the PALLAS route; and K2's scan and dc passes as the
      wrapper picks them (the dc pass in chunks; the scan pass in chunks
-     where a segment has more than one chunk of records) beside their
-     earlier design (a block per segment) in turns, on the dense 4K
-     request with a marker per MCU row and without markers;
-     K0 (EXACT IDCT) bitwise against its plain version and its earlier
-     design (jdtc_idct_exact_gather) on the 4K request's three planes, the
-     4K four-component frame's four, random +-2048 coefficients x a table
-     of 255, 8- and 12-bit, and ragged shapes, timed the card alone and
-     with L2 flushed beside the earlier design in turns, with both designs'
-     F2F conversions a block from their SASS; K1 (FLOAT32 IDCT) within 1 on
-     at most 1e-3 of the pixels, at the 4K luma shape, 8- and 12-bit, with
-     the error on extreme inputs reported, and bitwise its earlier design
-     (jdtc_idct_float_column) on those, the extremes and ragged shapes,
-     timed the card alone and with L2 flushed beside the earlier design in
-     turns on the luma plane and over the request's three planes, beside
-     the product alone as one cuBLAS call at both shapes, with both
-     designs' LDS and FFMA from their SASS; K3 (colour) bitwise against
-     its plain version and its earlier design (a thread a pixel), per image
-     and batched, timed beside it in turns; K03 (the EXACT pixel stage of a 3-component frame in one
+     where a segment has more than one chunk of records), timed on the
+     dense 4K request with a marker per MCU row and without markers, their
+     planes bitwise the native host decoder's;
+     K0 (EXACT IDCT) bitwise against its plain version on the 4K request's
+     three planes, the 4K four-component frame's four, random +-2048
+     coefficients x a table of 255, 8- and 12-bit, and ragged shapes,
+     timed the card alone and with L2 flushed, with its F2F conversions a
+     block from its SASS; K1 (FLOAT32 IDCT) within 1 on at most 1e-3 of the
+     pixels, at the 4K luma shape and ragged shapes, 8- and 12-bit, with
+     the error on extreme inputs reported, timed the card alone and with
+     L2 flushed on the luma plane and over the request's three planes,
+     beside the product alone as one cuBLAS call at both shapes, with its
+     LDS and FFMA from its SASS; K3 (colour) bitwise against its plain
+     version, per image and batched, timed the card alone; K03 (the EXACT pixel stage of a 3-component frame in one
      kernel) bitwise against its plain version and against K0 x 3 + K3, on
      the dense 4K request, the two photographs tiled to 4K, a 4:2:2 and a
      4:4:4 file of the corpus, random 12-bit planes at 4K and a batch of
@@ -86,32 +82,27 @@ Phases, each of which exits non-zero on failure:
      their 21 variants (E1-E6, P1-P5, G1-G4b, H1-H5) at both chain
      lengths the probe path launches them at, in both table placements
      where the table fits shared memory, PK6 also from a random state;
-     K3f (fancy upsample + colour) bitwise against its plain version and
-     its earlier design on the dense 4K request's planes,
-     flower_dri_blocks7_422.jpg, random 4:1:1 and 4:2:1 planes at 4K, a
-     batch of four and the 4K 4-component frame (YCCK EXACT, YCCK FLOAT32,
-     CMYK), both quirks, timed beside its earlier design in turns (one
-     image and the batch of four) and beside K3 on the same planes; K3c
-     (nearest-neighbour 4-component colour) bitwise against its plain
-     version and its earlier design on the 4K 4-component frame and, under
-     YCCK EXACT, on a 4096x4096 frame that walks R's whole (y, cr, k) domain
-     against the float64 chain in NumPy, timed beside its earlier design
-     under each transform; K5 (the scaled
-     IDCT, one launch for all components) at k = 1, 2 and 4 on the 4K
-     request's planes, within 1 on at most 1e-3 of the pixels and bitwise
-     at k = 1, bitwise its earlier design (a launch a plane) on them and,
-     12-bit, on random planes of their shapes, timed the card alone and
-     with L2 flushed beside its earlier design in turns, beside the launch
-     floor (an empty kernel at both designs' grids) and the product alone
-     as one torch.matmul; K4 (the encoder's device stage: colour,
-     pad, box subsample, FDCT, quantize) bitwise its plain version and its
-     earlier design (jdtc_fdct_column) on every coefficient of both 4K
+     K3f (fancy upsample + colour) bitwise against its plain version on
+     the dense 4K request's planes, flower_dri_blocks7_422.jpg, random
+     4:1:1 and 4:2:1 planes at 4K, a batch of four and the 4K 4-component
+     frame (YCCK EXACT, YCCK FLOAT32, CMYK), both quirks, timed the card
+     alone (one image and the batch of four) and beside K3 on the same
+     planes; K3c (nearest-neighbour 4-component colour) bitwise against its
+     plain version on the 4K 4-component frame and, under YCCK EXACT, on a
+     4096x4096 frame that walks R's whole (y, cr, k) domain against the
+     float64 chain in NumPy, timed the card alone under each transform; K5
+     (the scaled IDCT, one launch for all components) at k = 1, 2 and 4 on
+     the 4K request's planes, within 1 on at most 1e-3 of the pixels and
+     bitwise at k = 1 (on random 12-bit planes of their shapes reported),
+     timed the card alone and with L2 flushed, beside the launch floor (an
+     empty kernel at its grid) and the product alone as one torch.matmul;
+     K4 (the encoder's device stage: colour, pad, box subsample, FDCT,
+     quantize) bitwise its plain version on every coefficient of both 4K
      images and the small ones, the six chroma samplings, gray and a 2-D
      gray image at q = 10, 85 and 100, timed on the 4K photograph at 4:2:0
-     and 4:4:4 the card alone and with L2 flushed beside the earlier design
-     in turns and beside the product alone as one torch.matmul, with its
-     registers and shared memory and both designs' LDS and FFMA from their
-     SASS; K6n (the nearest-neighbour pixel stage of
+     and 4:4:4 the card alone and with L2 flushed and beside the product
+     alone as one torch.matmul, with its registers and shared memory and
+     its LDS and FFMA from its SASS; K6n (the nearest-neighbour pixel stage of
      streamed and striped decode: K03, K13 or K0/K1 + K3 launched with the
      stripe rule) bitwise its plain version (the JAX program stripe by
      stripe) on a 16384x2048 chunk of the gigapixel frame (below) and with 8
@@ -418,12 +409,9 @@ def timed_phase(name: str, fn, *args):
     return out
 
 
-def turns_line(t: dict) -> str:
-    """The times of pixel_sweep.in_turns, for a log line."""
-    return (f"the card alone {t['card_ms'][0]:.4f} and {t['card_ms'][1]:.4f} ms, its earlier"
-            f" design {t['earlier_card_ms'][0]:.4f} and {t['earlier_card_ms'][1]:.4f} ms (in"
-            f" turns); L2 flushed {t['flushed_ms'][0]:.4f} and {t['flushed_ms'][1]:.4f} ms,"
-            f" earlier {t['earlier_flushed_ms'][0]:.4f} and {t['earlier_flushed_ms'][1]:.4f} ms")
+def times_line(t: dict) -> str:
+    """The times of pixel_sweep.timed, for a log line."""
+    return f"the card alone {t['card_ms']:.4f} ms, L2 flushed {t['flushed_ms']:.4f} ms"
 
 
 def run_path(name: str, fn):
@@ -619,48 +607,37 @@ def device_inputs(no_dri: bytes, requests, tiled: dict) -> dict:
     }
 
 
-def tail_turns(dev, data: bytes, guard, reps: int = 10) -> dict:
+def tail_times(dev, data: bytes, guard, reps: int = 10) -> dict:
     """K2's scan and dc passes as the wrapper picks them (the dc pass in
     chunks; the scan pass a block per segment where every segment is one
-    chunk of records, else in chunks) and their earlier design (a block per
-    segment), in turns (new, earlier, earlier, new,
-    `reps` times) on one stream: the median ms of each pass (CUDA events
-    inside the call) and of the whole call (CUDA events around it, in a
-    call of its own without the pass events), and the largest difference
-    of their planes, status and first data units."""
-    from jpeg_decoder_tpu_torch import convert
+    chunk of records, else in chunks), `reps` times on one stream: the
+    median ms of each pass (CUDA events inside the call) and of the whole
+    call (CUDA events around it, in a call of its own without the pass
+    events), and the largest difference of the planes from the native host
+    decoder's."""
+    from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.models import host
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
 
     s = parse(data)
     args, host_arrays = entropy_cuda.launch_args(
         [entropy_cuda.prepare_scan(s, s.scans[0], guard)], dev)
-    planes = {e: convert.zero_planes(s.frame, dev) for e in (False, True)}
-    times = {False: ([], [], []), True: ([], [], [])}
-    outs = {}
+    planes = convert.zero_planes(s.frame, dev)
+    scan, dc, call = [], [], []
     for _ in range(reps):
-        for earlier in (False, True, True, False):
-            zero_all([planes[earlier]])
-            rec = {}
-            st = entropy_cuda.decode_segments(*args, [planes[earlier]], records=rec,
-                                              host=host_arrays, earlier_tail=earlier)
-            times[earlier][0].append(rec["pass_ms"][2])
-            times[earlier][1].append(rec["pass_ms"][4])
-            outs[earlier] = (st, rec["first_du"])
-            times[earlier][2].append(cuda_ms(lambda: entropy_cuda.decode_segments(
-                *args, [planes[earlier]], host=host_arrays, earlier_tail=earlier), 1,
-                before=lambda: zero_all([planes[earlier]])))
-    err = max(max_abs_err(outs[False][0], outs[True][0]),
-              max_abs_err(outs[False][1], outs[True][1]),
-              *[max_abs_err(a, b) for a, b in zip(planes[False], planes[True])])
+        zero_all([planes])
+        rec = {}
+        entropy_cuda.decode_segments(*args, [planes], records=rec, host=host_arrays)
+        scan.append(rec["pass_ms"][2])
+        dc.append(rec["pass_ms"][4])
+        call.append(cuda_ms(lambda: entropy_cuda.decode_segments(
+            *args, [planes], host=host_arrays), 1, before=lambda: zero_all([planes])))
+    _, native, _ = host.host_decode(data, DecodeConfig())
+    err = max(max_abs_err(a, b) for a, b in zip(planes, native.planes))
     med = statistics.median
-    return dict(scan_ms=med(times[False][0]), dc_ms=med(times[False][1]),
-                call_ms=med(times[False][2]),
-                earlier_scan_ms=med(times[True][0]), earlier_dc_ms=med(times[True][1]),
-                earlier_call_ms=med(times[True][2]),
-                scan_all=times[False][0], earlier_scan_all=times[True][0],
-                dc_all=times[False][1], earlier_dc_all=times[True][1],
-                call_all=times[False][2], earlier_call_all=times[True][2], max_abs_err=err)
+    return dict(scan_ms=med(scan), dc_ms=med(dc), call_ms=med(call), scan_all=scan,
+                dc_all=dc, call_all=call, max_abs_err=err)
 
 
 def check_k2d(dev, inputs: dict, dri: bytes, record: dict, card: str) -> None:
@@ -670,9 +647,9 @@ def check_k2d(dev, inputs: dict, dri: bytes, record: dict, card: str) -> None:
     the plain version's classes; on the 4K inputs of device_inputs, every
     plane bitwise the native host decoder's, with its passes' times beside
     the same image with a marker per MCU row on the PALLAS route; the scan
-    and dc passes as the wrapper picks them against their earlier design in
-    turns on the dense 4K request with a marker per MCU row and
-    restart-free."""
+    and dc passes as the wrapper picks them, timed on the dense 4K request
+    with a marker per MCU row and restart-free, their planes bitwise the
+    native host decoder's."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, EntropyBackend, JpegError, convert
     from jpeg_decoder_tpu_torch.benchmarks.inputs import make_jpeg
@@ -768,24 +745,20 @@ def check_k2d(dev, inputs: dict, dri: bytes, record: dict, card: str) -> None:
         log(f"K2d {name} ({len(data)} bytes, {len(recs)} scan(s)): planes bitwise the native"
             f" host decoder's; {line} [{card}]")
 
-    # the scan and dc passes as the wrapper picks them against their earlier
-    # design, in turns
-    turns = {"dense 4K, a marker per MCU row (PALLAS)": tail_turns(dev, dri,
+    # the scan and dc passes as the wrapper picks them
+    tails = {"dense 4K, a marker per MCU row (PALLAS)": tail_times(dev, dri,
                                                                    entropy_cuda.check_scan),
-             "dense 4K, restart-free (DEVICE)": tail_turns(
+             "dense 4K, restart-free (DEVICE)": tail_times(
                  dev, inputs["dense 4K, restart-free"][0], device_guard)}
-    for name, t in turns.items():
+    for name, t in tails.items():
         err = max(err, t["max_abs_err"])
-        log(f"K2 scan and dc passes, {name}, in turns: as the wrapper picks them scan"
-            f" {t['scan_ms']:.4f} ms, dc {t['dc_ms']:.4f} ms, the call {t['call_ms']:.4f} ms;"
-            f" earlier (a block per"
-            f" segment) scan {t['earlier_scan_ms']:.4f} ms, dc {t['earlier_dc_ms']:.4f} ms, the"
-            f" call {t['earlier_call_ms']:.4f} ms (medians of {len(t['scan_all'])}; scan"
-            f" {min(t['scan_all']):.4f}-{max(t['scan_all']):.4f} against"
-            f" {min(t['earlier_scan_all']):.4f}-{max(t['earlier_scan_all']):.4f});"
-            f" max_abs_err {t['max_abs_err']} [{card}]")
+        log(f"K2 scan and dc passes, {name}, as the wrapper picks them: scan"
+            f" {t['scan_ms']:.4f} ms, dc {t['dc_ms']:.4f} ms, the call {t['call_ms']:.4f} ms"
+            f" (medians of {len(t['scan_all'])}; scan"
+            f" {min(t['scan_all']):.4f}-{max(t['scan_all']):.4f}); planes against the native"
+            f" host decoder's max_abs_err {t['max_abs_err']} [{card}]")
         if t["max_abs_err"] != 0:
-            fail(f"K2's scan and dc passes differ from their earlier design on {name}")
+            fail(f"K2's planes differ from the native host decoder's on {name}")
 
     # the record: K2d at 4K on the dense restart-free request
     data = inputs["dense 4K, restart-free"][0]
@@ -802,7 +775,7 @@ def check_k2d(dev, inputs: dict, dri: bytes, record: dict, card: str) -> None:
                   shape=f"{W}x{H} 4:2:0, restart-free (one segment)",
                   subsequences=first["subsequences"][0], pass2_launches=first["pass2_launches"][0],
                   pass2_steps=first["pass2_steps"][0], pass_ms=first["pass_ms"][0],
-                  inputs=per_input, tail_turns=turns,
+                  inputs=per_input, tail_times=tails,
                   **bound(nbytes_of(*args[:4], args[6], args[7], *got),
                           K2_OPS_PER_SYMBOL * symbols, "int32"))
     log(f"K2d at 4K restart-free: {ms:.3f} ms one call, bound {record['bound_ms']:.4f} ms by"
@@ -973,11 +946,9 @@ def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict, card: st
     (pack_scan), bitwise, stream, offsets and K2's layout: a 640x352
     stream, the 4K request and the eight 4K requests of a batch in one
     call. Each also timed by benchmarks/k2u_sweep.measure: the card alone,
-    the single pass beside the three-kernel version in turns (three, single,
-    single, three), a device-to-device copy of the raw bytes, raw[keep] as
-    one PyTorch call, one call of the wrapper between events and the three-kernel
-    wrapper with its read-back; then the kernels' registers and shared
-    memory (nvcc -Xptxas -v)."""
+    a device-to-device copy of the raw bytes, raw[keep] as one PyTorch
+    call and one call of the wrapper between events; then the kernels'
+    registers and shared memory (nvcc -Xptxas -v)."""
     from jpeg_decoder_tpu_torch.benchmarks import k2u_sweep
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
     from jpeg_decoder_tpu_torch.io.parser import parse
@@ -1010,28 +981,22 @@ def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict, card: st
         m = k2u_sweep.measure(shape, raw, lo, hi, 7, card)
         bnd = bound(m["bound_bytes"], 3 * raw.numel(), "int32")
         log(f"K2u unstuff ({shape}: {raw.numel()} raw bytes, {lo.numel()} segments,"
-            f" {raw.numel() - end + 8} bytes dropped): the card alone {m['card_ms']:.4f} ms"
-            f" (runs {[round(t, 4) for t in m['card_ms_runs']]}), the three-kernel version"
-            f" {m['card_ms_3pass']:.4f} ms (runs {[round(t, 4) for t in m['card_ms_3pass_runs']]});"
+            f" {raw.numel() - end + 8} bytes dropped): the card alone {m['card_ms']:.4f} ms;"
             f" a D2D copy of the raw bytes {m['copy_card_ms']:.4f} ms, raw[keep]"
             f" {m['compaction_ms']:.4f} ms (one call, it synchronises); one call between"
-            f" events {m['wrapper_ms']:.4f} ms, the three-kernel wrapper with its read-back"
-            f" {m['wrapper_readback_ms']:.4f} ms; plain {plain_ms:.3f} ms, the host's"
+            f" events {m['wrapper_ms']:.4f} ms; plain {plain_ms:.3f} ms, the host's"
             f" per-segment unstuffing {host_ms:.1f} ms; bound {bnd['bound_ms']:.4f} ms;"
             f" max_abs_err {e} [{card}]")
         if datas[0] is big and len(datas) == 1:
             # Bound: the raw bytes and bounds read once, the stream and its
             # offsets written once; per raw byte a compare with 0x00, one
             # with 0xFF and the add of the prefix sum.
-            record.update(ms=m["card_ms"], card_ms=m["card_ms_runs"],
-                          card_ms_3pass=m["card_ms_3pass_runs"], copy_ms=m["copy_card_ms"],
+            record.update(ms=m["card_ms"], copy_ms=m["copy_card_ms"],
                           compaction_ms=m["compaction_ms"], call_ms=m["wrapper_ms"],
-                          readback_call_ms=m["wrapper_readback_ms"], plain_ms=plain_ms,
-                          library_ms=None,
+                          plain_ms=plain_ms, library_ms=None,
                           shape=f"{raw.numel()} raw bytes, {lo.numel()} segments", **bnd)
         elif len(datas) > 1:
-            record.update(batch_ms=m["card_ms"], batch_card_ms_3pass=m["card_ms_3pass_runs"],
-                          batch_copy_ms=m["copy_card_ms"],
+            record.update(batch_ms=m["card_ms"], batch_copy_ms=m["copy_card_ms"],
                           batch_compaction_ms=m["compaction_ms"], batch_plain_ms=plain_ms,
                           batch_bound_ms=bnd["bound_ms"],
                           batch_shape=f"{raw.numel()} raw bytes, {lo.numel()} segments")
@@ -1041,15 +1006,13 @@ def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict, card: st
 
 
 def check_k0(dev, big: bytes, cmyk: bytes, record: dict, card: str) -> None:
-    """K0 bitwise against its plain version and its earlier design
-    (jdtc_idct_exact_gather, reached by no wrapper): the 4K request's three
-    planes, random +-2048 coefficients x a table of 255 at the luma shape,
-    8- and 12-bit, the 4K 4:4:4 four-component frame's four planes, and
-    ragged shapes (one block wide, an odd width, a block count that is not a
+    """K0 bitwise against its plain version: the 4K request's three planes,
+    random +-2048 coefficients x a table of 255 at the luma shape, 8- and
+    12-bit, the 4K 4:4:4 four-component frame's four planes, and ragged
+    shapes (one block wide, an odd width, a block count that is not a
     multiple of the CTA's 128, a stacked batch, 12-bit). Its time is the
-    request's (three launches), the card alone and with L2 flushed, beside
-    the earlier design's in turns (pixel_sweep.k0_turns); the F2F
-    conversions a block in both designs' SASS."""
+    request's (three launches), the card alone and with L2 flushed
+    (pixel_sweep.k0_turns); the F2F conversions a block in its SASS."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
@@ -1080,36 +1043,29 @@ def check_k0(dev, big: bytes, cmyk: bytes, record: dict, card: str) -> None:
     err = 0
     for name, (c, q, bits12) in cases.items():
         got = idct.idct_plane(c, q, bits12)
-        e = max(max_abs_err(got, pixel_sweep.k0_plain(c, q, bits12)),
-                max_abs_err(got, pixel_sweep.k0_gather(c, q, bits12)))
+        e = max_abs_err(got, pixel_sweep.k0_plain(c, q, bits12))
         if e:
-            log(f"K0 idct_exact, {name}: max_abs_err {e} against its plain version or its"
-                f" earlier design")
+            log(f"K0 idct_exact, {name}: max_abs_err {e} against its plain version")
         err = max(err, e)
-    log(f"K0 idct_exact: max_abs_err {err} against its plain version and its earlier design"
-        f" on {len(cases)} planes ({', '.join(cases)})")
+    log(f"K0 idct_exact: max_abs_err {err} against its plain version on {len(cases)} planes"
+        f" ({', '.join(cases)})")
     turns = pixel_sweep.k0_turns(coeffs, tables, 7)
     ms = cuda_ms(lambda: [idct.idct_plane(c, q) for c, q in zip(coeffs, tables)], 10)
     plain_ms = cuda_ms(lambda: [pixel_sweep.k0_plain(c, q) for c, q in zip(coeffs, tables)], 3)
     blocks = turns["blocks"]
     mix = pixel_sweep.sass_mix()
-    f2f = {k: mix.get(k, {}).get("F2F") for k in ("idct_exact_kernel", "idct_exact_gather_kernel")}
-    regs = {k: mix.get("resources", {}).get(k) for k in f2f}
+    f2f = mix.get("idct_exact_kernel", {}).get("F2F")
+    regs = mix.get("resources", {}).get("idct_exact_kernel")
     # Bound: int16 coefficients and the tables in, uint8 pixels out; 511
     # float64 operations a block (the chain's products and sums: 31 in each
     # of 16 passes and 15 in the pre-scale, csrc/idct_exact.cuh).
     bnd = bound(nbytes_of(*coeffs, *tables) + blocks * 64, 511 * blocks, "float64")
-    record.update(max_abs_err=err, ms=statistics.median(turns["card_ms"]), ms_one_call=ms,
+    record.update(max_abs_err=err, ms=turns["card_ms"], ms_one_call=ms,
                   plain_ms=plain_ms, library_ms=None, **turns, f2f_a_block=f2f, resources=regs,
                   shape=f"3 planes of the {W}x{H} 4:2:0 request, {blocks} blocks", **bnd)
-    log(f"K0 idct_exact ({record['shape']}): the card alone {turns['card_ms'][0]:.4f} and"
-        f" {turns['card_ms'][1]:.4f} ms, its earlier design {turns['earlier_card_ms'][0]:.4f}"
-        f" and {turns['earlier_card_ms'][1]:.4f} ms (in turns); L2 flushed"
-        f" {turns['flushed_ms'][0]:.4f} and {turns['flushed_ms'][1]:.4f} ms, earlier"
-        f" {turns['earlier_flushed_ms'][0]:.4f} and {turns['earlier_flushed_ms'][1]:.4f} ms;"
-        f" one call {ms:.3f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
-        f" {bnd['bound_by']}; F2F a block {f2f['idct_exact_kernel']} (earlier design"
-        f" {f2f['idct_exact_gather_kernel']}); resources {regs} [{card}]")
+    log(f"K0 idct_exact ({record['shape']}): {times_line(turns)}; one call {ms:.3f} ms; plain"
+        f" {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; F2F a block"
+        f" {f2f}; resources {regs} [{card}]")
 
 
 def _random_blocks(rng, shape, lo=-1024, hi=1024):
@@ -1127,19 +1083,16 @@ def sass_of(mix: dict, kernels) -> dict:
 
 
 def check_k1(dev, big: bytes, record: dict, card: str) -> None:
-    """K1 against its plain version at the 4K luma shape (270x480 blocks),
-    8- and 12-bit: within 1 on at most K1_SHARE of the pixels; and bitwise
-    against its earlier design (jdtc_idct_float_column, reached by no
-    wrapper) on every case here: those, the request's luma plane, the
-    extremes and ragged shapes (one block wide, an odd width, a block count
-    that is not a multiple of the 64-block tile, a stacked batch; 8- and
-    12-bit). Also the request's own luma plane against EXACT (K0), and the
-    error on extreme inputs, which is reported and not gated. Its time on
-    the luma plane and over the request's three planes (the fancy FLOAT32
-    route's launches), the card alone and with L2 flushed, beside the
-    earlier design's in turns (pixel_sweep.k1_turns) and beside the product
-    alone as one cuBLAS call at the same shapes; LDS and FFMA in both
-    designs' SASS."""
+    """K1 against its plain version at the 4K luma shape (270x480 blocks)
+    and on ragged shapes (one block wide, an odd width, a block count that
+    is not a multiple of the 64-block tile, a stacked batch), 8- and
+    12-bit: within 1 on at most K1_SHARE of the pixels. Also the request's
+    own luma plane against EXACT (K0), and the error on extreme inputs,
+    which is reported and not gated. Its time on the luma plane and over
+    the request's three planes (the fancy FLOAT32 route's launches), the
+    card alone and with L2 flushed (pixel_sweep.k1_turns), beside the
+    product alone as one cuBLAS call at the same shapes; LDS and FFMA in
+    its SASS."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, IdctPrecision, convert
     from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
@@ -1154,18 +1107,10 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     rng = np.random.default_rng(85)
     blocks = torch.from_numpy(_random_blocks(rng, (by, bx))).to(dev)
 
-    earlier_err, earlier_cases = 0, 0
-
-    def against_earlier(got, c, q, bits12):
-        nonlocal earlier_err, earlier_cases
-        earlier_err = max(earlier_err, max_abs_err(got, pixel_sweep.k1_column(c, q, bits12)))
-        earlier_cases += 1
-
     err, share = 0, 0.0
     for bits12 in (False, True):
         got = idct.idct_plane(blocks, qt, bits12, f32)
         want = pixel_sweep.k1_plain(blocks, qt, bits12)
-        against_earlier(got, blocks, qt, bits12)
         e, sh = max_abs_err(got, want), share_differing(got, want)
         exact = idct.idct_plane(blocks, qt, bits12)
         log(f"K1 idct_float: {'12' if bits12 else '8'}-bit random blocks: against"
@@ -1174,7 +1119,6 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
         err, share = max(err, e), max(share, sh)
     luma = torch.from_numpy(planes.planes[0]).to(dev)
     got = idct.idct_plane(luma, qt, False, f32)
-    against_earlier(got, luma, qt, False)
     e_exact = max_abs_err(got, idct.idct_plane(luma, qt))
     log(f"K1 idct_float: 4K request luma plane against EXACT (K0): max_abs_err"
         f" {e_exact}, share {share_differing(got, idct.idct_plane(luma, qt)):.3e};"
@@ -1192,7 +1136,6 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     for label, c, bits12 in (("+-2048 x qt 255, 8-bit", wild, False),
                              ("near the int16 wrap, 12-bit", near, True)):
         got = idct.idct_plane(c, q255, bits12, f32)
-        against_earlier(got, c, q255, bits12)
         log(f"K1 idct_float extremes ({label}): against plain max_abs_err"
             f" {max_abs_err(got, pixel_sweep.k1_plain(c, q255, bits12))}, share"
             f" {share_differing(got, pixel_sweep.k1_plain(c, q255, bits12)):.3e}; against EXACT"
@@ -1202,14 +1145,9 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
         c = torch.from_numpy(_random_blocks(rng, dims)).to(dev)
         for bits12 in (False, True):
             got = idct.idct_plane(c, qr, bits12, f32)
-            against_earlier(got, c, qr, bits12)
             want = pixel_sweep.k1_plain(c, qr, bits12)
             err = max(err, max_abs_err(got, want))
             share = max(share, share_differing(got, want))
-    log(f"K1 idct_float: max_abs_err {earlier_err} against its earlier design on"
-        f" {earlier_cases} planes (tolerance 0)")
-    if earlier_err:
-        fail(f"K1 differs from its earlier design (max_abs_err {earlier_err})")
 
     frame, _, qts = host.host_decode(big, DecodeConfig())
     request = [(torch.from_numpy(p).to(dev), convert.quant_table_to_device(qts[c.qtid], dev))
@@ -1225,7 +1163,7 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     matmul_ms = pixel_sweep.product_ms([luma], [qt], 7)
     request_matmul_ms = pixel_sweep.product_ms([c for c, _ in request],
                                                [q for _, q in request], 7)
-    sass = sass_of(pixel_sweep.sass_mix(), ("idct_float_kernel", "idct_float_column_kernel"))
+    sass = sass_of(pixel_sweep.sass_mix(), ("idct_float_kernel",))
     # Bound: int16 coefficients and the table in, uint8 pixels out; the
     # [64] x [64, 64] product is 4096 FMAs a block, two float32 operations
     # each. No one PyTorch call computes dequant, product, floor, level
@@ -1233,17 +1171,17 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
     n_req = sum(c[..., 0].numel() for c, _ in request)
     req_bound = bound(nbytes_of(*[c for c, _ in request]) + 64 * n_req, 2 * 4096 * n_req,
                       "float32")["bound_ms"]
-    record.update(max_abs_err=err, share_differing=share, earlier_max_abs_err=earlier_err,
-                  ms=statistics.median(turns["card_ms"]), ms_one_call=ms, plain_ms=plain_ms,
-                  **turns, request_card_ms=statistics.median(req_turns["card_ms"]),
+    record.update(max_abs_err=err, share_differing=share,
+                  ms=turns["card_ms"], ms_one_call=ms, plain_ms=plain_ms,
+                  **turns, request_card_ms=req_turns["card_ms"],
                   request_turns=req_turns, request_bound_ms=req_bound, library_ms=None,
                   matmul_ms=matmul_ms, request_matmul_ms=request_matmul_ms, sass=sass,
                   shape=f"luma plane {by}x{bx} blocks",
                   **bound(nbytes_of(luma, qt) + by * bx * 64, 2 * 4096 * by * bx, "float32"))
-    log(f"K1 idct_float (luma plane, {by * bx} blocks): {turns_line(turns)}; the product alone"
+    log(f"K1 idct_float (luma plane, {by * bx} blocks): {times_line(turns)}; the product alone"
         f" (torch.matmul [{by * bx}, 64] x [64, 64], TF32 off; the card alone) {matmul_ms:.4f}"
         f" ms; bound {record['bound_ms']:.4f} ms [{card}]")
-    log(f"K1 idct_float (the 4K request's three planes, {n_req} blocks): {turns_line(req_turns)};"
+    log(f"K1 idct_float (the 4K request's three planes, {n_req} blocks): {times_line(req_turns)};"
         f" the product alone {request_matmul_ms:.4f} ms; bound {req_bound:.4f} ms [{card}]")
     log(f"K1 idct_float: one call {ms:.3f} ms, plain {plain_ms:.3f} ms, K0 on the same blocks"
         f" {exact_ms:.3f} ms ({record['shape']}); max_abs_err {err}, share differing"
@@ -1254,11 +1192,10 @@ def check_k1(dev, big: bytes, record: dict, card: str) -> None:
 
 
 def check_k3(dev, big: bytes, gray: bytes, record: dict, card: str) -> None:
-    """K3 bitwise against its plain version and its earlier design (a
-    thread a pixel, jdtc_color_pixel) on the 4K request's planes and the
-    gray one, both quirks, single and a batch of four; its time the card
-    alone and with L2 flushed on the 4K 4:2:0 planes beside the earlier
-    design's, in turns (pixel_sweep.colour_turns)."""
+    """K3 bitwise against its plain version on the 4K request's planes and
+    the gray one, both quirks, single and a batch of four; its time the
+    card alone and with L2 flushed on the 4K 4:2:0 planes
+    (pixel_sweep.colour_turns)."""
     import torch
     from jpeg_decoder_tpu_torch import Quirks
     from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
@@ -1274,8 +1211,7 @@ def check_k3(dev, big: bytes, gray: bytes, record: dict, card: str) -> None:
         for q in (Quirks.REFERENCE, Quirks.CORRECT):
             for ps in (planes, stacked):
                 got = color.planes_to_rgb(ps, h, w, factors, q)
-                err = max(err, max_abs_err(got, color._planes_to_rgb_plain(ps, h, w, factors, q)),
-                          max_abs_err(got, pixel_sweep.colour_pixel(ps, h, w, factors, q)))
+                err = max(err, max_abs_err(got, color._planes_to_rgb_plain(ps, h, w, factors, q)))
         if data is big:
             args = (planes, h, w, factors, Quirks.REFERENCE)
             ms = cuda_ms(lambda: color.planes_to_rgb(*args), 10)
@@ -1284,12 +1220,12 @@ def check_k3(dev, big: bytes, gray: bytes, record: dict, card: str) -> None:
             # Bound: the three planes in, 3 bytes a pixel out; two index
             # products and ten float32 operations a pixel.
             bnd = bound(nbytes_of(*planes) + 3 * h * w, 14 * h * w, "float32")
-    record.update(max_abs_err=err, ms=statistics.median(turns["card_ms"]), ms_one_call=ms,
+    record.update(max_abs_err=err, ms=turns["card_ms"], ms_one_call=ms,
                   plain_ms=plain_ms, library_ms=None, shape=f"{W}x{H} 4:2:0 planes", **turns,
                   **bnd)
-    log(f"K3 color: max_abs_err {err} against its plain version and its earlier design (both"
-        f" quirks, gray shear, single and batched)")
-    log(f"K3 color ({record['shape']}): {turns_line(turns)}; one call {ms:.3f} ms, plain"
+    log(f"K3 color: max_abs_err {err} against its plain version (both quirks, gray shear,"
+        f" single and batched)")
+    log(f"K3 color ({record['shape']}): {times_line(turns)}; one call {ms:.3f} ms, plain"
         f" {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
 
 
@@ -1736,10 +1672,8 @@ def check_k3f(dev, requests, files: dict, cmyk: bytes, record: dict, card: str) 
             for exact, raw in transforms:
                 args = (planes, h, w, factors, quirks, "fancy", exact, raw)
                 got = color.planes_to_rgb(*args)
-                e = max(e, max_abs_err(got, color._planes_to_rgb_plain(*args)),
-                        max_abs_err(got, pixel_sweep.colour_pixel(*args)))
-        log(f"K3f fancy, {name}: max_abs_err {e} against its plain version and its earlier"
-            f" design (both quirks"
+                e = max(e, max_abs_err(got, color._planes_to_rgb_plain(*args)))
+        log(f"K3f fancy, {name}: max_abs_err {e} against its plain version (both quirks"
             f"{', YCCK EXACT, YCCK FLOAT32 and CMYK' if len(transforms) > 1 else ''})")
         err = max(err, e)
     record["max_abs_err"] = err
@@ -1756,13 +1690,13 @@ def check_k3f(dev, requests, files: dict, cmyk: bytes, record: dict, card: str) 
     # n + b, which two output rows use, and the vertical 3A + A' + 4b and
     # shift), the colour step's ten float32 ones coming to less.
     bnd = bound(nbytes_of(*dense) + 3 * H * W, 16 * H * W, "int32")
-    record.update(ms=statistics.median(turns["card_ms"]), plain_ms=plain_ms, library_ms=None,
+    record.update(ms=turns["card_ms"], plain_ms=plain_ms, library_ms=None,
                   k3_card_ms=k3, shape=f"{W}x{H} 4:2:0 planes", **turns,
                   batch_of_four=batch, **bnd)
-    log(f"K3f fancy ({W}x{H} 4:2:0 planes): {turns_line(turns)}; K3 (nearest-neighbour) on"
+    log(f"K3f fancy ({W}x{H} 4:2:0 planes): {times_line(turns)}; K3 (nearest-neighbour) on"
         f" the same planes {k3:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms"
         f" by {bnd['bound_by']} [{card}]")
-    log(f"K3f fancy (a batch of four {W}x{H} 4:2:0, one launch): {turns_line(batch)} [{card}]")
+    log(f"K3f fancy (a batch of four {W}x{H} 4:2:0, one launch): {times_line(batch)} [{card}]")
 
 
 def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
@@ -1786,11 +1720,9 @@ def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
         for exact, raw in TRANSFORMS.values():
             args = (planes, H, W, f4, quirks, "nn", exact, raw)
             got = color.planes_to_rgb(*args)
-            err = max(err, max_abs_err(got, color._planes_to_rgb_plain(*args)),
-                      max_abs_err(got, pixel_sweep.colour_pixel(*args)))
+            err = max(err, max_abs_err(got, color._planes_to_rgb_plain(*args)))
     log(f"K3c (K3 on four planes), 4-component {W}x{H} 4:4:4 (hopper_cmyk_adobe.jpg tiled): max_abs_err"
-        f" {err} against its plain version and its earlier design (both quirks; YCCK EXACT,"
-        f" YCCK FLOAT32, CMYK)")
+        f" {err} against its plain version (both quirks; YCCK EXACT, YCCK FLOAT32, CMYK)")
     y, cr, k = np.meshgrid(*[np.arange(256, dtype=np.uint8)] * 3, indexing="ij")
     walk = [a.reshape(4096, 4096) for a in (y, np.full_like(y, 77), cr, k)]
     on_card = [torch.from_numpy(a).to(dev) for a in walk]
@@ -1806,8 +1738,8 @@ def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
     times, turns = {}, {}
     for name, (exact, raw) in TRANSFORMS.items():
         turns[name] = pixel_sweep.colour_turns(planes, H, W, f4, 7, "nn", exact, raw)
-        times[name] = statistics.median(turns[name]["card_ms"])
-        log(f"K3c (K3 on four planes, {W}x{H} 4:4:4), {name}: {turns_line(turns[name])}"
+        times[name] = turns[name]["card_ms"]
+        log(f"K3c (K3 on four planes, {W}x{H} 4:4:4), {name}: {times_line(turns[name])}"
             f" [{card}]")
     plain_ms = cuda_ms(lambda: color._planes_to_rgb_plain(planes, H, W, f4, Quirks.REFERENCE), 3)
     # Bound: the four planes in, 3 bytes a pixel out; YCCK EXACT's two
@@ -1825,15 +1757,15 @@ def check_k3c(dev, cmyk: bytes, record: dict, card: str) -> None:
 def check_k5(dev, big: bytes, record: dict, card: str) -> None:
     """K5 (one launch for all components) against its plain version
     (idct_matmul_scaled and blocks_to_plane, torch ops on the card) on the
-    4K request's three coefficient planes at k = 1, 2 and 4: within 1 on at
-    most K1_SHARE of the pixels, bitwise at k = 1; bitwise its earlier
-    design (a launch a plane: pixel_sweep.k5_percomp, also with its
-    loads first) on those planes and, 12-bit, on random planes of their
-    shapes. Its time the card alone and with L2 flushed beside the earlier
-    design in turns (pixel_sweep.k5_turns, with the launch floor: an empty
-    kernel at the earlier design's three grids and at the one grid), beside
-    the product alone as one library call (torch.matmul of the float32
-    coefficients by the folded [64, k*k] matrix, TF32 off, three calls)."""
+    4K request's three coefficient planes at k = 1, 2 and 4: within 1 on
+    at most K1_SHARE of the pixels, bitwise at k = 1; on random 12-bit
+    planes of their shapes the error is reported, not gated (the card
+    tests hold K5 bitwise the CPU model of its walk at 12-bit). Its time
+    the card alone and with L2
+    flushed (pixel_sweep.k5_turns, with the launch floor: an empty kernel
+    at its grid), beside the product alone as one library call
+    (torch.matmul of the float32 coefficients by the folded [64, k*k]
+    matrix, TF32 off, three calls)."""
     import torch
     from jpeg_decoder_tpu_torch import DecodeConfig, convert
     from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
@@ -1850,30 +1782,28 @@ def check_k5(dev, big: bytes, record: dict, card: str) -> None:
     coeffs12 = [torch.from_numpy(rng.integers(-2048, 2048, c.shape, dtype=np.int16)).to(dev)
                 for c in coeffs]
 
-    def plain(c, q, k):
+    def plain(c, q, k, bits12=False):
         by, bx, _ = c.shape
-        return idct.blocks_to_plane(idct.idct_matmul_scaled(c.reshape(-1, 64), q, k), by, bx, k)
+        return idct.blocks_to_plane(idct.idct_matmul_scaled(c.reshape(-1, 64), q, k, bits12),
+                                    by, bx, k)
 
     err, share, by_k = 0, 0.0, {}
     blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
     for k in (1, 2, 4):
-        got = idct.idct_planes_scaled(coeffs, host_tables, k)
         e, sh = 0, 0.0
+        got = idct.idct_planes_scaled(coeffs, host_tables, k)
         for g, c, q in zip(got, coeffs, tables):
             want = plain(c, q, k)
             e, sh = max(e, max_abs_err(g, want)), max(sh, share_differing(g, want))
+        got12 = idct.idct_planes_scaled(coeffs12, host_tables, k, True)
+        e12 = max(max_abs_err(g, plain(c, q, k, True)) for g, c, q in zip(got12, coeffs12, tables))
+        sh12 = max(share_differing(g, plain(c, q, k, True))
+                   for g, c, q in zip(got12, coeffs12, tables))
         if k == 1 and e != 0:
             fail(f"K5 at k = 1 differs from its plain version (max_abs_err {e}; tolerance 0)")
         err, share = max(err, e), max(share, sh)
-        for label, cs, bits12 in (("8-bit", coeffs, False), ("12-bit", coeffs12, True)):
-            new = idct.idct_planes_scaled(cs, host_tables, k, bits12)
-            for loads_first in (False, True):
-                old = pixel_sweep.k5_percomp(cs, tables, k, bits12, loads_first)
-                if not all(torch.equal(a, b) for a, b in zip(new, old)):
-                    fail(f"K5 at k = {k}, {label}, differs from its earlier design"
-                         f" (loads first: {loads_first}; tolerance 0)")
         turns = pixel_sweep.k5_turns(coeffs, tables, k, 7)
-        ms = statistics.median(turns["card_ms"])
+        ms = turns["card_ms"]
         xs = [c.reshape(-1, 64).to(torch.float32) for c in coeffs]
         ms_ = [idct.idct_matrix_scaled_on(dev, k) * q[zz].to(torch.float32)[:, None]
                for q in tables]
@@ -1894,17 +1824,15 @@ def check_k5(dev, big: bytes, record: dict, card: str) -> None:
         by_k[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=product, max_abs_err=e,
                        share_differing=sh, band_bytes_read=read, turns=turns, **bnd)
         log(f"K5 idct_scaled, k = {k} (the 4K request's three planes, {blocks} blocks, one"
-            f" launch of {turns['ctas']} blocks of threads): {turns_line(turns)}; its earlier"
-            f" design with its loads first {turns['loads_first_ms']:.4f} ms; the launch floor"
-            f" (an empty kernel) at the earlier design's grids {turns['earlier_ctas']}"
-            f" {turns['empty_earlier_grids_ms']:.4f} ms, at the one grid"
-            f" {turns['empty_one_grid_ms']:.4f} ms; the product alone (torch.matmul, TF32 off)"
+            f" launch of {turns['ctas']} blocks of threads): {times_line(turns)}; the launch"
+            f" floor (an empty kernel at its grid) {turns['empty_one_grid_ms']:.4f} ms; the"
+            f" product alone (torch.matmul, TF32 off)"
             f" {product:.4f} ms; plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by"
             f" {bnd['bound_by']} ({read} B read a block, the band of {band} coefficients in"
             f" 32-byte sectors; {ms / bnd['bound_ms']:.1f}x the bound, half of it"
             f" {'reached' if ms <= 2 * bnd['bound_ms'] else 'missed'}); against plain"
-            f" max_abs_err {e}, share differing {sh:.3e}; bitwise its earlier design, 8- and"
-            f" 12-bit [{card}]")
+            f" max_abs_err {e}, share differing {sh:.3e}; 12-bit random planes against plain"
+            f" max_abs_err {e12}, share differing {sh12:.3e} (not gated) [{card}]")
     record.update(max_abs_err=err, share_differing=share, by_k=by_k,
                   shape=f"the {W}x{H} 4:2:0 request's three planes at k = 4 (by_k: 1, 2, 4)",
                   **{key: by_k[4][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2273,7 +2201,7 @@ def check_k6h(dev, requests, record: dict, card: str) -> None:
         return stage._colour(whole, stage.pad_h, "fancy", color.Stripes(0, stage.hs))
 
     ms = [cuda_ms(lambda: k6h(0), 10), cuda_ms(lambda: k6h(0), 10)]
-    turns = pixel_sweep.in_turns(lambda: [k6h(k) for k in range(MESH_STRIPES)], k6f, 7)
+    turns = pixel_sweep.in_turns(lambda: [k6h(k) for k in range(MESH_STRIPES)], k6f, 7, "k6f")
     stage_k6h = pixel_sweep.card_ms(lambda: [stage.stripe(k, p, exchanges[k])
                                              for k, p in enumerate(parts)], 7)
     stage_k6f = pixel_sweep.card_ms(lambda: stage(*planes), 7)
@@ -2284,13 +2212,17 @@ def check_k6h(dev, requests, record: dict, card: str) -> None:
     shape = (f"{W}x{stage.hs}, stripe 0 of {W}x{H} 4:2:0 in {MESH_STRIPES} stripes (padded to"
              f" {stage.pad_h} rows), {len(rows)} halo rows")
     log(f"K6h ({shape}): one call {ms[0]:.3f} and {ms[1]:.3f} ms; both stripes (two launches)"
-        f" {turns_line(turns).replace('its earlier design', 'K6f (K3f over the padded frame)')};"
+        f" the card alone {turns['card_ms'][0]:.4f} and {turns['card_ms'][1]:.4f} ms, K6f (K3f"
+        f" over the padded frame) {turns['k6f_card_ms'][0]:.4f} and"
+        f" {turns['k6f_card_ms'][1]:.4f} ms (in turns); L2 flushed"
+        f" {turns['flushed_ms'][0]:.4f} and {turns['flushed_ms'][1]:.4f} ms, K6f"
+        f" {turns['k6f_flushed_ms'][0]:.4f} and {turns['k6f_flushed_ms'][1]:.4f} ms;"
         f" plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; the"
         f" pixel stage a stripe at a time (K0 x 3 + K6h, both stripes) the card alone"
         f" {stage_k6h:.4f} ms, K6f (K0 x 3 + K3f, one launch each) {stage_k6f:.4f} ms [{card}]")
     record.update(ms=statistics.median(ms), ms_runs=ms, card_ms=turns["card_ms"],
-                  k6f_card_ms=turns["earlier_card_ms"], flushed_ms=turns["flushed_ms"],
-                  k6f_flushed_ms=turns["earlier_flushed_ms"], stage_card_ms=stage_k6h,
+                  k6f_card_ms=turns["k6f_card_ms"], flushed_ms=turns["flushed_ms"],
+                  k6f_flushed_ms=turns["k6f_flushed_ms"], stage_card_ms=stage_k6h,
                   k6f_stage_card_ms=stage_k6f, plain_ms=plain_ms, library_ms=None, shape=shape,
                   **bnd)
 
@@ -3316,20 +3248,19 @@ def k4_cases(img) -> dict:
 
 
 def check_k4(dev, images: dict, record: dict, card: str) -> None:
-    """K4 against its plain version and against its earlier design
-    (jdtc_fdct_column, reached by no wrapper) on the card, every coefficient
-    bitwise: both 4K images and the two small ones, every sampling and gray,
-    at q = 10, 85 and 100. Then its time on the 4K photograph at 4:2:0 and
-    4:4:4, q85, the card alone and with L2 flushed beside the earlier
-    design's in turns (pixel_sweep.k4_turns), and one call, beside the
-    product alone as one torch.matmul ([N, 64] x [64, 64], TF32 off); its
-    registers and shared memory, and LDS and FFMA in both designs' SASS."""
+    """K4 against its plain version on the card, every coefficient bitwise:
+    both 4K images and the two small ones, every sampling and gray, at q =
+    10, 85 and 100. Then its time on the 4K photograph at 4:2:0 and 4:4:4,
+    q85, the card alone and with L2 flushed (pixel_sweep.k4_turns), and one
+    call, beside the product alone as one torch.matmul ([N, 64] x [64, 64],
+    TF32 off); its registers and shared memory, and LDS and FFMA in its
+    SASS."""
     import torch
     from jpeg_decoder_tpu_torch.benchmarks import k2u_sweep, pixel_sweep
     from jpeg_decoder_tpu_torch.models import encoder
     from jpeg_decoder_tpu_torch.ops import fdct, idct
 
-    differing, earlier_differing, compared, err = 0, 0, 0, 0
+    differing, compared, err = 0, 0, 0
     for name, img in images.items():
         for case, (factors, x) in k4_cases(img).items():
             src = torch.from_numpy(x).to(dev)
@@ -3338,22 +3269,18 @@ def check_k4(dev, images: dict, record: dict, card: str) -> None:
                                       dev)
                 got = fdct.encode_planes(src, factors, kq)
                 want = fdct._planes_plain(src, factors, kq)
-                earlier = pixel_sweep.fdct_column(src, factors, kq)
-                for a, b, c in zip(got, want, earlier, strict=True):
+                for a, b in zip(got, want, strict=True):
                     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
                     differing += int((d != 0).sum().item())
-                    earlier_differing += int((a != c).sum().item())
                     err = max(err, int(d.max().item()))
                     compared += d.numel()
         log(f"K4 fdct, {name}: {len(k4_cases(img))} samplings x q {K4_QUALITIES} against"
-            f" the plain version and the earlier design on the card")
+            f" the plain version on the card")
     log(f"K4 fdct: {differing} of {compared} coefficients differ from the plain version"
-        f" (max_abs_err {err}; tolerance 0), {earlier_differing} from the earlier design")
-    record.update(max_abs_err=err, differing=differing, coefficients_compared=compared,
-                  earlier_differing=earlier_differing)
-    if differing or earlier_differing:
-        fail(f"K4 differs from its plain version on {differing} coefficients, from its"
-             f" earlier design on {earlier_differing}")
+        f" (max_abs_err {err}; tolerance 0)")
+    record.update(max_abs_err=err, differing=differing, coefficients_compared=compared)
+    if differing:
+        fail(f"K4 differs from its plain version on {differing} coefficients")
 
     photo = torch.from_numpy(images[f"photograph {W}x{H}"]).to(dev)
     for sub in ("420", "444"):
@@ -3375,12 +3302,12 @@ def check_k4(dev, images: dict, record: dict, card: str) -> None:
         # each (the colour and box steps' few a sample far below).
         bnd = bound(nbytes_of(photo, out, kq), 2 * 4096 * blocks, "float32")
         shape = f"{W}x{H} {sub}, {blocks} blocks, run {fdct.run_mcus(factors)} MCUs"
-        log(f"K4 fdct ({shape}): {turns_line(turns)}; one call {one[0]:.3f} and {one[1]:.3f}"
+        log(f"K4 fdct ({shape}): {times_line(turns)}; one call {one[0]:.3f} and {one[1]:.3f}"
             f" ms; the product alone (torch.matmul [{blocks}, 64] x [64, 64], TF32 off; the"
             f" card alone) {matmul_ms:.4f} ms; plain {plain_ms:.3f} ms; bound"
             f" {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
         if sub == "420":
-            record.update(ms=statistics.median(turns["card_ms"]), plain_ms=plain_ms,
+            record.update(ms=turns["card_ms"], plain_ms=plain_ms,
                           library_ms=None, shape=shape, **turns, one_call_ms=one,
                           matmul_ms=matmul_ms, **bnd)
         else:
@@ -3388,7 +3315,7 @@ def check_k4(dev, images: dict, record: dict, card: str) -> None:
                           plain_ms_444=plain_ms, matmul_ms_444=matmul_ms,
                           bound_ms_444=bnd["bound_ms"])
     record["ptxas"] = k2u_sweep.ptxas_report("fdct.cu")
-    record["sass"] = sass_of(pixel_sweep.sass_mix(), ("fdct_kernel", "fdct_column_kernel"))
+    record["sass"] = sass_of(pixel_sweep.sass_mix(), ("fdct_kernel",))
     log(f"K4 registers and shared memory (nvcc -Xptxas -v): {record['ptxas']}; LDS and FFMA"
         f" in the SASS {record['sass']}")
 

@@ -48,11 +48,10 @@ SIGNATURES = {
     # stream, seg_off, seg_img, seg_idx, n_segs, ri, total_mcus, units,
     # n_units, tables, n_specs, plane_ptrs, status, sub_base, du_base_img,
     # max_subs, rec, used, first_du, dcdiff, lut, flag, chain, chain_words,
-    # earlier_tail, rounds (host int*), pass_ms (host float[5]* or null),
-    # cuda_stream
+    # rounds (host int*), pass_ms (host float[5]* or null), cuda_stream
     "jdtc_entropy_decode": [
         _P, _P, _P, _P, _I64, _I64, _P, _P, _I32, _P, _I32, _P, _P,
-        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P, _P, _P,
+        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P,
     ],
     # the subsequence size K2 was built with (no launch)
     "jdtc_entropy_sub_bytes": [],
@@ -64,25 +63,14 @@ SIGNATURES = {
     "jdtc_unstuff": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I32, _P],
     # the bytes of a K2u tile (no launch)
     "jdtc_unstuff_tile_bytes": [],
-    # the three-kernel K2u, for measurement: raw, n_raw, lo, hi, n_segs, block_sum,
-    # out, seg_off, cuda_stream
-    "jdtc_unstuff_3pass": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
     # coeffs, qt, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_exact": [_P, _P, _I64, _I32, _I32, _P, _P],
-    # K0's earlier design, for measurement: the same arguments
-    "jdtc_idct_exact_gather": [_P, _P, _I64, _I32, _I32, _P, _P],
     # coeffs, qt, k_matrix, n_blocks, blocks_x, bits12, out, cuda_stream
     "jdtc_idct_float": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
-    # K1's earlier design, for measurement: the same arguments
-    "jdtc_idct_float_column": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
     # K5, every component of a call in one launch: desc (host int64 [n][6]),
     # folded tables (host float [t][k^4]), n_comps, n_tables, k, bits12,
     # cuda_stream
     "jdtc_idct_scaled": [_P, _P, _I32, _I32, _I32, _I32, _P],
-    # K5's earlier design (a launch a component), for measurement: coeffs,
-    # qt, k_matrix [64, k*k], n_blocks, blocks_x, k, bits12, loads_first,
-    # out, cuda_stream
-    "jdtc_idct_scaled_percomp": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P],
     # an empty kernel of n_ctas blocks of K5's threads (the launch floor),
     # for measurement: n_ctas, cuda_stream
     "jdtc_idct_scaled_empty": [_I64, _P],
@@ -102,15 +90,9 @@ SIGNATURES = {
     # halos (host int64 [4][2]: each component's top and bottom halo rows'
     # device addresses, 0 for none) before out
     "jdtc_fancy_halo": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P, _P],
-    # their earlier design (a thread a pixel), for measurement: the same
-    # arguments
-    "jdtc_color_pixel": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
-    "jdtc_fancy_pixel": [*[_P] * 4, *[_I32] * 4, _P, _P, *[_I32] * 4, _P, _P],
     # K4 (the encoder's device stage): img, h, w, channels, n_comps, comps
     # (host int64 [3][9]), kq, consts (host float [5]), cuda_stream
     "jdtc_fdct": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
-    # K4's earlier design, for measurement: the same arguments
-    "jdtc_fdct_column": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     # The probes (csrc/probes.cu), each: its tensors, its sizes, steps, ...,
     # cuda_stream.
     # tab, idx0, out, n_lanes, lane_cols, row_stride, col_stride, idx_stride,

@@ -1,6 +1,5 @@
 """K2u (csrc/unstuff.cu) on one CUDA card: the single-pass kernel beside
-the earlier three-kernel design and what bounds them, and at other tile
-sizes.
+what bounds it, and at other tile sizes.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.k2u_sweep \\
         [--reps 15] [--threads 128 256 512] [--vecs 1 2] [--variants]
@@ -11,23 +10,19 @@ blocks, the two photographs tiled to that size, a 640x352 stream and eight
 dense 4K requests in one call. For each, one JSON line, each kernel first
 held bitwise against the plain version:
   - `card_ms` of the single pass (`jdtc_unstuff`: the memset of its
-    scratch, the pass and the one-block sub_base kernel) and `card_ms_3pass` of the three kernels
-    (`jdtc_unstuff_3pass`), timed in turns, three-pass, single, single,
-    three-pass: the card's time alone (`pixel_sweep.card_ms`, calls
-    queued behind a spin kernel);
+    scratch, the pass and the one-block sub_base kernel): the card's time
+    alone (`pixel_sweep.card_ms`, calls queued behind a spin kernel);
   - `copy_card_ms`: a device-to-device copy of the same raw bytes, the floor
     of any pass that reads and writes each byte once, the card alone;
   - `compaction_ms`: the compaction as one PyTorch call, `raw[keep]` with
     the mask made beforehand (a yardstick the port never calls; it
     synchronises to learn its output's size, so CUDA events around one
     call);
-  - `wrapper_ms`: `unstuff_segments` between CUDA events, one call, and
-    `wrapper_readback_ms`: the three-kernel wrapper, the kernels and the read-back
-    of `seg_off` it ended with, the same way;
+  - `wrapper_ms`: `unstuff_segments` between CUDA events, one call;
   - the bound: the raw bytes and bounds read once, the stream and its
     offsets written once, over 3.35 TB/s.
 Then the stage lines' order replayed (the dense request, then the two
-photographs): each wrapper's first call between CUDA events, its host time
+photographs): the wrapper's first call between CUDA events, its host time
 and the device segments the caching allocator added; and the registers,
 spills and shared memory of the kernels of csrc/unstuff.cu (nvcc -Xptxas
 -v, a few seconds). With --threads/--vecs, copies of the package with
@@ -108,18 +103,16 @@ def cases(streams: dict, dev) -> dict:
 
 
 def check(raw, lo, hi) -> tuple:
-    """The single pass and the three kernels bitwise against the plain
-    version: returns (plain result, the bytes defined)."""
+    """The single pass bitwise against the plain version: returns (plain
+    result, the bytes defined)."""
     from ..ops import entropy_cuda
 
     want = entropy_cuda._unstuff_plain(raw, lo, hi)
     end = int(want.seg_off[-1]) + 8
     got = entropy_cuda.unstuff_segments(raw, lo, hi)
-    old, old_off = entropy_cuda._unstuff_3pass(raw, lo, hi)
     if not (torch.equal(got.stream[:end], want.stream[:end])
             and torch.equal(got.seg_off, want.seg_off)
-            and torch.equal(got.sub_base, want.sub_base)
-            and torch.equal(old[:end], want.stream[:end]) and torch.equal(old_off, want.seg_off)):
+            and torch.equal(got.sub_base, want.sub_base)):
         raise RuntimeError("K2u differs from its plain version")
     return want, end
 
@@ -137,45 +130,35 @@ def measure(name, raw, lo, hi, reps: int, card: str) -> dict:
 
     want, end = check(raw, lo, hi)
     single = lambda: entropy_cuda.unstuff_segments(raw, lo, hi)
-    three = lambda: entropy_cuda._unstuff_3pass(raw, lo, hi)
-    old = [card_ms(three, reps)]
-    new = [card_ms(single, reps), card_ms(single, reps)]
-    old.append(card_ms(three, reps))
     out = torch.empty_like(raw)
     keep = entropy_cuda._keep_mask(raw, lo, hi)
     return dict(
         case=name, raw_bytes=raw.numel(), segments=lo.numel(), kept=end - 8,
-        card_ms=statistics.median(new), card_ms_runs=new,
-        card_ms_3pass=statistics.median(old), card_ms_3pass_runs=old,
+        card_ms=card_ms(single, reps),
         copy_card_ms=card_ms(lambda: out.copy_(raw), reps),
         compaction_ms=statistics.median(events_ms(lambda: raw[keep], reps)),
         wrapper_ms=statistics.median(events_ms(single, reps)),
-        wrapper_readback_ms=statistics.median(
-            events_ms(lambda: three()[1].cpu(), reps)),
         **bound(raw, lo, want, end), card=card)
 
 
 def replay(named: dict, reps: int, card: str) -> list[dict]:
-    """The stage lines' K2u call in their order, single pass and the three-kernel
-    wrapper with its read-back: one call between events (as
+    """The stage lines' K2u call in their order: one call between events (as
     chip_smoke.stage_times takes it), then `reps` more; the host clock of
     the first; the device segments the caching allocator added."""
     from ..ops import entropy_cuda
 
     out = []
     for name, (raw, lo, hi) in named.items():
-        for kind, fn in (("single pass", lambda: entropy_cuda.unstuff_segments(raw, lo, hi)),
-                         ("3pass with read-back",
-                          lambda: entropy_cuda._unstuff_3pass(raw, lo, hi)[1].cpu())):
-            before = torch.cuda.memory_stats().get("segment.all.allocated", 0)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            first = events_ms(fn, 1)[0]
-            first_host = (time.perf_counter() - t0) * 1e3
-            segments = torch.cuda.memory_stats().get("segment.all.allocated", 0) - before
-            out.append(dict(replay=name, kernel=kind, first_ms=first, first_host_ms=first_host,
-                            new_device_segments=segments, later_ms=events_ms(fn, reps),
-                            card=card))
+        fn = lambda: entropy_cuda.unstuff_segments(raw, lo, hi)  # noqa: E731
+        before = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = events_ms(fn, 1)[0]
+        first_host = (time.perf_counter() - t0) * 1e3
+        segments = torch.cuda.memory_stats().get("segment.all.allocated", 0) - before
+        out.append(dict(replay=name, first_ms=first, first_host_ms=first_host,
+                        new_device_segments=segments, later_ms=events_ms(fn, reps),
+                        card=card))
     return out
 
 
@@ -197,9 +180,7 @@ def ptxas_report(source: str = "unstuff.cu") -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             sym = m.group(1)
-            name = next((k for k in ("unstuff_kernel", "sub_base_kernel", "count_kernel",
-                                     "block_scan_kernel", "scatter_kernel", "fdct_kernel",
-                                     "fdct_column_kernel")
+            name = next((k for k in ("unstuff_kernel", "sub_base_kernel", "fdct_kernel")
                          if k in sym), sym)
             continue
         if name is None:

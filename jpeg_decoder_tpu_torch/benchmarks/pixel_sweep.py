@@ -3,7 +3,7 @@ at other strip sizes, on one CUDA card.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.pixel_sweep \\
         [--strip 2 4 8 16 32] [--reps 15] [--precision exact float32]
-        [--k13-variants] [--k0] [--colour [--against LIB]] [--k1] [--k4] [--k5]
+        [--k13-variants] [--k0] [--colour] [--k1] [--k4] [--k5] [--against LIB]
         [--no-sweep]
 
 G, the MCUs of one strip (one block of threads for K03; one step of a
@@ -20,46 +20,37 @@ threads (8 threads a block, at most 1024), and the card's time for one call
 K3) on the same inputs in the same way, with the card's name and power
 limit. Compare within one run only.
 
-Also one line of the instruction mix of K03, K0 (and its earlier design),
-K13 and K1 as built (cuobjdump -sass: the counts of the opcodes that take
-the time, per kernel, and cuobjdump -res-usage: registers, spills, static
-shared memory); and with --k13-variants the same timing for K13's variants
+Also one line of the instruction mix of K03, K0, K13, K1, K4 and K5 as
+built (cuobjdump -sass: the counts of the opcodes that take the time, per
+kernel, and cuobjdump -res-usage: registers, spills, static shared
+memory); and with --k13-variants the same timing for K13's variants
 (VARIANTS: two that drop work, to attribute its time, and the design
 choices it did not take). Each copy is built by nvcc in a temporary
 directory, run in a process of its own and, unless it drops work, held
-bitwise against the plain version (K03, K0) or K1 x 3 + K3 (K13).
+bitwise against the plain version (K03, K0), K1 x 3 + K3 (K13) or the
+tree's own kernel (K13, K1, K4), which a K13, K1 or K4 variant is timed
+beside in turns.
 
-With --k0, K0 (csrc/idct_exact.cu) beside its earlier design
-(jdtc_idct_exact_gather, k0_gather), in turns (earlier, K0, K0, earlier),
-the card alone and with L2 flushed before each call, on the 4K request's
-three planes and eight such requests stacked, both held bitwise against
-the plain version first; then copies of the package whose K0 keeps the new
-layout with the chain's earlier spelling (`K0, earlier arithmetic`) and
-with the halvings alone (`K0, halvings in float32`), so that the layout's,
-the halvings' and the integer store's shares can each be read. With
---colour, K3f, K3 and K3c beside their earlier design (a thread a pixel,
-colour_pixel) in the same way on the 4K 4:2:0 planes, eight 4K frames
-stacked, the 4K 4:4:4 four-component frame under each transform, and a
-loader's batch of 256 500x375 4:2:0 images (rows whose heads cycle 0, 12,
-8, 4); with --against LIB also beside the same entry point of another
-build of the kernel library (a path from `python -m
-jpeg_decoder_tpu_torch._build` in another checkout: on_library), in turns.
-With --k1, K1 (csrc/idct_float.cu) beside its earlier design
-(jdtc_idct_float_column, k1_column) in the same way on the 4K request's
-luma plane and on its three planes, held bitwise against each other first,
-then K1's VARIANTS. With --k4, K4 (csrc/fdct.cu) beside its earlier design
-(jdtc_fdct_column, fdct_column) on a 3840x2160 photograph (photograph_4k)
-at 4:2:0 and 4:4:4, q85, held bitwise against each other first, then K4's
+With --k0, K0 (csrc/idct_exact.cu) on the 4K request's three planes and
+eight such requests stacked, held bitwise against the plain version first,
+then K0's VARIANTS. With --colour, K3f, K3 and K3c, held bitwise against
+the plain version first, on the 4K 4:2:0 planes, eight 4K frames stacked,
+the 4K 4:4:4 four-component frame under each transform, and a loader's
+batch of 256 500x375 4:2:0 images (rows whose heads cycle 0, 12, 8, 4).
+With --k1, K1 (csrc/idct_float.cu) on the 4K request's luma plane and on
+its three planes, then K1's VARIANTS. With --k4, K4 (csrc/fdct.cu) on a
+3840x2160 photograph (photograph_4k) at 4:2:0 and 4:4:4, q85, then K4's
 VARIANTS (run lengths among them). With --k5, K5 (csrc/idct_scaled.cu, one
 launch for all components) on the 4K request's three planes at k = 1, 2
-and 4 beside its earlier design (jdtc_idct_scaled_percomp, a launch a
-plane, k5_percomp) in turns, the card alone and with L2 flushed, after
-holding the two bitwise; beside them the earlier design with its
-coefficient loads issued before its shared-memory fold and barrier, and an
-empty kernel at the earlier design's three grids and at the new design's
-one grid (the launch floor); then each K5 kernel's registers, shared
-memory and instruction mix, and from them the blocks of threads resident
-on an SM and the waves of each launch (k5_occupancy).
+and 4, beside an empty kernel at its grid (the launch floor); then each K5
+kernel's registers, shared memory and instruction mix, and from them the
+blocks of threads resident on an SM and the waves of its launch
+(k5_occupancy). Each kernel is timed the card alone and with L2 flushed
+before each call. With --against LIB (a path from `python -m
+jpeg_decoder_tpu_torch._build` in another checkout, say the parent
+commit's), each of them is instead held bitwise against the same entry
+point of that build and timed beside it in turns (timed, in_turns):
+the way to time a redesign against the design it replaces.
 Each of --k0, --k1, --k4 and --k5 ends with the instruction mix.
 """
 
@@ -87,10 +78,8 @@ W, H, RI = 3840, 2160, 240
 SASS_OPS = ("F2F", "F2I", "I2F", "I2FP", "FRND", "DMUL", "DADD", "FADD", "FMUL", "FFMA", "LDS",
             "STS", "LDC", "LDG")
 #: The kernels of the instruction mix, by their symbols' names.
-SASS_KERNELS = ("pixel_exact_kernel", "idct_exact_kernel", "idct_exact_gather_kernel",
-                "pixel_float_kernel", "idct_float_kernel", "idct_float_column_kernel",
-                "fdct_kernel", "fdct_column_kernel", "idct_scaled_kernel",
-                "idct_scaled_percomp_kernel")
+SASS_KERNELS = ("pixel_exact_kernel", "idct_exact_kernel", "pixel_float_kernel",
+                "idct_float_kernel", "fdct_kernel", "idct_scaled_kernel")
 #: A spin of about 10 ms at the H100's 1.98 GHz: long enough for the host to
 #: queue a sample's calls behind it, K0 x 3 + K3 being 32 launches.
 PARK_CYCLES = 20_000_000
@@ -142,15 +131,42 @@ def card_ms_flushed(fn, reps: int) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in marks)
 
 
-def in_turns(new, earlier, reps: int) -> dict:
-    """`new` beside `earlier` the card alone and with L2 flushed, in turns
-    (earlier, new, new, earlier): the lists card_ms, earlier_card_ms,
-    flushed_ms and earlier_flushed_ms."""
-    out = {"card_ms": [], "earlier_card_ms": [], "flushed_ms": [], "earlier_flushed_ms": []}
-    for key, fn in (("earlier_", earlier), ("", new), ("", new), ("earlier_", earlier)):
+def in_turns(new, other, reps: int, label: str = "against") -> dict:
+    """`new` beside `other` the card alone and with L2 flushed, in turns
+    (other, new, new, other): the lists card_ms, {label}_card_ms,
+    flushed_ms and {label}_flushed_ms."""
+    out = {"card_ms": [], f"{label}_card_ms": [], "flushed_ms": [], f"{label}_flushed_ms": []}
+    for key, fn in ((f"{label}_", other), ("", new), ("", new), (f"{label}_", other)):
         out[f"{key}card_ms"].append(card_ms(fn, reps))
         out[f"{key}flushed_ms"].append(card_ms_flushed(fn, reps))
     return out
+
+
+def _tensors(result) -> list:
+    """The tensors of a call's result: a tensor, or a (nested) list or tuple
+    of them (None left out)."""
+    if isinstance(result, torch.Tensor):
+        return [result]
+    return [t for r in result if r is not None for t in _tensors(r)]
+
+
+def same(a, b) -> bool:
+    """Two calls' results bitwise equal (_tensors)."""
+    a, b = _tensors(a), _tensors(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def timed(fn, reps: int, lib=None) -> dict:
+    """fn() the card alone and with L2 flushed (card_ms, flushed_ms); with
+    `lib`, a kernel library of another build (_build.load), fn held bitwise
+    against the same call on it and timed beside it in turns (in_turns,
+    `against_` its times)."""
+    if lib is None:
+        return dict(card_ms=card_ms(fn, reps), flushed_ms=card_ms_flushed(fn, reps))
+    other = on_library(lib, fn)
+    if not same(fn(), other()):
+        raise RuntimeError("the call differs from the same call on the other library")
+    return in_turns(fn, other, reps)
 
 
 def k0_k3(planes, qts, frame, quirks, want_planes: bool = True, precision=None):
@@ -167,39 +183,6 @@ def k0_k3(planes, qts, frame, quirks, want_planes: bool = True, precision=None):
     return rgb, (pixel if want_planes else None)
 
 
-def k0_gather(coeff_plane, qt, bits12: bool = False):
-    """K0's earlier design (csrc/idct_exact.cu jdtc_idct_exact_gather: a
-    thread a block gathering its coefficients from device memory, the
-    chain's earlier spelling) on a card tensor, as idct_plane launches K0:
-    for measurement, reached by no wrapper."""
-    from .. import _build
-
-    *lead, by, bx, _ = coeff_plane.shape
-    rows = int(np.prod(lead, dtype=np.int64)) * by
-    out = torch.empty((*lead, by * 8, bx * 8), dtype=torch.uint8, device=coeff_plane.device)
-    if rows * bx:
-        _build.launch("jdtc_idct_exact_gather", _build.ptr(coeff_plane), _build.ptr(qt),
-                      rows * bx, bx, int(bits12), _build.ptr(out), _build.stream_of(out))
-    return out
-
-
-def k1_column(coeff_plane, qt, bits12: bool = False):
-    """K1's earlier design (csrc/idct_float.cu jdtc_idct_float_column: a
-    thread a pixel position of 8 blocks) on a card tensor, as idct_plane
-    launches K1: for measurement, reached by no wrapper."""
-    from .. import _build
-    from ..ops import idct
-
-    *lead, by, bx, _ = coeff_plane.shape
-    rows = int(np.prod(lead, dtype=np.int64)) * by
-    out = torch.empty((*lead, by * 8, bx * 8), dtype=torch.uint8, device=coeff_plane.device)
-    if rows * bx:
-        _build.launch("jdtc_idct_float_column", _build.ptr(coeff_plane), _build.ptr(qt),
-                      _build.ptr(idct.idct_matrix_on(coeff_plane.device)), rows * bx, bx,
-                      int(bits12), _build.ptr(out), _build.stream_of(out))
-    return out
-
-
 def k1_plain(coeff_plane, qt, bits12: bool = False):
     """K1's plain version on a coefficient plane [..., by, bx, 64]: the pixel
     plane idct_plane gives on a CPU tensor, on the tensor's device."""
@@ -211,61 +194,26 @@ def k1_plain(coeff_plane, qt, bits12: bool = False):
                                 rows, bx).reshape(*lead, by * 8, bx * 8)
 
 
-def k1_turns(planes, qts, reps: int) -> dict:
-    """K1 over the planes (one launch a plane) beside its earlier design, in
-    turns (in_turns), after holding the two bitwise against each other;
-    with the blocks."""
+def k1_turns(planes, qts, reps: int, lib=None) -> dict:
+    """K1 over the planes (one launch a plane), timed (timed: with `lib`
+    beside another build's); with the blocks."""
     from .. import IdctPrecision
     from ..ops import idct
 
     f32 = IdctPrecision.FLOAT32
     new = lambda: [idct.idct_plane(c, t, False, f32) for c, t in zip(planes, qts)]  # noqa: E731
-    earlier = lambda: [k1_column(c, t) for c, t in zip(planes, qts)]  # noqa: E731
-    if not all(torch.equal(a, b) for a, b in zip(new(), earlier())):
-        raise RuntimeError("K1 differs from its earlier design")
-    return dict(in_turns(new, earlier, reps), blocks=sum(c[..., 0].numel() for c in planes))
+    return dict(timed(new, reps, lib), blocks=sum(c[..., 0].numel() for c in planes))
 
 
-def fdct_column(img, factors, kq, out=None):
-    """K4's earlier design (csrc/fdct.cu jdtc_fdct_column) on a card image,
-    with encode_planes's arguments: for measurement, reached by no
-    wrapper."""
-    import ctypes
-
-    from .. import _build
-    from ..ops import fdct
-
-    h, w = img.shape[:2]
-    _, _, comps = fdct.plane_layout(h, w, factors)
-    sizes = [by * bx * 64 for by, bx, _, _ in comps]
-    if out is None:
-        out = torch.empty(sum(sizes), dtype=torch.int16, device=img.device)
-    views = [v.view(by, bx, 64) for v, (by, bx, _, _) in zip(out.split(sizes), comps)]
-    if sum(sizes):
-        params = fdct.comp_params(views, comps, factors, kq.shape[0])
-        _build.launch("jdtc_fdct_column", _build.ptr(img), h, w, 1 if img.dim() == 2 else 3,
-                      len(factors), params.ctypes.data_as(ctypes.c_void_p), _build.ptr(kq),
-                      fdct.COLOR_CONSTANTS.ctypes.data_as(ctypes.c_void_p),
-                      _build.stream_of(img))
-    return views
-
-
-def k4_turns(img, factors, kq, reps: int) -> dict:
-    """K4 on one image beside its earlier design, in turns (in_turns), after
-    holding the two bitwise against each other; with the blocks."""
+def k4_turns(img, factors, kq, reps: int, lib=None) -> dict:
+    """K4 on one image, timed (timed: with `lib` beside another build's);
+    with the blocks."""
     from ..ops import fdct
 
     _, _, comps = fdct.plane_layout(img.shape[0], img.shape[1], factors)
     blocks = sum(by * bx for by, bx, _, _ in comps)
-    out = torch.empty(blocks * 64, dtype=torch.int16, device=img.device)
-    old = torch.empty_like(out)
-    new = lambda: fdct.encode_planes(img, factors, kq, out)  # noqa: E731
-    earlier = lambda: fdct_column(img, factors, kq, old)  # noqa: E731
-    new()
-    earlier()
-    if not torch.equal(out, old):
-        raise RuntimeError("K4 differs from its earlier design")
-    return dict(in_turns(new, earlier, reps), blocks=blocks)
+    new = lambda: fdct.encode_planes(img, factors, kq)  # noqa: E731
+    return dict(timed(new, reps, lib), blocks=blocks)
 
 
 def photograph_4k():
@@ -279,9 +227,8 @@ def photograph_4k():
     return torch.from_numpy(np.ascontiguousarray(rgb)).cuda()
 
 
-def k4_sweep(reps: int) -> list[dict]:
-    """K4 on the 4K photograph at 4:2:0 and 4:4:4, q85, beside its earlier
-    design in turns (k4_turns)."""
+def k4_sweep(reps: int, lib=None) -> list[dict]:
+    """K4 on the 4K photograph at 4:2:0 and 4:4:4, q85 (k4_turns)."""
     from ..models import encoder
     from ..ops import fdct
     from .gather_probe import card_line
@@ -289,77 +236,38 @@ def k4_sweep(reps: int) -> list[dict]:
     img = photograph_4k()
     kq = fdct.fdct_tables(encoder.quality_qtables(85), img.device)
     return [dict(kernel="K4", case=f"4K photograph {sub}", run=fdct.run_mcus(factors),
-                 card=card_line(), **k4_turns(img, factors, kq, reps))
+                 card=card_line(), **k4_turns(img, factors, kq, reps, lib))
             for sub, factors in ((s, encoder._SAMPLING[s]) for s in ("420", "444"))]
 
 
-def k5_percomp(planes, qts, k: int, bits12: bool = False, loads_first: bool = False):
-    """K5's earlier design (csrc/idct_scaled.cu jdtc_idct_scaled_percomp: a
-    launch a plane, each block of threads folding the band into shared
-    memory; with `loads_first` its coefficient loads issued before the fold
-    and the barrier) on card planes and their int32 tables on the card, as
-    idct_planes_scaled's arguments: for measurement, reached by no
-    wrapper."""
-    from .. import _build
-    from ..ops import idct
-
-    outs = []
-    for c, q in zip(planes, qts):
-        *lead, by, bx, _ = c.shape
-        rows = int(np.prod(lead, dtype=np.int64)) * by
-        out = torch.empty((*lead, by * k, bx * k), dtype=torch.uint8, device=c.device)
-        if rows * bx:
-            _build.launch("jdtc_idct_scaled_percomp", _build.ptr(c), _build.ptr(q),
-                          _build.ptr(idct.idct_matrix_scaled_on(c.device, k)), rows * bx, bx, k,
-                          int(bits12), int(loads_first), _build.ptr(out), _build.stream_of(out))
-        outs.append(out)
-    return outs
-
-
-def k5_empty(ctas) -> None:
-    """An empty kernel of K5's threads once for each count of blocks of
-    threads in `ctas`: the launch floor of a design with those grids."""
+def k5_empty(ctas: int) -> None:
+    """An empty kernel of K5's threads over `ctas` blocks of threads: the
+    launch floor of a launch of that grid."""
     from .. import _build
 
-    stream = _build.stream_of(torch.empty(0, device="cuda"))
-    for n in ctas:
-        _build.launch("jdtc_idct_scaled_empty", int(n), stream)
+    _build.launch("jdtc_idct_scaled_empty", ctas, _build.stream_of(torch.empty(0, device="cuda")))
 
 
-def k5_grids(planes) -> tuple[list[int], int]:
-    """The blocks of threads of the earlier design's launches (one a plane)
-    and of the new design's one launch (each plane from a block of
-    threads' boundary: the same count)."""
+def k5_grid(planes) -> int:
+    """The blocks of threads of K5's one launch over the planes (each plane
+    from a block of threads' boundary)."""
     from ..ops import idct
 
-    per = [-(-c[..., 0].numel() // idct.K5_THREADS) for c in planes]
-    return per, sum(per)
+    return sum(-(-c[..., 0].numel() // idct.K5_THREADS) for c in planes)
 
 
-def k5_turns(planes, qts, k: int, reps: int, bits12: bool = False) -> dict:
-    """K5 (one launch) beside its earlier design (a launch a plane) over the
-    planes, in turns (in_turns), after holding the new design, the earlier
-    one and the earlier one with its loads first bitwise against each
-    other; beside them, the card alone and with L2 flushed, the earlier
-    design with its loads first and the empty kernel at the earlier design's
-    grids and at the new design's grid (k5_grids); with the blocks."""
+def k5_turns(planes, qts, k: int, reps: int, bits12: bool = False, lib=None) -> dict:
+    """K5 (one launch) over the planes, timed (timed: with `lib` beside
+    another build's); beside it, the card alone and with L2 flushed, the
+    empty kernel at its grid (k5_grid: the launch floor); with the blocks."""
     from ..ops import idct
 
     host = [q.cpu().numpy() for q in qts]
     new = lambda: idct.idct_planes_scaled(planes, host, k, bits12)  # noqa: E731
-    earlier = lambda: k5_percomp(planes, qts, k, bits12)  # noqa: E731
-    first = lambda: k5_percomp(planes, qts, k, bits12, loads_first=True)  # noqa: E731
-    if not all(torch.equal(a, b) and torch.equal(a, c)
-               for a, b, c in zip(new(), earlier(), first())):
-        raise RuntimeError(f"K5 differs from its earlier design at k = {k}")
-    per, one = k5_grids(planes)
-    out = dict(in_turns(new, earlier, reps), blocks=sum(c[..., 0].numel() for c in planes),
-               ctas=one, earlier_ctas=per)
-    for key, fn in (("loads_first", first), ("empty_earlier_grids", lambda: k5_empty(per)),
-                    ("empty_one_grid", lambda: k5_empty([one]))):
-        out[f"{key}_ms"] = card_ms(fn, reps)
-        out[f"{key}_flushed_ms"] = card_ms_flushed(fn, reps)
-    return out
+    one = k5_grid(planes)
+    return dict(timed(new, reps, lib), blocks=sum(c[..., 0].numel() for c in planes), ctas=one,
+                empty_one_grid_ms=card_ms(lambda: k5_empty(one), reps),
+                empty_one_grid_flushed_ms=card_ms_flushed(lambda: k5_empty(one), reps))
 
 
 #: The H100's limits an SM for the blocks of threads resident at once: 2048
@@ -369,13 +277,11 @@ def k5_turns(planes, qts, k: int, reps: int, bits12: bool = False) -> dict:
 SM_THREADS, SM_CTAS, SM_REGS, SM_SHARED, CTA_RESERVED, SMS = 2048, 32, 65536, 233472, 1024, 132
 
 
-def k5_occupancy(ctas_by_k: dict, threads: int = 256) -> dict:
-    """Each K5 kernel instance (template arguments in the symbol: K, and
-    the earlier design's loads-first flag) as built: its registers, shared
-    memory and instruction mix (_symbol_mix), the blocks of threads
-    resident on an SM by the limits above, and the waves of its launches
-    at `ctas_by_k` (k -> {"new": one grid, "earlier": the grids of its
-    launches})."""
+def k5_occupancy(grid: int, threads: int = 256) -> dict:
+    """Each K5 kernel instance (K, the template argument in the symbol) as
+    built: its registers, shared memory and instruction mix (_symbol_mix),
+    the blocks of threads resident on an SM by the limits above, and the
+    waves of its launch at `grid` blocks of threads."""
     from .. import _build
 
     mix, resources = _symbol_mix(str(_build.build()))
@@ -383,53 +289,28 @@ def k5_occupancy(ctas_by_k: dict, threads: int = 256) -> dict:
     for symbol, r in resources.items():
         if "idct_scaled" not in symbol or "empty" in symbol:
             continue
-        m = re.search(r"ILi(\d)E(?:Lb(\d)E)?", symbol)
-        k = int(m.group(1))
-        earlier = "percomp" in symbol
-        name = (f"earlier k={k}" + (" loads first" if m.group(2) == "1" else "")) if earlier \
-            else f"new k={k}"
+        k = int(re.search(r"ILi(\d)E", symbol).group(1))
         warps = -(-threads // 32)
         regs_cta = -(-r.get("reg", 0) * 32 // 256) * 256 * warps
         resident = min(SM_THREADS // threads, SM_CTAS,
                        SM_REGS // regs_cta if regs_cta else SM_CTAS,
                        SM_SHARED // (r.get("shared", 0) + CTA_RESERVED))
-        grids = ctas_by_k[k]["earlier" if earlier else "new"]
-        out[name] = dict(**r, sass=dict(mix.get(symbol, {})), resident_ctas_per_sm=resident,
-                         grids=grids,
-                         waves=[round(g / (SMS * resident), 3) for g in grids])
+        out[f"k={k}"] = dict(**r, sass=dict(mix.get(symbol, {})), resident_ctas_per_sm=resident,
+                             grid=grid, waves=round(grid / (SMS * resident), 3))
     return out
 
 
-def k5_sweep(reps: int) -> list[dict]:
+def k5_sweep(reps: int, lib=None) -> list[dict]:
     """K5 on the 4K request's three planes at k = 4, 2 and 1 (k5_turns), 8-
     bit, then each instance's occupancy (k5_occupancy)."""
     from .gather_probe import card_line
     from .inputs import F420, make_jpeg
 
     _frame, planes, qts = decoded([make_jpeg(W, H, F420, RI, 0)], torch.device("cuda"))
-    per, one = k5_grids(planes)
     recs = [dict(kernel="K5", case=f"4K request, 3 planes, k = {k}", k=k, card=card_line(),
-                 **k5_turns(planes, qts, k, reps)) for k in (4, 2, 1)]
-    recs.append(dict(kernel="K5", occupancy=k5_occupancy(
-        {k: {"new": [one], "earlier": per} for k in (1, 2, 4)})))
+                 **k5_turns(planes, qts, k, reps, lib=lib)) for k in (4, 2, 1)]
+    recs.append(dict(kernel="K5", occupancy=k5_occupancy(k5_grid(planes))))
     return recs
-
-
-def colour_pixel(planes, h, w, factors, quirks, upsample="nn", exact=True, raw_cmyk=False,
-                 gray_shear=None, stripes=None):
-    """K3's and K3f's earlier design (csrc/color.cu jdtc_color_pixel,
-    jdtc_fancy_pixel: a thread a pixel) on card tensors, with
-    planes_to_rgb's arguments and geometry: for measurement, reached by no
-    wrapper."""
-    from .. import Quirks
-    from ..ops import color
-
-    lead = planes[0].shape[:-2]
-    shear = quirks == Quirks.REFERENCE if gray_shear is None else gray_shear
-    fancy = upsample == "fancy" and len(planes) > 1
-    mode = color.GRAY if len(planes) == 1 else color.colour_mode(len(planes), exact, raw_cmyk)
-    return color._launch("jdtc_fancy_pixel" if fancy else "jdtc_color_pixel", planes, lead,
-                         h, w, factors, quirks, mode, shear, stripes)
 
 
 def k1_k3(planes, qts, frame, quirks, want_planes: bool = True):
@@ -562,7 +443,7 @@ def sass_mix() -> dict:
     """kernel -> {opcode: count} in the built library's SASS, for the
     kernels of SASS_KERNELS ({} where the toolkit has no cuobjdump): the
     instructions of their code as written, not counts a block (K0's code
-    and its earlier design's run once a block, K03's row and column passes once a row and once a
+    runs once a block, K03's row and column passes once a row and once a
     column, K13's product once a pixel row of four blocks), a template's
     instances summed; and under "resources" each one's registers, spill
     bytes and static shared memory (cuobjdump -res-usage; the last
@@ -612,22 +493,18 @@ K13_OWN_LOOP = r"""#pragma unroll
 #: Variants built from a copy of the package: name -> (the kernel, its
 #: source edits as (file in csrc/, regular expression, replacement, the
 #: count of matches expected), whether the copy must stay bitwise). The
-#: K0 ones keep its layout with the chain's earlier spelling (float64
-#: halvings and store) and with the halvings alone; the K13 ones test
-#: its design: two attribute its time (without the product; without the
-#: colour step and the stores of RGB and the planes), the others are the
+#: K0 ones its blocks a CTA; the K13 ones test its design: two attribute
+#: its time (without the product; without the colour step and the stores
+#: of RGB and the planes), the others are the
 #: choices it did not take (blocks a thread, a floor of threads for the
 #: strip's other steps, K read from device memory through L1 instead of
 #: shared memory) and its product loop before the shared tile; the K1 and
-#: K4 ones their register tiles, thread counts and K4's run length, held
-#: bitwise against the earlier design, and (dropping work) their time
-#: without the product or, for K4, without forming the samples. A bitwise
-#: K13 variant is timed in turns beside the tree's K13 (_worker).
+#: K4 ones their register tiles, thread counts and K4's run length, and
+#: (dropping work) their time without the product or, for K4, without
+#: forming the samples. A K13, K1 or K4 variant is timed in turns beside
+#: the tree's kernel, and held bitwise against it unless it drops work
+#: (_worker).
 VARIANTS = {
-    "K0, earlier arithmetic": ("K0", [("idct_exact.cu", r"kArithmetic = 2;",
-                                       "kArithmetic = 0;", 1)], True),
-    "K0, halvings in float32": ("K0", [("idct_exact.cu", r"kArithmetic = 2;",
-                                        "kArithmetic = 1;", 1)], True),
     "K0, 64 blocks a CTA": ("K0", [("idct_exact.cu", r"kThreads = 128;", "kThreads = 64;", 1)],
                             True),
     "K0, 256 blocks a CTA": ("K0", [("idct_exact.cu", r"kThreads = 128;", "kThreads = 256;",
@@ -687,8 +564,8 @@ def variant_inputs(path: Path, dense, photo=None) -> None:
     """The variants' inputs into `path`: the dense 4K request with planes
     and eight such requests without, as the native host decoder reads
     them; K4's, the 4K photograph (photograph_4k), where given; and the
-    path of the tree's own kernel library, which a K13 variant is timed
-    beside."""
+    path of the tree's own kernel library, which a K13, K1 or K4 variant is
+    timed beside."""
     from .. import _build
 
     cases = {"dense 4K request, planes": (*decoded(dense[:1], "cpu"), True),
@@ -736,11 +613,11 @@ def build_variant(name: str, inputs: Path, reps: int) -> list[dict]:
 
 
 def _worker(name: str, inputs: str, reps: int) -> None:
-    """In a variant's copy: its kernel held bitwise against K03's plain
-    version, K1 x 3 + K3 or (K1, K4) its earlier design, unless the variant
-    drops work, then timed; a bitwise K13 variant also held bitwise against
-    the tree's K13 and timed in turns beside it (in_turns: `tree_` the
-    tree's)."""
+    """In a variant's copy: its kernel held bitwise against K03's or K0's
+    plain version or K1 x 3 + K3 (K13), unless the variant drops work, then
+    timed; a K13, K1 or K4 variant timed in turns beside the tree's kernel
+    (in_turns: `tree_` the tree's), and held bitwise against it unless it
+    drops work."""
     from .. import IdctPrecision, Quirks, _build
     from ..ops import idct, pixel
     from .gather_probe import card_line
@@ -750,6 +627,14 @@ def _worker(name: str, inputs: str, reps: int) -> None:
                    else (pixel.pixel_float, k1_k3))
     q = Quirks.REFERENCE
     data = torch.load(inputs, weights_only=False)
+    tree_lib = _build.load(data["library"])
+
+    def beside_tree(mine) -> dict:
+        tree = on_library(tree_lib, mine)
+        if bitwise and not same(mine(), tree()):
+            raise RuntimeError(f"the variant {name!r} differs from the tree's {kernel}")
+        return in_turns(mine, tree, reps, "tree")
+
     if kernel == "K4":
         from ..models import encoder
         from ..ops import fdct
@@ -758,9 +643,7 @@ def _worker(name: str, inputs: str, reps: int) -> None:
         kq = fdct.fdct_tables(encoder.quality_qtables(85), photo.device)
         for sub in ("420", "444"):
             factors = encoder._SAMPLING[sub]
-            rec = (k4_turns(photo, factors, kq, reps) if bitwise else in_turns(
-                lambda f=factors: fdct.encode_planes(photo, f, kq),
-                lambda f=factors: fdct_column(photo, f, kq), reps))
+            rec = beside_tree(lambda f=factors: fdct.encode_planes(photo, f, kq))
             print(json.dumps(dict(case=f"4K photograph {sub}", variant=name, kernel=kernel,
                                   bitwise_checked=bitwise, card=card_line(), **rec)),
                   flush=True)
@@ -772,11 +655,9 @@ def _worker(name: str, inputs: str, reps: int) -> None:
             if case != "dense 4K request, planes":
                 continue
             for label, cs, ts in (("luma plane", planes[:1], qts[:1]), ("3 planes", planes, qts)):
-                # held bitwise against the earlier design, unless the variant drops work
-                rec = k1_turns(cs, ts, reps) if bitwise else in_turns(
+                rec = beside_tree(
                     lambda c=cs, t=ts: [idct.idct_plane(a, b, False, IdctPrecision.FLOAT32)
-                                        for a, b in zip(c, t)],
-                    lambda c=cs, t=ts: [k1_column(a, b) for a, b in zip(c, t)], reps)
+                                        for a, b in zip(c, t)])
                 print(json.dumps(dict(case=f"{case}, {label}", variant=name, kernel=kernel,
                                       bitwise_checked=bitwise, card=card_line(), **rec)),
                       flush=True)
@@ -798,16 +679,7 @@ def _worker(name: str, inputs: str, reps: int) -> None:
                     want and not all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))):
                 raise RuntimeError(f"{case}: the variant {name!r} changed the bytes")
         mine = lambda: fn(planes, qts, frame, q, want)  # noqa: E731
-        if kernel == "K13" and bitwise:
-            tree = on_library(_build.load(data["library"]), mine)
-            got, ref = mine(), tree()
-            if not torch.equal(got[0], ref[0]) or (
-                    want and not all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))):
-                raise RuntimeError(f"{case}: the variant {name!r} differs from the tree's K13")
-            turns = in_turns(mine, tree, reps)
-            rec = {k.replace("earlier_", "tree_"): v for k, v in turns.items()}
-        else:
-            rec = dict(ms=card_ms(mine, reps))
+        rec = beside_tree(mine) if kernel == "K13" else dict(ms=card_ms(mine, reps))
         print(json.dumps(dict(case=case, variant=name, kernel=kernel, bitwise_checked=bitwise,
                               card=card_line(), **rec)), flush=True)
 
@@ -823,55 +695,34 @@ def k0_plain(coeff_plane, qt, bits12: bool = False):
                                 rows, bx).reshape(*lead, by * 8, bx * 8)
 
 
-def k0_turns(planes, qts, reps: int) -> dict:
-    """K0 over the planes (one launch a plane, as a request) beside its
-    earlier design, in turns (in_turns), after holding both bitwise against
-    the plain version; with the blocks."""
+def k0_turns(planes, qts, reps: int, lib=None) -> dict:
+    """K0 over the planes (one launch a plane, as a request), held bitwise
+    against the plain version, then timed (timed: with `lib` beside another
+    build's), and each plane alone; with the blocks."""
     from ..ops import idct
 
     new = lambda: [idct.idct_plane(c, t) for c, t in zip(planes, qts)]  # noqa: E731
-    earlier = lambda: [k0_gather(c, t) for c, t in zip(planes, qts)]  # noqa: E731
-    for a, b, c, t in zip(new(), earlier(), planes, qts):
-        want = k0_plain(c, t)
-        if not (torch.equal(a, want) and torch.equal(b, want)):
-            raise RuntimeError("K0 or its earlier design differs from the plain version")
+    if not same(new(), [k0_plain(c, t) for c, t in zip(planes, qts)]):
+        raise RuntimeError("K0 differs from the plain version")
     by_plane = [card_ms(lambda c=c, t=t: idct.idct_plane(c, t), reps) for c, t in zip(planes, qts)]
-    return dict(in_turns(new, earlier, reps), card_ms_by_plane=by_plane,
+    return dict(timed(new, reps, lib), card_ms_by_plane=by_plane,
                 blocks=sum(c[..., 0].numel() for c in planes))
 
 
 def colour_turns(planes, h, w, factors, reps: int, upsample="nn", exact=True,
-                 raw_cmyk=False) -> dict:
-    """K3/K3f over the planes (REFERENCE) beside its earlier design, in
-    turns, after holding both bitwise against the plain version; with the
-    output pixels."""
+                 raw_cmyk=False, lib=None) -> dict:
+    """K3/K3f over the planes (REFERENCE), held bitwise against the plain
+    version, then timed (timed: with `lib` beside another build's); with
+    the output pixels."""
     from .. import Quirks
     from ..ops import color
 
     args = (planes, h, w, factors, Quirks.REFERENCE, upsample, exact, raw_cmyk)
     new = lambda: color.planes_to_rgb(*args)  # noqa: E731
-    earlier = lambda: colour_pixel(*args)  # noqa: E731
     want = color._planes_to_rgb_plain(*args)
-    if not (torch.equal(new(), want) and torch.equal(earlier(), want)):
-        raise RuntimeError("K3/K3f or its earlier design differs from the plain version")
-    return dict(in_turns(new, earlier, reps), pixels=want[..., 0].numel())
-
-
-def against_turns(planes, h, w, factors, reps: int, lib, upsample="nn", exact=True,
-                  raw_cmyk=False) -> dict:
-    """K3/K3f over the planes (REFERENCE) beside the same call on kernel
-    library `lib` (_build.load of another build: `earlier_*`), in turns,
-    after holding both bitwise against the plain version."""
-    from .. import Quirks
-    from ..ops import color
-
-    args = (planes, h, w, factors, Quirks.REFERENCE, upsample, exact, raw_cmyk)
-    new = lambda: color.planes_to_rgb(*args)  # noqa: E731
-    earlier = on_library(lib, new)
-    want = color._planes_to_rgb_plain(*args)
-    if not (torch.equal(new(), want) and torch.equal(earlier(), want)):
-        raise RuntimeError("K3/K3f or the other library's differs from the plain version")
-    return dict(in_turns(new, earlier, reps), pixels=want[..., 0].numel())
+    if not torch.equal(new(), want):
+        raise RuntimeError("K3/K3f differs from the plain version")
+    return dict(timed(new, reps, lib), pixels=want[..., 0].numel())
 
 
 #: A loader's batch: 256 images of ImageNet's modal 500x375, 4:2:0 (MCU
@@ -922,18 +773,14 @@ def main(argv=None) -> None:
                     default=["exact", "float32"])
     ap.add_argument("--k13-variants", action="store_true",
                     help="also time K13's variants (copies of the package)")
-    ap.add_argument("--k0", action="store_true",
-                    help="also K0 beside its earlier design, and its arithmetic's variants")
-    ap.add_argument("--colour", action="store_true",
-                    help="also K3f, K3 and K3c beside their earlier design")
+    ap.add_argument("--k0", action="store_true", help="also K0, and K0's variants")
+    ap.add_argument("--colour", action="store_true", help="also K3f, K3 and K3c")
     ap.add_argument("--against", metavar="LIB",
-                    help="with --colour, also beside another build of the kernel library")
-    ap.add_argument("--k1", action="store_true",
-                    help="also K1 beside its earlier design, and K1's and K13's variants")
-    ap.add_argument("--k4", action="store_true",
-                    help="also K4 beside its earlier design, and K4's variants")
-    ap.add_argument("--k5", action="store_true",
-                    help="also K5 beside its earlier design and the launch floor")
+                    help="time --k0/--colour/--k1/--k4/--k5 in turns beside the same entry"
+                         " point of another build of the kernel library")
+    ap.add_argument("--k1", action="store_true", help="also K1, and K1's variants")
+    ap.add_argument("--k4", action="store_true", help="also K4, and K4's variants")
+    ap.add_argument("--k5", action="store_true", help="also K5 and the launch floor")
     ap.add_argument("--no-sweep", action="store_true",
                     help="only the variants and --k0/--colour/--k1/--k4/--k5")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
@@ -950,28 +797,23 @@ def main(argv=None) -> None:
         [n for n, v in VARIANTS.items() if v[0] == "K0"] if ns.k0 else []) + (
         [n for n, v in VARIANTS.items() if v[0] == "K1"] if ns.k1 else []) + (
         [n for n, v in VARIANTS.items() if v[0] == "K4"] if ns.k4 else [])
+    from .. import _build
     from .gather_probe import card_line
 
+    lib = _build.load(ns.against) if ns.against else None
     if ns.k0:
         for case, datas in (("4K request, 3 planes", dense[:1]), ("8 x 4K, 3 stacked planes",
                                                                   dense)):
             _frame, planes, qts = decoded(datas, torch.device("cuda"))
             print(json.dumps(dict(kernel="K0", case=case, card=card_line(),
-                                  **k0_turns(planes, qts, ns.reps))), flush=True)
+                                  **k0_turns(planes, qts, ns.reps, lib))), flush=True)
     if ns.colour:
         from .inputs import CMYK_FILE
 
         cmyk = photo_jpeg(CMYK_FILE, W, H, W // 8)
-        from .. import _build
-
-        lib = _build.load(ns.against) if ns.against else None
         for case, (planes, h, w, factors, up, exact, raw) in colour_cases(dense, cmyk).items():
-            print(json.dumps(dict(case=case, card=card_line(), **colour_turns(
-                planes, h, w, factors, ns.reps, up, exact, raw))), flush=True)
-            if lib is not None:
-                print(json.dumps(dict(case=case, against=ns.against, card=card_line(),
-                                      **against_turns(planes, h, w, factors, ns.reps, lib, up,
-                                                      exact, raw))), flush=True)
+            print(json.dumps(dict(case=case, against=ns.against, card=card_line(), **colour_turns(
+                planes, h, w, factors, ns.reps, up, exact, raw, lib))), flush=True)
     if ns.k1:
         for case, datas in (("4K request, luma plane", dense[:1]),
                             ("4K request, 3 planes", dense[:1])):
@@ -979,12 +821,12 @@ def main(argv=None) -> None:
             if "luma" in case:
                 planes, qts = planes[:1], qts[:1]
             print(json.dumps(dict(kernel="K1", case=case, card=card_line(),
-                                  **k1_turns(planes, qts, ns.reps))), flush=True)
+                                  **k1_turns(planes, qts, ns.reps, lib))), flush=True)
     if ns.k4:
-        for rec in k4_sweep(ns.reps):
+        for rec in k4_sweep(ns.reps, lib):
             print(json.dumps(rec), flush=True)
     if ns.k5:
-        for rec in k5_sweep(ns.reps):
+        for rec in k5_sweep(ns.reps, lib):
             print(json.dumps(rec), flush=True)
     if ns.k0 or ns.k1 or ns.k4 or ns.k5:
         print(json.dumps({"sass": sass_mix()}), flush=True)

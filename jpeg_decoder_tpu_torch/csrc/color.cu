@@ -70,10 +70,10 @@
 // bounds it is K3f's; a stripe adds two rows a component.
 //
 // What bounds it on the H100: on paper memory (the planes in, three bytes
-// a pixel out); in practice the instructions a pixel. The first design ran
-// a thread a pixel: two 64-bit divisions for its row and column, every
-// fancy chroma sample computed afresh by each of the four pixels that share
-// its sources (six byte loads a component), three 1-byte stores. Now a
+// a pixel out); in practice the instructions a pixel. A thread a pixel
+// would take two 64-bit divisions for its row and column, compute every
+// fancy chroma sample afresh in each of the four pixels that share its
+// sources (six byte loads a component) and store three single bytes. So a
 // thread takes a run of 16 output pixels of one row, j0 = 16 m to j0 + 15;
 // the row, the run and the image come from the grid (blockDim 16 runs x 8
 // rows). Every run brings each component's sources in as one vector: 16
@@ -83,7 +83,7 @@
 // The row's partial last run too: its loads stay inside the padded plane
 // (fetch_vector), and its pixels past the row's end are not stored. Only a
 // 4:1:1 or mixed ratio, or a plane not 8- or 16-byte aligned, takes each
-// pixel's sample by the first design's per-pixel rule (`sample`): a warp
+// pixel's sample by the per-pixel rule (`sample`): a warp
 // waits for its slowest lane, so one such run slows the 31 beside it. The
 // colour arithmetic is color.cuh's, unchanged.
 //
@@ -103,9 +103,7 @@
 // by byte: neighbouring CTAs write disjoint bytes. (Runs placed by the
 // output instead, shifted by the row's head to store aligned, would start
 // off the source's 16-pixel boundaries on three rows in four of a 500-wide
-// batch, and take the per-pixel rule there.) The first design is kept for
-// measurement as colour_pixel_kernel (jdtc_color_pixel, jdtc_fancy_pixel),
-// which no wrapper reaches.
+// batch, and take the per-pixel rule there.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,7 +112,6 @@
 
 namespace {
 
-constexpr int kPixelThreads = 256;  // the first design's CTA
 constexpr int kRun = 16;             // output pixels a thread
 constexpr int kRunThreads = 16;      // runs a CTA along a row
 constexpr int kRunRows = 8;          // rows a CTA
@@ -178,26 +175,6 @@ __device__ __forceinline__ uint8_t sample(const Geometry& g, int64_t img, int c,
   if (!(flags & kH2x)) return static_cast<uint8_t>((3 * row[q] + nrow[q] + bv) >> 2);
   const int v = (3 * hsum(row, q, cols) + hsum(nrow, q, cols) + 4 * bv) >> 4;
   return static_cast<uint8_t>(min(v, 255));
-}
-
-// The first design, for measurement only: one thread per output pixel.
-// One kernel per (upsampling, colour mode): a mode fixed at compile time
-// keeps YCCK EXACT's float64 registers out of the YCbCr and gray kernels
-// (a runtime switch cost K3 9% on 4K 4:2:0 planes, PERF.md).
-template <bool kFancy, int kMode>
-__global__ void __launch_bounds__(kPixelThreads)
-colour_pixel_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) {
-  constexpr int kComps = kMode == colour::kGray ? 1 : (kMode == colour::kYCbCr ? 3 : 4);
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t hw = static_cast<int64_t>(h) * w;
-  if (p >= hw) return;
-  const int64_t img = blockIdx.y;
-  const int i = static_cast<int>(p / w);
-  const int j = static_cast<int>(p % w);
-  uint8_t s[kMaxComps] = {};
-#pragma unroll
-  for (int c = 0; c < kComps; ++c) s[c] = sample<kFancy>(g, img, c, i, j);
-  colour::convert(kMode, s, correct, out + (img * hw + p) * 3);
 }
 
 // 16 samples of one component for a run: sample k in byte k & 3 of w[k >> 2].
@@ -328,7 +305,7 @@ __device__ __forceinline__ bool fetch_vector(const Geometry& g, int img, int c, 
   return true;
 }
 
-// Component c's samples of the run by the first design's per-pixel rule,
+// Component c's samples of the run by the per-pixel rule,
 // each column clamped below w (a partial run's outside pixels are
 // computed and not stored). The bytes shift in from the top, so the loop
 // needs no register indexed at run time.
@@ -448,7 +425,10 @@ __device__ __forceinline__ void store_aligned(uint8_t* dst, const uint32_t* o, i
 // The design: thread (x, y) of CTA (bx, by, img) converts run bx * 16 + x,
 // pixels j0 = 16 (bx * 16 + x) to j0 + 15, of output row by * 8 + y of
 // image img (see the top of the file). A warp holds two rows' runs of one
-// CTA, lane x + 1 the next run of lane x's row for x < 15.
+// CTA, lane x + 1 the next run of lane x's row for x < 15. One kernel per
+// (upsampling, colour mode): a mode fixed at compile time keeps YCCK
+// EXACT's float64 registers out of the YCbCr and gray kernels (a runtime
+// switch cost K3 9% on 4K 4:2:0 planes, PERF.md).
 template <bool kFancy, int kMode>
 __global__ void __launch_bounds__(kRunThreads * kRunRows)
 colour_run_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ out) {
@@ -487,18 +467,10 @@ colour_run_kernel(Geometry g, int h, int w, int correct, uint8_t* __restrict__ o
   store_shifted(dst, head, o, nx, 3 * (seg_end - j0), threadIdx.x == 0);
 }
 
-template <bool kPerPixel, bool kFancy, int kMode>
+template <bool kFancy, int kMode>
 void run(const Geometry& g, int n_images, int h, int w, int correct, void* out,
          void* cuda_stream) {
   const auto stream = static_cast<cudaStream_t>(cuda_stream);
-  if (kPerPixel) {
-    const int64_t n = static_cast<int64_t>(h) * w;
-    const dim3 blocks(static_cast<unsigned>((n + kPixelThreads - 1) / kPixelThreads),
-                      static_cast<unsigned>(n_images));
-    colour_pixel_kernel<kFancy, kMode><<<blocks, kPixelThreads, 0, stream>>>(
-        g, h, w, correct, static_cast<uint8_t*>(out));
-    return;
-  }
   const int runs = (w + kRun - 1) / kRun;  // a row's runs
   const dim3 blocks(static_cast<unsigned>((runs + kRunThreads - 1) / kRunThreads),
                     static_cast<unsigned>((h + kRunRows - 1) / kRunRows),
@@ -507,7 +479,7 @@ void run(const Geometry& g, int n_images, int h, int w, int correct, void* out,
       g, h, w, correct, static_cast<uint8_t*>(out));
 }
 
-template <bool kPerPixel, bool kFancy>
+template <bool kFancy>
 int launch(const void* plane0, const void* plane1, const void* plane2, const void* plane3,
            int n_images, int n_comps, int h, int w, const void* geom, const void* ratios,
            int row0, int stripe_h, int mode, int correct, const void* halos, void* out,
@@ -540,11 +512,11 @@ int launch(const void* plane0, const void* plane1, const void* plane2, const voi
   const int comps = mode == colour::kGray ? 1 : (mode == colour::kYCbCr ? 3 : 4);
   if (n_comps != comps) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case colour::kYCbCr: run<kPerPixel, kFancy, colour::kYCbCr>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kYcckExact: run<kPerPixel, kFancy, colour::kYcckExact>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kYcckFloat: run<kPerPixel, kFancy, colour::kYcckFloat>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kCmyk: run<kPerPixel, kFancy, colour::kCmyk>(g, n_images, h, w, correct, out, cuda_stream); break;
-    case colour::kGray: run<kPerPixel, kFancy, colour::kGray>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kYCbCr: run<kFancy, colour::kYCbCr>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kYcckExact: run<kFancy, colour::kYcckExact>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kYcckFloat: run<kFancy, colour::kYcckFloat>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kCmyk: run<kFancy, colour::kCmyk>(g, n_images, h, w, correct, out, cuda_stream); break;
+    case colour::kGray: run<kFancy, colour::kGray>(g, n_images, h, w, correct, out, cuda_stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -557,8 +529,8 @@ extern "C" int jdtc_color(const void* plane0, const void* plane1, const void* pl
                           const void* plane3, int n_images, int n_comps, int h, int w,
                           const void* geom, const void* ratios, int row0, int stripe_h,
                           int mode, int correct, void* out, void* cuda_stream) {
-  return launch<false, false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                              row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
+  return launch<false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                       row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
 }
 
 // K3f: fancy upsampling, 3 or 4 components.
@@ -566,8 +538,8 @@ extern "C" int jdtc_fancy(const void* plane0, const void* plane1, const void* pl
                           const void* plane3, int n_images, int n_comps, int h, int w,
                           const void* geom, const void* ratios, int row0, int stripe_h,
                           int mode, int correct, void* out, void* cuda_stream) {
-  return launch<false, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                             row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
+  return launch<true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                      row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
 }
 
 // K6h: K3f over one stripe of a mesh, its halo rows given.
@@ -576,23 +548,6 @@ extern "C" int jdtc_fancy_halo(const void* plane0, const void* plane1, const voi
                                const void* geom, const void* ratios, int row0, int stripe_h,
                                int mode, int correct, const void* halos, void* out,
                                void* cuda_stream) {
-  return launch<false, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                             row0, stripe_h, mode, correct, halos, out, cuda_stream);
-}
-
-// The first design of K3 and K3f (a thread a pixel), reached by no wrapper.
-extern "C" int jdtc_color_pixel(const void* plane0, const void* plane1, const void* plane2,
-                                const void* plane3, int n_images, int n_comps, int h, int w,
-                                const void* geom, const void* ratios, int row0, int stripe_h,
-                                int mode, int correct, void* out, void* cuda_stream) {
-  return launch<true, false>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                             row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
-}
-
-extern "C" int jdtc_fancy_pixel(const void* plane0, const void* plane1, const void* plane2,
-                                const void* plane3, int n_images, int n_comps, int h, int w,
-                                const void* geom, const void* ratios, int row0, int stripe_h,
-                                int mode, int correct, void* out, void* cuda_stream) {
-  return launch<true, true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
-                            row0, stripe_h, mode, correct, nullptr, out, cuda_stream);
+  return launch<true>(plane0, plane1, plane2, plane3, n_images, n_comps, h, w, geom, ratios,
+                      row0, stripe_h, mode, correct, halos, out, cuda_stream);
 }

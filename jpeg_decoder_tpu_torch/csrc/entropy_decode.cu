@@ -62,7 +62,7 @@
 //            the sum is taken modulo 2^16. A segment with a marker per MCU
 //            row of a 4K frame (1,440 data units) is one chunk and looks
 //            back at nothing; a restart-free 4K 4:2:0 scan (194,400) is 48
-//            chunks, where a warp per component walked it alone before.
+//            chunks, which no single warp walks alone.
 //
 // The symbol step: a first-level table in shared memory, indexed by the
 // next kLutBits bits (symbol and length in 16 bits, 2 KB a table), built once
@@ -516,8 +516,7 @@ __global__ void __launch_bounds__(kThreads) pass2_kernel(Call c) {
 
 // Exclusive prefix sum of the records' counts within each segment, a block
 // per segment walking its records kThreads at a time: the scan pass where
-// every segment is one chunk of records, and for measurement (the
-// wrapper's `earlier_tail`) where it is not.
+// every segment is one chunk of records.
 __global__ void __launch_bounds__(kThreads) scan_segment_kernel(Call c) {
   __shared__ uint32_t warp_sum[kThreads / 32];
   const int64_t s = blockIdx.x;
@@ -566,39 +565,6 @@ __global__ void __launch_bounds__(kThreads) write_kernel(Call c) {
   if ((in & kInvalidRec) || first >= seg.total_du) return;
   decode_sub<true>(seg, t.lut, c.tables, in, end_bit_of<true>(seg, local, nsub),
                    seg.total_du - first, first, c.dcdiff, c.status + 2 * s);
-}
-
-// The earlier dc pass, kept for measurement (the wrapper's `earlier_tail`):
-// warp w of a block takes scan component w of the block's segment, walks
-// the segment's data units 32 at a time, and stores int16(pred) for the
-// blocks inside the plane.
-__global__ void __launch_bounds__(128) dc_segment_kernel(Call c) {
-  const int64_t s = blockIdx.x;
-  if (c.status[2 * s] != 0) return;
-  const Segment seg = segment_of(c, s, nullptr);
-  const int lane = threadIdx.x & 31, comp = threadIdx.x >> 5;
-  bool any = false;
-  for (int u = 0; u < seg.n_units; ++u) any |= seg.units[u * kUnitCols + 1] == comp;
-  if (!any) return;
-  uint32_t pred = 0;
-  for (uint32_t at = 0; at < seg.total_du; at += 32) {
-    const uint32_t d = at + lane;
-    const uint32_t u = d % seg.n_units;
-    const int32_t* ul = seg.units + u * kUnitCols;
-    const bool mine = d < seg.total_du && ul[1] == comp;
-    const uint32_t v = mine ? static_cast<uint32_t>(static_cast<int32_t>(c.dcdiff[seg.du_base + d])) : 0;
-    uint32_t x = v;
-#pragma unroll
-    for (int k = 1; k < 32; k <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, k);
-      if (lane >= k) x += y;
-    }
-    if (mine) {
-      int16_t* du = du_address(seg, ul, seg.m_lo + d / seg.n_units);
-      if (du != nullptr) du[0] = static_cast<int16_t>(static_cast<uint16_t>(pred + x));
-    }
-    pred += __shfl_sync(0xFFFFFFFFu, x, 31);
-  }
 }
 
 __device__ __forceinline__ unsigned long long load_state(const unsigned long long* p) {
@@ -834,9 +800,7 @@ extern "C" int jdtc_entropy_chunk(int which) { return which == 0 ? kScanChunk : 
 // changes (the host reads a flag after each launch), scan, write, dc.
 // `chain` is the scan and dc passes' look-back scratch, `chain_words` int64
 // of it: 2 + n_segs * (ceil(max_subs / kScanChunk) + 4 * ceil(ri * n_units
-// / kDcChunk)), cleared here. `earlier_tail` runs the earlier scan and dc
-// passes (a block per segment) whatever the segments' length, for
-// measurement.
+// / kDcChunk)), cleared here.
 // `rounds` receives the launches of pass 2 and, summed over them, the most
 // steps a block took within a launch (the length of the longest chain that
 // had to be walked). `pass_ms`, when not null,
@@ -848,7 +812,7 @@ extern "C" int jdtc_entropy_decode(
     const void* tables, int n_specs, const void* plane_ptrs, void* status,
     const void* sub_base, const void* du_base_img, int64_t max_subs, void* rec, void* used,
     void* first_du, void* dcdiff, void* lut, void* flag, void* chain, int64_t chain_words,
-    int earlier_tail, int* rounds, float* pass_ms, void* cuda_stream) {
+    int* rounds, float* pass_ms, void* cuda_stream) {
   if (n_units > kMaxUnits || n_specs > kMaxSpecs || n_units < 1 || n_specs < 1 || n_segs < 1
       || ri < 1 || max_subs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -923,17 +887,14 @@ extern "C" int jdtc_entropy_decode(
   }
   mark(2);
   if (err == 0) {
-    if (earlier_tail || scan_chunks == 1)
+    if (scan_chunks == 1)
       scan_segment_kernel<<<segs, kThreads, 0, st>>>(c);
     else
       scan_kernel<<<static_cast<unsigned>(n_segs * scan_chunks), kThreads, 0, st>>>(c);
     mark(3);
     write_kernel<<<grid, kThreads, 0, st>>>(c);
     mark(4);
-    if (earlier_tail)
-      dc_segment_kernel<<<segs, 128, 0, st>>>(c);
-    else
-      dc_kernel<<<static_cast<unsigned>(n_segs * dc_chunks), kThreads, 0, st>>>(c);
+    dc_kernel<<<static_cast<unsigned>(n_segs * dc_chunks), kThreads, 0, st>>>(c);
     mark(5);
     err = static_cast<int>(cudaGetLastError());
   }

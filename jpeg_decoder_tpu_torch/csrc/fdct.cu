@@ -49,14 +49,10 @@
 //    `product`): thread (c, g, q) forms zigzag coefficients 4q..4q+3 of
 //    blocks g, g + G, g + 2G, g + 3G of component c (G = its blocks / 4),
 //    Kq[i][4q..4q+3] one float4 and x[b][i..i+3] another: 8 shared loads of
-//    16 bytes for 64 FMAs, where the earlier design took 12 for 32. A warp
-//    holds 8 groups x 4 q, so its 8 loads move 64 to 128 bytes of Kq and
-//    128 of x each. Each coefficient keeps the chain's order. A thread's 4
+//    16 bytes for 64 FMAs (a thread a coefficient would take 12 for 32). A
+//    warp holds 8 groups x 4 q, so its 8 loads move 64 to 128 bytes of Kq
+//    and 128 of x each. Each coefficient keeps the chain's order. A thread's 4
 //    coefficients of a block go out as one 8-byte store.
-// The earlier design (a block of threads per 2 tiles of 32 blocks of one
-// component, each loading that component's Kq, samples formed from device
-// memory by every component from the RGB, a thread coefficient z of 8
-// blocks) is kept as jdtc_fdct_column, which only the benchmarks call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -432,155 +428,6 @@ struct Kernels<kSamplings> {
   static void at(int, void (**)(RunParams)) {}
 };
 
-// ---------------------------------------------------------------------------
-// The earlier design, for measurement only (jdtc_fdct_column)
-// ---------------------------------------------------------------------------
-
-namespace column {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 32;                   // coefficient blocks per tile
-constexpr int kTilesPerCta = 2;             // tiles per block of threads
-constexpr int kGroups = kThreads / 64;      // thread groups, one block each
-constexpr int kPer = kTile / kGroups;       // blocks per thread
-constexpr int kStride = 72;                 // floats per block in s_x: spreads banks
-
-struct Comp {
-  int16_t* out;
-  int64_t n_blocks;
-  int blocks_x;
-  int box_h, box_v;
-  int by_rows;
-  int table;
-  int64_t cta0;  // the component's first block of threads
-};
-
-struct Params {
-  const uint8_t* img;
-  int h, w, channels, n_comps;
-  Comp comp[kMaxComps];
-  const float* kq;  // [n_tables][64 (raster i)][64 (zigzag z)]
-  float kr, kg, kb, cb_scale, cr_scale;
-};
-
-// One full-resolution sample of component `comp` at (y, x), clamped to the
-// image (the edge pad). A 1-channel image is its gray value.
-__device__ __forceinline__ float sample(const Params& p, int comp, int y, int x) {
-  y = min(max(y, 0), p.h - 1);
-  x = min(max(x, 0), p.w - 1);
-  const int64_t i = static_cast<int64_t>(y) * p.w + x;
-  if (p.channels == 1) return static_cast<float>(p.img[i]);
-  const uint8_t* px = p.img + i * 3;
-  const float r = px[0];
-  const float g = px[1];
-  const float b = px[2];
-  const float yv = __fmaf_rn(p.kb, b, __fmaf_rn(p.kr, r, __fmul_rn(p.kg, g)));
-  if (comp == 0) return yv;
-  if (comp == 1) return __fmaf_rn(__fsub_rn(b, yv), p.cb_scale, 128.0f);
-  return __fmaf_rn(__fsub_rn(r, yv), p.cr_scale, 128.0f);
-}
-
-__global__ void __launch_bounds__(kThreads) fdct_column_kernel(const Params p) {
-  __shared__ float s_k[64 * 64];
-  __shared__ __align__(16) float s_x[kTile * kStride];
-
-  // this block's component (an absent one starts at INT64_MAX)
-  const int64_t cta = blockIdx.x;
-  const int ci = cta >= p.comp[2].cta0 ? 2 : cta >= p.comp[1].cta0 ? 1 : 0;
-  Comp cp = p.comp[0];
-  if (ci == 1) cp = p.comp[1];
-  if (ci == 2) cp = p.comp[2];
-
-  const float* kq = p.kq + static_cast<int64_t>(cp.table) * 64 * 64;
-  for (int i = threadIdx.x; i < 64 * 64; i += kThreads) s_k[i] = kq[i];
-
-  const int z = threadIdx.x & 63;   // this thread's coefficient, zigzag order
-  const int g = threadIdx.x >> 6;   // its blocks: g, g + 4, ...
-  const int box = cp.box_h * cp.box_v;
-  const float scale = 1.0f / static_cast<float>(box);
-  const int64_t first = (static_cast<int64_t>(blockIdx.x) - cp.cta0) * kTilesPerCta;
-  for (int t = 0; t < kTilesPerCta; ++t) {
-    const int64_t b0 = (first + t) * kTile;
-    if (b0 >= cp.n_blocks) break;
-    __syncthreads();  // s_k written; the last tile's s_x read
-    // samples: row r of the tile's 8, column col of its 256
-    for (int r = 0; r < 8; ++r) {
-      const int col = threadIdx.x;
-      const int blk = col >> 3;
-      const int64_t b = b0 + blk;
-      float v = 0.0f;
-      if (b < cp.n_blocks) {
-        const int64_t by = b / cp.blocks_x;
-        const int64_t bx = b % cp.blocks_x;
-        const int oy = static_cast<int>(by * 8 + r);
-        const int ox = static_cast<int>(bx * 8 + (col & 7));
-        if (box == 1) {
-          v = sample(p, ci, oy, ox);
-        } else {
-          float total = 0.0f;
-          for (int j = 0; j < cp.box_v; ++j) {
-            const int y = oy * cp.box_v + j;
-            float row = sample(p, ci, y, ox * cp.box_h);
-            if (j > 0 && !cp.by_rows) row = __fadd_rn(total, row);
-            for (int k = 1; k < cp.box_h; ++k)
-              row = __fadd_rn(row, sample(p, ci, y, ox * cp.box_h + k));
-            total = (j == 0 || !cp.by_rows) ? row : __fadd_rn(total, row);
-          }
-          v = __fmul_rn(total, scale);
-        }
-        v = __fsub_rn(v, 128.0f);
-      }
-      s_x[blk * kStride + r * 8 + (col & 7)] = v;
-    }
-    __syncthreads();
-
-    if (cp.n_blocks == 1) {  // the matrix-vector order
-      if (threadIdx.x < 64) {
-        float c[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          c[r] = 0.0f;
-          for (int i = r; i < 64; i += 8) c[r] = __fmaf_rn(s_x[i], s_k[i * 64 + z], c[r]);
-        }
-        const float a = __fadd_rn(__fadd_rn(__fadd_rn(c[0], c[1]), __fadd_rn(c[2], c[3])),
-                                  __fadd_rn(__fadd_rn(c[4], c[5]), __fadd_rn(c[6], c[7])));
-        cp.out[z] = quantize(a);
-      }
-      break;
-    }
-
-    float acc[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[j] = 0.0f;
-#pragma unroll 2
-    for (int i = 0; i < 64; i += 4) {
-      const float k0 = s_k[(i + 0) * 64 + z];
-      const float k1 = s_k[(i + 1) * 64 + z];
-      const float k2 = s_k[(i + 2) * 64 + z];
-      const float k3 = s_k[(i + 3) * 64 + z];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(&s_x[(g + j * kGroups) * kStride + i]);
-        float a = acc[j];
-        a = __fmaf_rn(x.x, k0, a);
-        a = __fmaf_rn(x.y, k1, a);
-        a = __fmaf_rn(x.z, k2, a);
-        a = __fmaf_rn(x.w, k3, a);
-        acc[j] = a;
-      }
-    }
-
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int64_t b = b0 + g + j * kGroups;
-      if (b < cp.n_blocks) cp.out[b * 64 + z] = quantize(acc[j]);
-    }
-  }
-}
-
-}  // namespace column
-
 }  // namespace
 
 // img: uint8 [h, w, channels]; comps: host int64 [3][9] (output address,
@@ -657,50 +504,5 @@ extern "C" int jdtc_fdct(const void* img, int h, int w, int channels, int n_comp
   if (e == cudaSuccess) e = wave(kernel, threads, p.n_runs, bytes, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K4's earlier design (column::fdct_column_kernel), reached by no wrapper:
-// jdtc_fdct's arguments (it reads the first 7 of each row of comps).
-extern "C" int jdtc_fdct_column(const void* img, int h, int w, int channels, int n_comps,
-                                const void* comps, const void* kq, const void* consts,
-                                void* cuda_stream) {
-  using namespace column;
-  if (n_comps < 1 || n_comps > kMaxComps || (channels != 1 && channels != 3))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t* c = static_cast<const int64_t*>(comps);
-  const float* k = static_cast<const float*>(consts);
-  Params p{};
-  p.img = static_cast<const uint8_t*>(img);
-  p.h = h;
-  p.w = w;
-  p.channels = channels;
-  p.n_comps = n_comps;
-  p.kq = static_cast<const float*>(kq);
-  p.kr = k[0];
-  p.kg = k[1];
-  p.kb = k[2];
-  p.cb_scale = k[3];
-  p.cr_scale = k[4];
-  int64_t ctas = 0;
-  for (int i = 0; i < n_comps; ++i) {
-    const int64_t* r = c + i * 9;
-    Comp& cp = p.comp[i];
-    cp.out = reinterpret_cast<int16_t*>(r[0]);
-    cp.n_blocks = r[1] * r[2];
-    cp.blocks_x = static_cast<int>(r[2]);
-    cp.box_h = static_cast<int>(r[3]);
-    cp.box_v = static_cast<int>(r[4]);
-    cp.by_rows = static_cast<int>(r[5]);
-    cp.table = static_cast<int>(r[6]);
-    cp.cta0 = ctas;
-    const int64_t tiles = (cp.n_blocks + kTile - 1) / kTile;
-    ctas += (tiles + kTilesPerCta - 1) / kTilesPerCta;
-  }
-  for (int i = n_comps; i < kMaxComps; ++i) p.comp[i].cta0 = INT64_MAX;
-  if (ctas == 0) return 0;
-  if (ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  fdct_column_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
-                       static_cast<cudaStream_t>(cuda_stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

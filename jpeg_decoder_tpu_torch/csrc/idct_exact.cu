@@ -13,9 +13,9 @@
 // 64 of pixels out), which at 34 TFLOP/s and 3.35 TB/s would make the bytes
 // the bound; but each statement of the chain converts its float32 operands
 // to float64 and its result back, and those conversions issue at 16 a clock
-// per SM, a quarter of the float64 rate. The chain as first written took
-// 1,087 of them a block; idct_exact.cuh now halves in float32 and stores in
-// integers, exactly, which leaves 574 (17 in and 17 out of each of the 16
+// per SM, a quarter of the float64 rate. The chain spelled as the model
+// spells it takes 1,087 of them a block; idct_exact.cuh halves in float32
+// and stores in integers, exactly, which leaves 574 (17 in and 17 out of each of the 16
 // passes, 30 for the pre-scale; 576 in the SASS) and puts the conversions'
 // floor at 0.027 ms for a 4K request's 194,400 blocks.
 //
@@ -26,11 +26,7 @@
 // quarter-warp's 16-byte reads of eight rows fall in distinct banks); the
 // table comes once. Where blocks_x is even, two neighbouring threads hold
 // two neighbouring blocks of one block row, and they trade half rows by
-// shuffles to store 16-byte rows; otherwise each stores 8-byte rows. The
-// earlier design (one thread a block gathering its 2-byte coefficients from
-// device memory through the zigzag table, 128 bytes apart across a warp,
-// with the chain's earlier spelling) is kept as jdtc_idct_exact_gather,
-// which only the sweep (benchmarks/pixel_sweep.py --k0) calls.
+// shuffles to store 16-byte rows; otherwise each stores 8-byte rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,17 +39,12 @@ namespace {
 using jdtc_common::cp_async16;
 using jdtc_common::cp_async_wait_all;
 using jdtc_exact::idct8;
-using jdtc_exact::kInvZigzag;
 using jdtc_exact::kIsqrt2;
 using jdtc_exact::mul;
 using jdtc_exact::st;
 
 constexpr int kThreads = 128;   // coefficient blocks a CTA, one a thread
 constexpr int kRowBytes = 144;  // a block's 128 bytes in shared memory, and 16 of padding
-// The chain's spelling: 0 the earlier one (float64 halvings, store_f64), 1
-// the halvings in float32, 2 those and the integer store. The sweep builds
-// copies with the others, to read each rewrite's share.
-constexpr int kArithmetic = 2;
 
 // The zigzag position of natural-order index n (T.81 Figure A.6), a
 // compile-time constant wherever n is: on the 15 anti-diagonals d = r + c,
@@ -79,14 +70,8 @@ constexpr bool zigzag_holds() {
 }
 static_assert(zigzag_holds(), "zigzag_of disagrees with the zigzag table");
 
-template <int kArith>
-static __device__ __forceinline__ uint8_t store_of(float x, int bits12) {
-  return kArith >= 2 ? jdtc_exact::store(x, bits12) : jdtc_exact::store_f64(x, bits12);
-}
-
 // The pre-scale, the row and the column passes over one block's natural
 // order values, in place.
-template <bool kHalveInFloat>
 static __device__ __forceinline__ void idct_block(float* x) {
   // Row/column 1/sqrt(2) pre-scale (dct.c:164-167): row 0, then column 0,
   // so [0][0] is scaled twice.
@@ -95,9 +80,9 @@ static __device__ __forceinline__ void idct_block(float* x) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) x[r * 8] = st(mul(kIsqrt2, x[r * 8]));
 #pragma unroll
-  for (int r = 0; r < 8; ++r) idct8<1, kHalveInFloat>(x + r * 8);   // row pass
+  for (int r = 0; r < 8; ++r) idct8<1>(x + r * 8);  // row pass
 #pragma unroll
-  for (int c = 0; c < 8; ++c) idct8<8, kHalveInFloat>(x + c);       // column pass
+  for (int c = 0; c < 8; ++c) idct8<8>(x + c);      // column pass
 }
 
 // The CTA's nb blocks from block b0 and the table into shared memory:
@@ -151,7 +136,6 @@ static __device__ __forceinline__ void block_at(int64_t b, int64_t n_blocks, int
   bx = b - by * blocks_x;
 }
 
-template <int kArith>
 __global__ void __launch_bounds__(kThreads)
 idct_exact_kernel(const int16_t* __restrict__ coeffs, const int32_t* __restrict__ qt,
                   int64_t n_blocks, int blocks_x, int bits12, int pairs,
@@ -171,7 +155,7 @@ idct_exact_kernel(const int16_t* __restrict__ coeffs, const int32_t* __restrict_
   float x[64];
 #pragma unroll
   for (int n = 0; n < 64; ++n) x[n] = static_cast<float>(dequant(zz, q, n));
-  idct_block<(kArith >= 1)>(x);
+  idct_block(x);
 
   // The output store: row r of the block as 8 bytes.
   uint2 row[8];
@@ -180,8 +164,8 @@ idct_exact_kernel(const int16_t* __restrict__ coeffs, const int32_t* __restrict_
     uint32_t lo = 0, hi = 0;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      lo |= static_cast<uint32_t>(store_of<kArith>(x[r * 8 + c], bits12)) << (8 * c);
-      hi |= static_cast<uint32_t>(store_of<kArith>(x[r * 8 + 4 + c], bits12)) << (8 * c);
+      lo |= static_cast<uint32_t>(jdtc_exact::store(x[r * 8 + c], bits12)) << (8 * c);
+      hi |= static_cast<uint32_t>(jdtc_exact::store(x[r * 8 + 4 + c], bits12)) << (8 * c);
     }
     row[r] = make_uint2(lo, hi);
   }
@@ -215,38 +199,6 @@ idct_exact_kernel(const int16_t* __restrict__ coeffs, const int32_t* __restrict_
   }
 }
 
-// The earlier design, for measurement only: one thread a block, its 64
-// coefficients gathered from device memory through the zigzag table (2
-// bytes a load, 128 bytes apart across a warp), the chain's earlier
-// spelling (float64 halvings, store_f64), 8-byte row stores.
-constexpr int kGatherThreads = 128;
-
-__global__ void __launch_bounds__(kGatherThreads)
-idct_exact_gather_kernel(const int16_t* __restrict__ coeffs,
-                         const int32_t* __restrict__ qt, int64_t n_blocks,
-                         int blocks_x, int bits12, uint8_t* __restrict__ out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= n_blocks) return;
-  const int16_t* src = coeffs + b * 64;
-  float x[64];
-#pragma unroll
-  for (int n = 0; n < 64; ++n)
-    x[n] = static_cast<float>(static_cast<int32_t>(src[kInvZigzag[n]]) * __ldg(qt + n));
-  idct_block<false>(x);
-
-  const int64_t by = b / blocks_x;
-  const int64_t bx = b % blocks_x;
-  const int64_t stride = static_cast<int64_t>(blocks_x) * 8;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    uint64_t row = 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      row |= static_cast<uint64_t>(jdtc_exact::store_f64(x[r * 8 + c], bits12)) << (8 * c);
-    *reinterpret_cast<uint64_t*>(out + (by * 8 + r) * stride + bx * 8) = row;
-  }
-}
-
 }  // namespace
 
 extern "C" int jdtc_idct_exact(const void* coeffs, const void* qt,
@@ -254,19 +206,8 @@ extern "C" int jdtc_idct_exact(const void* coeffs, const void* qt,
                                void* out, void* cuda_stream) {
   const unsigned grid = static_cast<unsigned>((n_blocks + kThreads - 1) / kThreads);
   const int pairs = blocks_x % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  idct_exact_kernel<kArithmetic><<<grid, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+  idct_exact_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const int16_t*>(coeffs), static_cast<const int32_t*>(qt), n_blocks, blocks_x,
       bits12, pairs, static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K0's earlier design (idct_exact_gather_kernel), reached by no wrapper.
-extern "C" int jdtc_idct_exact_gather(const void* coeffs, const void* qt,
-                                      int64_t n_blocks, int blocks_x, int bits12,
-                                      void* out, void* cuda_stream) {
-  const unsigned blocks = static_cast<unsigned>((n_blocks + kGatherThreads - 1) / kGatherThreads);
-  idct_exact_gather_kernel<<<blocks, kGatherThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int16_t*>(coeffs), static_cast<const int32_t*>(qt),
-      n_blocks, blocks_x, bits12, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

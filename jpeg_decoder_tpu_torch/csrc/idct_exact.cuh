@@ -14,10 +14,9 @@
 // per SM, a quarter of the float64 arithmetic's rate, so the statements'
 // float <-> double conversions (F2F), not their float64 products, set K0's
 // time. Two statements are therefore written in a form that gives the same
-// bits with fewer of them; each has its proof beside it and a CPU test
-// (tests/test_torch_idct.py), and the earlier form stays selectable
-// (kHalveInFloat = false, store_f64) for K0's earlier design, which is kept
-// for measurement (idct_exact.cu).
+// bits with fewer of them: the halvings in float32 and the store in
+// integers. Each has its proof beside it and a CPU test
+// (tests/test_torch_idct.py).
 
 #pragma once
 
@@ -51,41 +50,36 @@ static __device__ __forceinline__ double add(double a, double b) { return __dadd
 // once, so the two agree for every x, subnormal halves included (where
 // both round the one exact value to the same neighbour). It saves a
 // conversion in and one out (tests: test_halving_in_float32_is_exact).
-template <bool kHalveInFloat>
-static __device__ __forceinline__ float half(float x) {
-  if (kHalveInFloat) return __fmul_rn(0.5f, x);
-  return st(mul(0.5, x));
-}
+static __device__ __forceinline__ float half(float x) { return __fmul_rn(0.5f, x); }
 
 // One fast_idct_new pass over v[0], v[S], ..., v[7*S], in place
-// (core/numerics._idct8_rows_exact, statement by statement). kHalveInFloat
-// false is the earlier spelling, every halving in float64.
-template <int S, bool kHalveInFloat = true>
+// (core/numerics._idct8_rows_exact, statement by statement).
+template <int S>
 static __device__ __forceinline__ void idct8(float* v) {
   const float t0 = st(mul(1.414213562, v[0 * S]));
   const float t1 = v[4 * S];
   const float t2 = v[2 * S];
   const float t3 = v[6 * S];
-  const float t4 = half<kHalveInFloat>(__fsub_rn(v[1 * S], v[7 * S]));
+  const float t4 = half(__fsub_rn(v[1 * S], v[7 * S]));
   const float t5 = st(mul(0.707106781, v[3 * S]));
   const float t6 = st(mul(0.707106781, v[5 * S]));
-  const float t7 = half<kHalveInFloat>(__fadd_rn(v[1 * S], v[7 * S]));
+  const float t7 = half(__fadd_rn(v[1 * S], v[7 * S]));
 
-  const float u0 = half<kHalveInFloat>(__fadd_rn(t0, t1));
-  const float u1 = half<kHalveInFloat>(__fsub_rn(t0, t1));
+  const float u0 = half(__fadd_rn(t0, t1));
+  const float u1 = half(__fsub_rn(t0, t1));
   const float u2 = st(__dmul_rn(0.707106781,
                                 add(mul(0.38268343236, t2), mul(-0.92387953251, t3))));
   const float u3 = st(__dmul_rn(0.707106781,
                                 add(mul(0.92387953251, t2), mul(0.38268343236, t3))));
-  const float u4 = half<kHalveInFloat>(__fadd_rn(t4, t6));
-  const float u5 = half<kHalveInFloat>(__fadd_rn(-t5, t7));
-  const float u6 = half<kHalveInFloat>(__fsub_rn(t4, t6));
-  const float u7 = half<kHalveInFloat>(__fadd_rn(t5, t7));
+  const float u4 = half(__fadd_rn(t4, t6));
+  const float u5 = half(__fadd_rn(-t5, t7));
+  const float u6 = half(__fsub_rn(t4, t6));
+  const float u7 = half(__fadd_rn(t5, t7));
 
-  const float w0 = half<kHalveInFloat>(__fadd_rn(u0, u3));
-  const float w1 = half<kHalveInFloat>(__fadd_rn(u1, u2));
-  const float w2 = half<kHalveInFloat>(__fsub_rn(u1, u2));
-  const float w3 = half<kHalveInFloat>(__fsub_rn(u0, u3));
+  const float w0 = half(__fadd_rn(u0, u3));
+  const float w1 = half(__fadd_rn(u1, u2));
+  const float w2 = half(__fsub_rn(u1, u2));
+  const float w3 = half(__fsub_rn(u0, u3));
   const float w4 = st(add(mul(0.8314696123, u4), mul(-0.55557023302, u7)));
   const float w5 = st(add(mul(0.9807852804, u5), mul(-0.19509032201, u6)));
   const float w6 = st(add(mul(0.19509032201, u5), mul(0.9807852804, u6)));
@@ -102,24 +96,6 @@ static __device__ __forceinline__ void idct8(float* v) {
   v[7 * S] = st(mul(s, __fsub_rn(w0, w7)));
 }
 
-// The reference's output store (dct.c:186-203; core/numerics.idct_2d_exact
-// and rescale_12bit) as the model spells it: 0.25 * x + 128 (2048 for
-// 12-bit) in float64, clamped before any float -> integer conversion. The
-// earlier form, kept for K0's earlier design.
-static __device__ __forceinline__ uint8_t store_f64(float x, int bits12) {
-  if (!bits12) {
-    double r = add(mul(0.25, x), 128.0);
-    r = r > 255.0 ? 255.0 : (r < 0.0 ? 0.0 : r);
-    return static_cast<uint8_t>(static_cast<int>(r));
-  }
-  double r = add(mul(0.25, x), 2048.0);
-  r = r > 65535.0 ? 65535.0 : (r < 0.0 ? 0.0 : r);
-  int v = static_cast<int>(r) & 0xFFFF;  // CLAMP_16, then the int16 wrap
-  v = (v ^ 0x8000) - 0x8000;
-  const double q = __dmul_rn(__ddiv_rn(static_cast<double>(v), 4096.0), 255.0);
-  return static_cast<uint8_t>(static_cast<int>(q) & 0xFF);
-}
-
 // floor(0.25 * y) of a float32 y with |0.25 y| < 2^22, without a
 // conversion: the fma rounded down gives the largest float32 at or below
 // 1.5 * 2^23 + 0.25 y, and in [2^23, 2^24) the float32 values are the
@@ -130,9 +106,13 @@ static __device__ __forceinline__ int floor_quarter(float y) {
   return __float_as_int(__fmaf_rd(y, 0.25f, 12582912.0f)) - 0x4B400000;
 }
 
-// The same store in float32 and integers, bitwise store_f64 for every
-// float32 x (tests: test_integer_store_is_the_float64_store). Proof, 8-bit
-// (12-bit: 2048 for 128, 65535 for 255, the bound 2^-41 for 2^-45):
+// The reference's output store (dct.c:186-203; core/numerics.idct_2d_exact
+// and rescale_12bit), which the model spells in float64: 0.25 * x + 128
+// (2048 for 12-bit), clamped, truncated; 12-bit then wraps to int16 and
+// takes trunc(v / 4096 * 255). Here in float32 and integers, bitwise the
+// float64 form for every float32 x (tests:
+// test_integer_store_is_the_float64_store). Proof, 8-bit (12-bit: 2048 for
+// 128, 65535 for 255, the bound 2^-41 for 2^-45):
 // - Where 128 + 0.25 x is exact in float64, trunc(clamp(128 + 0.25 x)) =
 //   clamp(128 + floor(0.25 x)): trunc is floor on [0, 255], and floor
 //   commutes with clamping to integer bounds. Clamping x itself to

@@ -29,11 +29,11 @@
 // from registers (`product` of idct_float.cuh, K13's register tile):
 // thread (g, q) forms pixels 4q..4q+3 -- half of pixel row q / 2 -- of the
 // 8 blocks g, g + 8, ..., g + 56, each step of four z loading 8 float4 of x
-// and 4 of K for 128 FMAs, 0.094 shared loads an FMA where the earlier
-// design took 0.375. A warp holds 8 groups x 4 q, so its loads of K are 4
+// and 4 of K for 128 FMAs, 0.094 shared loads an FMA (a thread a pixel
+// would take 0.375). A warp holds 8 groups x 4 q, so its loads of K are 4
 // float4 (64 bytes) and those of x 8 float4 on distinct banks. Each pixel
 // keeps the order of the contract's chain, z = 0..63 with fmaf from 0, so
-// the pixels are bitwise the earlier design's and K13's. A thread stores
+// the pixels are bitwise the plain version's and K13's. A thread stores
 // its 4 pixels of a block row as one 4-byte word; a store instruction of a
 // warp writes two pixel rows of 8 neighbouring blocks, 64 contiguous bytes
 // each, which is what staging them through shared memory for 16-byte
@@ -43,10 +43,6 @@
 // in idct_float.cuh, shared with K13 (pixel_float.cu), which runs the
 // FLOAT32 stage of a 3-component frame in one kernel; K1 serves gray,
 // fancy and 4-component frames and the geometries K13's guard refuses.
-//
-// The earlier design (a thread a pixel position p of 8 of a tile's 32
-// blocks, K read as 4 scalar loads a step, 1-byte stores) is kept as
-// jdtc_idct_float_column, which only the benchmarks call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -203,67 +199,6 @@ idct_float_kernel(const int16_t* __restrict__ coeffs, const int32_t* __restrict_
   }
 }
 
-// The earlier design, for measurement only: tiles of 32 blocks, a thread
-// pixel position p of 8 of them, K read as 4 scalar shared loads a step of
-// four z, the coefficients as 2-byte loads, 1-byte stores.
-constexpr int kColumnThreads = 256;
-constexpr int kColumnTile = 32;
-constexpr int kColumnPer = kColumnTile / (kColumnThreads / 64);
-
-__global__ void __launch_bounds__(kColumnThreads)
-idct_float_column_kernel(const int16_t* __restrict__ coeffs, const int32_t* __restrict__ qt,
-                         const float* __restrict__ kmat, int64_t n_blocks, int blocks_x,
-                         int bits12, uint8_t* __restrict__ out) {
-  constexpr int kColumnGroups = kColumnThreads / 64;
-  __shared__ float s_k[64 * 64];
-  __shared__ __align__(16) float s_x[kColumnTile * 64];
-  __shared__ float s_q[64];
-  for (int i = threadIdx.x; i < 64 * 64; i += kColumnThreads) s_k[i] = kmat[i];
-  if (threadIdx.x < 64)
-    s_q[threadIdx.x] = static_cast<float>(qt[kZigzag[threadIdx.x]]);
-
-  const int p = threadIdx.x & 63;   // pixel position, raster order
-  const int g = threadIdx.x >> 6;   // this thread's blocks: g, g+4, ...
-  const int64_t stride = static_cast<int64_t>(blocks_x) * 8;
-  const int64_t n_tiles = (n_blocks + kColumnTile - 1) / kColumnTile;
-  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int64_t b0 = tile * kColumnTile;
-    __syncthreads();  // s_k and s_q written; the last tile's s_x read
-    for (int i = threadIdx.x; i < kColumnTile * 64; i += kColumnThreads) {
-      const int64_t b = b0 + i / 64;
-      s_x[i] = b < n_blocks ? dequant(coeffs[b0 * 64 + i], s_q[i & 63]) : 0.0f;
-    }
-    __syncthreads();
-
-    float acc[kColumnPer];
-#pragma unroll
-    for (int j = 0; j < kColumnPer; ++j) acc[j] = 0.0f;
-#pragma unroll 2
-    for (int z = 0; z < 64; z += 4) {
-      const float k0 = s_k[(z + 0) * 64 + p];
-      const float k1 = s_k[(z + 1) * 64 + p];
-      const float k2 = s_k[(z + 2) * 64 + p];
-      const float k3 = s_k[(z + 3) * 64 + p];
-#pragma unroll
-      for (int j = 0; j < kColumnPer; ++j) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(&s_x[(g + j * kColumnGroups) * 64 + z]);
-        acc[j] = dot4(acc[j], x, k0, k1, k2, k3);
-      }
-    }
-
-#pragma unroll
-    for (int j = 0; j < kColumnPer; ++j) {
-      const int64_t b = b0 + g + j * kColumnGroups;
-      if (b < n_blocks) {
-        const int64_t by = b / blocks_x;
-        const int64_t bx = b % blocks_x;
-        out[(by * 8 + (p >> 3)) * stride + bx * 8 + (p & 7)] = store(acc[j], bits12);
-      }
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int jdtc_idct_float(const void* coeffs, const void* qt,
@@ -280,25 +215,6 @@ extern "C" int jdtc_idct_float(const void* coeffs, const void* qt,
     err = wave(idct_float_kernel, kThreads, (n_blocks + kTile - 1) / kTile, kSmem, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   idct_float_kernel<<<blocks, kThreads, kSmem, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int16_t*>(coeffs), static_cast<const int32_t*>(qt),
-      static_cast<const float*>(kmat), n_blocks, blocks_x, bits12,
-      static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K1's earlier design (idct_float_column_kernel), reached by no wrapper.
-extern "C" int jdtc_idct_float_column(const void* coeffs, const void* qt,
-                                      const void* kmat, int64_t n_blocks,
-                                      int blocks_x, int bits12, void* out,
-                                      void* cuda_stream) {
-  if (n_blocks <= 0) return 0;
-  unsigned blocks = 0;
-  const cudaError_t err =
-      wave(idct_float_column_kernel, kColumnThreads, (n_blocks + kColumnTile - 1) / kColumnTile,
-           0, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  idct_float_column_kernel<<<blocks, kColumnThreads, 0,
-                             static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const int16_t*>(coeffs), static_cast<const int32_t*>(qt),
       static_cast<const float*>(kmat), n_blocks, blocks_x, bits12,
       static_cast<uint8_t*>(out));

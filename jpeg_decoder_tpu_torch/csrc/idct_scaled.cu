@@ -35,8 +35,8 @@
 //   and first block of threads; components start on block-of-threads
 //   boundaries, so a block of threads finds its component by three compares
 //   of blockIdx.x. The 4K request's chroma planes alone are 127 blocks of
-//   threads each, fewer than the 132 SMs: as three launches (the earlier design,
-//   jdtc_idct_scaled_percomp) two of them could not fill the card;
+//   threads each, fewer than the 132 SMs: as launches of their own, two of
+//   them could not fill the card;
 // - the folded band M_k[band] * qt_zz[band], for each distinct table, comes
 //   folded from the host (ops/idct.folded_band, a float32 product in NumPy:
 //   the round to nearest of __fmul_rn) in the kernel's parameters, so the
@@ -58,7 +58,6 @@
 
 namespace {
 
-using jdtc_float::kZigzag;
 using jdtc_float::store;
 
 constexpr int kThreads = 256;
@@ -194,55 +193,6 @@ int launch(const int64_t* desc, const float* folded, int n_comps, int n_tables, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// The earlier design, for measurement (benchmarks/pixel_sweep.py --k5): one
-// launch per component, every block of threads folding the band into shared
-// memory behind a barrier before it loads its coefficients; with
-// kLoadsFirst the loads are issued before the fold and the barrier. Bitwise
-// the design above.
-// ---------------------------------------------------------------------------
-
-template <int K, bool kLoadsFirst>
-__global__ void __launch_bounds__(kThreads)
-idct_scaled_percomp_kernel(const int16_t* __restrict__ coeffs, const int32_t* __restrict__ qt,
-                           const float* __restrict__ mat, int64_t n_blocks, int blocks_x,
-                           int bits12, uint8_t* __restrict__ out) {
-  constexpr int K2 = K * K;
-  // s_m[j * K2 + p]: the folded entry of band row j and pixel p
-  __shared__ float s_m[K2 * K2];
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool live = b < n_blocks;
-  float x[K2];
-  if (kLoadsFirst && live) load_band<K>(coeffs + b * 64, x);
-  for (int i = threadIdx.x; i < K2 * K2; i += blockDim.x) {
-    const int z = band_z<K>(i / K2);
-    s_m[i] = __fmul_rn(mat[z * K2 + i % K2], static_cast<float>(qt[kZigzag[z]]));
-  }
-  __syncthreads();
-  if (!live) return;
-  if (!kLoadsFirst) load_band<K>(coeffs + b * 64, x);
-  const int64_t stride = static_cast<int64_t>(blocks_x) * K;
-  store_tile<K>(x, s_m, bits12, out + (b / blocks_x) * K * stride + (b % blocks_x) * K, stride);
-}
-
-template <int K, bool kLoadsFirst>
-int launch_percomp(const void* coeffs, const void* qt, const void* kmat, int64_t n_blocks,
-                   int blocks_x, int bits12, void* out, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((n_blocks + kThreads - 1) / kThreads);
-  idct_scaled_percomp_kernel<K, kLoadsFirst><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const int16_t*>(coeffs), static_cast<const int32_t*>(qt),
-      static_cast<const float*>(kmat), n_blocks, blocks_x, bits12, static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int K>
-int launch_percomp(const void* coeffs, const void* qt, const void* kmat, int64_t n_blocks,
-                   int blocks_x, int bits12, int loads_first, void* out, cudaStream_t stream) {
-  return loads_first
-             ? launch_percomp<K, true>(coeffs, qt, kmat, n_blocks, blocks_x, bits12, out, stream)
-             : launch_percomp<K, false>(coeffs, qt, kmat, n_blocks, blocks_x, bits12, out, stream);
-}
-
 // A block of threads that does nothing: the launch floor, for measurement.
 __global__ void __launch_bounds__(kThreads) idct_scaled_empty_kernel() {}
 
@@ -263,24 +213,6 @@ extern "C" int jdtc_idct_scaled(const void* desc, const void* folded, int n_comp
     case 1: return launch<1>(d, f, n_comps, n_tables, bits12, stream);
     case 2: return launch<2>(d, f, n_comps, n_tables, bits12, stream);
     case 4: return launch<4>(d, f, n_comps, n_tables, bits12, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-extern "C" int jdtc_idct_scaled_percomp(const void* coeffs, const void* qt, const void* kmat,
-                                        int64_t n_blocks, int blocks_x, int k, int bits12,
-                                        int loads_first, void* out, void* cuda_stream) {
-  const auto stream = static_cast<cudaStream_t>(cuda_stream);
-  switch (k) {
-    case 1:
-      return launch_percomp<1>(coeffs, qt, kmat, n_blocks, blocks_x, bits12, loads_first, out,
-                               stream);
-    case 2:
-      return launch_percomp<2>(coeffs, qt, kmat, n_blocks, blocks_x, bits12, loads_first, out,
-                               stream);
-    case 4:
-      return launch_percomp<4>(coeffs, qt, kmat, n_blocks, blocks_x, bits12, loads_first, out,
-                               stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

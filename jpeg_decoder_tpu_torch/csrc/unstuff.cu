@@ -50,11 +50,6 @@
 // tail. A second, one-block kernel then forms sub_base from seg_off (done
 // inside this kernel by its last block instead, it cost more for a batch
 // of eight 4K images on an H100).
-//
-// jdtc_unstuff_3pass keeps the earlier three-kernel design for measurement
-// only (no decode path calls it): count, a one-block scan of the block sums,
-// scatter; the raw bytes read twice, a binary search and two bound loads per
-// byte, and one-byte stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -351,123 +346,6 @@ sub_base_kernel(const int64_t* __restrict__ seg_off, int64_t n_segs, int sub_byt
   if (threadIdx.x == 0) sub_base[n_segs] = carry;
 }
 
-// ---------------------------------------------------------------------------
-// The earlier three kernels, for measurement only
-// ---------------------------------------------------------------------------
-
-namespace three_pass {
-
-constexpr int kThreads = 256;
-constexpr int kChunk = 16;  // bytes a thread
-
-struct Chunk {
-  uint32_t bytes[kChunk / 4];  // little-endian words
-  uint32_t keep;               // bit t: byte t of the chunk is kept
-  __device__ __forceinline__ uint32_t byte(int t) const {
-    return (bytes[t >> 2] >> (8 * (t & 3))) & 0xFF;
-  }
-};
-
-// The chunk at raw[j0, j0 + 16) and its keep mask.
-__device__ Chunk load_chunk(const uint8_t* __restrict__ raw, int64_t n_raw,
-                            const int64_t* __restrict__ lo, const int64_t* __restrict__ hi,
-                            int64_t n_segs, int64_t j0) {
-  Chunk c;
-  c.keep = 0;
-#pragma unroll
-  for (int i = 0; i < kChunk / 4; ++i) c.bytes[i] = 0;
-  if (j0 >= n_raw) return c;
-  if (j0 + kChunk <= n_raw) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(raw + j0));
-    c.bytes[0] = v.x;
-    c.bytes[1] = v.y;
-    c.bytes[2] = v.z;
-    c.bytes[3] = v.w;
-  } else {
-    for (int t = 0; j0 + t < n_raw; ++t)
-      c.bytes[t >> 2] |= static_cast<uint32_t>(raw[j0 + t]) << (8 * (t & 3));
-  }
-  // the last segment that starts at or before j0 (-1: none)
-  int64_t a = 0, b = n_segs;
-  while (a < b) {
-    const int64_t mid = (a + b) >> 1;
-    if (__ldg(lo + mid) <= j0) a = mid + 1; else b = mid;
-  }
-  int64_t s = a - 1;
-  uint32_t prev = j0 > 0 ? raw[j0 - 1] : 0;
-  for (int t = 0; t < kChunk && j0 + t < n_raw; ++t) {
-    const int64_t j = j0 + t;
-    while (s + 1 < n_segs && __ldg(lo + s + 1) <= j) ++s;
-    const uint32_t v = c.byte(t);
-    if (s >= 0 && j < __ldg(hi + s)) {
-      const bool stuffed = v == 0x00 && prev == 0xFF && j - 1 >= __ldg(lo + s);
-      if (!stuffed) c.keep |= 1u << t;
-    }
-    prev = v;
-  }
-  return c;
-}
-
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint8_t* __restrict__ raw, int64_t n_raw, const int64_t* __restrict__ lo,
-             const int64_t* __restrict__ hi, int64_t n_segs, int64_t* block_sum) {
-  __shared__ uint32_t warp_sum[kThreads / 32];
-  const int64_t j0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kChunk;
-  const Chunk c = load_chunk(raw, n_raw, lo, hi, n_segs, j0);
-  uint32_t total;
-  block_exclusive<kThreads>(static_cast<uint32_t>(__popc(c.keep)), warp_sum, &total);
-  if (threadIdx.x == 0) block_sum[blockIdx.x] = total;
-}
-
-// block_sum[0 .. n_blocks) -> its exclusive prefix sum, in place, by one block.
-__global__ void __launch_bounds__(kThreads)
-block_scan_kernel(int64_t* block_sum, int64_t n_blocks) {
-  __shared__ uint32_t warp_sum[kThreads / 32];
-  int64_t carry = 0;
-  for (int64_t at = 0; at < n_blocks; at += kThreads) {
-    const int64_t i = at + threadIdx.x;
-    const uint32_t v = i < n_blocks ? static_cast<uint32_t>(block_sum[i]) : 0;
-    uint32_t total;
-    const uint32_t before = block_exclusive<kThreads>(v, warp_sum, &total);
-    if (i < n_blocks) block_sum[i] = carry + before;
-    carry += total;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(const uint8_t* __restrict__ raw, int64_t n_raw, const int64_t* __restrict__ lo,
-               const int64_t* __restrict__ hi, int64_t n_segs,
-               const int64_t* __restrict__ block_off, uint8_t* __restrict__ out,
-               int64_t* __restrict__ seg_off) {
-  __shared__ uint32_t warp_sum[kThreads / 32];
-  const int64_t j0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kChunk;
-  const Chunk c = load_chunk(raw, n_raw, lo, hi, n_segs, j0);
-  uint32_t total;
-  const uint32_t before =
-      block_exclusive<kThreads>(static_cast<uint32_t>(__popc(c.keep)), warp_sum, &total);
-  if (j0 > n_raw) return;
-  int64_t at = block_off[blockIdx.x] + before;
-  // the segments that start in this chunk (an empty last segment starts at
-  // n_raw, which the last chunk covers)
-  int64_t a = 0, b = n_segs;
-  while (a < b) {
-    const int64_t mid = (a + b) >> 1;
-    if (__ldg(lo + mid) < j0) a = mid + 1; else b = mid;
-  }
-  for (; a < n_segs && __ldg(lo + a) < j0 + kChunk; ++a) {
-    const int t = static_cast<int>(__ldg(lo + a) - j0);
-    seg_off[a] = at + __popc(c.keep & ((1u << t) - 1));
-  }
-  for (int t = 0; t < kChunk; ++t)
-    if (c.keep >> t & 1) out[at++] = static_cast<uint8_t>(c.byte(t));
-  if (n_raw < j0 + kChunk) {  // the chunk that holds the end
-    seg_off[n_segs] = at;
-    for (int t = 0; t < 8; ++t) out[at + t] = 0;
-  }
-}
-
-}  // namespace three_pass
-
 }  // namespace
 
 // The bytes of a tile: the wrapper sizes the look-back scratch by it.
@@ -498,27 +376,5 @@ extern "C" int jdtc_unstuff(const void* raw, int64_t n_raw, const void* lo, cons
   unstuff_kernel<<<static_cast<unsigned>(g.n_tiles), kThreads, 0, st>>>(g);
   sub_base_kernel<<<1, kScanThreads, 0, st>>>(g.seg_off, n_segs, sub_bytes,
                                               static_cast<int64_t*>(sub_base));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The three-kernel K2u, for measurement: raw[n_raw], lo[n_segs], hi[n_segs] ->
-// out[<= n_raw + 8], seg_off[n_segs + 1]; block_sum is scratch of
-// (n_raw + 1 + 4095) / 4096 int64.
-extern "C" int jdtc_unstuff_3pass(const void* raw, int64_t n_raw, const void* lo,
-                                  const void* hi, int64_t n_segs, void* block_sum, void* out,
-                                  void* seg_off, void* cuda_stream) {
-  namespace tp = three_pass;
-  cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const int64_t per_block = static_cast<int64_t>(tp::kThreads) * tp::kChunk;
-  const int64_t n_blocks = (n_raw + 1 + per_block - 1) / per_block;
-  const unsigned blocks = static_cast<unsigned>(n_blocks);
-  tp::count_kernel<<<blocks, tp::kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(raw), n_raw, static_cast<const int64_t*>(lo),
-      static_cast<const int64_t*>(hi), n_segs, static_cast<int64_t*>(block_sum));
-  tp::block_scan_kernel<<<1, tp::kThreads, 0, st>>>(static_cast<int64_t*>(block_sum), n_blocks);
-  tp::scatter_kernel<<<blocks, tp::kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(raw), n_raw, static_cast<const int64_t*>(lo),
-      static_cast<const int64_t*>(hi), n_segs, static_cast<const int64_t*>(block_sum),
-      static_cast<uint8_t*>(out), static_cast<int64_t*>(seg_off));
   return static_cast<int>(cudaGetLastError());
 }

@@ -643,9 +643,7 @@ def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
     (`jdtc_fancy_halo`, with `halos`) over `planes` into `out` (default a
     new [*lead, h, w, 3] uint8 tensor; the card tests pass views at every
     byte offset); a gray plane is read at the image width where `shear`.
-    Each launch counts `colour_vector_pct` (vector_share). (`jdtc_color_pixel`
-    and `jdtc_fancy_pixel`, their earlier design, take the same geometry and
-    count nothing; only the benchmarks launch them.)"""
+    Each launch counts `colour_vector_pct` (vector_share)."""
     fancy = entry.startswith("jdtc_fancy")
     g, r = launch_geometry([p.shape[-2:] for p in planes], h, w, factors, fancy, shear, stripes)
     n = len(planes)
@@ -660,8 +658,7 @@ def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
         hl = np.array([[t.data_ptr() for t in pair] if pair is not None else [0, 0]
                        for pair in [*halos, *[None] * (4 - n)]], dtype=np.int64)
         extra = (ctypes.c_void_p(hl.ctypes.data),)
-    # the earlier design (a thread a pixel) has no runs
-    share = None if entry.endswith("_pixel") else vector_share(
+    share = vector_share(
         g, r, [p.data_ptr() | int(hl[c, 0] | hl[c, 1]) for c, p in enumerate(planes)], fancy)
     shape = (*lead, h, w, 3)
     if out is None:
@@ -679,6 +676,5 @@ def _launch(entry: str, planes, lead, h: int, w: int, factors, quirks: Quirks,
                              row0, stripe_h, mode, int(quirks != Quirks.REFERENCE), *extra,
                              ptrs[4], _build.stream_of(out))
             _build.add_units(count_as, images * h * w)
-            if share is not None:
-                count("colour_vector_pct", share)
+            count("colour_vector_pct", share)
     return out

@@ -511,8 +511,8 @@ class HostArrays(NamedTuple):
 
 def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
                     units, tables, planes, records: dict | None = None,
-                    host: HostArrays | None = None, count_as: str = "jdtc_entropy_decode",
-                    earlier_tail: bool = False) -> torch.Tensor:
+                    host: HostArrays | None = None,
+                    count_as: str = "jdtc_entropy_decode") -> torch.Tensor:
     """Decode every restart segment of a group of scans (one per image, see
     convert.group_tables) into `planes` (per image, its int16 [by, bx, 64]
     planes per frame component, zeroed: the kernel stores nonzero
@@ -524,9 +524,7 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
     under `count_as` (the DEVICE route counts its own). A segment may be
     of any length up to 256 MB: the dc pass takes it in chunks of DC_CHUNK
     data units, the scan pass, where a segment has more than SCAN_CHUNK
-    records, in chunks of SCAN_CHUNK, chained by look-back. `earlier_tail`,
-    for measurement only (no decode path sets it): the earlier scan and dc
-    passes, a block per segment, whatever its length.
+    records, in chunks of SCAN_CHUNK, chained by look-back.
 
     The status's bad flags equal the plain version's on every stream; the
     consumed bits and the planes equal them bitwise whenever no segment of
@@ -643,7 +641,7 @@ def decode_segments(stream, seg_off, seg_img, seg_idx, ri: int, total_mcus,
         _build.ptr(tables), n_specs, _build.ptr(addresses), _build.ptr(status),
         _build.ptr(sub_base_dev), _build.ptr(du_base_dev), max_subs,
         _build.ptr(rec), _build.ptr(used), _build.ptr(first_du), _build.ptr(dcdiff),
-        _build.ptr(lut), _build.ptr(flag), _build.ptr(chain), chain.numel(), int(earlier_tail),
+        _build.ptr(lut), _build.ptr(flag), _build.ptr(chain), chain.numel(),
         ctypes.c_void_p(ctypes.addressof(rounds)),
         None if pass_ms is None else ctypes.c_void_p(ctypes.addressof(pass_ms)),
         _build.stream_of(status),
@@ -778,21 +776,6 @@ def unstuff_segments(raw, lo, hi) -> Unstuffed:
                   n, _build.ptr(scratch), _build.ptr(out), _build.ptr(seg_off),
                   _build.ptr(sub_base), SUB_BYTES, _build.stream_of(out))
     return Unstuffed(out, seg_off, sub_base)
-
-
-def _unstuff_3pass(raw, lo, hi):
-    """The earlier K2u design (three kernels), for measurement only: (out [n_raw + 8],
-    seg_off) on the card, as unstuff_segments' first two. No decode path
-    calls it."""
-    _check_unstuff_args(raw, lo, hi)
-    n_raw, n = raw.numel(), lo.numel()
-    out = torch.empty(n_raw + 8, dtype=torch.uint8, device=raw.device)
-    seg_off = torch.empty(n + 1, dtype=torch.int64, device=raw.device)
-    block_sum = torch.empty((n_raw + 1 + 4095) // 4096, dtype=torch.int64, device=raw.device)
-    _build.launch("jdtc_unstuff_3pass", _build.ptr(raw), n_raw, _build.ptr(lo), _build.ptr(hi),
-                  n, _build.ptr(block_sum), _build.ptr(out), _build.ptr(seg_off),
-                  _build.stream_of(out))
-    return out, seg_off
 
 
 class ScanPack(NamedTuple):

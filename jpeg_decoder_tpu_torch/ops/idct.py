@@ -425,8 +425,8 @@ def folded_band(qt_bytes: bytes, k: int) -> np.ndarray:
     """K5's folded band for one natural-order table (int32 bytes): float32
     [k*k * k*k], entry j * k*k + p = M_k[z_j][p] * float32(qt_zz[z_j]) for
     band row j (band_z). One float32 product an entry, rounded to nearest:
-    bitwise the torch fold of idct_matmul_scaled and the __fmul_rn of K5's
-    earlier design. Read-only; cached per (table, k)."""
+    bitwise the torch fold of idct_matmul_scaled. Read-only; cached per
+    (table, k)."""
     qt = np.frombuffer(qt_bytes, dtype=np.int32)
     rows = np.asarray(band_z(k))
     mat = idct_matrix_zz_scaled(k)[rows]

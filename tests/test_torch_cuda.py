@@ -394,33 +394,50 @@ def test_k2_chunked_passes_over_a_long_segment_wrap_like_the_int32_predictor(cud
     np.testing.assert_array_equal(dc, ((np.cumsum(diffs) + 2**15) % 2**16) - 2**15)
 
 
+def _first_du_of_counts(rec) -> np.ndarray:
+    """Each subsequence's first data unit as the scan pass must give it: the
+    exclusive prefix sum of the records' data-unit counts within each
+    segment (sub_base)."""
+    counts = (rec["rec"].cpu().numpy().astype(np.int64) >> 16) & 0xFFFF
+    sub_base = np.asarray(rec["sub_base"], dtype=np.int64)
+    return np.concatenate([np.concatenate([[0], np.cumsum(counts[a:b])[:-1]])
+                           for a, b in zip(sub_base[:-1], sub_base[1:])])
+
+
 @pytest.mark.parametrize("name", ["420_ri4", "420_ri5_edges", "444_ri1", "dc_only_restart_free"])
-def test_k2_chunked_tail_matches_its_earlier_design(cuda_device, name):
+def test_k2_chunked_scan_and_dc_passes_match_plain_and_the_model(cuda_device, name):
     """The scan and dc passes as the wrapper picks them (the dc pass in
     chunks; the scan pass in chunks where a segment holds more than one
-    chunk of records) against the earlier passes (a block per segment) on
-    DRI streams and on one restart-free segment of 120,000 DC-only blocks
-    (2,285 subsequences: two chunks of records): the same first data units,
-    status and planes."""
+    chunk of records): on DRI streams the status and planes bitwise the
+    plain version's (decode_segments on CPU tensors); on one restart-free
+    segment of 120,000 DC-only blocks (2,285 subsequences: two chunks of
+    records) every DC the closed form of the cumulative differences. On
+    both, the first data units the cumulative record counts."""
     if name == "dc_only_restart_free":
         diffs = np.random.default_rng(12).integers(-32767, 32768, 120_000).tolist()
         structures = [parse(dc_only_stream(diffs, nb_x=400))]
-        pack = entropy_cuda.prepare_scan(structures[0], structures[0].scans[0],
-                                         entropy_cuda.check_scan_device)
-        args, host = entropy_cuda.launch_args([pack], cuda_device)
+        packs = [entropy_cuda.prepare_scan(structures[0], structures[0].scans[0],
+                                           entropy_cuda.check_scan_device)]
+        args, host = entropy_cuda.launch_args(packs, cuda_device)
     else:
-        structures, _packs, (args, host) = _group([_stream(name)], cuda_device)
-    outs = []
-    for earlier in (False, True):
-        planes = convert.zero_planes(structures[0].frame, cuda_device)
-        rec = {}
-        status = entropy_cuda.decode_segments(*args, [planes], records=rec, host=host,
-                                              earlier_tail=earlier)
-        outs.append((status.cpu(), rec["first_du"].cpu(), [p.cpu() for p in planes]))
-    (st_a, first_a, planes_a), (st_b, first_b, planes_b) = outs
-    assert torch.equal(st_a, st_b) and torch.equal(first_a, first_b)
-    for a, b in zip(planes_a, planes_b):
-        assert torch.equal(a, b)
+        structures, packs, (args, host) = _group([_stream(name)], cuda_device)
+    planes = convert.zero_planes(structures[0].frame, cuda_device)
+    rec = {}
+    status = entropy_cuda.decode_segments(*args, [planes], records=rec, host=host)
+    entropy_cuda.check_status(status, args[1])
+    np.testing.assert_array_equal(rec["first_du"].cpu().numpy().astype(np.int64),
+                                  _first_du_of_counts(rec))
+    if name == "dc_only_restart_free":
+        assert int(rec["sub_base"][-1]) > entropy_cuda.SCAN_CHUNK
+        dc = planes[0].reshape(-1, 64)[:, 0].cpu().numpy().astype(np.int64)
+        np.testing.assert_array_equal(dc, ((np.cumsum(diffs) + 2**15) % 2**16) - 2**15)
+        return
+    cpu_args, cpu_host = entropy_cuda.launch_args(packs, "cpu")
+    want = convert.zero_planes(structures[0].frame, "cpu")
+    st_p = entropy_cuda.decode_segments(*cpu_args, [want], host=cpu_host)
+    assert torch.equal(status.cpu(), st_p)
+    for a, b in zip(planes, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_device_backend_at_4k_matches_native(cuda_device):
@@ -728,12 +745,9 @@ K0_SHAPES = {"bx1": (37, 1), "odd_bx": (19, 33), "ragged_cta": (7, 50),
 @pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
 @pytest.mark.parametrize("extremes", [False, True], ids=["laplace", "pm2048_q255"])
 @pytest.mark.parametrize("shape", sorted(K0_SHAPES))
-def test_k0_matches_plain_and_its_earlier_design(cuda_device, shape, extremes, bits12):
-    """K0 bitwise against its plain version and against its earlier design
-    (jdtc_idct_exact_gather, reached only by the benchmarks), one launch,
-    its blocks counted as its units."""
-    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
-
+def test_k0_matches_plain_on_ragged_shapes(cuda_device, shape, extremes, bits12):
+    """K0 bitwise against its plain version, one launch, its blocks counted
+    as its units."""
     dims = K0_SHAPES[shape]
     rng = np.random.default_rng(sum(dims) + 17 * extremes)
     if extremes:
@@ -752,10 +766,8 @@ def test_k0_matches_plain_and_its_earlier_design(cuda_device, shape, extremes, b
     rows = int(np.prod(dims[:-1]))
     want = tidct.blocks_to_plane(tidct.idct_exact(plane.reshape(-1, 64), qt, bits12),
                                  rows, dims[-1]).reshape(got.shape)
-    earlier = pixel_sweep.k0_gather(plane, qt, bits12)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert torch.equal(got, earlier)
 
 
 def _random_blocks(seed, shape, lo=-1024, hi=1024):
@@ -795,11 +807,10 @@ K1_SHAPES = {"bx1": (37, 1), "odd_bx": (19, 33), "ragged_tile": (7, 50),
 
 @pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
 @pytest.mark.parametrize("shape", sorted(K1_SHAPES))
-def test_k1_matches_plain_and_its_earlier_design(cuda_device, shape, bits12):
-    """K1 bitwise its earlier design (jdtc_idct_float_column, reached only
-    by the benchmarks; the same per-pixel order), within 1 of its plain
-    version on at most 1e-3 of the pixels; one launch, its blocks counted.
-    The unaligned case: coefficients at an odd address (2-byte loads)."""
+def test_k1_matches_plain_aligned_or_not(cuda_device, shape, bits12):
+    """K1 within 1 of its plain version on at most 1e-3 of the pixels; one
+    launch, its blocks counted. The unaligned case, coefficients at an odd
+    address (2-byte loads), bitwise the aligned one."""
     from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
 
     dims = K1_SHAPES[shape]
@@ -815,10 +826,9 @@ def test_k1_matches_plain_and_its_earlier_design(cuda_device, shape, bits12):
     assert _build.LAUNCHES == {"jdtc_idct_float": 1}
     assert _build.LAUNCH_UNITS == {"jdtc_idct_float": int(np.prod(dims))}
     odd = tidct.idct_plane(unaligned, qt, bits12, IdctPrecision.FLOAT32)
-    earlier = pixel_sweep.k1_column(plane, qt, bits12)
     want = pixel_sweep.k1_plain(plane, qt, bits12)
     torch.cuda.synchronize()
-    assert torch.equal(got, earlier) and torch.equal(odd, earlier)
+    assert torch.equal(odd, got)
     d = (got.to(torch.int32) - want.to(torch.int32)).abs()
     assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
 
@@ -1205,15 +1215,12 @@ RAGGED_WIDTHS = [1, 15, 17, 3848]
 @pytest.mark.parametrize("upsample", ["nn", "fancy"])
 @pytest.mark.parametrize("sampling,transform", [("gray", "gray")] + _upsample_cases(False)
                          + _upsample_cases(True))
-def test_colour_kernels_on_ragged_widths(cuda_device, sampling, transform, upsample, width):
+def test_colour_kernels_match_plain_on_ragged_widths(cuda_device, sampling, transform, upsample,
+                                                     width):
     """K3 (K3c on four planes) and K3f bitwise against their plain versions
-    and their earlier design (a thread a pixel: jdtc_color_pixel,
-    jdtc_fancy_pixel, reached only by the benchmarks) at widths that are not
-    a multiple of the run, both quirks (the gray plane sheared at the image
-    width under REFERENCE), a batch of two; the launch's units are its
-    output pixels."""
-    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
-
+    at widths that are not a multiple of the run, both quirks (the gray
+    plane sheared at the image width under REFERENCE), a batch of two; the
+    launch's units are its output pixels."""
     factors = GRAY if sampling == "gray" else UPSAMPLINGS[sampling]
     exact, raw = TRANSFORMS.get(transform, (True, False))
     h = 21
@@ -1227,10 +1234,8 @@ def test_colour_kernels_on_ragged_widths(cuda_device, sampling, transform, upsam
         assert _build.LAUNCHES == {entry: 1}
         assert _build.LAUNCH_UNITS == {entry: 2 * h * width}
         want = tcolor._planes_to_rgb_plain(*args)
-        earlier = pixel_sweep.colour_pixel(*args)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        assert torch.equal(got, earlier)
 
 
 #: Widths whose rows' heads differ: one run and one pixel, three MCUs, the
@@ -1240,14 +1245,12 @@ HEAD_WIDTHS = [17, 45, 500, 3848]
 
 @pytest.mark.parametrize("width", HEAD_WIDTHS)
 @pytest.mark.parametrize("upsample", ["nn", "fancy"])
-def test_colour_kernels_at_every_output_head(cuda_device, upsample, width):
+def test_colour_kernels_match_plain_at_every_output_head(cuda_device, upsample, width):
     """K3f (jdtc_fancy) and K3 (jdtc_color) on a batch of three 4:2:0
     images, their output placed at byte offsets 0-15 of a larger buffer so
-    that every row head is taken: bitwise the plain version, and the
-    earlier design (jdtc_fancy_pixel, jdtc_color_pixel) at the same offset;
-    no byte around the output written; each run-kernel launch counts
-    colour_vector_pct once, 100 (every run, the partial ones too), the
-    earlier design's nothing."""
+    that every row head is taken: bitwise the plain version; no byte around
+    the output written; each launch counts colour_vector_pct once, 100
+    (every run, the partial ones too)."""
     h, lead = 7, (3,)
     planes = _saturated_planes(F420, h, width, width, lead, cuda_device)
     entry = "jdtc_fancy" if upsample == "fancy" else "jdtc_color"
@@ -1255,20 +1258,17 @@ def test_colour_kernels_at_every_output_head(cuda_device, upsample, width):
     size = want.numel()
     share = 100.0
     for offset in range(16):
-        for name in (entry, entry + "_pixel"):
-            buf = torch.full((size + 32,), 0xA5, dtype=torch.uint8, device=cuda_device)
-            out = buf[offset:offset + size].view(*lead, h, width, 3)
-            before = GLOBAL_METRICS.stages.get("colour_vector_pct", StageStat())
-            calls, items = before.calls, before.total_items
-            tcolor._launch(name, planes, lead, h, width, F420, Quirks.REFERENCE, tcolor.YCBCR,
-                           True, out=out)
-            st = GLOBAL_METRICS.stages.get("colour_vector_pct", StageStat())
-            runs = name == entry
-            assert (st.calls, st.total_items) == (calls + runs,
-                                                  pytest.approx(items + runs * share))
-            torch.cuda.synchronize()
-            assert torch.equal(out, want), (name, offset)
-            assert bool((buf[:offset] == 0xA5).all()) and bool((buf[offset + size:] == 0xA5).all())
+        buf = torch.full((size + 32,), 0xA5, dtype=torch.uint8, device=cuda_device)
+        out = buf[offset:offset + size].view(*lead, h, width, 3)
+        before = GLOBAL_METRICS.stages.get("colour_vector_pct", StageStat())
+        calls, items = before.calls, before.total_items
+        tcolor._launch(entry, planes, lead, h, width, F420, Quirks.REFERENCE, tcolor.YCBCR,
+                       True, out=out)
+        st = GLOBAL_METRICS.stages.get("colour_vector_pct", StageStat())
+        assert (st.calls, st.total_items) == (calls + 1, pytest.approx(items + share))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), offset
+        assert bool((buf[:offset] == 0xA5).all()) and bool((buf[offset + size:] == 0xA5).all())
 
 
 @pytest.mark.parametrize("name", ["fancy_420_exact", "ycck_exact"])
@@ -1356,13 +1356,10 @@ K5_LAUNCH_CASES = {
 @pytest.mark.parametrize("bits12", [False, True], ids=["8bit", "12bit"])
 @pytest.mark.parametrize("k", [1, 2, 4])
 @pytest.mark.parametrize("name", sorted(K5_LAUNCH_CASES))
-def test_k5_one_launch_is_its_earlier_design_and_its_model(cuda_device, name, k, bits12):
-    """K5 covers every component in one launch, bitwise its earlier design
-    (a launch a plane, pixel_sweep.k5_percomp, also with its loads first)
-    and the CPU model of its walk (ops/idct._idct_scaled_walk_plain, the
-    fmaf chain emulated exactly)."""
-    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
-
+def test_k5_one_launch_is_its_model(cuda_device, name, k, bits12):
+    """K5 covers every component in one launch, bitwise the CPU model of
+    its walk (ops/idct._idct_scaled_walk_plain, the fmaf chain emulated
+    exactly)."""
     lead, dims, n_tables = K5_LAUNCH_CASES[name]
     rng = np.random.default_rng(len(name) * 7 + k + bits12)
     lo, hi = (-2048, 2048) if bits12 else (-1024, 1024)
@@ -1373,11 +1370,7 @@ def test_k5_one_launch_is_its_earlier_design_and_its_model(cuda_device, name, k,
     _build.LAUNCHES.clear()
     got = tidct.idct_planes_scaled(on_card, qts, k, bits12)
     assert _build.LAUNCHES == {"jdtc_idct_scaled": 1}
-    card_qts = [torch.from_numpy(q).to(cuda_device) for q in qts]
     model = tidct._idct_scaled_walk_plain(planes, qts, k, bits12)
-    for loads_first in (False, True):
-        earlier = pixel_sweep.k5_percomp(on_card, card_qts, k, bits12, loads_first)
-        assert all(torch.equal(g, e) for g, e in zip(got, earlier))
     assert all(torch.equal(g.cpu(), m) for g, m in zip(got, model))
 
 
@@ -1634,11 +1627,8 @@ def _encode_image(h, w, seed, gray2d=False):
 @pytest.mark.parametrize("sampling", sorted(K4_SAMPLINGS))
 def test_k4_matches_plain(cuda_device, sampling, size, quality):
     """Every coefficient of every component bitwise the plain version's on
-    the same image, on the card and on the CPU, and the earlier design's
-    (jdtc_fdct_column, reached only by the benchmarks); planes of one block
-    (1x1, 8x8, 16x16) take the matrix-vector order."""
-    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
-
+    the same image, on the card and on the CPU; planes of one block (1x1,
+    8x8, 16x16) take the matrix-vector order."""
     factors, _ = K4_SAMPLINGS[sampling]
     img = _encode_image(*size, seed=quality, gray2d=sampling == "gray2d")
     kq = tfdct.fdct_tables(tenc.quality_qtables(quality), cuda_device)
@@ -1646,19 +1636,15 @@ def test_k4_matches_plain(cuda_device, sampling, size, quality):
     got = tfdct.encode_planes(src, factors, kq)
     plain = tfdct._planes_plain(src, factors, kq)
     cpu = tfdct.encode_planes(src.cpu(), factors, kq.cpu())
-    earlier = pixel_sweep.fdct_column(src, factors, kq)
     torch.cuda.synchronize()
-    for a, b, c, e in zip(got, plain, cpu, earlier, strict=True):
-        assert torch.equal(a, b) and torch.equal(a.cpu(), c) and torch.equal(a, e)
+    for a, b, c in zip(got, plain, cpu, strict=True):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
 
 
 @pytest.mark.parametrize("quality", [10, 85, 100])
-def test_k4_4k_matches_plain_and_its_earlier_design(cuda_device, quality):
+def test_k4_4k_matches_plain(cuda_device, quality):
     """A 3840x2160 4:2:0 image: 15 runs of 16 MCUs a row; its 194,400
-    blocks bitwise the plain version's and the earlier design's; one
-    launch, its blocks counted."""
-    from jpeg_decoder_tpu_torch.benchmarks import pixel_sweep
-
+    blocks bitwise the plain version's; one launch, its blocks counted."""
     img = torch.from_numpy(_encode_image(2160, 3840, quality)).to(cuda_device)
     kq = tfdct.fdct_tables(tenc.quality_qtables(quality), cuda_device)
     _build.LAUNCHES.clear()
@@ -1667,9 +1653,8 @@ def test_k4_4k_matches_plain_and_its_earlier_design(cuda_device, quality):
     assert _build.LAUNCHES == {"jdtc_fdct": 1}
     assert _build.LAUNCH_UNITS == {"jdtc_fdct": 194_400}
     plain = tfdct._planes_plain(img, F420, kq)
-    earlier = pixel_sweep.fdct_column(img, F420, kq)
-    for a, b, e in zip(got, plain, earlier, strict=True):
-        assert torch.equal(a, b) and torch.equal(a, e)
+    for a, b in zip(got, plain, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("runs,extra", [(1, -1), (1, 1), (2, 3), (3, 1)])

@@ -420,9 +420,9 @@ def test_halving_in_float32_is_exact():
 
 
 def _store_f64(x, bits12):
-    """csrc/idct_exact.cuh store_f64, the earlier form, in NumPy float64:
-    0.25 x + the level shift rounded once, clamped, truncated; 12-bit: the
-    int16 wrap and trunc(v / 4096 * 255)."""
+    """The float64 store, the reference's output store as the model spells
+    it, in NumPy float64: 0.25 x + the level shift rounded once, clamped,
+    truncated; 12-bit: the int16 wrap and trunc(v / 4096 * 255)."""
     d = 0.25 * x.astype(np.float64) + (2048.0 if bits12 else 128.0)
     d = np.where(np.isnan(d), 0.0, np.clip(d, 0.0, 65535.0 if bits12 else 255.0))
     v = np.trunc(d).astype(np.int64)
@@ -500,18 +500,19 @@ def test_floor_quarter_reads_the_floor_off_the_bits():
 
 
 def test_idct_exact_source_halves_in_float32_and_stores_in_integers():
-    """The kernels' header takes the rewrites: the twelve halvings of a pass
-    go through `half`, K0 instantiates the design's spelling, and the store
-    has no float64 left."""
+    """The kernels' arithmetic has one spelling: the twelve halvings of a
+    pass go through `half`, the store has no float64 left, and no switch
+    or float64 store selects another."""
     src = (CSRC / "idct_exact.cuh").read_text()
     idct8 = src[src.index("static __device__ __forceinline__ void idct8"):]
     idct8 = idct8[:idct8.index("\n}\n")]
-    assert idct8.count("half<kHalveInFloat>(") == 12
+    assert idct8.count("half(") == 12
     assert "mul(0.5," not in idct8
     store = src[src.index("static __device__ __forceinline__ uint8_t store(float x"):]
     store = store[:store.index("\n}\n")]
     assert not any(op in store for op in ("double", "__dmul", "__dadd", "__ddiv", "mul(", "add("))
-    assert "constexpr int kArithmetic = 2;" in (CSRC / "idct_exact.cu").read_text()
+    for text in (src, (CSRC / "idct_exact.cu").read_text()):
+        assert not any(name in text for name in ("kArithmetic", "store_f64", "kHalveInFloat"))
 
 
 # ---------------------------------------------------------------------------

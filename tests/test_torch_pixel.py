@@ -13,6 +13,7 @@ against a brute-force check over every 3-component sampling with factors
 batches above 65,535 images, and the C entry points' argument lists
 against `_build.SIGNATURES` (no compiler runs here)."""
 
+import ast
 import ctypes
 import itertools
 import re
@@ -425,6 +426,48 @@ def _c_params(name):
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_entry_point_matches_its_signature(name):
     assert _c_params(name) == list(_build.SIGNATURES[name])
+
+
+#: The entry points no module of the package reaches: the empty kernel is
+#: the launch floor the benchmarks time a launch against, not a design.
+YARDSTICKS = {"jdtc_idct_scaled_empty"}
+
+
+def _names_in_code(path) -> set:
+    """The string constants of a module that are not docstrings, and the
+    attribute names it reads: where it names an entry point in its code."""
+    tree = ast.parse(path.read_text())
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                       ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docstrings:
+            names.add(node.value)
+        elif isinstance(node, ast.Attribute):
+            names.add(node.attr)
+    return names
+
+
+#: Every name the package's modules use in their code, outside benchmarks/
+#: and outside _build.py, whose SIGNATURES this is checked against.
+_PACKAGE_NAMES = set().union(*(
+    _names_in_code(path) for path in sorted(_build.SRC_DIR.parent.rglob("*.py"))
+    if "benchmarks" not in path.relative_to(_build.SRC_DIR.parent).parts
+    and path.name != "_build.py"))
+
+
+@pytest.mark.parametrize("name", sorted(set(_build.SIGNATURES) - YARDSTICKS))
+def test_entry_point_is_reached_outside_the_benchmarks(name):
+    """Every entry point the library builds is named in the code of a
+    package module outside benchmarks/ (a string constant, not a
+    docstring, or an attribute of the loaded library): a design that only
+    a benchmark reaches is timed against another build instead
+    (pixel_sweep --against)."""
+    assert name in _PACKAGE_NAMES
 
 
 def test_every_source_is_built_and_headers_are_hashed(tmp_path, monkeypatch):
