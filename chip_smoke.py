@@ -940,14 +940,17 @@ def check_k2_photographs(dev, files: dict, tiled: dict, record: dict) -> None:
             pass2_steps=rec["steps"], pass_ms=rec["pass_ms"], **stats)
 
 
-def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict, card: str) -> None:
+def check_k2u(dev, small: bytes, big: bytes, no_dri: bytes, batch: list, record: dict,
+              card: str) -> None:
     """K2u (the single pass and its sub_base kernel) against its plain
     version on the card and against the host's per-segment unstuffing
     (pack_scan), bitwise, stream, offsets and K2's layout: a 640x352
     stream, the 4K request and the eight 4K requests of a batch in one
     call. Each also timed by benchmarks/k2u_sweep.measure: the card alone,
     a device-to-device copy of the raw bytes, raw[keep] as one PyTorch
-    call and one call of the wrapper between events; then the kernels'
+    call and one call of the wrapper between events. Then K2u without
+    bounds, as a DEVICE request launches it (check_k2u_find), on the 4K
+    request restart-free and with a marker per MCU row; then the kernels'
     registers and shared memory (nvcc -Xptxas -v)."""
     from jpeg_decoder_tpu_torch.benchmarks import k2u_sweep
     from jpeg_decoder_tpu_torch.ops import entropy_cuda
@@ -1000,9 +1003,52 @@ def check_k2u(dev, small: bytes, big: bytes, batch: list, record: dict, card: st
                           batch_compaction_ms=m["compaction_ms"], batch_plain_ms=plain_ms,
                           batch_bound_ms=bnd["bound_ms"],
                           batch_shape=f"{raw.numel()} raw bytes, {lo.numel()} segments")
+    for key, data in (("find", no_dri), ("find_dri", big)):
+        err = max(err, check_k2u_find(dev, key, data, record, card))
     record["max_abs_err"] = err
     record["ptxas"] = k2u_sweep.ptxas_report()
     log(f"K2u registers and shared memory (nvcc -Xptxas -v): {record['ptxas']}")
+
+
+def check_k2u_find(dev, key: str, data: bytes, record: dict, card: str) -> int:
+    """K2u without bounds (find_segments, unstuff_kernel<true>) on a 4K
+    request's bytes from its first entropy byte to the end of the file,
+    bitwise against its plain version (_find_plain): every entry of `ends`
+    the kernel defines (the offsets of the segments found, the end of the
+    kept bytes, the count found, where the scan ended), the stream up to
+    its tail and sub_base; the count found must be the header's and the
+    end the full parse's (its scan span's). Timed the card alone; its bound is its bytes. Recorded
+    under `key`; returns the largest difference (fails on any)."""
+    import torch
+    from jpeg_decoder_tpu_torch.benchmarks.pixel_sweep import card_ms
+    from jpeg_decoder_tpu_torch.io.parser import parse
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+
+    span = parse(data).scans[0].span
+    n = span.num_segments
+    raw = torch.frombuffer(bytearray(data[span.start:]), dtype=torch.uint8).to(dev)
+    got, ends = entropy_cuda.find_segments(raw, n)
+    want, want_ends = entropy_cuda._find_plain(raw, n)
+    ends, want_ends = ends.cpu().numpy(), want_ends.cpu().numpy()
+    found, final = int(want_ends[n + 1]), int(want_ends[n]) + 8
+    defined = [*range(min(found, n)), n, n + 1, n + 2]
+    e = max(max_abs_err(ends[defined], want_ends[defined]),
+            max_abs_err(got.stream[:final], want.stream[:final]),
+            max_abs_err(got.sub_base, want.sub_base))
+    if e or found != n or int(ends[n + 2]) != span.end - span.start:
+        fail(f"K2u without bounds ({key}): {found} of {n} segments, the end at"
+             f" {int(ends[n + 2])} (the parse's at {span.end - span.start}), max_abs_err {e}")
+    ms = card_ms(lambda: entropy_cuda.find_segments(raw, n), 7)
+    # Bound: the raw bytes read once, the stream, its offsets, the counts
+    # and K2's layout written once; per raw byte the compares with 0x00,
+    # 0xFF and D0-D7 and the add of the prefix sum.
+    bnd = bound(raw.numel() + final + 8 * (2 * n + 4), 4 * raw.numel(), "int32")
+    record.update({f"{key}_ms": ms, f"{key}_bound_ms": bnd["bound_ms"],
+                   f"{key}_shape": f"{raw.numel()} raw bytes to the end of the file, {n} segments"})
+    log(f"K2u without bounds ({key}: {raw.numel()} bytes to the end of the file, {n} segments"
+        f" found, {raw.numel() - final + 8} bytes dropped): the card alone {ms:.4f} ms; bound"
+        f" {bnd['bound_ms']:.4f} ms; max_abs_err {e} [{card}]")
+    return e
 
 
 def check_k0(dev, big: bytes, cmyk: bytes, record: dict, card: str) -> None:
@@ -3554,7 +3600,8 @@ def main() -> None:
             source="jpeg_decoder_tpu_torch/csrc/entropy_decode.cu",
             replaces="jpeg_decoder_tpu/ops/entropy_device.py:61"),
         "jdtc_unstuff": dict(
-            name="K2u unstuff", route="cuda",
+            name="K2u unstuff (bounds given: PALLAS, batches; find_*: without bounds,"
+                 " a DEVICE request's)", route="cuda",
             source="jpeg_decoder_tpu_torch/csrc/unstuff.cu",
             replaces="jpeg_decoder_tpu/ops/entropy_pallas.py:636"),
         "jdtc_idct_exact": dict(
@@ -3637,8 +3684,8 @@ def main() -> None:
                 kernels["jdtc_entropy_decode"])
     timed_phase("K2 on photographs", check_k2_photographs, dev, files, tiled,
                 kernels["jdtc_entropy_decode"])
-    timed_phase("K2u", check_k2u, dev, smalls[0], requests[0], batch, kernels["jdtc_unstuff"],
-                card)
+    timed_phase("K2u", check_k2u, dev, smalls[0], requests[0], no_dri, batch,
+                kernels["jdtc_unstuff"], card)
     t0 = time.perf_counter()
     dev_inputs = device_inputs(no_dri, requests, tiled)
     log(f"inputs of the DEVICE route: {[(n, len(d)) for n, (d, _t) in dev_inputs.items()]}"

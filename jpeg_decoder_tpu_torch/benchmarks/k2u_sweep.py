@@ -3,7 +3,7 @@ what bounds it, and at other tile sizes.
 
     python -m jpeg_decoder_tpu_torch.benchmarks.k2u_sweep \\
         [--reps 15] [--threads 128 256 512] [--vecs 1 2] [--variants]
-        [--variants-only]
+        [--variants-only] [--find]
 
 Inputs (benchmarks/inputs.py): one 3840x2160 4:2:0 request of random dense
 blocks, the two photographs tiled to that size, a 640x352 stream and eight
@@ -31,6 +31,12 @@ with --variants the copies of VARIANTS, which drop one step to attribute
 the time (not checked: their output is wrong); each copy is built by nvcc
 in a temporary directory and run in a process of its own on the same
 streams, the tile sizes held bitwise against the plain version first.
+With --find, K2u without bounds (`find_segments`: the bytes from the
+first entropy byte to the end of the file, the segments found on the card)
+beside K2u with the parse's bounds, in turns, the card alone and with L2
+flushed (`pixel_sweep.in_turns`), on 3840x2160 4:2:0 requests restart-free
+and with a marker per MCU row (dense blocks and a photograph tiled), each
+first held bitwise against the bounds' result.
 Each line carries the card's name and power limit; compare within one run
 only.
 """
@@ -212,6 +218,43 @@ VARIANTS = {
 }
 
 
+def find_turns(reps: int, card: str) -> list[dict]:
+    """find_segments beside unstuff_segments with the parse's bounds, in
+    turns, at 4K restart-free and with a marker per MCU row."""
+    from ..io.parser import parse
+    from ..ops import entropy_cuda
+    from .inputs import F420, PHOTOS_420, make_jpeg, photo_jpeg
+    from .pixel_sweep import in_turns
+
+    dev = torch.device("cuda")
+    out = []
+    for ri in (0, RI):
+        for label, data in (("dense", make_jpeg(W, H, F420, ri, SEEDS[0])),
+                            (f"photograph {PHOTOS_420[0].stem}",
+                             photo_jpeg(PHOTOS_420[0], W, H, ri))):
+            s = parse(data)
+            span = s.scans[0].span
+            pack = entropy_cuda.prepare_scan(s, s.scans[0], entropy_cuda.check_scan_device)
+            raw, lo, hi, *_ = entropy_cuda.to_device(entropy_cuda.host_args([pack]), dev)
+            rest = torch.frombuffer(bytearray(data[span.start:]), dtype=torch.uint8).to(dev)
+            n = span.num_segments
+            got, ends = entropy_cuda.find_segments(rest, n)
+            want = entropy_cuda.unstuff_segments(raw, lo, hi)
+            end = int(want.seg_off[-1]) + 8
+            ends = ends.cpu()
+            if not (int(ends[n + 1]) == n and int(ends[n + 2]) == span.end - span.start
+                    and torch.equal(got.seg_off, want.seg_off)
+                    and torch.equal(got.sub_base, want.sub_base)
+                    and torch.equal(got.stream[:end], want.stream[:end])):
+                raise RuntimeError("K2u without bounds differs from K2u with them")
+            turns = in_turns(lambda: entropy_cuda.find_segments(rest, n),
+                             lambda: entropy_cuda.unstuff_segments(raw, lo, hi), reps,
+                             label="bounds")
+            out.append(dict(find=f"{label} 4K, {'restart-free' if ri == 0 else f'ri {ri}'}",
+                            raw_bytes=rest.numel(), segments=n, **turns, card=card))
+    return out
+
+
 def worker(inputs: str, reps: int, bitwise: bool) -> None:
     """In a variant's copy: its single pass held bitwise against the plain
     version (unless it drops work), then timed on every case of the
@@ -281,6 +324,8 @@ def main(argv=None) -> None:
     ap.add_argument("--variants", action="store_true",
                     help="also time VARIANTS (copies that drop a step)")
     ap.add_argument("--variants-only", action="store_true")
+    ap.add_argument("--find", action="store_true",
+                    help="K2u without bounds beside K2u with them, in turns, and nothing else")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--unchecked", action="store_true", help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
@@ -288,6 +333,12 @@ def main(argv=None) -> None:
         raise SystemExit("k2u_sweep needs a CUDA card")
     if ns.worker:
         worker(ns.worker, ns.reps, not ns.unchecked)
+        return
+    if ns.find:
+        from .gather_probe import card_line
+
+        for rec in find_turns(ns.reps, card_line()):
+            print(json.dumps(rec), flush=True)
         return
     if ns.threads or ns.variants:
         sweep(ns.threads, ns.vecs, ns.variants, ns.reps)

@@ -50,6 +50,22 @@
 // tail. A second, one-block kernel then forms sub_base from seg_off (done
 // inside this kernel by its last block instead, it cost more for a batch
 // of eight 4K images on an H100).
+//
+// Without bounds (lo and hi null, n_segs at least 1; one scan, the bytes
+// from its first entropy byte to the end of the file) the kernel finds the segments
+// itself, by the host's rule (io/bitstream.scan_entropy_span): a 0xFF
+// followed by 0x00 is stuffing, by D0-D7 a restart marker (both bytes
+// dropped; a segment starts after them), by 0xFF a fill byte (kept, as the
+// host's bounds keep it); any other 0xFF, or one in the last byte, ends
+// the scan, and nothing from there on is kept. Each 0xFF is judged by the
+// byte after it alone, so a tile needs one byte past its end. The
+// look-back word then carries the kept bytes, the markers and whether the
+// scan ended; the tile of the k-th marker writes seg_off[k + 1] while
+// k + 1 < n_segs (the count the header implies), and the tile where the
+// scan ends (or the last) writes seg_off[n_segs], the tail, the segments
+// found and the byte where the scan ended, in seg_off[n_segs + 1] and
+// seg_off[n_segs + 2]. The host reads those back and keeps the result only
+// when the count is the header's and the scan ended at EOI.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +115,13 @@ constexpr uint32_t kAll = kChunk == 32 ? kFull : (1u << kChunk) - 1;
 constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's kept count
 constexpr unsigned long long kPrefix = 2ull << 62;     // the kept count up to its end
 constexpr unsigned long long kValue = (1ull << 62) - 1;
+// Without bounds the value has three fields: bit 61 set where the scan
+// ended in or before the tile, the kept bytes in bits 30..60 and the
+// markers in bits 0..29 (the wrapper takes fewer than 2^31 raw bytes).
+constexpr unsigned long long kEnded = 1ull << 61;
+constexpr int kKeptShift = 30;
+constexpr unsigned long long kMarkers = (1ull << kKeptShift) - 1;
+constexpr unsigned long long kCounts = kEnded - 1;
 
 struct Args {
   const uint8_t* raw;
@@ -159,15 +182,23 @@ __device__ __forceinline__ uint32_t bit_range(int a, int b) {
   return (b == 32 ? kFull : (1u << b) - 1) & ~((1u << a) - 1);
 }
 
+// kFind: no bounds; the kernel finds the segments (see the top).
+template <bool kFind>
 __global__ void __launch_bounds__(kThreads) unstuff_kernel(Args g) {
   __shared__ __align__(16) uint8_t buf[kTile + 32];  // the kept bytes, at their offset mod 16
   __shared__ int64_t seg_lo[kSegCap], seg_hi[kSegCap];
   __shared__ uint32_t warp_sum[kThreads / 32];
   __shared__ int64_t s_tile, s_first, s_offset;
   __shared__ int s_count, s_cut;
+  // Without bounds: s_count is the tile's first byte that ends the scan
+  // (kTile if none), s_first the markers before the tile, s_cut whether
+  // the scan ended before the tile.
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) s_tile = static_cast<int64_t>(atomicAdd(g.counter, 1ull));
+  if constexpr (kFind) {
+    if (tid == 0) s_count = kTile;
+  }
   __syncthreads();
   const int64_t tile = s_tile;
   const int64_t t0 = tile * kTile, t1 = t0 + kTile;
@@ -191,27 +222,29 @@ __global__ void __launch_bounds__(kThreads) unstuff_kernel(Args g) {
       w[t >> 2] |= static_cast<uint32_t>(__ldg(g.raw + j0 + t)) << (8 * (t & 3));
   }
 
-  // the segments that touch the tile: the one before the first that starts
-  // in it, and those that start in it
-  if (warp == 0) {
-    const int64_t sb = warp_lower_bound(g.lo, g.n_segs, t0, lane);
-    const bool none_starts = sb == g.n_segs || __ldg(g.lo + sb) >= t1;
-    const bool inside_one = none_starts && sb > 0 && __ldg(g.hi + sb - 1) >= t1;
-    int64_t first = sb, count = 0;
-    if (!inside_one) {
-      const int64_t se = none_starts ? sb : warp_lower_bound(g.lo, g.n_segs, t1, lane);
-      first = sb > 0 ? sb - 1 : 0;
-      count = se - first;
-      if (count <= kSegCap)
-        for (int64_t k = lane; k < count; k += 32) {
-          seg_lo[k] = __ldg(g.lo + first + k);
-          seg_hi[k] = __ldg(g.hi + first + k);
-        }
-    }
-    if (lane == 0) {
-      s_cut = !inside_one;
-      s_first = first;
-      s_count = static_cast<int>(count < 0x7FFFFFFF ? count : 0x7FFFFFFF);
+  if constexpr (!kFind) {
+    // the segments that touch the tile: the one before the first that starts
+    // in it, and those that start in it
+    if (warp == 0) {
+      const int64_t sb = warp_lower_bound(g.lo, g.n_segs, t0, lane);
+      const bool none_starts = sb == g.n_segs || __ldg(g.lo + sb) >= t1;
+      const bool inside_one = none_starts && sb > 0 && __ldg(g.hi + sb - 1) >= t1;
+      int64_t first = sb, count = 0;
+      if (!inside_one) {
+        const int64_t se = none_starts ? sb : warp_lower_bound(g.lo, g.n_segs, t1, lane);
+        first = sb > 0 ? sb - 1 : 0;
+        count = se - first;
+        if (count <= kSegCap)
+          for (int64_t k = lane; k < count; k += 32) {
+            seg_lo[k] = __ldg(g.lo + first + k);
+            seg_hi[k] = __ldg(g.hi + first + k);
+          }
+      }
+      if (lane == 0) {
+        s_cut = !inside_one;
+        s_first = first;
+        s_count = static_cast<int>(count < 0x7FFFFFFF ? count : 0x7FFFFFFF);
+      }
     }
   }
 
@@ -227,10 +260,36 @@ __global__ void __launch_bounds__(kThreads) unstuff_kernel(Args g) {
   const uint32_t left = __shfl_up_sync(kFull, (ff >> (kChunk - 1)) & 1, 1);
   uint32_t prev_ff = left;
   if (lane == 0) prev_ff = j0 > 0 && j0 - 1 < g.n_raw && __ldg(g.raw + j0 - 1) == 0xFF;
+  // without bounds: the bytes kept and the markers' 0xFF, before the cut at
+  // the end of the scan
+  uint32_t kept = 0, marker = 0;
+  if constexpr (kFind) {
+    constexpr uint32_t kTop = 1u << (kChunk - 1);
+    uint32_t dn = 0;  // which bytes are D0-D7
+#pragma unroll
+    for (int i = 0; i < kChunk / 4; ++i)
+      dn |= top_bits(__vcmpeq4(w[i] & 0xF8F8F8F8u, 0xD0D0D0D0u) & 0x80808080u) << (4 * i);
+    // the byte after the chunk: the lane after's first byte, or a load for
+    // a warp's last lane
+    uint32_t after = __shfl_down_sync(kFull, w[0] & 0xFF, 1);
+    if (lane == 31) after = j0 + kChunk < g.n_raw ? __ldg(g.raw + j0 + kChunk) : 0;
+    const int64_t avail = g.n_raw - j0;  // bytes of the chunk that exist
+    const uint32_t valid =
+        avail >= kChunk ? kAll : avail <= 0 ? 0u : (1u << static_cast<int>(avail)) - 1;
+    const uint32_t has_next = valid >> 1 | (avail > kChunk ? kTop : 0u);
+    const uint32_t next_zero = (zero >> 1 | (after == 0x00 ? kTop : 0u)) & has_next;
+    const uint32_t next_ff = (ff >> 1 | (after == 0xFF ? kTop : 0u)) & has_next;
+    const uint32_t next_dn = (dn >> 1 | ((after & 0xF8) == 0xD0 ? kTop : 0u)) & has_next;
+    marker = ff & valid & next_dn;
+    const uint32_t ends = ff & valid & ~(next_zero | next_ff | next_dn);
+    // dropped: the 0x00 or D0-D7 after a 0xFF, and a marker's 0xFF
+    kept = valid & ~(((zero | dn) & ((ff << 1) | prev_ff)) | marker);
+    if (ends) atomicMin(&s_count, tid * kChunk + __ffs(ends) - 1);
+  }
   __syncthreads();  // the tile's segments
 
   uint32_t inside = kAll, starts = 0;
-  const bool cut = s_cut;
+  const bool cut = !kFind && s_cut;
   int count = 0;
   const int64_t* slo = seg_lo;
   const int64_t* shi = seg_hi;
@@ -253,14 +312,66 @@ __global__ void __launch_bounds__(kThreads) unstuff_kernel(Args g) {
     }
   }
   const uint32_t stuffed = zero & ((ff << 1) | prev_ff) & ~starts;
-  const uint32_t keep = inside & ~stuffed;
+  uint32_t keep = inside & ~stuffed;
+  uint32_t tally = 0;
+  if constexpr (kFind) {
+    const int live = s_count - tid * kChunk;  // the chunk's bytes before the end
+    const uint32_t before_end =
+        live >= kChunk ? kAll : live <= 0 ? 0u : (1u << live) - 1;
+    keep = kept & before_end;
+    marker &= before_end;
+    tally = static_cast<uint32_t>(__popc(marker)) << 16;
+  }
 
   uint32_t total;
-  const uint32_t before = block_exclusive<kThreads>(static_cast<uint32_t>(__popc(keep)),
-                                                    warp_sum, &total);
+  uint32_t before = block_exclusive<kThreads>(static_cast<uint32_t>(__popc(keep)) | tally,
+                                              warp_sum, &total);
+  // without bounds: the markers before the chunk and in the tile
+  uint32_t marks_before = 0, marks = 0;
+  if constexpr (kFind) {
+    marks_before = before >> 16;
+    marks = total >> 16;
+    before &= 0xFFFF;
+    total &= 0xFFFF;
+  }
 
-  // the tile's output offset: decoupled look-back
-  if (warp == 0) {
+  // the tile's output offset: decoupled look-back; without bounds the
+  // words combine as the scan reads: nothing counts past the end
+  if constexpr (kFind) {
+    if (warp == 0) {
+      const unsigned long long own = (s_count < kTile ? kEnded : 0ull) |
+                                     static_cast<unsigned long long>(total) << kKeptShift | marks;
+      if (lane == 0) store_state(g.state + tile, (tile == 0 ? kPrefix : kAggregate) | own);
+      unsigned long long acc = 0;  // the words before the tile, combined
+      if (tile > 0) {
+        for (int64_t end = tile;; end -= 32) {
+          const int64_t i = end - 1 - lane;
+          unsigned long long s = kPrefix;  // before tile 0: an empty prefix
+          if (i >= 0) {
+            do {
+              s = load_state(g.state + i);
+            } while ((s >> 62) == 0);
+          }
+          const uint32_t p = __ballot_sync(kFull, (s >> 62) == 2);
+          const int stop = p ? __ffs(p) - 1 : 31;  // the nearest prefix
+          // the earliest word up to it where the scan ended (the highest lane)
+          const uint32_t e = __ballot_sync(kFull, lane <= stop && (s & kEnded) != 0);
+          const int from = e ? 31 - __clz(e) : 0;
+          unsigned long long v = lane >= from && lane <= stop ? (s & kCounts) : 0;
+#pragma unroll
+          for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+          acc = e ? (v | kEnded) : v + acc;
+          if (p) break;
+        }
+        if (lane == 0) store_state(g.state + tile, kPrefix | ((acc & kEnded) ? acc : acc + own));
+      }
+      if (lane == 0) {
+        s_offset = static_cast<int64_t>((acc & kCounts) >> kKeptShift);
+        s_first = static_cast<int64_t>(acc & kMarkers);
+        s_cut = (acc & kEnded) != 0;
+      }
+    }
+  } else if (warp == 0) {
     if (lane == 0)
       store_state(g.state + tile, (tile == 0 ? kPrefix : kAggregate) | total);
     unsigned long long offset = 0;
@@ -289,6 +400,9 @@ __global__ void __launch_bounds__(kThreads) unstuff_kernel(Args g) {
   const int64_t offset = s_offset;
   const int shift = static_cast<int>(offset & 15);
   const bool last = tile == g.n_tiles - 1;
+  if constexpr (kFind) {
+    if (s_cut) return;  // the scan ended before the tile: nothing to keep
+  }
 
   // compaction into shared memory, and the offsets of the segments that
   // start in the chunk
@@ -302,8 +416,30 @@ __global__ void __launch_bounds__(kThreads) unstuff_kernel(Args g) {
       g.seg_off[s_first + k] = offset + before + __popc(keep & ((1u << t) - 1));
     }
   }
+  if constexpr (kFind) {
+    // a segment starts after each marker, at the bytes kept before it
+    const int64_t m0 = s_first + marks_before;
+    int k = 0;
+    for (uint32_t m = marker; m; m &= m - 1, ++k) {
+      const int t = __ffs(m) - 1;
+      if (m0 + k + 1 < g.n_segs)
+        g.seg_off[m0 + k + 1] = offset + before + __popc(keep & ((1u << t) - 1));
+    }
+    if (tile == 0 && tid == 0) g.seg_off[0] = 0;
+  }
   int len = static_cast<int>(total);
-  if (last) {
+  if constexpr (kFind) {
+    const bool ended = s_count < kTile;
+    if (ended || last) {
+      if (tid < 8) buf[shift + total + tid] = 0;
+      if (tid == 0) {
+        g.seg_off[g.n_segs] = offset + total;
+        g.seg_off[g.n_segs + 1] = s_first + marks + 1;                 // segments found
+        g.seg_off[g.n_segs + 2] = ended ? t0 + s_count : g.n_raw;     // where the scan ended
+      }
+      len += 8;
+    }
+  } else if (last) {
     if (tid < 8) buf[shift + total + tid] = 0;
     if (tid == 0) g.seg_off[g.n_segs] = offset + total;
     len += 8;
@@ -354,11 +490,17 @@ extern "C" int jdtc_unstuff_tile_bytes() { return kTile; }
 // raw[n_raw], lo[n_segs], hi[n_segs] -> out[n_raw + 8] (the first
 // seg_off[n_segs] + 8 bytes defined), seg_off[n_segs + 1],
 // sub_base[n_segs + 1]; scratch holds n_raw / kTile + 2 int64 (a word per
-// tile and the tile counter), cleared here.
+// tile and the tile counter), cleared here. With lo and hi null and n_segs
+// at least 1 (bounds of no segment may be null too) the kernel finds the
+// segments of one scan (see the top): n_segs is the count its header
+// implies, n_raw below 2^31, and seg_off holds n_segs + 3 int64: the
+// offsets, the segments found, where the scan ended.
 extern "C" int jdtc_unstuff(const void* raw, int64_t n_raw, const void* lo, const void* hi,
                             int64_t n_segs, void* scratch, void* out, void* seg_off,
                             void* sub_base, int sub_bytes, void* cuda_stream) {
   if (n_raw < 0 || n_segs < 0 || sub_bytes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool find = lo == nullptr && hi == nullptr && n_segs > 0;
+  if (find && n_raw >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   Args g;
   g.raw = static_cast<const uint8_t*>(raw);
@@ -373,7 +515,10 @@ extern "C" int jdtc_unstuff(const void* raw, int64_t n_raw, const void* lo, cons
   g.seg_off = static_cast<int64_t*>(seg_off);
   cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (g.n_tiles + 1), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  unstuff_kernel<<<static_cast<unsigned>(g.n_tiles), kThreads, 0, st>>>(g);
+  if (find)
+    unstuff_kernel<true><<<static_cast<unsigned>(g.n_tiles), kThreads, 0, st>>>(g);
+  else
+    unstuff_kernel<false><<<static_cast<unsigned>(g.n_tiles), kThreads, 0, st>>>(g);
   sub_base_kernel<<<1, kScanThreads, 0, st>>>(g.seg_off, n_segs, sub_bytes,
                                               static_cast<int64_t*>(sub_base));
   return static_cast<int>(cudaGetLastError());

@@ -256,12 +256,13 @@ class HeaderParse:
     same encoder header byte-for-byte image after image, and the parse is a
     pure function of (prefix bytes, quirks). Mutable `layout`/`qts` slots
     hold lazily-computed per-header decode state (unit params, LUTs) that
-    likewise depends only on header content."""
+    likewise depends only on header content; `device_layout` the DEVICE
+    route's (ops/entropy_device.header_layout)."""
 
     __slots__ = (
         "frame", "scan_header", "entropy_start", "restart_interval",
         "dc_tables", "ac_tables", "quant_tables", "app_segments",
-        "layout", "qts", "full_coverage",
+        "layout", "qts", "full_coverage", "device_layout",
     )
 
     def __init__(self, frame, scan_header, entropy_start, restart_interval,
@@ -275,6 +276,7 @@ class HeaderParse:
         self.quant_tables = quant_tables
         self.app_segments = app_segments
         self.layout = None  # (total_mcus, params, luts) — decoder fills in
+        self.device_layout = None  # ops/entropy_device.HeaderLayout, or False
         self.qts = {tid: qt.values for tid, qt in quant_tables.items()}
         # Does the first scan provably overwrite every plane block? (Same
         # rule as PlanePool._full_coverage, for the single-scan shape.)

@@ -1,7 +1,9 @@
 """The decode pipeline on a torch device: parse -> entropy decode -> pixel
 stage (counterpart of jpeg_decoder_tpu/models/decoder.py).
 
-  host:    marker walk + table parse              (io/parser.py)
+  host:    marker walk + table parse              (io/parser.py; a DEVICE
+           request parses its header alone, parse_headers_cached, and K2u
+           finds the scan's segments on the card: _device_request)
   entropy: NATIVE/NUMPY/ORACLE on the host, or PALLAS or DEVICE on the
            device (models/host.py; ops/entropy_cuda.py and
            ops/entropy_device.py, kernels K2u and K2)
@@ -44,7 +46,7 @@ from torch import nn
 from ..core import numerics, oracle
 from ..core.types import CoefficientPlanes, DecodedImage, FrameHeader, JpegStructure
 from ..io.parser import parse
-from ..utils.config import DecodeConfig, IdctPrecision, Quirks
+from ..utils.config import DecodeConfig, EntropyBackend, IdctPrecision, Quirks
 from ..utils.errors import JpegConfigError, JpegFormatError
 from ..utils.metrics import GLOBAL_METRICS as metrics
 from ..utils.metrics import count, span
@@ -243,12 +245,40 @@ def decode_structure(structure: JpegStructure, cfg: DecodeConfig | None = None,
                              convert.resolve_device(device), True)
 
 
+def _device_request(data: np.ndarray, cfg: DecodeConfig, device):
+    """A DEVICE request from its header alone (ops/entropy_device.
+    decode_request): the header-prefix cache's parse and the layout kept on
+    it, in the `parse` span, then K2u finds the segments on the card.
+    Returns (frame, planes, qts), or None where the caller must parse the
+    whole stream (no one-scan sequential header, or a result that does not
+    stand)."""
+    from ..io.parser import parse_headers_cached
+    from ..ops import entropy_device
+
+    with span("parse", cfg.collect_metrics):
+        hp = parse_headers_cached(data, cfg)
+        layout = None if hp is None else entropy_device.header_layout(hp)
+    if layout is None:
+        return None
+    got = entropy_device.decode_request(data, hp, layout, cfg, device)
+    return None if got is None else (hp.frame, *got)
+
+
 def _decode(data: bytes | np.ndarray, cfg: DecodeConfig, device,
             want_planes: bool) -> DecodedImage:
+    """One request. NATIVE tries the fused host path first, DEVICE the
+    header-only route (_device_request; the `card_span_pct` counter: 100
+    where it stood, 0 where the request took the full parse); then the full
+    parse and the backend's decode."""
     from ..io import bitstream as bs
 
     data_arr = bs.as_byte_array(data)
     fast = host._fast_host_decode(data_arr, cfg)
+    if fast is None and cfg.entropy_backend == EntropyBackend.DEVICE:
+        try:
+            fast = _device_request(data_arr, cfg, device)
+        finally:  # a header that raises counts too: the full parse raises it
+            count("card_span_pct", 0.0 if fast is None else 100.0)
     if fast is not None:
         frame, planes, qts = fast
         return _pixel_stage(frame, planes, qts, cfg, device, want_planes)

@@ -11,7 +11,11 @@ K2's record layout, all on the device; `decode_segments` (kernel K2,
 csrc/entropy_decode.cu) follows without the host reading anything back (it
 sizes its scratch by the raw lengths, which bound the unstuffed ones) and
 turns the buffer into int16 zigzag data units written straight into the
-zeroed coefficient planes. K2 cuts every segment into subsequences of
+zeroed coefficient planes. Without bounds, `find_segments` (K2u's other
+instantiation) takes one scan's bytes from its first entropy byte to the
+end of the file and finds the segments itself, by the host's span-scan
+rule (a DEVICE request, ops/entropy_device.decode_request: the host then
+parses the header alone). K2 cuts every segment into subsequences of
 SUB_BYTES bytes, one thread each: the threads decode from guessed states,
 hand each other their end states until nothing changes (Huffman streams
 resynchronise), a prefix sum places every subsequence's data units, a last
@@ -741,6 +745,93 @@ def _unstuff_tiled_plain(raw, lo, hi, tile_bytes: int) -> Unstuffed:
     return Unstuffed(torch.from_numpy(out), seg_off_t, _sub_base_plain(seg_off_t))
 
 
+def _scan_bounds_plain(raw):
+    """io/bitstream.scan_entropy_span's rule on the bytes from a scan's
+    first entropy byte: (lo, hi, end), the raw bounds of the segments it
+    finds and the byte where the scan ends (raw.numel() if nothing ends
+    it). A 0xFF followed by 0x00 is stuffing, by D0-D7 a restart marker, by
+    0xFF a fill byte; any other 0xFF, or one in the last byte, ends the
+    scan."""
+    n = raw.numel()
+    at = torch.arange(n, device=raw.device)
+    after = torch.cat([raw[1:], raw.new_zeros(1)])
+    has_next = at < n - 1
+    marker = (raw == 0xFF) & has_next & ((after & 0xF8) == 0xD0)
+    ends = (raw == 0xFF) & ~(has_next & ((after == 0) | (after == 0xFF) | ((after & 0xF8) == 0xD0)))
+    hits = torch.nonzero(ends).flatten()
+    end = int(hits[0]) if hits.numel() else n
+    marks = torch.nonzero(marker & (at < end)).flatten()
+    end_t = marks.new_full((1,), end)
+    return torch.cat([marks.new_zeros(1), marks + 2]), torch.cat([marks, end_t]), end
+
+
+def _find_plain(raw, n_segs: int):
+    """find_segments in torch ops: the rule of _scan_bounds_plain, then
+    _unstuff_plain with those bounds. Entries of seg_off that K2u leaves
+    undefined (those past the segments found, when fewer than n_segs) hold
+    the final offset here."""
+    lo, hi, end = _scan_bounds_plain(raw)
+    un = _unstuff_plain(raw, lo, hi)
+    found = lo.numel()
+    k = min(found, n_segs)
+    seg_off = torch.cat([un.seg_off[:k], un.seg_off[-1:].expand(n_segs + 1 - k)])
+    ends = torch.cat([seg_off, seg_off.new_tensor([found, end])])
+    return Unstuffed(un.stream, ends[: n_segs + 1], _sub_base_plain(ends[: n_segs + 1])), ends
+
+
+def _find_tiled_plain(raw, n_segs: int, tile_bytes: int):
+    """A model of K2u's schedule without bounds (csrc/unstuff.cu,
+    unstuff_kernel<true>) on the host, for the tests; never a decode path.
+    Tile by tile in the order of their ids: each byte judged by the byte
+    after it (the tile's last by the first of the next), the tile cut at
+    its first byte that ends the scan, the kept bytes and markers before
+    the cut, the look-back (the kept bytes and markers of the tiles before
+    it, none past a tile where the scan ended: in tile order every
+    predecessor has published its prefix), the compaction, seg_off[k + 1]
+    for its k-th marker while k + 1 < n_segs, and from the tile where the
+    scan ended (or the last) seg_off[n_segs], the tail, the segments found
+    and the end. Tiles after the end write nothing. Returns (Unstuffed,
+    ends) as find_segments does; entries K2u leaves undefined are 0."""
+    n_raw = raw.numel()
+    # a zero byte before the first, and zeros past the last
+    r = np.concatenate([[0], raw.cpu().numpy(), np.zeros(tile_bytes + 1)]).astype(np.uint8)
+    n_tiles = n_raw // tile_bytes + 1
+    out = np.zeros(n_raw + 8, dtype=np.uint8)
+    ends = np.zeros(n_segs + 3, dtype=np.int64)
+    offset = marks_before = 0                  # the look-back's result
+    for tile in range(n_tiles):
+        t0 = tile * tile_bytes
+        j = np.arange(t0, t0 + tile_bytes)
+        b, after = r[t0 + 1 : t0 + tile_bytes + 1], r[t0 + 2 : t0 + tile_bytes + 2]
+        prev_ff = r[t0 : t0 + tile_bytes] == 0xFF
+        valid, has_next = j < n_raw, j + 1 < n_raw
+        ff = (b == 0xFF) & valid
+        dn = (b & 0xF8) == 0xD0
+        marker = ff & has_next & ((after & 0xF8) == 0xD0)
+        stop = ff & ~(has_next & ((after == 0) | (after == 0xFF) | ((after & 0xF8) == 0xD0)))
+        kept = valid & ~((((b == 0) | dn) & prev_ff) | marker)
+        cut = int(np.argmax(stop)) if stop.any() else tile_bytes
+        live = np.arange(tile_bytes) < cut
+        keep, marker = kept & live, marker & live
+        before = np.concatenate([[0], np.cumsum(keep)])
+        total = int(before[-1])
+        out[offset : offset + total] = b[keep]
+        for k, t in enumerate(np.flatnonzero(marker)):
+            if marks_before + k + 1 < n_segs:
+                ends[marks_before + k + 1] = offset + before[t]
+        marks = int(marker.sum())
+        if cut < tile_bytes or tile == n_tiles - 1:
+            ends[n_segs] = offset + total      # the tail stays zero
+            ends[n_segs + 1] = marks_before + marks + 1
+            ends[n_segs + 2] = t0 + cut if cut < tile_bytes else n_raw
+            break                              # the tiles after it write nothing
+        offset += total
+        marks_before += marks
+    ends_t = torch.from_numpy(ends)
+    seg_off = ends_t[: n_segs + 1]
+    return Unstuffed(torch.from_numpy(out), seg_off, _sub_base_plain(seg_off)), ends_t
+
+
 def _check_unstuff_args(raw, lo, hi) -> None:
     dev = raw.device
     for t, dtype in ((raw, torch.uint8), (lo, torch.int64), (hi, torch.int64)):
@@ -776,6 +867,46 @@ def unstuff_segments(raw, lo, hi) -> Unstuffed:
                   n, _build.ptr(scratch), _build.ptr(out), _build.ptr(seg_off),
                   _build.ptr(sub_base), SUB_BYTES, _build.stream_of(out))
     return Unstuffed(out, seg_off, sub_base)
+
+
+#: find_segments' largest input: K2u's look-back word counts kept bytes in
+#: 31 bits.
+FIND_MAX_BYTES = (1 << 31) - 1
+
+
+def find_segments(raw, n_segs: int):
+    """K2u without bounds: the bytes from one scan's first entropy byte to
+    the end of its file (uint8, on the device) -> (Unstuffed, ends), the
+    segments found by the host's rule (io/bitstream.scan_entropy_span: see
+    _scan_bounds_plain) unstuffed as unstuff_segments leaves them.
+    `n_segs` is the count the scan's header implies; `ends` is int64
+    [n_segs + 3]: seg_off (its first n_segs + 1 entries; Unstuffed.seg_off
+    is that view), then the segments found and the byte where the scan
+    ended (raw.numel() if nothing ended it). Read back in one copy, it says
+    whether the result stands: only with n_segs segments found are all of
+    seg_off and sub_base defined (with fewer, the entries past them are
+    not; with more, seg_off[n_segs] is the end of the kept bytes, as
+    always). CPU tensors: the plain version (_find_plain). CUDA tensors:
+    one jdtc_unstuff call with null bounds; nothing is read back."""
+    dev = raw.device
+    if not 1 <= n_segs or raw.numel() > FIND_MAX_BYTES:
+        raise ValueError("find_segments: no segment to find, or 2 GB of bytes or more")
+    if dev.type == "cpu":
+        return _find_plain(raw, n_segs)
+    if not raw.is_cuda:
+        raise ValueError(f"find_segments: no kernel for {dev}")
+    if raw.dtype != torch.uint8 or not raw.is_contiguous() or raw.dim() != 1 or raw.data_ptr() % 16:
+        raise ValueError("find_segments: expected contiguous 16-byte aligned uint8 bytes")
+    n_raw = raw.numel()
+    out = torch.empty(n_raw + 8, dtype=torch.uint8, device=dev)
+    ends = torch.empty(n_segs + 3, dtype=torch.int64, device=dev)
+    sub_base = torch.empty(n_segs + 1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(n_raw // _build.library().jdtc_unstuff_tile_bytes() + 2,
+                          dtype=torch.int64, device=dev)
+    _build.launch("jdtc_unstuff", _build.ptr(raw), n_raw, None, None, n_segs,
+                  _build.ptr(scratch), _build.ptr(out), _build.ptr(ends),
+                  _build.ptr(sub_base), SUB_BYTES, _build.stream_of(out))
+    return Unstuffed(out, ends[: n_segs + 1], sub_base), ends
 
 
 class ScanPack(NamedTuple):

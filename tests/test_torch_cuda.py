@@ -54,8 +54,10 @@ from .torch_crossing import (
     bound_at,
     dc_only_stream,
     empty_segments,
+    find_cases,
     pairs_across_edges,
     scan_bytes,
+    scan_to_end,
     unstuffed_by_the_host,
 )
 
@@ -673,6 +675,139 @@ def test_k2u_and_k2_read_nothing_back_before_k2(cuda_device):
     assert torch.equal(status.cpu(), st_p.cpu())
     for a, b in zip(got[0], want[0]):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# K2u without bounds, and a DEVICE request from its header alone
+# ---------------------------------------------------------------------------
+
+
+def _find_card_cases():
+    """name -> (raw, n_segs): find_cases at the kernel's tile and at 16
+    bytes (every edge inside one tile), the small streams, the corpus's
+    files with markers and a photograph tiled, and two dense 4K requests
+    (restart-free, and a marker per MCU row), from their first entropy
+    byte to the end of the file."""
+    cases = {f"{k}@{t}": v for t in (4096, 16) for k, v in find_cases(t).items()}
+    cases.update({name: scan_to_end(_stream(name)) for name in STREAMS})
+    cases.update({name: scan_to_end(d) for name, d in _photo_streams().items()})
+    cases["4k_restart_free"] = scan_to_end(make_jpeg(3840, 2160, F420, 0, 20261016))
+    cases["4k_dri"] = scan_to_end(make_jpeg(3840, 2160, F420, 240, 7))
+    return cases
+
+
+def test_k2u_without_bounds_matches_plain(cuda_device):
+    """find_segments on the card (one jdtc_unstuff launch) against its plain
+    version, bitwise: every entry of `ends` that the kernel defines, the
+    stream up to its tail, and K2's layout where the count found is the
+    header's."""
+    assert _build.library().jdtc_unstuff_tile_bytes() == 4096
+    for name, (raw, n_segs) in _find_card_cases().items():
+        t = torch.from_numpy(raw.copy())
+        before = _build.LAUNCHES["jdtc_unstuff"]
+        got, ends = entropy_cuda.find_segments(t.to(cuda_device), n_segs)
+        assert _build.LAUNCHES["jdtc_unstuff"] == before + 1
+        want, want_ends = entropy_cuda._find_plain(t, n_segs)
+        ends, want_ends = ends.cpu().numpy(), want_ends.numpy()
+        found = int(want_ends[n_segs + 1])
+        idx = [*range(min(found, n_segs)), n_segs, n_segs + 1, n_segs + 2]
+        np.testing.assert_array_equal(ends[idx], want_ends[idx], err_msg=name)
+        final = int(want_ends[n_segs]) + 8
+        assert got.stream.numel() == raw.shape[0] + 8
+        assert torch.equal(got.stream[:final].cpu(), want.stream[:final]), name
+        if found == n_segs:
+            assert torch.equal(got.sub_base.cpu(), want.sub_base), name
+
+
+def _card_span():
+    st = GLOBAL_METRICS.stages.get("card_span_pct")
+    return (st.calls, st.total_items) if st else (0, 0.0)
+
+
+def _request_streams():
+    """The streams a DEVICE request takes from its header alone: the small
+    ones, the corpus's files with markers, a photograph tiled, and two 4K
+    requests."""
+    out = {name: _stream(name) for name in STREAMS}
+    out.update(_photo_streams())
+    out["4k_restart_free"] = make_jpeg(3840, 2160, F420, 0, 20261016)
+    out["4k_photo_dri"] = photo_jpeg(DRI_FILES[0], 3840, 2160, 240)
+    return out
+
+
+@pytest.mark.parametrize("name", ["420_ri4", "444_ri1", "gray_no_ri", "420_ri5_edges",
+                                  "422_ri3", "china_420_file", "flower_422_file",
+                                  "china_420_tiled", "4k_restart_free", "4k_photo_dri"])
+def test_device_request_matches_the_full_parse(cuda_device, name):
+    """decode and decode_rgb under DEVICE on the card, each request from its
+    header parse alone (card_span_pct 100), bitwise the full parse's route
+    (decode_structure), RGB and planes."""
+    data = _request_streams()[name]
+    calls, items = _card_span()
+    got = jtt.decode(data, DEVICE, device=cuda_device)
+    rgb = tdecoder.decode_rgb(data, DEVICE, device=cuda_device)
+    assert _card_span() == (calls + 2, items + 200.0)
+    want = tdecoder.decode_structure(parse(data, DEVICE), DEVICE, device=cuda_device)
+    np.testing.assert_array_equal(got.rgb, want.rgb)
+    np.testing.assert_array_equal(rgb, want.rgb)
+    for a, b in zip(got.planes, want.planes):
+        np.testing.assert_array_equal(a, b)
+
+
+def _request_ladder():
+    """The DEVICE error ladder (tests/test_torch_entropy_device.py's, made
+    here without Pillow): a 64x64 gray stream with 1-4 random bytes
+    overwritten (eight draws of seed 9), cut at 30, 70 and 95% of its
+    length, chip_smoke's damaged DRI streams, a second scan
+    (multiscan_jpeg), a segment after the scan, and the streams
+    unharmed."""
+    from jpeg_decoder_tpu_torch.benchmarks.inputs import multiscan_jpeg
+
+    data = make_jpeg(64, 64, GRAY, 0, 9)
+    dri = make_jpeg(64, 48, F420, 2, 1)
+    rng = np.random.default_rng(9)
+    out = {"gray": data, "dri": dri, "several_scans": multiscan_jpeg(75, 41, F420, 3),
+           "app_after_the_scan": dri[:-2] + b"\xff\xe1\x00\x06abcd" + dri[-2:]}
+    for i in range(8):
+        bad = bytearray(data)
+        for _k in range(rng.integers(1, 5)):
+            bad[rng.integers(2, len(bad))] = rng.integers(0, 256)
+        out[f"corrupt{i}"] = bytes(bad)
+    for frac in (0.3, 0.7, 0.95):
+        out[f"cut{int(frac * 100)}"] = data[: int(len(data) * frac)]
+    from chip_smoke import damaged_streams
+
+    out.update({f"damaged {k}": v[0] for k, v in damaged_streams(dri).items()})
+    return out
+
+
+def test_device_requests_raise_as_the_full_parse_does(cuda_device):
+    """Every stream of the ladder through a DEVICE request on the card: the
+    error class the full parse's route raises, or its RGB; card_span_pct
+    100 only where the header parse's result stood, which needs the
+    header's segment count, EOI and a clean status."""
+    for name, data in _request_ladder().items():
+        def outcome(fn):
+            try:
+                return "ok", fn().rgb
+            except JpegError as e:
+                return "error", type(e)
+
+        calls, items = _card_span()
+        got = outcome(lambda: jtt.decode(data, DEVICE, device=cuda_device))
+        assert _card_span()[0] == calls + 1
+        stood = _card_span()[1] == items + 100.0
+        want = outcome(lambda: tdecoder.decode_structure(parse(data, DEVICE), DEVICE,
+                                                         device=cuda_device))
+        assert got[0] == want[0], name
+        if got[0] == "error":
+            assert got[1] is want[1] and not stood, name
+        else:
+            np.testing.assert_array_equal(got[1], want[1], err_msg=name)
+        if name in ("gray", "dri"):
+            assert stood, name
+        if name in ("several_scans", "app_after_the_scan") or name.startswith("cut"):
+            assert not stood, name
 
 
 @pytest.mark.parametrize("entry", ["decode", "JpegDecoder", "decode_batch", "decode_stream",

@@ -12,8 +12,13 @@ ladder); the other streams (several scans, 12-bit, long codes,
 use_device=False, the batch and CLI paths) are held against the JAX
 package's NATIVE planes and RGB. Also: the PALLAS route keeps its guards
 in both packages, and the model of K2's schedule with the chunked scan
-and dc passes over one long restart-free segment. The unqualified config
-and error classes are the port's, `jt.` the JAX package's."""
+and dc passes over one long restart-free segment. A request's route: a
+one-scan stream that ends at EOI decodes from its header parse alone
+(`card_span_pct` 100), every other stream (several scans, DNL, a
+truncated scan, a segment after the scan) as before (0), each bitwise
+what the full parse gives; the DEVICE layout on the header cache is keyed
+by the header's bytes alone. The unqualified config and error classes are
+the port's, `jt.` the JAX package's."""
 
 import numpy as np
 import pytest
@@ -32,16 +37,19 @@ from jpeg_decoder_tpu_torch import (
 )
 from jpeg_decoder_tpu_torch import decode as tdecode
 from jpeg_decoder_tpu_torch.benchmarks.inputs import multiscan_jpeg
-from jpeg_decoder_tpu_torch.io.parser import parse
+from jpeg_decoder_tpu_torch.io.parser import parse, parse_headers_cached
+from jpeg_decoder_tpu_torch.models import decoder as tdecoder
 from jpeg_decoder_tpu_torch.models import host
 from jpeg_decoder_tpu_torch.ops import entropy_cuda, entropy_device
 from jpeg_decoder_tpu_torch.parallel.batch import BatchDecoder
+from jpeg_decoder_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 from . import corpus
 from .test_12bit import _make_12bit_gray
 from .test_long_codes import _make_stream as _long_code_stream
+from .test_markers_edge import _gray_stream
 from .test_review_regressions import _component_separate_stream
-from .torch_crossing import assert_same_error_class
+from .torch_crossing import assert_same_error_class, dc_only_stream
 
 CFG = DecodeConfig(entropy_backend=EntropyBackend.DEVICE)
 JCFG = jt.DecodeConfig(entropy_backend=jt.EntropyBackend.DEVICE)
@@ -333,3 +341,92 @@ def test_device_without_a_card_raises():
         tdecode(data, CFG)
     with pytest.raises(RuntimeError, match="cuda"):
         entropy_device.entropy_decode(parse(data), CFG)
+
+
+def _card_span():
+    st = GLOBAL_METRICS.stages.get("card_span_pct")
+    return (st.calls, st.total_items) if st else (0, 0.0)
+
+
+def _result(fn):
+    """What a decode returned, or the class it raised."""
+    try:
+        return fn()
+    except JpegError as e:
+        return type(e)
+
+
+def _app_after_the_scan():
+    data = corpus.baseline_corpus()[0][1]
+    assert data[-2:] == b"\xff\xd9"
+    return data[:-2] + b"\xff\xe1\x00\x06abcd" + data[-2:]
+
+
+#: name -> (stream, the card_span_pct a DEVICE request of it counts, the
+#: K2u calls without bounds it makes: none where the header alone sends it
+#: to the full parse, a DNL-pending height or a first scan of some of the
+#: frame's components)
+ROUTES = {
+    "one_scan_to_eoi": (lambda: corpus.baseline_corpus()[0][1], 100.0, 1),
+    "one_scan_with_markers": (lambda: corpus.dri_corpus()[0][1], 100.0, 1),
+    "several_scans": (_several_scans, 0.0, 0),
+    "several_scans_redefined_tables": (_several_scans_redefined_tables, 0.0, 0),
+    "dnl_height": (lambda: _gray_stream(3, 2, height_in_sof=0, dnl_height=24)[0], 0.0, 0),
+    "dnl_after_a_height": (lambda: _gray_stream(3, 2, height_in_sof=24, dnl_height=16)[0],
+                           0.0, 1),
+    "truncated": (lambda: LADDER["cut95"], 0.0, 1),
+    "app_after_the_scan": (_app_after_the_scan, 0.0, 1),
+}
+
+
+@pytest.mark.parametrize("entry", ["decode", "decode_rgb"])
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_request_route_and_counter(name, entry, monkeypatch):
+    """A DEVICE request counts card_span_pct once: 100 where the header
+    parse and K2u's segments gave the result, 0 where the request took the
+    full parse; either way the RGB and planes (or the error class) are the
+    full parse's (decode_structure, the route every request took before).
+    K2u without bounds runs only where the header allows one scan."""
+    make, pct, tries = ROUTES[name]
+    data = make()
+    found = []
+    find = entropy_cuda.find_segments
+    monkeypatch.setattr(entropy_cuda, "find_segments",
+                        lambda *a: found.append(1) or find(*a))
+    calls, items = _card_span()
+    got = _result(lambda: getattr(tdecoder, entry)(data, CFG, device="cpu"))
+    assert _card_span() == (calls + 1, items + pct)
+    assert len(found) == tries
+    want = _result(lambda: tdecoder.decode_structure(parse(data, CFG), CFG, device="cpu"))
+    if isinstance(want, type):
+        assert got is want
+    elif entry == "decode_rgb":
+        np.testing.assert_array_equal(got, want.rgb)
+    else:
+        np.testing.assert_array_equal(got.rgb, want.rgb)
+        _assert_planes(got.planes, want.planes)
+
+
+def test_device_layout_is_keyed_by_the_header_bytes():
+    """Two streams whose bytes up to the first entropy byte are equal share
+    one cached header parse and one DEVICE layout, computed once, and each
+    decodes from it bitwise its full parse; a stream with another header
+    (another restart interval) gets its own."""
+    a = dc_only_stream([5, -3, 32767, 9, 1, 2], nb_x=3, restart_interval=2)
+    b = dc_only_stream([-7, 100, 3, 0, 255, -1], nb_x=3, restart_interval=2)
+    c = dc_only_stream([5, -3, 32767, 9, 1, 2], nb_x=3, restart_interval=3)
+    hp_a, hp_b = parse_headers_cached(a, CFG), parse_headers_cached(b, CFG)
+    assert a[: hp_a.entropy_start] == b[: hp_b.entropy_start] and a != b
+    assert hp_a is hp_b
+    layout = entropy_device.header_layout(hp_a)
+    assert layout is hp_a.device_layout and entropy_device.header_layout(hp_b) is layout
+    assert layout.n_segs == 3 and layout.args[2] == 2
+    hp_c = parse_headers_cached(c, CFG)
+    assert hp_c is not hp_a and entropy_device.header_layout(hp_c).n_segs == 2
+    for data in (a, b, c):
+        calls, items = _card_span()
+        got = tdecode(data, CFG, device="cpu")
+        assert _card_span() == (calls + 1, items + 100.0)
+        want = tdecoder.decode_structure(parse(data, CFG), CFG, device="cpu")
+        np.testing.assert_array_equal(got.rgb, want.rgb)
+        _assert_planes(got.planes, want.planes)

@@ -8,8 +8,13 @@ cut segments anywhere; K2's layout from the device (`_sub_base_plain`)
 against `sub_layout`; the records sized by the raw lengths, which launch_args
 knows before K2u runs, never below the exact layout, and the schedule's model
 unchanged by the slack; and check_status, given the unstuffed offsets on the
-device, raising what it raised with the host's. Inputs come from numpy seeds
-and the test corpus. Tolerance: none, everything is integer."""
+device, raising what it raised with the host's. K2u without bounds
+(find_segments): its plain version (`_find_plain`) against the host's span
+scan (io/bitstream.scan_entropy_span) followed by `_unstuff_plain` with the
+bounds it gives, and the model of its tile schedule (`_find_tiled_plain`)
+against the plain version, on bytes cut across tile edges and ended every
+way a scan ends. Inputs come from numpy seeds and the test corpus.
+Tolerance: none, everything is integer."""
 
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ import torch
 
 from jpeg_decoder_tpu.ops import entropy_pallas
 from jpeg_decoder_tpu_torch import JpegError, convert
+from jpeg_decoder_tpu_torch.io import bitstream
 from jpeg_decoder_tpu_torch.io.parser import parse
 from jpeg_decoder_tpu_torch.ops import entropy_cuda
 
@@ -30,8 +36,10 @@ from .torch_crossing import (
     bound_at,
     dc_only_stream,
     empty_segments,
+    find_cases,
     pairs_across_edges,
     scan_bytes,
+    scan_to_end,
     unstuffed_by_the_host,
 )
 
@@ -228,3 +236,77 @@ def test_check_status_with_the_device_offsets_raises_as_before(name):
     except JpegError as e:
         got = type(e)
     assert got is want
+
+
+# ---------------------------------------------------------------------------
+# K2u without bounds: the segments found on the device
+# ---------------------------------------------------------------------------
+
+
+def _find_streams():
+    """name -> (raw, n_segs): find_cases at every tile size of TILES, and
+    the corpus's and the DC-only streams from their first entropy byte to
+    the end of the file."""
+    out = {f"{name}@{tile}": case for tile in TILES for name, case in find_cases(tile).items()}
+    for name, dri, plain in corpus.dri_corpus():
+        out[name] = scan_to_end(dri)
+        out[name + "_no_ri"] = scan_to_end(plain)
+    diffs = [32767, 32767, -1, 255, 32767, 1, 32767, 32767, 32767, 127, 2047, 32767]
+    for ri in (0, 1, 3):
+        out[f"stuffed_ri{ri}"] = scan_to_end(dc_only_stream(diffs, nb_x=4, restart_interval=ri))
+    return out
+
+
+FIND_STREAMS = sorted(_find_streams())
+
+
+def _defined(ends, n_segs):
+    """The entries of find_segments' `ends` that K2u defines: the offsets of
+    the segments found up to the header's count, the end of the kept
+    bytes, the count found and the end of the scan."""
+    k = min(int(ends[n_segs + 1]), n_segs)
+    return np.asarray(ends)[[*range(k), n_segs, n_segs + 1, n_segs + 2]]
+
+
+def _assert_found(got, ends, raw, n_segs):
+    """find_segments' result against the host's span scan followed by
+    today's _unstuff_plain with the bounds it gives: the stream, the
+    offsets, K2's layout, the count found and the end."""
+    end, rst, _stuff = bitstream.scan_entropy_span(raw, 0)
+    lo = np.concatenate([[0], rst + 2]).astype(np.int64)
+    hi = np.concatenate([rst, [end]]).astype(np.int64)
+    want = entropy_cuda._unstuff_plain(*map(torch.from_numpy, (raw.copy(), lo, hi)))
+    found, final = lo.shape[0], int(want.seg_off[-1])
+    k = min(found, n_segs)
+    ends = ends.numpy()
+    np.testing.assert_array_equal(_defined(ends, n_segs), [*want.seg_off[:k].tolist(), final,
+                                                           found, end])
+    assert torch.equal(got.stream[: final + 8], want.stream[: final + 8])
+    assert got.stream.numel() == raw.shape[0] + 8
+    if found == n_segs:
+        assert torch.equal(got.seg_off, want.seg_off)
+        assert torch.equal(got.sub_base, want.sub_base)
+
+
+@pytest.mark.parametrize("name", FIND_STREAMS)
+def test_find_plain_matches_the_span_scan_and_unstuffing(name):
+    raw, n_segs = _find_streams()[name]
+    _assert_found(*entropy_cuda._find_plain(torch.from_numpy(raw.copy()), n_segs), raw, n_segs)
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("name", FIND_STREAMS)
+def test_find_tiled_model_matches_plain(name, tile):
+    """The tile schedule without bounds against the plain version: every
+    entry K2u defines, the stream up to its tail, K2's layout where the
+    count is the header's."""
+    raw, n_segs = _find_streams()[name]
+    t = torch.from_numpy(raw.copy())
+    got, ends = entropy_cuda._find_tiled_plain(t, n_segs, tile)
+    want, want_ends = entropy_cuda._find_plain(t, n_segs)
+    np.testing.assert_array_equal(_defined(ends, n_segs), _defined(want_ends, n_segs))
+    final = int(want_ends[n_segs]) + 8
+    assert torch.equal(got.stream[:final], want.stream[:final])
+    if int(want_ends[n_segs + 1]) == n_segs:
+        assert torch.equal(got.sub_base, want.sub_base)
+    _assert_found(got, ends, raw, n_segs)

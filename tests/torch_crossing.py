@@ -193,3 +193,66 @@ def unstuffed_by_the_host(raw, lo, hi):
     segs = [bitstream.unstuff(raw, int(a), int(b))[0] for a, b in zip(lo, hi)]
     seg_off = np.concatenate([[0], np.cumsum([len(x) for x in segs])]).astype(np.int64)
     return np.concatenate(segs + [np.zeros(8, np.uint8)]), seg_off
+
+
+def scan_to_end(data):
+    """(raw, n_segs) as K2u without bounds takes a stream: the bytes from
+    its first scan's first entropy byte to the end of the file, and the
+    segment count the scan's header implies."""
+    from jpeg_decoder_tpu_torch.io.parser import parse
+
+    scan = parse(data).scans[0]
+    return np.frombuffer(data[scan.span.start:], dtype=np.uint8), scan.span.num_segments
+
+
+def _marked(body, at, second):
+    """`body` with 0xFF, `second` written at `at` (a marker, a stuffed pair,
+    a fill byte)."""
+    out = body.copy()
+    out[at : at + 2] = (0xFF, second)
+    return out
+
+
+def find_cases(tile):
+    """name -> (raw, n_segs): bytes from a scan's first entropy byte to the
+    end of its file, cut where tiles of `tile` bytes cut them, and the
+    segment count a header would give: a restart marker and a stuffed pair
+    across a tile edge (and across a 32- and a 1024-byte edge inside
+    one); fill bytes before a marker (FF FF D3) and before EOI; a scan
+    ended by DNL and by a second SOS; no end at all; a 0xFF as the last
+    byte; more and fewer markers than the header's count; markers after
+    the end; the end at the tile's last byte, at its first, right after a
+    marker; an empty scan; empty first and last segments."""
+    rng = np.random.default_rng(tile)
+    eoi = np.array([0xFF, 0xD9], np.uint8)
+    cat = lambda *parts: np.concatenate([np.asarray(p, np.uint8) for p in parts])  # noqa: E731
+    body = plain_bytes(rng, 3 * tile + 40)
+    cases = {}
+    split = _marked(_marked(body, tile - 1, 0xD3), 2 * tile - 1, 0x00)
+    for edge in (32, 1024):
+        if edge < tile:
+            split = _marked(_marked(split, edge - 1, 0x00), tile + edge - 1, 0x00)
+    cases["split_pairs"] = (cat(split, eoi), 2)
+    fill = body.copy()
+    fill[tile - 2 : tile + 1] = (0xFF, 0xFF, 0xD3)
+    cases["fill_before_marker_and_eoi"] = (cat(fill, [0xFF, 0xFF], eoi), 2)
+    tail = plain_bytes(rng, tile + 9)
+    cases["ended_by_dnl"] = (cat(_marked(body, tile + 3, 0xD0), [0xFF, 0xDC, 0, 4, 0, 16],
+                                 tail, eoi), 2)
+    sos = [0xFF, 0xDA, 0, 8, 1, 1, 0, 0, 63, 0]
+    cases["ended_by_a_second_sos"] = (cat(_marked(body, 5, 0x00), sos,
+                                          _marked(_marked(tail, 3, 0xD0), 9, 0x00), eoi), 1)
+    cases["no_end"] = (_marked(body, tile + 1, 0xD5), 2)
+    cases["ff_last_byte"] = (cat(_marked(body, 7, 0x00), [0xFF]), 1)
+    three = _marked(_marked(_marked(body, 10, 0xD0), tile, 0xD1), 2 * tile + 7, 0xD2)
+    cases["more_markers_than_the_header"] = (cat(three, eoi), 2)
+    cases["fewer_markers_than_the_header"] = (cat(three, eoi), 6)
+    cases["markers_after_the_end"] = (cat(_marked(body, 4, 0xD0), eoi, [0xFF, 0xD0],
+                                          _marked(tail, 2, 0xD1), eoi), 2)
+    cases["end_at_the_tiles_last_byte"] = (cat(body[: tile - 1], eoi, tail), 1)
+    cases["end_at_the_tiles_first_byte"] = (cat(body[:tile], eoi, tail), 1)
+    cases["end_right_after_a_marker"] = (cat(_marked(body[: tile + 2], tile, 0xD7), eoi), 2)
+    cases["empty_scan"] = (cat(eoi, tail), 1)
+    cases["empty_first_and_last_segments"] = (cat([0xFF, 0xD0], body[:tile], [0xFF, 0xD1],
+                                                  eoi), 3)
+    return cases
